@@ -1,0 +1,57 @@
+"""phastft_tpu_torch — the PyTorch/CUDA port of phastft_tpu.
+
+Planar (separate real/imaginary) C2C FFTs on an NVIDIA Hopper GPU, with
+the same public names, contracts and error classes as the JAX package.
+The transforms run through hand-written CUDA kernels (``csrc/``), built
+with ``nvcc`` on first use; a CPU tensor runs each kernel's plain torch
+version instead.
+
+Device rule: planners and entries take ``device=None``, which means
+``"cuda"``; with no GPU present that raises. Pass ``device="cpu"`` to run
+on the CPU.
+
+This slice runs planar f32 for n = 2^17..2^25, forward and inverse, with
+leading batch dimensions, through the fused two-pass four-step pipeline.
+Everything else raises ``NotImplementedError`` naming the ``ROADMAP.md``
+item that brings it. The package imports neither JAX nor phastft_tpu.
+"""
+
+from __future__ import annotations
+
+from .errors import (
+    LengthMismatchError,
+    NonPowerOfTwoError,
+    PhastftError,
+    PlannerSizeMismatchError,
+)
+from .options import Options
+from .planner import Direction, PlannerDit32, PlannerDit64, PlannerMode
+from .fft import (
+    fft_32_dit,
+    fft_32_dit_with_planner,
+    fft_32_dit_with_planner_and_opts,
+    fft_64_dit,
+    fft_64_dit_with_planner,
+    fft_64_dit_with_planner_and_opts,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Direction",
+    "PlannerMode",
+    "PlannerDit32",
+    "PlannerDit64",
+    "Options",
+    "PhastftError",
+    "NonPowerOfTwoError",
+    "LengthMismatchError",
+    "PlannerSizeMismatchError",
+    "fft_32_dit",
+    "fft_64_dit",
+    "fft_32_dit_with_planner",
+    "fft_64_dit_with_planner",
+    "fft_32_dit_with_planner_and_opts",
+    "fft_64_dit_with_planner_and_opts",
+    "__version__",
+]

@@ -1,0 +1,165 @@
+"""Public C2C API: validation, direction handling, dispatch.
+
+Counterpart of the JAX package's ``fft.py``. Contracts kept:
+
+* normal-order input, normal-order output;
+* only the inverse scales, by 1/N;
+* errors on non-power-of-2 length, length mismatch, planner-size mismatch,
+  with the JAX package's classes and messages;
+* leading batch dimensions; the transform runs along the last axis.
+
+Numpy arrays or torch tensors go in; torch tensors on the planner's device
+come out. A numpy input is converted to f32, as the JAX package converts
+it; a tensor must already be f32 on the planner's device. Unlike the JAX
+package, which donates its input buffers, the port never writes the
+caller's tensors: every result is a new tensor.
+
+The port runs planar f32 for n = 2^17..2^25; f64 and other sizes raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .errors import (
+    LengthMismatchError,
+    PhastftError,
+    PlannerSizeMismatchError,
+    ensure_power_of_two,
+    not_ported,
+)
+from .options import Options
+from .planner import Direction, PlannerDit32, resolve_device
+from .ops.dit import build_fast_fft
+
+__all__ = [
+    "fft_64_dit",
+    "fft_32_dit",
+    "fft_64_dit_with_planner",
+    "fft_32_dit_with_planner",
+    "fft_64_dit_with_planner_and_opts",
+    "fft_32_dit_with_planner_and_opts",
+]
+
+
+def _validate(reals, imags, planner):
+    """Shape/size validation shared by all entries."""
+    if reals.shape != imags.shape:
+        raise LengthMismatchError(
+            f"reals and imags must be of equal length, got {tuple(reals.shape)} "
+            f"and {tuple(imags.shape)}"
+        )
+    n = int(reals.shape[-1]) if reals.dim() else 0
+    log_n = ensure_power_of_two(n)
+    if planner.n != n:
+        raise PlannerSizeMismatchError(
+            f"planner is for size {planner.n} but input has size {n}; "
+            "planner size must match the input size"
+        )
+    return n, log_n
+
+
+def _coerce_direction(direction) -> Direction:
+    """Accept the Direction enum or the 'f'/'r' chars of the reference's
+    Python bindings; reject anything else."""
+    if isinstance(direction, Direction):
+        return direction
+    if direction in ("f", "forward"):
+        return Direction.Forward
+    if direction in ("r", "reverse", "i", "inverse"):
+        return Direction.Reverse
+    raise PhastftError(
+        f"direction must be Direction.Forward/Reverse or 'f'/'r', got "
+        f"{direction!r}"
+    )
+
+
+def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.float32:
+            raise TypeError(f"expected float32 tensors, got {x.dtype}")
+        if x.device != device:
+            raise PhastftError(
+                f"input is on {x.device} but the planner is on {device}"
+            )
+        return x.contiguous()
+    arr = np.ascontiguousarray(np.asarray(x, dtype=np.float32))
+    if not arr.flags.writeable:  # torch tensors cannot wrap read-only memory
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device)
+
+
+def _length(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return int(x.shape[-1]) if x.dim() else 0
+    return int(np.shape(x)[-1]) if np.ndim(x) else 0
+
+
+def _run(reals, imags, direction, planner, opts: Options):
+    direction = _coerce_direction(direction)
+    if opts.strategy == "staged":
+        raise not_ported("strategy='staged'", "classic")
+    use_pallas = (
+        opts.use_pallas if opts.use_pallas is not None
+        else planner.options.use_pallas
+    )
+    if use_pallas is False:
+        raise not_ported("use_pallas=False (the classic pipeline)", "classic")
+    reals = _as_tensor(reals, planner.device)
+    imags = _as_tensor(imags, planner.device)
+    n, _ = _validate(reals, imags, planner)
+    # The leaf size must match the planner's tables, so it comes from the
+    # planner's own options, not the per-call opts.
+    run = build_fast_fft(
+        n, planner.options.leaf_fft_size, direction is Direction.Reverse
+    )
+    if direction is Direction.Forward:
+        return run(reals, imags, planner.leaf_corrs)
+    # IFFT swap trick: swap(IDFT(z)) = (1/N) DFT(swap(z)); feed (im, re)
+    # and swap the outputs back.
+    out_re, out_im = run(imags, reals, planner.leaf_corrs)
+    return out_im, out_re
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_planner(n: int, device: torch.device):
+    return PlannerDit32(n, device=device)
+
+
+def fft_32_dit_with_planner_and_opts(reals, imags, direction, planner, opts):
+    """f32 planar C2C FFT with explicit planner and options."""
+    return _run(reals, imags, direction, planner, opts)
+
+
+def fft_32_dit_with_planner(reals, imags, direction, planner):
+    """f32 planar C2C FFT with a reusable planner, on its options."""
+    return _run(reals, imags, direction, planner, planner.options)
+
+
+def fft_32_dit(reals, imags, direction, device=None):
+    """f32 planar C2C FFT, auto-planned, on ``device`` (None = "cuda").
+
+    Returns (reals, imags) as new f32 tensors on that device."""
+    n = _length(reals)
+    ensure_power_of_two(n)
+    planner = _cached_planner(n, resolve_device(device))
+    return fft_32_dit_with_planner(reals, imags, direction, planner)
+
+
+def fft_64_dit_with_planner_and_opts(reals, imags, direction, planner, opts):
+    """f64 planar C2C FFT: not ported yet."""
+    raise not_ported("fft_64_dit_with_planner_and_opts (f64)", "f64")
+
+
+def fft_64_dit_with_planner(reals, imags, direction, planner):
+    """f64 planar C2C FFT: not ported yet."""
+    raise not_ported("fft_64_dit_with_planner (f64)", "f64")
+
+
+def fft_64_dit(reals, imags, direction, device=None):
+    """f64 planar C2C FFT: not ported yet."""
+    raise not_ported("fft_64_dit (f64)", "f64")

@@ -1,0 +1,128 @@
+"""Build and bind the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source has a plain C interface. On first use each
+source is compiled by its own ``nvcc`` process (all started together) for
+``sm_90a``, the objects are linked into one shared library under
+``phastft_tpu_torch/_build/``, and the library is loaded with ``ctypes``.
+The library's name carries a hash of the sources and flags, so a changed
+source is rebuilt. No PyTorch header is compiled: a build takes seconds.
+
+A failed build raises; nothing falls back to another path. Importing this
+module needs neither ``nvcc`` nor a GPU: it builds only when called.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["library", "build_log", "SRC_DIR", "BUILD_DIR"]
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C entry points and their argument types: pointers and the stream are
+#: c_void_p (a c_int would cut a 64-bit pointer), sizes are c_int.
+_SIGNATURES = {
+    "phastft_colfft_out3d": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "phastft_leaft": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+_log = ""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources():
+    srcs = sorted(SRC_DIR.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
+    return srcs
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for p in sorted(SRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(srcs, out: Path) -> str:
+    """Compile every source in parallel, link ``out``; return nvcc's
+    messages (register and shared-memory use per kernel)."""
+    nvcc = _nvcc()
+    tmp = out.parent / f"{out.stem}.tmp{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in srcs:
+        obj = tmp / (src.stem + ".o")
+        cmd = [nvcc, *_NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    log, failed = [], []
+    for src, _, proc in procs:
+        text, _ = proc.communicate()
+        log.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(
+            f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(log)
+        )
+    so_tmp = tmp / out.name
+    link = [nvcc, "-shared", "-o", str(so_tmp), *(str(o) for _, o, _ in procs)]
+    res = subprocess.run(link, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"linking {out.name} failed:\n{res.stderr}")
+    os.replace(so_tmp, out)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return "\n".join(log)
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call."""
+    global _lib, _log
+    with _lock:
+        if _lib is None:
+            srcs = _sources()
+            out = BUILD_DIR / f"libphastft_kernels_{_digest(srcs)}.so"
+            if not out.exists():
+                _log = _build(srcs, out)
+            lib = ctypes.CDLL(str(out))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def build_log() -> str:
+    """nvcc's messages from the build this process made ('' when the
+    library was already built)."""
+    return _log

@@ -1,0 +1,221 @@
+"""Column pass of the fused two-pass four-step FFT.
+
+Counterpart of the JAX package's ``ops/pallas_col.py`` in its out3d mode
+(``colfft_pallas(..., out3d=True)``). For x viewed (..., n1, n2) it
+computes, for every column i2,
+
+    c3[..., i2 // 128, k1, i2 % 128] = W_n^(k1*i2) * sum_i1 W_n1^(k1*i1) x[..., i1, i2]
+
+i.e. the size-n1 column DFT and the four-step split twiddle, landed in
+the (A, n1, 128) relayout (A = n2/128) that the row pass (``ops/leaft``)
+reads.
+
+``colfft_out3d`` is the wrapper: on CUDA tensors it launches the
+hand-written kernel ``csrc/colfft.cu``; on CPU tensors it runs
+``colfft_out3d_plain``, the same function in plain torch that follows the
+arithmetic of the JAX package's default column engine at these shapes:
+radix-R residues (R = 4 below n1 = 1024, 16 from it) as Karatsuba
+products with F(n1/R), the phase W_n1^(p*k_m) and F(R) across residues
+(``_kernel_r4``/``_kernel_rn``), then the split twiddle as T1 (exact
+integer phase, 15-bit split) times the T2 table. A dense F(n1) product
+(``_kernel_mxu``) sums 2048 terms per output at n1 = 2048 and measured
+1.2e-6 rel L2 from the kernel on the H100; the residue form sums at most
+128. The kernel is bound by memory; see the note in its source.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ._build import library
+from .mxu import dft_matrix_host
+from .stockham import LANES
+
+__all__ = [
+    "col_tile3d",
+    "col_split_tables_host",
+    "colfft_out3d",
+    "colfft_out3d_plain",
+]
+
+
+def col_tile3d(n1: int, n2: int) -> int:
+    """Slab width T of the JAX kernel's out3d mode: the width the T2
+    split-twiddle table is factored on."""
+    t = max(128, min(512, (1 << 20) // max(n1, 1)))
+    return min(t, n2)
+
+
+@functools.lru_cache(maxsize=64)
+def col_split_tables_host(n1: int, n2: int, dtype_name: str,
+                          t: int | None = None):
+    """T2, the lane-local half of the split twiddle factored on the slab
+    width T: W_n^(k1*(j*T+c)) = T1[k1, j] * T2[k1, c]. Exact f64 angles,
+    one cast. ``t`` defaults to ``col_tile3d(n1, n2)``, the out3d width
+    (the only mode the port has)."""
+    dtype = np.dtype(dtype_name)
+    n = n1 * n2
+    if t is None:
+        t = col_tile3d(n1, n2)
+    k1 = np.arange(n1, dtype=np.float64)[:, None]
+    c = np.arange(t, dtype=np.float64)[None, :]
+    ang2 = (-2.0 * np.pi / n) * (k1 * c)
+    return np.cos(ang2).astype(dtype), np.sin(ang2).astype(dtype)
+
+
+def _radix(n1: int) -> int:
+    """R of the JAX package's default column engine at n1: radix-16
+    residues for n1 >= 1024 (r16mxu), radix-4 below (r4mxu)."""
+    return 16 if n1 >= 1024 else 4
+
+
+@functools.lru_cache(maxsize=8)
+def _residue_mats(n1: int, device: torch.device):
+    """F(m) with its Karatsuba sum, the phase W_n1^(p*k_m) as (R, m, 1),
+    and F(R), for the radix-R residue form of the column DFT."""
+    radix = _radix(n1)
+    m = n1 // radix
+    gr, gi = dft_matrix_host(m, "float32")
+    km = np.arange(m, dtype=np.int64)[None, :]
+    p = np.arange(radix, dtype=np.int64)[:, None]
+    ang = -2.0 * np.pi * ((km * p) % n1).astype(np.float64) / n1
+    hr, hi = dft_matrix_host(radix, "float32")
+    out = [gr, gi, gr + gi,
+           np.cos(ang).astype(np.float32)[:, :, None],
+           np.sin(ang).astype(np.float32)[:, :, None], hr, hi]
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in out)
+
+
+def _t1(n1: int, n: int, t: int, nblk: int, device: torch.device):
+    """T1[k1, j] = W_n^(k1*j*T) as the JAX kernel forms it: the phase
+    k1*j*T mod n in integers, split in 15-bit halves that convert to f32
+    exactly, f32 cos/sin of each, joined by the angle-addition identity."""
+    k1 = torch.arange(n1, dtype=torch.int64, device=device)[:, None]
+    j = torch.arange(nblk, dtype=torch.int64, device=device)[None, :]
+    m = (k1 * (j * t)) & (n - 1)
+    hi = (m >> 15).to(torch.float32)
+    lo = (m & 0x7FFF).to(torch.float32)
+    a = hi * float(np.float32(-2.0 * np.pi * (1 << 15) / n))
+    b = lo * float(np.float32(-2.0 * np.pi / n))
+    ca, sa = torch.cos(a), torch.sin(a)
+    cb, sb = torch.cos(b), torch.sin(b)
+    return ca * cb - sa * sb, sa * cb + ca * sb
+
+
+def _check(re, im, tabs, n1: int):
+    """Validate the arguments shared by the kernel and its plain version;
+    return (batch shape, flat batch, n2)."""
+    for x in (re, im, *tabs):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError("colfft_out3d takes torch tensors")
+        if x.dtype != torch.float32:
+            raise TypeError(f"colfft_out3d is float32 only, got {x.dtype}")
+        if x.device != re.device:
+            raise ValueError("colfft_out3d: all tensors must be on one device")
+    if re.shape != im.shape or re.dim() < 2 or re.shape[-2] != n1:
+        raise ValueError(
+            f"colfft_out3d: expected (..., {n1}, n2) planar pairs, got "
+            f"{tuple(re.shape)} and {tuple(im.shape)}"
+        )
+    n2 = int(re.shape[-1])
+    if n1 < 8 or n1 > 2048 or n1 & (n1 - 1) or n2 < LANES or n2 & (n2 - 1):
+        raise ValueError(f"colfft_out3d: unsupported shape n1={n1}, n2={n2}")
+    t = col_tile3d(n1, n2)
+    if len(tabs) != 2 or any(tuple(x.shape) != (n1, t) for x in tabs):
+        raise ValueError(f"colfft_out3d: split tables must be ({n1}, {t})")
+    batch = tuple(re.shape[:-2])
+    return batch, int(np.prod(batch)) if batch else 1, n2
+
+
+def colfft_out3d_plain(re, im, tabs, n1: int):
+    """Plain-torch column pass: same arguments and result as
+    ``colfft_out3d``. On a CUDA tensor it turns TF32 off for matmuls
+    (``torch.backends.cuda.matmul.allow_tf32 = False``) so the products
+    stay full f32, as the JAX package's HIGHEST precision does."""
+    batch, b, n2 = _check(re, im, tabs, n1)
+    if re.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    t2r, t2i = tabs
+    t = int(t2r.shape[1])
+    n = n1 * n2
+    a = n2 // LANES
+    radix = _radix(n1)
+    m = n1 // radix
+    gr, gi, gs, pr, pi, hr, hi = _residue_mats(n1, re.device)
+    # i1 = R*i_m + i_p: T_p = F(m) @ x[i_p::R] (Karatsuba), (b, R, m, n2)
+    xr = re.reshape(b, m, radix, n2).transpose(1, 2)
+    xi = im.reshape(b, m, radix, n2).transpose(1, 2)
+    p1 = torch.matmul(gr, xr)
+    p2 = torch.matmul(gi, xi)
+    p3 = torch.matmul(gs, xr + xi)
+    tr = p1 - p2
+    ti = p3 - p1 - p2
+    # phase W_n1^(p*k_m), then F(R) across residues: X[k_m + m*k_p]
+    ur = (tr * pr - ti * pi).reshape(b, radix, m * n2)
+    ui = (tr * pi + ti * pr).reshape(b, radix, m * n2)
+    view = (b, n1, n2 // t, t)
+    br = (torch.matmul(hr, ur) - torch.matmul(hi, ui)).view(view)
+    bi = (torch.matmul(hr, ui) + torch.matmul(hi, ur)).view(view)
+    t1r, t1i = _t1(n1, n, t, n2 // t, re.device)
+    t1r, t1i = t1r[:, :, None], t1i[:, :, None]
+    ur = br * t1r - bi * t1i
+    ui = br * t1i + bi * t1r
+    t2r, t2i = t2r[:, None, :], t2i[:, None, :]
+    vr = ur * t2r - ui * t2i
+    vi = ur * t2i + ui * t2r
+    shape = batch + (a, n1, LANES)
+
+    def relayout(v):
+        v = v.reshape(b, n1, a, LANES).permute(0, 2, 1, 3)
+        return v.contiguous().reshape(shape)
+
+    return relayout(vr), relayout(vi)
+
+
+def colfft_out3d(re, im, tabs, n1: int):
+    """Column DFT of size n1 along axis -2 of (..., n1, n2) f32 planar
+    tensors, fused with the split twiddle W_n^(k1*i2), landed as
+    (..., n2/128, n1, 128). ``tabs`` = (t2r, t2i) from
+    ``col_split_tables_host`` on the tensors' device.
+
+    On CUDA it launches ``csrc/colfft.cu`` on the current stream; the
+    kernel forms the split twiddle itself from the exact phase, so
+    ``tabs`` feeds only the plain version (a CPU tensor runs
+    ``colfft_out3d_plain``). Inputs are read, never written; the outputs
+    are new tensors. Each launch adds one to ``colfft_out3d.launches``.
+
+    Replaces ``phastft_tpu/ops/pallas_col.py`` ``colfft_pallas(...,
+    out3d=True)``. Bound by memory (16 B per complex element, read once
+    and written once); the kernel keeps the whole size-n1 DFT of a
+    16-column slab (8 at n1 = 2048) in shared memory, so it touches
+    device memory once each way, with float4 loads and stores."""
+    batch, b, n2 = _check(re, im, tabs, n1)
+    if re.device.type == "cpu":
+        return colfft_out3d_plain(re, im, tabs, n1)
+    if re.device.type != "cuda":
+        raise ValueError(f"colfft_out3d: unsupported device {re.device}")
+    if not (re.is_contiguous() and im.is_contiguous()):
+        raise ValueError("colfft_out3d: inputs must be contiguous")
+    if re.data_ptr() % 16 or im.data_ptr() % 16:
+        raise ValueError("colfft_out3d: inputs must be 16-byte aligned")
+    shape = batch + (n2 // LANES, n1, LANES)
+    ore = torch.empty(shape, dtype=torch.float32, device=re.device)
+    oim = torch.empty(shape, dtype=torch.float32, device=re.device)
+    lib = library()
+    with torch.cuda.device(re.device):
+        stream = torch.cuda.current_stream(re.device).cuda_stream
+        err = lib.phastft_colfft_out3d(
+            re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+            b, n1, n2, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"colfft_out3d: kernel launch failed, CUDA error {err}")
+    colfft_out3d.launches += 1
+    return ore, oim
+
+
+colfft_out3d.launches = 0

@@ -1,0 +1,154 @@
+"""Row pass of the fused two-pass four-step FFT.
+
+Counterpart of the JAX package's ``ops/pallas_leaft.py``
+(``leaft_pallas``, dense A-stage). Over the column pass's (A, n1, 128)
+relayout it runs, for every row k1, the length-n2 = A*128 DFT of
+c[i2] = c3[..., i2 // 128, k1, i2 % 128] as F(A) over i_A, the twiddle
+W_n2^(k_A*i_M), then F(128) over i_M, and writes the result in the final
+natural order of the length-n transform: out[..., k1 + n1*(k_A + A*k_M)].
+The four-step's output transpose is the store index.
+
+``leaft`` is the wrapper: on CUDA tensors it launches the hand-written
+kernel ``csrc/leaft.cu``; on CPU tensors it runs ``leaft_plain``, the same
+function in plain torch that follows the JAX kernel's arithmetic (dense
+Karatsuba products with F(A) and F(128)). The kernel is bound by memory;
+its strided stores are its known limit (see the note in its source).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ._build import library
+from .mxu import dft_matrix_host
+from .stockham import leaf_correction_host
+
+__all__ = ["M_LANES", "leaft_tables_host", "leaft", "leaft_plain"]
+
+#: Second leaf factor (the lane axis of the column pass's 3-d output).
+M_LANES = 128
+
+
+@functools.lru_cache(maxsize=64)
+def leaft_tables_host(n2: int, dtype_name: str = "float32"):
+    """Host tables for the row pass of length n2 = A * 128:
+    (f1r, f1i, f1s [A x A], f2r, f2i, f2s [128 x 128], cr, ci [A x 128])
+    with Karatsuba sums precomputed and the inner twiddle correction
+    W_n2^{k_A * i_M} in natural (k_A, i_M) layout. Exact f64 angles,
+    single rounding."""
+    a = n2 // M_LANES
+    f1r, f1i = dft_matrix_host(a, dtype_name)
+    f2r, f2i = dft_matrix_host(M_LANES, dtype_name)
+    cr, ci = leaf_correction_host(a, M_LANES, dtype_name)
+    return f1r, f1i, f1r + f1i, f2r, f2i, f2r + f2i, cr, ci
+
+
+def _check(cre, cim, mats, n1: int):
+    """Validate the arguments shared by the kernel and its plain version;
+    return (batch shape, flat batch, A)."""
+    if len(mats) != 8:
+        raise ValueError("leaft: mats must be the 8 tables of leaft_tables_host")
+    for x in (cre, cim, *mats):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError("leaft takes torch tensors")
+        if x.dtype != torch.float32:
+            raise TypeError(f"leaft is float32 only, got {x.dtype}")
+        if x.device != cre.device:
+            raise ValueError("leaft: all tensors must be on one device")
+    if (cre.shape != cim.shape or cre.dim() < 3 or cre.shape[-2] != n1
+            or cre.shape[-1] != M_LANES):
+        raise ValueError(
+            f"leaft: expected (..., A, {n1}, {M_LANES}) planar pairs, got "
+            f"{tuple(cre.shape)} and {tuple(cim.shape)}"
+        )
+    a = int(cre.shape[-3])
+    if a < 8 or a > 128 or a & (a - 1) or n1 < 1:
+        raise ValueError(f"leaft: unsupported shape A={a}, n1={n1}")
+    want = [(a, a)] * 3 + [(M_LANES, M_LANES)] * 3 + [(a, M_LANES)] * 2
+    if [tuple(x.shape) for x in mats] != want:
+        raise ValueError(f"leaft: tables do not match A={a}")
+    batch = tuple(cre.shape[:-3])
+    return batch, int(np.prod(batch)) if batch else 1, a
+
+
+def leaft_plain(cre, cim, mats, n1: int):
+    """Plain-torch row pass: same arguments and result as ``leaft``. On a
+    CUDA tensor it turns TF32 off for matmuls
+    (``torch.backends.cuda.matmul.allow_tf32 = False``) so the products
+    stay full f32."""
+    batch, b, a = _check(cre, cim, mats, n1)
+    if cre.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    f1r, f1i, f1s, f2r, f2i, f2s, cr, ci = mats
+    m = M_LANES
+    xr = cre.reshape(b, a, n1 * m)
+    xi = cim.reshape(b, a, n1 * m)
+    p1 = torch.matmul(f1r, xr)
+    p2 = torch.matmul(f1i, xi)
+    p3 = torch.matmul(f1s, xr + xi)
+    tr = (p1 - p2).view(b, a, n1, m)
+    ti = (p3 - p1 - p2).view(b, a, n1, m)
+    crv = cr.view(a, 1, m)
+    civ = ci.view(a, 1, m)
+    ur = (tr * crv - ti * civ).reshape(b, a * n1, m)
+    ui = (tr * civ + ti * crv).reshape(b, a * n1, m)
+    q1 = torch.matmul(ur, f2r.T)
+    q2 = torch.matmul(ui, f2i.T)
+    q3 = torch.matmul(ur + ui, f2s.T)
+    n = a * m * n1
+
+    def store(v):
+        # v[b, kA, k1, kM] -> out[b, kM, kA, k1], the natural order
+        return v.view(b, a, n1, m).permute(0, 3, 1, 2).reshape(batch + (n,))
+
+    return store(q1 - q2), store(q3 - q1 - q2)
+
+
+def leaft(cre, cim, mats, n1: int):
+    """Row FFTs of length n2 = A * 128 over the column pass's
+    (..., A, n1, 128) f32 output, written as (..., n) in the final natural
+    order X[k1 + n1*k2]. ``mats``: the 8 tables of ``leaft_tables_host``
+    on the tensors' device.
+
+    On CUDA it launches ``csrc/leaft.cu`` on the current stream (the kernel
+    reads row 1 of F(A) and F(128) as its twiddle tables, and the (A, 128)
+    correction table); a CPU tensor runs ``leaft_plain``. Inputs are read,
+    never written; the outputs are new tensors. Each launch adds one to
+    ``leaft.launches``.
+
+    Replaces ``phastft_tpu/ops/pallas_leaft.py`` ``leaft_pallas``. Bound
+    by memory (16 B per complex element, read once and written once); the
+    kernel keeps one whole row (up to 128 KB) in shared memory and reads
+    it with float4 loads, but its stores are strided by n1 (one float per
+    32-byte sector), its known limit."""
+    batch, b, a = _check(cre, cim, mats, n1)
+    if cre.device.type == "cpu":
+        return leaft_plain(cre, cim, mats, n1)
+    if cre.device.type != "cuda":
+        raise ValueError(f"leaft: unsupported device {cre.device}")
+    if not all(x.is_contiguous() for x in (cre, cim, *mats)):
+        raise ValueError("leaft: inputs must be contiguous")
+    if cre.data_ptr() % 16 or cim.data_ptr() % 16:
+        raise ValueError("leaft: inputs must be 16-byte aligned")
+    f1r, f1i, _, f2r, f2i, _, cr, ci = mats
+    shape = batch + (a * M_LANES * n1,)
+    ore = torch.empty(shape, dtype=torch.float32, device=cre.device)
+    oim = torch.empty(shape, dtype=torch.float32, device=cre.device)
+    lib = library()
+    with torch.cuda.device(cre.device):
+        stream = torch.cuda.current_stream(cre.device).cuda_stream
+        err = lib.phastft_leaft(
+            cre.data_ptr(), cim.data_ptr(), f1r.data_ptr(), f1i.data_ptr(),
+            f2r.data_ptr(), f2i.data_ptr(), cr.data_ptr(), ci.data_ptr(),
+            ore.data_ptr(), oim.data_ptr(), b, n1, a, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"leaft: kernel launch failed, CUDA error {err}")
+    leaft.launches += 1
+    return ore, oim
+
+
+leaft.launches = 0

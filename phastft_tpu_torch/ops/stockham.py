@@ -1,0 +1,27 @@
+"""Lane width and the leaf twiddle correction, host side.
+
+Counterpart of ``LANES`` and ``leaf_correction_host`` in the JAX
+package's ``ops/stockham.py``. Only the numpy branch is carried: the JAX
+builder hands tables of n1 * lanes >= 2^16 to its C++ host runtime, and
+the port's row pass needs at most A * 128 = 2^14.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+__all__ = ["LANES", "leaf_correction_host"]
+
+LANES = 128
+
+
+@functools.lru_cache(maxsize=64)
+def leaf_correction_host(n1: int, lanes: int, dtype_name: str):
+    """Host (n1, lanes) twiddle-correction table W_n^(k1*i2), n = n1*lanes."""
+    dtype = np.dtype(dtype_name)
+    k1 = np.arange(n1, dtype=np.float64)[:, None]
+    i2 = np.arange(lanes, dtype=np.float64)[None, :]
+    ang = -2.0 * np.pi * (k1 * i2) / float(n1 * lanes)
+    return np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)

@@ -1,0 +1,219 @@
+"""The port's public C2C entries on the CPU, against the JAX package and
+numpy's f64 FFT, plus its error paths.
+
+The error-path tests mirror tests/test_errors.py on the f32 entries: the
+same classes and messages. Sizes outside the port's slice, f64 and
+PlannerMode.Tune raise NotImplementedError naming their ROADMAP.md item.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import phastft_tpu
+import phastft_tpu_torch as pt
+
+N = 1 << 17
+
+
+def _bound(n):
+    # f32 FFT error grows ~sqrt(log n): the bound of tests/test_pallas_leaft.py
+    return 5e-7 * max(1.0, (n.bit_length() - 1) / 18.0)
+
+
+def _pair(rng, shape):
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+def _rel(got, want):
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+def _c(pair):
+    return np.asarray(pair[0], np.float64) + 1j * np.asarray(pair[1], np.float64)
+
+
+@pytest.mark.parametrize("log_n", [17, 18])
+@pytest.mark.parametrize("direction", ["Forward", "Reverse"])
+def test_matches_jax_and_numpy(log_n, direction):
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    re, im = _pair(rng, (2, n))
+    got = pt.fft_32_dit(re, im, getattr(pt.Direction, direction), device="cpu")
+    assert all(isinstance(x, torch.Tensor) and x.dtype == torch.float32
+               and x.device.type == "cpu" and tuple(x.shape) == (2, n)
+               for x in got)
+    ref = phastft_tpu.fft_32_dit(re, im, getattr(phastft_tpu.Direction, direction))
+    x = re.astype(np.float64) + 1j * im
+    want = np.fft.fft(x, axis=-1) if direction == "Forward" else np.fft.ifft(x, axis=-1)
+    g = _c((got[0].numpy(), got[1].numpy()))
+    assert _rel(g, want) <= _bound(n)
+    assert _rel(g, _c(ref)) <= 2 * _bound(n)
+
+
+def test_roundtrip():
+    rng = np.random.default_rng(5)
+    re, im = _pair(rng, (N,))
+    fwd = pt.fft_32_dit(re, im, pt.Direction.Forward, device="cpu")
+    back = pt.fft_32_dit(fwd[0], fwd[1], pt.Direction.Reverse, device="cpu")
+    x = re.astype(np.float64) + 1j * im
+    assert _rel(_c((back[0].numpy(), back[1].numpy())), x) <= 1e-6
+
+
+def test_planner_reuse_and_inputs_untouched():
+    rng = np.random.default_rng(9)
+    planner = pt.PlannerDit32(N, device="cpu")
+    for _ in range(3):
+        re, im = _pair(rng, (3, N))
+        tre, tim = torch.from_numpy(re.copy()), torch.from_numpy(im.copy())
+        got = pt.fft_32_dit_with_planner(tre, tim, pt.Direction.Forward, planner)
+        want = np.fft.fft(re.astype(np.float64) + 1j * im, axis=-1)
+        assert _rel(_c((got[0].numpy(), got[1].numpy())), want) <= _bound(N)
+        # the caller's tensors are never written (no buffer donation)
+        assert np.array_equal(tre.numpy(), re) and np.array_equal(tim.numpy(), im)
+    opts = pt.Options.guess_options(N, np.float32)
+    got2 = pt.fft_32_dit_with_planner_and_opts(re, im, "f", planner, opts)
+    assert torch.equal(got2[0], got[0]) and torch.equal(got2[1], got[1])
+
+
+def test_leading_batch_dims():
+    rng = np.random.default_rng(21)
+    re, im = _pair(rng, (2, 3, N))
+    got = pt.fft_32_dit(re, im, pt.Direction.Reverse, device="cpu")
+    assert tuple(got[0].shape) == (2, 3, N)
+    want = np.fft.ifft(re.astype(np.float64) + 1j * im, axis=-1)
+    assert _rel(_c((got[0].numpy(), got[1].numpy())), want) <= _bound(N)
+
+
+def test_planner_from_jax_tables():
+    """A planner built on the JAX planner's tables computes the same result
+    as the port's own planner: both start from the same bits."""
+    jp = phastft_tpu.PlannerDit32(N)
+    tables = {k: tuple(np.asarray(a) for a in v)
+              for k, v in jp.leaf_corrs.items()}
+    carried = pt.PlannerDit32.from_numpy_tables(N, tables, device="cpu")
+    own = pt.PlannerDit32(N, device="cpu")
+    assert carried.plan == own.plan == jp.plan
+    assert set(carried.leaf_corrs) == set(own.leaf_corrs)
+    rng = np.random.default_rng(13)
+    re, im = _pair(rng, (N,))
+    a = pt.fft_32_dit_with_planner(re, im, pt.Direction.Forward, carried)
+    b = pt.fft_32_dit_with_planner(re, im, pt.Direction.Forward, own)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    with pytest.raises(KeyError):
+        pt.PlannerDit32.from_numpy_tables(N, {}, device="cpu")
+
+
+# -- error paths (tests/test_errors.py on the f32 entries) -------------------
+
+def test_non_power_of_two_raises():
+    with pytest.raises(pt.NonPowerOfTwoError, match="power of 2"):
+        pt.fft_32_dit(np.zeros(100), np.zeros(100), pt.Direction.Forward,
+                      device="cpu")
+
+
+def test_zero_length_raises():
+    with pytest.raises(pt.NonPowerOfTwoError):
+        pt.fft_32_dit(np.zeros(0), np.zeros(0), pt.Direction.Forward,
+                      device="cpu")
+
+
+def test_length_mismatch_raises():
+    with pytest.raises(pt.LengthMismatchError, match="equal length"):
+        pt.fft_32_dit_with_planner(np.zeros(N), np.zeros(2 * N),
+                                   pt.Direction.Forward,
+                                   pt.PlannerDit32(N, device="cpu"))
+
+
+def test_planner_size_mismatch_raises():
+    planner = pt.PlannerDit32(N, device="cpu")
+    with pytest.raises(pt.PlannerSizeMismatchError, match="size"):
+        pt.fft_32_dit_with_planner(np.zeros(2 * N), np.zeros(2 * N),
+                                   pt.Direction.Forward, planner)
+
+
+def test_planner_rejects_non_power_of_two():
+    with pytest.raises(pt.NonPowerOfTwoError):
+        pt.PlannerDit32(100, device="cpu")
+
+
+def test_errors_are_value_errors():
+    assert issubclass(pt.PhastftError, ValueError)
+    assert issubclass(pt.NonPowerOfTwoError, pt.PhastftError)
+    assert issubclass(pt.LengthMismatchError, pt.PhastftError)
+    assert issubclass(pt.PlannerSizeMismatchError, pt.PhastftError)
+
+
+def test_direction_chars_accepted():
+    re, im = np.ones(N), np.zeros(N)
+    fre, _ = pt.fft_32_dit(re, im, "f", device="cpu")
+    assert abs(float(fre[0]) - N) <= 1e-6 * N
+    rre, _ = pt.fft_32_dit(re, im, "r", device="cpu")
+    assert abs(float(rre[0]) - 1.0) <= 1e-6  # scaled by 1/N
+
+
+def test_bad_direction_rejected():
+    with pytest.raises(pt.PhastftError, match="direction"):
+        pt.fft_32_dit(np.ones(N), np.zeros(N), "x", device="cpu")
+    with pytest.raises(pt.PhastftError, match="direction"):
+        pt.fft_32_dit(np.ones(N), np.zeros(N), 1, device="cpu")
+
+
+def test_tensor_dtype_and_device_checked():
+    planner = pt.PlannerDit32(N, device="cpu")
+    with pytest.raises(TypeError):
+        pt.fft_32_dit_with_planner(torch.zeros(N, dtype=torch.float64),
+                                   torch.zeros(N, dtype=torch.float64),
+                                   pt.Direction.Forward, planner)
+    with pytest.raises(pt.PhastftError, match="planner is on"):
+        pt.fft_32_dit_with_planner(torch.zeros(N, device="meta"),
+                                   torch.zeros(N, device="meta"),
+                                   pt.Direction.Forward, planner)
+
+
+# -- outside the slice --------------------------------------------------------
+
+@pytest.mark.parametrize("log_n,item", [(16, "item 2"), (26, "item 3")])
+def test_sizes_outside_slice_not_implemented(log_n, item):
+    n = 1 << log_n
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
+        pt.fft_32_dit(np.zeros(n, np.float32), np.zeros(n, np.float32),
+                      pt.Direction.Forward, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["fft_64_dit", "fft_64_dit_with_planner",
+                                   "fft_64_dit_with_planner_and_opts",
+                                   "PlannerDit64"])
+def test_f64_not_implemented(entry):
+    x = np.zeros(N)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+        if entry == "PlannerDit64":
+            pt.PlannerDit64(N)
+        elif entry == "fft_64_dit":
+            pt.fft_64_dit(x, x, pt.Direction.Forward)
+        elif entry == "fft_64_dit_with_planner":
+            pt.fft_64_dit_with_planner(x, x, pt.Direction.Forward, None)
+        else:
+            pt.fft_64_dit_with_planner_and_opts(x, x, pt.Direction.Forward,
+                                                None, pt.Options())
+
+
+def test_tune_and_classic_not_implemented():
+    with pytest.raises(NotImplementedError, match="item 7"):
+        pt.PlannerDit32(N, pt.PlannerMode.Tune, device="cpu")
+    planner = pt.PlannerDit32(N, device="cpu")
+    x = np.zeros(N, np.float32)
+    for opts in (pt.Options(strategy="staged"), pt.Options(use_pallas=False)):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            pt.fft_32_dit_with_planner_and_opts(x, x, "f", planner, opts)
+
+
+def test_default_device_is_cuda(monkeypatch):
+    """device=None means CUDA; with no GPU it raises, never runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros(N, np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.fft_32_dit(x, x, pt.Direction.Forward)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.PlannerDit32(N)

@@ -1,0 +1,154 @@
+"""The port's kernel modules against the Pallas kernels they replace.
+
+On the CPU each wrapper runs its plain torch version; the JAX side runs
+its Pallas kernel in interpret mode, as tests/test_pallas_leaft.py does.
+Both get the same numpy inputs and the same host tables. The two sum in
+different orders (the Pallas engines factor F(n1) and F(A) otherwise), so
+they agree to f32 rounding: rel L2 <= 1e-6.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+TOL = 1e-6
+
+
+def _run_interpret(fn, *args, **kw):
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        return fn(*args, **kw)
+
+
+def _rel(got, want):
+    g = np.asarray(got[0], np.float64) + 1j * np.asarray(got[1], np.float64)
+    w = np.asarray(want[0], np.float64) + 1j * np.asarray(want[1], np.float64)
+    assert g.shape == w.shape
+    return np.linalg.norm(g - w) / np.linalg.norm(w)
+
+
+def _pair(rng, shape):
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("n1,n2,b", [(128, 1024, None), (256, 1024, 2)])
+def test_colfft_plain_matches_pallas(n1, n2, b):
+    import jax.numpy as jnp
+    from phastft_tpu.ops import pallas_col
+
+    from phastft_tpu_torch.ops import colfft
+
+    rng = np.random.default_rng(n1 + n2)
+    shape = ((b,) if b else ()) + (n1, n2)
+    re, im = _pair(rng, shape)
+    host = colfft.col_split_tables_host(n1, n2, "float32",
+                                        t=colfft.col_tile3d(n1, n2))
+    want = _run_interpret(
+        pallas_col.colfft_pallas, jnp.asarray(re), jnp.asarray(im),
+        tuple(jnp.asarray(a) for a in host), n1, out3d=True,
+    )
+    before = colfft.colfft_out3d.launches
+    got = colfft.colfft_out3d(torch.from_numpy(re), torch.from_numpy(im),
+                              tuple(torch.from_numpy(a) for a in host), n1)
+    assert colfft.colfft_out3d.launches == before  # CPU: no kernel launch
+    assert tuple(got[0].shape) == shape[:-2] + (n2 // 128, n1, 128)
+    assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("n1,n2,b", [(128, 1024, None), (128, 2048, 2)])
+def test_leaft_plain_matches_pallas(n1, n2, b):
+    import jax.numpy as jnp
+    from phastft_tpu.ops.pallas_leaft import leaft_pallas
+
+    from phastft_tpu_torch.ops import leaft as leaft_mod
+
+    a = n2 // 128
+    rng = np.random.default_rng(a + n1)
+    shape = ((b,) if b else ()) + (a, n1, 128)
+    cre, cim = _pair(rng, shape)
+    host = leaft_mod.leaft_tables_host(n2, "float32")
+    want = _run_interpret(
+        leaft_pallas, jnp.asarray(cre), jnp.asarray(cim),
+        tuple(jnp.asarray(x) for x in host), n1, engine="dense",
+    )
+    before = leaft_mod.leaft.launches
+    got = leaft_mod.leaft(torch.from_numpy(cre), torch.from_numpy(cim),
+                          tuple(torch.from_numpy(x) for x in host), n1)
+    assert leaft_mod.leaft.launches == before
+    assert tuple(got[0].shape) == shape[:-3] + (a * 128 * n1,)
+    assert _rel(got, want) <= TOL
+
+
+def test_col_out3d_layout():
+    """out3d landing spots: column block j of the (n1, n2) result is the
+    (j, n1, 128) slab of the 3-d layout, checked against an f64 oracle of
+    the column DFT times the split twiddle."""
+    from phastft_tpu_torch.ops import colfft
+
+    n1, n2 = 16, 512
+    n = n1 * n2
+    rng = np.random.default_rng(3)
+    re, im = _pair(rng, (n1, n2))
+    tabs = tuple(torch.from_numpy(a)
+                 for a in colfft.col_split_tables_host(n1, n2, "float32"))
+    c3 = colfft.colfft_out3d(torch.from_numpy(re), torch.from_numpy(im),
+                             tabs, n1)
+    assert tuple(c3[0].shape) == (n2 // 128, n1, 128)
+    k1 = np.arange(n1)[:, None]
+    i2 = np.arange(n2)[None, :]
+    flat = np.fft.fft(re.astype(np.float64) + 1j * im, axis=0)
+    flat = flat * np.exp(-2j * np.pi * ((k1 * i2) % n) / n)
+    want = np.transpose(flat.reshape(n1, n2 // 128, 128), (1, 0, 2))
+    np.testing.assert_allclose(c3[0].numpy(), want.real, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(c3[1].numpy(), want.imag, rtol=0, atol=1e-4)
+
+
+def test_two_pass_matches_numpy():
+    """colfft_out3d -> leaft is the whole length-n transform of each row."""
+    from phastft_tpu_torch.ops.colfft import (
+        col_split_tables_host, col_tile3d, colfft_out3d,
+    )
+    from phastft_tpu_torch.ops.leaft import leaft, leaft_tables_host
+
+    n1, n2, b = 128, 1024, 2
+    rng = np.random.default_rng(11)
+    re, im = _pair(rng, (b, n1 * n2))
+    tabs = tuple(torch.from_numpy(a) for a in
+                 col_split_tables_host(n1, n2, "float32", t=col_tile3d(n1, n2)))
+    mats = tuple(torch.from_numpy(a) for a in leaft_tables_host(n2))
+    view = (b, n1, n2)
+    c3 = colfft_out3d(torch.from_numpy(re).view(view),
+                      torch.from_numpy(im).view(view), tabs, n1)
+    got = leaft(c3[0], c3[1], mats, n1)
+    want = np.fft.fft(re.astype(np.float64) + 1j * im, axis=-1)
+    assert _rel(got, (want.real, want.imag)) <= 5e-7
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "tables"])
+def test_wrappers_reject_bad_arguments(bad):
+    from phastft_tpu_torch.ops.colfft import col_split_tables_host, colfft_out3d
+    from phastft_tpu_torch.ops.leaft import leaft, leaft_tables_host
+
+    n1, n2 = 128, 1024
+    x = torch.zeros(n1, n2)
+    tabs = tuple(torch.from_numpy(a)
+                 for a in col_split_tables_host(n1, n2, "float32"))
+    c = torch.zeros(n2 // 128, n1, 128)
+    mats = tuple(torch.from_numpy(a) for a in leaft_tables_host(n2))
+    if bad == "dtype":
+        with pytest.raises(TypeError):
+            colfft_out3d(x.double(), x.double(), tabs, n1)
+        with pytest.raises(TypeError):
+            leaft(c.double(), c.double(), mats, n1)
+    elif bad == "shape":
+        with pytest.raises(ValueError):
+            colfft_out3d(x, x[:, :512], tabs, n1)
+        with pytest.raises(ValueError):
+            leaft(c, c, mats, n1 // 2)
+    else:
+        with pytest.raises(ValueError):
+            colfft_out3d(x, x, (tabs[0][:, :128], tabs[1][:, :128]), n1)
+        with pytest.raises(ValueError):
+            leaft(c, c, mats[:6], n1)

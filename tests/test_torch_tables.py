@@ -1,0 +1,95 @@
+"""The port's host tables and plans against the JAX package's.
+
+Every table the port's planner builds must equal the JAX builder's bit for
+bit, so both packages compute from the same twiddles; ``plan_rows`` and
+the f32 leaf rule must give the same plans over the port's window.
+"""
+
+import numpy as np
+import pytest
+
+N1S = (128, 2048)
+N2S = (1024, 16384)
+
+
+def _same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("m", sorted({*N1S, 8, 128, *(n2 // 128 for n2 in N2S)}))
+def test_dft_matrix_bitwise(m):
+    from phastft_tpu.ops.mxu import dft_matrix_host as jax_dft
+
+    from phastft_tpu_torch.ops.mxu import dft_matrix_host
+
+    _same(dft_matrix_host(m, "float32"), jax_dft(m, "float32"))
+
+
+@pytest.mark.parametrize("n2", N2S)
+def test_leaf_correction_bitwise(n2):
+    from phastft_tpu.ops.stockham import leaf_correction_host as jax_corr
+
+    from phastft_tpu_torch.ops.stockham import leaf_correction_host
+
+    a = n2 // 128
+    _same(leaf_correction_host(a, 128, "float32"),
+          jax_corr(a, 128, "float32"))
+
+
+@pytest.mark.parametrize("n1", N1S)
+@pytest.mark.parametrize("n2", N2S)
+def test_col_split_tables_bitwise(n1, n2):
+    from phastft_tpu.ops import pallas_col
+
+    from phastft_tpu_torch.ops import colfft
+
+    t = colfft.col_tile3d(n1, n2)
+    assert t == pallas_col.col_tile3d(n1, n2)
+    _same(colfft.col_split_tables_host(n1, n2, "float32", t=t),
+          pallas_col.col_split_tables_host(n1, n2, "float32", t=t))
+
+
+@pytest.mark.parametrize("n2", N2S)
+def test_leaft_tables_bitwise(n2):
+    from phastft_tpu.ops.pallas_leaft import leaft_tables_host as jax_leaft
+
+    from phastft_tpu_torch.ops.leaft import leaft_tables_host
+
+    _same(leaft_tables_host(n2, "float32"), jax_leaft(n2, "float32"))
+
+
+@pytest.mark.parametrize("log_n", range(17, 26))
+def test_plans_match(log_n):
+    from phastft_tpu.ops.fourstep import plan_rows as jax_plan
+    from phastft_tpu.options import Options as JaxOptions
+
+    from phastft_tpu_torch.ops.fourstep import plan_rows
+    from phastft_tpu_torch.options import Options
+
+    n = 1 << log_n
+    leaf = Options.guess_options(n, np.float32).leaf_fft_size
+    assert leaf == JaxOptions.guess_options(n, np.float32).leaf_fft_size
+    plan = plan_rows(n, leaf)
+    assert plan == jax_plan(n, leaf)
+    # the slice's one plan shape: one split over a leaf, fused-two-pass gates
+    kind, n1, inner, n2 = plan
+    assert kind == "split" and inner[0] == "leaf"
+    assert 128 <= n1 <= 2048 and 8 <= n2 // 128 <= 128
+
+
+def test_planner_tables_match_jax_planner():
+    """The port's planner holds exactly the JAX planner's two-pass tables."""
+    from phastft_tpu.planner import PlannerDit32 as JaxPlanner
+
+    from phastft_tpu_torch import PlannerDit32
+
+    n = 1 << 18
+    mine = PlannerDit32(n, device="cpu")
+    ref = JaxPlanner(n).leaf_corrs
+    assert mine.plan == JaxPlanner(n).plan
+    assert set(mine.leaf_corrs) == {"pcolT128x2048", "leafT2048"}
+    for key, arrays in mine.leaf_corrs.items():
+        _same([a.numpy() for a in arrays], [np.asarray(a) for a in ref[key]])
