@@ -13,17 +13,29 @@ on any failed check:
 3. ``parity``: each kernel against its plain torch version on the card, at
    the slice's shapes (n1, n2) = (128, 8192), (1024, 16384), (2048, 16384),
    rel L2 <= 1e-6.
-4. ``e2e``: the main path through the public entries, launch counters set
-   to 0 just before and read just after: ``fft_32_dit`` forward at 2^20,
-   2^24 and 2^25 against numpy's f64 FFT (rel L2 <= 5e-7 * max(1,
-   log2(n)/18)), a round trip at 2^24 (<= 1e-6), and one ``PlannerDit32``
-   reused on a (4, 2^22) batch. Each transform must launch each kernel
-   exactly once.
+4. ``e2e``: the split plans' main path through the public entries, launch
+   counters set to 0 just before and read just after: ``fft_32_dit``
+   forward at 2^20, 2^24 and 2^25 against numpy's f64 FFT (rel L2 <= 5e-7 *
+   max(1, log2(n)/18)), a round trip at 2^24 (<= 1e-6), and one
+   ``PlannerDit32`` reused on a (4, 2^22) batch. Each transform must launch
+   each two-pass kernel exactly once, and no leaf kernel.
 5. ``times``: device-time medians of 20 calls (CUDA events, the GPU kept
    busy until the call is enqueued), L2 flushed before each, at 2^20, 2^24
    and 2^25: each kernel, its plain version, the whole transform (and its
    host-clock time), and ``torch.fft.fft`` on complex64 as a yardstick (the
    port never calls it), beside each kernel's memory bound.
+6. ``parity_leaf``: the leaf kernels against their plain versions on 257
+   rows (an odd count): ``leaf`` at n = 2, 64, 128, 256, 4096, 2^14, 2^15,
+   ``leaf3`` at 2^16, rel L2 <= 1e-6.
+7. ``e2e_leaf``: the leaf plans' main path, counters set to 0 just before
+   and read just after: ``fft_32_dit`` forward at every n = 2^0..2^16 with
+   max(1, 2^20/n) rows against numpy's f64 FFT, a round trip at 2^16 x 16
+   rows, one ``PlannerDit32(2^12)`` reused on a (1024, 4096) batch, and
+   2^17 rows of 256 points. Each transform with n >= 2 must launch exactly
+   one of ``leaf``/``leaf3`` and nothing else; n = 1 launches nothing.
+8. ``times_leaf``: as 5, at n = 2^8, 2^12, 2^15, 2^16 with 2^27/n rows
+   (1 GiB of planar input), and at 2^16 x 1 row for latency; the library
+   call is ``torch.fft.fft`` on complex64 of the same rows.
 
 The line before the last is the kernel summary; the last line is the
 device record. No CUDA device: exit 1 before any result.
@@ -47,6 +59,13 @@ F32_FLOPS_PER_S = 67e12
 PARITY_SHAPES = [(128, 8192), (1024, 16384), (2048, 16384)]
 E2E_LOGS = (20, 24, 25)
 TIME_LOGS = (20, 24, 25)
+LEAF_PARITY_LOGS = (1, 6, 7, 8, 12, 14, 15, 16)
+LEAF_PARITY_ROWS = 257
+LEAF_E2E_POINTS = 1 << 20
+#: (log2 n, rows) of the leaf timings: 2^27 points (1 GiB planar), and one
+#: row of 2^16 for latency.
+LEAF_TIME_SHAPES = ((8, 1 << 19), (12, 1 << 15), (15, 1 << 12), (16, 1 << 11),
+                    (16, 1))
 KERNEL_TOL = 1e-6
 OUT_DIR = "chiprun_out"
 #: ~1 ms at the H100's clocks: longer than the host takes to enqueue a call.
@@ -143,6 +162,26 @@ def kernel_bound(n: int, log_len: int, table_floats: int = 0):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def leaf_call(planner):
+    """(wrapper, plain version, arguments, table floats read) of the leaf
+    kernel that the planner's tiny or leaf plan runs."""
+    from phastft_tpu_torch.ops.leaf import leaf, leaf3, leaf3_plain, leaf_plain
+
+    kind, n1 = planner.plan
+    corrs = planner.leaf_corrs
+    if kind == "tiny":
+        return leaf, leaf_plain, ((), 1), 0
+    mats3 = corrs.get(f"mxu3_{n1}")
+    if mats3 is not None:  # rows 1 of F(128) twice, c1 (128, 512), c2 (4, 128)
+        tables = 2 * 128 + 2 * 128 * 512 + 2 * 4 * 128
+        return leaf3, leaf3_plain, (mats3, 128, 128), tables
+    if n1 == 1:  # row 1 of F(128)
+        return leaf, leaf_plain, (corrs["mxu1"], 1), 128
+    # rows 1 of F(n1) and F(128), and the (n1, 128) correction
+    mats = corrs[f"mxu{n1}"][:6] + corrs[f"leaf{n1}"]
+    return leaf, leaf_plain, (mats, n1), n1 + 128 + 2 * n1 * 128
+
+
 def main() -> int:
     import torch
 
@@ -156,6 +195,7 @@ def main() -> int:
     from phastft_tpu_torch.ops.colfft import (
         col_split_tables_host, col_tile3d, colfft_out3d, colfft_out3d_plain,
     )
+    from phastft_tpu_torch.ops.leaf import leaf, leaf3
     from phastft_tpu_torch.ops.leaft import leaft, leaft_plain, leaft_tables_host
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -209,8 +249,8 @@ def main() -> int:
         del kc, pc, kl, pl
 
     # -- main path: counters at 0 just before, read just after
-    colfft_out3d.launches = 0
-    leaft.launches = 0
+    for k in (colfft_out3d, leaft, leaf, leaf3):
+        k.launches = 0
     transforms = 0
     errs = {}
     x24 = None
@@ -246,6 +286,8 @@ def main() -> int:
     for name, count in launches.items():
         if count != transforms:
             raise AssertionError(f"{name}: {count} launches for {transforms} transforms")
+    if leaf.launches or leaf3.launches:
+        raise AssertionError("a split plan launched a leaf kernel")
 
     # -- times
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
@@ -289,18 +331,134 @@ def main() -> int:
         del c3, xc
 
     top = summary[max(TIME_LOGS)]
+    for name in ("colfft_out3d", "leaft"):
+        top[name].update(n=1 << max(TIME_LOGS), rows=1, library_ms=None)
+
+    # -- leaf kernels: parity with the plain versions on an odd row count
+    max_err.update(leaf=0.0, leaf3=0.0)
+    for log_n in LEAF_PARITY_LOGS:
+        n = 1 << log_n
+        fn, plain, args, _ = leaf_call(PlannerDit32(n))
+        re, im = signal(rng, (LEAF_PARITY_ROWS, n))
+        xr = torch.from_numpy(re).to(dev)
+        xi = torch.from_numpy(im).to(dev)
+        k = fn(xr, xi, *args)
+        torch.cuda.synchronize()
+        p = plain(xr, xi, *args)
+        err = rel_l2(k[0], k[1], p[0], p[1])
+        mabs = max_abs(k[0], k[1], p[0], p[1])
+        name = fn.__name__
+        max_err[name] = max(max_err[name], mabs)
+        emit({"phase": "parity_leaf", "kernel": name, "n": n,
+              "rows": LEAF_PARITY_ROWS, "rel_l2": err, "max_abs_err": mabs,
+              "bound": KERNEL_TOL})
+        check(f"{name} parity at n = {n}", err, KERNEL_TOL)
+        del k, p, xr, xi
+
+    # -- main path of the leaf plans: counters at 0 just before, read just after
+    counters = (colfft_out3d, leaft, leaf, leaf3)
+    for k in counters:
+        k.launches = 0
+    want_launches = {"leaf": 0, "leaf3": 0}
+    errs = {}
+
+    def run(fn, n):
+        """fn() once; it must launch one leaf kernel (none at n = 1)."""
+        before = [k.launches for k in counters]
+        out = fn()
+        delta = [k.launches - b for k, b in zip(counters, before)]
+        want = [0, 0, int(2 <= n < 1 << 16), int(n == 1 << 16)]
+        if delta != want:
+            raise AssertionError(f"n = {n}: launches {delta}, want {want} "
+                                 "(colfft_out3d, leaft, leaf, leaf3)")
+        want_launches["leaf"] += want[2]
+        want_launches["leaf3"] += want[3]
+        return out
+
+    for log_n in range(17):
+        n = 1 << log_n
+        re, im = signal(rng, (max(1, LEAF_E2E_POINTS // n), n))
+        out = run(lambda: fft_32_dit(re, im, Direction.Forward), n)
+        err = oracle_err(out, re + 1j * im)
+        errs[f"fwd_2^{log_n}"] = err
+        check(f"fft_32_dit 2^{log_n}", err, 5e-7 * max(1.0, log_n / 18.0))
+    n = 1 << 16
+    re, im = signal(rng, (16, n))
+    out = run(lambda: fft_32_dit(re, im, Direction.Forward), n)
+    back = run(lambda: fft_32_dit(out[0], out[1], Direction.Reverse), n)
+    rt = rel_l2(back[0], back[1], torch.from_numpy(re).to(dev),
+                torch.from_numpy(im).to(dev))
+    errs["roundtrip_2^16x16"] = rt
+    check("round trip 2^16 x 16", rt, 1e-6)
+    planner = PlannerDit32(1 << 12)
+    for _ in range(2):
+        re, im = signal(rng, (1024, 1 << 12))
+        out = run(lambda: fft_32_dit_with_planner(re, im, Direction.Forward,
+                                                  planner), 1 << 12)
+        err = oracle_err(out, re + 1j * im)
+        errs.setdefault("planner_2^12_batch1024", []).append(err)
+        check("planner reuse 2^12 x 1024", err, 5e-7)
+    re, im = signal(rng, (1 << 17, 256))
+    out = run(lambda: fft_32_dit(re, im, Direction.Forward), 256)
+    err = oracle_err(out, re + 1j * im)
+    errs["2^17_rows_of_256"] = err
+    check("2^17 rows of 256", err, 5e-7)
+    torch.cuda.synchronize()
+    launches_leaf = {k.__name__: k.launches for k in counters}
+    emit({"phase": "e2e_leaf", "rel_l2": errs, "launches": launches_leaf,
+          "want": want_launches})
+    for name, count in want_launches.items():
+        if launches_leaf[name] != count:
+            raise AssertionError(
+                f"{name}: {launches_leaf[name]} launches, want {count}")
+    if launches_leaf["colfft_out3d"] or launches_leaf["leaft"]:
+        raise AssertionError("a leaf plan launched a two-pass kernel")
+    launches.update(leaf=launches_leaf["leaf"], leaf3=launches_leaf["leaf3"])
+    del out, back, re, im
+
+    # -- leaf times: 1 GiB of planar input, and one row for latency
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    for log_n, rows in LEAF_TIME_SHAPES:
+        n = 1 << log_n
+        planner = PlannerDit32(n)
+        fn, plain, args, table_floats = leaf_call(planner)
+        xr = torch.randn((rows, n), generator=gen, device=dev)
+        xi = torch.randn((rows, n), generator=gen, device=dev)
+        xc = torch.complex(xr, xi)
+        bound = kernel_bound(rows * n, log_n, table_floats)
+
+        def transform():
+            return fft_32_dit_with_planner(xr, xi, Direction.Forward, planner)
+
+        row = {"ms": time_ms(lambda: fn(xr, xi, *args), flush),
+               "plain_ms": time_ms(lambda: plain(xr, xi, *args), flush),
+               "bound_ms": bound[0], "bound_by": bound[1],
+               "library_ms": time_ms(lambda: torch.fft.fft(xc), flush),
+               "n": n, "rows": rows}
+        emit({"phase": "times_leaf", "kernel": fn.__name__, "card": smi, **row,
+              "transform_ms": time_ms(transform, flush),
+              "transform_wall_ms": wall_ms(transform, flush)})
+        if rows > 1 and log_n in (15, 16):  # the kernels line: the batched
+            top[fn.__name__] = row          # top size of each kernel
+        del xr, xi, xc
+
     sources = {
         "colfft_out3d": ("phastft_tpu_torch/csrc/colfft.cu",
                          "phastft_tpu/ops/pallas_col.py:490"),
         "leaft": ("phastft_tpu_torch/csrc/leaft.cu",
                   "phastft_tpu/ops/pallas_leaft.py:322"),
+        "leaf": ("phastft_tpu_torch/csrc/leaf.cu",
+                 "phastft_tpu/ops/pallas_leaf.py:151"),
+        "leaf3": ("phastft_tpu_torch/csrc/leaf3.cu",
+                  "phastft_tpu/ops/pallas_leaf.py:304"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": max_err[name],
          "ms": top[name]["ms"], "plain_ms": top[name]["plain_ms"],
          "bound_ms": top[name]["bound_ms"], "bound_by": top[name]["bound_by"],
-         "library_ms": None, "n": 1 << max(TIME_LOGS)}
+         "library_ms": top[name]["library_ms"], "n": top[name]["n"],
+         "rows": top[name]["rows"]}
         for name, (src, rep) in sources.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,8 +10,9 @@ Device rule: planners and entries take ``device=None``, which means
 ``"cuda"``; with no GPU present that raises. Pass ``device="cpu"`` to run
 on the CPU.
 
-This slice runs planar f32 for n = 2^17..2^25, forward and inverse, with
-leading batch dimensions, through the fused two-pass four-step pipeline.
+The port runs planar f32 for n = 1..2^25, forward and inverse, with
+leading batch dimensions: up to 2^16 through one leaf kernel per
+transform, above it through the fused two-pass four-step pipeline.
 Everything else raises ``NotImplementedError`` naming the ``ROADMAP.md``
 item that brings it. The package imports neither JAX nor phastft_tpu.
 """

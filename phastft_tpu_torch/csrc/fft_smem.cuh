@@ -1,5 +1,6 @@
 // In-place radix-2 DIF FFTs over sequences held in shared memory, shared by
-// the column kernel (colfft.cu) and the row kernel (leaft.cu).
+// the column kernel (colfft.cu), the row kernel (leaft.cu) and the leaf
+// kernels (leaf.cu, leaf3.cu).
 //
 // A pass retires up to three radix-2 stages in registers: each thread loads
 // a group of 2^S elements, runs the S stages on them and stores them back,
@@ -114,6 +115,22 @@ __device__ __forceinline__ void dif_fft(float* sr, float* si, int logN, int logM
       logL -= 1;
     }
     __syncthreads();
+  }
+}
+
+// tw[k] = W_m^k for k < m/2, the table dif_fft reads: row 1 of the
+// planner's F(m) (fr, fi), or with fr = NULL formed from the exact phase,
+// sincospi in double rounded once to float.
+__device__ __forceinline__ void load_twiddles(float2* tw, int m, const float* fr,
+                                              const float* fi) {
+  for (int k = threadIdx.x; k < m / 2; k += blockDim.x) {
+    if (fr != nullptr) {
+      tw[k] = make_float2(fr[m + k], fi[m + k]);
+    } else {
+      double s, c;
+      sincospi(-2.0 * k / m, &s, &c);
+      tw[k] = make_float2(static_cast<float>(c), static_cast<float>(s));
+    }
   }
 }
 

@@ -14,7 +14,8 @@ it; a tensor must already be f32 on the planner's device. Unlike the JAX
 package, which donates its input buffers, the port never writes the
 caller's tensors: every result is a new tensor.
 
-The port runs planar f32 for n = 2^17..2^25; f64 and other sizes raise
+The port runs planar f32 for n = 1..2^25 (one leaf kernel up to 2^16,
+the fused two-pass pipeline above); f64 and larger sizes raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
 """
 

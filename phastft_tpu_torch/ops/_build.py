@@ -34,11 +34,15 @@ _NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 #: C entry points and their argument types: pointers and the stream are
-#: c_void_p (a c_int would cut a 64-bit pointer), sizes are c_int.
+#: c_void_p (a c_int would cut a 64-bit pointer), sizes are c_int, and a
+#: row count whose product with n can pass 2^31 is c_int64.
 _SIGNATURES = {
     "phastft_colfft_out3d": [_P, _P, _P, _P, _I, _I, _I, _P],
     "phastft_leaft": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "phastft_leaf": [_P] * 10 + [_L, _I, _I, _P],
+    "phastft_leaf3": [_P] * 12 + [_L, _P],
 }
 
 _lock = threading.Lock()

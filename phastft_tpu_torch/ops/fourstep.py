@@ -2,20 +2,28 @@
 
 Counterpart of the JAX package's ``ops/fourstep.py``. ``plan_rows`` is
 carried verbatim, so both packages plan every size the same way. Of
-``fft_rows`` the port has the fused two-pass branch: one split level
-n = n1 * n2 whose inner plan is a leaf,
+``fft_rows`` the port has
+
+* the ``tiny`` and ``leaf`` plans (n <= 2^16): one trip through device
+  memory, ``leaf3`` when the planner holds the three-factor tables
+  ``mxu3_{n1}`` (n = 2^16), else ``leaf`` (n = 2..2^15); n = 1 is a copy;
+* the fused two-pass branch: one split level n = n1 * n2 whose inner plan
+  is a leaf,
 
     colfft_out3d   column DFT of size n1 + split twiddle -> (A, n1, 128)
     leaft          row DFTs of size n2 = A * 128, stored in natural order
 
-two trips through device memory in all. Every other branch raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
+  two trips through device memory in all.
+
+Every other branch raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that brings it.
 """
 
 from __future__ import annotations
 
 from ..errors import not_ported
 from .colfft import colfft_out3d
+from .leaf import leaf, leaf3
 from .leaft import leaft
 from .stockham import LANES
 
@@ -55,15 +63,27 @@ def plan_rows(n: int, leaf_limit: int = DEFAULT_LEAF_LIMIT):
 def fft_rows(re, im, plan, corrs):
     """DFT along the last axis of (..., n) f32 tensors following ``plan``.
 
-    ``corrs``: the planner's tables; the fused two-pass branch runs when
-    ``pcolT{n1}x{n2}`` and ``leafT{n2}`` are present, the inner plan is a
-    leaf and 128 <= n1 <= 2048 with n1 % 128 == 0 (the JAX package's
-    gates)."""
+    ``corrs``: the planner's tables under the JAX planner's keys. A leaf
+    plan runs ``leaf3`` on ``mxu3_{n1}`` when present, else ``leaf`` on
+    ``mxu{n1}[:6] + leaf{n1}`` (all of ``mxu1`` at n1 = 1); a tiny plan
+    needs no table. The fused two-pass branch runs when ``pcolT{n1}x{n2}``
+    and ``leafT{n2}`` are present, the inner plan is a leaf and
+    128 <= n1 <= 2048 with n1 % 128 == 0 (the JAX package's gates).
+    Every branch returns new tensors."""
     kind = plan[0]
     if kind == "tiny":
-        raise not_ported(f"the tiny plan (n = {plan[1]})", "leaf")
+        if plan[1] == 1:
+            return re.clone(), im.clone()
+        return leaf(re, im, (), 1)
     if kind == "leaf":
-        raise not_ported(f"the leaf plan (n = {plan[1] * LANES})", "leaf")
+        n1 = plan[1]
+        mats3 = corrs.get(f"mxu3_{n1}")
+        if mats3 is not None:
+            return leaf3(re, im, mats3, mats3[0].shape[0], mats3[3].shape[0])
+        mats = corrs[f"mxu{n1}"]
+        if n1 > 1:
+            mats = mats[:6] + tuple(corrs[f"leaf{n1}"])
+        return leaf(re, im, mats, n1)
     _, n1, plan2, n2 = plan
     if plan2[0] != "leaf":
         raise not_ported(f"the nested split plan {plan}", "nested")

@@ -1,0 +1,279 @@
+"""Leaf transforms: the whole DFT of every row in one kernel.
+
+Counterpart of the JAX package's ``ops/pallas_leaf.py`` (``leaf_fft_pallas``
+and ``leaf_fft_pallas3``), of ``ops/mxu.leaf_fft_mxu`` at n1 = 1 and of
+``ops/stockham.tiny_fft``. Rows are (..., n) f32 planar pairs; the result
+is their length-n DFT in natural order, as new tensors.
+
+``leaf(re, im, mats, n1)`` takes every n = 2..2^15:
+
+* n = n1 * 128, n1 = 2..256, ``mats`` = the JAX planner's
+  ``mxu{n1}[:6] + leaf{n1}``: t = F(n1) over i1, u = t * W_n^(k1*i2),
+  v = u * F(128) over i2, out = X[k1 + n1*k2] (``leaf_fft_pallas``);
+* n = 128 (n1 = 1), ``mats`` = ``mxu1`` (F(n1) and the correction are
+  zero-size placeholders): one F(128) (``leaf_fft_mxu``);
+* n = 2..64, ``mats = ()``, n1 = 1: one F(n) (``tiny_fft``; the kernel
+  forms W_n^k from the exact phase, so this needs no table).
+
+``leaf3(re, im, mats, a, b)`` takes n = a * 4 * b, ``mats`` = the JAX
+planner's ``mxu3_{n1}``: F(a) over i_a, W_n^(k_a*i_r), a radix-4 of adds
+over i_p, W_4b^(p*i_b), F(b) over i_b, out = X[k_a + a*k_p + 4a*k_b]
+(``leaf_fft_pallas3``). The kernel takes a = b = 128 (n = 2^16).
+
+On CUDA tensors the wrappers launch the hand-written kernels
+``csrc/leaf.cu`` and ``csrc/leaf3.cu``; on CPU tensors they run
+``leaf_plain`` and ``leaf3_plain``, the same functions in plain torch that
+follow the JAX kernels' arithmetic (dense DFT products, see ``_cmul``). Both
+kernels are bound by memory (16 B per complex element, read once and
+written once). A block keeps whole rows in shared memory (several rows
+below 2^13 points) and stages its stores there, so loads and stores are
+contiguous float4 accesses; a row of 2^15 points is held by a cluster of
+2 blocks and one of 2^16 by a cluster of 4, which exchange the second
+factor's data through distributed shared memory.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ._build import library
+from .mxu import dft_matrix_host
+from .stockham import LANES
+
+__all__ = ["leaf", "leaf_plain", "leaf3", "leaf3_plain"]
+
+#: Largest n1 of ``leaf`` (n = 2^15, the largest two-factor leaf plan).
+MAX_N1 = 256
+
+
+def _check_pair(name, re, im, tables):
+    for x in (re, im, *tables):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} takes torch tensors")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} is float32 only, got {x.dtype}")
+        if x.device != re.device:
+            raise ValueError(f"{name}: all tensors must be on one device")
+    if re.shape != im.shape or re.dim() < 1:
+        raise ValueError(
+            f"{name}: expected (..., n) planar pairs, got {tuple(re.shape)} "
+            f"and {tuple(im.shape)}"
+        )
+    batch = tuple(re.shape[:-1])
+    return batch, int(np.prod(batch)) if batch else 1, int(re.shape[-1])
+
+
+def _check(re, im, mats, n1: int):
+    """Validate ``leaf``'s arguments; return (batch shape, flat batch, n)."""
+    mats = tuple(mats)
+    batch, b, n = _check_pair("leaf", re, im, mats)
+    if not mats:
+        if n1 != 1 or n < 2 or n >= LANES or n & (n - 1):
+            raise ValueError(f"leaf: a tiny row (no tables) needs 2 <= n < "
+                             f"{LANES}, a power of 2, and n1 = 1; got n={n}, "
+                             f"n1={n1}")
+        return batch, b, n
+    if n1 < 1 or n1 > MAX_N1 or n1 & (n1 - 1) or n != n1 * LANES:
+        raise ValueError(f"leaf: unsupported shape n={n}, n1={n1}")
+    if n1 == 1:
+        want = [(0,)] * 3 + [(LANES, LANES)] * 3 + [(0,)] * 2
+    else:
+        want = [(n1, n1)] * 3 + [(LANES, LANES)] * 3 + [(n1, LANES)] * 2
+    if [tuple(x.shape) for x in mats] != want:
+        raise ValueError(f"leaf: tables do not match n1={n1}")
+    return batch, b, n
+
+
+def _check3(re, im, mats, a: int, b: int):
+    """Validate ``leaf3``'s arguments; return (batch shape, flat batch, n)."""
+    mats = tuple(mats)
+    batch, bs, n = _check_pair("leaf3", re, im, mats)
+    if a < 1 or b < 1 or a & (a - 1) or b & (b - 1) or n != a * 4 * b:
+        raise ValueError(f"leaf3: unsupported shape n={n}, a={a}, b={b}")
+    want = [(a, a)] * 3 + [(b, b)] * 3 + [(a, 4 * b)] * 2 + [(4, b)] * 2
+    if [tuple(x.shape) for x in mats] != want:
+        raise ValueError(f"leaf3: tables do not match a={a}, b={b}")
+    return batch, bs, n
+
+
+def _full_f32_matmuls(x):
+    # the plain versions' products stay full f32 on the card
+    if x.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _cmul(ar, ai, br, bi):
+    """(ar + i ai) @ (br + i bi) as four real products. The JAX kernels'
+    three-product Karatsuba form (p3 - p1 - p2, with the tables' sums f*s)
+    adds rounding: at n = 2^15 it reads 5.0e-7 rel L2 from numpy's f64 FFT
+    on the CPU, over the 5e-7 bound, where this form reads 3.5e-7."""
+    return (torch.matmul(ar, br) - torch.matmul(ai, bi),
+            torch.matmul(ar, bi) + torch.matmul(ai, br))
+
+
+@functools.lru_cache(maxsize=16)
+def _tiny_mats(n: int, device: torch.device):
+    fr, fi = dft_matrix_host(n, "float32")
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (fr, fi))
+
+
+def leaf_plain(re, im, mats, n1: int):
+    """Plain-torch leaf: same arguments and result as ``leaf``. The
+    products are dense, as the JAX kernels' are (see ``_cmul``); F(m) is
+    symmetric, so x @ F(m) contracts the index of each row."""
+    mats = tuple(mats)
+    batch, b, n = _check(re, im, mats, n1)
+    _full_f32_matmuls(re)
+    if not mats:
+        xr, xi = re.reshape(b, n), im.reshape(b, n)
+        vr, vi = _cmul(xr, xi, *_tiny_mats(n, re.device))
+    elif n1 == 1:
+        xr, xi = re.reshape(b, LANES), im.reshape(b, LANES)
+        vr, vi = _cmul(xr, xi, mats[3], mats[4])
+    else:
+        f1r, f1i, _, f2r, f2i, _, cr, ci = mats
+        xr = re.reshape(b, n1, LANES)
+        xi = im.reshape(b, n1, LANES)
+        # t = F(n1) @ x over i1, u = t * W_n^(k1*i2)
+        tr, ti = _cmul(f1r, f1i, xr, xi)
+        ur = tr * cr - ti * ci
+        ui = tr * ci + ti * cr
+        # v = u @ F(128) over i2; natural order X[k1 + n1*k2] = v^T
+        vr, vi = _cmul(ur, ui, f2r, f2i)
+        vr, vi = vr.transpose(1, 2), vi.transpose(1, 2)
+    return vr.reshape(batch + (n,)), vi.reshape(batch + (n,))
+
+
+def leaf3_plain(re, im, mats, a: int, b: int):
+    """Plain-torch three-factor leaf: same arguments and result as
+    ``leaf3``, in the JAX kernel's order (F(a), c1, radix-4 of adds, c2,
+    F(b), lane-block concat), with ``_cmul``'s dense products."""
+    mats = tuple(mats)
+    batch, bs, n = _check3(re, im, mats, a, b)
+    _full_f32_matmuls(re)
+    f1r, f1i, _, f2r, f2i, _, c1r, c1i, c2r, c2i = mats
+    xr = re.reshape(bs, a, 4 * b)
+    xi = im.reshape(bs, a, 4 * b)
+    # t = F(a) @ x over i_a, u = t * W_n^(k_a*i_r)
+    tr, ti = _cmul(f1r, f1i, xr, xi)
+    ur = tr * c1r - ti * c1i
+    ui = tr * c1i + ti * c1r
+    # radix-4 over i_p: y_p = sum_j s_j W_4^(j*p), -i*h = (h_i, -h_r)
+    sr = [ur[..., j * b:(j + 1) * b] for j in range(4)]
+    si = [ui[..., j * b:(j + 1) * b] for j in range(4)]
+    e_r, e_i = sr[0] + sr[2], si[0] + si[2]
+    d_r, d_i = sr[0] - sr[2], si[0] - si[2]
+    g_r, g_i = sr[1] + sr[3], si[1] + si[3]
+    h_r, h_i = sr[1] - sr[3], si[1] - si[3]
+    y = ((e_r + g_r, e_i + g_i), (d_r + h_i, d_i - h_r),
+         (e_r - g_r, e_i - g_i), (d_r - h_i, d_i + h_r))
+    outs_r, outs_i = [], []
+    for p, (yr, yi) in enumerate(y):
+        # w_p = y_p * W_4b^(p*i_b); o_p[k_b, k_a] = F(b) over i_b
+        wr = (yr * c2r[p] - yi * c2i[p]).transpose(1, 2)
+        wi = (yr * c2i[p] + yi * c2r[p]).transpose(1, 2)
+        o_r, o_i = _cmul(f2r, f2i, wr, wi)
+        outs_r.append(o_r)
+        outs_i.append(o_i)
+    # flat k_b*(4a) + p*a + k_a == k_a + a*k_p + 4a*k_b
+    out_r = torch.cat(outs_r, dim=-1).reshape(batch + (n,))
+    out_i = torch.cat(outs_i, dim=-1).reshape(batch + (n,))
+    return out_r, out_i
+
+
+def _cuda_args(name, re, im, tables):
+    """Check what the kernels need beyond the shapes; return the outputs."""
+    if re.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {re.device}")
+    if not all(x.is_contiguous() for x in (re, im, *tables)):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if re.data_ptr() % 16 or im.data_ptr() % 16:
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    return torch.empty_like(re), torch.empty_like(im)
+
+
+def leaf(re, im, mats, n1: int):
+    """Length-n DFT of every row of (..., n) f32 planar tensors, n = 2..2^15,
+    in natural order (see the module docstring for ``mats`` and ``n1``).
+
+    On CUDA it launches ``csrc/leaf.cu`` on the current stream (the kernel
+    reads row 1 of F(n1) and F(128) as its twiddle tables, and the
+    (n1, 128) correction); a CPU tensor runs ``leaf_plain``. Inputs are
+    read, never written; the outputs are new tensors. Each launch adds one
+    to ``leaf.launches``.
+
+    Replaces ``phastft_tpu/ops/pallas_leaf.py`` ``leaf_fft_pallas`` (and
+    the XLA leaves at n <= 128). Bound by memory; the kernel holds whole
+    rows, several per block below 2^13 points, in shared memory and stages
+    the transposed store there so it writes contiguous float4s; at 2^15 a
+    cluster of 2 blocks holds a row and trades halves through distributed
+    shared memory. Any batch: rows go in ``gridDim.x``."""
+    mats = tuple(mats)
+    _, b, n = _check(re, im, mats, n1)
+    if re.device.type == "cpu":
+        return leaf_plain(re, im, mats, n1)
+    ore, oim = _cuda_args("leaf", re, im, mats)
+    if not mats:
+        ptrs = [None] * 6
+    elif n1 == 1:
+        ptrs = [None, None, mats[3].data_ptr(), mats[4].data_ptr(), None, None]
+    else:
+        ptrs = [mats[i].data_ptr() for i in (0, 1, 3, 4, 6, 7)]
+    lib = library()
+    with torch.cuda.device(re.device):
+        stream = torch.cuda.current_stream(re.device).cuda_stream
+        err = lib.phastft_leaf(re.data_ptr(), im.data_ptr(), *ptrs,
+                               ore.data_ptr(), oim.data_ptr(), b, n1,
+                               n // n1, stream)
+    if err != 0:
+        raise RuntimeError(f"leaf: kernel launch failed, CUDA error {err}")
+    leaf.launches += 1
+    return ore, oim
+
+
+leaf.launches = 0
+
+
+def leaf3(re, im, mats, a: int, b: int):
+    """Length-n DFT of every row of (..., n) f32 planar tensors, n = a*4*b,
+    in natural order, through the three-factor split of the tables
+    ``mats`` (``mxu_leaf_tables3_host(a, b)`` on the tensors' device).
+
+    On CUDA it launches ``csrc/leaf3.cu`` on the current stream, for
+    a = b = 128 (n = 2^16); a CPU tensor runs ``leaf3_plain`` at any (a, b).
+    Inputs are read, never written; the outputs are new tensors. Each
+    launch adds one to ``leaf3.launches``.
+
+    Replaces ``phastft_tpu/ops/pallas_leaf.py`` ``leaf_fft_pallas3``.
+    Bound by memory; a row (512 KB) is held by a cluster of 4 blocks: block
+    p runs F(a) and c1 on its slab i_p = p, the cluster trades slabs
+    through distributed shared memory, then block c runs the radix-4, c2
+    and F(b) for k_a in [32c, 32c + 32) and stores 32 contiguous floats per
+    (k_b, p). Any batch: rows go in ``gridDim.x``."""
+    mats = tuple(mats)
+    _, bs, _ = _check3(re, im, mats, a, b)
+    if re.device.type == "cpu":
+        return leaf3_plain(re, im, mats, a, b)
+    ore, oim = _cuda_args("leaf3", re, im, mats)
+    if a != LANES or b != LANES:
+        raise ValueError(f"leaf3: the kernel takes a = b = {LANES}, got "
+                         f"a={a}, b={b}")
+    lib = library()
+    with torch.cuda.device(re.device):
+        stream = torch.cuda.current_stream(re.device).cuda_stream
+        err = lib.phastft_leaf3(
+            re.data_ptr(), im.data_ptr(),
+            *(mats[i].data_ptr() for i in (0, 1, 3, 4, 6, 7, 8, 9)),
+            ore.data_ptr(), oim.data_ptr(), bs, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"leaf3: kernel launch failed, CUDA error {err}")
+    leaf3.launches += 1
+    return ore, oim
+
+
+leaf3.launches = 0

@@ -3,7 +3,9 @@
 Counterpart of ``LANES`` and ``leaf_correction_host`` in the JAX
 package's ``ops/stockham.py``. Only the numpy branch is carried: the JAX
 builder hands tables of n1 * lanes >= 2^16 to its C++ host runtime, and
-the port's row pass needs at most A * 128 = 2^14.
+the port asks for at most (256, 128) = 2^15 points (the leaf plans up to
+2^15; the row pass of the split plans needs A * 128 <= 2^14), so the
+numpy branch is the one the JAX builder takes there too.
 """
 
 from __future__ import annotations

@@ -2,10 +2,20 @@
 
 Counterpart of the JAX package's ``planner.py``. A planner is built once
 per size and reused across calls and directions. The f32 planner builds
-only the tables of the fused two-pass pipeline: ``pcolT{n1}x{n2}`` (the
-column pass's T2 split-twiddle table) and ``leafT{n2}`` (the row pass's
-DFT matrices and correction), under the JAX planner's gates. Twiddles are
-exact f64 angles rounded once to f32 (the reference's accuracy contract).
+only the tables its plan's kernels read, under the JAX planner's keys and
+layouts:
+
+* a tiny plan (n < 128): none;
+* a leaf plan of n1 = 1..256 (n = 2^7..2^15): ``mxu{n1}`` (F(n1), F(128)
+  with their Karatsuba sums and the transposed correction, zero-size
+  placeholders at n1 = 1) and ``leaf{n1}`` (the (n1, 128) correction,
+  n1 >= 2); at n = 2^16 (n1 = 512): ``mxu3_512`` only;
+* a split plan: ``pcolT{n1}x{n2}`` (the column pass's T2 split-twiddle
+  table) and ``leafT{n2}`` (the row pass's DFT matrices and correction),
+  under the JAX planner's gates.
+
+Twiddles are exact f64 angles rounded once to f32 (the reference's
+accuracy contract).
 
 ``PlannerDit32.from_numpy_tables`` builds a planner on tables handed over
 as numpy arrays, for instance the JAX planner's ``leaf_corrs``, so both
@@ -25,7 +35,8 @@ from .options import Options
 from .ops.colfft import col_split_tables_host, col_tile3d
 from .ops.fourstep import plan_rows
 from .ops.leaft import leaft_tables_host
-from .ops.stockham import LANES
+from .ops.mxu import mxu_leaf_tables3_host, mxu_leaf_tables_host
+from .ops.stockham import LANES, leaf_correction_host
 
 __all__ = [
     "Direction",
@@ -35,9 +46,12 @@ __all__ = [
     "resolve_device",
 ]
 
-#: The sizes the port runs: the fused two-pass window of the f32 plans.
-MIN_LOG_N = 17
+#: The largest size the port runs: the top of the fused two-pass window.
 MAX_LOG_N = 25
+
+#: Leaf factor of the three-factor leaf (n = 2^16 = 128 * 4 * 128), the
+#: only leaf past 2^15 that the default leaf rule plans.
+LEAF3_N1 = 512
 
 
 class Direction(enum.Enum):
@@ -89,8 +103,24 @@ def _two_pass_levels(plan):
         node = sub
 
 
+def _leaf_tables_host(n1: int, dtype_name: str):
+    """{key: host arrays} of the tables a ("leaf", n1) plan's kernel reads,
+    as the JAX planner holds them."""
+    if n1 == LEAF3_N1:
+        return {f"mxu3_{n1}": mxu_leaf_tables3_host(LANES, LANES, dtype_name)}
+    f1, f2, corr = mxu_leaf_tables_host(n1, dtype_name)
+    zero = np.zeros((0,), np.dtype(dtype_name))
+    out = {f"mxu{n1}": (*(f1 or (zero,) * 3), *f2, *(corr or (zero,) * 2))}
+    if n1 > 1:
+        out[f"leaf{n1}"] = leaf_correction_host(n1, LANES, dtype_name)
+    return out
+
+
 def _table_shapes(plan):
     """{key: [shape of each array]} of the tables the plan needs."""
+    if plan[0] == "leaf":
+        return {k: [a.shape for a in v]
+                for k, v in _leaf_tables_host(plan[1], "float32").items()}
     out = {}
     for sn1, sn2 in _two_pass_levels(plan):
         a = sn2 // LANES
@@ -108,7 +138,7 @@ def _to_device(arrays, device):
 
 
 class PlannerDit32:
-    """f32 DIT planner for n = 2^17..2^25 on ``device`` (None = "cuda")."""
+    """f32 DIT planner for n = 1..2^25 on ``device`` (None = "cuda")."""
 
     dtype = np.dtype(np.float32)
 
@@ -121,6 +151,10 @@ class PlannerDit32:
     ):
         self._setup(n, mode, options, device)
         self.leaf_corrs = {}
+        if self.plan[0] == "leaf":
+            for key, arrays in _leaf_tables_host(self.plan[1],
+                                                 self.dtype.name).items():
+                self.leaf_corrs[key] = _to_device(arrays, self.device)
         for sn1, sn2 in _two_pass_levels(self.plan):
             self.leaf_corrs[f"pcolT{sn1}x{sn2}"] = _to_device(
                 col_split_tables_host(sn1, sn2, self.dtype.name,
@@ -137,8 +171,6 @@ class PlannerDit32:
         self.mode = mode
         if mode is PlannerMode.Tune:
             raise not_ported("PlannerMode.Tune", "tune")
-        if self.log_n < MIN_LOG_N:
-            raise not_ported(f"f32 n = 2^{self.log_n}", "leaf")
         if self.log_n > MAX_LOG_N:
             raise not_ported(f"f32 n = 2^{self.log_n}", "nested")
         self.device = resolve_device(device)
@@ -147,15 +179,19 @@ class PlannerDit32:
             else Options.guess_options(n, self.dtype)
         )
         self.plan = plan_rows(n, self.options.leaf_fft_size)
+        if self.plan[0] == "leaf" and self.plan[1] > LEAF3_N1:
+            raise not_ported(f"a leaf of {n} points", "big_leaf")
 
     @classmethod
     def from_numpy_tables(cls, n: int, tables, device=None,
                           options: Optional[Options] = None):
         """A planner for size ``n`` on ``device`` whose tables are exactly
-        the given arrays. ``tables`` maps ``pcolT{n1}x{n2}`` to (t2r, t2i)
-        and ``leafT{n2}`` to its 8 arrays, as the JAX planner's
-        ``leaf_corrs`` holds them (other keys are ignored). Raises if a
-        table the plan needs is missing, of another shape, or not f32."""
+        the given arrays. ``tables`` maps each key the plan reads
+        (``mxu{n1}``, ``leaf{n1}`` or ``mxu3_512`` for a leaf plan,
+        ``pcolT{n1}x{n2}`` and ``leafT{n2}`` for a split plan) to its
+        arrays, as the JAX planner's ``leaf_corrs`` holds them (other keys
+        are ignored). Raises if a table the plan needs is missing, of
+        another shape, or not f32."""
         self = cls.__new__(cls)
         self._setup(n, PlannerMode.Heuristic, options, device)
         self.leaf_corrs = {}

@@ -105,6 +105,79 @@ def test_planner_from_jax_tables():
         pt.PlannerDit32.from_numpy_tables(N, {}, device="cpu")
 
 
+# -- the leaf plans, n <= 2^16 ------------------------------------------------
+
+@pytest.mark.parametrize("log_n", [0, 1, 3, 6, 7, 8, 12, 15, 16])
+@pytest.mark.parametrize("direction", ["Forward", "Reverse"])
+def test_leaf_sizes_match_jax_and_numpy(log_n, direction):
+    n = 1 << log_n
+    rng = np.random.default_rng(100 + log_n)
+    re, im = _pair(rng, (3, n))
+    got = pt.fft_32_dit(re, im, getattr(pt.Direction, direction), device="cpu")
+    assert all(tuple(x.shape) == (3, n) and x.dtype == torch.float32
+               for x in got)
+    ref = phastft_tpu.fft_32_dit(re, im, getattr(phastft_tpu.Direction, direction))
+    x = re.astype(np.float64) + 1j * im
+    want = np.fft.fft(x, axis=-1) if direction == "Forward" else np.fft.ifft(x, axis=-1)
+    g = _c((got[0].numpy(), got[1].numpy()))
+    assert _rel(g, want) <= _bound(n)
+    assert _rel(g, _c(ref)) <= 1e-6
+
+
+@pytest.mark.parametrize("log_n", [6, 12, 16])
+def test_leaf_leading_batch_dims(log_n):
+    n = 1 << log_n
+    rng = np.random.default_rng(40 + log_n)
+    re, im = _pair(rng, (2, 3, n))
+    got = pt.fft_32_dit(re, im, pt.Direction.Forward, device="cpu")
+    assert tuple(got[0].shape) == (2, 3, n)
+    want = np.fft.fft(re.astype(np.float64) + 1j * im, axis=-1)
+    assert _rel(_c((got[0].numpy(), got[1].numpy())), want) <= _bound(n)
+
+
+def test_leaf_roundtrip():
+    n = 1 << 16
+    rng = np.random.default_rng(6)
+    re, im = _pair(rng, (2, n))
+    fwd = pt.fft_32_dit(re, im, pt.Direction.Forward, device="cpu")
+    back = pt.fft_32_dit(fwd[0], fwd[1], pt.Direction.Reverse, device="cpu")
+    x = re.astype(np.float64) + 1j * im
+    assert _rel(_c((back[0].numpy(), back[1].numpy())), x) <= 1e-6
+
+
+@pytest.mark.parametrize("log_n", [8, 16])
+def test_leaf_planner_from_jax_tables(log_n):
+    """A leaf planner built on the JAX planner's leaf_corrs (which hold
+    more keys than the port reads) computes what the port's own does."""
+    n = 1 << log_n
+    jp = phastft_tpu.PlannerDit32(n)
+    tables = {k: tuple(np.asarray(a) for a in v)
+              for k, v in jp.leaf_corrs.items()}
+    carried = pt.PlannerDit32.from_numpy_tables(n, tables, device="cpu")
+    own = pt.PlannerDit32(n, device="cpu")
+    assert carried.plan == own.plan == jp.plan
+    assert set(carried.leaf_corrs) == set(own.leaf_corrs)
+    rng = np.random.default_rng(log_n)
+    re, im = _pair(rng, (2, n))
+    a = pt.fft_32_dit_with_planner(re, im, pt.Direction.Forward, carried)
+    b = pt.fft_32_dit_with_planner(re, im, pt.Direction.Forward, own)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_length_one_returns_new_tensors():
+    """n = 1 is a copy: new tensors, and the inverse's 1/n scale, applied
+    in place to the result, never reaches the caller's tensors."""
+    re = torch.arange(3, dtype=torch.float32).reshape(3, 1) + 1.0
+    im = -re
+    keep_re, keep_im = re.clone(), im.clone()
+    for direction in (pt.Direction.Forward, pt.Direction.Reverse):
+        out = pt.fft_32_dit(re, im, direction, device="cpu")
+        assert all(o.data_ptr() not in (re.data_ptr(), im.data_ptr())
+                   for o in out)
+        assert torch.equal(out[0], keep_re) and torch.equal(out[1], keep_im)
+    assert torch.equal(re, keep_re) and torch.equal(im, keep_im)
+
+
 # -- error paths (tests/test_errors.py on the f32 entries) -------------------
 
 def test_non_power_of_two_raises():
@@ -174,12 +247,21 @@ def test_tensor_dtype_and_device_checked():
 
 # -- outside the slice --------------------------------------------------------
 
-@pytest.mark.parametrize("log_n,item", [(16, "item 2"), (26, "item 3")])
-def test_sizes_outside_slice_not_implemented(log_n, item):
+@pytest.mark.parametrize("log_n,leaf,item", [
+    (26, None, "item 3"),       # nested plans
+    (17, 1 << 16, "item 6"),    # a split the fused two-pass gates refuse
+    (17, 1 << 17, "item 14"),   # a leaf past 2^16
+])
+def test_sizes_outside_slice_not_implemented(log_n, leaf, item):
     n = 1 << log_n
+    x = np.zeros(n, np.float32)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        pt.fft_32_dit(np.zeros(n, np.float32), np.zeros(n, np.float32),
-                      pt.Direction.Forward, device="cpu")
+        if leaf is None:
+            pt.fft_32_dit(x, x, pt.Direction.Forward, device="cpu")
+        else:
+            planner = pt.PlannerDit32(
+                n, options=pt.Options(leaf_fft_size=leaf), device="cpu")
+            pt.fft_32_dit_with_planner(x, x, pt.Direction.Forward, planner)
 
 
 @pytest.mark.parametrize("entry", ["fft_64_dit", "fft_64_dit_with_planner",

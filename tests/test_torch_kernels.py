@@ -152,3 +152,147 @@ def test_wrappers_reject_bad_arguments(bad):
             colfft_out3d(x, x, (tabs[0][:, :128], tabs[1][:, :128]), n1)
         with pytest.raises(ValueError):
             leaft(c, c, mats[:6], n1)
+
+
+# -- the leaf kernels (n <= 2^16) -------------------------------------------
+
+def _oracle(re, im):
+    want = np.fft.fft(re.astype(np.float64) + 1j * im, axis=-1)
+    return want.real, want.imag
+
+
+@pytest.mark.parametrize("n1,rows", [(16, 4), (16, 2), (4, 8), (4, 9)])
+def test_leaf_plain_matches_pallas(n1, rows):
+    """leaf_plain against leaf_fft_pallas on the JAX planner's tables. At 9
+    rows the TPU kernel declines the batch (it does not tile by 4) and the
+    JAX package runs leaf_fft_mxu: the port's leaf takes it."""
+    import jax.numpy as jnp
+    from phastft_tpu.ops.mxu import leaf_fft_mxu
+    from phastft_tpu.ops.pallas_leaf import leaf_fft_pallas
+    from phastft_tpu.planner import PlannerDit32 as JaxPlanner
+
+    from phastft_tpu_torch.ops import leaf as leaf_mod
+
+    n = n1 * 128
+    corrs = JaxPlanner(n).leaf_corrs
+    pmats = corrs[f"mxu{n1}"][:6] + corrs[f"leaf{n1}"]
+    rng = np.random.default_rng(n1 * 10 + rows)
+    re, im = _pair(rng, (rows, n))
+    want = _run_interpret(leaf_fft_pallas, jnp.asarray(re), jnp.asarray(im),
+                          pmats, n1)
+    if rows == 9:
+        assert want is None
+        want = leaf_fft_mxu(jnp.asarray(re), jnp.asarray(im),
+                            corrs[f"mxu{n1}"], n1)
+    before = leaf_mod.leaf.launches
+    got = leaf_mod.leaf(torch.from_numpy(re), torch.from_numpy(im),
+                        tuple(torch.from_numpy(np.array(a)) for a in pmats),
+                        n1)
+    assert leaf_mod.leaf.launches == before  # CPU: no kernel launch
+    assert tuple(got[0].shape) == (rows, n)
+    assert _rel(got, want) <= TOL
+    assert _rel(got, _oracle(re, im)) <= 5e-7
+
+
+def test_leaf_plain_n1_1_matches_mxu_leaf():
+    """n = 128: one F(128) on the JAX planner's mxu1 (zero-size F(1) and
+    correction placeholders), against leaf_fft_mxu."""
+    import jax.numpy as jnp
+    from phastft_tpu.ops.mxu import leaf_fft_mxu
+    from phastft_tpu.planner import PlannerDit32 as JaxPlanner
+
+    from phastft_tpu_torch.ops.leaf import leaf
+
+    mats = JaxPlanner(128).leaf_corrs["mxu1"]
+    rng = np.random.default_rng(1)
+    re, im = _pair(rng, (3, 128))
+    want = leaf_fft_mxu(jnp.asarray(re), jnp.asarray(im), mats, 1)
+    got = leaf(torch.from_numpy(re), torch.from_numpy(im),
+               tuple(torch.from_numpy(np.array(a)) for a in mats), 1)
+    assert _rel(got, want) <= TOL
+    assert _rel(got, _oracle(re, im)) <= 5e-7
+
+
+@pytest.mark.parametrize("log_n", [1, 3, 6])
+def test_leaf_plain_tiny_matches_tiny_fft(log_n):
+    """n < 128, no tables: one dense F(n), against the JAX tiny_fft."""
+    import jax.numpy as jnp
+    from phastft_tpu.ops.stockham import tiny_fft
+    from phastft_tpu.planner import PlannerDit32 as JaxPlanner
+
+    from phastft_tpu_torch.ops.leaf import leaf
+
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    re, im = _pair(rng, (5, n))
+    want = tiny_fft(jnp.asarray(re), jnp.asarray(im),
+                    JaxPlanner(n).fast_tables, n)
+    got = leaf(torch.from_numpy(re), torch.from_numpy(im), (), 1)
+    assert _rel(got, want) <= TOL
+    assert _rel(got, _oracle(re, im)) <= 5e-7
+
+
+@pytest.mark.parametrize("a,b,rows", [(8, 8, 4), (16, 8, 2), (8, 16, 3),
+                                      (128, 128, 4)])
+def test_leaf3_plain_matches_pallas(a, b, rows):
+    import jax.numpy as jnp
+    from phastft_tpu.ops.pallas_leaf import leaf_fft_pallas3
+
+    from phastft_tpu_torch.ops import leaf as leaf_mod
+    from phastft_tpu_torch.ops.mxu import mxu_leaf_tables3_host
+
+    n = a * 4 * b
+    host = mxu_leaf_tables3_host(a, b, "float32")
+    rng = np.random.default_rng(a * 31 + b + rows)
+    re, im = _pair(rng, (rows, n))
+    want = _run_interpret(leaf_fft_pallas3, jnp.asarray(re), jnp.asarray(im),
+                          tuple(jnp.asarray(t) for t in host), a, b)
+    before = leaf_mod.leaf3.launches
+    got = leaf_mod.leaf3(torch.from_numpy(re), torch.from_numpy(im),
+                         tuple(torch.from_numpy(t) for t in host), a, b)
+    assert leaf_mod.leaf3.launches == before
+    assert tuple(got[0].shape) == (rows, n)
+    assert _rel(got, want) <= TOL
+    # the bound of tests/test_pallas_leaf.py: 5e-6 at the small (a, b)
+    assert _rel(got, _oracle(re, im)) <= (5e-7 if a == 128 else 5e-6)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "tables", "device"])
+def test_leaf_wrappers_reject_bad_arguments(bad):
+    from phastft_tpu_torch.ops.leaf import leaf, leaf3
+    from phastft_tpu_torch.ops.mxu import mxu_leaf_tables3_host
+    from phastft_tpu_torch.planner import PlannerDit32
+
+    n1 = 4
+    x = torch.zeros(2, n1 * 128)
+    corrs = PlannerDit32(n1 * 128, device="cpu").leaf_corrs
+    mats = corrs[f"mxu{n1}"][:6] + corrs[f"leaf{n1}"]
+    x3 = torch.zeros(2, 8 * 4 * 8)
+    mats3 = tuple(torch.from_numpy(t) for t in mxu_leaf_tables3_host(8, 8, "float32"))
+    if bad == "dtype":
+        with pytest.raises(TypeError):
+            leaf(x.double(), x.double(), mats, n1)
+        with pytest.raises(TypeError):
+            leaf3(x3.double(), x3.double(), mats3, 8, 8)
+    elif bad == "shape":
+        with pytest.raises(ValueError):
+            leaf(x, x, mats, n1 * 2)
+        with pytest.raises(ValueError):
+            leaf(torch.zeros(2, 128 * 512), torch.zeros(2, 128 * 512), mats, 512)
+        with pytest.raises(ValueError):
+            leaf(torch.zeros(3, 1), torch.zeros(3, 1), (), 1)  # n = 1: a copy
+        with pytest.raises(ValueError):
+            leaf3(x3, x3[:, :128], mats3, 8, 8)
+    elif bad == "tables":
+        with pytest.raises(ValueError):
+            leaf(x, x, mats[:6], n1)
+        with pytest.raises(ValueError):
+            leaf(x, x, (), n1)
+        with pytest.raises(ValueError):
+            leaf3(x3, x3, mats3[:8], 8, 8)
+    else:
+        with pytest.raises(ValueError, match="device"):
+            leaf(x.to("meta"), x.to("meta"), tuple(t.to("meta") for t in mats), n1)
+        with pytest.raises(ValueError, match="device"):
+            leaf3(x3.to("meta"), x3.to("meta"), tuple(t.to("meta") for t in mats3),
+                  8, 8)

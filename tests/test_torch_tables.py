@@ -93,3 +93,86 @@ def test_planner_tables_match_jax_planner():
     assert set(mine.leaf_corrs) == {"pcolT128x2048", "leafT2048"}
     for key, arrays in mine.leaf_corrs.items():
         _same([a.numpy() for a in arrays], [np.asarray(a) for a in ref[key]])
+
+
+# -- the leaf plans (n <= 2^16) ----------------------------------------------
+
+@pytest.mark.parametrize("n2", (*N2S, 256, 1 << 15))
+def test_leaf_correction_leaf_sizes_bitwise(n2):
+    """leaf_correction_host at the leaf plans' (n1, 128), n1 = 2 and 256, as
+    well as the row pass's (A, 128)."""
+    from phastft_tpu.ops.stockham import leaf_correction_host as jax_corr
+
+    from phastft_tpu_torch.ops.stockham import leaf_correction_host
+
+    n1 = n2 // 128
+    _same(leaf_correction_host(n1, 128, "float32"),
+          jax_corr(n1, 128, "float32"))
+
+
+@pytest.mark.parametrize("n1", [1, 2, 32, 256])
+def test_mxu_leaf_tables_bitwise(n1):
+    from phastft_tpu.ops.mxu import mxu_leaf_tables_host as jax_tables
+
+    from phastft_tpu_torch.ops.mxu import mxu_leaf_tables_host
+
+    got, want = mxu_leaf_tables_host(n1, "float32"), jax_tables(n1, "float32")
+    # (F(n1), F(128), correction); F(n1) and the correction are None at 1
+    assert [g is None for g in got] == [n1 == 1, False, n1 == 1]
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            _same(g, w)
+
+
+@pytest.mark.parametrize("a,b", [(8, 8), (128, 128)])
+def test_mxu_leaf_tables3_bitwise(a, b):
+    from phastft_tpu.ops.mxu import mxu_leaf_tables3_host as jax_tables
+
+    from phastft_tpu_torch.ops.mxu import mxu_leaf_tables3_host
+
+    _same(mxu_leaf_tables3_host(a, b, "float32"), jax_tables(a, b, "float32"))
+
+
+@pytest.mark.parametrize("log_n", range(0, 17))
+def test_leaf_plans_match(log_n):
+    from phastft_tpu.ops.fourstep import plan_rows as jax_plan
+    from phastft_tpu.options import Options as JaxOptions
+
+    from phastft_tpu_torch.ops.fourstep import plan_rows
+    from phastft_tpu_torch.options import Options
+
+    n = 1 << log_n
+    leaf = Options.guess_options(n, np.float32).leaf_fft_size
+    assert leaf == JaxOptions.guess_options(n, np.float32).leaf_fft_size
+    plan = plan_rows(n, leaf)
+    assert plan == jax_plan(n, leaf)
+    assert plan == (("tiny", n) if n < 128 else ("leaf", n // 128))
+
+
+@pytest.mark.parametrize("log_n", [7, 8, 15, 16])
+def test_leaf_planner_tables_match_jax_planner(log_n):
+    """The port's planner holds, under the JAX planner's keys, exactly the
+    tables its leaf kernel reads, equal to the JAX planner's bit for bit."""
+    from phastft_tpu.planner import PlannerDit32 as JaxPlanner
+
+    from phastft_tpu_torch import PlannerDit32
+
+    n = 1 << log_n
+    n1 = n // 128
+    mine = PlannerDit32(n, device="cpu")
+    ref = JaxPlanner(n)
+    assert mine.plan == ref.plan == ("leaf", n1)
+    want = ({f"mxu3_{n1}"} if log_n == 16
+            else {f"mxu{n1}"} | ({f"leaf{n1}"} if n1 > 1 else set()))
+    assert set(mine.leaf_corrs) == want
+    for key, arrays in mine.leaf_corrs.items():
+        _same([a.numpy() for a in arrays],
+              [np.asarray(a) for a in ref.leaf_corrs[key]])
+
+
+def test_tiny_planner_has_no_tables():
+    from phastft_tpu_torch import PlannerDit32
+
+    for n in (1, 2, 64):
+        assert PlannerDit32(n, device="cpu").leaf_corrs == {}
