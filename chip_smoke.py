@@ -11,8 +11,9 @@ on any failed check:
 1. ``device``: the card, and its name and power limit from ``nvidia-smi``.
 2. ``build``: builds the CUDA kernels from ``phastft_tpu_torch/csrc``.
 3. ``parity``: each kernel against its plain torch version on the card, at
-   the slice's shapes (n1, n2) = (128, 8192), (1024, 16384), (2048, 16384),
-   rel L2 <= 1e-6.
+   the slice's shapes (n1, n2) = (128, 8192), (1024, 16384), (2048, 16384)
+   and at a batch of 32 of (128, 16384), the inner level of a 2^26 nested
+   plan, rel L2 <= 1e-6.
 4. ``e2e``: the split plans' main path through the public entries, launch
    counters set to 0 just before and read just after: ``fft_32_dit``
    forward at 2^20, 2^24 and 2^25 against numpy's f64 FFT (rel L2 <= 5e-7 *
@@ -37,6 +38,31 @@ on any failed check:
    (1 GiB of planar input), and at 2^16 x 1 row for latency; the library
    call is ``torch.fft.fft`` on complex64 of the same rows.
 
+9. ``parity_nested``: ``colfft`` against ``colfft_plain`` at (n1, n2) =
+   (32, 2^21), (512, 2^21), (2, 2^16), (2048, 2^14) and batches of 3 at
+   (128, 2^14), 3 at (16, 2^16) and 5 at (2, 2^16) (the classic plans'
+   shapes), rel L2 <= 1e-6; ``transpose2`` against ``transpose2_plain`` at
+   (32, 2^21), (2, 2^16), (2048, 2^16), the same three batches and a narrow
+   (256, 8), bit for bit.
+10. ``e2e_nested``: the nested and classic plans' main path, counters set to
+   0 just before and read just after, inputs made on the card from a seeded
+   generator: ``fft_32_dit`` at 2^26 and 2^28 against an f64 FFT of the same
+   input (rel L2 <= 5e-7 * max(1, log2(n)/18)), forward then inverse at 2^26
+   (<= 1e-6) and the inverse of N * delta (exactly all ones: the scale is
+   1/N), one ``PlannerDit32(2^26)`` reused on a (2, 2^26) batch, 2^30 once
+   (256 output bins against a direct f64 DFT with integer phases, a round
+   trip, and the peak of allocated device memory), and the classic one-level
+   plans of ``Options(leaf_fft_size=2^16)`` at 2^20 (n1 = 16) and 2^17
+   (n1 = 2). A nested transform must launch ``colfft``, ``colfft_out3d``,
+   ``leaft`` and ``transpose2`` once each; a classic one ``colfft``, one
+   leaf kernel and ``transpose2`` once each.
+11. ``times_nested``: as 5 with 10 calls, at 2^26 and 2^28 (and the whole
+   transform at 2^30, 5 calls): ``colfft`` and ``transpose2`` alone, their
+   plain versions, the inner level's two kernels on the outer level's rows
+   as one batch, the whole transform (device and host clock),
+   ``torch.fft.fft`` on complex64, and ``x.transpose(-1, -2).contiguous()``
+   on both planes as the library call for ``transpose2``.
+
 The line before the last is the kernel summary; the last line is the
 device record. No CUDA device: exit 1 before any result.
 """
@@ -56,7 +82,11 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
-PARITY_SHAPES = [(128, 8192), (1024, 16384), (2048, 16384)]
+#: (batch, n1, n2) of the fused two-pass kernels' parity checks: the split
+#: plans' levels, and the inner level of a 2^26 nested plan on the outer
+#: level's 32 rows as one batch.
+PARITY_SHAPES = [(1, 128, 8192), (1, 1024, 16384), (1, 2048, 16384),
+                 (32, 128, 16384)]
 E2E_LOGS = (20, 24, 25)
 TIME_LOGS = (20, 24, 25)
 LEAF_PARITY_LOGS = (1, 6, 7, 8, 12, 14, 15, 16)
@@ -66,6 +96,20 @@ LEAF_E2E_POINTS = 1 << 20
 #: row of 2^16 for latency.
 LEAF_TIME_SHAPES = ((8, 1 << 19), (12, 1 << 15), (15, 1 << 12), (16, 1 << 11),
                     (16, 1))
+#: (batch or None, n1, n2) of the classic column pass's parity checks, and
+#: (batch or None, R, C) of the paired transpose's.
+NESTED_COL_SHAPES = ((None, 32, 1 << 21), (None, 512, 1 << 21), (None, 2, 1 << 16),
+                     (None, 2048, 1 << 14), (3, 128, 1 << 14),
+                     (3, 16, 1 << 16), (5, 2, 1 << 16))
+NESTED_TRANSPOSE_SHAPES = ((None, 32, 1 << 21), (None, 2, 1 << 16),
+                           (None, 2048, 1 << 16), (3, 128, 1 << 14),
+                           (3, 16, 1 << 16), (5, 2, 1 << 16), (None, 256, 8))
+NESTED_E2E_LOGS = (26, 28)
+NESTED_TIME_LOGS = (26, 28)
+TOP_LOG = 30
+TOP_BINS = 256
+#: Elements per step of the chunked error sums and the direct DFT.
+CHUNK = 1 << 26
 KERNEL_TOL = 1e-6
 OUT_DIR = "chiprun_out"
 #: ~1 ms at the H100's clocks: longer than the host takes to enqueue a call.
@@ -77,14 +121,16 @@ def emit(obj) -> None:
 
 
 def rel_l2(got_re, got_im, want_re, want_im) -> float:
-    import torch
-
-    num = torch.sqrt(
-        ((got_re.double() - want_re.double()) ** 2).sum()
-        + ((got_im.double() - want_im.double()) ** 2).sum()
-    )
-    den = torch.sqrt((want_re.double() ** 2).sum() + (want_im.double() ** 2).sum())
-    return float(num / den)
+    """rel L2 of a planar pair against another, summed in f64 in chunks of
+    CHUNK elements (at 2^30 points a plane in f64 is 8 GiB)."""
+    num = den = 0.0
+    for got, want in ((got_re, want_re), (got_im, want_im)):
+        got, want = got.reshape(-1), want.reshape(-1)
+        for s in range(0, got.numel(), CHUNK):
+            w = want[s:s + CHUNK].double()
+            num += float(((got[s:s + CHUNK].double() - w) ** 2).sum())
+            den += float((w ** 2).sum())
+    return float(np.sqrt(num / den))
 
 
 def max_abs(got_re, got_im, want_re, want_im) -> float:
@@ -98,6 +144,56 @@ def oracle_err(got, x) -> float:
     if not np.all(np.isfinite(g)) or g.shape != want.shape:
         raise AssertionError(f"bad output: shape {g.shape}, finite {np.isfinite(g).all()}")
     return float(np.linalg.norm(g - want) / np.linalg.norm(want))
+
+
+def card_oracle_err(got, xr, xi) -> float:
+    """rel L2 of (re, im) tensors against an f64 FFT of the same input,
+    taken on the card (an oracle: the port never calls ``torch.fft``)."""
+    import torch
+
+    want = torch.fft.fft(torch.complex(xr.double(), xi.double()), dim=-1)
+    if got[0].shape != want.shape or got[1].shape != want.shape:
+        raise AssertionError(f"bad output shape {tuple(got[0].shape)}")
+    want = want.reshape(-1)
+    g_re, g_im = got[0].reshape(-1), got[1].reshape(-1)
+    num = den = 0.0
+    for s in range(0, want.numel(), CHUNK):
+        w = want[s:s + CHUNK]
+        g = torch.complex(g_re[s:s + CHUNK].double(), g_im[s:s + CHUNK].double())
+        num += float(((g - w).abs() ** 2).sum())
+        den += float((w.abs() ** 2).sum())
+    err = float(np.sqrt(num / den))
+    if not np.isfinite(err):
+        raise AssertionError("output is not finite")
+    return err
+
+
+def dft_bins(xr, xi, ks):
+    """X[k] for the bins ``ks`` (int64 tensor) of one length-n planar f32
+    signal, by a direct DFT in f64 with integer-exact phases: i = i1*n2 + i2,
+    X[k] = sum_i2 W_n^(i2*k) sum_i1 W_n1^(i1*k) x[i1, i2], the inner sum a
+    complex128 product over i1, column chunk by column chunk."""
+    import torch
+
+    n = xr.numel()
+    log_n = n.bit_length() - 1
+    n2 = 1 << (log_n // 2)
+    n1 = n // n2
+    dev = xr.device
+    k = ks.to(dev)[:, None]
+    i1 = torch.arange(n1, dtype=torch.int64, device=dev)[None, :]
+    ang = ((k * i1) % n1).double() * (-2.0 / n1)
+    w1 = torch.complex(torch.cos(ang * np.pi), torch.sin(ang * np.pi))
+    acc = torch.zeros(len(ks), dtype=torch.complex128, device=dev)
+    cols = max(1, CHUNK // n1)
+    x2r, x2i = xr.view(n1, n2), xi.view(n1, n2)
+    for c0 in range(0, n2, cols):
+        xc = torch.complex(x2r[:, c0:c0 + cols].double(), x2i[:, c0:c0 + cols].double())
+        y = w1 @ xc
+        i2 = torch.arange(c0, min(c0 + cols, n2), dtype=torch.int64, device=dev)[None, :]
+        ang = ((k * i2) % n).double() * (-2.0 / n)
+        acc += (y * torch.complex(torch.cos(ang * np.pi), torch.sin(ang * np.pi))).sum(1)
+    return acc
 
 
 def signal(rng, shape):
@@ -151,6 +247,12 @@ def wall_ms(fn, flush, reps=20):
     return float(np.median(out))
 
 
+def copy_bound(n: int):
+    """(bound_ms, bound_by) of moving n planar f32 complex elements once: 8 B
+    read and 8 B written each, no arithmetic."""
+    return 16 * n / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
 def kernel_bound(n: int, log_len: int, table_floats: int = 0):
     """(bound_ms, bound_by) of one pass over a length-n planar f32
     transform: 8 B read and 8 B written per complex element, plus the
@@ -192,11 +294,14 @@ def main() -> int:
     from phastft_tpu_torch import Direction, PlannerDit32, fft_32_dit
     from phastft_tpu_torch import fft_32_dit_with_planner
     from phastft_tpu_torch.ops import _build
+    from phastft_tpu_torch import Options
     from phastft_tpu_torch.ops.colfft import (
-        col_split_tables_host, col_tile3d, colfft_out3d, colfft_out3d_plain,
+        col_split_tables_host, col_tile, col_tile3d, colfft, colfft_out3d,
+        colfft_out3d_plain, colfft_plain,
     )
     from phastft_tpu_torch.ops.leaf import leaf, leaf3
     from phastft_tpu_torch.ops.leaft import leaft, leaft_plain, leaft_tables_host
+    from phastft_tpu_torch.ops.transpose import transpose2, transpose2_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -224,10 +329,15 @@ def main() -> int:
     # -- parity: each kernel against its plain version on the same inputs
     rng = np.random.default_rng(2025)
     max_err = {"colfft_out3d": 0.0, "leaft": 0.0}
-    for n1, n2 in PARITY_SHAPES:
-        re, im = signal(rng, (1, n1, n2))
-        xr = torch.from_numpy(re).to(dev)
-        xi = torch.from_numpy(im).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    for b, n1, n2 in PARITY_SHAPES:
+        if b == 1:
+            re, im = signal(rng, (1, n1, n2))
+            xr = torch.from_numpy(re).to(dev)
+            xi = torch.from_numpy(im).to(dev)
+        else:  # 2^26 points: made on the card
+            xr = torch.randn((b, n1, n2), generator=gen, device=dev)
+            xi = torch.randn((b, n1, n2), generator=gen, device=dev)
         tabs = tuple(
             torch.from_numpy(a).to(dev)
             for a in col_split_tables_host(n1, n2, "float32", t=col_tile3d(n1, n2))
@@ -243,13 +353,14 @@ def main() -> int:
             err = rel_l2(k[0], k[1], p[0], p[1])
             mabs = max_abs(k[0], k[1], p[0], p[1])
             max_err[name] = max(max_err[name], mabs)
-            emit({"phase": "parity", "kernel": name, "n1": n1, "n2": n2,
-                  "rel_l2": err, "max_abs_err": mabs, "bound": KERNEL_TOL})
-            check(f"{name} parity at ({n1}, {n2})", err, KERNEL_TOL)
-        del kc, pc, kl, pl
+            emit({"phase": "parity", "kernel": name, "batch": b, "n1": n1,
+                  "n2": n2, "rel_l2": err, "max_abs_err": mabs,
+                  "bound": KERNEL_TOL})
+            check(f"{name} parity at ({b}, {n1}, {n2})", err, KERNEL_TOL)
+        del kc, pc, kl, pl, xr, xi
 
     # -- main path: counters at 0 just before, read just after
-    for k in (colfft_out3d, leaft, leaf, leaf3):
+    for k in (colfft_out3d, leaft, leaf, leaf3, colfft, transpose2):
         k.launches = 0
     transforms = 0
     errs = {}
@@ -286,8 +397,8 @@ def main() -> int:
     for name, count in launches.items():
         if count != transforms:
             raise AssertionError(f"{name}: {count} launches for {transforms} transforms")
-    if leaf.launches or leaf3.launches:
-        raise AssertionError("a split plan launched a leaf kernel")
+    if leaf.launches or leaf3.launches or colfft.launches or transpose2.launches:
+        raise AssertionError("a fused split plan launched another kernel")
 
     # -- times
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
@@ -417,7 +528,6 @@ def main() -> int:
     del out, back, re, im
 
     # -- leaf times: 1 GiB of planar input, and one row for latency
-    gen = torch.Generator(device=dev).manual_seed(2025)
     for log_n, rows in LEAF_TIME_SHAPES:
         n = 1 << log_n
         planner = PlannerDit32(n)
@@ -442,6 +552,224 @@ def main() -> int:
             top[fn.__name__] = row          # top size of each kernel
         del xr, xi, xc
 
+
+    # -- classic column pass and paired transpose against their plain versions
+    max_err.update(colfft=0.0, transpose2=0.0)
+    for b, n1, n2 in NESTED_COL_SHAPES:
+        shape = ((b,) if b else ()) + (n1, n2)
+        xr = torch.randn(shape, generator=gen, device=dev)
+        xi = torch.randn(shape, generator=gen, device=dev)
+        tabs = tuple(
+            torch.from_numpy(a).to(dev)
+            for a in col_split_tables_host(n1, n2, "float32", t=col_tile(n1, n2))
+        )
+        k = colfft(xr, xi, tabs, n1)
+        torch.cuda.synchronize()
+        p = colfft_plain(xr, xi, tabs, n1)
+        err = rel_l2(k[0], k[1], p[0], p[1])
+        mabs = max_abs(k[0], k[1], p[0], p[1])
+        max_err["colfft"] = max(max_err["colfft"], mabs)
+        emit({"phase": "parity_nested", "kernel": "colfft", "batch": b or 1,
+              "n1": n1, "n2": n2, "rel_l2": err, "max_abs_err": mabs,
+              "bound": KERNEL_TOL})
+        check(f"colfft parity at {shape}", err, KERNEL_TOL)
+        del k, p, xr, xi
+    for b, rows, cols in NESTED_TRANSPOSE_SHAPES:
+        shape = ((b,) if b else ()) + (rows, cols)
+        xa = torch.randn(shape, generator=gen, device=dev)
+        xb = torch.randn(shape, generator=gen, device=dev)
+        k = transpose2(xa, xb)
+        torch.cuda.synchronize()
+        p = transpose2_plain(xa, xb)
+        same = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        mabs = max_abs(k[0], k[1], p[0], p[1])
+        max_err["transpose2"] = max(max_err["transpose2"], mabs)
+        emit({"phase": "parity_nested", "kernel": "transpose2", "batch": b or 1,
+              "rows": rows, "cols": cols, "equal": same, "max_abs_err": mabs})
+        if not same:
+            raise AssertionError(f"transpose2 differs from its plain version at {shape}")
+        del k, p, xa, xb
+    torch.cuda.empty_cache()
+
+    # -- main path of the nested and classic plans: counters at 0 just before,
+    # read just after; every transform's own launches are checked as it runs
+    counters = (colfft, colfft_out3d, leaft, leaf, leaf3, transpose2)
+    names = [k.__name__ for k in counters]
+    for k in counters:
+        k.launches = 0
+    want_total = dict.fromkeys(names, 0)
+    nested_launches = {"colfft": 1, "colfft_out3d": 1, "leaft": 1, "transpose2": 1}
+
+    def run_counted(fn, want):
+        """fn() once; it must launch exactly ``want`` ({name: count})."""
+        before = [k.launches for k in counters]
+        out = fn()
+        delta = {nm: k.launches - b0 for nm, k, b0 in zip(names, counters, before)}
+        full = {nm: want.get(nm, 0) for nm in names}
+        if delta != full:
+            raise AssertionError(f"launches {delta}, want {full}")
+        for nm in names:
+            want_total[nm] += full[nm]
+        return out
+
+    def randn_pair(shape):
+        return (torch.randn(shape, generator=gen, device=dev),
+                torch.randn(shape, generator=gen, device=dev))
+
+    errs = {}
+    for log_n in NESTED_E2E_LOGS:
+        n = 1 << log_n
+        xr, xi = randn_pair((n,))
+        out = run_counted(lambda: fft_32_dit(xr, xi, Direction.Forward),
+                          nested_launches)
+        err = card_oracle_err(out, xr, xi)
+        errs[f"fwd_2^{log_n}"] = err
+        check(f"fft_32_dit 2^{log_n}", err, 5e-7 * max(1.0, log_n / 18.0))
+        if log_n == 26:
+            back = run_counted(
+                lambda: fft_32_dit(out[0], out[1], Direction.Reverse),
+                nested_launches)
+            rt = rel_l2(back[0], back[1], xr, xi)
+            errs["roundtrip_2^26"] = rt
+            check("round trip 2^26", rt, 1e-6)
+            # the inverse of N * delta is all ones, exactly: the scale is 1/N
+            dr = torch.zeros(n, device=dev)
+            dr[0] = float(n)
+            back = run_counted(
+                lambda: fft_32_dit(dr, torch.zeros_like(dr), Direction.Reverse),
+                nested_launches)
+            exact = bool((back[0] == 1.0).all()) and bool((back[1] == 0.0).all())
+            errs["inverse_scale_exact_2^26"] = exact
+            if not exact:
+                raise AssertionError("inverse of N * delta is not exactly ones")
+            del back, dr
+        del out, xr, xi
+    planner = PlannerDit32(1 << 26)
+    for _ in range(2):
+        xr, xi = randn_pair((2, 1 << 26))
+        out = run_counted(
+            lambda: fft_32_dit_with_planner(xr, xi, Direction.Forward, planner),
+            nested_launches)
+        err = card_oracle_err(out, xr, xi)
+        errs.setdefault("planner_2^26_batch2", []).append(err)
+        check("planner reuse 2^26 x2", err, 5e-7 * max(1.0, 26 / 18.0))
+        del out, xr, xi
+    for log_n, rows in ((20, 3), (17, 5)):
+        n = 1 << log_n
+        planner = PlannerDit32(n, options=Options(leaf_fft_size=1 << 16))
+        if planner.plan != ("split", n >> 16, ("leaf", 512), 1 << 16):
+            raise AssertionError(f"unexpected classic plan {planner.plan}")
+        xr, xi = randn_pair((rows, n))
+        out = run_counted(
+            lambda: fft_32_dit_with_planner(xr, xi, Direction.Forward, planner),
+            {"colfft": 1, "leaf3": 1, "transpose2": 1})
+        err = card_oracle_err(out, xr, xi)
+        errs[f"classic_2^{log_n}_leaf_2^16_x{rows}"] = err
+        check(f"classic plan 2^{log_n}", err, 5e-7 * max(1.0, log_n / 18.0))
+        del out, xr, xi
+    # the top of the window: 8 GiB per planar pair
+    n = 1 << TOP_LOG
+    torch.cuda.empty_cache()
+    xr, xi = randn_pair((n,))
+    planner = PlannerDit32(n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = run_counted(
+        lambda: fft_32_dit_with_planner(xr, xi, Direction.Forward, planner),
+        nested_launches)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if not (bool(torch.isfinite(out[0]).all()) and bool(torch.isfinite(out[1]).all())):
+        raise AssertionError("2^30: output is not finite")
+    ks = torch.randint(0, n, (TOP_BINS,), generator=gen, device=dev)
+    ks[:4] = torch.tensor([0, 1, n // 2, n - 1], device=dev)
+    want = dft_bins(xr, xi, ks)
+    got = torch.complex(out[0][ks].double(), out[1][ks].double())
+    err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    errs[f"bins_2^{TOP_LOG}"] = err
+    check(f"fft_32_dit 2^{TOP_LOG}, {TOP_BINS} bins", err,
+          5e-7 * max(1.0, TOP_LOG / 18.0))
+    del want, got
+    back = run_counted(
+        lambda: fft_32_dit_with_planner(out[0], out[1], Direction.Reverse, planner),
+        nested_launches)
+    rt = rel_l2(back[0], back[1], xr, xi)
+    errs[f"roundtrip_2^{TOP_LOG}"] = rt
+    check(f"round trip 2^{TOP_LOG}", rt, 1e-6)
+    del back, out
+    torch.cuda.synchronize()
+    launches_nested = {k.__name__: k.launches for k in counters}
+    emit({"phase": "e2e_nested", "rel_l2": errs, "launches": launches_nested,
+          "want": want_total,
+          f"peak_bytes_2^{TOP_LOG}": peak, f"held_before_2^{TOP_LOG}": held,
+          f"peak_gib_2^{TOP_LOG}": peak / 2 ** 30})
+    if launches_nested != want_total:
+        raise AssertionError(f"launches {launches_nested}, want {want_total}")
+    launches.update(colfft=launches_nested["colfft"],
+                    transpose2=launches_nested["transpose2"])
+
+    # -- nested times; xr, xi still hold 2^30 points
+    def time_transform(planner, reps):
+        """Times of the whole transform (four passes of 16 B per element)
+        and of the library's complex64 FFT on the first planner.n points."""
+        ar, ai = xr[:planner.n], xi[:planner.n]
+
+        def transform():
+            return fft_32_dit_with_planner(ar, ai, Direction.Forward, planner)
+
+        out = {"transform_ms": time_ms(transform, flush, reps),
+               "transform_wall_ms": wall_ms(transform, flush, reps),
+               "transform_bound_ms": 4 * copy_bound(planner.n)[0]}
+        torch.cuda.empty_cache()
+        xc = torch.complex(ar, ai)
+        out["library_ms"] = time_ms(lambda: torch.fft.fft(xc), flush, reps)
+        return out
+
+    emit({"phase": "times_nested", "n": n, "card": smi, **time_transform(planner, 5)})
+    torch.cuda.empty_cache()
+    for log_n in NESTED_TIME_LOGS:
+        n = 1 << log_n
+        planner = PlannerDit32(n)
+        _, n1, _, n2 = planner.plan
+        tabs = planner.leaf_corrs[f"pcol{n1}x{n2}"]
+        ar, ai = xr[:n].view(1, n1, n2), xi[:n].view(1, n1, n2)
+        bound_c = kernel_bound(n, n1.bit_length() - 1)
+        bound_t = copy_bound(n)
+        row = {
+            "colfft": {
+                "ms": time_ms(lambda: colfft(ar, ai, tabs, n1), flush, 10),
+                "plain_ms": time_ms(lambda: colfft_plain(ar, ai, tabs, n1), flush, 10),
+                "bound_ms": bound_c[0], "bound_by": bound_c[1],
+                "library_ms": None, "n": n, "rows": 1,
+            },
+            "transpose2": {
+                "ms": time_ms(lambda: transpose2(ar, ai), flush, 10),
+                "plain_ms": time_ms(lambda: transpose2_plain(ar, ai), flush, 10),
+                "bound_ms": bound_t[0], "bound_by": bound_t[1],
+                "library_ms": time_ms(
+                    lambda: (ar.transpose(-1, -2).contiguous(),
+                             ai.transpose(-1, -2).contiguous()), flush, 10),
+                "n": n, "rows": 1,
+            },
+        }
+        # the inner fused level on the outer level's n1 rows, as one batch
+        _, m1, _, m2 = planner.plan[2]
+        tabs3 = planner.leaf_corrs[f"pcolT{m1}x{m2}"]
+        mats = planner.leaf_corrs[f"leafT{m2}"]
+        br, bi = ar.view(n1, m1, m2), ai.view(n1, m1, m2)
+        c3 = colfft_out3d(br, bi, tabs3, m1)
+        inner = {
+            "batch": n1, "n1": m1, "n2": m2,
+            "colfft_out3d_ms": time_ms(lambda: colfft_out3d(br, bi, tabs3, m1), flush, 10),
+            "leaft_ms": time_ms(lambda: leaft(c3[0], c3[1], mats, m1), flush, 10),
+        }
+        del c3
+        emit({"phase": "times_nested", "n": n, "n1": n1, "n2": n2, "card": smi,
+              "kernels": row, "inner": inner, **time_transform(planner, 10)})
+        top.update(row)  # the kernels line: the last (largest) shape
+    del xr, xi
+
     sources = {
         "colfft_out3d": ("phastft_tpu_torch/csrc/colfft.cu",
                          "phastft_tpu/ops/pallas_col.py:490"),
@@ -451,6 +779,10 @@ def main() -> int:
                  "phastft_tpu/ops/pallas_leaf.py:151"),
         "leaf3": ("phastft_tpu_torch/csrc/leaf3.cu",
                   "phastft_tpu/ops/pallas_leaf.py:304"),
+        "colfft": ("phastft_tpu_torch/csrc/colfft.cu",
+                   "phastft_tpu/ops/pallas_col.py:490"),
+        "transpose2": ("phastft_tpu_torch/csrc/transpose.cu",
+                       "phastft_tpu/ops/pallas_transpose.py:64"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

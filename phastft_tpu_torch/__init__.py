@@ -10,10 +10,12 @@ Device rule: planners and entries take ``device=None``, which means
 ``"cuda"``; with no GPU present that raises. Pass ``device="cpu"`` to run
 on the CPU.
 
-The port runs planar f32 for n = 1..2^25, forward and inverse, with
+The port runs planar f32 for n = 1..2^30, forward and inverse, with
 leading batch dimensions: up to 2^16 through one leaf kernel per
-transform, above it through the fused two-pass four-step pipeline.
-Everything else raises ``NotImplementedError`` naming the ``ROADMAP.md``
+transform, to 2^25 through the fused two-pass four-step pipeline, above
+it through a classic outer level (column pass, inner transform, paired
+transpose) around that pipeline; a non-default ``Options.leaf_fft_size``
+of 128..2^16 points runs classic levels too. Everything else raises ``NotImplementedError`` naming the ``ROADMAP.md``
 item that brings it. The package imports neither JAX nor phastft_tpu.
 """
 

@@ -1,29 +1,40 @@
-// Column pass of the fused two-pass four-step FFT, planar f32, for sm_90a.
+// Column pass of the four-step FFT, planar f32, for sm_90a.
 //
-// Replaces: phastft_tpu/ops/pallas_col.py, colfft_pallas(..., out3d=True)
-// (the column DFT fused with the split twiddle, landed in the (A, n1, 128)
-// relayout that the row kernel reads).
+// Replaces: phastft_tpu/ops/pallas_col.py, colfft_pallas, in both of its
+// output modes (the column DFT fused with the split twiddle):
+//   out3d=False  the classic (n1, n2) layout, for the outer level of a
+//                nested plan and every split the fused pipeline refuses;
+//   out3d=True   the (A, n1, 128) relayout that the row kernel reads.
 //
 // For every batch b and column i2 of x viewed (n1, n2):
-//   c3[b, i2/128, k1, i2%128] = W_n^(k1*i2) * sum_i1 W_n1^(k1*i1) x[b, i1, i2]
+//   y[k1, i2] = W_n^(k1*i2) * sum_i1 W_n1^(k1*i1) x[b, i1, i2]
+//   classic:  c[b, k1, i2]                = y[k1, i2]
+//   out3d:    c3[b, i2/128, k1, i2%128]   = y[k1, i2]
 //
 // Bound: memory. Each element is read once and written once, 16 B per
 // complex element per pass, against ~5*log2(n1) flops per element; at
 // 3.35 TB/s the bytes take several times longer than the flops.
 //
 // Design against that bound:
-// - A block owns T neighbouring columns (T = 16, or 8 at n1 = 2048 so the
-//   (n1, T) slab fits the 227 KB of shared memory; the TPU kernel's
-//   (n1, 512) slab does not). Rows of T floats are read with float4 loads,
-//   neighbouring threads on neighbouring addresses.
+// - A block owns T neighbouring columns. The out3d mode takes T = 16 (8 at
+//   n1 = 2048 so the (n1, T) slab fits the 227 KB of shared memory; the TPU
+//   kernel's (n1, 512) slab does not). The classic mode runs shallow
+//   columns (n1 = 32 at the outer level of 2^26), so it widens T as n1
+//   shrinks to keep a slab of about 8 K points: rows of T floats are read
+//   with float4 loads, neighbouring threads on neighbouring addresses, and
+//   a row segment is T * 4 contiguous bytes.
 // - The whole size-n1 DFT runs in shared memory, three radix-2 stages per
 //   trip (fft_smem.cuh), so device memory is touched once each way.
 // - The store needs no transpose: for fixed k1 the T columns land
-//   contiguously inside one 128-wide row of the relayout (float4 stores).
+//   contiguously in either layout (float4 stores).
 // - The split twiddle is formed from the exact phase m = (k1*i2) mod n in
 //   64-bit integers and sincospi(-2m/n) in double, rounded once to float:
-//   an f32 angle k1*i2 would lose the phase at n = 2^25. The in-block
+//   an f32 angle k1*i2 would lose the phase past n = 2^24. The in-block
 //   twiddles W_n1^k are formed the same way into shared memory.
+// - The batch is folded into gridDim.x (up to 2^31 - 1 blocks) and every
+//   device-memory offset is 64-bit: the inner level of a nested plan has a
+//   batch of 32..512 per transform, and one transform of 2^30 points
+//   already reaches offsets of 2^30.
 #include <cuda_runtime.h>
 
 #include "fft_smem.cuh"
@@ -34,22 +45,29 @@ using phastft::padded_words;
 
 namespace {
 
-template <int T>
+// LOGT > 0 fixes log2 of the slab width when the kernel is compiled (the
+// out3d mode's 16 and 8 columns: index arithmetic folds into constants);
+// LOGT = 0 takes it from the argument (the classic mode's widths).
+template <bool OUT3D, int LOGT>
 __global__ void __launch_bounds__(512)
-colfft_out3d_kernel(const float* __restrict__ re, const float* __restrict__ im,
-                    float* __restrict__ ore, float* __restrict__ oim,
-                    int logn1, int n2) {
-  constexpr int V = T / 4;  // float4 per slab row
-  constexpr int LOGT = T == 16 ? 4 : 3;
+colfft_kernel(const float* __restrict__ re, const float* __restrict__ im,
+              float* __restrict__ ore, float* __restrict__ oim,
+              int logn1, int logt_arg, int n2) {
   extern __shared__ float4 smem4[];
+  const int logt = LOGT ? LOGT : logt_arg;
   const int n1 = 1 << logn1;
+  const int T = 1 << logt;
+  const int logv = logt - 2;  // float4 per slab row
+  const int V = 1 << logv;
   const int words = padded_words(n1 * T);
   float* sr = reinterpret_cast<float*>(smem4);
   float* si = sr + words;
   float2* tw = reinterpret_cast<float2*>(si + words);
 
-  const int j = blockIdx.x;
-  const int b = blockIdx.y;
+  // block -> (batch entry b, slab j); n2 / T slabs per entry, a power of two
+  const unsigned nblk = static_cast<unsigned>(n2 >> logt);
+  const int j = static_cast<int>(blockIdx.x & (nblk - 1));
+  const long long b = blockIdx.x >> (31 - __clz(nblk));
   const long long n = static_cast<long long>(n1) * n2;
   const float* xr = re + b * n + static_cast<long long>(j) * T;
   const float* xi = im + b * n + static_cast<long long>(j) * T;
@@ -61,7 +79,7 @@ colfft_out3d_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
 #pragma unroll 4
   for (int e = threadIdx.x; e < n1 * V; e += blockDim.x) {
-    const int i1 = e / V, v = e % V;
+    const int i1 = e >> logv, v = e & (V - 1);
     const long long off = static_cast<long long>(i1) * n2 + 4 * v;
     const int w = pad(i1 * T + 4 * v);
     *reinterpret_cast<float4*>(sr + w) = __ldg(reinterpret_cast<const float4*>(xr + off));
@@ -70,12 +88,12 @@ colfft_out3d_kernel(const float* __restrict__ re, const float* __restrict__ im,
   __syncthreads();
 
   // column q of the slab is the contiguous axis: sequences are neighbours
-  phastft::dif_fft(sr, si, logn1, LOGT, 1, T, true, tw);
+  phastft::dif_fft(sr, si, logn1, logt, 1, T, true, tw);
 
   const int na = n2 >> 7;
 #pragma unroll 2
   for (int e = threadIdx.x; e < n1 * V; e += blockDim.x) {
-    const int k1 = e / V, v = e % V;
+    const int k1 = e >> logv, v = e & (V - 1);
     const int w = pad(bitrev(k1, logn1) * T + 4 * v);
     const float4 a = *reinterpret_cast<const float4*>(sr + w);
     const float4 c = *reinterpret_cast<const float4*>(si + w);
@@ -93,38 +111,54 @@ colfft_out3d_kernel(const float* __restrict__ re, const float* __restrict__ im,
       outi[u] = vr[u] * wi + vi[u] * wr;
     }
     const long long o =
-        ((static_cast<long long>(b) * na + (i2 >> 7)) * n1 + k1) * 128 + (i2 & 127);
+        OUT3D ? ((b * na + (i2 >> 7)) * n1 + k1) * 128 + (i2 & 127)
+              : b * n + static_cast<long long>(k1) * n2 + i2;
     *reinterpret_cast<float4*>(ore + o) = make_float4(outr[0], outr[1], outr[2], outr[3]);
     *reinterpret_cast<float4*>(oim + o) = make_float4(outi[0], outi[1], outi[2], outi[3]);
   }
 }
 
-template <int T>
-int launch(const float* re, const float* im, float* ore, float* oim, int batch,
-           int n1, int n2, cudaStream_t stream) {
+// Columns per block. out3d: 16, or 8 at n1 = 2048. Classic: a slab of about
+// 8 K points, so 512 columns at n1 <= 16 down to 16 at n1 = 512 and 1024.
+int slab_columns(int n1, int n2, bool out3d) {
+  if (n1 >= 2048) return 8;
+  int t = 16;
+  if (!out3d)
+    while (t < 512 && n1 * t < 8192) t *= 2;
+  return t < n2 ? t : n2;
+}
+
+template <bool OUT3D, int LOGT>
+int launch(const float* re, const float* im, float* ore, float* oim,
+           long long batch, int n1, int n2, int t, cudaStream_t stream) {
   const int logn1 = phastft::ilog2(n1);
-  const size_t smem = 2 * sizeof(float) * padded_words(n1 * T) + sizeof(float2) * (n1 / 2);
-  cudaError_t err = cudaFuncSetAttribute(colfft_out3d_kernel<T>,
+  const long long blocks = batch * (n2 / t);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 2 * sizeof(float) * padded_words(n1 * t) + sizeof(float2) * (n1 / 2 + 1);
+  cudaError_t err = cudaFuncSetAttribute(colfft_kernel<OUT3D, LOGT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = n1 * T / 8 >= 512 ? 512 : 256;
-  const dim3 grid(n2 / T, batch);
-  colfft_out3d_kernel<T><<<grid, threads, smem, stream>>>(re, im, ore, oim, logn1, n2);
+  const int threads = n1 * t / 8 >= 512 ? 512 : 256;
+  colfft_kernel<OUT3D, LOGT><<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      re, im, ore, oim, logn1, phastft::ilog2(t), n2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// re, im: (batch, n1, n2); ore, oim: (batch, n2/128, n1, 128). Returns the
-// CUDA error code of the launch (0 on success).
-extern "C" int phastft_colfft_out3d(const float* re, const float* im, float* ore,
-                                    float* oim, int batch, int n1, int n2,
-                                    void* stream) {
-  if (batch < 1 || batch > 65535 || !phastft::is_pow2(n1) || n1 < 8 || n1 > 2048 ||
+// re, im: (batch, n1, n2); ore, oim: (batch, n1, n2), or with out3d != 0
+// (batch, n2/128, n1, 128). n1 = 2..2048 and n2 >= 128, powers of two.
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int phastft_colfft(const float* re, const float* im, float* ore,
+                              float* oim, long long batch, int n1, int n2,
+                              int out3d, void* stream) {
+  if (batch < 1 || !phastft::is_pow2(n1) || n1 < 2 || n1 > 2048 ||
       !phastft::is_pow2(n2) || n2 < 128)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n1 >= 2048) return launch<8>(re, im, ore, oim, batch, n1, n2, s);
-  return launch<16>(re, im, ore, oim, batch, n1, n2, s);
+  const int t = slab_columns(n1, n2, out3d != 0);
+  if (!out3d) return launch<false, 0>(re, im, ore, oim, batch, n1, n2, t, s);
+  if (t == 16) return launch<true, 4>(re, im, ore, oim, batch, n1, n2, t, s);
+  return launch<true, 3>(re, im, ore, oim, batch, n1, n2, t, s);
 }

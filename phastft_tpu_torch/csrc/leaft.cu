@@ -49,8 +49,9 @@ leaft_kernel(const float* __restrict__ cre, const float* __restrict__ cim,
   float2* twa = reinterpret_cast<float2*>(si + words);  // W_A^k, k < A/2
   float2* twm = twa + na / 2;                           // W_128^k, k < 64
 
-  const int k1 = blockIdx.x;
-  const int b = blockIdx.y;
+  // the batch is folded into gridDim.x: block = b * n1 + k1
+  const int k1 = static_cast<int>(blockIdx.x % static_cast<unsigned>(n1));
+  const long long b = blockIdx.x / static_cast<unsigned>(n1);
   const long long n = static_cast<long long>(na) * 128 * n1;
 
   for (int k = threadIdx.x; k < na / 2; k += blockDim.x)
@@ -60,7 +61,7 @@ leaft_kernel(const float* __restrict__ cre, const float* __restrict__ cim,
 #pragma unroll 4
   for (int e = threadIdx.x; e < na * 32; e += blockDim.x) {
     const int ia = e >> 5, v = e & 31;
-    const long long off = ((static_cast<long long>(b) * na + ia) * n1 + k1) * 128 + 4 * v;
+    const long long off = ((b * na + ia) * n1 + k1) * 128 + 4 * v;
     const int w = pad(ia * 128 + 4 * v);
     *reinterpret_cast<float4*>(sr + w) = __ldg(reinterpret_cast<const float4*>(cre + off));
     *reinterpret_cast<float4*>(si + w) = __ldg(reinterpret_cast<const float4*>(cim + off));
@@ -98,13 +99,14 @@ leaft_kernel(const float* __restrict__ cre, const float* __restrict__ cim,
 
 // cre, cim: (batch, A, n1, 128); f1r/f1i: (A, A) F(A); f2r/f2i: (128, 128)
 // F(128); cr/ci: (A, 128) W_n2^(kA*iM); ore, oim: (batch, n) with
-// n = A*128*n1. Returns the CUDA error code of the launch (0 on success).
+// n = A*128*n1; batch * n1 blocks, at most 2^31 - 1. Returns the CUDA error
+// code of the launch (0 on success).
 extern "C" int phastft_leaft(const float* cre, const float* cim, const float* f1r,
                              const float* f1i, const float* f2r, const float* f2i,
                              const float* cr, const float* ci, float* ore, float* oim,
-                             int batch, int n1, int na, void* stream) {
-  if (batch < 1 || batch > 65535 || n1 < 1 || n1 > (1 << 20) || !phastft::is_pow2(na) ||
-      na < 8 || na > 128)
+                             long long batch, int n1, int na, void* stream) {
+  if (batch < 1 || n1 < 1 || n1 > (1 << 20) || batch * n1 > 0x7fffffffLL ||
+      !phastft::is_pow2(na) || na < 8 || na > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   const int loga = phastft::ilog2(na);
   const size_t smem =
@@ -113,7 +115,7 @@ extern "C" int phastft_leaft(const float* cre, const float* cim, const float* f1
       leaft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = na >= 64 ? 512 : 256;
-  const dim3 grid(n1, batch);
+  const unsigned grid = static_cast<unsigned>(batch * n1);
   leaft_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       cre, cim, f1r, f1i, f2r, f2i, cr, ci, ore, oim, loga, n1);
   return static_cast<int>(cudaGetLastError());

@@ -46,12 +46,13 @@ def ensure_power_of_two(n: int) -> int:
 
 #: ROADMAP.md Queue 1 items that bring what the port does not run yet.
 ROADMAP_ITEMS = {
-    "nested": "ROADMAP.md Queue 1 item 3 (f32 nested plans, n >= 2^26)",
+    "nested": "ROADMAP.md Queue 1 item 15 (f32 transforms of n >= 2^31)",
     "f64": "ROADMAP.md Queue 1 item 4 (f64 native slice)",
-    "classic": "ROADMAP.md Queue 1 item 6 (classic and staged pipelines)",
+    "classic": "ROADMAP.md Queue 1 item 6 (use_pallas=False and the staged "
+               "strategy)",
     "tune": "ROADMAP.md Queue 1 item 7 (PlannerMode.Tune)",
-    "big_leaf": "ROADMAP.md Queue 1 item 14 (leaves past 2^16 points, "
-                "Options.leaf_fft_size > 2^16)",
+    "leaf_size": "ROADMAP.md Queue 1 item 14 (leaves outside 128..2^16 "
+                 "points, Options.leaf_fft_size > 2^16 or < 128)",
 }
 
 

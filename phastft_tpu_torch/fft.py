@@ -14,8 +14,10 @@ it; a tensor must already be f32 on the planner's device. Unlike the JAX
 package, which donates its input buffers, the port never writes the
 caller's tensors: every result is a new tensor.
 
-The port runs planar f32 for n = 1..2^25 (one leaf kernel up to 2^16,
-the fused two-pass pipeline above); f64 and larger sizes raise
+The port runs planar f32 for n = 1..2^30 (one leaf kernel up to 2^16,
+the fused two-pass pipeline to 2^25, a classic outer level around it
+above, and classic levels wherever ``Options.leaf_fft_size`` forces a
+split the fused pipeline refuses); f64 and larger sizes raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
 """
 
@@ -109,7 +111,7 @@ def _run(reals, imags, direction, planner, opts: Options):
         else planner.options.use_pallas
     )
     if use_pallas is False:
-        raise not_ported("use_pallas=False (the classic pipeline)", "classic")
+        raise not_ported("use_pallas=False (the plain pipeline)", "classic")
     reals = _as_tensor(reals, planner.device)
     imags = _as_tensor(imags, planner.device)
     n, _ = _validate(reals, imags, planner)

@@ -37,12 +37,13 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 #: C entry points and their argument types: pointers and the stream are
 #: c_void_p (a c_int would cut a 64-bit pointer), sizes are c_int, and a
-#: row count whose product with n can pass 2^31 is c_int64.
+#: batch or row count whose product with n can pass 2^31 is c_int64.
 _SIGNATURES = {
-    "phastft_colfft_out3d": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "phastft_leaft": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "phastft_colfft": [_P] * 4 + [_L, _I, _I, _I, _P],
+    "phastft_leaft": [_P] * 10 + [_L, _I, _I, _P],
     "phastft_leaf": [_P] * 10 + [_L, _I, _I, _P],
     "phastft_leaf3": [_P] * 12 + [_L, _P],
+    "phastft_transpose2": [_P] * 4 + [_L, _L, _L, _P],
 }
 
 _lock = threading.Lock()

@@ -1,26 +1,31 @@
-"""Column pass of the fused two-pass four-step FFT.
+"""Column pass of the four-step FFT.
 
-Counterpart of the JAX package's ``ops/pallas_col.py`` in its out3d mode
-(``colfft_pallas(..., out3d=True)``). For x viewed (..., n1, n2) it
-computes, for every column i2,
+Counterpart of the JAX package's ``ops/pallas_col.py`` (``colfft_pallas``
+in both of its output modes). For x viewed (..., n1, n2) it computes, for
+every column i2,
 
-    c3[..., i2 // 128, k1, i2 % 128] = W_n^(k1*i2) * sum_i1 W_n1^(k1*i1) x[..., i1, i2]
+    y[..., k1, i2] = W_n^(k1*i2) * sum_i1 W_n1^(k1*i1) x[..., i1, i2]
 
-i.e. the size-n1 column DFT and the four-step split twiddle, landed in
-the (A, n1, 128) relayout (A = n2/128) that the row pass (``ops/leaft``)
-reads.
+i.e. the size-n1 column DFT and the four-step split twiddle, and lands it
 
-``colfft_out3d`` is the wrapper: on CUDA tensors it launches the
-hand-written kernel ``csrc/colfft.cu``; on CPU tensors it runs
-``colfft_out3d_plain``, the same function in plain torch that follows the
-arithmetic of the JAX package's default column engine at these shapes:
-radix-R residues (R = 4 below n1 = 1024, 16 from it) as Karatsuba
-products with F(n1/R), the phase W_n1^(p*k_m) and F(R) across residues
-(``_kernel_r4``/``_kernel_rn``), then the split twiddle as T1 (exact
-integer phase, 15-bit split) times the T2 table. A dense F(n1) product
-(``_kernel_mxu``) sums 2048 terms per output at n1 = 2048 and measured
-1.2e-6 rel L2 from the kernel on the H100; the residue form sums at most
-128. The kernel is bound by memory; see the note in its source.
+* ``colfft``: as (..., n1, n2), the classic layout, for the outer level of
+  a nested plan and every split the fused two-pass pipeline refuses;
+* ``colfft_out3d``: as c3[..., i2 // 128, k1, i2 % 128], the (A, n1, 128)
+  relayout (A = n2/128) that the row pass (``ops/leaft``) reads.
+
+Both are wrappers: on CUDA tensors they launch the hand-written kernel
+``csrc/colfft.cu`` (one kernel, the store index a template argument); on
+CPU tensors they run ``colfft_plain``/``colfft_out3d_plain``, the same
+function in plain torch that follows the arithmetic of the JAX package's
+default column engine per depth: one dense Karatsuba product with F(n1)
+below n1 = 128 (``_kernel_mxu``), above it radix-R residues (R = 4 below
+n1 = 1024, 16 from it) as Karatsuba products with F(n1/R), the phase
+W_n1^(p*k_m) and F(R) across residues (``_kernel_r4``/``_kernel_rn``);
+then the split twiddle as T1 (exact integer phase, 15-bit split) times the
+T2 table. A dense F(n1) product sums 2048 terms per output at n1 = 2048
+and measured 1.2e-6 rel L2 from the kernel on the H100; the residue form
+sums at most 128. The kernel is bound by memory; see the note in its
+source.
 """
 
 from __future__ import annotations
@@ -35,16 +40,29 @@ from .mxu import dft_matrix_host
 from .stockham import LANES
 
 __all__ = [
+    "col_tile",
     "col_tile3d",
     "col_split_tables_host",
+    "colfft",
+    "colfft_plain",
     "colfft_out3d",
     "colfft_out3d_plain",
 ]
 
+#: Column factors the kernel takes (powers of two).
+MIN_N1, MAX_N1 = 2, 2048
+
+
+def col_tile(n1: int, n2: int) -> int:
+    """Slab width T of the JAX kernel's classic mode: the width the
+    ``pcol{n1}x{n2}`` T2 table is factored on."""
+    t = max(128, min(512, (1 << 17) // max(n1, 1)))
+    return min(t, n2)
+
 
 def col_tile3d(n1: int, n2: int) -> int:
-    """Slab width T of the JAX kernel's out3d mode: the width the T2
-    split-twiddle table is factored on."""
+    """Slab width T of the JAX kernel's out3d mode: the width the
+    ``pcolT{n1}x{n2}`` T2 table is factored on."""
     t = max(128, min(512, (1 << 20) // max(n1, 1)))
     return min(t, n2)
 
@@ -54,8 +72,8 @@ def col_split_tables_host(n1: int, n2: int, dtype_name: str,
                           t: int | None = None):
     """T2, the lane-local half of the split twiddle factored on the slab
     width T: W_n^(k1*(j*T+c)) = T1[k1, j] * T2[k1, c]. Exact f64 angles,
-    one cast. ``t`` defaults to ``col_tile3d(n1, n2)``, the out3d width
-    (the only mode the port has)."""
+    one cast. ``t`` defaults to ``col_tile3d(n1, n2)``, the out3d width;
+    the classic mode's tables pass ``t=col_tile(n1, n2)``."""
     dtype = np.dtype(dtype_name)
     n = n1 * n2
     if t is None:
@@ -68,8 +86,11 @@ def col_split_tables_host(n1: int, n2: int, dtype_name: str,
 
 def _radix(n1: int) -> int:
     """R of the JAX package's default column engine at n1: radix-16
-    residues for n1 >= 1024 (r16mxu), radix-4 below (r4mxu)."""
-    return 16 if n1 >= 1024 else 4
+    residues for n1 >= 1024 (r16mxu), radix-4 from 128 (r4mxu), and one
+    dense product below (mxu)."""
+    if n1 >= 1024:
+        return 16
+    return 4 if n1 >= 128 else 1
 
 
 @functools.lru_cache(maxsize=8)
@@ -106,43 +127,43 @@ def _t1(n1: int, n: int, t: int, nblk: int, device: torch.device):
     return ca * cb - sa * sb, sa * cb + ca * sb
 
 
-def _check(re, im, tabs, n1: int):
+def _check(name, re, im, tabs, n1: int, tile):
     """Validate the arguments shared by the kernel and its plain version;
-    return (batch shape, flat batch, n2)."""
+    return (batch shape, flat batch, n2). ``tile`` is the mode's slab-width
+    rule, ``col_tile`` or ``col_tile3d``."""
     for x in (re, im, *tabs):
         if not isinstance(x, torch.Tensor):
-            raise TypeError("colfft_out3d takes torch tensors")
+            raise TypeError(f"{name} takes torch tensors")
         if x.dtype != torch.float32:
-            raise TypeError(f"colfft_out3d is float32 only, got {x.dtype}")
+            raise TypeError(f"{name} is float32 only, got {x.dtype}")
         if x.device != re.device:
-            raise ValueError("colfft_out3d: all tensors must be on one device")
+            raise ValueError(f"{name}: all tensors must be on one device")
     if re.shape != im.shape or re.dim() < 2 or re.shape[-2] != n1:
         raise ValueError(
-            f"colfft_out3d: expected (..., {n1}, n2) planar pairs, got "
+            f"{name}: expected (..., {n1}, n2) planar pairs, got "
             f"{tuple(re.shape)} and {tuple(im.shape)}"
         )
     n2 = int(re.shape[-1])
-    if n1 < 8 or n1 > 2048 or n1 & (n1 - 1) or n2 < LANES or n2 & (n2 - 1):
-        raise ValueError(f"colfft_out3d: unsupported shape n1={n1}, n2={n2}")
-    t = col_tile3d(n1, n2)
+    if (n1 < MIN_N1 or n1 > MAX_N1 or n1 & (n1 - 1) or n2 < LANES
+            or n2 & (n2 - 1)):
+        raise ValueError(f"{name}: unsupported shape n1={n1}, n2={n2}")
+    t = tile(n1, n2)
     if len(tabs) != 2 or any(tuple(x.shape) != (n1, t) for x in tabs):
-        raise ValueError(f"colfft_out3d: split tables must be ({n1}, {t})")
+        raise ValueError(f"{name}: split tables must be ({n1}, {t})")
     batch = tuple(re.shape[:-2])
     return batch, int(np.prod(batch)) if batch else 1, n2
 
 
-def colfft_out3d_plain(re, im, tabs, n1: int):
-    """Plain-torch column pass: same arguments and result as
-    ``colfft_out3d``. On a CUDA tensor it turns TF32 off for matmuls
+def _column_plain(re, im, tabs, n1: int, b: int, n2: int):
+    """The column DFT and the split twiddle in plain torch, as (b, n1, n2).
+    On a CUDA tensor it turns TF32 off for matmuls
     (``torch.backends.cuda.matmul.allow_tf32 = False``) so the products
     stay full f32, as the JAX package's HIGHEST precision does."""
-    batch, b, n2 = _check(re, im, tabs, n1)
     if re.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
     t2r, t2i = tabs
     t = int(t2r.shape[1])
     n = n1 * n2
-    a = n2 // LANES
     radix = _radix(n1)
     m = n1 // radix
     gr, gi, gs, pr, pi, hr, hi = _residue_mats(n1, re.device)
@@ -152,21 +173,44 @@ def colfft_out3d_plain(re, im, tabs, n1: int):
     p1 = torch.matmul(gr, xr)
     p2 = torch.matmul(gi, xi)
     p3 = torch.matmul(gs, xr + xi)
-    tr = p1 - p2
-    ti = p3 - p1 - p2
-    # phase W_n1^(p*k_m), then F(R) across residues: X[k_m + m*k_p]
-    ur = (tr * pr - ti * pi).reshape(b, radix, m * n2)
-    ui = (tr * pi + ti * pr).reshape(b, radix, m * n2)
+    br = p1 - p2
+    bi = p3 - p1 - p2
+    del xr, xi, p1, p2, p3  # at 2^30 points every plane is 4 GiB
+    if radix > 1:
+        # phase W_n1^(p*k_m), then F(R) across residues: X[k_m + m*k_p]
+        ur = (br * pr - bi * pi).reshape(b, radix, m * n2)
+        ui = (br * pi + bi * pr).reshape(b, radix, m * n2)
+        br = torch.matmul(hr, ur) - torch.matmul(hi, ui)
+        bi = torch.matmul(hr, ui) + torch.matmul(hi, ur)
+        del ur, ui
     view = (b, n1, n2 // t, t)
-    br = (torch.matmul(hr, ur) - torch.matmul(hi, ui)).view(view)
-    bi = (torch.matmul(hr, ui) + torch.matmul(hi, ur)).view(view)
+    br, bi = br.reshape(view), bi.reshape(view)
     t1r, t1i = _t1(n1, n, t, n2 // t, re.device)
     t1r, t1i = t1r[:, :, None], t1i[:, :, None]
     ur = br * t1r - bi * t1i
     ui = br * t1i + bi * t1r
+    del br, bi
     t2r, t2i = t2r[:, None, :], t2i[:, None, :]
     vr = ur * t2r - ui * t2i
     vi = ur * t2i + ui * t2r
+    return vr.reshape(b, n1, n2), vi.reshape(b, n1, n2)
+
+
+def colfft_plain(re, im, tabs, n1: int):
+    """Plain-torch column pass, classic layout: same arguments and result
+    as ``colfft``."""
+    batch, b, n2 = _check("colfft", re, im, tabs, n1, col_tile)
+    vr, vi = _column_plain(re, im, tabs, n1, b, n2)
+    shape = batch + (n1, n2)
+    return vr.reshape(shape), vi.reshape(shape)
+
+
+def colfft_out3d_plain(re, im, tabs, n1: int):
+    """Plain-torch column pass, (A, n1, 128) relayout: same arguments and
+    result as ``colfft_out3d``."""
+    batch, b, n2 = _check("colfft_out3d", re, im, tabs, n1, col_tile3d)
+    vr, vi = _column_plain(re, im, tabs, n1, b, n2)
+    a = n2 // LANES
     shape = batch + (a, n1, LANES)
 
     def relayout(v):
@@ -176,46 +220,79 @@ def colfft_out3d_plain(re, im, tabs, n1: int):
     return relayout(vr), relayout(vi)
 
 
-def colfft_out3d(re, im, tabs, n1: int):
-    """Column DFT of size n1 along axis -2 of (..., n1, n2) f32 planar
-    tensors, fused with the split twiddle W_n^(k1*i2), landed as
-    (..., n2/128, n1, 128). ``tabs`` = (t2r, t2i) from
-    ``col_split_tables_host`` on the tensors' device.
-
-    On CUDA it launches ``csrc/colfft.cu`` on the current stream; the
-    kernel forms the split twiddle itself from the exact phase, so
-    ``tabs`` feeds only the plain version (a CPU tensor runs
-    ``colfft_out3d_plain``). Inputs are read, never written; the outputs
-    are new tensors. Each launch adds one to ``colfft_out3d.launches``.
-
-    Replaces ``phastft_tpu/ops/pallas_col.py`` ``colfft_pallas(...,
-    out3d=True)``. Bound by memory (16 B per complex element, read once
-    and written once); the kernel keeps the whole size-n1 DFT of a
-    16-column slab (8 at n1 = 2048) in shared memory, so it touches
-    device memory once each way, with float4 loads and stores."""
-    batch, b, n2 = _check(re, im, tabs, n1)
-    if re.device.type == "cpu":
-        return colfft_out3d_plain(re, im, tabs, n1)
+def _launch(name, re, im, b: int, n1: int, n2: int, shape, out3d: bool):
+    """Launch ``csrc/colfft.cu`` on the current stream into new tensors of
+    ``shape``."""
     if re.device.type != "cuda":
-        raise ValueError(f"colfft_out3d: unsupported device {re.device}")
+        raise ValueError(f"{name}: unsupported device {re.device}")
     if not (re.is_contiguous() and im.is_contiguous()):
-        raise ValueError("colfft_out3d: inputs must be contiguous")
+        raise ValueError(f"{name}: inputs must be contiguous")
     if re.data_ptr() % 16 or im.data_ptr() % 16:
-        raise ValueError("colfft_out3d: inputs must be 16-byte aligned")
-    shape = batch + (n2 // LANES, n1, LANES)
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
     ore = torch.empty(shape, dtype=torch.float32, device=re.device)
     oim = torch.empty(shape, dtype=torch.float32, device=re.device)
     lib = library()
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = lib.phastft_colfft_out3d(
+        err = lib.phastft_colfft(
             re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-            b, n1, n2, stream,
+            b, n1, n2, int(out3d), stream,
         )
     if err != 0:
-        raise RuntimeError(f"colfft_out3d: kernel launch failed, CUDA error {err}")
-    colfft_out3d.launches += 1
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     return ore, oim
+
+
+def colfft(re, im, tabs, n1: int):
+    """Column DFT of size n1 = 2..2048 along axis -2 of (..., n1, n2) f32
+    planar tensors (n2 >= 128), fused with the split twiddle W_n^(k1*i2),
+    as (..., n1, n2). ``tabs`` = (t2r, t2i) from
+    ``col_split_tables_host(..., t=col_tile(n1, n2))`` on the tensors'
+    device.
+
+    On CUDA it launches ``csrc/colfft.cu`` on the current stream; the
+    kernel forms the split twiddle itself from the exact phase, so
+    ``tabs`` feeds only the plain version (a CPU tensor runs
+    ``colfft_plain``). Inputs are read, never written; the outputs are new
+    tensors. Each launch adds one to ``colfft.launches``.
+
+    Replaces ``phastft_tpu/ops/pallas_col.py`` ``colfft_pallas(...,
+    out3d=False)``; unlike it, it takes n1 = 2 and 4 and every
+    n2 >= 128. Bound by memory (16 B per complex element, read once and
+    written once); the kernel keeps the whole size-n1 DFT of a slab of
+    about 8 K points (512 columns at n1 <= 16 down to 16 at n1 = 512, 8 at
+    2048) in shared memory, so it touches device memory once each way,
+    with float4 loads and stores."""
+    batch, b, n2 = _check("colfft", re, im, tabs, n1, col_tile)
+    if re.device.type == "cpu":
+        return colfft_plain(re, im, tabs, n1)
+    out = _launch("colfft", re, im, b, n1, n2, batch + (n1, n2), False)
+    colfft.launches += 1
+    return out
+
+
+colfft.launches = 0
+
+
+def colfft_out3d(re, im, tabs, n1: int):
+    """As ``colfft``, landed as (..., n2/128, n1, 128). ``tabs`` = (t2r,
+    t2i) from ``col_split_tables_host`` on the tensors' device.
+
+    On CUDA it launches ``csrc/colfft.cu`` on the current stream (a CPU
+    tensor runs ``colfft_out3d_plain``). Inputs are read, never written;
+    the outputs are new tensors. Each launch adds one to
+    ``colfft_out3d.launches``.
+
+    Replaces ``phastft_tpu/ops/pallas_col.py`` ``colfft_pallas(...,
+    out3d=True)``. Bound by memory as ``colfft`` is; the slab is 16
+    columns (8 at n1 = 2048)."""
+    batch, b, n2 = _check("colfft_out3d", re, im, tabs, n1, col_tile3d)
+    if re.device.type == "cpu":
+        return colfft_out3d_plain(re, im, tabs, n1)
+    shape = batch + (n2 // LANES, n1, LANES)
+    out = _launch("colfft_out3d", re, im, b, n1, n2, shape, True)
+    colfft_out3d.launches += 1
+    return out
 
 
 colfft_out3d.launches = 0

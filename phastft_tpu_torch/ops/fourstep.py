@@ -1,33 +1,38 @@
 """Four-step (Bailey) decomposition driver.
 
 Counterpart of the JAX package's ``ops/fourstep.py``. ``plan_rows`` is
-carried verbatim, so both packages plan every size the same way. Of
-``fft_rows`` the port has
+carried verbatim, so both packages plan every size the same way.
+``fft_rows`` runs
 
 * the ``tiny`` and ``leaf`` plans (n <= 2^16): one trip through device
   memory, ``leaf3`` when the planner holds the three-factor tables
   ``mxu3_{n1}`` (n = 2^16), else ``leaf`` (n = 2..2^15); n = 1 is a copy;
 * the fused two-pass branch: one split level n = n1 * n2 whose inner plan
-  is a leaf,
+  is a leaf, under the JAX package's gates (``fused_two_pass``),
 
     colfft_out3d   column DFT of size n1 + split twiddle -> (A, n1, 128)
     leaft          row DFTs of size n2 = A * 128, stored in natural order
 
-  two trips through device memory in all.
+  two trips through device memory in all;
+* the classic branch, every other split level (the outer level of the
+  nested plans of n >= 2^26, and the splits the fused gates refuse),
 
-Every other branch raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings it.
+    colfft         column DFT of size n1 + split twiddle -> (n1, n2)
+    fft_rows       the inner plan on the n1 rows, as one more batch dim
+    transpose2     (n1, n2) -> (n2, n1), the natural order
+
+  two trips more than its inner plan makes.
 """
 
 from __future__ import annotations
 
-from ..errors import not_ported
-from .colfft import colfft_out3d
+from .colfft import colfft, colfft_out3d
 from .leaf import leaf, leaf3
 from .leaft import leaft
 from .stockham import LANES
+from .transpose import transpose2
 
-__all__ = ["plan_rows", "fft_rows"]
+__all__ = ["plan_rows", "split_levels", "fused_two_pass", "fft_rows"]
 
 # Largest row transform executed as a single leaf.
 DEFAULT_LEAF_LIMIT = 1 << 16
@@ -60,16 +65,38 @@ def plan_rows(n: int, leaf_limit: int = DEFAULT_LEAF_LIMIT):
     return ("split", n1, plan_rows(n2, leaf_limit), n2)
 
 
+def split_levels(plan):
+    """(n1, inner plan, n2) of every split level of ``plan``, outermost
+    first."""
+    while plan[0] == "split":
+        _, n1, plan, n2 = plan
+        yield n1, plan, n2
+
+
+def fused_two_pass(n1: int, plan2, n2: int) -> bool:
+    """Whether the split level n1 x n2 over ``plan2`` runs the fused
+    two-pass pipeline: the JAX package's gates (the inner plan a leaf,
+    128 <= n1 <= 2048, n2 = A * 128 with 8 <= A <= 128)."""
+    return (
+        plan2[0] == "leaf"
+        and n1 % LANES == 0
+        and LANES <= n1 <= 2048
+        and n2 % LANES == 0
+        and 8 <= n2 // LANES <= 128
+    )
+
+
 def fft_rows(re, im, plan, corrs):
     """DFT along the last axis of (..., n) f32 tensors following ``plan``.
 
     ``corrs``: the planner's tables under the JAX planner's keys. A leaf
     plan runs ``leaf3`` on ``mxu3_{n1}`` when present, else ``leaf`` on
     ``mxu{n1}[:6] + leaf{n1}`` (all of ``mxu1`` at n1 = 1); a tiny plan
-    needs no table. The fused two-pass branch runs when ``pcolT{n1}x{n2}``
-    and ``leafT{n2}`` are present, the inner plan is a leaf and
-    128 <= n1 <= 2048 with n1 % 128 == 0 (the JAX package's gates).
-    Every branch returns new tensors."""
+    needs no table. A split level runs the fused two-pass branch on
+    ``pcolT{n1}x{n2}`` and ``leafT{n2}`` when ``fused_two_pass`` holds,
+    else the classic branch on ``pcol{n1}x{n2}``, which frees each
+    intermediate pair as soon as the next pass has read it. Every branch
+    returns new tensors."""
     kind = plan[0]
     if kind == "tiny":
         if plan[1] == 1:
@@ -85,20 +112,17 @@ def fft_rows(re, im, plan, corrs):
             mats = mats[:6] + tuple(corrs[f"leaf{n1}"])
         return leaf(re, im, mats, n1)
     _, n1, plan2, n2 = plan
-    if plan2[0] != "leaf":
-        raise not_ported(f"the nested split plan {plan}", "nested")
-    pcolt = corrs.get(f"pcolT{n1}x{n2}")
-    leaft_tabs = corrs.get(f"leafT{n2}")
-    if (
-        pcolt is None
-        or leaft_tabs is None
-        or n1 % 128 != 0
-        or not 128 <= n1 <= 2048
-    ):
-        raise not_ported(
-            f"the classic split pipeline (n1 = {n1}, n2 = {n2})", "classic"
-        )
     batch = tuple(re.shape[:-1])
     view = batch + (n1, n2)
-    c3re, c3im = colfft_out3d(re.reshape(view), im.reshape(view), pcolt, n1)
-    return leaft(c3re, c3im, leaft_tabs, n1)
+    if fused_two_pass(n1, plan2, n2):
+        c3re, c3im = colfft_out3d(re.reshape(view), im.reshape(view),
+                                  corrs[f"pcolT{n1}x{n2}"], n1)
+        return leaft(c3re, c3im, corrs[f"leafT{n2}"], n1)
+    c_re, c_im = colfft(re.reshape(view), im.reshape(view),
+                        corrs[f"pcol{n1}x{n2}"], n1)
+    d_re, d_im = fft_rows(c_re, c_im, plan2, corrs)
+    del c_re, c_im
+    o_re, o_im = transpose2(d_re, d_im)
+    del d_re, d_im
+    flat = batch + (n1 * n2,)
+    return o_re.reshape(flat), o_im.reshape(flat)

@@ -31,7 +31,8 @@ class Options:
 
     The port reads ``leaf_fft_size`` (through the planner), ``strategy``
     and ``use_pallas``: ``strategy="staged"`` and ``use_pallas=False``
-    name pipelines it does not run yet and raise ``NotImplementedError``.
+    name pipelines it does not run yet and raise ``NotImplementedError``,
+    as does a ``leaf_fft_size`` outside 128..2^16 that the plan reaches.
     The other fields (``leaf_kernel``, ``leaf_engine``, ``col_engine``,
     ...) select TPU engines and are accepted and ignored: the port has one
     kernel per plan shape, and its leaf kernels take any batch.

@@ -10,9 +10,12 @@ layouts:
   with their Karatsuba sums and the transposed correction, zero-size
   placeholders at n1 = 1) and ``leaf{n1}`` (the (n1, 128) correction,
   n1 >= 2); at n = 2^16 (n1 = 512): ``mxu3_512`` only;
-* a split plan: ``pcolT{n1}x{n2}`` (the column pass's T2 split-twiddle
-  table) and ``leafT{n2}`` (the row pass's DFT matrices and correction),
-  under the JAX planner's gates.
+* every split level that runs the fused two-pass pipeline (the JAX
+  planner's gates): ``pcolT{n1}x{n2}`` (the column pass's T2 split-twiddle
+  table) and ``leafT{n2}`` (the row pass's DFT matrices and correction);
+* every other split level (classic): ``pcol{n1}x{n2}`` (the T2 table
+  factored on the classic slab width), and when the innermost level is
+  classic the leaf tables of the plan's leaf, as for a leaf plan.
 
 Twiddles are exact f64 angles rounded once to f32 (the reference's
 accuracy contract).
@@ -32,8 +35,8 @@ import torch
 
 from .errors import ensure_power_of_two, not_ported
 from .options import Options
-from .ops.colfft import col_split_tables_host, col_tile3d
-from .ops.fourstep import plan_rows
+from .ops.colfft import col_split_tables_host, col_tile, col_tile3d
+from .ops.fourstep import fused_two_pass, plan_rows, split_levels
 from .ops.leaft import leaft_tables_host
 from .ops.mxu import mxu_leaf_tables3_host, mxu_leaf_tables_host
 from .ops.stockham import LANES, leaf_correction_host
@@ -46,8 +49,9 @@ __all__ = [
     "resolve_device",
 ]
 
-#: The largest size the port runs: the top of the fused two-pass window.
-MAX_LOG_N = 25
+#: The largest size the port runs: at 2^30 one planar f32 pair is 8 GiB
+#: and a nested transform holds four.
+MAX_LOG_N = 30
 
 #: Leaf factor of the three-factor leaf (n = 2^16 = 128 * 4 * 128), the
 #: only leaf past 2^15 that the default leaf rule plans.
@@ -86,23 +90,6 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _two_pass_levels(plan):
-    """(n1, n2) of every split level that gets the fused two-pass tables,
-    under the JAX planner's gates."""
-    node = plan
-    while node[0] == "split":
-        _, sn1, sub, sn2 = node
-        if (
-            sub[0] == "leaf"
-            and sn1 % LANES == 0
-            and LANES <= sn1 <= 2048
-            and sn2 % LANES == 0
-            and 8 <= sn2 // LANES <= 128
-        ):
-            yield sn1, sn2
-        node = sub
-
-
 def _leaf_tables_host(n1: int, dtype_name: str):
     """{key: host arrays} of the tables a ("leaf", n1) plan's kernel reads,
     as the JAX planner holds them."""
@@ -116,18 +103,23 @@ def _leaf_tables_host(n1: int, dtype_name: str):
     return out
 
 
-def _table_shapes(plan):
-    """{key: [shape of each array]} of the tables the plan needs."""
-    if plan[0] == "leaf":
-        return {k: [a.shape for a in v]
-                for k, v in _leaf_tables_host(plan[1], "float32").items()}
+def _tables_host(plan, dtype_name: str):
+    """{key: host arrays} of every table the plan's kernels read, as the
+    JAX planner holds them."""
     out = {}
-    for sn1, sn2 in _two_pass_levels(plan):
-        a = sn2 // LANES
-        out[f"pcolT{sn1}x{sn2}"] = [(sn1, col_tile3d(sn1, sn2))] * 2
-        out[f"leafT{sn2}"] = (
-            [(a, a)] * 3 + [(LANES, LANES)] * 3 + [(a, LANES)] * 2
-        )
+    inner = plan
+    leaf_rows = True  # the innermost plan runs through leaf / leaf3
+    for n1, inner, n2 in split_levels(plan):
+        if fused_two_pass(n1, inner, n2):
+            out[f"pcolT{n1}x{n2}"] = col_split_tables_host(
+                n1, n2, dtype_name, t=col_tile3d(n1, n2))
+            out[f"leafT{n2}"] = leaft_tables_host(n2, dtype_name)
+            leaf_rows = False
+        else:
+            out[f"pcol{n1}x{n2}"] = col_split_tables_host(
+                n1, n2, dtype_name, t=col_tile(n1, n2))
+    if inner[0] == "leaf" and leaf_rows:
+        out.update(_leaf_tables_host(inner[1], dtype_name))
     return out
 
 
@@ -138,7 +130,7 @@ def _to_device(arrays, device):
 
 
 class PlannerDit32:
-    """f32 DIT planner for n = 1..2^25 on ``device`` (None = "cuda")."""
+    """f32 DIT planner for n = 1..2^30 on ``device`` (None = "cuda")."""
 
     dtype = np.dtype(np.float32)
 
@@ -150,20 +142,10 @@ class PlannerDit32:
         device=None,
     ):
         self._setup(n, mode, options, device)
-        self.leaf_corrs = {}
-        if self.plan[0] == "leaf":
-            for key, arrays in _leaf_tables_host(self.plan[1],
-                                                 self.dtype.name).items():
-                self.leaf_corrs[key] = _to_device(arrays, self.device)
-        for sn1, sn2 in _two_pass_levels(self.plan):
-            self.leaf_corrs[f"pcolT{sn1}x{sn2}"] = _to_device(
-                col_split_tables_host(sn1, sn2, self.dtype.name,
-                                      t=col_tile3d(sn1, sn2)),
-                self.device,
-            )
-            self.leaf_corrs[f"leafT{sn2}"] = _to_device(
-                leaft_tables_host(sn2, self.dtype.name), self.device
-            )
+        self.leaf_corrs = {
+            key: _to_device(arrays, self.device)
+            for key, arrays in _tables_host(self.plan, self.dtype.name).items()
+        }
 
     def _setup(self, n, mode, options, device):
         self.log_n = ensure_power_of_two(n)
@@ -179,26 +161,36 @@ class PlannerDit32:
             else Options.guess_options(n, self.dtype)
         )
         self.plan = plan_rows(n, self.options.leaf_fft_size)
-        if self.plan[0] == "leaf" and self.plan[1] > LEAF3_N1:
-            raise not_ported(f"a leaf of {n} points", "big_leaf")
+        node = self.plan
+        for _, node, n2 in split_levels(self.plan):
+            if n2 < LANES:  # rows shorter than the column kernel's slab
+                raise not_ported(f"a split with rows of {n2} points",
+                                 "leaf_size")
+        if node[0] == "leaf" and node[1] > LEAF3_N1:
+            raise not_ported(f"a leaf of {node[1] * LANES} points",
+                             "leaf_size")
 
     @classmethod
     def from_numpy_tables(cls, n: int, tables, device=None,
                           options: Optional[Options] = None):
         """A planner for size ``n`` on ``device`` whose tables are exactly
         the given arrays. ``tables`` maps each key the plan reads
-        (``mxu{n1}``, ``leaf{n1}`` or ``mxu3_512`` for a leaf plan,
-        ``pcolT{n1}x{n2}`` and ``leafT{n2}`` for a split plan) to its
-        arrays, as the JAX planner's ``leaf_corrs`` holds them (other keys
-        are ignored). Raises if a table the plan needs is missing, of
-        another shape, or not f32."""
+        (``mxu{n1}``, ``leaf{n1}`` or ``mxu3_512`` for leaf rows,
+        ``pcolT{n1}x{n2}`` and ``leafT{n2}`` for a fused split level,
+        ``pcol{n1}x{n2}`` for a classic one) to its arrays, as the JAX
+        planner's ``leaf_corrs`` holds them (other keys are ignored).
+        Raises if a table the plan needs is missing, of another shape, or
+        not f32."""
         self = cls.__new__(cls)
         self._setup(n, PlannerMode.Heuristic, options, device)
         self.leaf_corrs = {}
-        for key, shapes in _table_shapes(self.plan).items():
+        # the planner's own tables are built only to name the keys and the
+        # shapes: one walker of the plan, at the cost of a second build
+        for key, own in _tables_host(self.plan, self.dtype.name).items():
             if key not in tables:
                 raise KeyError(f"table {key!r} missing for n = {n}")
             arrays = [np.asarray(a) for a in tables[key]]
+            shapes = [a.shape for a in own]
             if [a.shape for a in arrays] != shapes:
                 raise ValueError(f"table {key!r}: expected shapes {shapes}")
             if any(a.dtype != np.float32 for a in arrays):

@@ -178,6 +178,111 @@ def test_length_one_returns_new_tensors():
     assert torch.equal(re, keep_re) and torch.equal(im, keep_im)
 
 
+# -- nested and classic plans -------------------------------------------------
+
+#: (log2 n, leaf_fft_size, batch): plans forced by a small leaf, the shapes
+#: of the default plans at n >= 2^26 cut to a CPU's size.
+#: 2^22 / 2^10: outer classic 32 over an inner fused 128 x 1024 (the nested
+#: plan); 2^19 / 128: outer classic 32 over an inner classic 128 x 128;
+#: 2^17 and 2^20 / 2^16: one classic level (n1 = 2, 16) over leaf3 rows.
+FORCED_PLANS = [(22, 1 << 10, None), (19, 128, 2), (17, 1 << 16, 2),
+                (20, 1 << 16, None)]
+
+
+@pytest.mark.parametrize("log_n,leaf,b", FORCED_PLANS)
+@pytest.mark.parametrize("direction", ["Forward", "Reverse"])
+def test_forced_plans_match_jax_and_numpy(log_n, leaf, b, direction):
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n + leaf)
+    shape = ((b,) if b else ()) + (n,)
+    re, im = _pair(rng, shape)
+    planner = pt.PlannerDit32(n, options=pt.Options(leaf_fft_size=leaf),
+                              device="cpu")
+    jp = phastft_tpu.PlannerDit32(
+        n, options=phastft_tpu.Options(leaf_fft_size=leaf))
+    assert planner.plan == jp.plan and planner.plan[0] == "split"
+    got = pt.fft_32_dit_with_planner(re, im, getattr(pt.Direction, direction),
+                                     planner)
+    assert all(tuple(x.shape) == shape and x.dtype == torch.float32
+               for x in got)
+    ref = phastft_tpu.fft_32_dit_with_planner(
+        re, im, getattr(phastft_tpu.Direction, direction), jp)
+    x = re.astype(np.float64) + 1j * im
+    want = np.fft.fft(x, axis=-1) if direction == "Forward" else np.fft.ifft(x, axis=-1)
+    g = _c((got[0].numpy(), got[1].numpy()))
+    assert _rel(g, want) <= _bound(n)
+    assert _rel(g, _c(ref)) <= 1e-6
+
+
+@pytest.mark.parametrize("log_n,leaf", [(22, 1 << 10), (19, 128),
+                                        (17, 1 << 16)])
+def test_forced_plan_planner_from_jax_tables(log_n, leaf):
+    """A nested or classic planner built on the JAX planner's leaf_corrs
+    (which hold more keys than the port reads) computes what the port's
+    own does, from tables equal bit for bit."""
+    n = 1 << log_n
+    jp = phastft_tpu.PlannerDit32(
+        n, options=phastft_tpu.Options(leaf_fft_size=leaf))
+    tables = {k: tuple(np.asarray(a) for a in v)
+              for k, v in jp.leaf_corrs.items()}
+    opts = pt.Options(leaf_fft_size=leaf)
+    carried = pt.PlannerDit32.from_numpy_tables(n, tables, device="cpu",
+                                                options=opts)
+    own = pt.PlannerDit32(n, options=opts, device="cpu")
+    assert carried.plan == own.plan == jp.plan
+    assert set(carried.leaf_corrs) == set(own.leaf_corrs)
+    for key, arrays in own.leaf_corrs.items():
+        for mine, theirs in zip(arrays, tables[key]):
+            assert np.array_equal(mine.numpy(), theirs)
+    rng = np.random.default_rng(log_n)
+    re, im = _pair(rng, (n,))
+    a = pt.fft_32_dit_with_planner(re, im, pt.Direction.Forward, carried)
+    b = pt.fft_32_dit_with_planner(re, im, pt.Direction.Forward, own)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    missing = {k: v for k, v in tables.items() if not k.startswith("pcol")}
+    with pytest.raises(KeyError):
+        pt.PlannerDit32.from_numpy_tables(n, missing, device="cpu",
+                                          options=opts)
+
+
+def test_forced_plan_roundtrip_and_batch_dims():
+    n = 1 << 19
+    rng = np.random.default_rng(19)
+    re, im = _pair(rng, (2, 2, n))
+    planner = pt.PlannerDit32(n, options=pt.Options(leaf_fft_size=1 << 9),
+                              device="cpu")
+    # one classic level with a deep column factor (radix-16 residues)
+    assert planner.plan == ("split", 1024, ("leaf", 4), 512)
+    tre, tim = torch.from_numpy(re.copy()), torch.from_numpy(im.copy())
+    fwd = pt.fft_32_dit_with_planner(tre, tim, pt.Direction.Forward, planner)
+    assert tuple(fwd[0].shape) == (2, 2, n)
+    back = pt.fft_32_dit_with_planner(fwd[0], fwd[1], pt.Direction.Reverse,
+                                      planner)
+    x = re.astype(np.float64) + 1j * im
+    assert _rel(_c((back[0].numpy(), back[1].numpy())), x) <= 1e-6
+    # the caller's tensors are never written
+    assert np.array_equal(tre.numpy(), re) and np.array_equal(tim.numpy(), im)
+
+
+def test_classic_plan_launches_no_kernel_on_cpu():
+    """On CPU tensors every wrapper of the classic branch runs its plain
+    version: no launch is counted."""
+    from phastft_tpu_torch.ops.colfft import colfft, colfft_out3d
+    from phastft_tpu_torch.ops.leaf import leaf, leaf3
+    from phastft_tpu_torch.ops.leaft import leaft
+    from phastft_tpu_torch.ops.transpose import transpose2
+
+    fns = (colfft, colfft_out3d, leaft, leaf, leaf3, transpose2)
+    before = [f.launches for f in fns]
+    n = 1 << 17
+    x = np.ones(n, np.float32)
+    planner = pt.PlannerDit32(n, options=pt.Options(leaf_fft_size=1 << 9),
+                              device="cpu")
+    out = pt.fft_32_dit_with_planner(x, 0 * x, "f", planner)
+    assert abs(float(out[0][0]) - n) <= 1e-6 * n
+    assert [f.launches for f in fns] == before
+
+
 # -- error paths (tests/test_errors.py on the f32 entries) -------------------
 
 def test_non_power_of_two_raises():
@@ -248,17 +353,20 @@ def test_tensor_dtype_and_device_checked():
 # -- outside the slice --------------------------------------------------------
 
 @pytest.mark.parametrize("log_n,leaf,item", [
-    (26, None, "item 3"),       # nested plans
-    (17, 1 << 16, "item 6"),    # a split the fused two-pass gates refuse
+    (31, None, "item 15"),      # past 2^30: four pairs of 16 GiB
+    (17, 64, "item 14"),        # rows of 64 points: below the column kernel
     (17, 1 << 17, "item 14"),   # a leaf past 2^16
+    (20, 1 << 17, "item 14"),   # the same under a classic split
 ])
 def test_sizes_outside_slice_not_implemented(log_n, leaf, item):
     n = 1 << log_n
-    x = np.zeros(n, np.float32)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         if leaf is None:
+            # a zero-stride view: the size is refused before any data is read
+            x = np.broadcast_to(np.float32(0), (n,))
             pt.fft_32_dit(x, x, pt.Direction.Forward, device="cpu")
         else:
+            x = np.zeros(n, np.float32)
             planner = pt.PlannerDit32(
                 n, options=pt.Options(leaf_fft_size=leaf), device="cpu")
             pt.fft_32_dit_with_planner(x, x, pt.Direction.Forward, planner)

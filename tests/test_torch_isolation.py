@@ -57,7 +57,7 @@ def test_no_jax_imports_in_source(path):
 def test_kernel_modules_import_without_nvcc_or_gpu():
     out = _run(
         "import phastft_tpu_torch.ops.colfft, phastft_tpu_torch.ops.leaft, "
-        "phastft_tpu_torch.ops.leaf\n"
+        "phastft_tpu_torch.ops.leaf, phastft_tpu_torch.ops.transpose\n"
         "from phastft_tpu_torch.ops import _build\n"
         "print(_build._lib is None, _build.build_log() == '')",
         PATH="/nonexistent", CUDA_VISIBLE_DEVICES="",

@@ -57,6 +57,128 @@ def test_colfft_plain_matches_pallas(n1, n2, b):
     assert _rel(got, want) <= TOL
 
 
+@pytest.mark.parametrize("n1,n2,b", [(32, 1024, None), (256, 1024, None),
+                                     (8, 512, 3), (1024, 256, None)])
+def test_colfft_classic_plain_matches_pallas(n1, n2, b):
+    """colfft against colfft_pallas(..., out3d=False) at each depth's
+    default engine: dense (n1 < 128), radix-4, radix-16 (n1 >= 1024)."""
+    import jax.numpy as jnp
+    from phastft_tpu.ops import pallas_col
+
+    from phastft_tpu_torch.ops import colfft
+
+    rng = np.random.default_rng(n1 * 7 + n2)
+    shape = ((b,) if b else ()) + (n1, n2)
+    re, im = _pair(rng, shape)
+    t = colfft.col_tile(n1, n2)
+    assert t == pallas_col.col_tile(n1, n2)
+    host = colfft.col_split_tables_host(n1, n2, "float32", t=t)
+    for mine, ref in zip(host,
+                         pallas_col.col_split_tables_host(n1, n2, "float32")):
+        assert np.array_equal(mine, ref)
+    want = _run_interpret(
+        pallas_col.colfft_pallas, jnp.asarray(re), jnp.asarray(im),
+        tuple(jnp.asarray(a) for a in host), n1,
+    )
+    before = colfft.colfft.launches
+    got = colfft.colfft(torch.from_numpy(re), torch.from_numpy(im),
+                        tuple(torch.from_numpy(a) for a in host), n1)
+    assert colfft.colfft.launches == before  # CPU: no kernel launch
+    assert tuple(got[0].shape) == shape
+    assert _rel(got, want) <= TOL
+
+
+def _col_oracle(re, im, n1, n2):
+    """Column DFT over axis -2 times the split twiddle, in f64."""
+    z = np.fft.fft(re.astype(np.float64) + 1j * im, axis=-2)
+    k1 = np.arange(n1)[:, None]
+    i2 = np.arange(n2)[None, :]
+    z = z * np.exp(-2j * np.pi * ((k1 * i2) % (n1 * n2)) / (n1 * n2))
+    return z.real, z.imag
+
+
+@pytest.mark.parametrize("n1,n2", [(2, 256), (4, 128), (2048, 128)])
+def test_colfft_plain_matches_oracle(n1, n2):
+    """The column factors outside the TPU kernel's window (it declines
+    n1 < 8) and the deepest one, against an f64 oracle."""
+    import jax.numpy as jnp
+    from phastft_tpu.ops import pallas_col
+
+    from phastft_tpu_torch.ops.colfft import (
+        col_split_tables_host, col_tile, colfft,
+    )
+
+    rng = np.random.default_rng(n1 + n2)
+    re, im = _pair(rng, (2, n1, n2))
+    host = col_split_tables_host(n1, n2, "float32", t=col_tile(n1, n2))
+    if n1 < 8:
+        assert pallas_col.colfft_pallas(
+            jnp.asarray(re), jnp.asarray(im),
+            tuple(jnp.asarray(a) for a in host), n1) is None
+    got = colfft(torch.from_numpy(re), torch.from_numpy(im),
+                 tuple(torch.from_numpy(a) for a in host), n1)
+    assert _rel(got, _col_oracle(re, im, n1, n2)) <= 5e-7
+
+
+@pytest.mark.parametrize("rows,cols", [(512, 256), (256, 1024), (64, 512)])
+def test_transpose2_plain_matches_pallas(rows, cols):
+    import jax.numpy as jnp
+    from phastft_tpu.ops.pallas_transpose import transpose2_pallas
+
+    from phastft_tpu_torch.ops import transpose
+
+    rng = np.random.default_rng(rows + cols)
+    a, b = _pair(rng, (rows, cols))
+    want = _run_interpret(transpose2_pallas, jnp.asarray(a), jnp.asarray(b))
+    before = transpose.transpose2.launches
+    got = transpose.transpose2(torch.from_numpy(a), torch.from_numpy(b))
+    assert transpose.transpose2.launches == before  # CPU: no kernel launch
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and tuple(g.shape) == (cols, rows)
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 64), (2, 5, 32, 1), (1, 128)])
+def test_transpose2_batch_and_thin_shapes(shape):
+    """Leading batch dims and R or C below any tile, which the TPU kernel
+    does not take (it is unbatched): equal to numpy bit for bit."""
+    from phastft_tpu_torch.ops.transpose import transpose2, transpose2_plain
+
+    rng = np.random.default_rng(len(shape))
+    a, b = _pair(rng, shape)
+    for fn in (transpose2, transpose2_plain):
+        got = fn(torch.from_numpy(a), torch.from_numpy(b))
+        assert np.array_equal(got[0].numpy(), np.swapaxes(a, -1, -2))
+        assert np.array_equal(got[1].numpy(), np.swapaxes(b, -1, -2))
+
+
+@pytest.mark.parametrize("n1,leaf_n1", [(16, 4), (2, 512), (32, 1)])
+def test_classic_pipeline_matches_numpy(n1, leaf_n1):
+    """colfft -> leaf rows -> transpose2 is the whole length-n transform:
+    the classic branch, module by module."""
+    from phastft_tpu_torch.ops.colfft import (
+        col_split_tables_host, col_tile, colfft,
+    )
+    from phastft_tpu_torch.ops.fourstep import fft_rows
+    from phastft_tpu_torch.ops.transpose import transpose2
+    from phastft_tpu_torch.planner import PlannerDit32
+
+    n2 = leaf_n1 * 128
+    rng = np.random.default_rng(n1 + leaf_n1)
+    re, im = _pair(rng, (2, n1 * n2))
+    tabs = tuple(torch.from_numpy(a) for a in
+                 col_split_tables_host(n1, n2, "float32", t=col_tile(n1, n2)))
+    rows = PlannerDit32(n2, device="cpu")
+    view = (2, n1, n2)
+    c = colfft(torch.from_numpy(re).view(view), torch.from_numpy(im).view(view),
+               tabs, n1)
+    d = fft_rows(c[0], c[1], rows.plan, rows.leaf_corrs)
+    o = transpose2(d[0], d[1])
+    got = (o[0].reshape(2, -1), o[1].reshape(2, -1))
+    want = np.fft.fft(re.astype(np.float64) + 1j * im, axis=-1)
+    assert _rel(got, (want.real, want.imag)) <= 5e-7
+
+
 @pytest.mark.parametrize("n1,n2,b", [(128, 1024, None), (128, 2048, 2)])
 def test_leaft_plain_matches_pallas(n1, n2, b):
     import jax.numpy as jnp
@@ -152,6 +274,44 @@ def test_wrappers_reject_bad_arguments(bad):
             colfft_out3d(x, x, (tabs[0][:, :128], tabs[1][:, :128]), n1)
         with pytest.raises(ValueError):
             leaft(c, c, mats[:6], n1)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "tables", "device"])
+def test_classic_wrappers_reject_bad_arguments(bad):
+    from phastft_tpu_torch.ops.colfft import (
+        col_split_tables_host, col_tile, colfft,
+    )
+    from phastft_tpu_torch.ops.transpose import transpose2
+
+    n1, n2 = 32, 256
+    x = torch.zeros(n1, n2)
+    tabs = tuple(torch.from_numpy(a) for a in
+                 col_split_tables_host(n1, n2, "float32", t=col_tile(n1, n2)))
+    if bad == "dtype":
+        with pytest.raises(TypeError):
+            colfft(x.double(), x.double(), tabs, n1)
+        with pytest.raises(TypeError):
+            transpose2(x.double(), x.double())
+    elif bad == "shape":
+        with pytest.raises(ValueError):
+            colfft(x, x[:, :128], tabs, n1)
+        with pytest.raises(ValueError):  # n2 below the kernel's 128 columns
+            colfft(x[:, :64], x[:, :64], tabs, n1)
+        with pytest.raises(ValueError):
+            transpose2(x, x[:, :128])
+        with pytest.raises(ValueError):  # not a power of two
+            transpose2(x[:, :96], x[:, :96])
+    elif bad == "tables":
+        with pytest.raises(ValueError):
+            colfft(x, x, (tabs[0][:, :128], tabs[1][:, :128]), n1)
+        with pytest.raises(ValueError):
+            colfft(x, x, tabs[:1], n1)
+    else:
+        with pytest.raises(ValueError, match="device"):
+            colfft(x.to("meta"), x.to("meta"),
+                   tuple(t.to("meta") for t in tabs), n1)
+        with pytest.raises(ValueError, match="device"):
+            transpose2(x.to("meta"), x.to("meta"))
 
 
 # -- the leaf kernels (n <= 2^16) -------------------------------------------

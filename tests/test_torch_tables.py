@@ -80,6 +80,54 @@ def test_plans_match(log_n):
     assert 128 <= n1 <= 2048 and 8 <= n2 // 128 <= 128
 
 
+@pytest.mark.parametrize("log_n", range(26, 31))
+def test_nested_plans_match(log_n):
+    """The default plans of 2^26..2^30: one classic outer level around the
+    fused 128 x 2^14 level, the same in both packages."""
+    from phastft_tpu.ops.fourstep import plan_rows as jax_plan
+    from phastft_tpu.options import Options as JaxOptions
+
+    from phastft_tpu_torch.ops.fourstep import (
+        fused_two_pass, plan_rows, split_levels,
+    )
+    from phastft_tpu_torch.options import Options
+
+    n = 1 << log_n
+    leaf = Options.guess_options(n, np.float32).leaf_fft_size
+    assert leaf == JaxOptions.guess_options(n, np.float32).leaf_fft_size == 1 << 14
+    plan = plan_rows(n, leaf)
+    assert plan == jax_plan(n, leaf)
+    inner = ("split", 128, ("leaf", 128), 1 << 14)
+    assert plan == ("split", n >> 21, inner, 1 << 21)
+    assert [fused_two_pass(*lv) for lv in split_levels(plan)] == [False, True]
+
+
+@pytest.mark.parametrize("n1,n2", [(2, 1 << 16), (32, 1 << 21), (512, 1 << 21),
+                                   (2048, 128)])
+def test_col_split_tables_classic_bitwise(n1, n2):
+    """The classic mode's T2 table is factored on col_tile, the JAX
+    function's default width."""
+    from phastft_tpu.ops import pallas_col
+
+    from phastft_tpu_torch.ops import colfft
+
+    t = colfft.col_tile(n1, n2)
+    assert t == pallas_col.col_tile(n1, n2)
+    _same(colfft.col_split_tables_host(n1, n2, "float32", t=t),
+          pallas_col.col_split_tables_host(n1, n2, "float32"))
+
+
+def test_nested_planner_tables():
+    """A default nested planner (2^26) holds the classic outer table and
+    the fused inner tables, and no leaf table: `leaft` has its own."""
+    from phastft_tpu_torch import PlannerDit32
+
+    mine = PlannerDit32(1 << 26, device="cpu")
+    assert set(mine.leaf_corrs) == {"pcol32x2097152", "pcolT128x16384",
+                                    "leafT16384"}
+    assert tuple(mine.leaf_corrs["pcol32x2097152"][0].shape) == (32, 512)
+
+
 def test_planner_tables_match_jax_planner():
     """The port's planner holds exactly the JAX planner's two-pass tables."""
     from phastft_tpu.planner import PlannerDit32 as JaxPlanner
