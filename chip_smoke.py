@@ -63,6 +63,41 @@ on any failed check:
    ``torch.fft.fft`` on complex64, and ``x.transpose(-1, -2).contiguous()``
    on both planes as the library call for ``transpose2``.
 
+12. ``dd_exact``: TwoSum and TwoProd as the dd kernels' ``csrc/dd.cuh``
+   computes them, on 2^20 random pairs: s + e = a + b and p + e = a * b
+   with a residual of exactly 0 in f64.
+13. ``parity_dd``: the dd (double-float) kernels against their plain
+   versions on joined f64 values (hi + lo), rel L2 <= 1e-13: ``ddcol`` at
+   (n1, n2) = (256, 2^16), 2 x (64, 2^16), (2048, 2^16), 5 x (2, 2^13), the
+   split leaf's 4096 x (64, 128) and 256 x (512, 128), and 3 x (2, 128)
+   (several entries per block); ``ddcol_nocorr`` at 4096 x (128, 64),
+   256 x (128, 512) and 5 x (128, 2); ``ddleaf`` at n1 = 1, 8, 64, 128, 256
+   and 512 (one block per row group, and clusters of 2, 4 and 8 blocks)
+   with 1, 5 and 256 rows. The tables are those of a ``PlannerDit64``.
+14. ``e2e_dd``: the f64 main path (the df64 engine), counters set to 0 just
+   before and read just after, each transform's launches checked against
+   its plan: ``fft_64_dit`` at every n = 2^0..2^16 on 2^18 points against
+   numpy's f64 FFT, at 2^20, 2^24, 2^27 and the nested plan of 2^28 against
+   ``torch.fft.fft`` in complex128 on the card (rel L2 <= 1e-12), one
+   ``PlannerDit64(2^22)`` reused on a (4, 2^22) batch, ``"df64-split"`` at
+   2^13 x 64 rows, 2^10 x 5 rows (several entries per block of the column
+   kernel) and at 2^24, forward then inverse at 2^24 (<= 1e-12), the
+   inverse of N * delta (exactly ones), and the peak of allocated device
+   memory at 2^27.
+15. ``times_dd``: as 5 with 10 calls: ``ddcol`` at the 2^24 and 2^27 plans'
+   shapes, ``ddleaf`` at 2^16 x 256, 2^16 x 2048 and 2^13 x 2^11, the split
+   leaf's two passes and its transposes at 2^16 x 256, each kernel's plain
+   version at the smaller shape (3 calls), and the whole f64 transform at
+   2^20, 2^24 and 2^27 (device and host clock) beside ``torch.fft.fft`` on
+   complex128. The library call of ``ddleaf`` is ``torch.fft.fft`` of the
+   same rows as one complex128 tensor, that of ``ddcol_nocorr``
+   ``torch.fft.fft(dim=-2)``; ``ddcol`` fuses a twiddle and has none. The dd
+   bounds are the larger of 32 B per element over the memory rate and the
+   f32 flops the function needs over the f32 peak, both printed: a DFT by
+   radix-4 decimation with the trivial twiddles dropped (``dd_dft_flops``;
+   the kernels' radix-2 code spends 47 per element per stage) and 50 per dd
+   complex product of a correction.
+
 The line before the last is the kernel summary; the last line is the
 device record. No CUDA device: exit 1 before any result.
 """
@@ -111,6 +146,29 @@ TOP_BINS = 256
 #: Elements per step of the chunked error sums and the direct DFT.
 CHUNK = 1 << 26
 KERNEL_TOL = 1e-6
+#: dd kernels against their plain versions, and the f64 entries against a
+#: complex128 FFT (the bound of the JAX package's df64 tests).
+DD_KERNEL_TOL = 1e-13
+DD_E2E_TOL = 1e-12
+DD_EXACT_PAIRS = 1 << 20
+#: (batch, n1, n2) of the dd column passes' parity checks, and (n1, rows) of
+#: the dd leaf's.
+DD_COL_SHAPES = ((1, 256, 1 << 16), (2, 64, 1 << 16), (1, 2048, 1 << 16),
+                 (5, 2, 1 << 13), (4096, 64, 128), (3, 2, 128), (256, 512, 128))
+DD_NOCORR_SHAPES = ((4096, 128, 64), (5, 128, 2), (256, 128, 512))
+DD_LEAF_N1S = (1, 8, 64, 128, 256, 512)
+DD_LEAF_ROWS = (1, 5, 256)
+DD_E2E_POINTS = 1 << 18
+DD_E2E_LOGS = (20, 24, 27)
+DD_NESTED_LOG = 28
+DD_TIME_LOGS = (20, 24, 27)
+#: (log2 n, rows) of the "df64-split" transform whose entries are smaller
+#: than the column kernel's slab, so that a block holds several.
+DD_SPLIT_SMALL = (10, 5)
+#: f32 flops of dd arithmetic, counted from csrc/dd.cuh: a dd complex sum
+#: (two dd sums of 11) and a dd complex product.
+DD_CADD_FLOPS = 22
+DD_CMUL_FLOPS = 50
 OUT_DIR = "chiprun_out"
 #: ~1 ms at the H100's clocks: longer than the host takes to enqueue a call.
 SLEEP_CYCLES = 2_000_000
@@ -264,6 +322,84 @@ def kernel_bound(n: int, log_len: int, table_floats: int = 0):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def dd_dft_flops(log_len: int) -> float:
+    """f32 flops per point that a dd DFT of length 2^log_len needs, by
+    radix-4 decimation with the trivial twiddles dropped: a butterfly of
+    four points is 8 dd complex sums (a product by -i is free) and 3 dd
+    complex products, which the last radix-4 stage, whose twiddles are all
+    1, does not need; an odd log2 ends on a radix-2 stage of sums alone.
+    The kernels' own radix-2 code spends more: a product in every stage,
+    (2 * 22 + 50) / 2 = 47 flops per point per stage."""
+    radix4_with_products = max(0, (log_len + 1) // 2 - 1)
+    return DD_CADD_FLOPS * log_len + 0.75 * DD_CMUL_FLOPS * radix4_with_products
+
+
+def dd_bound(points: int, log_len: int, cmuls: int, table_floats: int = 0):
+    """The bound of one dd pass of length-2^log_len DFTs over ``points``
+    complex elements: four f32 planes read and written once (32 B per
+    element) plus the tables, against dd_dft_flops(log_len) +
+    DD_CMUL_FLOPS * cmuls f32 flops per element. Returns ``bound_ms`` (the
+    larger), ``bound_by``, and both times."""
+    t_bytes = (32 * points + 4 * table_floats) / HBM_BYTES_PER_S * 1e3
+    flops = points * (dd_dft_flops(log_len) + DD_CMUL_FLOPS * cmuls)
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops}
+
+
+def ddcol_bound(b: int, n1: int, n2: int, corr: bool = True):
+    """A column pass: the length-n1 DFT and, with ``corr``, the two dd
+    complex products of the factored correction."""
+    t = min(256, n2)
+    tables = 4 * (n1 // 2) + (4 * (n1 * (n2 // t) + n1 * t) if corr else 0)
+    return dd_bound(b * n1 * n2, n1.bit_length() - 1, 2 if corr else 0, tables)
+
+
+def ddleaf_bound(rows: int, n1: int):
+    """A leaf: one DFT of the whole row of n1 * 128 points (the correction
+    between the kernel's two factors is that DFT's own twiddle)."""
+    tables = 4 * 64 + (4 * (n1 * 128 + n1 // 2) if n1 > 1 else 0)
+    return dd_bound(rows * n1 * 128, n1.bit_length() - 1 + 7, 0, tables)
+
+
+def dd_launches(plan, split: bool):
+    """{kernel: launches} of one df64 transform of ``plan``; ``split`` is
+    the "df64-split" leaf lowering."""
+    want = {"ddcol": 0, "ddcol_nocorr": 0, "ddleaf": 0, "transpose2": 0}
+    while plan[0] == "split":
+        want["ddcol"] += 1
+        want["transpose2"] += 2
+        plan = plan[2]
+    if plan[0] == "leaf":
+        if split and plan[1] > 1:
+            want["ddcol"] += 1
+            want["transpose2"] += 2
+            want["ddcol_nocorr"] += 1
+        else:
+            want["ddleaf"] += 1
+    return want
+
+
+def dd_rel(got, want):
+    """(rel L2, max abs error) of a dd quadruple against another on the
+    joined f64 values hi + lo, in chunks of CHUNK elements."""
+    num = den = worst = 0.0
+    for h, l in ((0, 1), (2, 3)):
+        gh, gl = got[h].reshape(-1), got[l].reshape(-1)
+        wh, wl = want[h].reshape(-1), want[l].reshape(-1)
+        for s in range(0, gh.numel(), CHUNK):
+            w = wh[s:s + CHUNK].double() + wl[s:s + CHUNK].double()
+            d = gh[s:s + CHUNK].double() + gl[s:s + CHUNK].double() - w
+            num += float((d ** 2).sum())
+            den += float((w ** 2).sum())
+            worst = max(worst, float(d.abs().max()))
+    err = float(np.sqrt(num / den))
+    if not np.isfinite(err):
+        raise AssertionError("dd output is not finite")
+    return err, worst
+
+
 def leaf_call(planner):
     """(wrapper, plain version, arguments, table floats read) of the leaf
     kernel that the planner's tiny or leaf plan runs."""
@@ -291,10 +427,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
-    from phastft_tpu_torch import Direction, PlannerDit32, fft_32_dit
-    from phastft_tpu_torch import fft_32_dit_with_planner
+    from phastft_tpu_torch import (
+        Direction, Options, PlannerDit32, PlannerDit64, fft_32_dit,
+        fft_32_dit_with_planner, fft_64_dit, fft_64_dit_with_planner,
+        fft_64_dit_with_planner_and_opts,
+    )
     from phastft_tpu_torch.ops import _build
-    from phastft_tpu_torch import Options
+    from phastft_tpu_torch.ops.dd import (
+        ddcol, ddcol_nocorr, ddcol_nocorr_plain, ddcol_plain, ddleaf, ddleaf_plain,
+    )
+    from phastft_tpu_torch.ops.df64 import split_f64
     from phastft_tpu_torch.ops.colfft import (
         col_split_tables_host, col_tile, col_tile3d, colfft, colfft_out3d,
         colfft_out3d_plain, colfft_plain,
@@ -768,7 +910,286 @@ def main() -> int:
         emit({"phase": "times_nested", "n": n, "n1": n1, "n2": n2, "card": smi,
               "kernels": row, "inner": inner, **time_transform(planner, 10)})
         top.update(row)  # the kernels line: the last (largest) shape
-    del xr, xi
+    del xr, xi, ar, ai, br, bi  # the views hold the 2^30-point planes
+
+    torch.cuda.empty_cache()
+
+    # -- dd arithmetic on the card: TwoSum and TwoProd exact against f64
+    n_pairs = DD_EXACT_PAIRS
+
+    def signed(count):
+        mag = torch.rand(count, generator=gen, device=dev) * (16 - 1 / 16) + 1 / 16
+        sign = torch.randint(0, 2, (count,), generator=gen, device=dev) * 2 - 1
+        return mag * sign
+
+    pa, pb = signed(n_pairs), signed(n_pairs)
+    ps, pe, pp, ppe = (torch.empty_like(pa) for _ in range(4))
+    rc = _build.library().phastft_dd_exact(
+        pa.data_ptr(), pb.data_ptr(), ps.data_ptr(), pe.data_ptr(), pp.data_ptr(),
+        ppe.data_ptr(), n_pairs, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"dd_exact: CUDA error {rc}")
+    sum_resid = float((ps.double() + pe.double() - (pa.double() + pb.double())).abs().max())
+    prod_resid = float((pp.double() + ppe.double() - pa.double() * pb.double()).abs().max())
+    inexact = float((pe != 0).float().mean()), float((ppe != 0).float().mean())
+    emit({"phase": "dd_exact", "pairs": n_pairs, "two_sum_residual": sum_resid,
+          "two_prod_residual": prod_resid, "nonzero_error_terms": inexact})
+    if sum_resid != 0.0 or prod_resid != 0.0:
+        raise AssertionError("TwoSum or TwoProd is not exact on this card")
+    if min(inexact) < 0.25:
+        raise AssertionError("dd_exact: the pairs do not exercise the error terms")
+    del pa, pb, ps, pe, pp, ppe
+
+    # -- dd kernels against their plain versions, on joined f64 values
+    def dd_quad(shape):
+        return (*split_f64(torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)),
+                *split_f64(torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)))
+
+    def dd_join(quad):
+        """The complex128 tensor a dd quadruple stands for."""
+        return torch.complex(quad[0].double() + quad[1].double(),
+                             quad[2].double() + quad[3].double())
+
+    # the tables are the ones a planner hands the main path: a plan with a
+    # leaf of n2 points is one split level n1 x n2, a leaf of n1 * 128 one leaf
+    def dd_corrs(n, leaf):
+        return PlannerDit64(n, options=Options(leaf_fft_size=leaf,
+                                               f64_engine="df64")).dd_state[1]
+
+    def col_tables(n1, n2):
+        return dd_corrs(n1 * n2, n2)[f"ddpcol{n1}x{n2}"]
+
+    def leaf_corr(n1):
+        return dd_corrs(n1 * 128, n1 * 128)[f"ddleaf{n1}"] if n1 > 1 else None
+
+    max_err.update(ddcol=0.0, ddcol_nocorr=0.0, ddleaf=0.0)
+
+    def dd_parity(name, k, p, **where):
+        err, worst = dd_rel(k, p)
+        max_err[name] = max(max_err[name], worst)
+        emit({"phase": "parity_dd", "kernel": name, **where, "rel_l2": err,
+              "max_abs_err": worst, "bound": DD_KERNEL_TOL})
+        check(f"{name} parity at {where}", err, DD_KERNEL_TOL)
+
+    for b, n1, n2 in DD_COL_SHAPES:
+        x = dd_quad((b, n1, n2))
+        t1, t2 = col_tables(n1, n2)
+        k = ddcol(*x, t1, t2, n1)
+        torch.cuda.synchronize()
+        dd_parity("ddcol", k, ddcol_plain(*x, t1, t2, n1), batch=b, n1=n1, n2=n2)
+        del k, x
+    for b, n1, n2 in DD_NOCORR_SHAPES:
+        x = dd_quad((b, n1, n2))
+        k = ddcol_nocorr(*x, n1)
+        torch.cuda.synchronize()
+        dd_parity("ddcol_nocorr", k, ddcol_nocorr_plain(*x, n1), batch=b, n1=n1, n2=n2)
+        del k, x
+    for n1 in DD_LEAF_N1S:
+        corr = leaf_corr(n1)
+        for rows in DD_LEAF_ROWS:
+            x = dd_quad((rows, n1 * 128))
+            k = ddleaf(*x, corr, n1)
+            torch.cuda.synchronize()
+            dd_parity("ddleaf", k, ddleaf_plain(*x, corr, n1), n=n1 * 128, rows=rows)
+            del k, x
+    torch.cuda.empty_cache()
+
+    # -- main path of the f64 (df64) plans: counters at 0 just before, read
+    # just after; every transform's own launches are checked against its plan
+    counters = (ddcol, ddcol_nocorr, ddleaf, transpose2, colfft, colfft_out3d,
+                leaft, leaf, leaf3)
+    names = [k.__name__ for k in counters]
+    for k in counters:
+        k.launches = 0
+    want_total = dict.fromkeys(names, 0)
+
+    def run_dd(fn, plan, split=False):
+        """fn() once; it must launch what a df64 transform of ``plan`` does."""
+        return run_counted(fn, dd_launches(plan, split))
+
+    def randn64(shape):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float64),
+                torch.randn(shape, generator=gen, device=dev, dtype=torch.float64))
+
+    errs = {}
+    for log_n in range(17):
+        n = 1 << log_n
+        re = rng.standard_normal((max(1, DD_E2E_POINTS // n), n))
+        im = rng.standard_normal(re.shape)
+        plan = PlannerDit64(n).plan
+        out = run_dd(lambda: fft_64_dit(re, im, Direction.Forward), plan)
+        if out[0].dtype != torch.float64:
+            raise AssertionError(f"fft_64_dit returned {out[0].dtype}")
+        err = oracle_err(out, re + 1j * im)
+        errs[f"fwd_2^{log_n}"] = err
+        check(f"fft_64_dit 2^{log_n}", err, DD_E2E_TOL)
+    peak27 = held27 = None
+    for log_n in (*DD_E2E_LOGS, DD_NESTED_LOG):
+        n = 1 << log_n
+        xr, xi = randn64((n,))
+        planner = PlannerDit64(n)
+        if (log_n == DD_NESTED_LOG) != (planner.plan[2][0] == "split"):
+            raise AssertionError(f"unexpected f64 plan {planner.plan}")
+        planner.dd_state  # the tables are built before the memory reading
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out = run_dd(lambda: fft_64_dit_with_planner(xr, xi, Direction.Forward, planner),
+                     planner.plan)
+        torch.cuda.synchronize()
+        if log_n == 27:
+            peak27, held27 = torch.cuda.max_memory_allocated(), held
+        err = card_oracle_err(out, xr, xi)
+        errs[f"fwd_2^{log_n}"] = err
+        check(f"fft_64_dit 2^{log_n}", err, DD_E2E_TOL)
+        if log_n == 24:
+            back = run_dd(lambda: fft_64_dit(out[0], out[1], Direction.Reverse),
+                          planner.plan)
+            rt = rel_l2(back[0], back[1], xr, xi)
+            errs["roundtrip_2^24"] = rt
+            check("f64 round trip 2^24", rt, DD_E2E_TOL)
+            dr = torch.zeros(n, device=dev, dtype=torch.float64)
+            dr[0] = float(n)
+            back = run_dd(lambda: fft_64_dit(dr, torch.zeros_like(dr), Direction.Reverse),
+                          planner.plan)
+            exact = bool((back[0] == 1.0).all()) and bool((back[1] == 0.0).all())
+            errs["inverse_scale_exact_2^24"] = exact
+            if not exact:
+                raise AssertionError("f64 inverse of N * delta is not exactly ones")
+            split_planner = PlannerDit64(n, options=Options(
+                leaf_fft_size=planner.options.leaf_fft_size, f64_engine="df64-split"))
+            out = run_dd(lambda: fft_64_dit_with_planner(xr, xi, Direction.Forward,
+                                                         split_planner),
+                         planner.plan, split=True)
+            err = card_oracle_err(out, xr, xi)
+            errs["split_2^24"] = err
+            check("df64-split 2^24", err, DD_E2E_TOL)
+            del back, dr
+        del out, xr, xi
+        torch.cuda.empty_cache()
+    planner = PlannerDit64(1 << 22)
+    for _ in range(2):
+        xr, xi = randn64((4, 1 << 22))
+        out = run_dd(lambda: fft_64_dit_with_planner(xr, xi, Direction.Forward, planner),
+                     planner.plan)
+        err = card_oracle_err(out, xr, xi)
+        errs.setdefault("planner_2^22_batch4", []).append(err)
+        check("PlannerDit64 reuse 2^22 x4", err, DD_E2E_TOL)
+        del out, xr, xi
+    planner = PlannerDit64(1 << 13)
+    xr, xi = randn64((64, 1 << 13))
+    out = run_dd(lambda: fft_64_dit_with_planner_and_opts(
+        xr, xi, Direction.Forward, planner, Options(f64_engine="df64-split")),
+        planner.plan, split=True)
+    err = card_oracle_err(out, xr, xi)
+    errs["split_2^13_x64"] = err
+    check("df64-split 2^13 x 64", err, DD_E2E_TOL)
+    del out, xr, xi
+    log_n, rows = DD_SPLIT_SMALL
+    planner = PlannerDit64(1 << log_n)
+    xr, xi = randn64((rows, 1 << log_n))
+    out = run_dd(lambda: fft_64_dit_with_planner_and_opts(
+        xr, xi, Direction.Forward, planner, Options(f64_engine="df64-split")),
+        planner.plan, split=True)
+    err = card_oracle_err(out, xr, xi)
+    errs[f"split_2^{log_n}_x{rows}"] = err
+    check(f"df64-split 2^{log_n} x {rows}", err, DD_E2E_TOL)
+    del out, xr, xi
+    torch.cuda.synchronize()
+    launches_dd = {k.__name__: k.launches for k in counters}
+    emit({"phase": "e2e_dd", "rel_l2": errs, "launches": launches_dd,
+          "want": want_total, "peak_bytes_2^27": peak27, "held_before_2^27": held27,
+          "peak_gib_2^27": peak27 / 2 ** 30})
+    if launches_dd != want_total:
+        raise AssertionError(f"launches {launches_dd}, want {want_total}")
+    for name in ("ddcol", "ddcol_nocorr", "ddleaf"):
+        if launches_dd[name] < 1:
+            raise AssertionError(f"{name} was never launched on the f64 main path")
+        launches[name] = launches_dd[name]
+    torch.cuda.empty_cache()
+
+    # -- dd times
+    def dd_row(fn, plain, bound, n, rows, library=None, reps=10):
+        return {"ms": time_ms(fn, flush, reps), "plain_ms": time_ms(plain, flush, 3),
+                **bound,
+                "library_ms": time_ms(library, flush, reps) if library else None,
+                "n": n, "rows": rows}
+
+    for n1, n2, with_plain in ((256, 1 << 16, True), (2048, 1 << 16, False)):
+        x = dd_quad((1, n1, n2))
+        t1, t2 = col_tables(n1, n2)
+        bound = ddcol_bound(1, n1, n2)
+        if with_plain:
+            row = dd_row(lambda: ddcol(*x, t1, t2, n1),
+                         lambda: ddcol_plain(*x, t1, t2, n1), bound, n1 * n2, 1)
+            top["ddcol"] = row
+        else:
+            row = {"ms": time_ms(lambda: ddcol(*x, t1, t2, n1), flush, 10), **bound}
+        emit({"phase": "times_dd", "kernel": "ddcol", "batch": 1, "n1": n1, "n2": n2,
+              "card": smi, **row})
+        del x
+    for n1, rows, with_plain in ((512, 256, True), (512, 2048, False), (64, 1 << 11, False)):
+        x = dd_quad((rows, n1 * 128))
+        corr = leaf_corr(n1)
+        bound = ddleaf_bound(rows, n1)
+        if with_plain:
+            # the library call: the same rows' DFT on a complex128 tensor
+            # assembled outside the timed region
+            xc = dd_join(x)
+            row = dd_row(lambda: ddleaf(*x, corr, n1),
+                         lambda: ddleaf_plain(*x, corr, n1), bound, n1 * 128, rows,
+                         library=lambda: torch.fft.fft(xc))
+            top["ddleaf"] = row
+            del xc
+        else:
+            row = {"ms": time_ms(lambda: ddleaf(*x, corr, n1), flush, 10), **bound}
+        emit({"phase": "times_dd", "kernel": "ddleaf", "n": n1 * 128, "rows": rows,
+              "card": smi, **row})
+        del x
+    # the split leaf at 2^16 x 256: ddcol over 512, the transposes, the bare
+    # column DFT over 128
+    rows, n1 = 256, 512
+    x = dd_quad((rows, n1, 128))
+    t1, t2 = col_tables(n1, 128)
+    xt = tuple(a.swapaxes(-1, -2).contiguous() for a in x)
+    bound = ddcol_bound(rows, 128, n1, corr=False)
+    xc = dd_join(xt)
+    top["ddcol_nocorr"] = dd_row(lambda: ddcol_nocorr(*xt, 128),
+                                 lambda: ddcol_nocorr_plain(*xt, 128), bound,
+                                 n1 * 128, rows,
+                                 library=lambda: torch.fft.fft(xc, dim=-2))
+    del xc
+    bound1 = ddcol_bound(rows, n1, 128)
+    emit({"phase": "times_dd", "kernel": "split leaf", "n": n1 * 128, "rows": rows,
+          "card": smi,
+          "ddcol_ms": time_ms(lambda: ddcol(*x, t1, t2, n1), flush, 10),
+          "ddcol_bound_ms": bound1["bound_ms"], "ddcol_bound_by": bound1["bound_by"],
+          "transposes_ms": time_ms(
+              lambda: (transpose2(x[0], x[2]), transpose2(x[1], x[3])), flush, 10),
+          "transposes_bound_ms": 2 * copy_bound(rows * n1 * 128)[0],
+          "ddcol_nocorr": top["ddcol_nocorr"]})
+    del x, xt
+    torch.cuda.empty_cache()
+    for log_n in DD_TIME_LOGS:
+        n = 1 << log_n
+        xr, xi = randn64((n,))
+        planner = PlannerDit64(n)
+
+        def transform():
+            return fft_64_dit_with_planner(xr, xi, Direction.Forward, planner)
+
+        _, n1, (_, l1), n2 = planner.plan
+        bound = (ddcol_bound(1, n1, n2)["bound_ms"] + ddleaf_bound(n1, l1)["bound_ms"]
+                 + 2 * copy_bound(n)[0])
+        row = {"transform_ms": time_ms(transform, flush, 10),
+               "transform_wall_ms": wall_ms(transform, flush, 10),
+               "transform_bound_ms": bound}
+        xc = torch.complex(xr, xi)
+        row["library_ms"] = time_ms(lambda: torch.fft.fft(xc), flush, 10)
+        emit({"phase": "times_dd", "n": n, "n1": n1, "n2": n2, "card": smi, **row})
+        del xr, xi, xc
+        torch.cuda.empty_cache()
 
     sources = {
         "colfft_out3d": ("phastft_tpu_torch/csrc/colfft.cu",
@@ -783,6 +1204,12 @@ def main() -> int:
                    "phastft_tpu/ops/pallas_col.py:490"),
         "transpose2": ("phastft_tpu_torch/csrc/transpose.cu",
                        "phastft_tpu/ops/pallas_transpose.py:64"),
+        "ddcol": ("phastft_tpu_torch/csrc/ddcol.cu",
+                  "phastft_tpu/ops/pallas_dd.py:207"),
+        "ddcol_nocorr": ("phastft_tpu_torch/csrc/ddcol.cu",
+                         "phastft_tpu/ops/pallas_dd.py:287"),
+        "ddleaf": ("phastft_tpu_torch/csrc/ddleaf.cu",
+                   "phastft_tpu/ops/pallas_dd.py:382"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -790,7 +1217,9 @@ def main() -> int:
          "ms": top[name]["ms"], "plain_ms": top[name]["plain_ms"],
          "bound_ms": top[name]["bound_ms"], "bound_by": top[name]["bound_by"],
          "library_ms": top[name]["library_ms"], "n": top[name]["n"],
-         "rows": top[name]["rows"]}
+         "rows": top[name]["rows"],
+         **{k: top[name][k] for k in ("bound_bytes_ms", "bound_ops_ms")
+            if k in top[name]}}
         for name, (src, rep) in sources.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

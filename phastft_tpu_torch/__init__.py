@@ -15,7 +15,11 @@ leading batch dimensions: up to 2^16 through one leaf kernel per
 transform, to 2^25 through the fused two-pass four-step pipeline, above
 it through a classic outer level (column pass, inner transform, paired
 transpose) around that pipeline; a non-default ``Options.leaf_fft_size``
-of 128..2^16 points runs classic levels too. Everything else raises ``NotImplementedError`` naming the ``ROADMAP.md``
+of 128..2^16 points runs classic levels too. Planar f64 runs for the same
+sizes on the df64 (paired-f32) engine, four f32 planes per complex array
+through the dd kernels (``f64_engine`` = ``"df64"``, ``"df64-fused"``,
+``"df64-split"``). Everything else (the native and Ozaki f64 engines,
+n >= 2^31, ...) raises ``NotImplementedError`` naming the ``ROADMAP.md``
 item that brings it. The package imports neither JAX nor phastft_tpu.
 """
 

@@ -1,0 +1,213 @@
+// Double-float (dd) device arithmetic and in-place radix-2 DIF FFTs over dd
+// complex sequences held in shared memory, shared by the dd column kernels
+// (ddcol.cu) and the dd leaf kernels (ddleaf.cu).
+//
+// A dd value is an unevaluated sum hi + lo of two floats (~48 significand
+// bits). A dd complex array is four float planes: re_hi, re_lo, im_hi,
+// im_lo. Every operation of an error-free transform is written with the
+// round-to-nearest intrinsics (__fadd_rn, __fsub_rn, __fmul_rn, __fmaf_rn),
+// which the compiler never contracts or reorders, so TwoSum and TwoProd are
+// exact whatever the build's --fmad setting. TwoProd takes its error term
+// from one fused multiply-add, fma(a, b, -a*b): the same exact term that
+// Dekker's split product (17 operations) yields in the plain version.
+//
+// Every sum and product renormalises its result, so values in shared memory
+// are always normalised pairs.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "fft_smem.cuh"
+
+namespace phastft {
+namespace ddk {
+
+struct dd {
+  float hi, lo;
+};
+
+struct ddc {
+  dd re, im;
+};
+
+// Four device pointers, one per plane (re_hi, re_lo, im_hi, im_lo).
+struct Quad {
+  float* p[4];
+};
+
+struct ConstQuad {
+  const float* p[4];
+};
+
+// s + e == a + b exactly (Knuth).
+__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
+  s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+}
+
+// p + e == a * b exactly.
+__device__ __forceinline__ void two_prod(float a, float b, float& p, float& e) {
+  p = __fmul_rn(a, b);
+  e = __fmaf_rn(a, b, -p);
+}
+
+__device__ __forceinline__ dd renorm(float s, float e) {
+  dd r;
+  r.hi = __fadd_rn(s, e);
+  r.lo = __fsub_rn(e, __fsub_rn(r.hi, s));
+  return r;
+}
+
+__device__ __forceinline__ dd neg(dd a) { return dd{-a.hi, -a.lo}; }
+
+// 11 flops: TwoSum of the his, the los folded in, one renormalisation. The
+// operands need not be normalised.
+__device__ __forceinline__ dd add(dd a, dd b) {
+  float s, e;
+  two_sum(a.hi, b.hi, s, e);
+  e = __fadd_rn(e, __fadd_rn(a.lo, b.lo));
+  return renorm(s, e);
+}
+
+__device__ __forceinline__ dd sub(dd a, dd b) { return add(a, neg(b)); }
+
+// 7 flops: the unnormalised product (p, e); only a.lo * b.lo is dropped.
+__device__ __forceinline__ dd mul_lazy(dd a, dd b) {
+  float p, e;
+  two_prod(a.hi, b.hi, p, e);
+  e = __fadd_rn(e, __fmaf_rn(a.hi, b.lo, __fmul_rn(a.lo, b.hi)));
+  return dd{p, e};
+}
+
+// 50 flops: four lazy products, one renormalised sum per component.
+__device__ __forceinline__ ddc cmul(ddc a, ddc w) {
+  const dd t1 = mul_lazy(a.re, w.re);
+  const dd t2 = mul_lazy(a.im, w.im);
+  const dd t3 = mul_lazy(a.re, w.im);
+  const dd t4 = mul_lazy(a.im, w.re);
+  ddc r;
+  r.re = sub(t1, t2);
+  r.im = add(t3, t4);
+  return r;
+}
+
+__device__ __forceinline__ ddc cadd(ddc a, ddc b) {
+  return ddc{add(a.re, b.re), add(a.im, b.im)};
+}
+
+__device__ __forceinline__ ddc csub(ddc a, ddc b) {
+  return ddc{sub(a.re, b.re), sub(a.im, b.im)};
+}
+
+__device__ __forceinline__ ddc from_float4(float4 v) {
+  return ddc{dd{v.x, v.y}, dd{v.z, v.w}};
+}
+
+// The four planes of a block's slab in shared memory, `words` floats each.
+struct Planes {
+  float* p[4];
+};
+
+__device__ __forceinline__ Planes make_planes(float* base, int words) {
+  Planes s;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) s.p[c] = base + c * words;
+  return s;
+}
+
+__device__ __forceinline__ ddc load(const Planes& s, int w) {
+  return ddc{dd{s.p[0][w], s.p[1][w]}, dd{s.p[2][w], s.p[3][w]}};
+}
+
+__device__ __forceinline__ void store(const Planes& s, int w, ddc v) {
+  s.p[0][w] = v.re.hi;
+  s.p[1][w] = v.re.lo;
+  s.p[2][w] = v.im.hi;
+  s.p[3][w] = v.im.lo;
+}
+
+// tw[k] = W_m^k as (re_hi, re_lo, im_hi, im_lo) for k < m/2, from the
+// wrapper's table `t` of four planes of m/2 floats (exact f64 angles, split
+// on the host).
+__device__ __forceinline__ void load_twiddles(float4* tw, int m, const float* t) {
+  const int h = m / 2;
+  for (int k = threadIdx.x; k < h; k += blockDim.x)
+    tw[k] = make_float4(__ldg(t + k), __ldg(t + h + k), __ldg(t + 2 * h + k),
+                        __ldg(t + 3 * h + k));
+}
+
+// S radix-2 DIF stages on one group held in registers; the indexing is that
+// of phastft::dif_group. 47 flops per point per stage: two dd complex sums
+// (44) and one dd complex product (50) per butterfly of two points.
+template <int S>
+__device__ __forceinline__ void dif_group(ddc (&x)[1 << S], int r, int logR, int logN,
+                                          int logL, const float4* tw) {
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    const int half = 1 << (S - 1 - t);
+    const int shift = logN - logL + t;
+#pragma unroll
+    for (int j = 0; j < (1 << S); ++j) {
+      if (j & half) continue;
+      const int q = r + ((j & (2 * half - 1)) << logR);
+      const ddc w = from_float4(tw[q << shift]);
+      const ddc a = x[j], b = x[j + half];
+      x[j] = cadd(a, b);
+      x[j + half] = cmul(csub(a, b), w);
+    }
+  }
+}
+
+// One pass of S stages over 2^logM sequences of length 2^logN; element i of
+// sequence q sits at pad(q*qs + i*is) of every plane. `qfast` puts
+// neighbouring threads on neighbouring sequences.
+template <int S>
+__device__ __forceinline__ void dif_pass(const Planes& s, int logN, int logL, int logM,
+                                         int qs, int is, bool qfast, const float4* tw) {
+  const int logR = logL - S;
+  const int logG = logN - S;
+  const int items = 1 << (logG + logM);
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    int q, grp;
+    if (qfast) {
+      q = it & ((1 << logM) - 1);
+      grp = it >> logM;
+    } else {
+      grp = it & ((1 << logG) - 1);
+      q = it >> logG;
+    }
+    const int r = grp & ((1 << logR) - 1);
+    const int base = ((grp >> logR) << logL) + r;
+    ddc x[1 << S];
+    int a[1 << S];
+#pragma unroll
+    for (int j = 0; j < (1 << S); ++j) {
+      a[j] = pad(q * qs + (base + (j << logR)) * is);
+      x[j] = load(s, a[j]);
+    }
+    dif_group<S>(x, r, logR, logN, logL, tw);
+#pragma unroll
+    for (int j = 0; j < (1 << S); ++j) store(s, a[j], x[j]);
+  }
+}
+
+// Whole in-place DIF FFT of every sequence, two stages per trip through
+// shared memory: natural order in, X[k] at position bitrev(k) out. The
+// caller synchronises before; this function synchronises after every pass.
+__device__ __forceinline__ void dif_fft(const Planes& s, int logN, int logM, int qs,
+                                        int is, bool qfast, const float4* tw) {
+  for (int logL = logN; logL > 0;) {
+    if (logL >= 2) {
+      dif_pass<2>(s, logN, logL, logM, qs, is, qfast, tw);
+      logL -= 2;
+    } else {
+      dif_pass<1>(s, logN, logL, logM, qs, is, qfast, tw);
+      logL -= 1;
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace ddk
+}  // namespace phastft

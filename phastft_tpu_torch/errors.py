@@ -5,8 +5,9 @@ The same four classes, with the same messages, as the JAX package's
 (non-power-of-2 length, planar length mismatch, planner-size mismatch).
 
 ``not_ported`` builds the ``NotImplementedError`` raised for everything
-outside the port's current slice; its message names the ``ROADMAP.md``
-item that will bring it.
+the port does not run yet (the native and Ozaki f64 engines, n >= 2^31,
+the staged and plain pipelines, Tune, leaves outside 128..2^16 points);
+its message names the ``ROADMAP.md`` item that will bring it.
 """
 
 from __future__ import annotations
@@ -46,12 +47,14 @@ def ensure_power_of_two(n: int) -> int:
 
 #: ROADMAP.md Queue 1 items that bring what the port does not run yet.
 ROADMAP_ITEMS = {
-    "nested": "ROADMAP.md Queue 1 item 15 (f32 transforms of n >= 2^31)",
-    "f64": "ROADMAP.md Queue 1 item 4 (f64 native slice)",
-    "classic": "ROADMAP.md Queue 1 item 6 (use_pallas=False and the staged "
+    "nested": "ROADMAP.md Queue 1 item 16 (transforms of n >= 2^31)",
+    "oz": "ROADMAP.md Queue 1 item 5 (the Ozaki bf16-slice f64 engine, "
+          "f64_engine='df64-oz')",
+    "f64": "ROADMAP.md Queue 1 item 6 (the native f64 engine)",
+    "classic": "ROADMAP.md Queue 1 item 7 (use_pallas=False and the staged "
                "strategy)",
-    "tune": "ROADMAP.md Queue 1 item 7 (PlannerMode.Tune)",
-    "leaf_size": "ROADMAP.md Queue 1 item 14 (leaves outside 128..2^16 "
+    "tune": "ROADMAP.md Queue 1 item 8 (PlannerMode.Tune)",
+    "leaf_size": "ROADMAP.md Queue 1 item 15 (leaves outside 128..2^16 "
                  "points, Options.leaf_fft_size > 2^16 or < 128)",
 }
 

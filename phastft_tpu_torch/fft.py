@@ -9,15 +9,19 @@ Counterpart of the JAX package's ``fft.py``. Contracts kept:
 * leading batch dimensions; the transform runs along the last axis.
 
 Numpy arrays or torch tensors go in; torch tensors on the planner's device
-come out. A numpy input is converted to f32, as the JAX package converts
-it; a tensor must already be f32 on the planner's device. Unlike the JAX
-package, which donates its input buffers, the port never writes the
-caller's tensors: every result is a new tensor.
+come out. A numpy input is converted to the planner's dtype, as the JAX
+package converts it; a tensor must already have that dtype and lie on the
+planner's device. Unlike the JAX package, which donates its input buffers,
+the port never writes the caller's tensors: every result is a new tensor.
 
 The port runs planar f32 for n = 1..2^30 (one leaf kernel up to 2^16,
 the fused two-pass pipeline to 2^25, a classic outer level around it
 above, and classic levels wherever ``Options.leaf_fft_size`` forces a
-split the fused pipeline refuses); f64 and larger sizes raise
+split the fused pipeline refuses), and planar f64 for the same sizes on
+the df64 (paired-f32) engine: ``f64_engine`` = ``"df64"``, ``"df64-fused"``
+or ``"df64-split"``, resolved as the JAX package resolves it (a per-call
+value that is not None, else the planner's, else ``"native"``). The native
+and Ozaki (``"df64-oz"``) f64 engines and larger sizes raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
 """
 
@@ -36,8 +40,8 @@ from .errors import (
     not_ported,
 )
 from .options import Options
-from .planner import Direction, PlannerDit32, resolve_device
-from .ops.dit import build_fast_fft
+from .planner import Direction, PlannerDit32, PlannerDit64, resolve_device
+from .ops.dit import build_dd_fft, build_fast_fft
 
 __all__ = [
     "fft_64_dit",
@@ -81,16 +85,19 @@ def _coerce_direction(direction) -> Direction:
     )
 
 
-def _as_tensor(x, device: torch.device) -> torch.Tensor:
+def _as_tensor(x, planner) -> torch.Tensor:
+    """``x`` as a contiguous tensor of the planner's dtype on its device."""
+    device = planner.device
     if isinstance(x, torch.Tensor):
-        if x.dtype != torch.float32:
-            raise TypeError(f"expected float32 tensors, got {x.dtype}")
+        want = torch.float64 if planner.dtype == np.float64 else torch.float32
+        if x.dtype != want:
+            raise TypeError(f"expected {planner.dtype} tensors, got {x.dtype}")
         if x.device != device:
             raise PhastftError(
                 f"input is on {x.device} but the planner is on {device}"
             )
         return x.contiguous()
-    arr = np.ascontiguousarray(np.asarray(x, dtype=np.float32))
+    arr = np.ascontiguousarray(np.asarray(x, dtype=planner.dtype))
     if not arr.flags.writeable:  # torch tensors cannot wrap read-only memory
         arr = arr.copy()
     return torch.from_numpy(arr).to(device)
@@ -112,25 +119,43 @@ def _run(reals, imags, direction, planner, opts: Options):
     )
     if use_pallas is False:
         raise not_ported("use_pallas=False (the plain pipeline)", "classic")
-    reals = _as_tensor(reals, planner.device)
-    imags = _as_tensor(imags, planner.device)
+    reals = _as_tensor(reals, planner)
+    imags = _as_tensor(imags, planner)
     n, _ = _validate(reals, imags, planner)
+    scale = direction is Direction.Reverse
     # The leaf size must match the planner's tables, so it comes from the
     # planner's own options, not the per-call opts.
-    run = build_fast_fft(
-        n, planner.options.leaf_fft_size, direction is Direction.Reverse
-    )
+    leaf = planner.options.leaf_fft_size
+    if planner.dtype == np.float64:
+        # Explicit per-call opts win over the planner's; None defers.
+        engine = (
+            opts.f64_engine if opts.f64_engine is not None
+            else (planner.options.f64_engine or "native")
+        )
+        if not engine.startswith("df64"):
+            raise not_ported(f"f64_engine={engine!r}", "f64")
+        # "df64-split" / "df64-fused" pin the dd leaf lowering; an unknown
+        # suffix falls to the default, the one-kernel leaf.
+        dd_leaf = engine.split("-", 1)[1] if "-" in engine else None
+        if dd_leaf == "oz":
+            raise not_ported("f64_engine='df64-oz'", "oz")
+        run = build_dd_fft(n, leaf, scale, dd_leaf)
+        args = planner.dd_state
+    else:
+        run = build_fast_fft(n, leaf, scale)
+        args = (planner.leaf_corrs,)
     if direction is Direction.Forward:
-        return run(reals, imags, planner.leaf_corrs)
+        return run(reals, imags, *args)
     # IFFT swap trick: swap(IDFT(z)) = (1/N) DFT(swap(z)); feed (im, re)
     # and swap the outputs back.
-    out_re, out_im = run(imags, reals, planner.leaf_corrs)
+    out_re, out_im = run(imags, reals, *args)
     return out_im, out_re
 
 
 @functools.lru_cache(maxsize=64)
-def _cached_planner(n: int, device: torch.device):
-    return PlannerDit32(n, device=device)
+def _cached_planner(n: int, bits: int, device: torch.device):
+    cls = PlannerDit64 if bits == 64 else PlannerDit32
+    return cls(n, device=device)
 
 
 def fft_32_dit_with_planner_and_opts(reals, imags, direction, planner, opts):
@@ -149,20 +174,27 @@ def fft_32_dit(reals, imags, direction, device=None):
     Returns (reals, imags) as new f32 tensors on that device."""
     n = _length(reals)
     ensure_power_of_two(n)
-    planner = _cached_planner(n, resolve_device(device))
+    planner = _cached_planner(n, 32, resolve_device(device))
     return fft_32_dit_with_planner(reals, imags, direction, planner)
 
 
 def fft_64_dit_with_planner_and_opts(reals, imags, direction, planner, opts):
-    """f64 planar C2C FFT: not ported yet."""
-    raise not_ported("fft_64_dit_with_planner_and_opts (f64)", "f64")
+    """f64 planar C2C FFT with explicit planner and options, on the df64
+    (paired-f32) engine. ``opts.f64_engine``, when not None, overrides the
+    planner's."""
+    return _run(reals, imags, direction, planner, opts)
 
 
 def fft_64_dit_with_planner(reals, imags, direction, planner):
-    """f64 planar C2C FFT: not ported yet."""
-    raise not_ported("fft_64_dit_with_planner (f64)", "f64")
+    """f64 planar C2C FFT with a reusable planner, on its options."""
+    return _run(reals, imags, direction, planner, planner.options)
 
 
 def fft_64_dit(reals, imags, direction, device=None):
-    """f64 planar C2C FFT: not ported yet."""
-    raise not_ported("fft_64_dit (f64)", "f64")
+    """f64 planar C2C FFT, auto-planned, on ``device`` (None = "cuda").
+
+    Returns (reals, imags) as new f64 tensors on that device."""
+    n = _length(reals)
+    ensure_power_of_two(n)
+    planner = _cached_planner(n, 64, resolve_device(device))
+    return fft_64_dit_with_planner(reals, imags, direction, planner)

@@ -44,6 +44,10 @@ _SIGNATURES = {
     "phastft_leaf": [_P] * 10 + [_L, _I, _I, _P],
     "phastft_leaf3": [_P] * 12 + [_L, _P],
     "phastft_transpose2": [_P] * 4 + [_L, _L, _L, _P],
+    "phastft_ddcol": [_P] * 17 + [_L, _I, _I, _P],
+    "phastft_ddcol_nocorr": [_P] * 9 + [_L, _I, _I, _P],
+    "phastft_ddleaf": [_P] * 14 + [_L, _I, _P],
+    "phastft_dd_exact": [_P] * 6 + [_L, _P],
 }
 
 _lock = threading.Lock()

@@ -22,17 +22,35 @@ carried verbatim, so both packages plan every size the same way.
     transpose2     (n1, n2) -> (n2, n1), the natural order
 
   two trips more than its inner plan makes.
+
+``fft_rows_dd`` runs the same plans on dd (double-float) quadruples of f32
+planes, the df64 engine: ``tiny_fft_dd`` below 128 points, ``ddleaf`` (or
+the split leaf: ``ddcol``, a transpose, ``ddcol_nocorr``) for a leaf, and
+for every split level ``ddcol``, the inner plan, and ``transpose2`` twice
+(once per hi/lo pair of planes).
 """
 
 from __future__ import annotations
 
+import functools
+
+import torch
+
 from .colfft import colfft, colfft_out3d
+from .dd import dd_col_tables_host, ddcol, ddcol_nocorr, ddleaf
+from .df64 import tiny_fft_dd
 from .leaf import leaf, leaf3
 from .leaft import leaft
 from .stockham import LANES
 from .transpose import transpose2
 
-__all__ = ["plan_rows", "split_levels", "fused_two_pass", "fft_rows"]
+__all__ = [
+    "plan_rows",
+    "split_levels",
+    "fused_two_pass",
+    "fft_rows",
+    "fft_rows_dd",
+]
 
 # Largest row transform executed as a single leaf.
 DEFAULT_LEAF_LIMIT = 1 << 16
@@ -126,3 +144,83 @@ def fft_rows(re, im, plan, corrs):
     del d_re, d_im
     flat = batch + (n1 * n2,)
     return o_re.reshape(flat), o_im.reshape(flat)
+
+
+# --------------------------------------------------------------------------
+# Double-float (df64) row transforms: the same plan shapes as fft_rows, dd
+# arithmetic on quadruples of f32 planes, dd tables from the planner.
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=16)
+def _split_leaf_tables(n1: int, device):
+    """``dd_col_tables_host(n1, 128)`` on ``device``: the leaf correction
+    W_{n1*128}^(k1*i2) in the column kernel's factoring (T1 all ones)."""
+    _, t1, t2 = dd_col_tables_host(n1, LANES)
+
+    def put(arrays):
+        return tuple(torch.from_numpy(a.copy()).to(device) for a in arrays)
+
+    return put(t1), put(t2)
+
+
+def _transpose4(quad):
+    """(..., R, C) -> (..., C, R) of a dd quadruple: the paired transpose
+    once per hi/lo pair of planes."""
+    rh, ih = transpose2(quad[0], quad[2])
+    rl, il = transpose2(quad[1], quad[3])
+    return rh, rl, ih, il
+
+
+def _ddleaf_split(rh, rl, ih, il, n1: int):
+    """dd leaf as two dd column passes with a transpose between. Pass 1:
+    ``ddcol`` over the n1 factor with the leaf correction folded in
+    (``dd_col_tables_host(n1, 128)`` is the factored W_{n1*128}^(k1*i2)
+    table). Pass 2, after the transpose: the bare dd column DFT over the
+    128-point factor. The output (128, n1) read flat is the natural order
+    X[k1 + k2*n1]."""
+    batch = tuple(rh.shape[:-1])
+    view = batch + (n1, LANES)
+    t1, t2 = _split_leaf_tables(n1, rh.device)
+    quad = ddcol(*(a.reshape(view) for a in (rh, rl, ih, il)), t1, t2, n1)
+    quad = _transpose4(quad)
+    quad = ddcol_nocorr(*quad, LANES)
+    flat = batch + (n1 * LANES,)
+    return tuple(a.reshape(flat) for a in quad)
+
+
+def _out_transpose_dd(quad, batch, n1: int, n2: int):
+    """Four-step output reordering of a dd quadruple of (..., n1, n2)."""
+    view = batch + (n1, n2)
+    out = _transpose4(tuple(a.reshape(view) for a in quad))
+    flat = batch + (n1 * n2,)
+    return tuple(a.reshape(flat) for a in out)
+
+
+def fft_rows_dd(rh, rl, ih, il, plan, tables, corrs, dd_leaf=None):
+    """DFT along the last axis of four (..., n) f32 planes in dd arithmetic
+    following ``plan``.
+
+    ``tables``: the dd radix tables (``df64.dd_radix_tables_host``, on the
+    device), read by the tiny plans. ``corrs``: the planner's dd tables
+    under the JAX planner's keys: ``ddleaf{n1}`` and ``ddpcol{n1}x{n2}``.
+    ``dd_leaf`` = "split" runs a leaf with n1 > 1 as ``_ddleaf_split``;
+    anything else runs ``ddleaf``. Every branch returns new tensors, and a
+    split level frees each quadruple as soon as the next pass has read
+    it."""
+    kind = plan[0]
+    if kind == "tiny":
+        return tiny_fft_dd(rh, rl, ih, il, tables, plan[1])
+    if kind == "leaf":
+        n1 = plan[1]
+        if n1 > 1 and dd_leaf == "split":
+            return _ddleaf_split(rh, rl, ih, il, n1)
+        return ddleaf(rh, rl, ih, il, corrs[f"ddleaf{n1}"] if n1 > 1 else None, n1)
+    _, n1, plan2, n2 = plan
+    batch = tuple(rh.shape[:-1])
+    view = batch + (n1, n2)
+    t1, t2 = corrs[f"ddpcol{n1}x{n2}"]
+    col = ddcol(*(a.reshape(view) for a in (rh, rl, ih, il)), t1, t2, n1)
+    rows = fft_rows_dd(*col, plan2, tables, corrs, dd_leaf)
+    del col
+    return _out_transpose_dd(rows, batch, n1, n2)

@@ -1,7 +1,10 @@
-"""Lane width and the leaf twiddle correction, host side.
+"""Lane width, the radix schedule and the leaf twiddle correction, host
+side.
 
-Counterpart of ``LANES`` and ``leaf_correction_host`` in the JAX
-package's ``ops/stockham.py``. Only the numpy branch is carried: the JAX
+Counterpart of ``LANES``, ``radix_schedule`` and ``leaf_correction_host``
+in the JAX package's ``ops/stockham.py``. The radix schedule fixes the
+steps, and so the table keys, of the dd Stockham DFT (``ops/df64.py``). Of
+the correction only the numpy branch is carried: the JAX
 builder hands tables of n1 * lanes >= 2^16 to its C++ host runtime, and
 the port asks for at most (256, 128) = 2^15 points (the leaf plans up to
 2^15; the row pass of the split plans needs A * 128 <= 2^14), so the
@@ -14,9 +17,24 @@ import functools
 
 import numpy as np
 
-__all__ = ["LANES", "leaf_correction_host"]
+__all__ = ["LANES", "DEFAULT_RADIX", "radix_schedule", "leaf_correction_host"]
 
 LANES = 128
+
+#: Largest radix of one Stockham step.
+DEFAULT_RADIX = 16
+
+
+def radix_schedule(m: int, max_radix: int = DEFAULT_RADIX) -> tuple:
+    """Greedy largest-first radix factorization of power-of-2 ``m``."""
+    out = []
+    lm = m.bit_length() - 1
+    lr = max_radix.bit_length() - 1
+    while lm > 0:
+        k = min(lm, lr)
+        out.append(1 << k)
+        lm -= k
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=64)

@@ -2,9 +2,11 @@
 
 Counterpart of the JAX package's ``options.py``: the same ``Options``
 dataclass and field names, so one value can describe a call to either
-package. ``guess_options`` keeps the f32 leaf rule, which fixes the plan
-shape (``ops/fourstep.plan_rows``); the f64 rules of the JAX package are
-left out, because f64 is not in the port yet.
+package. ``guess_options`` keeps both leaf rules of the JAX package,
+which fix the plan shapes (``ops/fourstep.plan_rows``). The f64 engine
+windows of the JAX package were measured on a TPU and are not carried
+over: the port's f64 default is ``"df64"`` at every size, the one f64
+engine it runs.
 """
 
 from __future__ import annotations
@@ -13,8 +15,6 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
-
-from .errors import not_ported
 
 __all__ = ["Options"]
 
@@ -36,6 +36,13 @@ class Options:
     The other fields (``leaf_kernel``, ``leaf_engine``, ``col_engine``,
     ...) select TPU engines and are accepted and ignored: the port has one
     kernel per plan shape, and its leaf kernels take any batch.
+
+    ``f64_engine`` (f64 planners only; the per-call value, when not None,
+    overrides the planner's, and None on both means ``"native"``):
+    ``"df64"`` and ``"df64-fused"`` run the paired-f32 engine with one dd
+    leaf kernel per leaf, ``"df64-split"`` runs each leaf as two dd column
+    passes with a transpose between; ``"native"`` and ``"df64-oz"`` are not
+    ported and raise ``NotImplementedError``.
     """
 
     tiled_bit_reversal: Optional[bool] = None
@@ -50,21 +57,32 @@ class Options:
 
     @staticmethod
     def guess_options(n: int, dtype=np.float32) -> "Options":
-        """Heuristic options for an f32 transform of size ``n``.
+        """Heuristic options for an f32 or f64 transform of size ``n``.
 
-        The leaf rule is the JAX package's f32 rule: one leaf up to 2^16,
+        The leaf rules are the JAX package's. f32: one leaf up to 2^16,
         and past it a leaf of min(2^14, n/128), so the split's column
         factor is at least 128 and the row length n2 = A * 128 has
-        A <= 128. Other dtypes raise: f64 is not ported yet.
+        A <= 128. f64: a leaf of 2^13 up to n = 2^21 and 2^16 past it,
+        clamped to [256, n]. f64 options carry ``f64_engine="df64"`` at
+        every size: a provisional default, decided again by H100 times
+        when the native engine is ported. Other dtypes raise.
         """
-        if np.dtype(dtype) != np.float32:
-            raise not_ported(f"{np.dtype(dtype)} options", "f64")
+        dtype = np.dtype(dtype)
         log_n = max(n, 1).bit_length() - 1
-        if n <= DEFAULT_LEAF_SIZE:
-            leaf = min(max(n, 256), DEFAULT_LEAF_SIZE)
+        f64_engine = None
+        if dtype == np.float32:
+            if n <= DEFAULT_LEAF_SIZE:
+                leaf = min(max(n, 256), DEFAULT_LEAF_SIZE)
+            else:
+                leaf = min(1 << 14, n >> 7)
+        elif dtype == np.float64:
+            leaf = (1 << 13) if log_n <= 21 else DEFAULT_LEAF_SIZE
+            leaf = min(max(n, 256), leaf)
+            f64_engine = "df64"
         else:
-            leaf = min(1 << 14, n >> 7)
+            raise TypeError(f"no options for dtype {dtype}")
         return Options(
             tiled_bit_reversal=log_n >= TILED_BITREV_MIN_LOGN,
             leaf_fft_size=leaf,
+            f64_engine=f64_engine,
         )

@@ -20,9 +20,14 @@ layouts:
 Twiddles are exact f64 angles rounded once to f32 (the reference's
 accuracy contract).
 
-``PlannerDit32.from_numpy_tables`` builds a planner on tables handed over
-as numpy arrays, for instance the JAX planner's ``leaf_corrs``, so both
-packages compute from the same bits.
+The f64 planner serves the df64 (paired-f32) engine: it holds no f32
+tables, and builds its ``dd_state`` on first use: the dd radix tables of
+a tiny plan, else the dd corrections of the plan's leaf and split levels.
+
+``PlannerDit32.from_numpy_tables`` and ``PlannerDit64.from_numpy_tables``
+build a planner on tables handed over as numpy arrays, for instance the
+JAX planner's ``leaf_corrs`` or ``dd_state``, so both packages compute
+from the same bits.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ import torch
 from .errors import ensure_power_of_two, not_ported
 from .options import Options
 from .ops.colfft import col_split_tables_host, col_tile, col_tile3d
+from .ops.dd import dd_col_tables_host
+from .ops.df64 import dd_leaf_correction_host, dd_radix_tables_host
 from .ops.fourstep import fused_two_pass, plan_rows, split_levels
 from .ops.leaft import leaft_tables_host
 from .ops.mxu import mxu_leaf_tables3_host, mxu_leaf_tables_host
@@ -129,7 +136,37 @@ def _to_device(arrays, device):
                  for a in arrays)
 
 
-class PlannerDit32:
+class _PlannerDitBase:
+    """What both planners share: the size, the device, the options and
+    the plan, with the checks of what the port does not run yet."""
+
+    dtype: np.dtype
+
+    def _setup(self, n, mode, options, device):
+        self.log_n = ensure_power_of_two(n)
+        self.n = n
+        self.mode = mode
+        if mode is PlannerMode.Tune:
+            raise not_ported("PlannerMode.Tune", "tune")
+        if self.log_n > MAX_LOG_N:
+            raise not_ported(f"n = 2^{self.log_n}", "nested")
+        self.device = resolve_device(device)
+        self.options = (
+            options if options is not None
+            else Options.guess_options(n, self.dtype)
+        )
+        self.plan = plan_rows(n, self.options.leaf_fft_size)
+        node = self.plan
+        for _, node, n2 in split_levels(self.plan):
+            if n2 < LANES:  # rows shorter than the column kernel's slab
+                raise not_ported(f"a split with rows of {n2} points",
+                                 "leaf_size")
+        if node[0] == "leaf" and node[1] > LEAF3_N1:
+            raise not_ported(f"a leaf of {node[1] * LANES} points",
+                             "leaf_size")
+
+
+class PlannerDit32(_PlannerDitBase):
     """f32 DIT planner for n = 1..2^30 on ``device`` (None = "cuda")."""
 
     dtype = np.dtype(np.float32)
@@ -146,29 +183,6 @@ class PlannerDit32:
             key: _to_device(arrays, self.device)
             for key, arrays in _tables_host(self.plan, self.dtype.name).items()
         }
-
-    def _setup(self, n, mode, options, device):
-        self.log_n = ensure_power_of_two(n)
-        self.n = n
-        self.mode = mode
-        if mode is PlannerMode.Tune:
-            raise not_ported("PlannerMode.Tune", "tune")
-        if self.log_n > MAX_LOG_N:
-            raise not_ported(f"f32 n = 2^{self.log_n}", "nested")
-        self.device = resolve_device(device)
-        self.options = (
-            options if options is not None
-            else Options.guess_options(n, self.dtype)
-        )
-        self.plan = plan_rows(n, self.options.leaf_fft_size)
-        node = self.plan
-        for _, node, n2 in split_levels(self.plan):
-            if n2 < LANES:  # rows shorter than the column kernel's slab
-                raise not_ported(f"a split with rows of {n2} points",
-                                 "leaf_size")
-        if node[0] == "leaf" and node[1] > LEAF3_N1:
-            raise not_ported(f"a leaf of {node[1] * LANES} points",
-                             "leaf_size")
 
     @classmethod
     def from_numpy_tables(cls, n: int, tables, device=None,
@@ -199,11 +213,104 @@ class PlannerDit32:
         return self
 
 
-class PlannerDit64:
-    """f64 DIT planner: not ported yet."""
+def _dd_tables_host(plan):
+    """(radix tables, corrs) of the df64 engine for ``plan`` as host
+    arrays, under the JAX planner's keys, holding only what
+    ``fourstep.fft_rows_dd`` reads: for a tiny plan the
+    ``dd_radix_tables_host`` entries up to its length and no correction;
+    else no radix table, ``ddpcol{n1}x{n2}`` for every split level and
+    ``ddleaf{n1}`` for the plan's leaf factor (n1 >= 2)."""
+    if plan[0] == "tiny":
+        return dd_radix_tables_host(plan[1]), {}
+    corrs = {}
+    inner = plan
+    for n1, inner, n2 in split_levels(plan):
+        _, p1, p2 = dd_col_tables_host(n1, n2)
+        corrs[f"ddpcol{n1}x{n2}"] = (p1, p2)
+    if inner[0] == "leaf" and inner[1] > 1:
+        corrs[f"ddleaf{inner[1]}"] = dd_leaf_correction_host(inner[1], LANES)
+    return {}, corrs
+
+
+class PlannerDit64(_PlannerDitBase):
+    """f64 DIT planner for n = 1..2^30 on ``device`` (None = "cuda"), for
+    the df64 (paired-f32) engine.
+
+    ``dd_state`` = (tables, corrs), built on first use and kept on the
+    planner's device, holding what the transform reads under the JAX
+    planner's keys and layouts: for a tiny plan (n < 128) the dd Stockham
+    step twiddles ``{(cur, R): ...}``; else the dd corrections
+    ``ddleaf{n1}`` of the plan's leaf (a 4-tuple) and ``ddpcol{n1}x{n2}``
+    of every split level (two 4-tuples). The default options carry
+    ``f64_engine="df64"``; a planner built with engine-less ``Options()``
+    resolves to the native engine, which is not ported."""
 
     dtype = np.dtype(np.float64)
 
-    def __init__(self, n: int, *args, **kwargs):
-        ensure_power_of_two(n)
-        raise not_ported("PlannerDit64 (f64 transforms)", "f64")
+    def __init__(
+        self,
+        n: int,
+        mode: PlannerMode = PlannerMode.Heuristic,
+        options: Optional[Options] = None,
+        device=None,
+    ):
+        self._setup(n, mode, options, device)
+        self._dd_state = None
+
+    @property
+    def dd_state(self):
+        if self._dd_state is None:
+            self._dd_state = self._dd_to_device(*_dd_tables_host(self.plan))
+        return self._dd_state
+
+    def _dd_to_device(self, tables, corrs):
+        dev = self.device
+        return (
+            {key: tuple(_to_device(digit, dev) for digit in entry)
+             for key, entry in tables.items()},
+            {key: (_to_device(val, dev) if key.startswith("ddleaf")
+                   else tuple(_to_device(half, dev) for half in val))
+             for key, val in corrs.items()},
+        )
+
+    @classmethod
+    def from_numpy_tables(cls, n: int, dd_state, device=None,
+                          options: Optional[Options] = None):
+        """A planner for size ``n`` on ``device`` whose ``dd_state`` is
+        exactly the given arrays. ``dd_state`` = (tables, corrs) as the
+        JAX planner's ``dd_state`` holds them, converted to numpy. Only the
+        entries the plan's transform reads are taken (see ``dd_state``);
+        every other key is ignored. Raises if an entry the plan needs is
+        missing, of another shape, or not f32."""
+        self = cls.__new__(cls)
+        self._setup(n, PlannerMode.Heuristic, options, device)
+        tables, corrs = dd_state
+        own_tables, own_corrs = _dd_tables_host(self.plan)
+
+        def take(key, given, own):
+            """``given`` as numpy arrays in ``own``'s nesting, checked."""
+            if isinstance(own, np.ndarray):
+                arr = np.asarray(given)
+                if arr.shape != own.shape:
+                    raise ValueError(
+                        f"table {key!r}: expected shape {own.shape}, got "
+                        f"{arr.shape}")
+                if arr.dtype != np.float32:
+                    raise TypeError(f"table {key!r} must be float32")
+                return arr
+            if len(given) != len(own):
+                raise ValueError(
+                    f"table {key!r}: expected {len(own)} entries, got "
+                    f"{len(given)}")
+            return tuple(take(key, g, o) for g, o in zip(given, own))
+
+        picked = []
+        for given, own in ((tables, own_tables), (corrs, own_corrs)):
+            out = {}
+            for key, val in own.items():
+                if key not in given:
+                    raise KeyError(f"table {key!r} missing for n = {n}")
+                out[key] = take(key, given[key], val)
+            picked.append(out)
+        self._dd_state = self._dd_to_device(*picked)
+        return self

@@ -1,9 +1,11 @@
 """The port's public C2C entries on the CPU, against the JAX package and
 numpy's f64 FFT, plus its error paths.
 
-The error-path tests mirror tests/test_errors.py on the f32 entries: the
-same classes and messages. Sizes outside the port's slice, f64 and
-PlannerMode.Tune raise NotImplementedError naming their ROADMAP.md item.
+The error-path tests mirror tests/test_errors.py on the f32 and f64
+entries: the same classes and messages. Sizes outside the port's slice, the
+native and Ozaki f64 engines and PlannerMode.Tune raise NotImplementedError
+naming their ROADMAP.md item. The f64 entries run the df64 (paired-f32)
+engine; their tolerances are on f64 values.
 """
 
 import numpy as np
@@ -353,10 +355,10 @@ def test_tensor_dtype_and_device_checked():
 # -- outside the slice --------------------------------------------------------
 
 @pytest.mark.parametrize("log_n,leaf,item", [
-    (31, None, "item 15"),      # past 2^30: four pairs of 16 GiB
-    (17, 64, "item 14"),        # rows of 64 points: below the column kernel
-    (17, 1 << 17, "item 14"),   # a leaf past 2^16
-    (20, 1 << 17, "item 14"),   # the same under a classic split
+    (31, None, "item 16"),      # past 2^30: four pairs of 16 GiB
+    (17, 64, "item 15"),        # rows of 64 points: below the column kernel
+    (17, 1 << 17, "item 15"),   # a leaf past 2^16
+    (20, 1 << 17, "item 15"),   # the same under a classic split
 ])
 def test_sizes_outside_slice_not_implemented(log_n, leaf, item):
     n = 1 << log_n
@@ -375,27 +377,40 @@ def test_sizes_outside_slice_not_implemented(log_n, leaf, item):
 @pytest.mark.parametrize("entry", ["fft_64_dit", "fft_64_dit_with_planner",
                                    "fft_64_dit_with_planner_and_opts",
                                    "PlannerDit64"])
-def test_f64_not_implemented(entry):
-    x = np.zeros(N)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+def test_f64_not_implemented(entry, monkeypatch):
+    """The native f64 engine is not ported: every f64 entry that resolves
+    to it raises, naming its ROADMAP item. An engine-less Options() on an
+    f64 planner resolves to "native", as in the JAX package."""
+    n = 256
+    x = np.zeros(n)
+    native = pt.PlannerDit64(n, options=pt.Options(f64_engine="native"),
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
         if entry == "PlannerDit64":
-            pt.PlannerDit64(N)
+            bare = pt.PlannerDit64(n, options=pt.Options(), device="cpu")
+            pt.fft_64_dit_with_planner(x, x, pt.Direction.Forward, bare)
         elif entry == "fft_64_dit":
-            pt.fft_64_dit(x, x, pt.Direction.Forward)
+            import phastft_tpu_torch.fft as port_fft
+
+            monkeypatch.setattr(port_fft, "_cached_planner",
+                                lambda n, bits, device: native)
+            pt.fft_64_dit(x, x, pt.Direction.Forward, device="cpu")
         elif entry == "fft_64_dit_with_planner":
-            pt.fft_64_dit_with_planner(x, x, pt.Direction.Forward, None)
+            pt.fft_64_dit_with_planner(x, x, pt.Direction.Forward, native)
         else:
-            pt.fft_64_dit_with_planner_and_opts(x, x, pt.Direction.Forward,
-                                                None, pt.Options())
+            df64 = pt.PlannerDit64(n, device="cpu")
+            pt.fft_64_dit_with_planner_and_opts(
+                x, x, pt.Direction.Forward, df64,
+                pt.Options(f64_engine="native"))
 
 
 def test_tune_and_classic_not_implemented():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         pt.PlannerDit32(N, pt.PlannerMode.Tune, device="cpu")
     planner = pt.PlannerDit32(N, device="cpu")
     x = np.zeros(N, np.float32)
     for opts in (pt.Options(strategy="staged"), pt.Options(use_pallas=False)):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(NotImplementedError, match="item 7"):
             pt.fft_32_dit_with_planner_and_opts(x, x, "f", planner, opts)
 
 
@@ -407,3 +422,211 @@ def test_default_device_is_cuda(monkeypatch):
         pt.fft_32_dit(x, x, pt.Direction.Forward)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.PlannerDit32(N)
+
+
+# -- f64 on the df64 (paired-f32) engine ---------------------------------------
+
+F64_JAX_TOL = 1e-13    # the same arithmetic in both packages
+F64_NUMPY_TOL = 1e-12  # the bound of tests/test_df64.py
+
+
+def _pair64(rng, shape):
+    return rng.standard_normal(shape), rng.standard_normal(shape)
+
+
+def _want(re, im, direction):
+    x = re + 1j * im
+    return np.fft.fft(x, axis=-1) if direction == "Forward" else np.fft.ifft(x, axis=-1)
+
+
+def _g(out):
+    return out[0].numpy() + 1j * out[1].numpy()
+
+
+@pytest.mark.parametrize("log_n,direction", [
+    *((log_n, "Forward") for log_n in (0, 2, 5, 7, 10, 13, 15)),
+    # the inverse compiles a second JAX executable per size: three sizes
+    (0, "Reverse"), (7, "Reverse"), (13, "Reverse"),
+])
+def test_f64_matches_jax_and_numpy(log_n, direction):
+    """tiny plans (1, 4, 32), one leaf (128, 2^10, 2^13) and one split level
+    (2^15: n1 = 4 over a 2^13 leaf) through the explicit-options entry."""
+    n = 1 << log_n
+    rng = np.random.default_rng(200 + log_n)
+    re, im = _pair64(rng, (2, n))
+    planner = pt.PlannerDit64(n, device="cpu")
+    assert planner.options.f64_engine == "df64"
+    got = pt.fft_64_dit_with_planner_and_opts(
+        re, im, getattr(pt.Direction, direction), planner,
+        pt.Options(f64_engine="df64"))
+    assert all(isinstance(x, torch.Tensor) and x.dtype == torch.float64
+               and x.device.type == "cpu" and tuple(x.shape) == (2, n)
+               for x in got)
+    jp = phastft_tpu.PlannerDit64(n)
+    assert planner.plan == jp.plan
+    ref = phastft_tpu.fft_64_dit_with_planner_and_opts(
+        re, im, getattr(phastft_tpu.Direction, direction), jp,
+        phastft_tpu.Options(f64_engine="df64"))
+    assert _rel(_g(got), _want(re, im, direction)) <= F64_NUMPY_TOL
+    assert _rel(_g(got), _c(ref)) <= F64_JAX_TOL
+
+
+@pytest.mark.parametrize("log_n,engine,plan", [
+    (12, "df64", ("split", 32, ("leaf", 1), 128)),
+    (12, "df64-split", ("split", 32, ("leaf", 1), 128)),
+    (19, "df64", ("split", 32, ("split", 128, ("leaf", 1), 128), 1 << 14)),
+])
+def test_f64_forced_plans(log_n, engine, plan):
+    """Options(leaf_fft_size=128): a classic level over leaves of n1 = 1,
+    and the smallest nested plan, 32 x (128 x 128). The nested plan is
+    held against numpy alone (the JAX side takes long there)."""
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    re, im = _pair64(rng, (n,))
+    planner = pt.PlannerDit64(
+        n, options=pt.Options(leaf_fft_size=128, f64_engine=engine),
+        device="cpu")
+    assert planner.plan == plan
+    got = pt.fft_64_dit_with_planner(re, im, pt.Direction.Forward, planner)
+    assert _rel(_g(got), _want(re, im, "Forward")) <= F64_NUMPY_TOL
+    if log_n <= 12:
+        jp = phastft_tpu.PlannerDit64(
+            n, options=phastft_tpu.Options(leaf_fft_size=128,
+                                           f64_engine="df64"))
+        ref = phastft_tpu.fft_64_dit_with_planner_and_opts(
+            re, im, phastft_tpu.Direction.Forward, jp, jp.options)
+        assert _rel(_g(got), _c(ref)) <= F64_JAX_TOL
+
+
+@pytest.mark.parametrize("log_n", [11, 13])
+def test_f64_leaf_engines_agree(log_n):
+    """"df64-split" (two column passes and a transpose per leaf),
+    "df64-fused" and bare "df64" (one leaf kernel) compute the same
+    transform; an unknown suffix falls to the default."""
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    re, im = _pair64(rng, (3, n))
+    planner = pt.PlannerDit64(n, device="cpu")
+    out = {
+        engine: _g(pt.fft_64_dit_with_planner_and_opts(
+            re, im, pt.Direction.Forward, planner,
+            pt.Options(f64_engine=engine)))
+        for engine in ("df64", "df64-fused", "df64-split", "df64-xla")
+    }
+    assert np.array_equal(out["df64"], out["df64-fused"])
+    assert np.array_equal(out["df64"], out["df64-xla"])
+    assert _rel(out["df64-split"], out["df64"]) <= F64_JAX_TOL
+    assert _rel(out["df64-split"], _want(re, im, "Forward")) <= F64_NUMPY_TOL
+
+
+def test_f64_roundtrip_and_exact_inverse_scale():
+    n = 1 << 13
+    rng = np.random.default_rng(64)
+    re, im = _pair64(rng, (2, n))
+    fwd = pt.fft_64_dit(re, im, pt.Direction.Forward, device="cpu")
+    back = pt.fft_64_dit(fwd[0], fwd[1], pt.Direction.Reverse, device="cpu")
+    assert _rel(_g(back), re + 1j * im) <= F64_NUMPY_TOL
+    # the inverse of N * delta is all ones, exactly: the scale is 1/N
+    delta = np.zeros(n)
+    delta[0] = float(n)
+    ones = pt.fft_64_dit(delta, np.zeros(n), pt.Direction.Reverse, device="cpu")
+    assert bool((ones[0] == 1.0).all()) and bool((ones[1] == 0.0).all())
+
+
+def test_f64_batch_dims_inputs_and_reuse():
+    """A (3, 2, 2^10) batch; numpy inputs and torch f64 tensors give the
+    same result; the caller's tensors are never written; a planner is
+    reused across calls and directions."""
+    n = 1 << 10
+    rng = np.random.default_rng(10)
+    re, im = _pair64(rng, (3, 2, n))
+    planner = pt.PlannerDit64(n, device="cpu")
+    a = pt.fft_64_dit_with_planner(re, im, pt.Direction.Forward, planner)
+    tre, tim = torch.from_numpy(re.copy()), torch.from_numpy(im.copy())
+    b = pt.fft_64_dit_with_planner(tre, tim, "f", planner)
+    assert tuple(a[0].shape) == (3, 2, n)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert np.array_equal(tre.numpy(), re) and np.array_equal(tim.numpy(), im)
+    assert _rel(_g(a), _want(re, im, "Forward")) <= F64_NUMPY_TOL
+    back = pt.fft_64_dit_with_planner(a[0], a[1], pt.Direction.Reverse, planner)
+    assert _rel(_g(back), re + 1j * im) <= F64_NUMPY_TOL
+    # f32 input is converted, as the JAX package converts it
+    c = pt.fft_64_dit_with_planner(re.astype(np.float32), im.astype(np.float32),
+                                   "f", planner)
+    assert c[0].dtype == torch.float64
+    with pytest.raises(TypeError, match="float64"):
+        pt.fft_64_dit_with_planner(tre.float(), tim.float(), "f", planner)
+
+
+def test_f64_runs_no_kernel_on_cpu():
+    from phastft_tpu_torch.ops.dd import ddcol, ddcol_nocorr, ddleaf
+    from phastft_tpu_torch.ops.transpose import transpose2
+
+    fns = (ddcol, ddcol_nocorr, ddleaf, transpose2)
+    before = [f.launches for f in fns]
+    n = 1 << 15
+    x = np.ones(n)
+    for engine in ("df64", "df64-split"):
+        planner = pt.PlannerDit64(n, options=pt.Options(
+            leaf_fft_size=1 << 13, f64_engine=engine), device="cpu")
+        out = pt.fft_64_dit_with_planner(x, 0 * x, "f", planner)
+        assert abs(float(out[0][0]) - n) <= 1e-12 * n
+    assert [f.launches for f in fns] == before
+
+
+def test_f64_oz_engine_not_implemented():
+    n = 1 << 10
+    x = np.zeros(n)
+    planner = pt.PlannerDit64(n, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+        pt.fft_64_dit_with_planner_and_opts(
+            x, x, "f", planner, pt.Options(f64_engine="df64-oz"))
+    oz = pt.PlannerDit64(n, options=pt.Options(f64_engine="df64-oz"),
+                         device="cpu")
+    with pytest.raises(NotImplementedError, match="Ozaki"):
+        pt.fft_64_dit_with_planner(x, x, "f", oz)
+    # a per-call engine that is not None wins over the planner's
+    out = pt.fft_64_dit_with_planner_and_opts(
+        x + 1.0, x, "f", oz, pt.Options(f64_engine="df64"))
+    assert float(out[0][0]) == n
+
+
+@pytest.mark.parametrize("case", ["non_power_of_two", "zero_length",
+                                  "length_mismatch", "planner_size",
+                                  "planner_non_power_of_two", "no_cuda",
+                                  "sizes_outside"])
+def test_f64_error_paths(case, monkeypatch):
+    n = 1 << 10
+    if case == "non_power_of_two":
+        with pytest.raises(pt.NonPowerOfTwoError, match="power of 2"):
+            pt.fft_64_dit(np.zeros(100), np.zeros(100), "f", device="cpu")
+    elif case == "zero_length":
+        with pytest.raises(pt.NonPowerOfTwoError):
+            pt.fft_64_dit(np.zeros(0), np.zeros(0), "f", device="cpu")
+    elif case == "length_mismatch":
+        with pytest.raises(pt.LengthMismatchError, match="equal length"):
+            pt.fft_64_dit_with_planner(np.zeros(n), np.zeros(2 * n), "f",
+                                       pt.PlannerDit64(n, device="cpu"))
+    elif case == "planner_size":
+        with pytest.raises(pt.PlannerSizeMismatchError, match="size"):
+            pt.fft_64_dit_with_planner(np.zeros(2 * n), np.zeros(2 * n), "f",
+                                       pt.PlannerDit64(n, device="cpu"))
+    elif case == "planner_non_power_of_two":
+        with pytest.raises(pt.NonPowerOfTwoError):
+            pt.PlannerDit64(100, device="cpu")
+    elif case == "no_cuda":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pt.fft_64_dit(np.zeros(n), np.zeros(n), "f")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pt.PlannerDit64(n)
+    else:
+        with pytest.raises(NotImplementedError, match="item 16"):
+            x = np.broadcast_to(np.float64(0), (1 << 31,))
+            pt.fft_64_dit(x, x, "f", device="cpu")
+        for leaf in (64, 1 << 17):
+            with pytest.raises(NotImplementedError, match="item 15"):
+                pt.PlannerDit64(1 << 18, options=pt.Options(
+                    leaf_fft_size=leaf, f64_engine="df64"), device="cpu")
+        with pytest.raises(NotImplementedError, match="item 8"):
+            pt.PlannerDit64(n, pt.PlannerMode.Tune, device="cpu")

@@ -456,3 +456,257 @@ def test_leaf_wrappers_reject_bad_arguments(bad):
         with pytest.raises(ValueError, match="device"):
             leaf3(x3.to("meta"), x3.to("meta"), tuple(t.to("meta") for t in mats3),
                   8, 8)
+
+
+# -- the dd (double-float) kernels' plain versions ------------------------------
+# Tolerances are on joined f64 values (hi + lo in f64). The JAX plain branch
+# (stockham_axis2_dd and dd_cmul, eager on the CPU) runs the same arithmetic
+# as the port's plain versions: <= 1e-13. The Pallas dd kernels in interpret
+# mode are held to 1e-6 only, the interpreter's own limit (it may contract
+# the error-free transforms, see tests/test_pallas_dd.py).
+
+DD_TOL = 1e-13
+DD_NUMPY_TOL = 1e-12
+
+
+def _quad(rng, shape):
+    """Four f32 planes (re_hi, re_lo, im_hi, im_lo) of a random f64 complex
+    array, and the array."""
+    from phastft_tpu_torch.ops.df64 import split_hi_lo
+
+    x = rng.standard_normal(shape)
+    y = rng.standard_normal(shape)
+    return split_hi_lo(x) + split_hi_lo(y), x + 1j * y
+
+
+def _join(quad):
+    a = [np.asarray(q, np.float64) for q in quad]
+    return (a[0] + a[1]) + 1j * (a[2] + a[3])
+
+
+def _rel_c(got, want):
+    assert got.shape == want.shape
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+def _t(arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+
+
+def test_dd_error_free_transforms_exact():
+    """TwoSum and Dekker's TwoProd in eager torch: residual exactly 0
+    against f64 (the CPU form of the card's dd_exact phase)."""
+    from phastft_tpu_torch.ops import df64
+
+    rng = np.random.default_rng(7)
+    n = 1 << 16
+    sign = rng.integers(0, 2, (2, n)) * 2.0 - 1.0
+    mag = rng.uniform(2.0 ** -4, 2.0 ** 4, (2, n))
+    a, b = (torch.from_numpy((sign[i] * mag[i]).astype(np.float32)) for i in (0, 1))
+    s, e = df64._two_sum(a, b)
+    p, pe = df64._two_prod(a, b)
+    a64, b64 = a.double(), b.double()
+    assert float(((s.double() + e.double()) - (a64 + b64)).abs().max()) == 0.0
+    assert float(((p.double() + pe.double()) - (a64 * b64)).abs().max()) == 0.0
+    hi, lo = df64._veltkamp(a)
+    assert torch.equal(hi + lo, a)
+
+
+@pytest.mark.parametrize("op", ["dd_add", "dd_sub", "dd_mul", "dd_cmul"])
+def test_dd_arithmetic_matches_jax_and_f64(op):
+    """The dd sums and products agree with the JAX package's bit for bit
+    (the same f32 operations in the same order) and with f64 to ~2^-44."""
+    import jax.numpy as jnp
+    from phastft_tpu.ops import df64 as jax_df64
+
+    from phastft_tpu_torch.ops import df64
+
+    rng = np.random.default_rng(11)
+    count = 8 if op == "dd_cmul" else 4
+    vals = [rng.standard_normal(4096) for _ in range(count // 2)]
+    planes = [p for v in vals for p in df64.split_hi_lo(v)]
+    got = getattr(df64, op)(*_t(planes))
+    ref = getattr(jax_df64, op)(*(jnp.asarray(p) for p in planes))
+    for g, r in zip(got, ref):
+        assert np.array_equal(g.numpy(), np.asarray(r))
+    joined = [np.float64(g.numpy()) for g in got]
+    if op == "dd_cmul":
+        a, b = vals[0] + 1j * vals[1], vals[2] + 1j * vals[3]
+        want = a * b
+        res = (joined[0] + joined[1]) + 1j * (joined[2] + joined[3])
+    else:
+        want = {"dd_add": vals[0] + vals[1], "dd_sub": vals[0] - vals[1],
+                "dd_mul": vals[0] * vals[1]}[op]
+        res = joined[0] + joined[1]
+    scale = np.abs(vals[0]) + np.abs(vals[1]) if op in ("dd_add", "dd_sub") \
+        else np.abs(want) + 1e-300
+    assert np.max(np.abs(res - want) / scale) <= 2.0 ** -43
+
+
+def _jax_ddcol_plain_branch(quad, n1, n2, corr=True):
+    """The JAX package's plain branch of the dd column pass
+    (ops/fourstep.py, behind the Pallas kernel): stockham_axis2_dd, then
+    the two dd_cmuls of the factored correction."""
+    import jax.numpy as jnp
+    from phastft_tpu.ops import df64 as jax_df64
+    from phastft_tpu.ops.pallas_dd import dd_col_tables_host as jax_tables
+
+    tables = {
+        k: tuple(tuple(jnp.asarray(a) for a in digit) for digit in v)
+        for k, v in jax_df64.dd_radix_tables_host(max(n1, 2)).items()
+    }
+    out = tuple(jax_df64.stockham_axis2_dd(
+        *(jnp.asarray(q) for q in quad), tables, n1))
+    if not corr:
+        return _join(out)
+    t, t1, t2 = jax_tables(n1, n2)
+    batch = out[0].shape[:-2]
+    out = tuple(a.reshape(batch + (n1, n2 // t, t)) for a in out)
+    out = jax_df64.dd_cmul(*out, *(jnp.asarray(a)[:, :, None] for a in t1))
+    out = jax_df64.dd_cmul(*out, *(jnp.asarray(a)[:, None, :] for a in t2))
+    return _join(out).reshape(batch + (n1, n2))
+
+
+def _ddcol_oracle(z, n1, n2):
+    w = np.exp(-2j * np.pi * (np.arange(n1)[:, None] * np.arange(n2)[None, :])
+               / (n1 * n2))
+    return np.fft.fft(z, axis=-2) * w
+
+
+@pytest.mark.parametrize("n1,n2,b", [(16, 256, None), (32, 512, 3)])
+def test_ddcol_plain_matches_pallas_and_jax(n1, n2, b):
+    import jax.numpy as jnp
+    from phastft_tpu.ops import pallas_dd
+
+    from phastft_tpu_torch.ops import dd
+
+    rng = np.random.default_rng(n1 + n2)
+    shape = ((b,) if b else ()) + (n1, n2)
+    quad, z = _quad(rng, shape)
+    _, t1, t2 = dd.dd_col_tables_host(n1, n2)
+    before = dd.ddcol.launches
+    got = dd.ddcol(*_t(quad), _t(t1), _t(t2), n1)
+    assert dd.ddcol.launches == before  # CPU: no kernel launch
+    assert all(tuple(g.shape) == shape and g.dtype == torch.float32 for g in got)
+    g = _join([x.numpy() for x in got])
+    assert _rel_c(g, _jax_ddcol_plain_branch(quad, n1, n2)) <= DD_TOL
+    assert _rel_c(g, _ddcol_oracle(z, n1, n2)) <= DD_NUMPY_TOL
+    want = _run_interpret(
+        pallas_dd.ddcol_pallas, *(jnp.asarray(q) for q in quad),
+        tuple(jnp.asarray(a) for a in t1), tuple(jnp.asarray(a) for a in t2), n1,
+    )
+    assert want is not None
+    assert _rel_c(g, _join(want)) <= TOL
+
+
+@pytest.mark.parametrize("n1", [2, 4])
+def test_ddcol_plain_shapes_the_tpu_kernel_refuses(n1):
+    """n1 < 8: ddcol_pallas returns None and the JAX package runs its plain
+    branch; the port's ddcol takes the shape."""
+    import jax.numpy as jnp
+    from phastft_tpu.ops import pallas_dd
+
+    from phastft_tpu_torch.ops import dd
+
+    n2 = 128
+    rng = np.random.default_rng(n1)
+    quad, z = _quad(rng, (5, n1, n2))
+    _, t1, t2 = dd.dd_col_tables_host(n1, n2)
+    assert pallas_dd.ddcol_pallas(
+        *(jnp.asarray(q) for q in quad), tuple(jnp.asarray(a) for a in t1),
+        tuple(jnp.asarray(a) for a in t2), n1) is None
+    got = dd.ddcol(*_t(quad), _t(t1), _t(t2), n1)
+    g = _join([x.numpy() for x in got])
+    assert _rel_c(g, _jax_ddcol_plain_branch(quad, n1, n2)) <= DD_TOL
+    assert _rel_c(g, _ddcol_oracle(z, n1, n2)) <= DD_NUMPY_TOL
+
+
+def test_ddcol_checks_its_arguments():
+    from phastft_tpu_torch.ops import dd
+
+    quad, _ = _quad(np.random.default_rng(0), (8, 128))
+    _, t1, t2 = dd.dd_col_tables_host(8, 128)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        dd.ddcol(*_t(tuple(q[:, :64] for q in quad)), _t(t1), _t(t2), 8)
+    with pytest.raises(ValueError, match="correction tables"):
+        dd.ddcol(*_t(quad), _t(t2), _t(t1), 8)
+    with pytest.raises(TypeError, match="float32"):
+        dd.ddcol(*(x.double() for x in _t(quad)), _t(t1), _t(t2), 8)
+    with pytest.raises(ValueError, match="unsupported leaf factor"):
+        dd.ddleaf(*_t(tuple(q.reshape(-1) for q in quad)), None, 3)
+
+
+@pytest.mark.parametrize("n1,n2,b", [(128, 256, None), (128, 2, 5)])
+def test_ddcol_nocorr_plain_matches_pallas_and_jax(n1, n2, b):
+    """The bare dd column DFT: against the JAX plain branch and numpy, and
+    at the shape the Pallas kernel takes, against it in interpret mode
+    (rows of 2 points it refuses)."""
+    import jax.numpy as jnp
+    from phastft_tpu.ops import pallas_dd
+
+    from phastft_tpu_torch.ops import dd
+
+    rng = np.random.default_rng(n1 * n2)
+    shape = ((b,) if b else ()) + (n1, n2)
+    quad, z = _quad(rng, shape)
+    before = dd.ddcol_nocorr.launches
+    got = dd.ddcol_nocorr(*_t(quad), n1)
+    assert dd.ddcol_nocorr.launches == before  # CPU: no kernel launch
+    assert all(tuple(g.shape) == shape for g in got)
+    g = _join([x.numpy() for x in got])
+    assert _rel_c(g, _jax_ddcol_plain_branch(quad, n1, n2, corr=False)) <= DD_TOL
+    assert _rel_c(g, np.fft.fft(z, axis=-2)) <= DD_NUMPY_TOL
+    want = pallas_dd.ddcol_pallas_nocorr if n2 >= 8 else None
+    if want is not None:
+        want = _run_interpret(want, *(jnp.asarray(q) for q in quad), n1)
+        assert want is not None
+        assert _rel_c(g, _join(want)) <= TOL
+
+
+@pytest.mark.parametrize("n1", [1, 16, 64])
+@pytest.mark.parametrize("b", [1, 2, 5])
+def test_ddleaf_plain_matches_jax_and_numpy(n1, b):
+    """ddleaf against the JAX package's leaf_fft_dd and numpy's f64 FFT
+    (ddleaf_pallas in interpret mode is marked slow in tests/test_pallas_dd.py
+    and takes no batch of 5)."""
+    import jax.numpy as jnp
+    from phastft_tpu.ops import df64 as jax_df64
+
+    from phastft_tpu_torch.ops import dd, df64
+
+    n = n1 * 128
+    rng = np.random.default_rng(n1 * 10 + b)
+    quad, z = _quad(rng, (b, n))
+    corr = df64.dd_leaf_correction_host(n1, 128) if n1 > 1 else None
+    before = dd.ddleaf.launches
+    got = dd.ddleaf(*_t(quad), _t(corr) if corr else None, n1)
+    assert dd.ddleaf.launches == before  # CPU: no kernel launch
+    assert all(tuple(x.shape) == (b, n) and x.dtype == torch.float32 for x in got)
+    g = _join([x.numpy() for x in got])
+    tables = {
+        k: tuple(tuple(jnp.asarray(a) for a in digit) for digit in v)
+        for k, v in jax_df64.dd_radix_tables_host(max(n1, 128)).items()
+    }
+    jcorr = tuple(jnp.asarray(a) for a in corr) if corr else None
+    want = jax_df64.leaf_fft_dd(*(jnp.asarray(q) for q in quad), tables, jcorr, n1)
+    assert _rel_c(g, _join(want)) <= DD_TOL
+    assert _rel_c(g, np.fft.fft(z, axis=-1)) <= DD_NUMPY_TOL
+
+
+def test_tiny_fft_dd_matches_jax():
+    import jax.numpy as jnp
+    from phastft_tpu.ops import df64 as jax_df64
+
+    from phastft_tpu_torch.ops import df64
+
+    for n in (1, 2, 8, 64):
+        quad, z = _quad(np.random.default_rng(n), (3, n))
+        host = df64.dd_radix_tables_host(max(n, 2))
+        tables = {k: tuple(_t(d) for d in v) for k, v in host.items()}
+        jtables = {k: tuple(tuple(jnp.asarray(a) for a in d) for d in v)
+                   for k, v in host.items()}
+        got = df64.tiny_fft_dd(*_t(quad), tables, n)
+        want = jax_df64.tiny_fft_dd(*(jnp.asarray(q) for q in quad), jtables, n)
+        g = _join([x.numpy() for x in got])
+        assert _rel_c(g, _join(want)) <= DD_TOL
+        assert _rel_c(g, np.fft.fft(z, axis=-1)) <= DD_NUMPY_TOL

@@ -224,3 +224,186 @@ def test_tiny_planner_has_no_tables():
 
     for n in (1, 2, 64):
         assert PlannerDit32(n, device="cpu").leaf_corrs == {}
+
+
+# -- the df64 engine's host tables and the f64 planner --------------------------
+
+def _same_nested(got, want):
+    """Equal bit for bit through any nesting of tuples."""
+    if isinstance(want, np.ndarray) or hasattr(want, "dtype"):
+        g, w = np.asarray(got), np.asarray(want)
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert np.array_equal(g, w)
+        return
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _same_nested(g, w)
+
+
+def test_split_hi_lo_bitwise():
+    from phastft_tpu.ops import df64 as jax_df64
+
+    from phastft_tpu_torch.ops import df64
+
+    x = np.random.default_rng(0).standard_normal(4096) * 1e3
+    _same(df64.split_hi_lo(x), jax_df64.split_hi_lo(x))
+    hi, lo = df64.split_hi_lo(x)
+    assert hi.dtype == lo.dtype == np.float32
+    assert np.max(np.abs(df64.join_hi_lo(hi, lo) - x) / np.abs(x)) <= 2.0 ** -47
+
+
+@pytest.mark.parametrize("m", [8, 128, 2048])
+def test_radix_schedule_and_dd_radix_tables_bitwise(m):
+    from phastft_tpu.ops import df64 as jax_df64
+    from phastft_tpu.ops.stockham import radix_schedule as jax_schedule
+
+    from phastft_tpu_torch.ops import df64
+    from phastft_tpu_torch.ops.stockham import radix_schedule
+
+    assert radix_schedule(m) == jax_schedule(m)
+    assert radix_schedule(m, 4) == jax_schedule(m, 4)
+    mine, ref = df64.dd_radix_tables_host(m), jax_df64.dd_radix_tables_host(m)
+    assert set(mine) == set(ref)
+    for key in ref:
+        _same_nested(mine[key], ref[key])
+
+
+@pytest.mark.parametrize("n1,n2", [(2, 128), (64, 128), (16, 256),
+                                   (256, 1 << 16), (2048, 1 << 13)])
+def test_dd_correction_tables_bitwise(n1, n2):
+    from phastft_tpu.ops import df64 as jax_df64
+    from phastft_tpu.ops import pallas_dd
+
+    from phastft_tpu_torch.ops import dd, df64
+
+    _same(df64.dd_leaf_correction_host(n1, 128),
+          jax_df64.dd_leaf_correction_host(n1, 128))
+    s, t1, t2 = df64.dd_split_correction_host(n1, n2)
+    rs, r1, r2 = jax_df64.dd_split_correction_host(n1, n2)
+    assert s == rs
+    _same(t1, r1)
+    _same(t2, r2)
+    t, p1, p2 = dd.dd_col_tables_host(n1, n2)
+    rt, q1, q2 = pallas_dd.dd_col_tables_host(n1, n2)
+    assert t == rt == min(dd.DD_COL_TILE, n2) == min(pallas_dd.DD_COL_TILE, n2)
+    _same(p1, q1)
+    _same(p2, q2)
+
+
+@pytest.mark.parametrize("log_n", [0, 5, 7, 8, 13, 14, 21, 22, 24, 27, 28, 30])
+def test_f64_plans_match(log_n):
+    """The f64 leaf rule and the plans it gives equal the JAX package's
+    (whose f64 leaf is 2^13 inside its Ozaki window too); the port's f64
+    default engine is df64 at every size."""
+    from phastft_tpu.ops.fourstep import plan_rows as jax_plan
+    from phastft_tpu.options import Options as JaxOptions
+
+    from phastft_tpu_torch.ops.fourstep import plan_rows
+    from phastft_tpu_torch.options import Options
+
+    n = 1 << log_n
+    opts = Options.guess_options(n, np.float64)
+    assert opts.f64_engine == "df64"
+    ref = JaxOptions.guess_options(n, np.float64)
+    if not 20 <= log_n <= 24:  # there the JAX rule is the Ozaki kernels' 2^13
+        assert opts.leaf_fft_size == ref.leaf_fft_size
+    want = (1 << 13) if log_n <= 21 else (1 << 16)
+    assert opts.leaf_fft_size == min(max(n, 256), want)
+    assert plan_rows(n, opts.leaf_fft_size) == jax_plan(n, opts.leaf_fft_size)
+
+
+def _jax_dd_state_numpy(n, leaf=None):
+    import phastft_tpu
+
+    kw = {}
+    if leaf is not None:
+        kw["options"] = phastft_tpu.Options(leaf_fft_size=leaf)
+    jp = phastft_tpu.PlannerDit64(n, **kw)
+    tables, corrs = jp.dd_state
+
+    def conv(v):
+        return tuple(conv(x) for x in v) if isinstance(v, tuple) else np.asarray(v)
+
+    return (jp, {k: conv(v) for k, v in tables.items()},
+            {k: conv(v) for k, v in corrs.items()})
+
+
+@pytest.mark.parametrize("log_n,corr_keys", [
+    (5, set()), (11, {"ddleaf16"}), (15, {"ddleaf64", "ddpcol4x8192"})])
+def test_planner64_dd_state_matches_jax(log_n, corr_keys):
+    """PlannerDit64.dd_state holds what the transform reads (a tiny plan's
+    radix tables, else the plan's leaf and split corrections) under the
+    JAX planner's keys, its arrays bit for bit, as f32 tensors on the
+    planner's device."""
+    import torch
+
+    from phastft_tpu_torch import PlannerDit64
+
+    n = 1 << log_n
+    jp, jtables, jcorrs = _jax_dd_state_numpy(n)
+    planner = PlannerDit64(n, device="cpu")
+    assert planner.plan == jp.plan
+    assert planner.options.f64_engine == "df64"
+    tables, corrs = planner.dd_state
+    assert planner.dd_state is planner.dd_state  # built once
+    assert set(tables) == (set(jtables) if planner.plan[0] == "tiny" else set())
+    assert set(corrs) == corr_keys <= set(jcorrs)
+
+    def conv(v):
+        if isinstance(v, tuple):
+            return tuple(conv(x) for x in v)
+        assert isinstance(v, torch.Tensor) and v.dtype == torch.float32
+        assert v.device.type == "cpu"
+        return v.numpy()
+
+    for key in tables:
+        _same_nested(conv(tables[key]), jtables[key])
+    for key in corrs:
+        _same_nested(conv(corrs[key]), jcorrs[key])
+
+
+def test_planner64_from_numpy_tables():
+    """from_numpy_tables carries the JAX planner's dd_state across, takes
+    only what the plan reads, and refuses a missing key, a wrong shape and
+    a non-f32 array."""
+    import torch
+
+    from phastft_tpu_torch import PlannerDit64
+
+    n = 1 << 15
+    jp, jtables, jcorrs = _jax_dd_state_numpy(n)
+    carried = PlannerDit64.from_numpy_tables(n, (jtables, jcorrs), device="cpu")
+    own = PlannerDit64(n, device="cpu")
+    assert carried.plan == own.plan == jp.plan == ("split", 4, ("leaf", 64), 8192)
+    ctab, ccorr = carried.dd_state
+    otab, ocorr = own.dd_state
+    assert ctab == otab == {}
+    assert set(ccorr) == set(ocorr) == {"ddleaf64", "ddpcol4x8192"}
+    for key in ocorr:
+        flat_c = [a for half in ccorr[key] for a in
+                  (half if isinstance(half, tuple) else (half,))]
+        flat_o = [a for half in ocorr[key] for a in
+                  (half if isinstance(half, tuple) else (half,))]
+        assert all(torch.equal(a, b) for a, b in zip(flat_c, flat_o))
+
+    # what the transform never reads is not required
+    needed = {k: jcorrs[k] for k in ("ddleaf64", "ddpcol4x8192")}
+    PlannerDit64.from_numpy_tables(n, ({}, needed), device="cpu")
+    missing = {k: v for k, v in jcorrs.items() if k != "ddpcol4x8192"}
+    with pytest.raises(KeyError, match="ddpcol4x8192"):
+        PlannerDit64.from_numpy_tables(n, (jtables, missing), device="cpu")
+    bad = dict(jcorrs)
+    bad["ddleaf64"] = tuple(a[:, :64] for a in jcorrs["ddleaf64"])
+    with pytest.raises(ValueError, match="ddleaf64"):
+        PlannerDit64.from_numpy_tables(n, (jtables, bad), device="cpu")
+    bad = dict(jcorrs)
+    bad["ddleaf64"] = tuple(a.astype(np.float64) for a in jcorrs["ddleaf64"])
+    with pytest.raises(TypeError, match="float32"):
+        PlannerDit64.from_numpy_tables(n, (jtables, bad), device="cpu")
+
+    # a tiny plan reads the radix tables and nothing else
+    _, ttables, tcorrs = _jax_dd_state_numpy(32)
+    tiny = PlannerDit64.from_numpy_tables(32, (ttables, {}), device="cpu")
+    assert set(tiny.dd_state[0]) == set(ttables) and tiny.dd_state[1] == {}
+    with pytest.raises(KeyError):
+        PlannerDit64.from_numpy_tables(32, ({}, tcorrs), device="cpu")
