@@ -85,7 +85,8 @@ on any failed check:
    inverse of N * delta (exactly ones), and the peak of allocated device
    memory at 2^27.
 15. ``times_dd``: as 5 with 10 calls: ``ddcol`` at the 2^24 and 2^27 plans'
-   shapes, ``ddleaf`` at 2^16 x 256, 2^16 x 2048 and 2^13 x 2^11, the split
+   shapes, ``ddleaf`` at 2^16 x 256, 2^16 x 2048 and 2^13 x 2^11 (each beside
+   the library call), the split
    leaf's two passes and its transposes at 2^16 x 256, each kernel's plain
    version at the smaller shape (3 calls), and the whole f64 transform at
    2^20, 2^24 and 2^27 (device and host clock) beside ``torch.fft.fft`` on
@@ -97,6 +98,31 @@ on any failed check:
    radix-4 decimation with the trivial twiddles dropped (``dd_dft_flops``;
    the kernels' radix-2 code spends 47 per element per stage) and 50 per dd
    complex product of a correction.
+
+16. ``oz_exact``: the bf16 tensor-core product of ``csrc/oz.cuh`` alone on
+   random integer slices |s| <= 128 (128 x 64 outputs) at depths 32, 64, 128
+   and 512, equal to the int64 product bit for bit.
+17. ``parity_oz``: the Ozaki kernels against their plain versions on a
+   ``PlannerDit64``'s tables, rel L2 <= 1e-13 on joined values (and whether
+   they agree bit for bit): ``ozcol`` at (n1, n2) = (128, 8192), (2048,
+   8192), (512, 2048), 3 x (256, 1024) and 4 x (128, 8192); ``ozleaft`` at
+   A = 8, 16, 32, 64 and n1 = 128, 2048 on 3 entries, each also within 1e-10
+   of an f64 FFT of the transform it ends.
+18. ``e2e_oz``: the ``f64_engine="df64-oz"`` main path, counters set to 0
+   just before and read just after: ``fft_64_dit_with_planner`` on
+   ``Options(f64_engine="df64-oz", leaf_fft_size=2^13)`` at 2^20, 2^22, 2^24
+   and the nested 2^26, on ``leaf_fft_size=2^10`` at 2^17, a (4, 2^20) batch
+   on one planner, a round trip and the inverse at 2^24, each within 1e-10 of
+   ``torch.fft`` in complex128; one ``ozcol`` and one ``ozleaft`` per
+   transform (2^26: also one ``ddcol`` and two ``transpose2``), and a
+   per-call ``"df64-oz"`` on a ``"df64"`` planner at 2^24 launching the df64
+   kernels alone.
+19. ``times_oz``: as 15 at 2^20 and 2^24: ``ozcol`` and ``ozleaft`` with
+   their plain versions (3 calls) and bounds, the whole oz transform (device
+   and host clock), the df64 transform and complex128 ``torch.fft.fft``. The
+   oz bound is the larger of 32 B per element plus the tables over the memory
+   rate and the bf16 tensor-core flops of the JAX kernels' counts over
+   989 TFLOP/s (``oz_bound``).
 
 The line before the last is the kernel summary; the last line is the
 device record. No CUDA device: exit 1 before any result.
@@ -169,6 +195,22 @@ DD_SPLIT_SMALL = (10, 5)
 #: (two dd sums of 11) and a dd complex product.
 DD_CADD_FLOPS = 22
 DD_CMUL_FLOPS = 50
+#: The Ozaki engine's checks: depths of the exact integer product; (batch,
+#: n1, n2) of the column pass's parity; A, n1 and the batch of the row
+#: pass's; (log2 n, leaf) of the transforms; the f64 contract bound.
+OZ_EXACT_ROWS, OZ_EXACT_COLS = 128, 64
+OZ_EXACT_DEPTHS = (32, 64, 128, 512)
+OZ_COL_SHAPES = ((1, 128, 8192), (1, 2048, 8192), (1, 512, 2048), (3, 256, 1024),
+                 (4, 128, 8192))
+OZ_LEAF_AS = (8, 16, 32, 64)
+OZ_LEAF_N1S = (128, 2048)
+OZ_LEAF_BATCH = 3
+OZ_E2E = ((17, 1 << 10), (20, 1 << 13), (22, 1 << 13), (24, 1 << 13), (26, 1 << 13))
+OZ_ROUNDTRIP_LOG = 24
+OZ_TIME_LOGS = (20, 24)
+OZ_E2E_TOL = 1e-10
+#: Published H100 SXM dense bf16 tensor-core rate (f32 accumulation).
+BF16_FLOPS_PER_S = 989e12
 OUT_DIR = "chiprun_out"
 #: ~1 ms at the H100's clocks: longer than the host takes to enqueue a call.
 SLEEP_CYCLES = 2_000_000
@@ -361,6 +403,27 @@ def ddleaf_bound(rows: int, n1: int):
     between the kernel's two factors is that DFT's own twiddle)."""
     tables = 4 * 64 + (4 * (n1 * 128 + n1 // 2) if n1 > 1 else 0)
     return dd_bound(rows * n1 * 128, n1.bit_length() - 1 + 7, 0, tables)
+
+
+def oz_bound(kind: str, n: int, n1: int):
+    """The bound of an oz pass over n points (a split level n1 x n2): four
+    f32 planes read and written once (32 B per element) plus the tables,
+    against the bf16 tensor-core flops of the JAX kernels' own counts
+    (pallas_ozdd.py:275 and :404): 90 * n1/4 per element for ``ozcol``,
+    90 * (A + 128) for ``ozleaft``."""
+    n2 = n // n1
+    a, m = n2 // 128, n1 // 4
+    if kind == "ozcol":
+        tables = 2 * 15 * m * m + 16 * (4 * m + n1 * (n2 // 256) + n1 * 256)
+        flops = 90 * m * n
+    else:
+        tables = 2 * 15 * (a * a + 128 * 128) + 16 * a * 128
+        flops = 90 * (a + 128) * n
+    t_bytes = (32 * n + tables) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops}
 
 
 def dd_launches(plan, split: bool):
@@ -1143,7 +1206,10 @@ def main() -> int:
             top["ddleaf"] = row
             del xc
         else:
-            row = {"ms": time_ms(lambda: ddleaf(*x, corr, n1), flush, 10), **bound}
+            xc = dd_join(x)
+            row = {"ms": time_ms(lambda: ddleaf(*x, corr, n1), flush, 10), **bound,
+                   "library_ms": time_ms(lambda: torch.fft.fft(xc), flush, 10)}
+            del xc
         emit({"phase": "times_dd", "kernel": "ddleaf", "n": n1 * 128, "rows": rows,
               "card": smi, **row})
         del x
@@ -1191,6 +1257,190 @@ def main() -> int:
         del xr, xi, xc
         torch.cuda.empty_cache()
 
+    torch.cuda.empty_cache()
+
+    # -- Ozaki engine: the tensor-core product of integer slices is exact
+    from phastft_tpu_torch.ops.ozdd import ozcol, ozcol_plain, ozleaft, ozleaft_plain
+
+    stream = torch.cuda.current_stream().cuda_stream
+    exact = {}
+    for depth in OZ_EXACT_DEPTHS:
+        ia = torch.randint(-128, 129, (OZ_EXACT_ROWS, depth), generator=gen, device=dev)
+        ib = torch.randint(-128, 129, (OZ_EXACT_COLS, depth), generator=gen, device=dev)
+        a16, b16 = ia.to(torch.bfloat16), ib.to(torch.bfloat16)
+        d = torch.empty((OZ_EXACT_ROWS, OZ_EXACT_COLS), device=dev)
+        rc = _build.library().phastft_oz_exact(
+            a16.data_ptr(), b16.data_ptr(), d.data_ptr(), OZ_EXACT_ROWS, OZ_EXACT_COLS,
+            depth, stream)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"oz_exact: CUDA error {rc}")
+        want = (ia.cpu() @ ib.cpu().T).to(dev)  # the int64 product
+        exact[depth] = {"equal": bool((d.to(torch.int64) == want).all())
+                        and bool((d == d.round()).all()),
+                        "max_abs_err": float((d.double() - want.double()).abs().max()),
+                        "max_abs_sum": float(want.abs().max())}
+        del ia, ib, a16, b16, d, want
+    emit({"phase": "oz_exact", "rows": OZ_EXACT_ROWS, "cols": OZ_EXACT_COLS,
+          "depths": exact})
+    if not all(v["equal"] for v in exact.values()):
+        raise AssertionError("the bf16 product of integer slices is not exact on this card")
+
+    # -- oz kernels against their plain versions, on a planner's tables
+    def oz_tables(n1, n2):
+        corrs = PlannerDit64(n1 * n2, options=Options(
+            f64_engine="df64-oz", leaf_fft_size=n2)).dd_state[1]
+        return corrs[f"ozcol{n1}x{n2}"], corrs[f"ozleafT{n2}"]
+
+    max_err.update(ozcol=0.0, ozleaft=0.0)
+
+    def oz_parity(name, k, p, **where):
+        err, worst = dd_rel(k, p)
+        max_err[name] = max(max_err[name], worst)
+        emit({"phase": "parity_oz", "kernel": name, **where, "rel_l2": err,
+              "bit_equal": all(torch.equal(u, v) for u, v in zip(k, p)),
+              "max_abs_err": worst, "bound": DD_KERNEL_TOL})
+        check(f"{name} parity at {where}", err, DD_KERNEL_TOL)
+
+    for b, n1, n2 in OZ_COL_SHAPES:
+        x = dd_quad((b, n1, n2))
+        ct, _ = oz_tables(n1, n2)
+        k = ozcol(*x, ct, n1)
+        torch.cuda.synchronize()
+        oz_parity("ozcol", k, ozcol_plain(*x, ct, n1), batch=b, n1=n1, n2=n2)
+        del k, x
+    for a in OZ_LEAF_AS:
+        for n1 in OZ_LEAF_N1S:
+            n2 = a * 128
+            ct, lt = oz_tables(n1, n2)
+            x = dd_quad((OZ_LEAF_BATCH, n1, n2))
+            c = ozcol_plain(*x, ct, n1)
+            k = ozleaft(*c, lt, n1)
+            torch.cuda.synchronize()
+            oz_parity("ozleaft", k, ozleaft_plain(*c, lt, n1), batch=OZ_LEAF_BATCH, a=a,
+                      n1=n1)
+            # ozleaft ends the transform that ozcol began
+            flat = (OZ_LEAF_BATCH, n1 * n2)
+            err = card_oracle_err((k[0].double() + k[1], k[2].double() + k[3]),
+                                  (x[0].double() + x[1]).reshape(flat),
+                                  (x[2].double() + x[3]).reshape(flat))
+            emit({"phase": "parity_oz", "kernel": "ozcol -> ozleaft", "a": a, "n1": n1,
+                  "rel_l2_vs_fft": err, "bound": OZ_E2E_TOL})
+            check(f"ozleaft at A = {a}, n1 = {n1} against an f64 FFT", err, OZ_E2E_TOL)
+            del x, c, k
+    torch.cuda.empty_cache()
+
+    # -- main path of the "df64-oz" plans: counters at 0 just before, read just
+    # after; every transform's own launches are checked against its plan
+    counters = (ozcol, ozleaft, ddcol, ddcol_nocorr, ddleaf, transpose2, colfft,
+                colfft_out3d, leaft, leaf, leaf3)
+    names = [k.__name__ for k in counters]
+    for k in counters:
+        k.launches = 0
+    want_total = dict.fromkeys(names, 0)
+    oz_level = {"ozcol": 1, "ozleaft": 1}
+
+    def oz_planner(n, leaf=1 << 13):
+        return PlannerDit64(n, options=Options(f64_engine="df64-oz", leaf_fft_size=leaf))
+
+    def inverse_err(got, xr, xi):
+        want = torch.fft.ifft(torch.complex(xr, xi))
+        return float(torch.linalg.vector_norm(torch.complex(*got) - want)
+                     / torch.linalg.vector_norm(want))
+
+    errs = {}
+    for log_n, leaf_size in OZ_E2E:
+        n = 1 << log_n
+        planner = oz_planner(n, leaf_size)
+        want = dict(oz_level)
+        if planner.plan[2][0] == "split":  # nested: a df64 outer level around oz
+            want.update(ddcol=1, transpose2=2)
+        xr, xi = randn64((n,))
+        out = run_counted(
+            lambda: fft_64_dit_with_planner(xr, xi, Direction.Forward, planner), want)
+        err = card_oracle_err(out, xr, xi)
+        errs[f"fwd_2^{log_n}"] = err
+        check(f"df64-oz 2^{log_n}", err, OZ_E2E_TOL)
+        if log_n == OZ_ROUNDTRIP_LOG:
+            back = run_counted(
+                lambda: fft_64_dit_with_planner(out[0], out[1], Direction.Reverse,
+                                                planner), want)
+            rt = rel_l2(back[0], back[1], xr, xi)
+            errs[f"roundtrip_2^{log_n}"] = rt
+            check(f"df64-oz round trip 2^{log_n}", rt, OZ_E2E_TOL)
+            del back
+            inv = run_counted(
+                lambda: fft_64_dit_with_planner(xr, xi, Direction.Reverse, planner), want)
+            err = inverse_err(inv, xr, xi)
+            errs[f"inverse_2^{log_n}"] = err
+            check(f"df64-oz inverse 2^{log_n}", err, OZ_E2E_TOL)
+            del inv
+            # a per-call "df64-oz" on a "df64" planner finds no oz tables
+            df = PlannerDit64(n)
+            out2 = run_counted(lambda: fft_64_dit_with_planner_and_opts(
+                xr, xi, Direction.Forward, df, Options(f64_engine="df64-oz")),
+                dd_launches(df.plan, False))
+            err = card_oracle_err(out2, xr, xi)
+            errs[f"per_call_oz_on_df64_2^{log_n}"] = err
+            check(f"per-call df64-oz on a df64 planner 2^{log_n}", err, DD_E2E_TOL)
+            del out2
+        del out, xr, xi
+        torch.cuda.empty_cache()
+    planner = oz_planner(1 << 20)
+    for _ in range(2):
+        xr, xi = randn64((4, 1 << 20))
+        out = run_counted(
+            lambda: fft_64_dit_with_planner(xr, xi, Direction.Forward, planner), oz_level)
+        err = card_oracle_err(out, xr, xi)
+        errs.setdefault("planner_2^20_batch4", []).append(err)
+        check("df64-oz planner reuse 2^20 x4", err, OZ_E2E_TOL)
+        del out, xr, xi
+    torch.cuda.synchronize()
+    launches_oz = {k.__name__: k.launches for k in counters}
+    emit({"phase": "e2e_oz", "rel_l2": errs, "launches": launches_oz, "want": want_total})
+    if launches_oz != want_total:
+        raise AssertionError(f"launches {launches_oz}, want {want_total}")
+    for name in ("ozcol", "ozleaft"):
+        if launches_oz[name] < 1:
+            raise AssertionError(f"{name} was never launched on the df64-oz main path")
+        launches[name] = launches_oz[name]
+    torch.cuda.empty_cache()
+
+    # -- oz times, beside the df64 transform and the library's complex128 FFT
+    for log_n in OZ_TIME_LOGS:
+        n = 1 << log_n
+        planner = oz_planner(n)
+        _, n1, _, n2 = planner.plan
+        ct = planner.dd_state[1][f"ozcol{n1}x{n2}"]
+        lt = planner.dd_state[1][f"ozleafT{n2}"]
+        x = dd_quad((1, n1, n2))
+        c = ozcol(*x, ct, n1)
+        row = {
+            "ozcol": dd_row(lambda: ozcol(*x, ct, n1), lambda: ozcol_plain(*x, ct, n1),
+                            oz_bound("ozcol", n, n1), n, 1),
+            "ozleaft": dd_row(lambda: ozleaft(*c, lt, n1),
+                              lambda: ozleaft_plain(*c, lt, n1),
+                              oz_bound("ozleaft", n, n1), n, 1),
+        }
+        del x, c
+        xr, xi = randn64((n,))
+        df = PlannerDit64(n)
+
+        def transform():
+            return fft_64_dit_with_planner(xr, xi, Direction.Forward, planner)
+
+        xc = torch.complex(xr, xi)
+        emit({"phase": "times_oz", "n": n, "n1": n1, "n2": n2, "card": smi,
+              "kernels": row, "transform_ms": time_ms(transform, flush, 10),
+              "transform_wall_ms": wall_ms(transform, flush, 10),
+              "transform_bound_ms": row["ozcol"]["bound_ms"] + row["ozleaft"]["bound_ms"],
+              "df64_transform_ms": time_ms(
+                  lambda: fft_64_dit_with_planner(xr, xi, Direction.Forward, df), flush, 10),
+              "library_ms": time_ms(lambda: torch.fft.fft(xc), flush, 10)})
+        top.update(row)  # the kernels line: the last (largest) shape
+        del xr, xi, xc
+        torch.cuda.empty_cache()
+
     sources = {
         "colfft_out3d": ("phastft_tpu_torch/csrc/colfft.cu",
                          "phastft_tpu/ops/pallas_col.py:490"),
@@ -1210,6 +1460,10 @@ def main() -> int:
                          "phastft_tpu/ops/pallas_dd.py:287"),
         "ddleaf": ("phastft_tpu_torch/csrc/ddleaf.cu",
                    "phastft_tpu/ops/pallas_dd.py:382"),
+        "ozcol": ("phastft_tpu_torch/csrc/ozcol.cu",
+                  "phastft_tpu/ops/pallas_ozdd.py:286"),
+        "ozleaft": ("phastft_tpu_torch/csrc/ozleaft.cu",
+                    "phastft_tpu/ops/pallas_ozdd.py:415"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -18,9 +18,11 @@ transpose) around that pipeline; a non-default ``Options.leaf_fft_size``
 of 128..2^16 points runs classic levels too. Planar f64 runs for the same
 sizes on the df64 (paired-f32) engine, four f32 planes per complex array
 through the dd kernels (``f64_engine`` = ``"df64"``, ``"df64-fused"``,
-``"df64-split"``). Everything else (the native and Ozaki f64 engines,
-n >= 2^31, ...) raises ``NotImplementedError`` naming the ``ROADMAP.md``
-item that brings it. The package imports neither JAX nor phastft_tpu.
+``"df64-split"``), and with ``"df64-oz"`` (opt-in) the split levels of
+n1 = 128..2048 over a leaf of 2^10..2^13 points on the Ozaki bf16-slice
+kernels. Everything else (the native f64 engine, n >= 2^31, ...) raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it. The
+package imports neither JAX nor phastft_tpu.
 """
 
 from __future__ import annotations

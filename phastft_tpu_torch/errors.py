@@ -5,7 +5,7 @@ The same four classes, with the same messages, as the JAX package's
 (non-power-of-2 length, planar length mismatch, planner-size mismatch).
 
 ``not_ported`` builds the ``NotImplementedError`` raised for everything
-the port does not run yet (the native and Ozaki f64 engines, n >= 2^31,
+the port does not run yet (the native f64 engine, n >= 2^31,
 the staged and plain pipelines, Tune, leaves outside 128..2^16 points);
 its message names the ``ROADMAP.md`` item that will bring it.
 """
@@ -48,8 +48,6 @@ def ensure_power_of_two(n: int) -> int:
 #: ROADMAP.md Queue 1 items that bring what the port does not run yet.
 ROADMAP_ITEMS = {
     "nested": "ROADMAP.md Queue 1 item 16 (transforms of n >= 2^31)",
-    "oz": "ROADMAP.md Queue 1 item 5 (the Ozaki bf16-slice f64 engine, "
-          "f64_engine='df64-oz')",
     "f64": "ROADMAP.md Queue 1 item 6 (the native f64 engine)",
     "classic": "ROADMAP.md Queue 1 item 7 (use_pallas=False and the staged "
                "strategy)",

@@ -9,20 +9,23 @@ Counterpart of the JAX package's ``fft.py``. Contracts kept:
 * leading batch dimensions; the transform runs along the last axis.
 
 Numpy arrays or torch tensors go in; torch tensors on the planner's device
-come out. A numpy input is converted to the planner's dtype, as the JAX
-package converts it; a tensor must already have that dtype and lie on the
-planner's device. Unlike the JAX package, which donates its input buffers,
-the port never writes the caller's tensors: every result is a new tensor.
+come out. An input of another dtype is converted to the planner's, as the
+JAX package converts it; a tensor must lie on the planner's device. Unlike
+the JAX package, which donates its input buffers, the port never writes the
+caller's tensors: every result is a new tensor.
 
 The port runs planar f32 for n = 1..2^30 (one leaf kernel up to 2^16,
 the fused two-pass pipeline to 2^25, a classic outer level around it
 above, and classic levels wherever ``Options.leaf_fft_size`` forces a
 split the fused pipeline refuses), and planar f64 for the same sizes on
-the df64 (paired-f32) engine: ``f64_engine`` = ``"df64"``, ``"df64-fused"``
-or ``"df64-split"``, resolved as the JAX package resolves it (a per-call
-value that is not None, else the planner's, else ``"native"``). The native
-and Ozaki (``"df64-oz"``) f64 engines and larger sizes raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
+the df64 (paired-f32) engine: ``f64_engine`` = ``"df64"``, ``"df64-fused"``,
+``"df64-split"`` or ``"df64-oz"``, resolved as the JAX package resolves it
+(a per-call value that is not None, else the planner's, else
+``"native"``). A planner built with ``"df64-oz"`` runs its split levels
+inside the Ozaki kernels' window on them, whatever the per-call engine;
+the leaves and other levels run the df64 kernels. The native f64 engine and
+larger sizes raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
+that brings them.
 """
 
 from __future__ import annotations
@@ -86,17 +89,16 @@ def _coerce_direction(direction) -> Direction:
 
 
 def _as_tensor(x, planner) -> torch.Tensor:
-    """``x`` as a contiguous tensor of the planner's dtype on its device."""
+    """``x`` as a contiguous tensor of the planner's dtype on its device
+    (converted from another dtype, as the JAX package converts it)."""
     device = planner.device
     if isinstance(x, torch.Tensor):
-        want = torch.float64 if planner.dtype == np.float64 else torch.float32
-        if x.dtype != want:
-            raise TypeError(f"expected {planner.dtype} tensors, got {x.dtype}")
         if x.device != device:
             raise PhastftError(
                 f"input is on {x.device} but the planner is on {device}"
             )
-        return x.contiguous()
+        want = torch.float64 if planner.dtype == np.float64 else torch.float32
+        return x.to(want).contiguous()
     arr = np.ascontiguousarray(np.asarray(x, dtype=planner.dtype))
     if not arr.flags.writeable:  # torch tensors cannot wrap read-only memory
         arr = arr.copy()
@@ -111,6 +113,9 @@ def _length(x) -> int:
 
 def _run(reals, imags, direction, planner, opts: Options):
     direction = _coerce_direction(direction)
+    reals = _as_tensor(reals, planner)
+    imags = _as_tensor(imags, planner)
+    n, _ = _validate(reals, imags, planner)
     if opts.strategy == "staged":
         raise not_ported("strategy='staged'", "classic")
     use_pallas = (
@@ -119,9 +124,6 @@ def _run(reals, imags, direction, planner, opts: Options):
     )
     if use_pallas is False:
         raise not_ported("use_pallas=False (the plain pipeline)", "classic")
-    reals = _as_tensor(reals, planner)
-    imags = _as_tensor(imags, planner)
-    n, _ = _validate(reals, imags, planner)
     scale = direction is Direction.Reverse
     # The leaf size must match the planner's tables, so it comes from the
     # planner's own options, not the per-call opts.
@@ -135,10 +137,9 @@ def _run(reals, imags, direction, planner, opts: Options):
         if not engine.startswith("df64"):
             raise not_ported(f"f64_engine={engine!r}", "f64")
         # "df64-split" / "df64-fused" pin the dd leaf lowering; an unknown
-        # suffix falls to the default, the one-kernel leaf.
+        # suffix ("oz" among them) falls to the default, the one-kernel
+        # leaf. The Ozaki kernels run where the planner built their tables.
         dd_leaf = engine.split("-", 1)[1] if "-" in engine else None
-        if dd_leaf == "oz":
-            raise not_ported("f64_engine='df64-oz'", "oz")
         run = build_dd_fft(n, leaf, scale, dd_leaf)
         args = planner.dd_state
     else:
@@ -181,7 +182,8 @@ def fft_32_dit(reals, imags, direction, device=None):
 def fft_64_dit_with_planner_and_opts(reals, imags, direction, planner, opts):
     """f64 planar C2C FFT with explicit planner and options, on the df64
     (paired-f32) engine. ``opts.f64_engine``, when not None, overrides the
-    planner's."""
+    planner's; the Ozaki kernels run wherever the planner built their
+    tables."""
     return _run(reals, imags, direction, planner, opts)
 
 

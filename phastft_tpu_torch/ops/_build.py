@@ -48,6 +48,10 @@ _SIGNATURES = {
     "phastft_ddcol_nocorr": [_P] * 9 + [_L, _I, _I, _P],
     "phastft_ddleaf": [_P] * 14 + [_L, _I, _P],
     "phastft_dd_exact": [_P] * 6 + [_L, _P],
+    # the oz kernels take a host array of their device pointers
+    "phastft_ozcol": [_P, _L, _I, _I, _P],
+    "phastft_ozleaft": [_P, _L, _I, _I, _P],
+    "phastft_oz_exact": [_P] * 3 + [_I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

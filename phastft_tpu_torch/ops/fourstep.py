@@ -27,7 +27,9 @@ carried verbatim, so both packages plan every size the same way.
 planes, the df64 engine: ``tiny_fft_dd`` below 128 points, ``ddleaf`` (or
 the split leaf: ``ddcol``, a transpose, ``ddcol_nocorr``) for a leaf, and
 for every split level ``ddcol``, the inner plan, and ``transpose2`` twice
-(once per hi/lo pair of planes).
+(once per hi/lo pair of planes); a split level for which the planner built
+the Ozaki tables runs ``ozcol`` + ``ozleaft`` instead, two trips through
+device memory whose output is already in natural order.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 from .colfft import colfft, colfft_out3d
 from .dd import dd_col_tables_host, ddcol, ddcol_nocorr, ddleaf
 from .df64 import tiny_fft_dd
+from .ozdd import ozcol, ozleaft
 from .leaf import leaf, leaf3
 from .leaft import leaft
 from .stockham import LANES
@@ -203,11 +206,14 @@ def fft_rows_dd(rh, rl, ih, il, plan, tables, corrs, dd_leaf=None):
 
     ``tables``: the dd radix tables (``df64.dd_radix_tables_host``, on the
     device), read by the tiny plans. ``corrs``: the planner's dd tables
-    under the JAX planner's keys: ``ddleaf{n1}`` and ``ddpcol{n1}x{n2}``.
-    ``dd_leaf`` = "split" runs a leaf with n1 > 1 as ``_ddleaf_split``;
-    anything else runs ``ddleaf``. Every branch returns new tensors, and a
-    split level frees each quadruple as soon as the next pass has read
-    it."""
+    under the JAX planner's keys: ``ddleaf{n1}``, ``ddpcol{n1}x{n2}`` and,
+    for the levels of a "df64-oz" planner inside ``ozdd.oz_window``,
+    ``ozcol{n1}x{n2}`` and ``ozleafT{n2}``. The presence of the oz tables
+    arms the oz branch, as in the JAX package, whatever the per-call
+    engine. ``dd_leaf`` = "split" runs a leaf with n1 > 1 as
+    ``_ddleaf_split``; anything else runs ``ddleaf``. Every branch returns
+    new tensors, and a split level frees each quadruple as soon as the next
+    pass has read it."""
     kind = plan[0]
     if kind == "tiny":
         return tiny_fft_dd(rh, rl, ih, il, tables, plan[1])
@@ -219,6 +225,10 @@ def fft_rows_dd(rh, rl, ih, il, plan, tables, corrs, dd_leaf=None):
     _, n1, plan2, n2 = plan
     batch = tuple(rh.shape[:-1])
     view = batch + (n1, n2)
+    oztabs = corrs.get(f"ozcol{n1}x{n2}")
+    if oztabs is not None:
+        col = ozcol(*(a.reshape(view) for a in (rh, rl, ih, il)), oztabs, n1)
+        return ozleaft(*col, corrs[f"ozleafT{n2}"], n1)
     t1, t2 = corrs[f"ddpcol{n1}x{n2}"]
     col = ddcol(*(a.reshape(view) for a in (rh, rl, ih, il)), t1, t2, n1)
     rows = fft_rows_dd(*col, plan2, tables, corrs, dd_leaf)

@@ -5,8 +5,8 @@ dataclass and field names, so one value can describe a call to either
 package. ``guess_options`` keeps both leaf rules of the JAX package,
 which fix the plan shapes (``ops/fourstep.plan_rows``). The f64 engine
 windows of the JAX package were measured on a TPU and are not carried
-over: the port's f64 default is ``"df64"`` at every size, the one f64
-engine it runs.
+over: the port's f64 default is ``"df64"`` at every size, and the Ozaki
+engine ``"df64-oz"`` is opt-in.
 """
 
 from __future__ import annotations
@@ -41,8 +41,14 @@ class Options:
     overrides the planner's, and None on both means ``"native"``):
     ``"df64"`` and ``"df64-fused"`` run the paired-f32 engine with one dd
     leaf kernel per leaf, ``"df64-split"`` runs each leaf as two dd column
-    passes with a transpose between; ``"native"`` and ``"df64-oz"`` are not
-    ported and raise ``NotImplementedError``.
+    passes with a transpose between. A planner built with ``"df64-oz"``
+    runs every split level whose inner plan is a leaf, with
+    128 <= n1 <= 2048 and rows of A * 128 points, 8 <= A <= 64, on the
+    Ozaki bf16-slice kernels (rel L2 ~1e-11 against ~1e-14), whatever the
+    per-call engine; pair it with ``leaf_fft_size=2^13`` (n = 2^20..2^24,
+    and the inner level of larger plans), as the JAX package asks. Other
+    levels and leaves run the df64 kernels. ``"native"`` is not ported and
+    raises ``NotImplementedError``.
     """
 
     tiled_bit_reversal: Optional[bool] = None
@@ -56,31 +62,29 @@ class Options:
     f64_engine: Optional[str] = None
 
     @staticmethod
-    def guess_options(n: int, dtype=np.float32) -> "Options":
-        """Heuristic options for an f32 or f64 transform of size ``n``.
+    def guess_options(n: int, dtype=None) -> "Options":
+        """Heuristic options for a transform of size ``n`` (and optionally
+        element ``dtype``).
 
         The leaf rules are the JAX package's. f32: one leaf up to 2^16,
         and past it a leaf of min(2^14, n/128), so the split's column
         factor is at least 128 and the row length n2 = A * 128 has
-        A <= 128. f64: a leaf of 2^13 up to n = 2^21 and 2^16 past it,
-        clamped to [256, n]. f64 options carry ``f64_engine="df64"`` at
-        every size: a provisional default, decided again by H100 times
-        when the native engine is ported. Other dtypes raise.
+        A <= 128. Any other dtype, and None, takes the f64 rule: a leaf of
+        2^13 up to n = 2^21 and 2^16 past it, clamped to [256, n], with
+        ``f64_engine="df64"`` at every size: a provisional default, decided
+        again by H100 times when the native engine is ported.
         """
-        dtype = np.dtype(dtype)
         log_n = max(n, 1).bit_length() - 1
         f64_engine = None
-        if dtype == np.float32:
+        if dtype is not None and np.dtype(dtype) == np.float32:
             if n <= DEFAULT_LEAF_SIZE:
                 leaf = min(max(n, 256), DEFAULT_LEAF_SIZE)
             else:
                 leaf = min(1 << 14, n >> 7)
-        elif dtype == np.float64:
+        else:
             leaf = (1 << 13) if log_n <= 21 else DEFAULT_LEAF_SIZE
             leaf = min(max(n, 256), leaf)
             f64_engine = "df64"
-        else:
-            raise TypeError(f"no options for dtype {dtype}")
         return Options(
             tiled_bit_reversal=log_n >= TILED_BITREV_MIN_LOGN,
             leaf_fft_size=leaf,

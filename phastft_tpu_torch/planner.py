@@ -22,7 +22,9 @@ accuracy contract).
 
 The f64 planner serves the df64 (paired-f32) engine: it holds no f32
 tables, and builds its ``dd_state`` on first use: the dd radix tables of
-a tiny plan, else the dd corrections of the plan's leaf and split levels.
+a tiny plan, else the dd corrections of the plan's leaf and split levels,
+and with ``f64_engine="df64-oz"`` the Ozaki slice tables of every split
+level inside the oz kernels' window (``ops/ozdd.oz_window``).
 
 ``PlannerDit32.from_numpy_tables`` and ``PlannerDit64.from_numpy_tables``
 build a planner on tables handed over as numpy arrays, for instance the
@@ -44,6 +46,12 @@ from .ops.colfft import col_split_tables_host, col_tile, col_tile3d
 from .ops.dd import dd_col_tables_host
 from .ops.df64 import dd_leaf_correction_host, dd_radix_tables_host
 from .ops.fourstep import fused_two_pass, plan_rows, split_levels
+from .ops.ozdd import (
+    oz_window,
+    ozcol_tables_host,
+    ozleaft_tables_host,
+    slice_count,
+)
 from .ops.leaft import leaft_tables_host
 from .ops.mxu import mxu_leaf_tables3_host, mxu_leaf_tables_host
 from .ops.stockham import LANES, leaf_correction_host
@@ -165,6 +173,16 @@ class _PlannerDitBase:
             raise not_ported(f"a leaf of {node[1] * LANES} points",
                              "leaf_size")
 
+    @classmethod
+    def new(cls, n: int, device=None):
+        """Constructor alias of the reference's ``Planner::new``."""
+        return cls(n, device=device)
+
+    @classmethod
+    def with_mode(cls, n: int, mode: PlannerMode, device=None):
+        """A planner of ``mode`` (``PlannerMode.Tune`` raises: not ported)."""
+        return cls(n, mode, device=device)
+
 
 class PlannerDit32(_PlannerDitBase):
     """f32 DIT planner for n = 1..2^30 on ``device`` (None = "cuda")."""
@@ -213,23 +231,42 @@ class PlannerDit32(_PlannerDitBase):
         return self
 
 
-def _dd_tables_host(plan):
+def _dd_tables_host(plan, engine=None):
     """(radix tables, corrs) of the df64 engine for ``plan`` as host
     arrays, under the JAX planner's keys, holding only what
     ``fourstep.fft_rows_dd`` reads: for a tiny plan the
     ``dd_radix_tables_host`` entries up to its length and no correction;
-    else no radix table, ``ddpcol{n1}x{n2}`` for every split level and
-    ``ddleaf{n1}`` for the plan's leaf factor (n1 >= 2)."""
+    else no radix table and, for every split level, ``ozcol{n1}x{n2}`` and
+    ``ozleafT{n2}`` (the flat tuples of ``ozcol_tables_host`` and
+    ``ozleaft_tables_host``) when ``engine`` starts with "df64-oz" and the
+    level is in ``oz_window``, else ``ddpcol{n1}x{n2}``; and ``ddleaf{n1}``
+    for the plan's leaf factor (n1 >= 2) unless an oz level runs it."""
     if plan[0] == "tiny":
         return dd_radix_tables_host(plan[1]), {}
+    oz = (engine or "").startswith("df64-oz")
     corrs = {}
     inner = plan
+    leaf_read = True
     for n1, inner, n2 in split_levels(plan):
-        _, p1, p2 = dd_col_tables_host(n1, n2)
-        corrs[f"ddpcol{n1}x{n2}"] = (p1, p2)
-    if inner[0] == "leaf" and inner[1] > 1:
+        if oz and oz_window(n1, inner, n2):
+            corrs[f"ozcol{n1}x{n2}"] = ozcol_tables_host(n1, n2)
+            corrs[f"ozleafT{n2}"] = ozleaft_tables_host(n2)
+            leaf_read = False
+        else:
+            _, p1, p2 = dd_col_tables_host(n1, n2)
+            corrs[f"ddpcol{n1}x{n2}"] = (p1, p2)
+    if inner[0] == "leaf" and inner[1] > 1 and leaf_read:
         corrs[f"ddleaf{inner[1]}"] = dd_leaf_correction_host(inner[1], LANES)
     return {}, corrs
+
+
+def _oz_to_device(key, arrays, device):
+    """An oz table set on ``device``: its slice arrays as bfloat16 (exact:
+    integers |s| <= 128), the dd tables as float32."""
+    n_slices = slice_count(key)
+    out = _to_device(arrays, device)
+    return tuple(a.to(torch.bfloat16) if i < n_slices else a
+                 for i, a in enumerate(out))
 
 
 class PlannerDit64(_PlannerDitBase):
@@ -241,7 +278,10 @@ class PlannerDit64(_PlannerDitBase):
     planner's keys and layouts: for a tiny plan (n < 128) the dd Stockham
     step twiddles ``{(cur, R): ...}``; else the dd corrections
     ``ddleaf{n1}`` of the plan's leaf (a 4-tuple) and ``ddpcol{n1}x{n2}``
-    of every split level (two 4-tuples). The default options carry
+    of every split level (two 4-tuples). With ``f64_engine="df64-oz"`` a
+    split level inside ``ops/ozdd.oz_window`` holds ``ozcol{n1}x{n2}`` and
+    ``ozleafT{n2}`` instead (flat tuples, the slice arrays as bfloat16),
+    and the transform runs it on the oz kernels. The default options carry
     ``f64_engine="df64"``; a planner built with engine-less ``Options()``
     resolves to the native engine, which is not ported."""
 
@@ -260,7 +300,8 @@ class PlannerDit64(_PlannerDitBase):
     @property
     def dd_state(self):
         if self._dd_state is None:
-            self._dd_state = self._dd_to_device(*_dd_tables_host(self.plan))
+            self._dd_state = self._dd_to_device(
+                *_dd_tables_host(self.plan, self.options.f64_engine))
         return self._dd_state
 
     def _dd_to_device(self, tables, corrs):
@@ -269,6 +310,7 @@ class PlannerDit64(_PlannerDitBase):
             {key: tuple(_to_device(digit, dev) for digit in entry)
              for key, entry in tables.items()},
             {key: (_to_device(val, dev) if key.startswith("ddleaf")
+                   else _oz_to_device(key, val, dev) if key.startswith("oz")
                    else tuple(_to_device(half, dev) for half in val))
              for key, val in corrs.items()},
         )
@@ -280,14 +322,17 @@ class PlannerDit64(_PlannerDitBase):
         exactly the given arrays. ``dd_state`` = (tables, corrs) as the
         JAX planner's ``dd_state`` holds them, converted to numpy. Only the
         entries the plan's transform reads are taken (see ``dd_state``);
-        every other key is ignored. Raises if an entry the plan needs is
-        missing, of another shape, or not f32."""
+        every other key is ignored. The oz slice arrays may be bfloat16 (as
+        the JAX planner holds them) or float32, and must be integers of at
+        most 128 in magnitude. Raises if an entry the plan needs is missing,
+        of another shape, or not f32."""
         self = cls.__new__(cls)
         self._setup(n, PlannerMode.Heuristic, options, device)
         tables, corrs = dd_state
-        own_tables, own_corrs = _dd_tables_host(self.plan)
+        own_tables, own_corrs = _dd_tables_host(self.plan,
+                                                self.options.f64_engine)
 
-        def take(key, given, own):
+        def take(key, given, own, sliced=False):
             """``given`` as numpy arrays in ``own``'s nesting, checked."""
             if isinstance(own, np.ndarray):
                 arr = np.asarray(given)
@@ -295,14 +340,23 @@ class PlannerDit64(_PlannerDitBase):
                     raise ValueError(
                         f"table {key!r}: expected shape {own.shape}, got "
                         f"{arr.shape}")
+                if sliced and arr.dtype.name == "bfloat16":
+                    arr = arr.astype(np.float32)
                 if arr.dtype != np.float32:
                     raise TypeError(f"table {key!r} must be float32")
+                if sliced and not (np.all(arr == np.rint(arr))
+                                   and np.all(np.abs(arr) <= 128)):
+                    raise ValueError(
+                        f"table {key!r}: slices must be integers |s| <= 128")
                 return arr
             if len(given) != len(own):
                 raise ValueError(
                     f"table {key!r}: expected {len(own)} entries, got "
                     f"{len(given)}")
-            return tuple(take(key, g, o) for g, o in zip(given, own))
+            oz = isinstance(key, str) and key.startswith("oz")
+            n_slices = slice_count(key) if oz else 0
+            return tuple(take(key, g, o, i < n_slices)
+                         for i, (g, o) in enumerate(zip(given, own)))
 
         picked = []
         for given, own in ((tables, own_tables), (corrs, own_corrs)):

@@ -3,8 +3,8 @@ numpy's f64 FFT, plus its error paths.
 
 The error-path tests mirror tests/test_errors.py on the f32 and f64
 entries: the same classes and messages. Sizes outside the port's slice, the
-native and Ozaki f64 engines and PlannerMode.Tune raise NotImplementedError
-naming their ROADMAP.md item. The f64 entries run the df64 (paired-f32)
+native f64 engine and PlannerMode.Tune raise NotImplementedError naming
+their ROADMAP.md item. The f64 entries run the df64 (paired-f32)
 engine; their tolerances are on f64 values.
 """
 
@@ -341,11 +341,17 @@ def test_bad_direction_rejected():
 
 
 def test_tensor_dtype_and_device_checked():
+    """A tensor of another dtype is converted to the planner's, as
+    phastft_tpu/fft.py converts it; one on another device raises."""
     planner = pt.PlannerDit32(N, device="cpu")
-    with pytest.raises(TypeError):
-        pt.fft_32_dit_with_planner(torch.zeros(N, dtype=torch.float64),
-                                   torch.zeros(N, dtype=torch.float64),
-                                   pt.Direction.Forward, planner)
+    rng = np.random.default_rng(3)
+    re, im = _pair(rng, (N,))
+    got = pt.fft_32_dit_with_planner(torch.from_numpy(re).double(),
+                                     torch.from_numpy(im).double(),
+                                     pt.Direction.Forward, planner)
+    want = pt.fft_32_dit_with_planner(re, im, pt.Direction.Forward, planner)
+    assert got[0].dtype == torch.float32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(pt.PhastftError, match="planner is on"):
         pt.fft_32_dit_with_planner(torch.zeros(N, device="meta"),
                                    torch.zeros(N, device="meta"),
@@ -554,8 +560,9 @@ def test_f64_batch_dims_inputs_and_reuse():
     c = pt.fft_64_dit_with_planner(re.astype(np.float32), im.astype(np.float32),
                                    "f", planner)
     assert c[0].dtype == torch.float64
-    with pytest.raises(TypeError, match="float64"):
-        pt.fft_64_dit_with_planner(tre.float(), tim.float(), "f", planner)
+    # so is an f32 tensor
+    d = pt.fft_64_dit_with_planner(tre.float(), tim.float(), "f", planner)
+    assert torch.equal(c[0], d[0]) and torch.equal(c[1], d[1])
 
 
 def test_f64_runs_no_kernel_on_cpu():
@@ -574,21 +581,38 @@ def test_f64_runs_no_kernel_on_cpu():
     assert [f.launches for f in fns] == before
 
 
-def test_f64_oz_engine_not_implemented():
-    n = 1 << 10
-    x = np.zeros(n)
-    planner = pt.PlannerDit64(n, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        pt.fft_64_dit_with_planner_and_opts(
-            x, x, "f", planner, pt.Options(f64_engine="df64-oz"))
-    oz = pt.PlannerDit64(n, options=pt.Options(f64_engine="df64-oz"),
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="Ozaki"):
-        pt.fft_64_dit_with_planner(x, x, "f", oz)
-    # a per-call engine that is not None wins over the planner's
-    out = pt.fft_64_dit_with_planner_and_opts(
-        x + 1.0, x, "f", oz, pt.Options(f64_engine="df64"))
-    assert float(out[0][0]) == n
+def test_f64_oz_per_call_engine_rules(monkeypatch):
+    """The oz tables, not the engine string, arm the Ozaki kernels: a
+    per-call "df64-oz" on a df64 planner runs the df64 kernels (and no
+    longer raises), a per-call "df64" on an oz planner keeps the oz
+    kernels, and an oz planner's leaf plan runs the df64 leaf."""
+    from phastft_tpu_torch.ops import fourstep
+
+    n = 1 << 17
+    rng = np.random.default_rng(17)
+    re, im = _pair64(rng, (n,))
+    want = np.fft.fft(re + 1j * im)
+    df64 = pt.PlannerDit64(n, options=pt.Options(leaf_fft_size=1 << 10,
+                                                 f64_engine="df64"), device="cpu")
+    oz = pt.PlannerDit64(n, options=pt.Options(leaf_fft_size=1 << 10,
+                                               f64_engine="df64-oz"), device="cpu")
+    calls = []
+    for name in ("ozcol", "ddcol"):
+        real = getattr(fourstep, name)
+        monkeypatch.setattr(fourstep, name, lambda *a, _n=name, _f=real:
+                            calls.append(_n) or _f(*a))
+    a = pt.fft_64_dit_with_planner_and_opts(
+        re, im, "f", df64, pt.Options(f64_engine="df64-oz"))
+    b = pt.fft_64_dit_with_planner_and_opts(
+        re, im, "f", oz, pt.Options(f64_engine="df64"))
+    assert calls == ["ddcol", "ozcol"]
+    assert _rel(_g(a), want) <= F64_NUMPY_TOL
+    assert _rel(_g(b), want) <= 1e-10
+    x = np.zeros(1 << 10)
+    leaf = pt.PlannerDit64(1 << 10, options=pt.Options(f64_engine="df64-oz"),
+                           device="cpu")
+    out = pt.fft_64_dit_with_planner(x + 1.0, x, "f", leaf)
+    assert float(out[0][0]) == 1 << 10
 
 
 @pytest.mark.parametrize("case", ["non_power_of_two", "zero_length",
@@ -630,3 +654,75 @@ def test_f64_error_paths(case, monkeypatch):
                     leaf_fft_size=leaf, f64_engine="df64"), device="cpu")
         with pytest.raises(NotImplementedError, match="item 8"):
             pt.PlannerDit64(n, pt.PlannerMode.Tune, device="cpu")
+
+
+# -- the public surface against the reference's (ROADMAP Queue 3) ---------------
+
+@pytest.mark.parametrize("dtype", [None, np.float64, np.int32, np.complex128])
+def test_guess_options_without_f32_takes_the_f64_rule(dtype):
+    """Fault 1: no dtype, and any dtype but f32, is the f64 leaf rule, as in
+    phastft_tpu/options.py (outside its TPU Ozaki window, which the port
+    does not inherit)."""
+    from phastft_tpu.options import Options as JaxOptions
+
+    args = () if dtype is None else (dtype,)
+    for log_n in (7, 13, 16, 18, 25, 26):
+        n = 1 << log_n
+        got = pt.Options.guess_options(n, *args)
+        assert got.leaf_fft_size == JaxOptions.guess_options(n, *args).leaf_fft_size
+        assert got.f64_engine == "df64"
+    assert pt.Options.guess_options(1 << 16, *args).leaf_fft_size == 1 << 13
+
+
+def test_planner_new_and_with_mode():
+    """Fault 3: the reference's constructor aliases; Tune is not ported."""
+    for cls, ref_cls in ((pt.PlannerDit32, phastft_tpu.PlannerDit32),
+                         (pt.PlannerDit64, phastft_tpu.PlannerDit64)):
+        ref = ref_cls.new(N)
+        for planner in (cls.new(N, device="cpu"),
+                        cls.with_mode(N, pt.PlannerMode.Heuristic, device="cpu")):
+            assert type(planner) is cls and planner.n == ref.n
+            assert planner.plan == ref.plan
+            assert planner.mode is pt.PlannerMode.Heuristic
+        with pytest.raises(NotImplementedError, match="item 8"):
+            cls.with_mode(N, pt.PlannerMode.Tune, device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls.new(N)  # the default device is CUDA, absent here
+
+
+def test_tensor_of_another_dtype_is_cast_as_in_jax():
+    """Fault 4: an f64 tensor on an f32 planner is converted, as
+    phastft_tpu/fft.py converts every input."""
+    rng = np.random.default_rng(4)
+    re, im = rng.standard_normal(N), rng.standard_normal(N)
+    got = pt.fft_32_dit_with_planner(torch.from_numpy(re), torch.from_numpy(im),
+                                     "f", pt.PlannerDit32(N, device="cpu"))
+    assert got[0].dtype == torch.float32
+    ref = phastft_tpu.fft_32_dit_with_planner(re, im, "f", phastft_tpu.PlannerDit32(N))
+    assert _rel(_c((got[0].numpy(), got[1].numpy())), _c(ref)) <= 2 * _bound(N)
+
+
+@pytest.mark.parametrize("field", ["strategy", "use_pallas"])
+def test_shapes_are_checked_before_the_pipeline(field):
+    """Fault 5: mismatched planes give LengthMismatchError before the
+    staged / plain pipelines' NotImplementedError, as in the reference."""
+    kw = {"strategy": "staged"} if field == "strategy" else {"use_pallas": False}
+    x, y = np.zeros(N, np.float32), np.zeros(2 * N, np.float32)
+    with pytest.raises(pt.LengthMismatchError, match="equal length"):
+        pt.fft_32_dit_with_planner_and_opts(
+            x, y, "f", pt.PlannerDit32(N, device="cpu"), pt.Options(**kw))
+    with pytest.raises(phastft_tpu.LengthMismatchError, match="equal length"):
+        phastft_tpu.fft_32_dit_with_planner_and_opts(
+            x, y, "f", phastft_tpu.PlannerDit32(N), phastft_tpu.Options(**kw))
+
+
+def test_with_planner_runs_on_the_planners_options():
+    """Fault 2, kept until ROADMAP Queue 1 item 6 decides it: the port's
+    ``*_with_planner`` entries run on ``planner.options`` (the reference
+    passes ``Options.guess_options(n)``), so a planner built on the staged
+    strategy raises item 7's error."""
+    x = np.zeros(N, np.float32)
+    planner = pt.PlannerDit32(N, options=pt.Options(strategy="staged"),
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        pt.fft_32_dit_with_planner(x, x, "f", planner)
