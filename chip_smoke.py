@@ -124,8 +124,44 @@ on any failed check:
    rate and the bf16 tensor-core flops of the JAX kernels' counts over
    989 TFLOP/s (``oz_bound``).
 
-The line before the last is the kernel summary; the last line is the
-device record. No CUDA device: exit 1 before any result.
+20. ``parity_hybrid``: the hybrid leaf against its plain version at n1 = 2,
+   8, 64, 128, 256, 512 (one block, and clusters of 2, 4, 8 blocks) on 257
+   rows and on 1, rel L2 <= 1e-6.
+21. ``e2e_hybrid``: the leaf plans with ``Options(leaf_kernel="hybrid")``,
+   counters set to 0 just before and read just after: per call at every
+   n = 2^8..2^16 on 2^20 points against numpy's f64 FFT (the leaf plans'
+   bound), a planner built with it at 2^12 x 256 rows, the classic plan of
+   ``leaf_fft_size=2^16`` at 2^20 (``colfft``, ``hybrid``, ``transpose2``),
+   a round trip at 2^16 x 16 rows (<= 1e-6). Each leaf transform launches
+   ``hybrid`` once and no ``leaf``/``leaf3``.
+22. ``times_hybrid``: as 8, on 2^27 points at n = 2^8, 2^12, 2^15, 2^16:
+   ``hybrid`` beside its bound (``hybrid_bound``: the bytes or flops of a
+   length-n DFT, and the time of the kernel's own F(128) arithmetic), its plain
+   version, the default leaf kernel on the same rows, ``torch.fft.fft`` on
+   complex64, and the transform with and without the hybrid leaf.
+23. ``parity_nocorr``: ``colfft_nocorr`` against its plain version at
+   (2048, 4096), (32, 2^14), (2, 2^16) and 3 x (128, 2^14), and ``colfft``
+   with ``n_total``/``col_base`` on a shard block of 2^25, rel L2 <= 1e-6.
+24. ``dist``: ``torch.distributed`` on NCCL at world size 1 (a ``file://``
+   store in the output directory), counters set to 0 just before and read
+   just after, each transform's launches checked against its plan (one
+   ``colfft`` or ``colfft_nocorr``, the row plan's leaf kernel,
+   ``transpose2`` for natural output): ``fft_distributed`` at 2^19 (n1 = 128)
+   and 2^25 (n1 = 2048, a 256 MiB local block) forward against
+   an f64 FFT, ``permuted_output`` into a ``permuted_input`` inverse
+   (<= 1e-6), a ``permuted_input`` forward of the permuted signal against
+   the natural spectrum, the inverse of N * delta (exactly ones), and
+   ``batch_fft_sharded`` on (8, 2^20).
+25. ``times_dist``: ``colfft_nocorr`` at (2048, 2^14) beside its bound, its
+   plain version and ``torch.fft.fft(dim=-2)`` on complex64; three times
+   over, the whole ``fft_distributed`` at 2^25 beside
+   ``fft_32_dit_with_planner`` at 2^25, each on the device clock with its
+   enqueue covered (median, min, max of 10), on the host clock, and 20
+   calls back to back; then a ``torch.profiler`` breakdown.
+
+The line before the last is the kernel summary (thirteen rows, the TPU
+kernels' file:line beside each); the last line is the device record. No
+CUDA device: exit 1 before any result.
 """
 
 from __future__ import annotations
@@ -211,9 +247,36 @@ OZ_TIME_LOGS = (20, 24)
 OZ_E2E_TOL = 1e-10
 #: Published H100 SXM dense bf16 tensor-core rate (f32 accumulation).
 BF16_FLOPS_PER_S = 989e12
+#: The hybrid leaf's checks: n1 and row counts of its parity, the leaf
+#: sizes of its transforms (on HYBRID_E2E_POINTS points each), and the leaf
+#: sizes it is timed at on 2^27 points.
+HYBRID_N1S = (2, 8, 64, 128, 256, 512)
+HYBRID_ROWS = (257, 1)
+HYBRID_E2E_LOGS = tuple(range(8, 17))
+HYBRID_E2E_POINTS = 1 << 20
+HYBRID_TIME_LOGS = (8, 12, 15, 16)
+HYBRID_TIME_POINTS = 1 << 27
+#: f32 flops per element that the hybrid kernel itself spends besides its
+#: F(n1): the F(128) contraction as three products of 128 FMAs, the sum
+#: u_r + u_i, the two output differences and the correction's complex
+#: product. Printed beside the bound, not the bound: a length-n DFT needs
+#: 5 * log2(n) + 6.
+HYBRID_FLOPS = 3 * 2 * 128 + 1 + 3 + 6
+#: The distributed four-step at world size 1: its sizes (n1 = 128 at 2^19,
+#: 2048 at 2^25, one column pass each), the bare column pass's parity shapes
+#: (batch, n1, n2), a shard block of colfft (n1, n2, n_total, col_base), and
+#: batch_fft_sharded's rows.
+DIST_LOGS = (19, 25)
+NOCORR_SHAPES = ((1, 2048, 4096), (1, 32, 1 << 14), (1, 2, 1 << 16), (3, 128, 1 << 14))
+SHARD_BLOCK = (2048, 4096, 1 << 25, 8192)
+NOCORR_TIME = (2048, 1 << 14)
+DIST_BATCH = (8, 1 << 20)
+DIST_TIME_REPEATS = 3
 OUT_DIR = "chiprun_out"
-#: ~1 ms at the H100's clocks: longer than the host takes to enqueue a call.
+#: ~1 ms at the H100's clocks: the shortest sleep before a timed call.
 SLEEP_CYCLES = 2_000_000
+#: Cycles of ``torch.cuda._sleep`` per ms on this card, measured once.
+_SLEEP_RATE = []
 
 
 def emit(obj) -> None:
@@ -307,20 +370,43 @@ def check(name, value, bound):
         raise AssertionError(f"{name}: {value} > {bound}")
 
 
-def time_ms(fn, flush, reps=20):
-    """Median device time of ``fn`` over ``reps`` CUDA-event timings, after
-    3 warm-up calls, with the L2 flushed before each timed call. A sleep
-    kernel of SLEEP_CYCLES keeps the GPU busy until the host has enqueued
-    ``fn``, so the host's Python overhead does not fall between the events."""
+def sleep_cycles(ms: float) -> int:
+    """Cycles of ``torch.cuda._sleep`` that keep the GPU busy for at least
+    ``ms`` (and SLEEP_CYCLES at least), at the rate of one timed sleep."""
+    import torch
+
+    if not _SLEEP_RATE:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        end.record()
+        end.synchronize()
+        _SLEEP_RATE.append(SLEEP_CYCLES / start.elapsed_time(end))
+    return int(max(SLEEP_CYCLES, ms * _SLEEP_RATE[0]))
+
+
+def device_times(fn, flush, reps=20):
+    """(CUDA-event times of ``reps`` calls of ``fn``, host ms to enqueue one
+    call), after 3 warm-up calls, with the L2 flushed before each timed
+    call. Before each, a sleep kernel of twice the enqueue time keeps the
+    GPU busy until the host has enqueued all of ``fn``, so that the host's
+    Python overhead does not fall between the events."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = sleep_cycles(2 * enqueue)
     out = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -328,7 +414,32 @@ def time_ms(fn, flush, reps=20):
         end.record()
         end.synchronize()
         out.append(start.elapsed_time(end))
-    return float(np.median(out))
+    return out, enqueue
+
+
+def time_ms(fn, flush, reps=20):
+    """Median device time of ``fn`` (``device_times``)."""
+    return float(np.median(device_times(fn, flush, reps)[0]))
+
+
+def stream_ms(fn, calls=20):
+    """Device ms per call of ``calls`` calls of ``fn`` enqueued back to back
+    between one pair of events, after 3 warm-up calls: the rate of a
+    caller that streams transforms, the host's enqueue included where it is
+    the slower side."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def wall_ms(fn, flush, reps=20):
@@ -481,6 +592,342 @@ def leaf_call(planner):
     # rows 1 of F(n1) and F(128), and the (n1, 128) correction
     mats = corrs[f"mxu{n1}"][:6] + corrs[f"leaf{n1}"]
     return leaf, leaf_plain, (mats, n1), n1 + 128 + 2 * n1 * 128
+
+
+def hybrid_bound(rows: int, n1: int):
+    """The bound of what the hybrid leaf computes on ``rows`` rows of
+    n1 * 128 points, a length-n1 * 128 DFT: 16 B per element plus row 1 of
+    F(128) and the (n1, 128) correction, against 5 * log2(n) + 6 flops per
+    element (as ``leaf``'s). Besides: ``kernel_ops_ms``, the time of the
+    kernel's own arithmetic (5 * log2(n1) + HYBRID_FLOPS per element) at
+    the f32 peak."""
+    points = rows * n1 * 128
+    log_n = n1.bit_length() - 1 + 7
+    t_bytes = (16 * points + 4 * (2 * 128 + 2 * n1 * 128)) / HBM_BYTES_PER_S * 1e3
+    t_ops = points * (5 * log_n + 6) / F32_FLOPS_PER_S * 1e3
+    own = points * (5 * (n1.bit_length() - 1) + HYBRID_FLOPS)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+            "kernel_ops_ms": own / F32_FLOPS_PER_S * 1e3}
+
+
+def device_breakdown(fn, top_k=12):
+    """{kernel name: [device ms, calls]} of one call of ``fn`` under
+    ``torch.profiler``, the ``top_k`` largest; empty when the profiler
+    records no device time on this machine."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us > 0 and e.device_type.name == "CUDA":
+            rows.append((e.key[:80], us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return {k: [ms, c] for k, ms, c in rows[:top_k]}
+
+
+def counted(counters):
+    """run(fn, want): fn() once; it must launch exactly ``want`` ({name:
+    count}) of ``counters``' kernels, and nothing else among them. The
+    totals of every run are in run.total."""
+    names = [k.__name__ for k in counters]
+    total = dict.fromkeys(names, 0)
+
+    def run(fn, want):
+        before = [k.launches for k in counters]
+        out = fn()
+        delta = {nm: k.launches - b0 for nm, k, b0 in zip(names, counters, before)}
+        full = {nm: want.get(nm, 0) for nm in names}
+        if delta != full:
+            raise AssertionError(f"launches {delta}, want {full}")
+        for nm in names:
+            total[nm] += full[nm]
+        return out
+
+    run.total = total
+    return run
+
+
+def hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err) -> None:
+    """The opt-in hybrid leaf: parity with its plain version, the leaf
+    plans' main path with ``Options(leaf_kernel="hybrid")``, and times."""
+    import torch
+
+    from phastft_tpu_torch import (
+        Direction, Options, PlannerDit32, fft_32_dit_with_planner,
+        fft_32_dit_with_planner_and_opts,
+    )
+    from phastft_tpu_torch.ops.colfft import colfft, colfft_out3d
+    from phastft_tpu_torch.ops.leaf import hybrid, hybrid_plain, leaf, leaf3
+    from phastft_tpu_torch.ops.leaft import leaft
+    from phastft_tpu_torch.ops.transpose import transpose2
+
+    def mats(planner, n1):
+        corrs = planner.tables_for(planner.plan, "hybrid")
+        return corrs[f"mxu{n1}"][3:6] + corrs[f"leaf{n1}"]
+
+    max_err["hybrid"] = 0.0
+    for n1 in HYBRID_N1S:
+        m = mats(PlannerDit32(n1 * 128), n1)
+        for rows in HYBRID_ROWS:
+            xr = torch.randn((rows, n1 * 128), generator=gen, device=dev)
+            xi = torch.randn((rows, n1 * 128), generator=gen, device=dev)
+            k = hybrid(xr, xi, m, n1)
+            torch.cuda.synchronize()
+            p = hybrid_plain(xr, xi, m, n1)
+            err = rel_l2(k[0], k[1], p[0], p[1])
+            mabs = max_abs(k[0], k[1], p[0], p[1])
+            max_err["hybrid"] = max(max_err["hybrid"], mabs)
+            emit({"phase": "parity_hybrid", "n1": n1, "rows": rows, "rel_l2": err,
+                  "max_abs_err": mabs, "bound": KERNEL_TOL})
+            check(f"hybrid parity at n1 = {n1}, {rows} rows", err, KERNEL_TOL)
+            del k, p, xr, xi
+
+    # -- main path: counters at 0 just before, read just after
+    counters = (hybrid, leaf, leaf3, colfft, colfft_out3d, leaft, transpose2)
+    for k in counters:
+        k.launches = 0
+    run = counted(counters)
+    opts = Options(leaf_kernel="hybrid")
+    errs = {}
+    for log_n in HYBRID_E2E_LOGS:
+        n = 1 << log_n
+        re, im = signal(rng, (HYBRID_E2E_POINTS // n, n))
+        planner = PlannerDit32(n)
+        out = run(lambda: fft_32_dit_with_planner_and_opts(
+            re, im, Direction.Forward, planner, opts), {"hybrid": 1})
+        err = oracle_err(out, re + 1j * im)
+        errs[f"fwd_2^{log_n}"] = err
+        check(f"hybrid leaf 2^{log_n}", err, 5e-7 * max(1.0, log_n / 18.0))
+    planner = PlannerDit32(1 << 12, options=opts)
+    re, im = signal(rng, (256, 1 << 12))
+    out = run(lambda: fft_32_dit_with_planner(re, im, Direction.Forward, planner),
+              {"hybrid": 1})
+    errs["hybrid_planner_2^12_x256"] = err = oracle_err(out, re + 1j * im)
+    check("hybrid planner 2^12 x 256", err, 5e-7)
+    planner = PlannerDit32(1 << 20, options=Options(leaf_fft_size=1 << 16,
+                                                    leaf_kernel="hybrid"))
+    re, im = signal(rng, (1 << 20,))
+    out = run(lambda: fft_32_dit_with_planner(re, im, Direction.Forward, planner),
+              {"colfft": 1, "hybrid": 1, "transpose2": 1})
+    errs["classic_2^20_leaf_2^16"] = err = oracle_err(out, re + 1j * im)
+    check("classic 2^20 over hybrid rows", err, 5e-7 * max(1.0, 20 / 18.0))
+    n = 1 << 16
+    planner = PlannerDit32(n)
+    re, im = signal(rng, (16, n))
+    out = run(lambda: fft_32_dit_with_planner_and_opts(re, im, Direction.Forward,
+                                                       planner, opts), {"hybrid": 1})
+    back = run(lambda: fft_32_dit_with_planner_and_opts(out[0], out[1], Direction.Reverse,
+                                                        planner, opts), {"hybrid": 1})
+    rt = rel_l2(back[0], back[1], torch.from_numpy(re).to(dev), torch.from_numpy(im).to(dev))
+    errs["roundtrip_2^16x16"] = rt
+    check("hybrid round trip 2^16 x 16", rt, 1e-6)
+    torch.cuda.synchronize()
+    got = {k.__name__: k.launches for k in counters}
+    emit({"phase": "e2e_hybrid", "rel_l2": errs, "launches": got, "want": run.total})
+    if got != run.total or got["hybrid"] < 1:
+        raise AssertionError(f"launches {got}, want {run.total}")
+    launches["hybrid"] = got["hybrid"]
+    del out, back
+
+    # -- times on 2^27 points, beside the default leaf kernel of the same rows
+    for log_n in HYBRID_TIME_LOGS:
+        n = 1 << log_n
+        n1 = n // 128
+        rows = HYBRID_TIME_POINTS // n
+        planner = PlannerDit32(n)
+        m = mats(planner, n1)
+        xr = torch.randn((rows, n), generator=gen, device=dev)
+        xi = torch.randn((rows, n), generator=gen, device=dev)
+        xc = torch.complex(xr, xi)
+        fn, _, args, _ = leaf_call(planner)
+        row = {"ms": time_ms(lambda: hybrid(xr, xi, m, n1), flush, 10),
+               "plain_ms": time_ms(lambda: hybrid_plain(xr, xi, m, n1), flush, 3),
+               **hybrid_bound(rows, n1),
+               "library_ms": time_ms(lambda: torch.fft.fft(xc), flush, 10),
+               "n": n, "rows": rows}
+        emit({"phase": "times_hybrid", "card": smi, **row,
+              f"{fn.__name__}_ms": time_ms(lambda: fn(xr, xi, *args), flush, 10),
+              "transform_hybrid_ms": time_ms(lambda: fft_32_dit_with_planner_and_opts(
+                  xr, xi, Direction.Forward, planner, opts), flush, 10),
+              "transform_default_ms": time_ms(lambda: fft_32_dit_with_planner(
+                  xr, xi, Direction.Forward, planner), flush, 10)})
+        top["hybrid"] = row  # the kernels line: the last (largest) leaf
+        del xr, xi, xc
+    torch.cuda.empty_cache()
+
+
+def dist_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
+    """The distributed four-step and batch sharding at world size 1 on NCCL,
+    the bare column pass's parity, and times."""
+    import torch
+    import torch.distributed as dist
+
+    from phastft_tpu_torch import Direction, PlannerDit32, fft_32_dit_with_planner
+    from phastft_tpu_torch.ops.colfft import (
+        colfft, colfft_nocorr, colfft_nocorr_plain, colfft_out3d, colfft_plain,
+    )
+    from phastft_tpu_torch.ops.leaf import hybrid, leaf, leaf3
+    from phastft_tpu_torch.ops.leaft import leaft
+    from phastft_tpu_torch.ops.transpose import transpose2
+    from phastft_tpu_torch.parallel import batch_fft_sharded, fft_distributed
+    from phastft_tpu_torch.parallel.fourstep_dist import _factor
+
+    def randn_pair(shape):
+        return (torch.randn(shape, generator=gen, device=dev),
+                torch.randn(shape, generator=gen, device=dev))
+
+    # -- the bare column pass, and colfft on a shard block, against plain
+    max_err["colfft_nocorr"] = 0.0
+    for b, n1, n2 in NOCORR_SHAPES:
+        xr, xi = randn_pair((b, n1, n2))
+        k = colfft_nocorr(xr, xi, n1)
+        torch.cuda.synchronize()
+        p = colfft_nocorr_plain(xr, xi, n1)
+        err = rel_l2(k[0], k[1], p[0], p[1])
+        mabs = max_abs(k[0], k[1], p[0], p[1])
+        max_err["colfft_nocorr"] = max(max_err["colfft_nocorr"], mabs)
+        emit({"phase": "parity_nocorr", "kernel": "colfft_nocorr", "batch": b, "n1": n1,
+              "n2": n2, "rel_l2": err, "max_abs_err": mabs, "bound": KERNEL_TOL})
+        check(f"colfft_nocorr parity at ({b}, {n1}, {n2})", err, KERNEL_TOL)
+        del k, p, xr, xi
+    n1, n2, n_total, base = SHARD_BLOCK
+    xr, xi = randn_pair((n1, n2))
+    k = colfft(xr, xi, None, n1, n_total=n_total, col_base=base)
+    torch.cuda.synchronize()
+    p = colfft_plain(xr, xi, None, n1, n_total=n_total, col_base=base)
+    err = rel_l2(k[0], k[1], p[0], p[1])
+    mabs = max_abs(k[0], k[1], p[0], p[1])
+    max_err["colfft"] = max(max_err["colfft"], mabs)
+    emit({"phase": "parity_nocorr", "kernel": "colfft", "n1": n1, "n2": n2,
+          "n_total": n_total, "col_base": base, "rel_l2": err, "max_abs_err": mabs,
+          "bound": KERNEL_TOL})
+    check("colfft parity on a shard block", err, KERNEL_TOL)
+    del k, p, xr, xi
+
+    store = os.path.abspath(os.path.join(OUT_DIR, "nccl_store"))
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        counters = (colfft, colfft_nocorr, colfft_out3d, leaft, leaf, leaf3, hybrid,
+                    transpose2)
+        for k in counters:
+            k.launches = 0
+        run = counted(counters)
+        errs = {}
+        for log_n in DIST_LOGS:
+            n = 1 << log_n
+            planner = PlannerDit32(n)
+            n1, n2 = _factor(n, 1, planner.options.leaf_fft_size)
+            cols = 1 if n1 > 1 else 0  # n1 = 1: the column pass is a copy
+            rows = {"leaf3" if n2 == 1 << 16 else "leaf": 1}
+            fwd = {"colfft": cols, **rows}
+            emit({"phase": "dist_plan", "n": n, "n1": n1, "n2": n2})
+            xr, xi = randn_pair((n,))
+            out = run(lambda: fft_distributed(xr, xi, Direction.Forward, planner),
+                      {**fwd, "transpose2": 1})
+            errs[f"fwd_2^{log_n}"] = err = card_oracle_err(out, xr, xi)
+            check(f"fft_distributed 2^{log_n}", err, 5e-7 * max(1.0, log_n / 18.0))
+            po = run(lambda: fft_distributed(xr, xi, Direction.Forward, planner,
+                                             permuted_output=True), fwd)
+            back = run(lambda: fft_distributed(po[0], po[1], Direction.Reverse, planner,
+                                               permuted_input=True),
+                       {"colfft_nocorr": cols, **rows})
+            errs[f"permuted_roundtrip_2^{log_n}"] = rt = rel_l2(back[0], back[1], xr, xi)
+            check(f"permuted round trip 2^{log_n}", rt, 1e-6)
+            del po, back
+            # the permuted layout of x: P[k1*n2 + k2] = x[k1 + k2*n1]
+            perm = torch.arange(n, device=dev).view(n2, n1).t().reshape(-1)
+            pin = run(lambda: fft_distributed(xr[perm], xi[perm], Direction.Forward,
+                                              planner, permuted_input=True),
+                      {"colfft_nocorr": cols, **rows})
+            errs[f"permuted_input_fwd_2^{log_n}"] = err = card_oracle_err(pin, xr, xi)
+            check(f"permuted-input forward 2^{log_n}", err, 5e-7 * max(1.0, log_n / 18.0))
+            del pin, perm
+            dr = torch.zeros(n, device=dev)
+            dr[0] = float(n)
+            ones = run(lambda: fft_distributed(dr, torch.zeros_like(dr), Direction.Reverse,
+                                               planner), {**fwd, "transpose2": 1})
+            exact = bool((ones[0] == 1.0).all()) and bool((ones[1] == 0.0).all())
+            errs[f"inverse_scale_exact_2^{log_n}"] = exact
+            if not exact:
+                raise AssertionError("distributed inverse of N * delta is not exactly ones")
+            del out, ones, dr, xr, xi
+        rows, n = DIST_BATCH
+        planner = PlannerDit32(n)
+        xr, xi = randn_pair((rows, n))
+        out = run(lambda: batch_fft_sharded(xr, xi, Direction.Forward, planner),
+                  {"colfft_out3d": 1, "leaft": 1})
+        errs[f"batch_{rows}x2^{n.bit_length() - 1}"] = err = card_oracle_err(out, xr, xi)
+        check("batch_fft_sharded", err, 5e-7 * max(1.0, 20 / 18.0))
+        del out, xr, xi
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in counters}
+        emit({"phase": "dist", "world_size": dist.get_world_size(),
+              "backend": dist.get_backend(), "rel_l2": errs, "launches": got,
+              "want": run.total})
+        if got != run.total or got["colfft_nocorr"] < 1:
+            raise AssertionError(f"launches {got}, want {run.total}")
+        launches["colfft_nocorr"] = got["colfft_nocorr"]
+        torch.cuda.empty_cache()
+
+        # -- times: the bare column pass, and the whole distributed transform
+        n1, n2 = NOCORR_TIME
+        xr, xi = randn_pair((n1, n2))
+        xc = torch.complex(xr, xi)
+        bound = kernel_bound(n1 * n2, n1.bit_length() - 1)
+        top["colfft_nocorr"] = row = {
+            "ms": time_ms(lambda: colfft_nocorr(xr, xi, n1), flush, 10),
+            "plain_ms": time_ms(lambda: colfft_nocorr_plain(xr, xi, n1), flush, 3),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": time_ms(lambda: torch.fft.fft(xc, dim=-2), flush, 10),
+            "n": n1 * n2, "rows": 1}
+        emit({"phase": "times_dist", "kernel": "colfft_nocorr", "n1": n1, "n2": n2,
+              "card": smi, **row})
+        del xr, xi, xc
+        n = 1 << max(DIST_LOGS)
+        planner = PlannerDit32(n)
+        xr, xi = randn_pair((n,))
+
+        def whole():
+            return fft_distributed(xr, xi, Direction.Forward, planner)
+
+        def single():
+            return fft_32_dit_with_planner(xr, xi, Direction.Forward, planner)
+
+        # three readings of each, in one process: device time with the
+        # enqueue covered (median, min, max), host clock, back to back
+        for rep in range(DIST_TIME_REPEATS):
+            d_times, d_enq = device_times(whole, flush, 10)
+            s_times, s_enq = device_times(single, flush, 10)
+            emit({"phase": "times_dist", "n": n, "card": smi, "repeat": rep,
+                  "fft_distributed_ms": float(np.median(d_times)),
+                  "fft_distributed_min_max_ms": [min(d_times), max(d_times)],
+                  "fft_distributed_enqueue_ms": d_enq,
+                  "fft_distributed_wall_ms": wall_ms(whole, flush, 10),
+                  "fft_distributed_stream_ms": stream_ms(whole),
+                  "fft_32_dit_ms": float(np.median(s_times)),
+                  "fft_32_dit_min_max_ms": [min(s_times), max(s_times)],
+                  "fft_32_dit_enqueue_ms": s_enq,
+                  "fft_32_dit_wall_ms": wall_ms(single, flush, 10),
+                  "fft_32_dit_stream_ms": stream_ms(single)})
+        emit({"phase": "times_dist", "n": n, "breakdown_ms": device_breakdown(whole)})
+        del xr, xi
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1441,6 +1888,10 @@ def main() -> int:
         del xr, xi, xc
         torch.cuda.empty_cache()
 
+    # -- the hybrid leaf, then the distributed four-step at world size 1
+    hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err)
+    dist_phases(dev, gen, flush, smi, top, launches, max_err)
+
     sources = {
         "colfft_out3d": ("phastft_tpu_torch/csrc/colfft.cu",
                          "phastft_tpu/ops/pallas_col.py:490"),
@@ -1464,6 +1915,10 @@ def main() -> int:
                   "phastft_tpu/ops/pallas_ozdd.py:286"),
         "ozleaft": ("phastft_tpu_torch/csrc/ozleaft.cu",
                     "phastft_tpu/ops/pallas_ozdd.py:415"),
+        "hybrid": ("phastft_tpu_torch/csrc/hybrid.cu",
+                   "phastft_tpu/ops/pallas_leaf.py:410"),
+        "colfft_nocorr": ("phastft_tpu_torch/csrc/colfft.cu",
+                          "phastft_tpu/ops/pallas_col.py:281"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1472,7 +1927,7 @@ def main() -> int:
          "bound_ms": top[name]["bound_ms"], "bound_by": top[name]["bound_by"],
          "library_ms": top[name]["library_ms"], "n": top[name]["n"],
          "rows": top[name]["rows"],
-         **{k: top[name][k] for k in ("bound_bytes_ms", "bound_ops_ms")
+         **{k: top[name][k] for k in ("bound_bytes_ms", "bound_ops_ms", "kernel_ops_ms")
             if k in top[name]}}
         for name, (src, rep) in sources.items()
     ]})

@@ -17,7 +17,8 @@ caller's tensors: every result is a new tensor.
 The port runs planar f32 for n = 1..2^30 (one leaf kernel up to 2^16,
 the fused two-pass pipeline to 2^25, a classic outer level around it
 above, and classic levels wherever ``Options.leaf_fft_size`` forces a
-split the fused pipeline refuses), and planar f64 for the same sizes on
+split the fused pipeline refuses; ``leaf_kernel="hybrid"``, per call or on
+the planner, runs the leaves on the opt-in hybrid kernel), and planar f64 for the same sizes on
 the df64 (paired-f32) engine: ``f64_engine`` = ``"df64"``, ``"df64-fused"``,
 ``"df64-split"`` or ``"df64-oz"``, resolved as the JAX package resolves it
 (a per-call value that is not None, else the planner's, else
@@ -143,8 +144,13 @@ def _run(reals, imags, direction, planner, opts: Options):
         run = build_dd_fft(n, leaf, scale, dd_leaf)
         args = planner.dd_state
     else:
-        run = build_fast_fft(n, leaf, scale)
-        args = (planner.leaf_corrs,)
+        # Explicit per-call opts win over the planner's; None defers.
+        leaf_kernel = (
+            opts.leaf_kernel if opts.leaf_kernel is not None
+            else planner.options.leaf_kernel
+        )
+        run = build_fast_fft(n, leaf, scale, leaf_kernel)
+        args = (planner.tables_for(planner.plan, leaf_kernel),)
     if direction is Direction.Forward:
         return run(reals, imags, *args)
     # IFFT swap trick: swap(IDFT(z)) = (1/N) DFT(swap(z)); feed (im, re)

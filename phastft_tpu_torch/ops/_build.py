@@ -39,10 +39,11 @@ _L = ctypes.c_int64
 #: c_void_p (a c_int would cut a 64-bit pointer), sizes are c_int, and a
 #: batch or row count whose product with n can pass 2^31 is c_int64.
 _SIGNATURES = {
-    "phastft_colfft": [_P] * 4 + [_L, _I, _I, _I, _P],
+    "phastft_colfft": [_P] * 4 + [_L, _I, _I, _I, _L, _L, _P],
     "phastft_leaft": [_P] * 10 + [_L, _I, _I, _P],
     "phastft_leaf": [_P] * 10 + [_L, _I, _I, _P],
     "phastft_leaf3": [_P] * 12 + [_L, _P],
+    "phastft_hybrid": [_P] * 8 + [_L, _I, _P],
     "phastft_transpose2": [_P] * 4 + [_L, _L, _L, _P],
     "phastft_ddcol": [_P] * 17 + [_L, _I, _I, _P],
     "phastft_ddcol_nocorr": [_P] * 9 + [_L, _I, _I, _P],

@@ -1,7 +1,7 @@
 """Column pass of the four-step FFT.
 
 Counterpart of the JAX package's ``ops/pallas_col.py`` (``colfft_pallas``
-in both of its output modes). For x viewed (..., n1, n2) it computes, for
+in both of its output modes, and ``colfft_pallas_nocorr``). For x viewed (..., n1, n2) it computes, for
 every column i2,
 
     y[..., k1, i2] = W_n^(k1*i2) * sum_i1 W_n1^(k1*i1) x[..., i1, i2]
@@ -13,19 +13,29 @@ i.e. the size-n1 column DFT and the four-step split twiddle, and lands it
 * ``colfft_out3d``: as c3[..., i2 // 128, k1, i2 % 128], the (A, n1, 128)
   relayout (A = n2/128) that the row pass (``ops/leaft``) reads.
 
-Both are wrappers: on CUDA tensors they launch the hand-written kernel
-``csrc/colfft.cu`` (one kernel, the store index a template argument); on
-CPU tensors they run ``colfft_plain``/``colfft_out3d_plain``, the same
-function in plain torch that follows the arithmetic of the JAX package's
-default column engine per depth: one dense Karatsuba product with F(n1)
+``colfft`` also takes a distributed shard's column block: with ``n_total``
+and ``col_base`` the twiddle is W_{n_total}^(k1*(col_base + i2)), the
+split twiddle of the length-n_total transform whose columns
+[col_base, col_base + n2) the block holds. ``colfft_nocorr`` is the bare
+column DFT, no twiddle, as (..., n1, n2): the column pass of the
+distributed four-step's permuted-input branch.
+
+All three are wrappers: on CUDA tensors they launch the hand-written
+kernel ``csrc/colfft.cu`` (one kernel, the store index and the twiddle a
+template argument); on CPU tensors they run ``colfft_plain``,
+``colfft_out3d_plain`` and ``colfft_nocorr_plain``. The bare pass's plain
+version is the JAX kernel's Stockham (``ops/stockham.stockham_axis2``);
+the other two follow the arithmetic of the JAX package's default column
+engine per depth: one dense Karatsuba product with F(n1)
 below n1 = 128 (``_kernel_mxu``), above it radix-R residues (R = 4 below
 n1 = 1024, 16 from it) as Karatsuba products with F(n1/R), the phase
 W_n1^(p*k_m) and F(R) across residues (``_kernel_r4``/``_kernel_rn``);
 then the split twiddle as T1 (exact integer phase, 15-bit split) times the
-T2 table. A dense F(n1) product sums 2048 terms per output at n1 = 2048
-and measured 1.2e-6 rel L2 from the kernel on the H100; the residue form
-sums at most 128. The kernel is bound by memory; see the note in its
-source.
+T2 table (a shard's T2 from the exact f64 phase of its columns, as the
+JAX package's ``parallel/fourstep_dist._pallas_col_chunk`` builds it). A
+dense F(n1) product sums 2048 terms per output at n1 = 2048 and measured
+1.2e-6 rel L2 from the kernel on the H100; the residue form sums at most
+128. The kernel is bound by memory; see the note in its source.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ import torch
 
 from ._build import library
 from .mxu import dft_matrix_host
-from .stockham import LANES
+from .stockham import LANES, stockham_axis2
 
 __all__ = [
     "col_tile",
@@ -47,10 +57,15 @@ __all__ = [
     "colfft_plain",
     "colfft_out3d",
     "colfft_out3d_plain",
+    "colfft_nocorr",
+    "colfft_nocorr_plain",
 ]
 
 #: Column factors the kernel takes (powers of two).
 MIN_N1, MAX_N1 = 2, 2048
+
+#: Fewest columns the kernel's classic and bare modes take (one float4).
+MIN_KERNEL_N2 = 4
 
 
 def col_tile(n1: int, n2: int) -> int:
@@ -127,11 +142,12 @@ def _t1(n1: int, n: int, t: int, nblk: int, device: torch.device):
     return ca * cb - sa * sb, sa * cb + ca * sb
 
 
-def _check(name, re, im, tabs, n1: int, tile):
+def _check(name, re, im, tabs, n1: int, tile, min_n2=LANES):
     """Validate the arguments shared by the kernel and its plain version;
     return (batch shape, flat batch, n2). ``tile`` is the mode's slab-width
-    rule, ``col_tile`` or ``col_tile3d``."""
-    for x in (re, im, *tabs):
+    rule, ``col_tile`` or ``col_tile3d``, that the split tables ``tabs``
+    are factored on; None takes no tables."""
+    for x in (re, im, *(tabs or ())):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} takes torch tensors")
         if x.dtype != torch.float32:
@@ -144,18 +160,50 @@ def _check(name, re, im, tabs, n1: int, tile):
             f"{tuple(re.shape)} and {tuple(im.shape)}"
         )
     n2 = int(re.shape[-1])
-    if (n1 < MIN_N1 or n1 > MAX_N1 or n1 & (n1 - 1) or n2 < LANES
+    if (n1 < MIN_N1 or n1 > MAX_N1 or n1 & (n1 - 1) or n2 < min_n2
             or n2 & (n2 - 1)):
         raise ValueError(f"{name}: unsupported shape n1={n1}, n2={n2}")
-    t = tile(n1, n2)
-    if len(tabs) != 2 or any(tuple(x.shape) != (n1, t) for x in tabs):
-        raise ValueError(f"{name}: split tables must be ({n1}, {t})")
+    if tile is not None:
+        t = tile(n1, n2)
+        if (tabs is None or len(tabs) != 2
+                or any(tuple(x.shape) != (n1, t) for x in tabs)):
+            raise ValueError(f"{name}: split tables must be ({n1}, {t})")
     batch = tuple(re.shape[:-2])
     return batch, int(np.prod(batch)) if batch else 1, n2
 
 
-def _column_plain(re, im, tabs, n1: int, b: int, n2: int):
-    """The column DFT and the split twiddle in plain torch, as (b, n1, n2).
+def _check_any(name, re, im, tabs, n1: int, n_total, col_base: int):
+    """``_check`` for ``colfft``: a whole transform's (..., n1, n2) with its
+    split tables, or with ``n_total`` a shard's column block (any n2, no
+    tables) whose columns [col_base, col_base + n2) lie in a transform of
+    n_total points."""
+    if n_total is None:
+        if col_base:
+            raise ValueError(f"{name}: col_base needs n_total")
+        return _check(name, re, im, tabs, n1, col_tile)
+    out = _check(name, re, im, None, n1, None, 1)
+    n2 = out[2]
+    if (n_total < 1 or n_total & (n_total - 1) or col_base < 0
+            or n_total < n1 * (col_base + n2)):
+        raise ValueError(
+            f"{name}: columns [{col_base}, {col_base + n2}) of n1 = {n1} do "
+            f"not lie in a transform of n_total = {n_total}")
+    return out
+
+
+def _shard_t2(n1: int, t: int, n_total: int, col_base: int, device):
+    """T2 of a shard's column block: W_{n_total}^(k1*(col_base + c)),
+    c < t, from exact f64 angles cast once, as the JAX package's
+    ``_pallas_col_chunk`` builds it."""
+    k1 = torch.arange(n1, dtype=torch.float64, device=device)[:, None]
+    i2 = torch.arange(t, dtype=torch.float64, device=device)[None, :] + col_base
+    ang = (-2.0 * np.pi) * ((k1 * i2) * (1.0 / float(n_total)))
+    return torch.cos(ang).float(), torch.sin(ang).float()
+
+
+def _column_plain(re, im, tabs, n1: int, b: int, n2: int, n_total=None):
+    """The column DFT and the split twiddle in plain torch, as (b, n1, n2);
+    ``n_total`` (default n1 * n2) is the length whose phase T1 spans.
     On a CUDA tensor it turns TF32 off for matmuls
     (``torch.backends.cuda.matmul.allow_tf32 = False``) so the products
     stay full f32, as the JAX package's HIGHEST precision does."""
@@ -163,7 +211,7 @@ def _column_plain(re, im, tabs, n1: int, b: int, n2: int):
         torch.backends.cuda.matmul.allow_tf32 = False
     t2r, t2i = tabs
     t = int(t2r.shape[1])
-    n = n1 * n2
+    n = n_total or n1 * n2
     radix = _radix(n1)
     m = n1 // radix
     gr, gi, gs, pr, pi, hr, hi = _residue_mats(n1, re.device)
@@ -196,11 +244,13 @@ def _column_plain(re, im, tabs, n1: int, b: int, n2: int):
     return vr.reshape(b, n1, n2), vi.reshape(b, n1, n2)
 
 
-def colfft_plain(re, im, tabs, n1: int):
+def colfft_plain(re, im, tabs, n1: int, *, n_total=None, col_base: int = 0):
     """Plain-torch column pass, classic layout: same arguments and result
     as ``colfft``."""
-    batch, b, n2 = _check("colfft", re, im, tabs, n1, col_tile)
-    vr, vi = _column_plain(re, im, tabs, n1, b, n2)
+    batch, b, n2 = _check_any("colfft", re, im, tabs, n1, n_total, col_base)
+    if n_total is not None:
+        tabs = _shard_t2(n1, col_tile(n1, n2), n_total, col_base, re.device)
+    vr, vi = _column_plain(re, im, tabs, n1, b, n2, n_total)
     shape = batch + (n1, n2)
     return vr.reshape(shape), vi.reshape(shape)
 
@@ -220,15 +270,32 @@ def colfft_out3d_plain(re, im, tabs, n1: int):
     return relayout(vr), relayout(vi)
 
 
-def _launch(name, re, im, b: int, n1: int, n2: int, shape, out3d: bool):
-    """Launch ``csrc/colfft.cu`` on the current stream into new tensors of
-    ``shape``."""
+def colfft_nocorr_plain(re, im, n1: int):
+    """Plain-torch bare column DFT: same arguments and result as
+    ``colfft_nocorr``, in the JAX kernel's Stockham arithmetic."""
+    batch, b, n2 = _check("colfft_nocorr", re, im, None, n1, None, 1)
+    vr, vi = stockham_axis2(re.reshape(b, n1, n2), im.reshape(b, n1, n2), n1)
+    shape = batch + (n1, n2)
+    return vr.reshape(shape), vi.reshape(shape)
+
+
+#: The kernel's modes (``csrc/colfft.cu``).
+_CLASSIC, _OUT3D, _NOCORR = 0, 1, 2
+
+
+def _launch(name, re, im, b: int, n1: int, n2: int, shape, mode: int,
+            n_total: int, col_base: int = 0):
+    """Launch ``csrc/colfft.cu`` in ``mode`` on the current stream into new
+    tensors of ``shape``."""
     if re.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {re.device}")
     if not (re.is_contiguous() and im.is_contiguous()):
         raise ValueError(f"{name}: inputs must be contiguous")
     if re.data_ptr() % 16 or im.data_ptr() % 16:
         raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    if n2 < MIN_KERNEL_N2:
+        raise ValueError(f"{name}: the kernel takes n2 >= {MIN_KERNEL_N2}, "
+                         f"got {n2}")
     ore = torch.empty(shape, dtype=torch.float32, device=re.device)
     oim = torch.empty(shape, dtype=torch.float32, device=re.device)
     lib = library()
@@ -236,19 +303,24 @@ def _launch(name, re, im, b: int, n1: int, n2: int, shape, out3d: bool):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         err = lib.phastft_colfft(
             re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-            b, n1, n2, int(out3d), stream,
+            b, n1, n2, mode, n_total, col_base, stream,
         )
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     return ore, oim
 
 
-def colfft(re, im, tabs, n1: int):
+def colfft(re, im, tabs, n1: int, *, n_total=None, col_base: int = 0):
     """Column DFT of size n1 = 2..2048 along axis -2 of (..., n1, n2) f32
-    planar tensors (n2 >= 128), fused with the split twiddle W_n^(k1*i2),
-    as (..., n1, n2). ``tabs`` = (t2r, t2i) from
+    planar tensors, fused with the split twiddle W_n^(k1*i2), as
+    (..., n1, n2). ``tabs`` = (t2r, t2i) from
     ``col_split_tables_host(..., t=col_tile(n1, n2))`` on the tensors'
-    device.
+    device, for n2 >= 128.
+
+    A distributed shard's column block passes ``n_total`` (the length of
+    its transform, a power of two) and ``col_base`` (its first column) with
+    ``tabs=None``: the twiddle is W_{n_total}^(k1*(col_base + i2)), and any
+    n2 >= 1 is taken (>= 4 on CUDA).
 
     On CUDA it launches ``csrc/colfft.cu`` on the current stream; the
     kernel forms the split twiddle itself from the exact phase, so
@@ -257,16 +329,19 @@ def colfft(re, im, tabs, n1: int):
     tensors. Each launch adds one to ``colfft.launches``.
 
     Replaces ``phastft_tpu/ops/pallas_col.py`` ``colfft_pallas(...,
-    out3d=False)``; unlike it, it takes n1 = 2 and 4 and every
-    n2 >= 128. Bound by memory (16 B per complex element, read once and
-    written once); the kernel keeps the whole size-n1 DFT of a slab of
-    about 8 K points (512 columns at n1 <= 16 down to 16 at n1 = 512, 8 at
-    2048) in shared memory, so it touches device memory once each way,
-    with float4 loads and stores."""
-    batch, b, n2 = _check("colfft", re, im, tabs, n1, col_tile)
+    out3d=False)``, with ``n_total`` as its distributed callers use it;
+    unlike it, it takes n1 = 2 and 4 and every n2. Bound by memory (16 B
+    per complex element, read once and written once); the kernel keeps the
+    whole size-n1 DFT of a slab of about 8 K points (512 columns at
+    n1 <= 16 down to 16 at n1 = 512, 8 at 2048, never more than n2) in
+    shared memory, so it touches device memory once each way, with float4
+    loads and stores."""
+    batch, b, n2 = _check_any("colfft", re, im, tabs, n1, n_total, col_base)
     if re.device.type == "cpu":
-        return colfft_plain(re, im, tabs, n1)
-    out = _launch("colfft", re, im, b, n1, n2, batch + (n1, n2), False)
+        return colfft_plain(re, im, tabs, n1, n_total=n_total,
+                            col_base=col_base)
+    out = _launch("colfft", re, im, b, n1, n2, batch + (n1, n2), _CLASSIC,
+                  n_total or n1 * n2, col_base)
     colfft.launches += 1
     return out
 
@@ -290,9 +365,35 @@ def colfft_out3d(re, im, tabs, n1: int):
     if re.device.type == "cpu":
         return colfft_out3d_plain(re, im, tabs, n1)
     shape = batch + (n2 // LANES, n1, LANES)
-    out = _launch("colfft_out3d", re, im, b, n1, n2, shape, True)
+    out = _launch("colfft_out3d", re, im, b, n1, n2, shape, _OUT3D, n1 * n2)
     colfft_out3d.launches += 1
     return out
 
 
 colfft_out3d.launches = 0
+
+
+def colfft_nocorr(re, im, n1: int):
+    """Bare column DFT of size n1 = 2..2048 along axis -2 of (..., n1, n2)
+    f32 planar tensors, no twiddle, as (..., n1, n2), for any n2 (>= 4 on
+    CUDA): the column pass of the distributed four-step's permuted-input
+    branch, whose twiddle came before its all_to_all.
+
+    On CUDA it launches ``csrc/colfft.cu`` in its bare mode on the current
+    stream; a CPU tensor runs ``colfft_nocorr_plain``. Inputs are read,
+    never written; the outputs are new tensors. Each launch adds one to
+    ``colfft_nocorr.launches``.
+
+    Replaces ``phastft_tpu/ops/pallas_col.py`` ``colfft_pallas_nocorr``;
+    unlike it, it takes n1 = 2 and 4. Bound by memory as ``colfft`` is,
+    with the same slabs."""
+    batch, b, n2 = _check("colfft_nocorr", re, im, None, n1, None, 1)
+    if re.device.type == "cpu":
+        return colfft_nocorr_plain(re, im, n1)
+    out = _launch("colfft_nocorr", re, im, b, n1, n2, batch + (n1, n2),
+                  _NOCORR, n1 * n2)
+    colfft_nocorr.launches += 1
+    return out
+
+
+colfft_nocorr.launches = 0

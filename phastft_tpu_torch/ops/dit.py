@@ -13,17 +13,19 @@ __all__ = ["build_fast_fft", "build_dd_fft"]
 
 
 @functools.lru_cache(maxsize=256)
-def build_fast_fft(n: int, leaf_limit: int, scale: bool):
+def build_fast_fft(n: int, leaf_limit: int, scale: bool, leaf_kernel=None):
     """Callable (re, im, corrs) -> (re, im) running the plan of a length-n
     transform with the planner's tables ``corrs``; ``scale`` multiplies
     the result by 1/n (the inverse). The scale is applied in place to the
-    freshly allocated outputs, never to the caller's tensors."""
+    freshly allocated outputs, never to the caller's tensors.
+    ``leaf_kernel`` is the resolved ``Options.leaf_kernel`` ("hybrid" runs
+    the leaves on the hybrid kernel)."""
     from .fourstep import fft_rows, plan_rows
 
     plan = plan_rows(n, leaf_limit)
 
     def run(re, im, corrs):
-        out_re, out_im = fft_rows(re, im, plan, corrs)
+        out_re, out_im = fft_rows(re, im, plan, corrs, leaf_kernel)
         if scale:
             inv_n = 1.0 / n
             out_re.mul_(inv_n)

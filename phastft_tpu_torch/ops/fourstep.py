@@ -6,7 +6,9 @@ carried verbatim, so both packages plan every size the same way.
 
 * the ``tiny`` and ``leaf`` plans (n <= 2^16): one trip through device
   memory, ``leaf3`` when the planner holds the three-factor tables
-  ``mxu3_{n1}`` (n = 2^16), else ``leaf`` (n = 2..2^15); n = 1 is a copy;
+  ``mxu3_{n1}`` (n = 2^16), else ``leaf`` (n = 2..2^15), or with
+  ``leaf_kernel="hybrid"`` and n1 > 1 the opt-in ``hybrid``; n = 1 is a
+  copy;
 * the fused two-pass branch: one split level n = n1 * n2 whose inner plan
   is a leaf, under the JAX package's gates (``fused_two_pass``),
 
@@ -42,7 +44,7 @@ from .colfft import colfft, colfft_out3d
 from .dd import dd_col_tables_host, ddcol, ddcol_nocorr, ddleaf
 from .df64 import tiny_fft_dd
 from .ozdd import ozcol, ozleaft
-from .leaf import leaf, leaf3
+from .leaf import hybrid, leaf, leaf3
 from .leaft import leaft
 from .stockham import LANES
 from .transpose import transpose2
@@ -107,13 +109,17 @@ def fused_two_pass(n1: int, plan2, n2: int) -> bool:
     )
 
 
-def fft_rows(re, im, plan, corrs):
+def fft_rows(re, im, plan, corrs, leaf_kernel=None):
     """DFT along the last axis of (..., n) f32 tensors following ``plan``.
 
     ``corrs``: the planner's tables under the JAX planner's keys. A leaf
-    plan runs ``leaf3`` on ``mxu3_{n1}`` when present, else ``leaf`` on
-    ``mxu{n1}[:6] + leaf{n1}`` (all of ``mxu1`` at n1 = 1); a tiny plan
-    needs no table. A split level runs the fused two-pass branch on
+    plan with n1 > 1 runs ``hybrid`` on ``mxu{n1}[3:6] + leaf{n1}`` when
+    ``leaf_kernel`` is "hybrid" (the resolved ``Options.leaf_kernel``; any
+    other value keeps the default kernels, as the JAX package's
+    ``_resolve_leaf_kernel`` ignores an unknown one); else ``leaf3`` on
+    ``mxu3_{n1}`` when present, else ``leaf`` on ``mxu{n1}[:6] + leaf{n1}``
+    (all of ``mxu1`` at n1 = 1); a tiny plan needs no table. A split level
+    runs the fused two-pass branch on
     ``pcolT{n1}x{n2}`` and ``leafT{n2}`` when ``fused_two_pass`` holds,
     else the classic branch on ``pcol{n1}x{n2}``, which frees each
     intermediate pair as soon as the next pass has read it. Every branch
@@ -125,6 +131,9 @@ def fft_rows(re, im, plan, corrs):
         return leaf(re, im, (), 1)
     if kind == "leaf":
         n1 = plan[1]
+        if n1 > 1 and leaf_kernel == "hybrid":
+            mats = corrs[f"mxu{n1}"][3:6] + tuple(corrs[f"leaf{n1}"])
+            return hybrid(re, im, mats, n1)
         mats3 = corrs.get(f"mxu3_{n1}")
         if mats3 is not None:
             return leaf3(re, im, mats3, mats3[0].shape[0], mats3[3].shape[0])
@@ -141,7 +150,7 @@ def fft_rows(re, im, plan, corrs):
         return leaft(c3re, c3im, corrs[f"leafT{n2}"], n1)
     c_re, c_im = colfft(re.reshape(view), im.reshape(view),
                         corrs[f"pcol{n1}x{n2}"], n1)
-    d_re, d_im = fft_rows(c_re, c_im, plan2, corrs)
+    d_re, d_im = fft_rows(c_re, c_im, plan2, corrs, leaf_kernel)
     del c_re, c_im
     o_re, o_im = transpose2(d_re, d_im)
     del d_re, d_im

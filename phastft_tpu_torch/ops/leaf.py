@@ -20,11 +20,21 @@ planner's ``mxu3_{n1}``: F(a) over i_a, W_n^(k_a*i_r), a radix-4 of adds
 over i_p, W_4b^(p*i_b), F(b) over i_b, out = X[k_a + a*k_p + 4a*k_b]
 (``leaf_fft_pallas3``). The kernel takes a = b = 128 (n = 2^16).
 
+``hybrid(re, im, mats, n1)`` takes n = n1 * 128, n1 = 2..512, ``mats`` =
+the JAX planner's ``mxu{n1}[3:6] + leaf{n1}`` (F(128) with its Karatsuba
+sum, and the (n1, 128) correction): a Stockham F(n1) over i1, the
+correction W_n^(k1*i2), then F(128) over i2 as Karatsuba's three
+products, out = X[k1 + n1*k2] (``leaf_fft_pallas_hybrid``, the opt-in
+``Options.leaf_kernel="hybrid"``).
+
 On CUDA tensors the wrappers launch the hand-written kernels
-``csrc/leaf.cu`` and ``csrc/leaf3.cu``; on CPU tensors they run
-``leaf_plain`` and ``leaf3_plain``, the same functions in plain torch that
-follow the JAX kernels' arithmetic (dense DFT products, see ``_cmul``). Both
-kernels are bound by memory (16 B per complex element, read once and
+``csrc/leaf.cu``, ``csrc/leaf3.cu`` and ``csrc/hybrid.cu``; on CPU tensors
+they run ``leaf_plain``, ``leaf3_plain`` and ``hybrid_plain``, the same
+functions in plain torch that follow the JAX kernels' arithmetic (dense DFT
+products, see ``_cmul``; the hybrid's Stockham steps and Karatsuba
+products). The hybrid kernel is bound by operations: its dense F(128)
+contraction costs 3 * 128 f32 FMAs per element (see its source). The
+other two kernels are bound by memory (16 B per complex element, read once and
 written once). A block keeps whole rows in shared memory (several rows
 below 2^13 points) and stages its stores there, so loads and stores are
 contiguous float4 accesses; a row of 2^15 points is held by a cluster of
@@ -41,12 +51,16 @@ import torch
 
 from ._build import library
 from .mxu import dft_matrix_host
-from .stockham import LANES
+from .stockham import LANES, stockham_axis2
 
-__all__ = ["leaf", "leaf_plain", "leaf3", "leaf3_plain"]
+__all__ = ["leaf", "leaf_plain", "leaf3", "leaf3_plain", "hybrid",
+           "hybrid_plain"]
 
 #: Largest n1 of ``leaf`` (n = 2^15, the largest two-factor leaf plan).
 MAX_N1 = 256
+
+#: Largest n1 of ``hybrid`` (n = 2^16, the largest leaf plan).
+HYBRID_MAX_N1 = 512
 
 
 def _check_pair(name, re, im, tables):
@@ -97,6 +111,18 @@ def _check3(re, im, mats, a: int, b: int):
     if [tuple(x.shape) for x in mats] != want:
         raise ValueError(f"leaf3: tables do not match a={a}, b={b}")
     return batch, bs, n
+
+
+def _check_hybrid(re, im, mats, n1: int):
+    """Validate ``hybrid``'s arguments; return (batch shape, flat batch, n)."""
+    mats = tuple(mats)
+    batch, b, n = _check_pair("hybrid", re, im, mats)
+    if n1 < 2 or n1 > HYBRID_MAX_N1 or n1 & (n1 - 1) or n != n1 * LANES:
+        raise ValueError(f"hybrid: unsupported shape n={n}, n1={n1}")
+    want = [(LANES, LANES)] * 3 + [(n1, LANES)] * 2
+    if [tuple(x.shape) for x in mats] != want:
+        raise ValueError(f"hybrid: tables do not match n1={n1}")
+    return batch, b, n
 
 
 def _full_f32_matmuls(x):
@@ -183,6 +209,26 @@ def leaf3_plain(re, im, mats, a: int, b: int):
     out_r = torch.cat(outs_r, dim=-1).reshape(batch + (n,))
     out_i = torch.cat(outs_i, dim=-1).reshape(batch + (n,))
     return out_r, out_i
+
+
+def hybrid_plain(re, im, mats, n1: int):
+    """Plain-torch hybrid leaf: same arguments and result as ``hybrid``, in
+    the JAX kernel's order: ``stockham_axis2`` over i1 (its in-kernel f32
+    twiddles), the correction, and q1 = F_r u_r, q2 = F_i u_i,
+    q3 = F_s (u_r + u_i) contracted over i2 into (k2, k1), with
+    X = (q1 - q2, q3 - q1 - q2)."""
+    mats = tuple(mats)
+    batch, b, n = _check_hybrid(re, im, mats, n1)
+    _full_f32_matmuls(re)
+    f2r, f2i, f2s, cr, ci = mats
+    tr, ti = stockham_axis2(re.reshape(b, n1, LANES), im.reshape(b, n1, LANES),
+                            n1)
+    ur = (tr * cr - ti * ci).transpose(1, 2)
+    ui = (tr * ci + ti * cr).transpose(1, 2)
+    q1 = torch.matmul(f2r, ur)
+    q2 = torch.matmul(f2i, ui)
+    q3 = torch.matmul(f2s, ur + ui)
+    return (q1 - q2).reshape(batch + (n,)), (q3 - q1 - q2).reshape(batch + (n,))
 
 
 def _cuda_args(name, re, im, tables):
@@ -277,3 +323,44 @@ def leaf3(re, im, mats, a: int, b: int):
 
 
 leaf3.launches = 0
+
+
+def hybrid(re, im, mats, n1: int):
+    """Length-n DFT of every row of (..., n) f32 planar tensors,
+    n = n1 * 128 with n1 = 2..512, in natural order, on the operands of the
+    opt-in hybrid leaf (see the module docstring for ``mats``).
+
+    On CUDA it launches ``csrc/hybrid.cu`` on the current stream (the kernel
+    reads row 1 of F(128) as its root table and the (n1, 128) correction);
+    a CPU tensor runs ``hybrid_plain``. Any batch: rows go in
+    ``gridDim.x``. Inputs are read, never written; the outputs are new
+    tensors. Each launch adds one to ``hybrid.launches``.
+
+    Replaces ``phastft_tpu/ops/pallas_leaf.py`` ``leaf_fft_pallas_hybrid``;
+    unlike it, it takes any batch and never declines. Bound by operations:
+    the dense F(128) contraction is 3 * 128 f32 FMAs per element on the CUDA
+    cores (TF32 tensor cores would break the 1e-6 parity), against 16 B of
+    memory traffic. Every block holds 8192 points: 64 / n1 rows up to
+    n1 = 64, and from n1 = 128 a row is spread over a cluster of n1 / 64
+    blocks that read each other's columns through distributed shared
+    memory."""
+    mats = tuple(mats)
+    _, b, _ = _check_hybrid(re, im, mats, n1)
+    if re.device.type == "cpu":
+        return hybrid_plain(re, im, mats, n1)
+    ore, oim = _cuda_args("hybrid", re, im, mats)
+    lib = library()
+    with torch.cuda.device(re.device):
+        stream = torch.cuda.current_stream(re.device).cuda_stream
+        err = lib.phastft_hybrid(
+            re.data_ptr(), im.data_ptr(), mats[0].data_ptr(), mats[1].data_ptr(),
+            mats[3].data_ptr(), mats[4].data_ptr(), ore.data_ptr(),
+            oim.data_ptr(), b, n1, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"hybrid: kernel launch failed, CUDA error {err}")
+    hybrid.launches += 1
+    return ore, oim
+
+
+hybrid.launches = 0

@@ -29,12 +29,24 @@ TILED_BITREV_MIN_LOGN = 14
 class Options:
     """Per-call tuning knobs. ``None`` fields mean "auto-select by size".
 
-    The port reads ``leaf_fft_size`` (through the planner), ``strategy``
-    and ``use_pallas``: ``strategy="staged"`` and ``use_pallas=False``
-    name pipelines it does not run yet and raise ``NotImplementedError``,
-    as does a ``leaf_fft_size`` outside 128..2^16 that the plan reaches.
-    The other fields (``leaf_kernel``, ``leaf_engine``, ``col_engine``,
-    ...) select TPU engines and are accepted and ignored: the port has one
+    The port reads ``leaf_fft_size`` (through the planner), ``strategy``,
+    ``use_pallas`` and ``leaf_kernel``: ``strategy="staged"`` and
+    ``use_pallas=False`` name pipelines it does not run yet and raise
+    ``NotImplementedError``, as does a ``leaf_fft_size`` outside 128..2^16
+    that the plan reaches.
+
+    ``leaf_kernel`` (f32; the per-call value, when not None, overrides the
+    planner's): ``"hybrid"`` runs every leaf of n = 2^8..2^16 points (a
+    leaf plan, the inner leaf of a classic level, a distributed shard's
+    rows) on the hybrid kernel: a Stockham F(n1) and a dense F(128)
+    contraction, bound by operations and slower than the default leaf
+    kernels on the H100 (``PERF.md``), so opt-in. A tiny plan and the
+    128-point leaf keep ``leaf``, as in the JAX package; ``None``,
+    ``"mxu2"``, ``"mxu3"`` and any value the JAX package does not know keep
+    the default kernels (``leaf``, and ``leaf3`` at 2^16). The JAX
+    package's ``PHASTFT_TPU_LEAF_KERNEL`` variable, a TPU tuning knob, is
+    not read. The other fields (``leaf_engine``, ``col_engine``, ...)
+    select TPU engines and are accepted and ignored: the port has one
     kernel per plan shape, and its leaf kernels take any batch.
 
     ``f64_engine`` (f64 planners only; the per-call value, when not None,

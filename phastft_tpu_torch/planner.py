@@ -6,10 +6,10 @@ only the tables its plan's kernels read, under the JAX planner's keys and
 layouts:
 
 * a tiny plan (n < 128): none;
-* a leaf plan of n1 = 1..256 (n = 2^7..2^15): ``mxu{n1}`` (F(n1), F(128)
+* a leaf plan of n1 = 1..512 (n = 2^7..2^16): ``mxu{n1}`` (F(n1), F(128)
   with their Karatsuba sums and the transposed correction, zero-size
   placeholders at n1 = 1) and ``leaf{n1}`` (the (n1, 128) correction,
-  n1 >= 2); at n = 2^16 (n1 = 512): ``mxu3_512`` only;
+  n1 >= 2); at n = 2^16 (n1 = 512) ``mxu3_512`` only;
 * every split level that runs the fused two-pass pipeline (the JAX
   planner's gates): ``pcolT{n1}x{n2}`` (the column pass's T2 split-twiddle
   table) and ``leafT{n2}`` (the row pass's DFT matrices and correction);
@@ -25,6 +25,12 @@ tables, and builds its ``dd_state`` on first use: the dd radix tables of
 a tiny plan, else the dd corrections of the plan's leaf and split levels,
 and with ``f64_engine="df64-oz"`` the Ozaki slice tables of every split
 level inside the oz kernels' window (``ops/ozdd.oz_window``).
+
+``PlannerDit32.tables_for(plan, leaf_kernel)`` builds, once, the tables
+of another plan on the same options (the row plan of a distributed
+shard), or of a plan whose leaf runs the opt-in hybrid kernel
+(``leaf_kernel="hybrid"``: ``mxu512`` and ``leaf512`` at n1 = 512, which
+no default kernel reads).
 
 ``PlannerDit32.from_numpy_tables`` and ``PlannerDit64.from_numpy_tables``
 build a planner on tables handed over as numpy arrays, for instance the
@@ -105,10 +111,11 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _leaf_tables_host(n1: int, dtype_name: str):
-    """{key: host arrays} of the tables a ("leaf", n1) plan's kernel reads,
-    as the JAX planner holds them."""
-    if n1 == LEAF3_N1:
+def _leaf_tables_host(n1: int, dtype_name: str, hybrid: bool = False):
+    """{key: host arrays} of the tables a ("leaf", n1) plan's kernel reads
+    (``leaf``, ``leaf3``, or with ``hybrid`` the hybrid leaf), as the JAX
+    planner holds them."""
+    if n1 == LEAF3_N1 and not hybrid:
         return {f"mxu3_{n1}": mxu_leaf_tables3_host(LANES, LANES, dtype_name)}
     f1, f2, corr = mxu_leaf_tables_host(n1, dtype_name)
     zero = np.zeros((0,), np.dtype(dtype_name))
@@ -118,9 +125,9 @@ def _leaf_tables_host(n1: int, dtype_name: str):
     return out
 
 
-def _tables_host(plan, dtype_name: str):
+def _tables_host(plan, dtype_name: str, hybrid: bool = False):
     """{key: host arrays} of every table the plan's kernels read, as the
-    JAX planner holds them."""
+    JAX planner holds them; ``hybrid``: the leaf's for the hybrid kernel."""
     out = {}
     inner = plan
     leaf_rows = True  # the innermost plan runs through leaf / leaf3
@@ -134,7 +141,7 @@ def _tables_host(plan, dtype_name: str):
             out[f"pcol{n1}x{n2}"] = col_split_tables_host(
                 n1, n2, dtype_name, t=col_tile(n1, n2))
     if inner[0] == "leaf" and leaf_rows:
-        out.update(_leaf_tables_host(inner[1], dtype_name))
+        out.update(_leaf_tables_host(inner[1], dtype_name, hybrid))
     return out
 
 
@@ -159,6 +166,7 @@ class _PlannerDitBase:
         if self.log_n > MAX_LOG_N:
             raise not_ported(f"n = 2^{self.log_n}", "nested")
         self.device = resolve_device(device)
+        self._derived = {}
         self.options = (
             options if options is not None
             else Options.guess_options(n, self.dtype)
@@ -202,6 +210,22 @@ class PlannerDit32(_PlannerDitBase):
             for key, arrays in _tables_host(self.plan, self.dtype.name).items()
         }
 
+    def tables_for(self, plan, leaf_kernel=None):
+        """The tables ``ops/fourstep.fft_rows`` reads for ``plan`` (a plan
+        derived from this planner's options, such as a distributed shard's
+        row plan) with the resolved ``leaf_kernel``, on the planner's
+        device; built on first use and kept, and ``leaf_corrs`` itself for
+        the planner's own plan on the default leaf kernels."""
+        hybrid = leaf_kernel == "hybrid"
+        if plan == self.plan and not hybrid:
+            return self.leaf_corrs
+        if (plan, hybrid) not in self._derived:
+            self._derived[plan, hybrid] = {
+                key: self.leaf_corrs.get(key) or _to_device(arrays, self.device)
+                for key, arrays in _tables_host(plan, self.dtype.name, hybrid).items()
+            }
+        return self._derived[plan, hybrid]
+
     @classmethod
     def from_numpy_tables(cls, n: int, tables, device=None,
                           options: Optional[Options] = None):
@@ -210,24 +234,34 @@ class PlannerDit32(_PlannerDitBase):
         (``mxu{n1}``, ``leaf{n1}`` or ``mxu3_512`` for leaf rows,
         ``pcolT{n1}x{n2}`` and ``leafT{n2}`` for a fused split level,
         ``pcol{n1}x{n2}`` for a classic one) to its arrays, as the JAX
-        planner's ``leaf_corrs`` holds them (other keys are ignored).
-        Raises if a table the plan needs is missing, of another shape, or
-        not f32."""
+        planner's ``leaf_corrs`` holds them. The hybrid leaf's ``mxu512``
+        and ``leaf512`` are taken too when both are present (as
+        ``tables_for``'s hybrid tables); other keys are ignored. Raises if a table the plan
+        needs is missing, of another shape, or not f32."""
         self = cls.__new__(cls)
         self._setup(n, PlannerMode.Heuristic, options, device)
-        self.leaf_corrs = {}
+        name = self.dtype.name
         # the planner's own tables are built only to name the keys and the
         # shapes: one walker of the plan, at the cost of a second build
-        for key, own in _tables_host(self.plan, self.dtype.name).items():
+        own = _tables_host(self.plan, name)
+        hybrid = _tables_host(self.plan, name, True)
+        extra = {k: v for k, v in hybrid.items() if k not in own}
+        if not extra.keys() <= tables.keys():
+            extra = {}
+        carried = {}
+        for key, want in {**own, **extra}.items():
             if key not in tables:
                 raise KeyError(f"table {key!r} missing for n = {n}")
             arrays = [np.asarray(a) for a in tables[key]]
-            shapes = [a.shape for a in own]
+            shapes = [a.shape for a in want]
             if [a.shape for a in arrays] != shapes:
                 raise ValueError(f"table {key!r}: expected shapes {shapes}")
             if any(a.dtype != np.float32 for a in arrays):
                 raise TypeError(f"table {key!r} must be float32")
-            self.leaf_corrs[key] = _to_device(arrays, self.device)
+            carried[key] = _to_device(arrays, self.device)
+        self.leaf_corrs = {key: carried[key] for key in own}
+        if extra:
+            self._derived[self.plan, True] = {key: carried[key] for key in hybrid}
         return self
 
 

@@ -1,0 +1,210 @@
+"""The opt-in hybrid leaf (``Options.leaf_kernel="hybrid"``) on the CPU.
+
+``hybrid_plain`` against the Pallas kernel it replaces,
+``phastft_tpu.ops.pallas_leaf.leaf_fft_pallas_hybrid`` in interpret mode
+(as tests/test_pallas_leaf.py runs it), on the JAX planner's operands
+carried into the port's planner by ``from_numpy_tables``: the same
+Stockham steps and Karatsuba products in the same order, so rel L2 <= 1e-6.
+The public entries with the hybrid leaf against the JAX package's same
+call and numpy's f64 FFT, and the dispatch rules of ``leaf_kernel``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import phastft_tpu
+import phastft_tpu_torch as pt
+from phastft_tpu_torch.ops import fourstep
+from phastft_tpu_torch.ops.leaf import hybrid, hybrid_plain
+
+TOL = 1e-6
+
+
+def _bound(n):
+    # the leaf plans' bound (tests/test_torch_fft.py)
+    return 5e-7 * max(1.0, (n.bit_length() - 1) / 18.0)
+
+
+def _pair(rng, shape):
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+def _c(pair):
+    return np.asarray(pair[0], np.float64) + 1j * np.asarray(pair[1], np.float64)
+
+
+def _rel(got, want):
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+def _carried(n, **opts):
+    """A port planner on the JAX planner's tables, and the JAX planner."""
+    jp = phastft_tpu.PlannerDit32(n, options=phastft_tpu.Options(**opts))
+    tables = {k: tuple(np.asarray(a) for a in v) for k, v in jp.leaf_corrs.items()}
+    mine = pt.PlannerDit32.from_numpy_tables(n, tables, device="cpu",
+                                             options=pt.Options(**opts))
+    return mine, jp
+
+
+def _hybrid_mats(planner, n1):
+    corrs = planner.tables_for(planner.plan, "hybrid")
+    return corrs[f"mxu{n1}"][3:6] + corrs[f"leaf{n1}"]
+
+
+@pytest.fixture
+def hybrid_calls(monkeypatch):
+    """Counts the dispatcher's calls of ``hybrid`` (on the CPU the wrapper
+    runs its plain version and launches nothing)."""
+    calls = []
+
+    def counted(*args):
+        calls.append(args[3])
+        return hybrid(*args)
+
+    monkeypatch.setattr(fourstep, "hybrid", counted)
+    return calls
+
+
+@pytest.mark.parametrize("n1,rows", [(8, 2), (16, 8), (512, 8)])
+def test_hybrid_plain_matches_pallas(n1, rows):
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from phastft_tpu.ops.pallas_leaf import leaf_fft_pallas_hybrid
+
+    n = n1 * 128
+    mine, jp = _carried(n)
+    rng = np.random.default_rng(n1 + rows)
+    re, im = _pair(rng, (rows, n))
+    jmats = jp.leaf_corrs[f"mxu{n1}"][3:6] + jp.leaf_corrs[f"leaf{n1}"]
+    with pltpu.force_tpu_interpret_mode():
+        want = leaf_fft_pallas_hybrid(jnp.asarray(re), jnp.asarray(im), jmats, n1)
+    before = hybrid.launches
+    got = hybrid(torch.from_numpy(re), torch.from_numpy(im),
+                 _hybrid_mats(mine, n1), n1)
+    assert hybrid.launches == before  # CPU: no kernel launch
+    assert all(tuple(g.shape) == (rows, n) for g in got)
+    assert _rel(_c(got), _c(want)) <= TOL
+    x = re.astype(np.float64) + 1j * im
+    assert _rel(_c(got), np.fft.fft(x, axis=-1)) <= _bound(n)
+
+
+@pytest.mark.parametrize("log_n", [8, 12, 16])
+@pytest.mark.parametrize("where", ["per_call", "planner"])
+def test_entries_with_hybrid_match_jax_and_numpy(log_n, where, hybrid_calls):
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    re, im = _pair(rng, (3, n))
+    opts = pt.Options(leaf_kernel="hybrid")
+    if where == "per_call":
+        got = pt.fft_32_dit_with_planner_and_opts(
+            re, im, pt.Direction.Forward, pt.PlannerDit32(n, device="cpu"), opts)
+    else:
+        got = pt.fft_32_dit_with_planner(
+            re, im, pt.Direction.Forward,
+            pt.PlannerDit32(n, options=opts, device="cpu"))
+    assert hybrid_calls == [n // 128]
+    ref = phastft_tpu.fft_32_dit_with_planner_and_opts(
+        re, im, phastft_tpu.Direction.Forward, phastft_tpu.PlannerDit32(n),
+        phastft_tpu.Options(leaf_kernel="hybrid"))
+    g = _c(got)
+    assert _rel(g, np.fft.fft(re.astype(np.float64) + 1j * im, axis=-1)) <= _bound(n)
+    assert _rel(g, _c(ref)) <= TOL
+
+
+@pytest.mark.parametrize("direction", ["Forward", "Reverse"])
+def test_classic_plan_with_hybrid_inner_leaf(direction, hybrid_calls):
+    """2^20 on a 2^16 leaf: one classic level (n1 = 16) over hybrid rows."""
+    n = 1 << 20
+    opts = dict(leaf_fft_size=1 << 16, leaf_kernel="hybrid")
+    mine, jp = _carried(n, **opts)
+    assert mine.plan == jp.plan == ("split", 16, ("leaf", 512), 1 << 16)
+    rng = np.random.default_rng(20)
+    re, im = _pair(rng, (n,))
+    got = pt.fft_32_dit_with_planner(re, im, getattr(pt.Direction, direction), mine)
+    assert hybrid_calls == [512]
+    ref = phastft_tpu.fft_32_dit_with_planner(
+        re, im, getattr(phastft_tpu.Direction, direction), jp)
+    x = re.astype(np.float64) + 1j * im
+    want = np.fft.fft(x) if direction == "Forward" else np.fft.ifft(x)
+    g = _c(got)
+    assert _rel(g, want) <= _bound(n)
+    assert _rel(g, _c(ref)) <= TOL
+
+
+def test_hybrid_roundtrip_and_batch_dims(hybrid_calls):
+    n = 1 << 16
+    planner = pt.PlannerDit32(n, options=pt.Options(leaf_kernel="hybrid"),
+                              device="cpu")
+    rng = np.random.default_rng(16)
+    re, im = _pair(rng, (2, 2, n))
+    fwd = pt.fft_32_dit_with_planner(re, im, pt.Direction.Forward, planner)
+    back = pt.fft_32_dit_with_planner(fwd[0], fwd[1], pt.Direction.Reverse, planner)
+    assert hybrid_calls == [512, 512]
+    assert all(tuple(x.shape) == (2, 2, n) for x in back)
+    assert _rel(_c(back), re.astype(np.float64) + 1j * im) <= 1e-6
+
+
+def test_planner_2_16_builds_the_hybrid_tables_on_demand():
+    """The default 2^16 planner holds only leaf3's mxu3_512; the first
+    hybrid dispatch builds mxu512 and leaf512 under the JAX planner's keys,
+    equal to its tables bit for bit, and keeps them. A planner carried
+    over from the JAX planner's tables takes them from there."""
+    n = 1 << 16
+    mine = pt.PlannerDit32(n, device="cpu")
+    ref = phastft_tpu.PlannerDit32(n).leaf_corrs
+    assert set(mine.leaf_corrs) == {"mxu3_512"}
+    assert mine.tables_for(mine.plan) is mine.leaf_corrs
+    corrs = mine.tables_for(mine.plan, "hybrid")
+    assert set(corrs) == {"mxu512", "leaf512"}
+    assert mine.tables_for(mine.plan, "hybrid") is corrs
+    assert set(mine.leaf_corrs) == {"mxu3_512"}
+    for key in ("mxu512", "leaf512"):
+        for a, b in zip(corrs[key], ref[key]):
+            assert np.array_equal(a.numpy(), np.asarray(b))
+    carried, _ = _carried(n)
+    assert set(carried.leaf_corrs) == {"mxu3_512"}
+    assert set(carried.tables_for(carried.plan, "hybrid")) == {"mxu512", "leaf512"}
+
+
+@pytest.mark.parametrize("log_n,kernel,want", [
+    (16, None, []), (16, "mxu3", []), (12, "mxu2", []), (12, "bogus", []),
+    (7, "hybrid", []), (6, "hybrid", []), (9, "hybrid", [4]),
+])
+def test_leaf_kernel_dispatch(log_n, kernel, want, hybrid_calls):
+    """Only "hybrid" with n1 > 1 runs the hybrid; the 128-point leaf, tiny
+    plans and every other value keep the default kernels."""
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    re, im = _pair(rng, (2, n))
+    got = pt.fft_32_dit_with_planner_and_opts(
+        re, im, pt.Direction.Forward, pt.PlannerDit32(n, device="cpu"),
+        pt.Options(leaf_kernel=kernel))
+    assert hybrid_calls == want
+    x = re.astype(np.float64) + 1j * im
+    assert _rel(_c(got), np.fft.fft(x, axis=-1)) <= _bound(n)
+
+
+def _mats(n1, dtype=torch.float32):
+    planner = pt.PlannerDit32(n1 * 128, device="cpu")
+    return tuple(m.to(dtype) for m in _hybrid_mats(planner, n1))
+
+
+@pytest.mark.parametrize("case", ["n1_1", "n1_1024", "not_pow2", "tables",
+                                  "f64", "shapes", "numpy"])
+def test_hybrid_rejects_bad_arguments(case):
+    x = torch.zeros(2, 1024)
+    args = {
+        "n1_1": (x[:, :128], x[:, :128], _mats(8), 1),
+        "n1_1024": (torch.zeros(1, 1 << 17), torch.zeros(1, 1 << 17), _mats(8), 1024),
+        "not_pow2": (torch.zeros(1, 768), torch.zeros(1, 768), _mats(8), 6),
+        "tables": (x, x, _mats(16), 8),
+        "f64": (x.double(), x.double(), _mats(8), 8),
+        "shapes": (x, x[:1], _mats(8), 8),
+        "numpy": (x.numpy(), x.numpy(), _mats(8), 8),
+    }[case]
+    err = TypeError if case in ("f64", "numpy") else ValueError
+    for fn in (hybrid, hybrid_plain):
+        with pytest.raises(err):
+            fn(*args)

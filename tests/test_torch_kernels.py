@@ -710,3 +710,93 @@ def test_tiny_fft_dd_matches_jax():
         g = _join([x.numpy() for x in got])
         assert _rel_c(g, _join(want)) <= DD_TOL
         assert _rel_c(g, np.fft.fft(z, axis=-1)) <= DD_NUMPY_TOL
+
+
+# -- the distributed four-step's column passes ---------------------------------
+
+@pytest.mark.parametrize("n1,n2,b", [(8, 256, None), (64, 1024, None),
+                                     (2048, 128, None), (16, 512, 3)])
+def test_colfft_nocorr_plain_matches_pallas(n1, n2, b):
+    """The bare column DFT against colfft_pallas_nocorr in interpret mode:
+    the same Stockham steps on the same in-kernel twiddles."""
+    import jax.numpy as jnp
+    from phastft_tpu.ops import pallas_col
+
+    from phastft_tpu_torch.ops import colfft
+
+    rng = np.random.default_rng(n1 * 3 + n2)
+    shape = ((b,) if b else ()) + (n1, n2)
+    re, im = _pair(rng, shape)
+    want = _run_interpret(pallas_col.colfft_pallas_nocorr, jnp.asarray(re),
+                          jnp.asarray(im), n1)
+    before = colfft.colfft_nocorr.launches
+    got = colfft.colfft_nocorr(torch.from_numpy(re), torch.from_numpy(im), n1)
+    assert colfft.colfft_nocorr.launches == before  # CPU: no kernel launch
+    assert tuple(got[0].shape) == shape
+    assert _rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("n1,ccols,n,col_base", [(16, 256, 16 * 1024, 256),
+                                                 (128, 512, 128 * 2048, 1536)])
+def test_colfft_shard_plain_matches_pallas_col_chunk(n1, ccols, n, col_base):
+    """colfft with n_total and col_base against the distributed four-step's
+    chunk through colfft_pallas (interpret mode), as
+    tests/test_parallel.py drives it: a shard's column block."""
+    import jax.numpy as jnp
+    from phastft_tpu.parallel.fourstep_dist import _pallas_col_chunk
+
+    from phastft_tpu_torch.ops.colfft import colfft
+
+    rng = np.random.default_rng(n1 + col_base)
+    re, im = _pair(rng, (n1, ccols))
+    want = _run_interpret(_pallas_col_chunk, jnp.asarray(re), jnp.asarray(im),
+                          n1, n, jnp.asarray(col_base), ccols, None)
+    got = colfft(torch.from_numpy(re), torch.from_numpy(im), None, n1,
+                 n_total=n, col_base=col_base)
+    assert _rel(got, want) <= TOL
+    z = np.fft.fft(re.astype(np.float64) + 1j * im, axis=0)
+    k1 = np.arange(n1)[:, None]
+    i2 = np.arange(ccols)[None, :] + col_base
+    oracle = z * np.exp(-2j * np.pi * ((k1 * i2) % n) / n)
+    assert _rel(got, (oracle.real, oracle.imag)) <= 5e-7
+
+
+@pytest.mark.parametrize("n1,n2,b", [(2, 2, None), (4, 64, 2), (2048, 4, None)])
+def test_column_passes_take_narrow_blocks(n1, n2, b):
+    """Shard blocks narrower than 128 columns, and n1 = 2, 4, which the TPU
+    kernels decline, against an f64 oracle: the bare pass, and the shard
+    pass of columns [n2, 2*n2) of a transform of 4 * n1 * n2 points."""
+    from phastft_tpu_torch.ops.colfft import colfft, colfft_nocorr
+
+    rng = np.random.default_rng(n1 + n2)
+    shape = ((b,) if b else ()) + (n1, n2)
+    re, im = _pair(rng, shape)
+    z = np.fft.fft(re.astype(np.float64) + 1j * im, axis=-2)
+    got = colfft_nocorr(torch.from_numpy(re), torch.from_numpy(im), n1)
+    assert _rel(got, (z.real, z.imag)) <= 5e-7
+    n = 4 * n1 * n2
+    k1 = np.arange(n1)[:, None]
+    i2 = np.arange(n2)[None, :] + n2
+    w = z * np.exp(-2j * np.pi * ((k1 * i2) % n) / n)
+    got = colfft(torch.from_numpy(re), torch.from_numpy(im), None, n1,
+                 n_total=n, col_base=n2)
+    assert _rel(got, (w.real, w.imag)) <= 5e-7
+
+
+@pytest.mark.parametrize("kw", [dict(n_total=3000), dict(n_total=1 << 10),
+                                dict(n_total=1 << 14, col_base=-1),
+                                dict(col_base=128)])
+def test_colfft_rejects_bad_shard_arguments(kw):
+    """n_total a power of two that holds the block's columns; col_base
+    only with n_total."""
+    from phastft_tpu_torch.ops.colfft import (
+        col_split_tables_host, col_tile, colfft, colfft_plain,
+    )
+
+    x = torch.zeros(16, 128)
+    tabs = None if "n_total" in kw else tuple(
+        torch.from_numpy(a) for a in
+        col_split_tables_host(16, 128, "float32", t=col_tile(16, 128)))
+    for fn in (colfft, colfft_plain):
+        with pytest.raises(ValueError):
+            fn(x, x, tabs, 16, **kw)

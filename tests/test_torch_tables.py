@@ -145,10 +145,11 @@ def test_planner_tables_match_jax_planner():
 
 # -- the leaf plans (n <= 2^16) ----------------------------------------------
 
-@pytest.mark.parametrize("n2", (*N2S, 256, 1 << 15))
+@pytest.mark.parametrize("n2", (*N2S, 256, 1 << 15, 1 << 16))
 def test_leaf_correction_leaf_sizes_bitwise(n2):
-    """leaf_correction_host at the leaf plans' (n1, 128), n1 = 2 and 256, as
-    well as the row pass's (A, 128)."""
+    """leaf_correction_host at the leaf plans' (n1, 128), n1 = 2, 256 and
+    512 (the hybrid leaf's, which the JAX package takes from C++), as well
+    as the row pass's (A, 128)."""
     from phastft_tpu.ops.stockham import leaf_correction_host as jax_corr
 
     from phastft_tpu_torch.ops.stockham import leaf_correction_host
