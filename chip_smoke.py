@@ -27,7 +27,8 @@ on any failed check:
    port never calls it), beside each kernel's memory bound.
 6. ``parity_leaf``: the leaf kernels against their plain versions on 257
    rows (an odd count): ``leaf`` at n = 2, 64, 128, 256, 4096, 2^14, 2^15,
-   ``leaf3`` at 2^16, rel L2 <= 1e-6.
+   ``leaf3`` at 2^16, and ``leaf3`` on 1 and 50 rows (a last wave of
+   resident clusters that is ragged), rel L2 <= 1e-6.
 7. ``e2e_leaf``: the leaf plans' main path, counters set to 0 just before
    and read just after: ``fft_32_dit`` forward at every n = 2^0..2^16 with
    max(1, 2^20/n) rows against numpy's f64 FFT, a round trip at 2^16 x 16
@@ -136,7 +137,9 @@ on any failed check:
    ``hybrid`` once and no ``leaf``/``leaf3``.
 22. ``times_hybrid``: as 8, on 2^27 points at n = 2^8, 2^12, 2^15, 2^16:
    ``hybrid`` beside its bound (``hybrid_bound``: the bytes or flops of a
-   length-n DFT, and the time of the kernel's own F(128) arithmetic), its plain
+   length-n DFT; beside it the time of the kernel's own 3xTF32 products at
+   the TF32 tensor-core peak and of its F(n1) and correction at the f32
+   peak), its plain
    version, the default leaf kernel on the same rows, ``torch.fft.fft`` on
    complex64, and the transform with and without the hybrid leaf.
 23. ``parity_nocorr``: ``colfft_nocorr`` against its plain version at
@@ -188,6 +191,7 @@ E2E_LOGS = (20, 24, 25)
 TIME_LOGS = (20, 24, 25)
 LEAF_PARITY_LOGS = (1, 6, 7, 8, 12, 14, 15, 16)
 LEAF_PARITY_ROWS = 257
+LEAF3_PARITY_ROWS = (1, 50)
 LEAF_E2E_POINTS = 1 << 20
 #: (log2 n, rows) of the leaf timings: 2^27 points (1 GiB planar), and one
 #: row of 2^16 for latency.
@@ -245,8 +249,10 @@ OZ_E2E = ((17, 1 << 10), (20, 1 << 13), (22, 1 << 13), (24, 1 << 13), (26, 1 << 
 OZ_ROUNDTRIP_LOG = 24
 OZ_TIME_LOGS = (20, 24)
 OZ_E2E_TOL = 1e-10
-#: Published H100 SXM dense bf16 tensor-core rate (f32 accumulation).
+#: Published H100 SXM dense bf16 and TF32 tensor-core rates (f32
+#: accumulation).
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 #: The hybrid leaf's checks: n1 and row counts of its parity, the leaf
 #: sizes of its transforms (on HYBRID_E2E_POINTS points each), and the leaf
 #: sizes it is timed at on 2^27 points.
@@ -256,12 +262,14 @@ HYBRID_E2E_LOGS = tuple(range(8, 17))
 HYBRID_E2E_POINTS = 1 << 20
 HYBRID_TIME_LOGS = (8, 12, 15, 16)
 HYBRID_TIME_POINTS = 1 << 27
-#: f32 flops per element that the hybrid kernel itself spends besides its
-#: F(n1): the F(128) contraction as three products of 128 FMAs, the sum
+#: The hybrid kernel's own arithmetic per element, printed beside the bound,
+#: not the bound (a length-n DFT needs 5 * log2(n) + 6): on the tensor
+#: cores the F(128) contraction as three products of three TF32 passes of
+#: 128 multiply-adds; on the CUDA cores, besides its F(n1), the sum
 #: u_r + u_i, the two output differences and the correction's complex
-#: product. Printed beside the bound, not the bound: a length-n DFT needs
-#: 5 * log2(n) + 6.
-HYBRID_FLOPS = 3 * 2 * 128 + 1 + 3 + 6
+#: product.
+HYBRID_TC_FLOPS = 3 * 3 * 2 * 128
+HYBRID_FLOPS = 1 + 3 + 6
 #: The distributed four-step at world size 1: its sizes (n1 = 128 at 2^19,
 #: 2048 at 2^25, one column pass each), the bare column pass's parity shapes
 #: (batch, n1, n2), a shard block of colfft (n1, n2, n_total, col_base), and
@@ -598,9 +606,10 @@ def hybrid_bound(rows: int, n1: int):
     """The bound of what the hybrid leaf computes on ``rows`` rows of
     n1 * 128 points, a length-n1 * 128 DFT: 16 B per element plus row 1 of
     F(128) and the (n1, 128) correction, against 5 * log2(n) + 6 flops per
-    element (as ``leaf``'s). Besides: ``kernel_ops_ms``, the time of the
-    kernel's own arithmetic (5 * log2(n1) + HYBRID_FLOPS per element) at
-    the f32 peak."""
+    element (as ``leaf``'s). Besides: ``kernel_tc_ms``, the time of the
+    kernel's 3xTF32 products (HYBRID_TC_FLOPS per element) at the TF32
+    tensor-core peak, and ``kernel_ops_ms``, that of its F(n1) and
+    correction (5 * log2(n1) + HYBRID_FLOPS per element) at the f32 peak."""
     points = rows * n1 * 128
     log_n = n1.bit_length() - 1 + 7
     t_bytes = (16 * points + 4 * (2 * 128 + 2 * n1 * 128)) / HBM_BYTES_PER_S * 1e3
@@ -609,6 +618,7 @@ def hybrid_bound(rows: int, n1: int):
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops,
+            "kernel_tc_ms": points * HYBRID_TC_FLOPS / TF32_FLOPS_PER_S * 1e3,
             "kernel_ops_ms": own / F32_FLOPS_PER_S * 1e3}
 
 
@@ -976,7 +986,8 @@ def main() -> int:
         f.write(log)
     ptxas = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": build_s,
-          "sources": sorted(os.listdir(_build.SRC_DIR)), "ptxas": ptxas})
+          "sources": sorted(os.listdir(_build.SRC_DIR)), "ptxas": ptxas,
+          "leaf3_resident_clusters": _build.library().phastft_leaf3_clusters()})
 
     # -- parity: each kernel against its plain version on the same inputs
     rng = np.random.default_rng(2025)
@@ -1099,10 +1110,11 @@ def main() -> int:
 
     # -- leaf kernels: parity with the plain versions on an odd row count
     max_err.update(leaf=0.0, leaf3=0.0)
-    for log_n in LEAF_PARITY_LOGS:
+    shapes = [(log_n, LEAF_PARITY_ROWS) for log_n in LEAF_PARITY_LOGS]
+    for log_n, rows in shapes + [(16, rows) for rows in LEAF3_PARITY_ROWS]:
         n = 1 << log_n
         fn, plain, args, _ = leaf_call(PlannerDit32(n))
-        re, im = signal(rng, (LEAF_PARITY_ROWS, n))
+        re, im = signal(rng, (rows, n))
         xr = torch.from_numpy(re).to(dev)
         xi = torch.from_numpy(im).to(dev)
         k = fn(xr, xi, *args)
@@ -1112,10 +1124,9 @@ def main() -> int:
         mabs = max_abs(k[0], k[1], p[0], p[1])
         name = fn.__name__
         max_err[name] = max(max_err[name], mabs)
-        emit({"phase": "parity_leaf", "kernel": name, "n": n,
-              "rows": LEAF_PARITY_ROWS, "rel_l2": err, "max_abs_err": mabs,
-              "bound": KERNEL_TOL})
-        check(f"{name} parity at n = {n}", err, KERNEL_TOL)
+        emit({"phase": "parity_leaf", "kernel": name, "n": n, "rows": rows,
+              "rel_l2": err, "max_abs_err": mabs, "bound": KERNEL_TOL})
+        check(f"{name} parity at n = {n}, {rows} rows", err, KERNEL_TOL)
         del k, p, xr, xi
 
     # -- main path of the leaf plans: counters at 0 just before, read just after
@@ -1927,8 +1938,8 @@ def main() -> int:
          "bound_ms": top[name]["bound_ms"], "bound_by": top[name]["bound_by"],
          "library_ms": top[name]["library_ms"], "n": top[name]["n"],
          "rows": top[name]["rows"],
-         **{k: top[name][k] for k in ("bound_bytes_ms", "bound_ops_ms", "kernel_ops_ms")
-            if k in top[name]}}
+         **{k: top[name][k] for k in ("bound_bytes_ms", "bound_ops_ms", "kernel_tc_ms",
+                                      "kernel_ops_ms") if k in top[name]}}
         for name, (src, rep) in sources.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,34 +13,56 @@
 // kernel computes it: q1 = F_r u_r, q2 = F_i u_i, q3 = F_s (u_r + u_i),
 // X = (q1 - q2, q3 - q1 - q2), F_s = F_r + F_i.
 //
-// Bound: operations. The dense contraction is 3*128 FMAs (768 flops) per
-// element, against 16 B of memory traffic per element: at 67 TFLOP/s of
-// f32 on the CUDA cores that is ~5x the byte time. TF32 tensor cores
-// would break the 1e-6 parity with the plain version, so the products are
-// f32 FFMA; a three-pass TF32 or wgmma form is later work.
+// Bound: memory, 16 B per element (0.64 ms on 2^27 points at 3.35 TB/s).
+// The contraction runs on the tensor cores as three TF32 passes per
+// product (3xTF32): x = big + small with big = tf32(x) and
+// small = tf32(x - big), tf32 rounding to nearest with ties away (add
+// 0x1000 to the bits, clear the low 13), and F u = Fb ub + Fb us + Fs ub
+// (small * small dropped). That keeps the 1e-6 parity with the plain
+// version that one TF32 pass (~4e-4) breaks. Its own cost is 9 passes of
+// 2*128 flops per element, 0.62 ms on 2^27 points at 495 TFLOP/s, about the
+// byte time; beside it F(n1) and the correction on the CUDA cores.
 //
-// Design against that bound:
-// - F(128) is never stored: every entry is W_128^((k2*i2) mod 128), so a
-//   128-entry root table (row 1 of the planner's F(128), 1 KB of shared
-//   memory) rebuilds any entry bit for bit, and F_s = F_r + F_i is one
-//   FADD, rounded as the planner's table is.
-// - Each warp owns a tile of 8 columns k1 (rows of u) and all 128 k2:
-//   lane l accumulates k2 = l, l+32, l+64, l+96, so the 8 columns' u values
-//   are warp-wide broadcasts (float4 loads of 4 i2 at a time) and each
-//   table entry a lane reads serves 8 columns: 3*4*8 = 96 FMAs per i2 and
-//   lane against 8 table loads and 4 broadcast loads.
-// - Every block holds 8192 points (64 columns of u, one tile per warp):
-//   64/n1 whole rows up to n1 = 64. From n1 = 128 a row (n1 KB planar) is
-//   spread over a cluster of C = n1/64 blocks (2, 4, 8). Phase 1 needs
-//   whole columns and phase 3 whole rows, so block c runs F(n1) and the
-//   correction on the columns i2 in [c*W, c*W + W), W = 128/C, and then
-//   contracts the rows k1 in [64c, 64c + 64), reading each 32-point (or
-//   W-point) run of i2 from the block that holds it through distributed
-//   shared memory into a per-warp staging buffer.
+// Design:
+// - F(128) is never stored: every entry is W_128^((k2*i2) mod 128), so the
+//   planner's row 1 rebuilds any entry bit for bit, and F_s = F_r + F_i is
+//   one FADD, rounded as the planner's table is. Each block splits the 128
+//   roots once into tables of (F_r, F_i) big/small (float4) and F_s
+//   big/small (float2) in shared memory, 8 copies with a one-entry skew:
+//   lane (g, t) of a fragment gather reads copy 2t + (g & 1) (depth t) or
+//   2t (depth t + 4), which makes the float4 gathers conflict-free.
+// - M = k2 (128), N = the block's 64 columns k1, K = i2 (128). Warpgroup
+//   wg (4 warps) computes k2 in [64wg, 64wg + 64) for all 64 columns with
+//   wgmma m64n64k8: A (F) from registers, gathered from the root tables in
+//   mma.sync's m16n8k8 layout per warp (g = lane / 4, t = lane % 4: rows g,
+//   g + 8, depth t, t + 4); B (u) from shared memory. The block splits each
+//   run of 16 i2 of u once into six TF32 planes ((u_r, u_i, u_r + u_i) x
+//   (big, small)) in the canonical K-major layout without swizzle (core
+//   matrices of 8 columns x 4 positions), double-buffered: the next run is
+//   read and split while the current one is contracted. The depth is
+//   permuted so that a lane's A fragment reads i2 = k0 + 4t + 2s + h for
+//   k-step s (depth t + 4h).
+// - Each product's six passes over a run go into a fresh accumulator (32
+//   floats a thread) that one FADD per element adds to the sums (96), so
+//   the tensor cores' own rounding touches only 16-deep partial sums:
+//   accumulating all 48 passes in place read 9.6e-7..9.9e-7 from the plain
+//   version on the H100, 16-deep partials 3.3e-7..3.7e-7. mma.sync
+//   m16n8k8 (8-deep partials, 32 k2 x 32 k1 a warp) took 1.32-1.47x as
+//   long in one call.
+// - Every block holds 8192 points (64 columns of u): 64/n1 whole rows up
+//   to n1 = 64. From n1 = 128 a row (n1 KB planar) is spread over a
+//   cluster of C = n1/64 blocks (2, 4, 8). Phase 1 needs whole columns and
+//   phase 3 whole rows, so block c runs F(n1) and the correction on the
+//   columns i2 in [c*W, c*W + W), W = 128/C, and then contracts the rows
+//   k1 in [64c, 64c + 64), reading each 16-point run of i2 from the block
+//   that holds it through distributed shared memory (float4 loads, in
+//   flight while the previous run's products issue).
 // - Loads and stores are float4s of contiguous floats: the output is
 //   staged in shared memory in its natural order X[k1 + n1*k2] first.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "fft_smem.cuh"
 
@@ -53,55 +75,141 @@ using phastft::padded_words;
 namespace {
 
 constexpr int M = 128, LOGM = 7;
-constexpr int THREADS = 256, WARPS = THREADS / 32;
+constexpr int THREADS = 256;
 // Points a block holds, and the columns of u (rows k1) it contracts.
 constexpr int LOG_BLOCK_POINTS = 13, BLOCK_POINTS = 1 << LOG_BLOCK_POINTS;
 constexpr int COLS = BLOCK_POINTS / M;
-// Columns per warp tile, and k2 values per lane.
-constexpr int TN = COLS / WARPS, KM = M / 32;
+// Warpgroup tile: 64 k2 x the block's 64 k1, one m64n64k8 per pass.
+constexpr int WGM = 64;
+// i2 per run of the contraction (two k-steps of 8).
+constexpr int RUN = 16;
+// Root-table copies, and entries per copy (one-entry skew).
+constexpr int COPIES = 8, TSTRIDE = M + 1;
+// TF32 planes of a run of u: (u_r, u_i, u_r + u_i) x (big, small), each
+// 64 columns x RUN floats; two runs' planes are held at once.
+constexpr int PLANE = COLS * RUN, PLANES = 6, STAGE = PLANES * PLANE;
+// float4 loads of each plane per thread.
+constexpr int LOADS = BLOCK_POINTS / 4 / THREADS;
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small, both TF32 (small rounded too).
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
 
 __device__ __forceinline__ float part(const float4& v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-// Adds the Karatsuba products of i2 in [i2base, i2base + LEN) into the
-// tile's sums. Column c of the tile holds i2base + i at ur[c*cs + o(i)],
-// o(i) = i + 4*(i/32) (the padding of a 128-point row; o(i) = i below 32).
-template <int LEN>
-__device__ __forceinline__ void contract(const float* ur, const float* ui, int cs,
-                                         int i2base, const float* rr, const float* ri,
-                                         int lane, float (&q1)[KM][TN],
-                                         float (&q2)[KM][TN], float (&q3)[KM][TN]) {
-#pragma unroll 1
-  for (int i = 0; i < LEN; i += 4) {
-    const int o = i + ((i >> 5) << 2);
-    float4 xr[TN], xi[TN];
+// Float offset, within a plane, of column n and run position k, in the
+// canonical K-major layout without swizzle: core matrices of 8 columns x 4
+// positions (128 contiguous bytes), 4 cores along K 128 B apart, column
+// groups of 8 512 B apart.
+__device__ __forceinline__ int plane_at(int n, int k) {
+  return (n >> 3) * 128 + (k >> 2) * 32 + (n & 7) * 4 + (k & 3);
+}
+
+// Shared-memory matrix descriptor of one k-step (8 positions from byte
+// address addr): leading (K) byte offset 128, stride (N) byte offset 512.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32);
+}
+
+// d += A x B on the tensor cores: a warpgroup's m64n64k8, TF32 in, f32
+// accumulate, A in registers, B from a shared-memory descriptor.
+__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Splits a thread's four values of u (columns j, run positions 4t .. 4t + 3)
+// into the six TF32 planes. Position 4t + 2s + h goes to k-step s, depth
+// t + 4h, so that a lane's A fragment gathers i2 = k0 + 4t + 2s + h.
+__device__ __forceinline__ void split_run(float* planes, int j, int t, const float4& xr4,
+                                          const float4& xi4) {
 #pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      xr[c] = *reinterpret_cast<const float4*>(ur + c * cs + o);
-      xi[c] = *reinterpret_cast<const float4*>(ui + c * cs + o);
+  for (int u = 0; u < 4; ++u) {
+    const int at = plane_at(j, 8 * (u >> 1) + 4 * (u & 1) + t);
+    const float xr = part(xr4, u), xi = part(xi4, u);
+    uint32_t big[3], small[3];
+    split(xr, big[0], small[0]);
+    split(xi, big[1], small[1]);
+    split(xr + xi, big[2], small[2]);
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      planes[(2 * q) * PLANE + at] = __uint_as_float(big[q]);
+      planes[(2 * q + 1) * PLANE + at] = __uint_as_float(small[q]);
     }
+  }
+}
+
+// Adds the 3xTF32 Karatsuba products of the run of i2 from k0 (its planes
+// in shared memory) to warpgroup wg's sums acc[product]. A product's six
+// passes over the run (two k-steps, small terms first) go into a fresh
+// accumulator that one FADD per element adds to the sums.
+__device__ __forceinline__ void contract_run(const float* planes, int k0, const float4* t4,
+                                             const float2* t2, int wg, int wq, int lane,
+                                             float (&acc)[3][32]) {
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(planes));
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i2 = i2base + i + u;
-      float ar[TN], ai[TN], as[TN];
+  for (int q = 0; q < 3; ++q) {
+    // A fragments of product q for both k-steps, big and small: element e
+    // is row g + 8*(e & 1) of the warp's 16, depth column t + 4*(e >> 1)
+    uint32_t ab[2][4], as[2][4];
 #pragma unroll
-      for (int c = 0; c < TN; ++c) {
-        ar[c] = part(xr[c], u);
-        ai[c] = part(xi[c], u);
-        as[c] = ar[c] + ai[c];
-      }
+    for (int s = 0; s < 2; ++s) {
 #pragma unroll
-      for (int m = 0; m < KM; ++m) {
-        const int idx = ((lane + 32 * m) * i2) & (M - 1);
-        const float fr = rr[idx], fi = ri[idx], fs = fr + fi;
-#pragma unroll
-        for (int c = 0; c < TN; ++c) {
-          q1[m][c] = fmaf(fr, ar[c], q1[m][c]);
-          q2[m][c] = fmaf(fi, ai[c], q2[m][c]);
-          q3[m][c] = fmaf(fs, as[c], q3[m][c]);
+      for (int e = 0; e < 4; ++e) {
+        const int k2 = WGM * wg + 16 * wq + g + 8 * (e & 1);
+        const int hi = e >> 1;
+        const int i2 = k0 + 4 * t + 2 * s + hi;
+        const int at = (2 * t + (hi ? 0 : (g & 1))) * TSTRIDE + ((k2 * i2) & (M - 1));
+        if (q < 2) {
+          const float4 f = t4[at];
+          ab[s][e] = __float_as_uint(q ? f.z : f.x);
+          as[s][e] = __float_as_uint(q ? f.w : f.y);
+        } else {
+          const float2 fs = t2[at];
+          ab[s][e] = __float_as_uint(fs.x);
+          as[s][e] = __float_as_uint(fs.y);
         }
       }
+    }
+    float d[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) d[e] = 0.f;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const uint64_t bb = desc(base + 4 * (2 * q) * PLANE + 256 * s);
+      const uint64_t bs = desc(base + 4 * (2 * q + 1) * PLANE + 256 * s);
+      wgmma(d, as[s], bb);
+      wgmma(d, ab[s], bs);
+      wgmma(d, ab[s], bb);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      asm volatile("" : "+f"(d[e])::"memory");
+      acc[q][e] += d[e];
     }
   }
 }
@@ -119,19 +227,17 @@ __device__ __forceinline__ void hybrid_body(const float* __restrict__ re,
                                             float* __restrict__ ore, float* __restrict__ oim,
                                             long long batch, int logn1) {
   constexpr int LOGW = LOGM - LOGC, W = 1 << LOGW;
-  // i2 per staged run (a cluster's columns come from one block at a time)
-  constexpr int CH = W < 32 ? W : 32;
-  extern __shared__ float4 smem4[];
+  extern __shared__ __align__(128) float4 smem4[];
   const int n1 = 1 << logn1, logn = logn1 + LOGM;
   const int logr = LOGC ? 0 : LOG_BLOCK_POINTS - logn;  // rows per block
   const int rows = 1 << logr;
   const int words = padded_words(BLOCK_POINTS);
-  float* sr = reinterpret_cast<float*>(smem4);
+  float* planes = reinterpret_cast<float*>(smem4);  // 2 x STAGE
+  float* sr = planes + 2 * STAGE;
   float* si = sr + words;
-  float* rr = si + words;  // W_128^k, k < 128
-  float* ri = rr + M;
-  float* stg = ri + M;  // clusters: per warp 2 x TN x CH staged floats
-  float2* tw1 = reinterpret_cast<float2*>(stg + (LOGC ? WARPS * 2 * TN * CH : 0));
+  float4* t4 = reinterpret_cast<float4*>(si + words);  // (F_r, F_i) big, small
+  float2* t2 = reinterpret_cast<float2*>(t4 + COPIES * TSTRIDE);  // F_s big, small
+  float2* tw1 = reinterpret_cast<float2*>(t2 + COPIES * TSTRIDE);
 
   const int c = LOGC ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
   const long long row0 = LOGC ? static_cast<long long>(blockIdx.x >> LOGC)
@@ -141,110 +247,156 @@ __device__ __forceinline__ void hybrid_body(const float* __restrict__ re,
   const long long base = row0 << logn;
 
   load_twiddles(tw1, n1, nullptr, nullptr);
-  for (int k = threadIdx.x; k < M; k += blockDim.x) {
-    rr[k] = f2r[M + k];
-    ri[k] = f2i[M + k];
+  for (int e = threadIdx.x; e < COPIES * M; e += THREADS) {
+    const int k = e & (M - 1);
+    const float fr = __ldg(f2r + M + k), fi = __ldg(f2i + M + k);
+    uint32_t rb, rs, ib, is, sb, ss;
+    split(fr, rb, rs);
+    split(fi, ib, is);
+    split(fr + fi, sb, ss);
+    const int at = (e >> LOGM) * TSTRIDE + k;
+    t4[at] = make_float4(__uint_as_float(rb), __uint_as_float(rs), __uint_as_float(ib),
+                         __uint_as_float(is));
+    t2[at] = make_float2(__uint_as_float(sb), __uint_as_float(ss));
   }
-  // shared (i1, r, w): element (r, i1, c*W + w) of the block's rows
-  for (int g = threadIdx.x; g < BLOCK_POINTS / 4; g += blockDim.x) {
+  // shared (i1, r, w): element (r, i1, c*W + w) of the block's rows; every
+  // load of a thread is in flight before the first store
+  float4 a[LOADS], b[LOADS];
+#pragma unroll
+  for (int j = 0; j < LOADS; ++j) {
+    const int g = threadIdx.x + j * THREADS;
+    const int w = 4 * (g & (W / 4 - 1));
+    const int i1 = (g >> (LOGW - 2)) & (n1 - 1);
+    const int r = g >> (LOGW - 2 + logn1);
+    a[j] = b[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < valid_rows) {
+      const long long off = base + (static_cast<long long>(r) << logn) + i1 * M + c * W + w;
+      a[j] = __ldg(reinterpret_cast<const float4*>(re + off));
+      b[j] = __ldg(reinterpret_cast<const float4*>(im + off));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < LOADS; ++j) {
+    const int g = threadIdx.x + j * THREADS;
     const int w = 4 * (g & (W / 4 - 1));
     const int i1 = (g >> (LOGW - 2)) & (n1 - 1);
     const int r = g >> (LOGW - 2 + logn1);
     const int s = pad(((i1 << logr) + r) * W + w);
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-    if (r < valid_rows) {
-      const long long off = base + (static_cast<long long>(r) << logn) + i1 * M + c * W + w;
-      a = __ldg(reinterpret_cast<const float4*>(re + off));
-      b = __ldg(reinterpret_cast<const float4*>(im + off));
-    }
-    *reinterpret_cast<float4*>(sr + s) = a;
-    *reinterpret_cast<float4*>(si + s) = b;
+    *reinterpret_cast<float4*>(sr + s) = a[j];
+    *reinterpret_cast<float4*>(si + s) = b[j];
   }
   __syncthreads();
 
   // phase 1: F(n1) over i1 for all R*W sequences (the contiguous axis)
   phastft::dif_fft(sr, si, logn1, logr + LOGW, 1, rows * W, true, tw1);
-  // phase 2: shared row p of the (i1, r) axis holds k1 = bitrev(p)
-  for (int e = threadIdx.x; e < BLOCK_POINTS; e += blockDim.x) {
+  // phase 2: shared row p of the (i1, r) axis holds k1 = bitrev(p); four
+  // consecutive i2 a step, all table loads of a thread in flight at once
+#pragma unroll
+  for (int j = 0; j < LOADS; ++j) {
+    const int e = 4 * (threadIdx.x + j * THREADS);
     const int i2 = c * W + (e & (W - 1));
     const int k1 = bitrev(e >> (logr + LOGW), logn1);
-    const float cs = __ldg(cr + k1 * M + i2), sn = __ldg(ci + k1 * M + i2);
+    const float4 cs = __ldg(reinterpret_cast<const float4*>(cr + k1 * M + i2));
+    const float4 sn = __ldg(reinterpret_cast<const float4*>(ci + k1 * M + i2));
     const int s = pad(e);
-    const float x = sr[s], y = si[s];
-    sr[s] = x * cs - y * sn;
-    si[s] = x * sn + y * cs;
+    const float4 x = *reinterpret_cast<const float4*>(sr + s);
+    const float4 y = *reinterpret_cast<const float4*>(si + s);
+    *reinterpret_cast<float4*>(sr + s) =
+        make_float4(x.x * cs.x - y.x * sn.x, x.y * cs.y - y.y * sn.y,
+                    x.z * cs.z - y.z * sn.z, x.w * cs.w - y.w * sn.w);
+    *reinterpret_cast<float4*>(si + s) =
+        make_float4(x.x * sn.x + y.x * cs.x, x.y * sn.y + y.y * cs.y,
+                    x.z * sn.z + y.z * cs.z, x.w * sn.w + y.w * cs.w);
   }
   if (LOGC) cg::this_cluster().sync();
   else __syncthreads();
 
-  // phase 3: warp tile = columns j in [8*warp, 8*warp + 8) of the block's
-  // 64. One block: column j is shared row j (j = p*R + r). A cluster:
-  // column j is k1 = 64c + j, row bitrev(k1) of the blocks' (i1, w) slabs.
+  // phase 3: warpgroup wg contracts k2 in [64wg, 64wg + 64) for the
+  // block's 64 columns j. One block: column j is shared row j
+  // (j = p*R + r). A cluster: column j is k1 = 64c + j, row bitrev(k1) of
+  // the blocks' (i1, w) slabs. Each run of 16 i2 is split into TF32 planes
+  // while the previous run's are contracted.
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col0 = warp * TN;
-  float q1[KM][TN], q2[KM][TN], q3[KM][TN];
+  const int wg = warp >> 2, wq = warp & 3;
+  float acc[3][32];
 #pragma unroll
-  for (int m = 0; m < KM; ++m)
+  for (int q = 0; q < 3; ++q)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) q1[m][j] = q2[m][j] = q3[m][j] = 0.f;
-  if (LOGC == 0) {
-    const int row = col0 * padded_words(M);  // a 128-point row is 144 words
-    contract<M>(sr + row, si + row, padded_words(M), 0, rr, ri, lane, q1, q2, q3);
-  } else {
-    cg::cluster_group cluster = cg::this_cluster();
-    float* sgr = stg + warp * 2 * TN * CH;
-    float* sgi = sgr + TN * CH;
-#pragma unroll 1
-    for (int i0 = 0; i0 < M; i0 += CH) {
-      const float* xr = cluster.map_shared_rank(sr, static_cast<unsigned>(i0 >> LOGW));
-      const float* xi = cluster.map_shared_rank(si, static_cast<unsigned>(i0 >> LOGW));
-      for (int e = lane; e < TN * CH; e += 32) {
-        const int j = e / CH, i = e % CH;
-        const int p = bitrev(COLS * c + col0 + j, logn1);
-        const int s = pad(p * W + (i0 & (W - 1)) + i);
-        sgr[e] = xr[s];
-        sgi[e] = xi[s];
-      }
-      __syncwarp();
-      contract<CH>(sgr, sgi, CH, i0, rr, ri, lane, q1, q2, q3);
-      __syncwarp();
+    for (int e = 0; e < 32; ++e) acc[q][e] = 0.f;
+  // thread = (column j, float4 q4 of the run)
+  const int j = threadIdx.x >> 2, q4 = threadIdx.x & 3;
+  const int prow = LOGC ? bitrev(COLS * c + j, logn1) * W : 0;
+  float4 nr, ni;
+  auto fetch = [&](int i0) {
+    if (LOGC == 0) {  // a 128-point row is 144 words
+      const int w = j * padded_words(M) + pad(i0) + 4 * q4;
+      nr = *reinterpret_cast<const float4*>(sr + w);
+      ni = *reinterpret_cast<const float4*>(si + w);
+    } else {
+      cg::cluster_group cluster = cg::this_cluster();
+      const unsigned src = static_cast<unsigned>(i0 >> LOGW);
+      const int w = pad(prow + (i0 & (W - 1)) + 4 * q4);
+      nr = *reinterpret_cast<const float4*>(cluster.map_shared_rank(sr, src) + w);
+      ni = *reinterpret_cast<const float4*>(cluster.map_shared_rank(si, src) + w);
     }
+  };
+  fetch(0);
+  split_run(planes, j, q4, nr, ni);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+#pragma unroll 1
+  for (int run = 0; run < M / RUN; ++run) {
+    const bool more = run + 1 < M / RUN;
+    if (more) fetch((run + 1) * RUN);
+    contract_run(planes + (run & 1) * STAGE, run * RUN, t4, t2, wg, wq, lane, acc);
+    if (more) {
+      split_run(planes + ((run + 1) & 1) * STAGE, j, q4, nr, ni);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    __syncthreads();
   }
   // every read of the data (a cluster's remote ones too) precedes the stores
   if (LOGC) cg::this_cluster().sync();
   else __syncthreads();
 
   // stage the output in natural order: one block, local X index
-  // r*n + k1 + n1*k2; a cluster block, k2*64 + (k1 - 64c)
+  // r*n + k1 + n1*k2; a cluster block, k2*64 + (k1 - 64c). Accumulator
+  // element 4n + 2v + h is row g + 8v of the warp's 16, column 8n + 2t + h.
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int col = col0 + j;
-    int at;
-    if (LOGC == 0) {
-      const int r = col & (rows - 1);
-      at = (r << logn) + bitrev(col >> logr, logn1);
-    } else {
-      at = col;
-    }
+  for (int n = 0; n < COLS / 8; ++n) {
 #pragma unroll
-    for (int m = 0; m < KM; ++m) {
-      const int k2 = lane + 32 * m;
-      const int s = pad(at + (LOGC ? k2 * COLS : k2 << logn1));
-      sr[s] = q1[m][j] - q2[m][j];
-      si[s] = q3[m][j] - q1[m][j] - q2[m][j];
+    for (int h = 0; h < 2; ++h) {
+      const int col = 8 * n + 2 * t + h;
+      int at;
+      if (LOGC == 0) {
+        const int r = col & (rows - 1);
+        at = (r << logn) + bitrev(col >> logr, logn1);
+      } else {
+        at = col;
+      }
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int e = 4 * n + 2 * v + h;
+        const int k2 = WGM * wg + 16 * wq + g + 8 * v;
+        const int s = pad(at + (LOGC ? k2 * COLS : k2 << logn1));
+        const float q1 = acc[0][e], q2 = acc[1][e];
+        sr[s] = q1 - q2;
+        si[s] = acc[2][e] - q1 - q2;
+      }
     }
   }
   __syncthreads();
 
-  for (int g = threadIdx.x; g < BLOCK_POINTS / 4; g += blockDim.x) {
+  for (int g4 = threadIdx.x; g4 < BLOCK_POINTS / 4; g4 += THREADS) {
     long long o;
     if (LOGC == 0) {
-      if ((4 * g) >> logn >= valid_rows) continue;
-      o = base + 4 * g;
+      if ((4 * g4) >> logn >= valid_rows) continue;
+      o = base + 4 * g4;
     } else {  // 64 contiguous floats per k2: 16 float4s
-      o = base + static_cast<long long>(g >> 4) * n1 + COLS * c + 4 * (g & 15);
+      o = base + static_cast<long long>(g4 >> 4) * n1 + COLS * c + 4 * (g4 & 15);
     }
-    const int s = pad(4 * g);
+    const int s = pad(4 * g4);
     *reinterpret_cast<float4*>(ore + o) = *reinterpret_cast<const float4*>(sr + s);
     *reinterpret_cast<float4*>(oim + o) = *reinterpret_cast<const float4*>(si + s);
   }
@@ -280,9 +432,8 @@ int launch(Kernel kernel, int logc, const float* re, const float* im, const floa
   const int logr = logc ? 0 : LOG_BLOCK_POINTS - LOGM - logn1;
   const long long blocks = ((batch + (1LL << logr) - 1) >> logr) << logc;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int ch = (M >> logc) < 32 ? (M >> logc) : 32;
-  const size_t smem = 2 * sizeof(float) * padded_words(BLOCK_POINTS) + 2 * sizeof(float) * M +
-                      (logc ? sizeof(float) * WARPS * 2 * TN * ch : 0) +
+  const size_t smem = sizeof(float) * 2 * STAGE + 2 * sizeof(float) * padded_words(BLOCK_POINTS) +
+                      (sizeof(float4) + sizeof(float2)) * COPIES * TSTRIDE +
                       sizeof(float2) * (n1 / 2);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));

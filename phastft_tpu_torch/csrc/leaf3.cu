@@ -15,19 +15,28 @@
 // Bound: memory. Each element is read once and written once, 16 B per
 // complex element, against ~5*16 flops per element.
 //
-// Design against that bound: a row (512 KB) is held by a cluster of 4
-// blocks, 128 KB each, so device memory is touched once each way.
-// - Block p loads the column slab i_r in [128p, 128p + 128), which is
-//   exactly i_p = p, for every i_a (float4 loads, 512 contiguous bytes per
-//   i_a), and runs F(a) over i_a and the c1 twiddle on it.
-// - The cluster trades slabs through distributed shared memory: block c
-//   gathers k_a in [32c, 32c + 32) for all four i_p and all i_b into
-//   registers, a cluster barrier, then it overwrites its own buffer (two
-//   128 KB buffers do not fit one block's 227 KB).
-// - Block c then runs the radix-4 over i_p, c2 and F(b) over i_b locally
-//   and stores 32 contiguous floats per (k_b, p), gathered from shared
-//   memory as float4s.
-// Rows go in gridDim.x (4 blocks each), so any batch runs.
+// Design against that bound: a row (512 KB) is held by a cluster of 8
+// blocks of 256 threads, 64 KB each (74,752 B of shared memory with padding
+// and twiddles), so device memory is touched once each way and three blocks
+// share an SM (80 registers a thread: ptxas spills 40 bytes, which costs
+// less than the third block gains). The blocks of one SM belong to
+// different rows and run different phases, so one block's loads and stores
+// overlap another's radix passes, and one row spreads over 8 SMs.
+// - Block c loads the columns i_r in [64c, 64c + 64) (half the slab
+//   i_p = c/2) for every i_a (float4 loads, 256 contiguous bytes per i_a),
+//   and runs F(a) over i_a and the c1 twiddle on them (float4 table reads).
+// - Exchange, two cluster barriers: after the first, block c reads k_a in
+//   [16c, 16c + 16) for all four i_p and all i_b straight from the blocks
+//   that hold them (float4 loads through distributed shared memory, i_b
+//   < 64 from block 2*i_p, the rest from block 2*i_p + 1) into the radix-4
+//   over i_p and c2, and keeps the result in registers (32 complex values
+//   a thread); after the second, when no block reads its buffer any more,
+//   it writes them back as rows (k_a - 16c, p) of 128 i_b.
+// - F(b) along each of those 64 rows, then the stores: 16 contiguous floats
+//   per (k_b, p) as float4s of four neighbouring lanes, gathered from
+//   shared memory.
+// Each F(128) is two passes over shared memory (4 + 3 radix-2 stages in
+// registers). Rows go in gridDim.x (8 blocks each), so any batch runs.
 //
 // Twiddles come from the planner's tables (mxu3_512), the same bits as the
 // plain version: row 1 of F(a) and F(b), c1 = W_n^(k_a*i_r) (a, 4b) and
@@ -46,15 +55,35 @@ using phastft::padded_words;
 namespace {
 
 constexpr int A = 128, LOGA = 7, B = 128, LOGB = 7;
-constexpr int IR = 4 * B;        // length of the i_r axis
-constexpr int N = A * IR;        // 2^16
-constexpr int SLAB = IR / 4;     // i_r columns per block (one i_p)
-constexpr int KA = A / 4;        // k_a rows per block after the exchange
-constexpr int LOCAL = N / 4;     // complex elements per block
-constexpr int THREADS = 1024;
-constexpr int PER_THREAD = LOCAL / THREADS;
+constexpr int IR = 4 * B;             // length of the i_r axis
+constexpr int N = A * IR;             // 2^16
+constexpr int CLUSTER = 8;
+constexpr int COLS = IR / CLUSTER;    // i_r columns per block (half an i_p)
+constexpr int LOGCOLS = 6;
+constexpr int KA = A / CLUSTER;       // k_a rows per block after the exchange
+constexpr int LOCAL = N / CLUSTER;    // complex elements per block
+constexpr int WORDS = padded_words(LOCAL);
+constexpr int THREADS = 256;
+// exchange items per thread: (k_a - 16c, four consecutive i_b)
+constexpr int ITEMS = KA * B / 4 / THREADS;
+// float4 loads of each plane per thread.
+constexpr int LOADS = LOCAL / 4 / THREADS;
 
-__global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(THREADS)
+__device__ __forceinline__ float& part(float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// F(128) of 2^logM sequences in place, in two passes of 4 and 3 radix-2
+// stages; natural order in, X[k] at position bitrev(k) out.
+__device__ __forceinline__ void dif128(float* sr, float* si, int logM, int qs, int is,
+                                       bool qfast, const float2* tw) {
+  phastft::dif_pass<4>(sr, si, 7, 7, logM, qs, is, qfast, tw);
+  __syncthreads();
+  phastft::dif_pass<3>(sr, si, 7, 3, logM, qs, is, qfast, tw);
+  __syncthreads();
+}
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 3)
 leaf3_kernel(const float* __restrict__ re, const float* __restrict__ im,
              const float* __restrict__ f1r, const float* __restrict__ f1i,
              const float* __restrict__ f2r, const float* __restrict__ f2i,
@@ -63,98 +92,133 @@ leaf3_kernel(const float* __restrict__ re, const float* __restrict__ im,
              float* __restrict__ ore, float* __restrict__ oim) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int words = padded_words(LOCAL);
   float* sr = reinterpret_cast<float*>(smem4);
-  float* si = sr + words;
-  float2* tw1 = reinterpret_cast<float2*>(si + words);  // W_a^k, k < a/2
+  float* si = sr + WORDS;
+  float2* tw1 = reinterpret_cast<float2*>(si + WORDS);  // W_a^k, k < a/2
   float2* tw2 = tw1 + A / 2;                            // W_b^k, k < b/2
 
   const int c = static_cast<int>(cluster.block_rank());
-  const long long base = (static_cast<long long>(blockIdx.x) >> 2) * N;
+  const long long base = static_cast<long long>(blockIdx.x / CLUSTER) * N;
 
   load_twiddles(tw1, A, f1r, f1i);
   load_twiddles(tw2, B, f2r, f2i);
-  // slab i_p = c: shared (i_a, i_b)
-  for (int e = threadIdx.x; e < LOCAL / 4; e += blockDim.x) {
-    const int ia = e >> 5, v = e & 31;
-    const long long off = base + ia * IR + SLAB * c + 4 * v;
-    const int w = pad(ia * SLAB + 4 * v);
-    *reinterpret_cast<float4*>(sr + w) = __ldg(reinterpret_cast<const float4*>(re + off));
-    *reinterpret_cast<float4*>(si + w) = __ldg(reinterpret_cast<const float4*>(im + off));
-  }
-  __syncthreads();
-
-  // F(a) over i_a: 128 sequences (the contiguous axis), stride 128
-  phastft::dif_fft(sr, si, LOGA, 7, 1, SLAB, true, tw1);
-  // shared row q holds k_a = bitrev(q): u = t * W_n^(k_a*i_r)
-  for (int e = threadIdx.x; e < LOCAL; e += blockDim.x) {
-    const int ka = bitrev(e >> 7, LOGA);
-    const int t = ka * IR + SLAB * c + (e & (SLAB - 1));
-    const float cs = __ldg(c1r + t), sn = __ldg(c1i + t);
-    const int w = pad(e);
-    const float x = sr[w], y = si[w];
-    sr[w] = x * cs - y * sn;
-    si[w] = x * sn + y * cs;
-  }
-
-  // exchange: block c gathers (k_a - 32c, i_p, i_b) for k_a in
-  // [32c, 32c + 32) from block i_p into registers, then overwrites its own
-  // buffer once every block has read it
-  cluster.sync();
-  float xr[PER_THREAD], xi[PER_THREAD];
+  // columns i_r in [64c, 64c + 64): shared (i_a, column); every load of a
+  // thread is in flight before the first store
+  float4 a[LOADS], b[LOADS];
 #pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
+  for (int j = 0; j < LOADS; ++j) {
     const int e = threadIdx.x + j * THREADS;
-    const int ib = e & (B - 1), ip = (e >> 7) & 3, kl = e >> 9;
-    const int w = pad(bitrev(KA * c + kl, LOGA) * SLAB + ib);
-    xr[j] = cluster.map_shared_rank(sr, static_cast<unsigned>(ip))[w];
-    xi[j] = cluster.map_shared_rank(si, static_cast<unsigned>(ip))[w];
+    const long long off = base + (e >> 4) * IR + COLS * c + 4 * (e & 15);
+    a[j] = __ldg(reinterpret_cast<const float4*>(re + off));
+    b[j] = __ldg(reinterpret_cast<const float4*>(im + off));
+  }
+#pragma unroll
+  for (int j = 0; j < LOADS; ++j) {
+    const int e = threadIdx.x + j * THREADS;
+    const int w = pad((e >> 4) * COLS + 4 * (e & 15));
+    *reinterpret_cast<float4*>(sr + w) = a[j];
+    *reinterpret_cast<float4*>(si + w) = b[j];
+  }
+  __syncthreads();
+
+  // F(a) over i_a: 64 sequences (the contiguous axis), stride 64
+  dif128(sr, si, LOGCOLS, 1, COLS, true, tw1);
+  // shared row q holds k_a = bitrev(q): u = t * W_n^(k_a*i_r)
+#pragma unroll
+  for (int j = 0; j < LOADS; ++j) {
+    const int e = threadIdx.x + j * THREADS;
+    const int q = e >> (LOGCOLS - 2), v = 4 * (e & (COLS / 4 - 1));
+    const int t = bitrev(q, LOGA) * IR + COLS * c + v;
+    const float4 cs = __ldg(reinterpret_cast<const float4*>(c1r + t));
+    const float4 sn = __ldg(reinterpret_cast<const float4*>(c1i + t));
+    const int w = pad(q * COLS + v);
+    float4 x = *reinterpret_cast<float4*>(sr + w);
+    float4 y = *reinterpret_cast<float4*>(si + w);
+    const float4 xr = x;
+    x = make_float4(x.x * cs.x - y.x * sn.x, x.y * cs.y - y.y * sn.y,
+                    x.z * cs.z - y.z * sn.z, x.w * cs.w - y.w * sn.w);
+    y = make_float4(xr.x * sn.x + y.x * cs.x, xr.y * sn.y + y.y * cs.y,
+                    xr.z * sn.z + y.z * cs.z, xr.w * sn.w + y.w * cs.w);
+    *reinterpret_cast<float4*>(sr + w) = x;
+    *reinterpret_cast<float4*>(si + w) = y;
   }
   cluster.sync();
+
+  // exchange, straight into the radix-4 over i_p and c2: item j is
+  // (k_l, i_b .. i_b + 3), k_a = 16c + k_l held at shared row bitrev(k_a)
+  // of block 2*i_p + i_b/64, column i_b mod 64
+  float4 wr[ITEMS][4], wi[ITEMS][4];
 #pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int w = pad(threadIdx.x + j * THREADS);
-    sr[w] = xr[j];
-    si[w] = xi[j];
+  for (int j = 0; j < ITEMS; ++j) {
+    const int e = threadIdx.x + j * THREADS;
+    const int ib = 4 * (e & (B / 4 - 1)), kl = e >> 5;
+    const int w = pad(bitrev(KA * c + kl, LOGA) * COLS + (ib & (COLS - 1)));
+    float4 s_r[4], s_i[4];
+#pragma unroll
+    for (int ip = 0; ip < 4; ++ip) {
+      const unsigned src = static_cast<unsigned>(2 * ip + (ib >> LOGCOLS));
+      s_r[ip] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(sr, src) + w);
+      s_i[ip] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(si, src) + w);
+    }
+    float4 cs[4], sn[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      cs[p] = __ldg(reinterpret_cast<const float4*>(c2r + p * B + ib));
+      sn[p] = __ldg(reinterpret_cast<const float4*>(c2i + p * B + ib));
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float e_r = part(s_r[0], u) + part(s_r[2], u);
+      const float e_i = part(s_i[0], u) + part(s_i[2], u);
+      const float d_r = part(s_r[0], u) - part(s_r[2], u);
+      const float d_i = part(s_i[0], u) - part(s_i[2], u);
+      const float g_r = part(s_r[1], u) + part(s_r[3], u);
+      const float g_i = part(s_i[1], u) + part(s_i[3], u);
+      const float h_r = part(s_r[1], u) - part(s_r[3], u);
+      const float h_i = part(s_i[1], u) - part(s_i[3], u);
+      const float y_r[4] = {e_r + g_r, d_r + h_i, e_r - g_r, d_r - h_i};
+      const float y_i[4] = {e_i + g_i, d_i - h_r, e_i - g_i, d_i + h_r};
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        part(wr[j][p], u) = y_r[p] * part(cs[p], u) - y_i[p] * part(sn[p], u);
+        part(wi[j][p], u) = y_r[p] * part(sn[p], u) + y_i[p] * part(cs[p], u);
+      }
+    }
+  }
+  // no block reads another's buffer past this point
+  cluster.sync();
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int e = threadIdx.x + j * THREADS;
+    const int ib = 4 * (e & (B / 4 - 1)), kl = e >> 5;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int w = pad((kl * 4 + p) * B + ib);
+      *reinterpret_cast<float4*>(sr + w) = wr[j][p];
+      *reinterpret_cast<float4*>(si + w) = wi[j][p];
+    }
   }
   __syncthreads();
 
-  // radix-4 over i_p, then w_p = y_p * W_4b^(p*i_b), for each (k_a, i_b)
-  for (int e = threadIdx.x; e < KA * B; e += blockDim.x) {
-    const int kl = e >> 7, ib = e & (B - 1);
-    int w[4];
-    float s_r[4], s_i[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      w[p] = pad(((kl * 4 + p) << 7) + ib);
-      s_r[p] = sr[w[p]];
-      s_i[p] = si[w[p]];
-    }
-    const float e_r = s_r[0] + s_r[2], e_i = s_i[0] + s_i[2];
-    const float d_r = s_r[0] - s_r[2], d_i = s_i[0] - s_i[2];
-    const float g_r = s_r[1] + s_r[3], g_i = s_i[1] + s_i[3];
-    const float h_r = s_r[1] - s_r[3], h_i = s_i[1] - s_i[3];
-    const float y_r[4] = {e_r + g_r, d_r + h_i, e_r - g_r, d_r - h_i};
-    const float y_i[4] = {e_i + g_i, d_i - h_r, e_i - g_i, d_i + h_r};
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const float cs = __ldg(c2r + p * B + ib), sn = __ldg(c2i + p * B + ib);
-      sr[w[p]] = y_r[p] * cs - y_i[p] * sn;
-      si[w[p]] = y_r[p] * sn + y_i[p] * cs;
-    }
-  }
-  __syncthreads();
+  // F(b) along each of the 64 rows (k_a - 16c, p)
+  dif128(sr, si, 6, B, 1, false, tw2);
 
-  // F(b) along each of the 128 rows (k_a - 32c, p)
-  phastft::dif_fft(sr, si, LOGB, 7, B, 1, false, tw2);
-
-  // out[k_b*4a + p*a + k_a], k_a in [32c, 32c + 32): 32 contiguous floats
-  for (int e = threadIdx.x; e < LOCAL / 4; e += blockDim.x) {
-    const int kl = 4 * (e & 7), p = (e >> 3) & 3, kb = e >> 5;
+  // out[k_b*4a + p*a + k_a], k_a in [16c, 16c + 16): 16 contiguous floats
+  // per (k_b, p), written by four neighbouring lanes as float4s. The
+  // other lanes take the top 3 bits of k_b (8 neighbouring columns
+  // bitrev(k_b)), so a warp's shared-memory reads are 4-way conflicted
+  // where lanes over p would be 8-way (lanes over whole runs would have
+  // none, but their scattered 16-byte stores took 4.8x as long).
+#pragma unroll 2
+  for (int j = 0; j < LOADS; ++j) {
+    const int lane = threadIdx.x & 31, rest = (threadIdx.x >> 5) + j * (THREADS / 32);
+    const int kl = 4 * (lane & 3), p = rest & 3;
+    const int kb = 16 * (lane >> 2) + (rest >> 2);
+    const int col = bitrev(kb, LOGB);
     float vr[4], vi[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const int w = pad((((kl + u) * 4 + p) << 7) + bitrev(kb, LOGB));
+      const int w = pad(((kl + u) * 4 + p) * B + col);
       vr[u] = sr[w];
       vi[u] = si[w];
     }
@@ -162,6 +226,16 @@ leaf3_kernel(const float* __restrict__ re, const float* __restrict__ im,
     *reinterpret_cast<float4*>(ore + o) = make_float4(vr[0], vr[1], vr[2], vr[3]);
     *reinterpret_cast<float4*>(oim + o) = make_float4(vi[0], vi[1], vi[2], vi[3]);
   }
+}
+
+constexpr size_t SMEM = 2 * sizeof(float) * WORDS + sizeof(float2) * (A / 2 + B / 2);
+
+cudaError_t configure() {
+  cudaError_t err = cudaFuncSetAttribute(
+      leaf3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(leaf3_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
@@ -174,13 +248,25 @@ extern "C" int phastft_leaf3(const float* re, const float* im, const float* f1r,
                              const float* c1r, const float* c1i, const float* c2r,
                              const float* c2i, float* ore, float* oim, long long batch,
                              void* stream) {
-  if (batch < 1 || batch > 0x1fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * sizeof(float) * padded_words(LOCAL) + sizeof(float2) * (A / 2 + B / 2);
-  cudaError_t err = cudaFuncSetAttribute(
-      leaf3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (batch < 1 || batch > 0x0fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = configure();
   if (err != cudaSuccess) return static_cast<int>(err);
-  leaf3_kernel<<<static_cast<unsigned>(4 * batch), THREADS, smem,
+  leaf3_kernel<<<static_cast<unsigned>(CLUSTER * batch), THREADS, SMEM,
                  static_cast<cudaStream_t>(stream)>>>(re, im, f1r, f1i, f2r, f2i, c1r,
                                                       c1i, c2r, c2i, ore, oim);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The number of leaf3 clusters the current device holds at once (the CUDA
+// occupancy query), or minus the CUDA error code.
+extern "C" int phastft_leaf3_clusters() {
+  cudaError_t err = configure();
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(CLUSTER * 1024);
+  config.blockDim = dim3(THREADS);
+  config.dynamicSmemBytes = SMEM;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, leaf3_kernel, &config);
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }

@@ -32,14 +32,15 @@ On CUDA tensors the wrappers launch the hand-written kernels
 they run ``leaf_plain``, ``leaf3_plain`` and ``hybrid_plain``, the same
 functions in plain torch that follow the JAX kernels' arithmetic (dense DFT
 products, see ``_cmul``; the hybrid's Stockham steps and Karatsuba
-products). The hybrid kernel is bound by operations: its dense F(128)
-contraction costs 3 * 128 f32 FMAs per element (see its source). The
-other two kernels are bound by memory (16 B per complex element, read once and
-written once). A block keeps whole rows in shared memory (several rows
-below 2^13 points) and stages its stores there, so loads and stores are
-contiguous float4 accesses; a row of 2^15 points is held by a cluster of
-2 blocks and one of 2^16 by a cluster of 4, which exchange the second
-factor's data through distributed shared memory.
+products). All three are bound by memory (16 B per complex element, read
+once and written once); the hybrid kernel runs its dense F(128)
+contraction on the tensor cores as three TF32 passes per product
+(3xTF32, see its source), 2304 flops per element. A block keeps whole rows
+in shared memory (several rows below 2^13 points) and stages its stores
+there, so loads and stores are contiguous float4 accesses; a row of 2^15
+points is held by a cluster of 2 blocks and one of 2^16 by a cluster of 8
+blocks of 2^13 points, which exchange the second factor's data through
+distributed shared memory.
 """
 
 from __future__ import annotations
@@ -295,11 +296,12 @@ def leaf3(re, im, mats, a: int, b: int):
     launch adds one to ``leaf3.launches``.
 
     Replaces ``phastft_tpu/ops/pallas_leaf.py`` ``leaf_fft_pallas3``.
-    Bound by memory; a row (512 KB) is held by a cluster of 4 blocks: block
-    p runs F(a) and c1 on its slab i_p = p, the cluster trades slabs
-    through distributed shared memory, then block c runs the radix-4, c2
-    and F(b) for k_a in [32c, 32c + 32) and stores 32 contiguous floats per
-    (k_b, p). Any batch: rows go in ``gridDim.x``."""
+    Bound by memory; a row (512 KB) is held by a cluster of 8 blocks of 256
+    threads, several resident per SM: block c runs F(a) and c1 on the
+    columns i_r in [64c, 64c + 64), then reads k_a in [16c, 16c + 16) of
+    every i_p straight from the blocks that hold them (distributed shared
+    memory) into the radix-4 and c2, runs F(b) and stores 16 contiguous
+    floats per (k_b, p). Any batch: rows go in ``gridDim.x``."""
     mats = tuple(mats)
     _, bs, _ = _check3(re, im, mats, a, b)
     if re.device.type == "cpu":
@@ -337,13 +339,13 @@ def hybrid(re, im, mats, n1: int):
     tensors. Each launch adds one to ``hybrid.launches``.
 
     Replaces ``phastft_tpu/ops/pallas_leaf.py`` ``leaf_fft_pallas_hybrid``;
-    unlike it, it takes any batch and never declines. Bound by operations:
-    the dense F(128) contraction is 3 * 128 f32 FMAs per element on the CUDA
-    cores (TF32 tensor cores would break the 1e-6 parity), against 16 B of
-    memory traffic. Every block holds 8192 points: 64 / n1 rows up to
-    n1 = 64, and from n1 = 128 a row is spread over a cluster of n1 / 64
-    blocks that read each other's columns through distributed shared
-    memory."""
+    unlike it, it takes any batch and never declines. Bound by memory (16 B
+    per element); the dense F(128) contraction runs on the tensor cores as
+    ``wgmma`` TF32 in three passes per product (big*big + big*small +
+    small*big), which holds the 1e-6 parity with ``hybrid_plain``. Every
+    block holds 8192 points: 64 / n1 rows up to n1 = 64, and from n1 = 128 a
+    row is spread over a cluster of n1 / 64 blocks that read each other's
+    columns through distributed shared memory."""
     mats = tuple(mats)
     _, b, _ = _check_hybrid(re, im, mats, n1)
     if re.device.type == "cpu":

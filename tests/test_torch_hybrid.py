@@ -208,3 +208,101 @@ def test_hybrid_rejects_bad_arguments(case):
     for fn in (hybrid, hybrid_plain):
         with pytest.raises(err):
             fn(*args)
+
+
+# -- the kernel's 3xTF32 contraction, emulated in torch ----------------------
+# csrc/hybrid.cu contracts F(128) on the tensor cores in TF32. Each operand
+# x is split into big = tf32(x) and small = tf32(x - big), tf32 rounding to
+# nearest with ties away (add 0x1000 to the bits, clear the low 13), and a
+# product is big*big + big*small + small*big with small*small dropped. The
+# kernel sums each run of 16 i2 on its own, k-step by k-step and small terms
+# first, and adds that to its f32 sums: k-step s of the run from k0 takes
+# i2 = k0 + 4t + 2s + h, t < 4, h < 2.
+
+def _tf32(x):
+    bits = (x.contiguous().view(torch.int32) + 0x1000) & -0x2000
+    return bits.view(torch.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _tc_product(f, u, passes):
+    """sum_i2 f[k2, i2] u[b, i2, k1] as the kernel forms it: (b, k2, k1)."""
+    fb, fs = _split(f)
+    ub, us = _split(u)
+    terms = [(fb, ub), (fb, us), (fs, ub)][:passes]
+    acc = torch.zeros(u.shape[0], f.shape[0], u.shape[2])
+    for k0 in range(0, f.shape[1], 16):
+        d = torch.zeros_like(acc)
+        for s in (0, 1):
+            step = torch.tensor([k0 + 4 * t + 2 * s + h for t in range(4) for h in (0, 1)])
+            for a, b in reversed(terms):
+                d = d + torch.matmul(a[:, step], b[:, step, :])
+        acc = acc + d
+    return acc
+
+
+def _emulated_hybrid(re, im, mats, n1, passes=3):
+    """hybrid_plain with the contraction in the kernel's 3xTF32 form (one
+    pass: big*big alone). F_s is F_r + F_i in f32, as the planner's."""
+    from phastft_tpu_torch.ops.stockham import stockham_axis2
+
+    f2r, f2i, _, cr, ci = mats
+    b = re.shape[0]
+    tr, ti = stockham_axis2(re.reshape(b, n1, 128), im.reshape(b, n1, 128), n1)
+    ur = (tr * cr - ti * ci).transpose(1, 2)
+    ui = (tr * ci + ti * cr).transpose(1, 2)
+    q1 = _tc_product(f2r, ur, passes)
+    q2 = _tc_product(f2i, ui, passes)
+    q3 = _tc_product(f2r + f2i, ur + ui, passes)
+    return (q1 - q2).reshape(b, -1), (q3 - q1 - q2).reshape(b, -1)
+
+
+def _rows(kind, rng, shape):
+    re, im = _pair(rng, shape)
+    if kind == "range_1e6":  # magnitudes spread over six decades
+        re = re * (10.0 ** rng.uniform(0.0, 6.0, shape)).astype(np.float32)
+        im = im * (10.0 ** rng.uniform(0.0, 6.0, shape)).astype(np.float32)
+    return re, im
+
+
+@pytest.mark.parametrize("kind", ["randn", "range_1e6"])
+@pytest.mark.parametrize("n1", [2, 8, 64, 128, 256, 512])
+def test_3xtf32_contraction_holds_parity(n1, kind):
+    """The kernel's arithmetic, emulated: within 1e-6 of hybrid_plain and
+    of the Pallas kernel in interpret mode, and within the leaf plans'
+    bound of numpy's f64 FFT."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from phastft_tpu.ops.pallas_leaf import leaf_fft_pallas_hybrid
+
+    n = n1 * 128
+    mine, jp = _carried(n)
+    mats = _hybrid_mats(mine, n1)
+    assert torch.equal(mats[0] + mats[1], mats[2])
+    rng = np.random.default_rng(n1 + (7 if kind == "randn" else 11))
+    re, im = _rows(kind, rng, (2, n))
+    got = _emulated_hybrid(torch.from_numpy(re), torch.from_numpy(im), mats, n1)
+    plain = hybrid_plain(torch.from_numpy(re), torch.from_numpy(im), mats, n1)
+    jmats = jp.leaf_corrs[f"mxu{n1}"][3:6] + jp.leaf_corrs[f"leaf{n1}"]
+    with pltpu.force_tpu_interpret_mode():
+        want = leaf_fft_pallas_hybrid(jnp.asarray(re), jnp.asarray(im), jmats, n1)
+    g = _c(got)
+    assert _rel(g, _c(plain)) <= TOL
+    assert _rel(g, _c(want)) <= TOL
+    x = re.astype(np.float64) + 1j * im
+    assert _rel(g, np.fft.fft(x, axis=-1)) <= _bound(n)
+
+
+def test_one_tf32_pass_misses_parity():
+    """big*big alone, plain TF32, misses 1e-6: the emulation can fail."""
+    n1 = 64
+    mine, _ = _carried(n1 * 128)
+    mats = _hybrid_mats(mine, n1)
+    re, im = _pair(np.random.default_rng(3), (2, n1 * 128))
+    x = torch.from_numpy(re), torch.from_numpy(im)
+    got = _emulated_hybrid(*x, mats, n1, passes=1)
+    assert _rel(_c(got), _c(hybrid_plain(*x, mats, n1))) > 10 * TOL

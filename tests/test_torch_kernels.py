@@ -417,6 +417,73 @@ def test_leaf3_plain_matches_pallas(a, b, rows):
     assert _rel(got, _oracle(re, im)) <= (5e-7 if a == 128 else 5e-6)
 
 
+def _leaf3_by_blocks(re, im, mats):
+    """leaf3 at a = b = 128 as csrc/leaf3.cu splits a row over a cluster of
+    8 blocks, with leaf3_plain's dense products for each factor. Block c
+    holds columns i_r in [64c, 64c + 64) (i_p = c // 2, i_b in
+    [64h, 64h + 64), h = c % 2) of every i_a and runs F(a) and c1 on them;
+    block d then gathers k_a in [16d, 16d + 16) for each (i_p, i_b) from
+    block 2*i_p + i_b // 64, runs the radix-4, c2 and F(b), and stores
+    out[k_b*512 + p*128 + 16d + k_l]."""
+    from phastft_tpu_torch.ops.leaf import _cmul
+
+    f1r, f1i, _, f2r, f2i, _, c1r, c1i, c2r, c2i = mats
+    rows = re.shape[0]
+    xr, xi = re.reshape(rows, 128, 512), im.reshape(rows, 128, 512)
+    held = []  # per block: u over (k_a, 64 local columns)
+    for c in range(8):
+        cols = slice(64 * c, 64 * c + 64)
+        tr, ti = _cmul(f1r, f1i, xr[..., cols], xi[..., cols])
+        held.append((tr * c1r[:, cols] - ti * c1i[:, cols],
+                     tr * c1i[:, cols] + ti * c1r[:, cols]))
+    out_r = torch.empty(rows, 1 << 16)
+    out_i = torch.empty(rows, 1 << 16)
+    ib = torch.arange(128)
+    for d in range(8):
+        ka = slice(16 * d, 16 * d + 16)
+        s = [[held[2 * ip + h][part][:, ka, :] for h in (0, 1)]
+             for ip in range(4) for part in (0, 1)]
+        # s_p[k_l, i_b]: i_b < 64 from block 2p, the rest from block 2p + 1
+        sr = [torch.cat(s[2 * ip], dim=-1) for ip in range(4)]
+        si = [torch.cat(s[2 * ip + 1], dim=-1) for ip in range(4)]
+        e_r, e_i = sr[0] + sr[2], si[0] + si[2]
+        d_r, d_i = sr[0] - sr[2], si[0] - si[2]
+        g_r, g_i = sr[1] + sr[3], si[1] + si[3]
+        h_r, h_i = sr[1] - sr[3], si[1] - si[3]
+        y = ((e_r + g_r, e_i + g_i), (d_r + h_i, d_i - h_r),
+             (e_r - g_r, e_i - g_i), (d_r - h_i, d_i + h_r))
+        for p, (yr, yi) in enumerate(y):
+            wr = (yr * c2r[p] - yi * c2i[p]).transpose(1, 2)
+            wi = (yr * c2i[p] + yi * c2r[p]).transpose(1, 2)
+            o_r, o_i = _cmul(f2r, f2i, wr, wi)  # (rows, k_b, k_l)
+            at = (ib[:, None] * 512 + p * 128 + 16 * d
+                  + torch.arange(16)[None, :]).reshape(-1)
+            out_r[:, at] = o_r.reshape(rows, -1)
+            out_i[:, at] = o_i.reshape(rows, -1)
+    return out_r, out_i
+
+
+def test_leaf3_eight_block_split_matches_plain_and_pallas():
+    """The 8-block split of csrc/leaf3.cu, rebuilt in torch on 3 rows of
+    2^16, equals leaf3_plain whole (1e-7) and leaf_fft_pallas3 (1e-6)."""
+    import jax.numpy as jnp
+    from phastft_tpu.ops.pallas_leaf import leaf_fft_pallas3
+
+    from phastft_tpu_torch.ops.leaf import leaf3_plain
+    from phastft_tpu_torch.ops.mxu import mxu_leaf_tables3_host
+
+    host = mxu_leaf_tables3_host(128, 128, "float32")
+    mats = tuple(torch.from_numpy(t) for t in host)
+    re, im = _pair(np.random.default_rng(316), (3, 1 << 16))
+    got = _leaf3_by_blocks(torch.from_numpy(re), torch.from_numpy(im), mats)
+    whole = leaf3_plain(torch.from_numpy(re), torch.from_numpy(im), mats, 128, 128)
+    want = _run_interpret(leaf_fft_pallas3, jnp.asarray(re), jnp.asarray(im),
+                          tuple(jnp.asarray(t) for t in host), 128, 128)
+    assert _rel(got, whole) <= 1e-7
+    assert _rel(got, want) <= TOL
+    assert _rel(got, _oracle(re, im)) <= 5e-7
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "tables", "device"])
 def test_leaf_wrappers_reject_bad_arguments(bad):
     from phastft_tpu_torch.ops.leaf import leaf, leaf3
