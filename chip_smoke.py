@@ -9,7 +9,10 @@ It prints one JSON line per phase and fails (non-zero exit, no final line)
 on any failed check:
 
 1. ``device``: the card, and its name and power limit from ``nvidia-smi``.
-2. ``build``: builds the CUDA kernels from ``phastft_tpu_torch/csrc``.
+2. ``build``: builds the CUDA kernels from ``phastft_tpu_torch/csrc``, and
+   prints the clusters of each cluster shape resident at once (the CUDA
+   occupancy query; none may be 0) and the FP32 issue rate of the dd
+   bounds.
 3. ``parity``: each kernel against its plain torch version on the card, at
    the slice's shapes (n1, n2) = (128, 8192), (1024, 16384), (2048, 16384)
    and at a batch of 32 of (128, 16384), the inner level of a 2^26 nested
@@ -26,18 +29,20 @@ on any failed check:
    host-clock time), and ``torch.fft.fft`` on complex64 as a yardstick (the
    port never calls it), beside each kernel's memory bound.
 6. ``parity_leaf``: the leaf kernels against their plain versions on 257
-   rows (an odd count): ``leaf`` at n = 2, 64, 128, 256, 4096, 2^14, 2^15,
-   ``leaf3`` at 2^16, and ``leaf3`` on 1 and 50 rows (a last wave of
-   resident clusters that is ragged), rel L2 <= 1e-6.
+   rows (an odd count): ``leaf`` at n = 2, 64, 128, 256, 4096, 2^13, 2^14,
+   2^15, ``leaf3`` at 2^16, ``leaf3`` on 1 and 50 rows and ``leaf``'s
+   cluster shapes (2^14, 2^15) on 1 row and on one more row than their
+   resident clusters (a ragged last wave), rel L2 <= 1e-6.
 7. ``e2e_leaf``: the leaf plans' main path, counters set to 0 just before
    and read just after: ``fft_32_dit`` forward at every n = 2^0..2^16 with
    max(1, 2^20/n) rows against numpy's f64 FFT, a round trip at 2^16 x 16
    rows, one ``PlannerDit32(2^12)`` reused on a (1024, 4096) batch, and
    2^17 rows of 256 points. Each transform with n >= 2 must launch exactly
    one of ``leaf``/``leaf3`` and nothing else; n = 1 launches nothing.
-8. ``times_leaf``: as 5, at n = 2^8, 2^12, 2^15, 2^16 with 2^27/n rows
-   (1 GiB of planar input), and at 2^16 x 1 row for latency; the library
-   call is ``torch.fft.fft`` on complex64 of the same rows.
+8. ``times_leaf``: as 5, at n = 2^8, 2^10, 2^12, 2^13, 2^14, 2^15, 2^16
+   with 2^27/n rows (1 GiB of planar input), and at 2^16 x 1 row for
+   latency; the library call is ``torch.fft.fft`` on complex64 of the same
+   rows.
 
 9. ``parity_nested``: ``colfft`` against ``colfft_plain`` at (n1, n2) =
    (32, 2^21), (512, 2^21), (2, 2^16), (2048, 2^14) and batches of 3 at
@@ -73,8 +78,9 @@ on any failed check:
    split leaf's 4096 x (64, 128) and 256 x (512, 128), and 3 x (2, 128)
    (several entries per block); ``ddcol_nocorr`` at 4096 x (128, 64),
    256 x (128, 512) and 5 x (128, 2); ``ddleaf`` at n1 = 1, 8, 64, 128, 256
-   and 512 (one block per row group, and clusters of 2, 4 and 8 blocks)
-   with 1, 5 and 256 rows. The tables are those of a ``PlannerDit64``.
+   and 512 (several rows per block, and clusters of 2, 4, 8 and 16 blocks)
+   with 1, 5 and 256 rows, the clusters also on one more row than are
+   resident. The tables are those of a ``PlannerDit64``.
 14. ``e2e_dd``: the f64 main path (the df64 engine), counters set to 0 just
    before and read just after, each transform's launches checked against
    its plan: ``fft_64_dit`` at every n = 2^0..2^16 on 2^18 points against
@@ -86,8 +92,8 @@ on any failed check:
    inverse of N * delta (exactly ones), and the peak of allocated device
    memory at 2^27.
 15. ``times_dd``: as 5 with 10 calls: ``ddcol`` at the 2^24 and 2^27 plans'
-   shapes, ``ddleaf`` at 2^16 x 256, 2^16 x 2048 and 2^13 x 2^11 (each beside
-   the library call), the split
+   shapes, ``ddleaf`` at 2^16 x 256, 2^16 x 2048, 2^13 x 2^11 and 2^10 x 2^14
+   (each beside the library call), the split
    leaf's two passes and its transposes at 2^16 x 256, each kernel's plain
    version at the smaller shape (3 calls), and the whole f64 transform at
    2^20, 2^24 and 2^27 (device and host clock) beside ``torch.fft.fft`` on
@@ -95,10 +101,13 @@ on any failed check:
    same rows as one complex128 tensor, that of ``ddcol_nocorr``
    ``torch.fft.fft(dim=-2)``; ``ddcol`` fuses a twiddle and has none. The dd
    bounds are the larger of 32 B per element over the memory rate and the
-   f32 flops the function needs over the f32 peak, both printed: a DFT by
-   radix-4 decimation with the trivial twiddles dropped (``dd_dft_flops``;
-   the kernels' radix-2 code spends 47 per element per stage) and 50 per dd
-   complex product of a correction.
+   FP32 instructions the function needs over the card's issue rate (132 SMs
+   x 128 lanes x the SM clock ``nvidia-smi`` reports; dd arithmetic is
+   single adds and multiplies, so the FMA rate would count each twice),
+   both printed (``bound_bytes_ms``, ``bound_instr_ms``): a DFT by radix-4
+   decimation with the trivial twiddles dropped (``dd_dft_instr``, the
+   schedule ``ddleaf`` runs; ``ddcol``'s radix-2 stages spend 43 per element
+   per stage) and 42 per dd complex product of a correction.
 
 16. ``oz_exact``: the bf16 tensor-core product of ``csrc/oz.cuh`` alone on
    random integer slices |s| <= 128 (128 x 64 outputs) at depths 32, 64, 128
@@ -189,14 +198,19 @@ PARITY_SHAPES = [(1, 128, 8192), (1, 1024, 16384), (1, 2048, 16384),
                  (32, 128, 16384)]
 E2E_LOGS = (20, 24, 25)
 TIME_LOGS = (20, 24, 25)
-LEAF_PARITY_LOGS = (1, 6, 7, 8, 12, 14, 15, 16)
+LEAF_PARITY_LOGS = (1, 6, 7, 8, 12, 13, 14, 15, 16)
 LEAF_PARITY_ROWS = 257
 LEAF3_PARITY_ROWS = (1, 50)
+#: n1 of the leaf kernels' cluster shapes (leaf: 2^14, 2^15; ddleaf: 2^13..2^16),
+#: each also checked on 1 row and on one more row than the clusters resident
+#: at once (a ragged last wave).
+LEAF_CLUSTER_N1S = (128, 256)
+DD_LEAF_CLUSTER_N1S = (64, 128, 256, 512)
 LEAF_E2E_POINTS = 1 << 20
 #: (log2 n, rows) of the leaf timings: 2^27 points (1 GiB planar), and one
 #: row of 2^16 for latency.
-LEAF_TIME_SHAPES = ((8, 1 << 19), (12, 1 << 15), (15, 1 << 12), (16, 1 << 11),
-                    (16, 1))
+LEAF_TIME_SHAPES = ((8, 1 << 19), (10, 1 << 17), (12, 1 << 15), (13, 1 << 14),
+                    (14, 1 << 13), (15, 1 << 12), (16, 1 << 11), (16, 1))
 #: (batch or None, n1, n2) of the classic column pass's parity checks, and
 #: (batch or None, R, C) of the paired transpose's.
 NESTED_COL_SHAPES = ((None, 32, 1 << 21), (None, 512, 1 << 21), (None, 2, 1 << 16),
@@ -231,10 +245,16 @@ DD_TIME_LOGS = (20, 24, 27)
 #: (log2 n, rows) of the "df64-split" transform whose entries are smaller
 #: than the column kernel's slab, so that a block holds several.
 DD_SPLIT_SMALL = (10, 5)
-#: f32 flops of dd arithmetic, counted from csrc/dd.cuh: a dd complex sum
-#: (two dd sums of 11) and a dd complex product.
-DD_CADD_FLOPS = 22
-DD_CMUL_FLOPS = 50
+#: FP32 instructions of dd arithmetic, counted from csrc/dd.cuh: a dd
+#: complex sum (two dd sums of 11) and a dd complex product (four lazy
+#: products of 5, two dd sums). Each is one single-rounded add, multiply or
+#: fused multiply-add; the card issues FP32_LANES of them per clock on each
+#: of its SMS SMs.
+DD_CADD_INSTR = 22
+DD_CMUL_INSTR = 42
+SMS, FP32_LANES = 132, 128
+#: The SM clock in Hz (``nvidia-smi`` clocks.max.sm), read once.
+_SM_CLOCK_HZ = []
 #: The Ozaki engine's checks: depths of the exact integer product; (batch,
 #: n1, n2) of the column pass's parity; A, n1 and the batch of the row
 #: pass's; (log2 n, leaf) of the transforms; the f64 contract bound.
@@ -483,30 +503,45 @@ def kernel_bound(n: int, log_len: int, table_floats: int = 0):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def dd_dft_flops(log_len: int) -> float:
-    """f32 flops per point that a dd DFT of length 2^log_len needs, by
-    radix-4 decimation with the trivial twiddles dropped: a butterfly of
+def dd_dft_instr(log_len: int) -> float:
+    """FP32 instructions per point that a dd DFT of length 2^log_len needs,
+    by radix-4 decimation with the trivial twiddles dropped: a butterfly of
     four points is 8 dd complex sums (a product by -i is free) and 3 dd
     complex products, which the last radix-4 stage, whose twiddles are all
     1, does not need; an odd log2 ends on a radix-2 stage of sums alone.
-    The kernels' own radix-2 code spends more: a product in every stage,
-    (2 * 22 + 50) / 2 = 47 flops per point per stage."""
+    csrc/ddleaf.cu runs this schedule (plus the product of its correction);
+    csrc/ddcol.cu's radix-2 stages spend (2 * 22 + 42) / 2 = 43 a stage."""
     radix4_with_products = max(0, (log_len + 1) // 2 - 1)
-    return DD_CADD_FLOPS * log_len + 0.75 * DD_CMUL_FLOPS * radix4_with_products
+    return DD_CADD_INSTR * log_len + 0.75 * DD_CMUL_INSTR * radix4_with_products
+
+
+def fp32_instr_per_s() -> float:
+    """FP32 instructions the card issues per second: SMS * FP32_LANES lanes
+    at the SM clock ``nvidia-smi`` reports as its maximum."""
+    if not _SM_CLOCK_HZ:
+        mhz = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.split()[0]
+        _SM_CLOCK_HZ.append(float(mhz) * 1e6)
+    return SMS * FP32_LANES * _SM_CLOCK_HZ[0]
 
 
 def dd_bound(points: int, log_len: int, cmuls: int, table_floats: int = 0):
     """The bound of one dd pass of length-2^log_len DFTs over ``points``
     complex elements: four f32 planes read and written once (32 B per
-    element) plus the tables, against dd_dft_flops(log_len) +
-    DD_CMUL_FLOPS * cmuls f32 flops per element. Returns ``bound_ms`` (the
-    larger), ``bound_by``, and both times."""
+    element) plus the tables, against dd_dft_instr(log_len) +
+    DD_CMUL_INSTR * cmuls FP32 instructions per element at the card's issue
+    rate (dd arithmetic is single adds and multiplies: the FMA rate of
+    F32_FLOPS_PER_S would count each as two flops). Returns ``bound_ms``
+    (the larger), ``bound_by``, and both times (``bound_instr_ms`` for the
+    instructions)."""
     t_bytes = (32 * points + 4 * table_floats) / HBM_BYTES_PER_S * 1e3
-    flops = points * (dd_dft_flops(log_len) + DD_CMUL_FLOPS * cmuls)
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops}
+    instr = points * (dd_dft_instr(log_len) + DD_CMUL_INSTR * cmuls)
+    t_instr = instr / fp32_instr_per_s() * 1e3
+    return {"bound_ms": max(t_bytes, t_instr),
+            "bound_by": "bytes" if t_bytes >= t_instr else "operations",
+            "bound_bytes_ms": t_bytes, "bound_instr_ms": t_instr}
 
 
 def ddcol_bound(b: int, n1: int, n2: int, corr: bool = True):
@@ -985,9 +1020,17 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(log)
     ptxas = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
+    lib = _build.library()
+    resident = {"leaf3": lib.phastft_leaf3_clusters(),
+                **{f"leaf_n1_{n1}": lib.phastft_leaf_clusters(n1) for n1 in LEAF_CLUSTER_N1S},
+                **{f"ddleaf_n1_{n1}": lib.phastft_ddleaf_clusters(n1)
+                   for n1 in DD_LEAF_CLUSTER_N1S}}
     emit({"phase": "build", "seconds": build_s,
           "sources": sorted(os.listdir(_build.SRC_DIR)), "ptxas": ptxas,
-          "leaf3_resident_clusters": _build.library().phastft_leaf3_clusters()})
+          "resident_clusters": resident,
+          "fp32_instr_per_s": fp32_instr_per_s(), "sm_clock_hz": _SM_CLOCK_HZ[0]})
+    if min(resident.values()) < 1:
+        raise AssertionError(f"a cluster shape does not fit the card: {resident}")
 
     # -- parity: each kernel against its plain version on the same inputs
     rng = np.random.default_rng(2025)
@@ -1111,7 +1154,10 @@ def main() -> int:
     # -- leaf kernels: parity with the plain versions on an odd row count
     max_err.update(leaf=0.0, leaf3=0.0)
     shapes = [(log_n, LEAF_PARITY_ROWS) for log_n in LEAF_PARITY_LOGS]
-    for log_n, rows in shapes + [(16, rows) for rows in LEAF3_PARITY_ROWS]:
+    shapes += [(16, rows) for rows in LEAF3_PARITY_ROWS]
+    shapes += [(n1.bit_length() + 6, rows) for n1 in LEAF_CLUSTER_N1S
+               for rows in (1, resident[f"leaf_n1_{n1}"] + 1)]
+    for log_n, rows in shapes:
         n = 1 << log_n
         fn, plain, args, _ = leaf_call(PlannerDit32(n))
         re, im = signal(rng, (rows, n))
@@ -1508,7 +1554,8 @@ def main() -> int:
         del k, x
     for n1 in DD_LEAF_N1S:
         corr = leaf_corr(n1)
-        for rows in DD_LEAF_ROWS:
+        ragged = (resident[f"ddleaf_n1_{n1}"] + 1,) if n1 in DD_LEAF_CLUSTER_N1S else ()
+        for rows in DD_LEAF_ROWS + ragged:
             x = dd_quad((rows, n1 * 128))
             k = ddleaf(*x, corr, n1)
             torch.cuda.synchronize()
@@ -1650,7 +1697,8 @@ def main() -> int:
         emit({"phase": "times_dd", "kernel": "ddcol", "batch": 1, "n1": n1, "n2": n2,
               "card": smi, **row})
         del x
-    for n1, rows, with_plain in ((512, 256, True), (512, 2048, False), (64, 1 << 11, False)):
+    for n1, rows, with_plain in ((512, 256, True), (512, 2048, False), (64, 1 << 11, False),
+                                 (8, 1 << 14, False)):
         x = dd_quad((rows, n1 * 128))
         corr = leaf_corr(n1)
         bound = ddleaf_bound(rows, n1)
@@ -1938,8 +1986,8 @@ def main() -> int:
          "bound_ms": top[name]["bound_ms"], "bound_by": top[name]["bound_by"],
          "library_ms": top[name]["library_ms"], "n": top[name]["n"],
          "rows": top[name]["rows"],
-         **{k: top[name][k] for k in ("bound_bytes_ms", "bound_ops_ms", "kernel_tc_ms",
-                                      "kernel_ops_ms") if k in top[name]}}
+         **{k: top[name][k] for k in ("bound_bytes_ms", "bound_ops_ms", "bound_instr_ms",
+                                      "kernel_tc_ms", "kernel_ops_ms") if k in top[name]}}
         for name, (src, rep) in sources.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

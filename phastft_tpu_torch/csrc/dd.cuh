@@ -1,6 +1,6 @@
 // Double-float (dd) device arithmetic and in-place radix-2 DIF FFTs over dd
 // complex sequences held in shared memory, shared by the dd column kernels
-// (ddcol.cu) and the dd leaf kernels (ddleaf.cu).
+// (ddcol.cu, radix 2) and the dd leaf kernel (ddleaf.cu, radix 4).
 //
 // A dd value is an unevaluated sum hi + lo of two floats (~48 significand
 // bits). A dd complex array is four float planes: re_hi, re_lo, im_hi,
@@ -205,6 +205,144 @@ __device__ __forceinline__ void dif_fft(const Planes& s, int logN, int logM, int
       dif_pass<1>(s, logN, logL, logM, qs, is, qfast, tw);
       logL -= 1;
     }
+    __syncthreads();
+  }
+}
+
+// ---- radix-4 passes (the dd leaf kernel, ddleaf.cu) ----------------------
+//
+// A radix-4 DIF butterfly equals two radix-2 DIF stages with the outputs in
+// their bit-reversed places: on x0..x3 at r, r + Q, r + 2Q, r + 3Q of a span
+// L = 4Q, a = x0 + x2, b = x1 + x3, c = x0 - x2, d = -i(x1 - x3), out
+// a + b, (a - b) W_L^(2r), (c + d) W_L^r, (c - d) W_L^(3r). A product by -i
+// is a swap and a sign (exact); a butterfly of span 4 has r = 0 and drops
+// its products. Per point: 8 dd complex sums and 3 products over 4 points
+// (75.5 FP32 instructions, 81.5 flops), 44 at span 4, where two radix-2
+// stages with a product each take 2 * 43 (94 flops).
+
+__device__ __forceinline__ ddc mul_neg_i(ddc a) { return ddc{a.im, neg(a.re)}; }
+
+// W_N^k for 0 <= k < N, N = 2^logN, from the table of k < N/2:
+// W_N^(k + N/2) = -W_N^k, exact.
+__device__ __forceinline__ ddc twiddle(const float4* tw, int k, int logN) {
+  const int h = 1 << (logN - 1);
+  const ddc w = from_float4(tw[k & (h - 1)]);
+  return (k & h) ? ddc{neg(w.re), neg(w.im)} : w;
+}
+
+__device__ __forceinline__ ddc table_at(const ConstQuad& t, int i) {
+  return ddc{dd{__ldg(t.p[0] + i), __ldg(t.p[1] + i)},
+             dd{__ldg(t.p[2] + i), __ldg(t.p[3] + i)}};
+}
+
+// k: the index of W_L^r in the length-2^logN table; trivial: r = 0.
+__device__ __forceinline__ void radix4(ddc& x0, ddc& x1, ddc& x2, ddc& x3, int k,
+                                       int logN, const float4* tw, bool trivial) {
+  const ddc a = cadd(x0, x2), b = cadd(x1, x3);
+  const ddc c = csub(x0, x2), d = mul_neg_i(csub(x1, x3));
+  x0 = cadd(a, b);
+  if (trivial) {
+    x1 = csub(a, b);
+    x2 = cadd(c, d);
+    x3 = csub(c, d);
+  } else {
+    x1 = cmul(csub(a, b), twiddle(tw, 2 * k, logN));
+    x2 = cmul(cadd(c, d), twiddle(tw, k, logN));
+    x3 = cmul(csub(c, d), twiddle(tw, 3 * k, logN));
+  }
+}
+
+__device__ __forceinline__ void radix2(ddc& x0, ddc& x1, int k, int logN,
+                                       const float4* tw, bool trivial) {
+  const ddc a = x0, b = x1;
+  x0 = cadd(a, b);
+  x1 = trivial ? csub(a, b) : cmul(csub(a, b), twiddle(tw, k, logN));
+}
+
+// S radix-2 DIF stages on one group in registers, indexed as dif_group's,
+// taken as radix-4 butterflies and, for an odd S, a last radix-2 stage.
+template <int S>
+__device__ __forceinline__ void dif4_group(ddc (&x)[1 << S], int r, int logR, int logN,
+                                           int logL, const float4* tw) {
+#pragma unroll
+  for (int t = 0; t + 2 <= S; t += 2) {
+    const int h = 1 << (S - 2 - t);
+    const int shift = logN - logL + t;
+    const bool trivial = logL - t == 2;
+#pragma unroll
+    for (int j = 0; j < (1 << S); ++j) {
+      if (j & (3 * h)) continue;
+      const int q = r + ((j & (h - 1)) << logR);
+      radix4(x[j], x[j + h], x[j + 2 * h], x[j + 3 * h], q << shift, logN, tw, trivial);
+    }
+  }
+  if (S & 1) {
+    const int shift = logN - logL + S - 1;
+    const bool trivial = logL - (S - 1) == 1;
+#pragma unroll
+    for (int j = 0; j < (1 << S); j += 2) radix2(x[j], x[j + 1], r << shift, logN, tw, trivial);
+  }
+}
+
+// One pass of S stages over 2^logM sequences, laid out as dif_pass's. With
+// `fold` (the last pass of a leaf's F(n1), logL == S), each output is then
+// multiplied in registers by the correction corr[k1 * 128 + i2], k1 the
+// bit reverse of its position and i2 = col0 + (q mod 128).
+template <int S>
+__device__ __forceinline__ void dif4_pass(const Planes& s, int logN, int logL, int logM,
+                                          int qs, int is, bool qfast, const float4* tw,
+                                          const ConstQuad& corr, bool fold, int col0) {
+  const int logR = logL - S;
+  const int logG = logN - S;
+  const int items = 1 << (logG + logM);
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    int q, grp;
+    if (qfast) {
+      q = it & ((1 << logM) - 1);
+      grp = it >> logM;
+    } else {
+      grp = it & ((1 << logG) - 1);
+      q = it >> logG;
+    }
+    const int r = grp & ((1 << logR) - 1);
+    const int base = ((grp >> logR) << logL) + r;
+    ddc x[1 << S];
+    int a[1 << S];
+#pragma unroll
+    for (int j = 0; j < (1 << S); ++j) {
+      a[j] = pad(q * qs + (base + (j << logR)) * is);
+      x[j] = load(s, a[j]);
+    }
+    dif4_group<S>(x, r, logR, logN, logL, tw);
+    if (fold) {
+      const int i2 = col0 + (q & 127);
+#pragma unroll
+      for (int j = 0; j < (1 << S); ++j)
+        x[j] = cmul(x[j], table_at(corr, (bitrev(base + j, logN) << 7) + i2));
+    }
+#pragma unroll
+    for (int j = 0; j < (1 << S); ++j) store(s, a[j], x[j]);
+  }
+}
+
+// The stages from span 2^logL down of an in-place DIF FFT of every
+// sequence (logL = logN: the whole FFT): radix-4 trips, the last one of an
+// odd count a radix-8 (radix-4 then radix-2) in registers. `fold` folds
+// the correction into the last trip (dif4_pass). The caller synchronises
+// before; this function synchronises after every pass.
+__device__ __forceinline__ void dif4_fft(const Planes& s, int logN, int logL, int logM,
+                                         int qs, int is, bool qfast, const float4* tw,
+                                         const ConstQuad& corr, bool fold, int col0) {
+  while (logL > 0) {
+    const int S = logL == 3 ? 3 : logL == 1 ? 1 : 2;
+    const bool last = fold && logL == S;
+    if (S == 3)
+      dif4_pass<3>(s, logN, logL, logM, qs, is, qfast, tw, corr, last, col0);
+    else if (S == 1)
+      dif4_pass<1>(s, logN, logL, logM, qs, is, qfast, tw, corr, last, col0);
+    else
+      dif4_pass<2>(s, logN, logL, logM, qs, is, qfast, tw, corr, last, col0);
+    logL -= S;
     __syncthreads();
   }
 }

@@ -10,32 +10,47 @@
 //   u[k1, i2] = t[k1, i2] * W_n^(k1*i2)                 (planner table)
 //   X[k1 + n1*k2] = sum_i2 W_128^(k2*i2) u[k1, i2]      (F(128) over i2)
 //
-// Bound: near the balance point, as the dd column kernel is: 32 B per
-// complex element against 47 flops per element per radix-2 stage plus 50
-// for the correction (dd.cuh); at n = 2^16 that is 802 flops per element.
+// Bound: FP32 instruction issue. dd arithmetic is single-rounded adds and
+// multiplies (dd.cuh): a dd complex sum is 22 FP32 instructions, a product
+// 42. Radix-4 with the trivial twiddles dropped takes 75.5 per point per
+// radix-4 stage (44 at span 4); at n = 2^16 the kernel issues 614.5 per
+// point (the correction's 42 included) against 32 B of device memory: at
+// 132 SMs x 128 lanes x 1.98 GHz the instructions take ~2x the bytes' time.
 //
-// Design:
-// - A dd point is 16 B, so a block's shared memory holds 8 K points. Up to
-//   n = 2^13 one block holds R = max(1, 4096 / n) whole rows (one row at
-//   2^13), laid out (i1, r, i2) as the f32 leaf kernel lays them out: F(n1)
-//   runs over all R * 128 columns at once and F(128) over all n1 * R rows,
-//   and device memory is touched once each way. Rows go in gridDim.x (any
-//   batch); the last block masks its missing rows.
-// - Past 2^13 a row does not fit one block, so a cluster of C = n / 8192
-//   blocks (2, 4, 8: the portable limit) holds it, with no scratch in
-//   device memory. Block c runs F(n1) and the correction on the 128 / C
-//   columns i2 in [c*128/C, (c+1)*128/C); the blocks trade through
-//   distributed shared memory (each reads its 64 rows k1 in [64c, 64c + 64)
-//   from all blocks into registers, cluster barrier, writes them to its own
-//   buffer), and block c then runs F(128) on those rows and stores 64
-//   contiguous floats per k2.
-// - Loads and stores of device memory are contiguous float4s; the
-//   transposed output order is gathered from shared memory.
+// Design: nothing but latency stands between the two, so a block is small
+// enough for two to share an SM and overlap one's memory with the other's
+// arithmetic, and the trips through shared memory are few.
+// - A block holds 4096 dd points (64 KB of data, 78,848 B of shared memory
+//   with padding and twiddles) and runs 256 threads at <= 128 registers
+//   (__launch_bounds__(256, 2)).
+// - Radix-4 passes (dd.cuh dif4_pass): each thread takes 4 points through
+//   two stages in registers, the last trip of an odd count a radix-8; the
+//   products by -i are swaps, and a span-4 butterfly has none. The
+//   correction is multiplied in the registers of the last F(n1) trip.
+// - Up to n = 2^12 a block holds R = 4096 / n whole rows, laid out
+//   (i1, r, i2) so that F(n1) runs over all R * 128 columns at once and
+//   F(128) over all n1 * R rows. Rows go in gridDim.x (any batch); the last
+//   block masks its missing rows.
+// - From n = 2^13 a row of n1 = 32 * C points per column is held by a
+//   cluster of C = 2, 4, 8, 16 blocks (16 is a non-portable cluster size,
+//   set at launch; the entry refuses a shape no cluster of which fits the
+//   device). Block c loads the W = 128 / C columns i2 in [W c, W c + W) of
+//   every i1 (all loads of a thread in flight before the first store), runs
+//   F(n1) and the correction on them, and after a cluster barrier reads its
+//   32 rows k1 in [32c, 32c + 32) from every block straight into the first
+//   radix-4 pass of F(128), holding the 16 results a thread in registers
+//   until a second barrier says no block reads its buffer any more. The
+//   rest of F(128) runs in its own buffer; the stores write 32 contiguous
+//   floats per k2 and plane as 64-byte runs of four lanes.
+// - Loads and stores of device memory are float4s; the transposed output
+//   order is gathered from shared memory.
 // - Twiddles W_n1^k and W_128^k are dd pairs from tables the wrapper builds
-//   on the host in f64; the correction is the planner's ddleaf{n1} table.
+//   on the host in f64 (k < n/2; W^(k + n/2) = -W^k); the correction is the
+//   planner's ddleaf{n1} table.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "dd.cuh"
 
 namespace cg = cooperative_groups;
@@ -47,17 +62,20 @@ namespace ddk = phastft::ddk;
 namespace {
 
 constexpr int M = 128, LOGM = 7;
-constexpr int THREADS = 512;
-// Points a cluster block holds, and rows k1 it owns after the exchange.
-constexpr int LOCAL = 8192, KROWS = 64;
-constexpr int PER_THREAD = LOCAL / THREADS;
+constexpr int THREADS = 256;
+// Points a block holds, and rows k1 a cluster block owns after the exchange.
+constexpr int LOCAL = 4096, LOG_LOCAL = 12, KROWS = 32;
+constexpr int WORDS = padded_words(LOCAL);
+// float4 loads (and stores) of each plane per thread in a cluster block.
+constexpr int LOADS = LOCAL / 4 / THREADS;
+// Exchange items per thread: (k1 - 32c, r), the radix-4 over i2 = r + 32j.
+constexpr int ITEMS = KROWS * 32 / THREADS;
 
-__device__ __forceinline__ ddk::ddc table_at(const ddk::ConstQuad& t, int i) {
-  return ddk::ddc{ddk::dd{__ldg(t.p[0] + i), __ldg(t.p[1] + i)},
-                  ddk::dd{__ldg(t.p[2] + i), __ldg(t.p[3] + i)}};
+constexpr size_t smem_bytes(int n1) {
+  return 4 * sizeof(float) * WORDS + sizeof(float4) * (n1 / 2 + M / 2);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 ddleaf_kernel(ddk::ConstQuad x, const float* __restrict__ tw1t,
               const float* __restrict__ tw2t, ddk::ConstQuad corr, ddk::Quad out,
               long long batch, int logn1, int logr) {
@@ -65,9 +83,8 @@ ddleaf_kernel(ddk::ConstQuad x, const float* __restrict__ tw1t,
   const int n1 = 1 << logn1, rows = 1 << logr;
   const int logn = logn1 + LOGM;
   const int points = rows << logn;
-  const int words = padded_words(points);
-  const ddk::Planes s = ddk::make_planes(reinterpret_cast<float*>(smem4), words);
-  float4* tw1 = reinterpret_cast<float4*>(s.p[0] + 4 * words);  // W_n1^k, k < n1/2
+  const ddk::Planes s = ddk::make_planes(reinterpret_cast<float*>(smem4), WORDS);
+  float4* tw1 = reinterpret_cast<float4*>(s.p[0] + 4 * WORDS);  // W_n1^k, k < n1/2
   float4* tw2 = tw1 + n1 / 2;                                   // W_128^k, k < 64
 
   const long long row0 = static_cast<long long>(blockIdx.x) << logr;
@@ -78,36 +95,29 @@ ddleaf_kernel(ddk::ConstQuad x, const float* __restrict__ tw1t,
   if (n1 > 1) ddk::load_twiddles(tw1, n1, tw1t);
   ddk::load_twiddles(tw2, M, tw2t);
   // local flat index f = r*n + i1*128 + i2 -> shared (i1, r, i2)
-  for (int f = 4 * threadIdx.x; f < points; f += 4 * blockDim.x) {
+#pragma unroll 4
+  for (int f = 4 * threadIdx.x; f < points; f += 4 * THREADS) {
     const int r = f >> logn, j = f & ((1 << logn) - 1);
     const int w = pad(((j >> LOGM) << (logr + LOGM)) + (r << LOGM) + (j & (M - 1)));
+    float4 v[4];
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (f < valid) v = __ldg(reinterpret_cast<const float4*>(x.p[p] + base + f));
-      *reinterpret_cast<float4*>(s.p[p] + w) = v;
-    }
+    for (int p = 0; p < 4; ++p)
+      v[p] = f < valid ? __ldg(reinterpret_cast<const float4*>(x.p[p] + base + f))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) *reinterpret_cast<float4*>(s.p[p] + w) = v[p];
   }
   __syncthreads();
 
-  if (n1 > 1) {
-    // F(n1) over i1: R*128 sequences (the contiguous axis), stride R*128
-    ddk::dif_fft(s, logn1, logr + LOGM, 1, rows * M, true, tw1);
-    // shared row p of the i1 axis holds k1 = bitrev(p): W_n^(k1*i2)
-    for (int e = threadIdx.x; e < points; e += blockDim.x) {
-      const int i2 = e & (M - 1);
-      const int k1 = bitrev(e >> (logr + LOGM), logn1);
-      const int w = pad(e);
-      ddk::store(s, w, ddk::cmul(ddk::load(s, w), table_at(corr, k1 * M + i2)));
-    }
-    __syncthreads();
-  }
-
+  // F(n1) over i1: R*128 sequences (the contiguous axis), stride R*128; the
+  // correction W_n^(k1*i2) folded into the last trip
+  if (n1 > 1)
+    ddk::dif4_fft(s, logn1, logn1, logr + LOGM, 1, rows * M, true, tw1, corr, true, 0);
   // F(128) along every row of 128 contiguous elements: n1*R sequences
-  ddk::dif_fft(s, LOGM, logn1 + logr, M, 1, false, tw2);
+  ddk::dif4_fft(s, LOGM, LOGM, logn1 + logr, M, 1, false, tw2, corr, false, 0);
 
   // out[r*n + k1 + n1*k2] = shared (bitrev(k1), r, bitrev(k2))
-  for (int f = 4 * threadIdx.x; f < valid; f += 4 * blockDim.x) {
+  for (int f = 4 * threadIdx.x; f < valid; f += 4 * THREADS) {
     float v[4][4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -125,20 +135,18 @@ ddleaf_kernel(ddk::ConstQuad x, const float* __restrict__ tw1t,
   }
 }
 
-// One row of n = n1 * 128 points, n1 = 64 << LOGC, per cluster of 2^LOGC
-// blocks.
+// One row of n = n1 * 128 points, n1 = 32 << LOGC, per cluster of 2^LOGC
+// blocks (the cluster size is set at launch).
 template <int LOGC>
-__device__ __forceinline__ void cluster_body(const ddk::ConstQuad& x, const float* tw1t,
-                                             const float* tw2t,
-                                             const ddk::ConstQuad& corr,
-                                             const ddk::Quad& out) {
-  constexpr int LOGN1 = 6 + LOGC, N1 = 1 << LOGN1;
+__global__ void __launch_bounds__(THREADS, 2)
+ddleaf_cluster(ddk::ConstQuad x, const float* __restrict__ tw1t,
+               const float* __restrict__ tw2t, ddk::ConstQuad corr, ddk::Quad out) {
+  constexpr int LOGN1 = 5 + LOGC, N1 = 1 << LOGN1;
   constexpr int LOGW = LOGM - LOGC, W = 1 << LOGW;  // columns per block
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int words = padded_words(LOCAL);
-  const ddk::Planes s = ddk::make_planes(reinterpret_cast<float*>(smem4), words);
-  float4* tw1 = reinterpret_cast<float4*>(s.p[0] + 4 * words);
+  const ddk::Planes s = ddk::make_planes(reinterpret_cast<float*>(smem4), WORDS);
+  float4* tw1 = reinterpret_cast<float4*>(s.p[0] + 4 * WORDS);
   float4* tw2 = tw1 + N1 / 2;
 
   const int c = static_cast<int>(cluster.block_rank());
@@ -146,95 +154,105 @@ __device__ __forceinline__ void cluster_body(const ddk::ConstQuad& x, const floa
 
   ddk::load_twiddles(tw1, N1, tw1t);
   ddk::load_twiddles(tw2, M, tw2t);
-  // columns i2 in [W*c, W*c + W) of every i1, shared (i1, i2 - W*c)
-  for (int e = threadIdx.x; e < LOCAL / 4; e += blockDim.x) {
-    const int i1 = e >> (LOGW - 2), v4 = e & (W / 4 - 1);
-    const long long off = base + i1 * M + W * c + 4 * v4;
-    const int w = pad(i1 * W + 4 * v4);
+  // columns i2 in [W*c, W*c + W) of every i1, shared (i1, i2 - W*c); every
+  // load of a thread is in flight before the first store
+  float4 v[LOADS][4];
 #pragma unroll
-    for (int p = 0; p < 4; ++p)
-      *reinterpret_cast<float4*>(s.p[p] + w) =
-          __ldg(reinterpret_cast<const float4*>(x.p[p] + off));
-  }
-  __syncthreads();
-
-  ddk::dif_fft(s, LOGN1, LOGW, 1, W, true, tw1);
-  for (int e = threadIdx.x; e < LOCAL; e += blockDim.x) {
-    const int i2 = W * c + (e & (W - 1));
-    const int k1 = bitrev(e >> LOGW, LOGN1);
-    const int w = pad(e);
-    ddk::store(s, w, ddk::cmul(ddk::load(s, w), table_at(corr, k1 * M + i2)));
-  }
-
-  // exchange: block c gathers (k1 - 64c, i2) for k1 in [64c, 64c + 64) from
-  // every block into registers, then overwrites its own buffer once every
-  // block has read it
-  cluster.sync();
-  float xv[4][PER_THREAD];
-#pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
+  for (int j = 0; j < LOADS; ++j) {
     const int e = threadIdx.x + j * THREADS;
-    const int kl = e >> LOGM, i2 = e & (M - 1);
-    const int w = pad(bitrev(KROWS * c + kl, LOGN1) * W + (i2 & (W - 1)));
-    const unsigned src = static_cast<unsigned>(i2 >> LOGW);
+    const long long off = base + (e >> (LOGW - 2)) * M + W * c + 4 * (e & (W / 4 - 1));
 #pragma unroll
-    for (int p = 0; p < 4; ++p) xv[p][j] = cluster.map_shared_rank(s.p[p], src)[w];
+    for (int p = 0; p < 4; ++p) v[j][p] = __ldg(reinterpret_cast<const float4*>(x.p[p] + off));
   }
-  cluster.sync();
 #pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int w = pad(threadIdx.x + j * THREADS);
+  for (int j = 0; j < LOADS; ++j) {
+    const int e = threadIdx.x + j * THREADS;
+    const int w = pad((e >> (LOGW - 2)) * W + 4 * (e & (W / 4 - 1)));
 #pragma unroll
-    for (int p = 0; p < 4; ++p) s.p[p][w] = xv[p][j];
+    for (int p = 0; p < 4; ++p) *reinterpret_cast<float4*>(s.p[p] + w) = v[j][p];
   }
   __syncthreads();
 
-  // F(128) along each of the 64 rows k1 - 64c
-  ddk::dif_fft(s, LOGM, 6, M, 1, false, tw2);
+  // F(n1) over i1: W sequences (the contiguous axis), stride W, the
+  // correction folded into the last trip
+  ddk::dif4_fft(s, LOGN1, LOGN1, LOGW, 1, W, true, tw1, corr, true, W * c);
+  cluster.sync();
 
-  // out[k1 + n1*k2], k1 in [64c, 64c + 64): 64 contiguous floats per k2
-  for (int e = threadIdx.x; e < LOCAL / 4; e += blockDim.x) {
-    const int k2 = e >> 4, kl = 4 * (e & 15);
-    float v[4][4];
+  // exchange, straight into the first radix-4 pass of F(128): item (k_l, r)
+  // takes i2 = r + 32j, j < 4, of row k1 = 32c + k_l, held at shared row
+  // bitrev(k1) of block i2 / W, column i2 mod W
+  ddk::ddc y[ITEMS][4];
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int e = threadIdx.x + it * THREADS;
+    const int r = e & 31, kl = e >> 5;
+    const int row = bitrev(KROWS * c + kl, LOGN1) * W;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i2 = r + 32 * j;
+      const unsigned src = static_cast<unsigned>(i2 >> LOGW);
+      const int w = pad(row + (i2 & (W - 1)));
+      float f[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) f[p] = cluster.map_shared_rank(s.p[p], src)[w];
+      y[it][j] = ddk::ddc{ddk::dd{f[0], f[1]}, ddk::dd{f[2], f[3]}};
+    }
+    ddk::dif4_group<2>(y[it], r, 5, LOGM, LOGM, tw2);
+  }
+  // no block reads another's buffer past this point
+  cluster.sync();
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int e = threadIdx.x + it * THREADS;
+    const int r = e & 31, kl = e >> 5;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ddk::store(s, pad(kl * M + r + 32 * j), y[it][j]);
+  }
+  __syncthreads();
+
+  // the rest of F(128) (spans 32 .. 2) along each of the 32 rows k1 - 32c
+  ddk::dif4_fft(s, LOGM, 5, 5, M, 1, false, tw2, corr, false, 0);
+
+  // out[k1 + n1*k2], k1 in [32c, 32c + 32): 32 contiguous floats per k2 and
+  // plane, written by four neighbouring lanes as 64-byte runs; the other
+  // lanes take 8 k2 whose bit-reversed columns differ in their low 3 bits,
+  // so a warp's shared-memory reads are 4-way conflicted at most
+#pragma unroll 2
+  for (int j = 0; j < LOADS; ++j) {
+    const int lane = threadIdx.x & 31, rest = (threadIdx.x >> 5) + j * (THREADS / 32);
+    const int kl = 4 * ((lane & 3) + 4 * (rest & 1));
+    const int kb = 16 * (lane >> 2) + (rest >> 1);
+    const int col = bitrev(kb, LOGM);
+    float f[4][4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const int w = pad((kl + u) * M + bitrev(k2, LOGM));
+      const int w = pad((kl + u) * M + col);
 #pragma unroll
-      for (int p = 0; p < 4; ++p) v[p][u] = s.p[p][w];
+      for (int p = 0; p < 4; ++p) f[p][u] = s.p[p][w];
     }
-    const long long o = base + static_cast<long long>(k2) * N1 + KROWS * c + kl;
+    const long long o = base + static_cast<long long>(kb) * N1 + KROWS * c + kl;
 #pragma unroll
     for (int p = 0; p < 4; ++p)
-      *reinterpret_cast<float4*>(out.p[p] + o) =
-          make_float4(v[p][0], v[p][1], v[p][2], v[p][3]);
+      *reinterpret_cast<float4*>(out.p[p] + o) = make_float4(f[p][0], f[p][1], f[p][2], f[p][3]);
   }
 }
 
-#define PHASTFT_DDLEAF_CLUSTER(LOGC)                                                  \
-  __global__ void __cluster_dims__(1 << LOGC, 1, 1) __launch_bounds__(THREADS)        \
-  ddleaf_cluster##LOGC(ddk::ConstQuad x, const float* __restrict__ tw1t,              \
-                       const float* __restrict__ tw2t, ddk::ConstQuad corr,           \
-                       ddk::Quad out) {                                               \
-    cluster_body<LOGC>(x, tw1t, tw2t, corr, out);                                     \
+using ClusterKernel = void (*)(ddk::ConstQuad, const float*, const float*, ddk::ConstQuad,
+                               ddk::Quad);
+
+ClusterKernel cluster_kernel(int logc) {
+  switch (logc) {
+    case 1: return ddleaf_cluster<1>;  // n = 2^13, n1 = 64
+    case 2: return ddleaf_cluster<2>;  // n = 2^14, n1 = 128
+    case 3: return ddleaf_cluster<3>;  // n = 2^15, n1 = 256
+    default: return ddleaf_cluster<4>;  // n = 2^16, n1 = 512
   }
+}
 
-PHASTFT_DDLEAF_CLUSTER(1)  // n = 2^14, n1 = 128
-PHASTFT_DDLEAF_CLUSTER(2)  // n = 2^15, n1 = 256
-PHASTFT_DDLEAF_CLUSTER(3)  // n = 2^16, n1 = 512
-
-template <typename Kernel>
-int launch_cluster(Kernel kernel, int logc, const ddk::ConstQuad& x, const float* tw1t,
-                   const float* tw2t, const ddk::ConstQuad& corr, const ddk::Quad& out,
-                   long long batch, int n1, cudaStream_t s) {
-  if ((batch << logc) > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      4 * sizeof(float) * padded_words(LOCAL) + sizeof(float4) * (n1 / 2 + M / 2);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(batch << logc), THREADS, smem, s>>>(x, tw1t, tw2t, corr,
-                                                                     out);
-  return static_cast<int>(cudaGetLastError());
+// Clusters of 2^logc blocks resident at once, or minus the CUDA error code.
+int resident(int logc) {
+  return phastft::resident_clusters(cluster_kernel(logc), 1 << logc, THREADS,
+                                    smem_bytes(32 << logc));
 }
 
 }  // namespace
@@ -256,25 +274,33 @@ extern "C" int phastft_ddleaf(const float* xrh, const float* xrl, const float* x
   const ddk::ConstQuad x{{xrh, xrl, xih, xil}};
   const ddk::ConstQuad corr{{crh, crl, cih, cil}};
   const ddk::Quad out{{orh, orl, oih, oil}};
-  if (n1 == 128)
-    return launch_cluster(ddleaf_cluster1, 1, x, tw1t, tw2t, corr, out, batch, n1, s);
-  if (n1 == 256)
-    return launch_cluster(ddleaf_cluster2, 2, x, tw1t, tw2t, corr, out, batch, n1, s);
-  if (n1 == 512)
-    return launch_cluster(ddleaf_cluster3, 3, x, tw1t, tw2t, corr, out, batch, n1, s);
   const int logn1 = phastft::ilog2(n1);
+  if (n1 >= 64) {
+    const int logc = logn1 - 5;
+    static int resident[5] = {0, 0, 0, 0, 0};  // per logc, queried on first use
+    return phastft::launch_clusters(cluster_kernel(logc), 1 << logc, batch << logc, THREADS,
+                                    smem_bytes(n1), s, resident[logc], x, tw1t, tw2t, corr,
+                                    out);
+  }
   const int logn = logn1 + LOGM;
-  int logr = logn < 12 ? 12 - logn : 0;  // rows per block: 4 K points
+  int logr = LOG_LOCAL - logn;  // rows per block: 4 K points
   while (logr > 0 && (1LL << (logr - 1)) >= batch) --logr;
   const long long blocks = (batch + (1LL << logr) - 1) >> logr;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 4 * sizeof(float) * padded_words(1 << (logn + logr)) +
-                      sizeof(float4) * (n1 / 2 + M / 2);
+  const size_t smem = smem_bytes(n1);
   cudaError_t err = cudaFuncSetAttribute(
       ddleaf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = (1 << (logn + logr)) >= 8192 ? THREADS : 256;
-  ddleaf_kernel<<<static_cast<unsigned>(blocks), threads, smem, s>>>(
+  ddleaf_kernel<<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(
       x, tw1t, tw2t, corr, out, batch, logn1, logr);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The number of clusters of the ddleaf kernel at n1 = 64..512 (2, 4, 8, 16
+// blocks) the current device holds at once (the CUDA occupancy query), or
+// minus the CUDA error code.
+extern "C" int phastft_ddleaf_clusters(int n1) {
+  if (n1 < 64 || n1 > 512 || !phastft::is_pow2(n1))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return resident(phastft::ilog2(n1) - 5);
 }

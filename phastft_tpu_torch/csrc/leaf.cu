@@ -15,22 +15,30 @@
 // Bound: memory. Each element is read once and written once, 16 B per
 // complex element, against ~5*log2(n) flops per element.
 //
-// Design against that bound:
-// - Up to 2^14 points a block holds R = max(1, 8192/n) whole rows in
-//   shared memory, laid out (i1, r, i2), so that F(n1) runs over all R*m
-//   columns at once (stride R*m) and F(m) over all n1*R rows (stride 1):
-//   one radix pass serves every row of the block, and device memory is
-//   touched once each way. Rows go in gridDim.x (any batch); the last
-//   block masks its missing rows.
-// - Loads and stores are contiguous float4s: the transposed output order
-//   X[k1 + n1*k2] is gathered from shared memory, not scattered to device
-//   memory.
-// - At 2^15 a row (256 KB) does not fit one block's 227 KB, so a cluster
-//   of 2 blocks holds it: block c runs F(256) and the correction on the
-//   columns i2 in [64c, 64c + 64), the two trade halves through
-//   distributed shared memory (read into registers, cluster barrier,
-//   write), and block c then runs F(128) on the rows k1 in
-//   [128c, 128c + 128) and stores 128 contiguous floats per k2.
+// Design against that bound: every block holds 8192 points (64 KB of data,
+// ~74 KB of shared memory with padding and twiddles) and runs 256 threads
+// at <= 80 registers, so three blocks share an SM and one block's loads and
+// stores overlap another's radix passes (the design of leaf3.cu). Device
+// memory is touched once each way.
+// - Radix passes of up to four stages in registers (fft_smem.cuh
+//   dif_fft16): F(128) in two trips (4 + 3), F(256) in two (4 + 4); the
+//   correction is multiplied in the registers of the last F(n1) trip.
+// - Up to 2^13 points a block holds R = 8192/n whole rows, laid out
+//   (i1, r, i2), so that F(n1) runs over all R*m columns at once (stride
+//   R*m) and F(m) over all n1*R rows (stride 1). Rows go in gridDim.x (any
+//   batch); the last block masks its missing rows. Loads and stores are
+//   contiguous float4s: the transposed output order X[k1 + n1*k2] is
+//   gathered from shared memory, not scattered to device memory.
+// - At 2^14 and 2^15 a row is held by a cluster of C = 2 or 4 blocks
+//   (n1 = 64*C). Block c loads the W = 128/C columns i2 in [W c, W c + W)
+//   of every i1 (all loads of a thread in flight before the first store),
+//   runs F(n1) and the correction on them, and after a cluster barrier
+//   reads its 64 rows k1 in [64c, 64c + 64) from every block (distributed
+//   shared memory) straight into the first pass of F(128), a radix-16 over
+//   i2 = r + 8j, holding the 32 results a thread in registers until a
+//   second barrier says no block reads its buffer any more. The second
+//   pass of F(128) runs in its own buffer; the stores write 64 contiguous
+//   floats per k2 as 64-byte runs of four lanes.
 //
 // Twiddles come from the planner's tables, so this kernel computes from
 // the same bits as the plain version: W_n1^k is row 1 of F(n1), W_128^k
@@ -40,24 +48,36 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "fft_smem.cuh"
 
 namespace cg = cooperative_groups;
 using phastft::bitrev;
+using phastft::dif_fft16;
 using phastft::load_twiddles;
 using phastft::pad;
 using phastft::padded_words;
 
 namespace {
 
-// log2 of the points a block holds below 2^14 (R = 2^13 / n rows).
+// log2 of the points a block holds (R = 2^13 / n rows below 2^14).
 constexpr int LOG_BLOCK_POINTS = 13;
-constexpr int THREADS = 512;
-constexpr int CLUSTER_THREADS = 1024;
-// Complex elements each thread carries through the cluster exchange.
-constexpr int EXCHANGE_PER_THREAD = 16384 / CLUSTER_THREADS;
+constexpr int LOCAL = 1 << LOG_BLOCK_POINTS;
+constexpr int WORDS = padded_words(LOCAL);
+constexpr int THREADS = 256;
+constexpr int M = 128, LOGM = 7;
+// Rows k1 a cluster block owns after the exchange.
+constexpr int KROWS = 64;
+// float4 loads (and stores) of each plane per thread in a cluster block.
+constexpr int LOADS = LOCAL / 4 / THREADS;
+// Exchange items per thread: (k1 - 64c, r), the radix-16 over i2 = r + 8j.
+constexpr int ITEMS = KROWS * 8 / THREADS;
 
-__global__ void __launch_bounds__(THREADS)
+constexpr size_t smem_bytes(int n1, int m) {
+  return 2 * sizeof(float) * WORDS + sizeof(float2) * (n1 / 2 + m / 2);
+}
+
+__global__ void __launch_bounds__(THREADS, 3)
 leaf_kernel(const float* __restrict__ re, const float* __restrict__ im,
             const float* __restrict__ f1r, const float* __restrict__ f1i,
             const float* __restrict__ f2r, const float* __restrict__ f2i,
@@ -68,10 +88,9 @@ leaf_kernel(const float* __restrict__ re, const float* __restrict__ im,
   const int n1 = 1 << logn1, m = 1 << logm, rows = 1 << logr;
   const int logn = logn1 + logm;
   const int points = rows << logn;
-  const int words = padded_words(points);
   float* sr = reinterpret_cast<float*>(smem4);
-  float* si = sr + words;
-  float2* tw1 = reinterpret_cast<float2*>(si + words);  // W_n1^k, k < n1/2
+  float* si = sr + WORDS;
+  float2* tw1 = reinterpret_cast<float2*>(si + WORDS);  // W_n1^k, k < n1/2
   float2* tw2 = tw1 + n1 / 2;                           // W_m^k, k < m/2
 
   const long long row0 = static_cast<long long>(blockIdx.x) << logr;
@@ -82,7 +101,8 @@ leaf_kernel(const float* __restrict__ re, const float* __restrict__ im,
   load_twiddles(tw1, n1, f1r, f1i);
   load_twiddles(tw2, m, f2r, f2i);
   // local flat index f = r*n + i1*m + i2 -> shared (i1, r, i2)
-  for (int f = 4 * threadIdx.x; f < points; f += 4 * blockDim.x) {
+#pragma unroll 4
+  for (int f = 4 * threadIdx.x; f < points; f += 4 * THREADS) {
     const int r = f >> logn, j = f & ((1 << logn) - 1);
     const int w = pad(((j >> logm) << (logr + logm)) + (r << logm) + (j & (m - 1)));
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
@@ -102,27 +122,15 @@ leaf_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
   __syncthreads();
 
-  if (n1 > 1) {
-    // F(n1) over i1: R*m sequences (the contiguous axis), stride R*m
-    phastft::dif_fft(sr, si, logn1, logr + logm, 1, rows * m, true, tw1);
-    // shared row p of the (i1, r) axis holds k1 = bitrev(p): W_n^(k1*i2)
-    for (int e = threadIdx.x; e < points; e += blockDim.x) {
-      const int i2 = e & (m - 1);
-      const int k1 = bitrev(e >> (logr + logm), logn1);
-      const float c = __ldg(cr + k1 * m + i2), s = __ldg(ci + k1 * m + i2);
-      const int w = pad(e);
-      const float x = sr[w], y = si[w];
-      sr[w] = x * c - y * s;
-      si[w] = x * s + y * c;
-    }
-    __syncthreads();
-  }
-
+  // F(n1) over i1: R*m sequences (the contiguous axis), stride R*m; the
+  // correction W_n^(k1*i2) folded into its last trip
+  if (n1 > 1)
+    dif_fft16(sr, si, logn1, logn1, logr + logm, 1, rows * m, true, tw1, cr, ci, true, 0);
   // F(m) along every row of m contiguous elements: n1*R sequences
-  phastft::dif_fft(sr, si, logm, logn1 + logr, m, 1, false, tw2);
+  dif_fft16(sr, si, logm, logm, logn1 + logr, m, 1, false, tw2, nullptr, nullptr, false, 0);
 
   // out[r*n + k1 + n1*k2] = shared (bitrev(k1), r, bitrev(k2))
-  for (int f = 4 * threadIdx.x; f < valid; f += 4 * blockDim.x) {
+  for (int f = 4 * threadIdx.x; f < valid; f += 4 * THREADS) {
     float vr[4], vi[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -145,87 +153,126 @@ leaf_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
 }
 
-// n = 2^15 = 256 x 128, one row per cluster of 2 blocks.
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(CLUSTER_THREADS)
-leaf_cluster_kernel(const float* __restrict__ re, const float* __restrict__ im,
-                    const float* __restrict__ f1r, const float* __restrict__ f1i,
-                    const float* __restrict__ f2r, const float* __restrict__ f2i,
-                    const float* __restrict__ cr, const float* __restrict__ ci,
-                    float* __restrict__ ore, float* __restrict__ oim) {
-  constexpr int N1 = 256, LOGN1 = 8, M = 128, LOGM = 7, HALF = 64, N = N1 * M;
+// n = n1 * 128, n1 = 64 << LOGC, one row per cluster of 2^LOGC blocks (the
+// cluster size is set at launch).
+template <int LOGC>
+__global__ void __launch_bounds__(THREADS, 3)
+leaf_cluster(const float* __restrict__ re, const float* __restrict__ im,
+             const float* __restrict__ f1r, const float* __restrict__ f1i,
+             const float* __restrict__ f2r, const float* __restrict__ f2i,
+             const float* __restrict__ cr, const float* __restrict__ ci,
+             float* __restrict__ ore, float* __restrict__ oim) {
+  constexpr int LOGN1 = 6 + LOGC, N1 = 1 << LOGN1;
+  constexpr int LOGW = LOGM - LOGC, W = 1 << LOGW;  // columns per block
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int words = padded_words(N / 2);
   float* sr = reinterpret_cast<float*>(smem4);
-  float* si = sr + words;
-  float2* tw1 = reinterpret_cast<float2*>(si + words);
+  float* si = sr + WORDS;
+  float2* tw1 = reinterpret_cast<float2*>(si + WORDS);
   float2* tw2 = tw1 + N1 / 2;
 
   const int c = static_cast<int>(cluster.block_rank());
-  const long long base = (static_cast<long long>(blockIdx.x) >> 1) * N;
+  const long long base = (static_cast<long long>(blockIdx.x) >> LOGC) * (N1 * M);
 
   load_twiddles(tw1, N1, f1r, f1i);
   load_twiddles(tw2, M, f2r, f2i);
-  // columns i2 in [64c, 64c + 64) of every i1, shared (i1, i2 - 64c)
-  for (int e = threadIdx.x; e < N1 * HALF / 4; e += blockDim.x) {
-    const int i1 = e >> 4, v = e & 15;
-    const long long off = base + i1 * M + HALF * c + 4 * v;
-    const int w = pad(i1 * HALF + 4 * v);
-    *reinterpret_cast<float4*>(sr + w) = __ldg(reinterpret_cast<const float4*>(re + off));
-    *reinterpret_cast<float4*>(si + w) = __ldg(reinterpret_cast<const float4*>(im + off));
+  // columns i2 in [W*c, W*c + W) of every i1, shared (i1, i2 - W*c); every
+  // load of a thread is in flight before the first store
+  float4 a[LOADS], b[LOADS];
+#pragma unroll
+  for (int j = 0; j < LOADS; ++j) {
+    const int e = threadIdx.x + j * THREADS;
+    const long long off = base + (e >> (LOGW - 2)) * M + W * c + 4 * (e & (W / 4 - 1));
+    a[j] = __ldg(reinterpret_cast<const float4*>(re + off));
+    b[j] = __ldg(reinterpret_cast<const float4*>(im + off));
+  }
+#pragma unroll
+  for (int j = 0; j < LOADS; ++j) {
+    const int e = threadIdx.x + j * THREADS;
+    const int w = pad((e >> (LOGW - 2)) * W + 4 * (e & (W / 4 - 1)));
+    *reinterpret_cast<float4*>(sr + w) = a[j];
+    *reinterpret_cast<float4*>(si + w) = b[j];
   }
   __syncthreads();
 
-  phastft::dif_fft(sr, si, LOGN1, 6, 1, HALF, true, tw1);
-  for (int e = threadIdx.x; e < N / 2; e += blockDim.x) {
-    const int i2 = HALF * c + (e & (HALF - 1));
-    const int k1 = bitrev(e >> 6, LOGN1);
-    const float cs = __ldg(cr + k1 * M + i2), sn = __ldg(ci + k1 * M + i2);
-    const int w = pad(e);
-    const float x = sr[w], y = si[w];
-    sr[w] = x * cs - y * sn;
-    si[w] = x * sn + y * cs;
-  }
+  // F(n1) over i1: W sequences (the contiguous axis), stride W, the
+  // correction folded into the last trip
+  dif_fft16(sr, si, LOGN1, LOGN1, LOGW, 1, W, true, tw1, cr, ci, true, W * c);
+  cluster.sync();
 
-  // exchange: block c gathers (k1 - 128c, i2) for k1 in [128c, 128c + 128)
-  // from both blocks into registers, then overwrites its own buffer
-  cluster.sync();
-  float xr[EXCHANGE_PER_THREAD], xi[EXCHANGE_PER_THREAD];
+  // exchange, straight into the first pass of F(128): item (k_l, r) takes
+  // i2 = r + 8j, j < 16, of row k1 = 64c + k_l, held at shared row
+  // bitrev(k1) of block i2 / W, column i2 mod W
+  float yr[ITEMS][16], yi[ITEMS][16];
 #pragma unroll
-  for (int j = 0; j < EXCHANGE_PER_THREAD; ++j) {
-    const int e = threadIdx.x + j * CLUSTER_THREADS;
-    const int kl = e >> 7, i2 = e & (M - 1);
-    const int w = pad(bitrev(M * c + kl, LOGN1) * HALF + (i2 & (HALF - 1)));
-    const unsigned src = static_cast<unsigned>(i2 >> 6);
-    xr[j] = cluster.map_shared_rank(sr, src)[w];
-    xi[j] = cluster.map_shared_rank(si, src)[w];
+  for (int it = 0; it < ITEMS; ++it) {
+    const int e = threadIdx.x + it * THREADS;
+    const int r = e & 7, kl = e >> 3;
+    const int row = bitrev(KROWS * c + kl, LOGN1) * W;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int i2 = r + 8 * j;
+      const unsigned src = static_cast<unsigned>(i2 >> LOGW);
+      const int w = pad(row + (i2 & (W - 1)));
+      yr[it][j] = cluster.map_shared_rank(sr, src)[w];
+      yi[it][j] = cluster.map_shared_rank(si, src)[w];
+    }
+    phastft::dif_group<4>(yr[it], yi[it], r, 3, LOGM, LOGM, tw2);
   }
+  // no block reads another's buffer past this point
   cluster.sync();
 #pragma unroll
-  for (int j = 0; j < EXCHANGE_PER_THREAD; ++j) {
-    const int w = pad(threadIdx.x + j * CLUSTER_THREADS);
-    sr[w] = xr[j];
-    si[w] = xi[j];
+  for (int it = 0; it < ITEMS; ++it) {
+    const int e = threadIdx.x + it * THREADS;
+    const int r = e & 7, kl = e >> 3;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int w = pad(kl * M + r + 8 * j);
+      sr[w] = yr[it][j];
+      si[w] = yi[it][j];
+    }
   }
   __syncthreads();
 
-  // F(128) along each of the 128 rows k1 - 128c
-  phastft::dif_fft(sr, si, LOGM, 7, M, 1, false, tw2);
+  // the last three stages of F(128) along each of the 64 rows k1 - 64c
+  dif_fft16(sr, si, LOGM, 3, 6, M, 1, false, tw2, nullptr, nullptr, false, 0);
 
-  // out[k1 + 256*k2], k1 in [128c, 128c + 128): 128 contiguous floats per k2
-  for (int e = threadIdx.x; e < N / 8; e += blockDim.x) {
-    const int k2 = e >> 5, kl = 4 * (e & 31);
+  // out[k1 + n1*k2], k1 in [64c, 64c + 64): 64 contiguous floats per k2,
+  // written by four neighbouring lanes as 64-byte runs; the other lanes
+  // take 8 k2 whose bit-reversed columns differ in their low 3 bits, so a
+  // warp's shared-memory reads are 4-way conflicted at most
+#pragma unroll 2
+  for (int j = 0; j < LOADS; ++j) {
+    const int lane = threadIdx.x & 31, rest = (threadIdx.x >> 5) + j * (THREADS / 32);
+    const int kl = 4 * ((lane & 3) + 4 * (rest & 3));
+    const int kb = 16 * (lane >> 2) + (rest >> 2);
+    const int col = bitrev(kb, LOGM);
     float vr[4], vi[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const int w = pad((kl + u) * M + bitrev(k2, LOGM));
+      const int w = pad((kl + u) * M + col);
       vr[u] = sr[w];
       vi[u] = si[w];
     }
-    const long long o = base + static_cast<long long>(k2) * N1 + M * c + kl;
+    const long long o = base + static_cast<long long>(kb) * N1 + KROWS * c + kl;
     *reinterpret_cast<float4*>(ore + o) = make_float4(vr[0], vr[1], vr[2], vr[3]);
     *reinterpret_cast<float4*>(oim + o) = make_float4(vi[0], vi[1], vi[2], vi[3]);
   }
+}
+
+using ClusterKernel = void (*)(const float*, const float*, const float*, const float*,
+                               const float*, const float*, const float*, const float*,
+                               float*, float*);
+
+ClusterKernel cluster_kernel(int logc) {
+  return logc == 1 ? leaf_cluster<1>   // n = 2^14, n1 = 128
+                   : leaf_cluster<2>;  // n = 2^15, n1 = 256
+}
+
+// Clusters of 2^logc blocks resident at once, or minus the CUDA error code.
+int resident(int logc) {
+  return phastft::resident_clusters(cluster_kernel(logc), 1 << logc, THREADS,
+                                    smem_bytes(64 << logc, M));
 }
 
 }  // namespace
@@ -246,28 +293,33 @@ extern "C" int phastft_leaf(const float* re, const float* im, const float* f1r,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int logn1 = phastft::ilog2(n1), logm = phastft::ilog2(m);
-  if (n1 == 256) {
-    if (batch > 0x3fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = 2 * sizeof(float) * padded_words(n1 * m / 2) +
-                        sizeof(float2) * (n1 / 2 + m / 2);
-    cudaError_t err = cudaFuncSetAttribute(
-        leaf_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    leaf_cluster_kernel<<<static_cast<unsigned>(2 * batch), CLUSTER_THREADS, smem, s>>>(
-        re, im, f1r, f1i, f2r, f2i, cr, ci, ore, oim);
-    return static_cast<int>(cudaGetLastError());
+  if (n1 >= 128) {
+    const int logc = logn1 - 6;
+    static int resident[3] = {0, 0, 0};  // per logc, queried on first use
+    return phastft::launch_clusters(cluster_kernel(logc), 1 << logc, batch << logc, THREADS,
+                                    smem_bytes(n1, M), s, resident[logc], re, im, f1r, f1i,
+                                    f2r, f2i, cr, ci, ore, oim);
   }
   const int logn = logn1 + logm;
-  const int logr = logn < LOG_BLOCK_POINTS ? LOG_BLOCK_POINTS - logn : 0;
+  const int logr = LOG_BLOCK_POINTS - logn;
   const long long blocks = (batch + (1LL << logr) - 1) >> logr;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * sizeof(float) * padded_words(1 << (logn + logr)) +
-                      sizeof(float2) * (n1 / 2 + m / 2);
+  const size_t smem = smem_bytes(n1, m);
   cudaError_t err = cudaFuncSetAttribute(
       leaf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(leaf_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
   leaf_kernel<<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(
       re, im, f1r, f1i, f2r, f2i, cr, ci, ore, oim, batch, logn1, logm, logr);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The number of clusters of the leaf kernel at n1 = 128 or 256 (2 or 4
+// blocks) the current device holds at once (the CUDA occupancy query), or
+// minus the CUDA error code.
+extern "C" int phastft_leaf_clusters(int n1) {
+  if (n1 != 128 && n1 != 256) return -static_cast<int>(cudaErrorInvalidValue);
+  return resident(phastft::ilog2(n1) - 6);
 }

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "phastft_colfft": [_P] * 4 + [_L, _I, _I, _I, _L, _L, _P],
     "phastft_leaft": [_P] * 10 + [_L, _I, _I, _P],
     "phastft_leaf": [_P] * 10 + [_L, _I, _I, _P],
+    "phastft_leaf_clusters": [_I],
     "phastft_leaf3": [_P] * 12 + [_L, _P],
     "phastft_leaf3_clusters": [],
     "phastft_hybrid": [_P] * 8 + [_L, _I, _P],
@@ -49,6 +50,7 @@ _SIGNATURES = {
     "phastft_ddcol": [_P] * 17 + [_L, _I, _I, _P],
     "phastft_ddcol_nocorr": [_P] * 9 + [_L, _I, _I, _P],
     "phastft_ddleaf": [_P] * 14 + [_L, _I, _P],
+    "phastft_ddleaf_clusters": [_I],
     "phastft_dd_exact": [_P] * 6 + [_L, _P],
     # the oz kernels take a host array of their device pointers
     "phastft_ozcol": [_P, _L, _I, _I, _P],

@@ -17,9 +17,10 @@ paired-f32 arithmetic of ``ops/df64.py``.
 Each is a wrapper: on CUDA tensors it launches the hand-written kernel
 (``csrc/ddcol.cu``, ``csrc/ddleaf.cu``); on CPU tensors it runs its
 ``*_plain`` version, built from ``ops/df64.py``'s torch functions with the
-JAX package's radix-16 Stockham schedule. The kernels run radix-2 DIF
-stages and renormalise after every operation, so a kernel and its plain
-version agree on the joined f64 values to ~1e-14, not bit for bit.
+JAX package's radix-16 Stockham schedule. The kernels run DIF stages
+(``ddcol`` radix 2, ``ddleaf`` radix 4) and renormalise after every
+operation, so a kernel and its plain version agree on the joined f64
+values to ~1e-14, not bit for bit.
 """
 
 from __future__ import annotations
@@ -99,7 +100,8 @@ def _radix_tables(max_m: int, device: torch.device):
 def _dif_twiddles(m: int, device: torch.device):
     """W_m^k for k < m/2 as a (4, m/2) f32 tensor (re_hi, re_lo, im_hi,
     im_lo) on ``device``: exact f64 angles, split on the host. The step
-    twiddles of the kernels' radix-2 DIF stages."""
+    twiddles of the kernels' DIF stages (``ddleaf``'s radix-4 stages read
+    W_m^k for k >= m/2 as -W_m^(k - m/2), exact)."""
     ang = -2.0 * np.pi * np.arange(m // 2, dtype=np.float64) / m
     planes = np.stack(split_hi_lo(np.cos(ang)) + split_hi_lo(np.sin(ang)))
     return torch.from_numpy(np.ascontiguousarray(planes)).to(device)
@@ -312,10 +314,12 @@ def ddleaf(rh, rl, ih, il, corr, n1: int):
     launch adds one to ``ddleaf.launches``.
 
     Replaces ``phastft_tpu/ops/pallas_dd.py`` ``ddleaf_pallas``; unlike
-    it, it takes n1 = 1..4 and any batch. Up to 2^13 points a block holds
-    whole rows in shared memory; past that a cluster of 2, 4 or 8 blocks
-    holds one row and trades through distributed shared memory between
-    the two factors, with no scratch in device memory."""
+    it, it takes n1 = 1..4 and any batch. Blocks of 4096 points, two per
+    SM, run radix-4 dd stages with the correction folded into the last
+    F(n1) trip. Up to 2^12 points a block holds whole rows; from 2^13 a
+    cluster of 2, 4, 8 or 16 blocks holds one row and trades through
+    distributed shared memory between the two factors, with no scratch in
+    device memory."""
     planes = (rh, rl, ih, il)
     _, b = _check_leaf("ddleaf", planes, corr, n1)
     if rh.device.type == "cpu":

@@ -37,10 +37,10 @@ once and written once); the hybrid kernel runs its dense F(128)
 contraction on the tensor cores as three TF32 passes per product
 (3xTF32, see its source), 2304 flops per element. A block keeps whole rows
 in shared memory (several rows below 2^13 points) and stages its stores
-there, so loads and stores are contiguous float4 accesses; a row of 2^15
-points is held by a cluster of 2 blocks and one of 2^16 by a cluster of 8
-blocks of 2^13 points, which exchange the second factor's data through
-distributed shared memory.
+there, so loads and stores are contiguous float4 accesses; a row of 2^14,
+2^15 or 2^16 points is held by a cluster of 2, 4 or 8 blocks of 2^13
+points, which exchange the second factor's data through distributed shared
+memory.
 """
 
 from __future__ import annotations
@@ -254,11 +254,13 @@ def leaf(re, im, mats, n1: int):
     to ``leaf.launches``.
 
     Replaces ``phastft_tpu/ops/pallas_leaf.py`` ``leaf_fft_pallas`` (and
-    the XLA leaves at n <= 128). Bound by memory; the kernel holds whole
-    rows, several per block below 2^13 points, in shared memory and stages
-    the transposed store there so it writes contiguous float4s; at 2^15 a
-    cluster of 2 blocks holds a row and trades halves through distributed
-    shared memory. Any batch: rows go in ``gridDim.x``."""
+    the XLA leaves at n <= 128). Bound by memory; blocks of 8192 points,
+    three per SM, hold whole rows up to 2^13 points and stage the
+    transposed store in shared memory so it writes contiguous float4s; at
+    2^14 and 2^15 a cluster of 2 or 4 blocks holds a row and trades through
+    distributed shared memory. Radix passes of up to four stages, the
+    correction folded into the last F(n1) pass. Any batch: rows go in
+    ``gridDim.x``."""
     mats = tuple(mats)
     _, b, n = _check(re, im, mats, n1)
     if re.device.type == "cpu":
