@@ -11,23 +11,26 @@ on any failed check:
 1. ``device``: the card, and its name and power limit from ``nvidia-smi``.
 2. ``build``: builds the CUDA kernels from ``phastft_tpu_torch/csrc``, and
    prints the clusters of each cluster shape resident at once (the CUDA
-   occupancy query; none may be 0) and the FP32 issue rate of the dd
-   bounds.
+   occupancy query; none may be 0: ``leaf``, ``leaf3``, ``ddleaf``,
+   ``leaft`` at A = 8..128 and ``colfft`` at n1 = 1024, 2048 in its three
+   modes) and the FP32 issue rate of the dd bounds.
 3. ``parity``: each kernel against its plain torch version on the card, at
-   the slice's shapes (n1, n2) = (128, 8192), (1024, 16384), (2048, 16384)
-   and at a batch of 32 of (128, 16384), the inner level of a 2^26 nested
-   plan, rel L2 <= 1e-6.
+   the slice's shapes (n1, n2) = (128, 8192), (1024, 16384), (2048, 16384),
+   (128, 1024), at a batch of 32 of (128, 16384), the inner level of a 2^26
+   nested plan, and at a batch of 3 of (128, 4096), rel L2 <= 1e-6.
 4. ``e2e``: the split plans' main path through the public entries, launch
    counters set to 0 just before and read just after: ``fft_32_dit``
-   forward at 2^20, 2^24 and 2^25 against numpy's f64 FFT (rel L2 <= 5e-7 *
+   forward at 2^17, 2^19, 2^20, 2^24 and 2^25 against numpy's f64 FFT (rel L2 <= 5e-7 *
    max(1, log2(n)/18)), a round trip at 2^24 (<= 1e-6), and one
    ``PlannerDit32`` reused on a (4, 2^22) batch. Each transform must launch
    each two-pass kernel exactly once, and no leaf kernel.
 5. ``times``: device-time medians of 20 calls (CUDA events, the GPU kept
-   busy until the call is enqueued), L2 flushed before each, at 2^20, 2^24
-   and 2^25: each kernel, its plain version, the whole transform (and its
-   host-clock time), and ``torch.fft.fft`` on complex64 as a yardstick (the
-   port never calls it), beside each kernel's memory bound.
+   busy until the call is enqueued), L2 flushed before each, at 2^17, 2^20,
+   2^24 and 2^25: each kernel, its plain version, the whole transform (and
+   its host-clock time), and ``torch.fft.fft`` on complex64 as a yardstick
+   (the port never calls it), beside each kernel's memory bound; at 2^25
+   also the other route for the row work, ``leaf`` on the 2048 rows of 2^14
+   then ``transpose2``, beside ``leaft``.
 6. ``parity_leaf``: the leaf kernels against their plain versions on 257
    rows (an odd count): ``leaf`` at n = 2, 64, 128, 256, 4096, 2^13, 2^14,
    2^15, ``leaf3`` at 2^16, ``leaf3`` on 1 and 50 rows and ``leaf``'s
@@ -152,8 +155,10 @@ on any failed check:
    version, the default leaf kernel on the same rows, ``torch.fft.fft`` on
    complex64, and the transform with and without the hybrid leaf.
 23. ``parity_nocorr``: ``colfft_nocorr`` against its plain version at
-   (2048, 4096), (32, 2^14), (2, 2^16) and 3 x (128, 2^14), and ``colfft``
-   with ``n_total``/``col_base`` on a shard block of 2^25, rel L2 <= 1e-6.
+   (2048, 4096), (32, 2^14), (2, 2^16), 3 x (128, 2^14), (1024, 2^14),
+   3 x (2048, 4096) and 2 x (2048, 16) (narrower than a cluster's slab),
+   and ``colfft`` with ``n_total``/``col_base`` on a shard block of 2^25,
+   rel L2 <= 1e-6.
 24. ``dist``: ``torch.distributed`` on NCCL at world size 1 (a ``file://``
    store in the output directory), counters set to 0 just before and read
    just after, each transform's launches checked against its plan (one
@@ -164,7 +169,7 @@ on any failed check:
    (<= 1e-6), a ``permuted_input`` forward of the permuted signal against
    the natural spectrum, the inverse of N * delta (exactly ones), and
    ``batch_fft_sharded`` on (8, 2^20).
-25. ``times_dist``: ``colfft_nocorr`` at (2048, 2^14) beside its bound, its
+25. ``times_dist``: ``colfft_nocorr`` at (2048, 2^14) and (1024, 2^14) beside its bound, its
    plain version and ``torch.fft.fft(dim=-2)`` on complex64; three times
    over, the whole ``fft_distributed`` at 2^25 beside
    ``fft_32_dit_with_planner`` at 2^25, each on the device clock with its
@@ -195,9 +200,13 @@ F32_FLOPS_PER_S = 67e12
 #: plans' levels, and the inner level of a 2^26 nested plan on the outer
 #: level's 32 rows as one batch.
 PARITY_SHAPES = [(1, 128, 8192), (1, 1024, 16384), (1, 2048, 16384),
-                 (32, 128, 16384)]
-E2E_LOGS = (20, 24, 25)
-TIME_LOGS = (20, 24, 25)
+                 (32, 128, 16384), (1, 128, 1024), (1, 128, 2048), (3, 128, 4096)]
+E2E_LOGS = (17, 18, 19, 20, 24, 25)
+TIME_LOGS = (17, 20, 24, 25)
+#: A of the row kernel's cluster shapes (8 rows a cluster over A/8 blocks)
+#: and n1 of the column kernel's (a 32-column slab over n1/256 blocks).
+LEAFT_CLUSTER_AS = (8, 16, 32, 64, 128)
+COL_CLUSTER_N1S = (1024, 2048)
 LEAF_PARITY_LOGS = (1, 6, 7, 8, 12, 13, 14, 15, 16)
 LEAF_PARITY_ROWS = 257
 LEAF3_PARITY_ROWS = (1, 50)
@@ -295,9 +304,11 @@ HYBRID_FLOPS = 1 + 3 + 6
 #: (batch, n1, n2), a shard block of colfft (n1, n2, n_total, col_base), and
 #: batch_fft_sharded's rows.
 DIST_LOGS = (19, 25)
-NOCORR_SHAPES = ((1, 2048, 4096), (1, 32, 1 << 14), (1, 2, 1 << 16), (3, 128, 1 << 14))
+NOCORR_SHAPES = ((1, 2048, 4096), (1, 32, 1 << 14), (1, 2, 1 << 16), (3, 128, 1 << 14),
+                 (1, 1024, 1 << 14), (3, 2048, 4096), (2, 2048, 16))
 SHARD_BLOCK = (2048, 4096, 1 << 25, 8192)
-NOCORR_TIME = (2048, 1 << 14)
+#: (n1, n2) of the bare column pass's times; the first is the kernels line's.
+NOCORR_TIMES = ((2048, 1 << 14), (1024, 1 << 14))
 DIST_BATCH = (8, 1 << 20)
 DIST_TIME_REPEATS = 3
 OUT_DIR = "chiprun_out"
@@ -927,19 +938,20 @@ def dist_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         torch.cuda.empty_cache()
 
         # -- times: the bare column pass, and the whole distributed transform
-        n1, n2 = NOCORR_TIME
-        xr, xi = randn_pair((n1, n2))
-        xc = torch.complex(xr, xi)
-        bound = kernel_bound(n1 * n2, n1.bit_length() - 1)
-        top["colfft_nocorr"] = row = {
-            "ms": time_ms(lambda: colfft_nocorr(xr, xi, n1), flush, 10),
-            "plain_ms": time_ms(lambda: colfft_nocorr_plain(xr, xi, n1), flush, 3),
-            "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": time_ms(lambda: torch.fft.fft(xc, dim=-2), flush, 10),
-            "n": n1 * n2, "rows": 1}
-        emit({"phase": "times_dist", "kernel": "colfft_nocorr", "n1": n1, "n2": n2,
-              "card": smi, **row})
-        del xr, xi, xc
+        for n1, n2 in NOCORR_TIMES:
+            xr, xi = randn_pair((n1, n2))
+            xc = torch.complex(xr, xi)
+            bound = kernel_bound(n1 * n2, n1.bit_length() - 1)
+            row = {
+                "ms": time_ms(lambda: colfft_nocorr(xr, xi, n1), flush, 10),
+                "plain_ms": time_ms(lambda: colfft_nocorr_plain(xr, xi, n1), flush, 3),
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": time_ms(lambda: torch.fft.fft(xc, dim=-2), flush, 10),
+                "n": n1 * n2, "rows": 1}
+            emit({"phase": "times_dist", "kernel": "colfft_nocorr", "n1": n1, "n2": n2,
+                  "card": smi, **row})
+            top.setdefault("colfft_nocorr", row)  # the kernels line: the first shape
+            del xr, xi, xc
         n = 1 << max(DIST_LOGS)
         planner = PlannerDit32(n)
         xr, xi = randn_pair((n,))
@@ -1024,7 +1036,10 @@ def main() -> int:
     resident = {"leaf3": lib.phastft_leaf3_clusters(),
                 **{f"leaf_n1_{n1}": lib.phastft_leaf_clusters(n1) for n1 in LEAF_CLUSTER_N1S},
                 **{f"ddleaf_n1_{n1}": lib.phastft_ddleaf_clusters(n1)
-                   for n1 in DD_LEAF_CLUSTER_N1S}}
+                   for n1 in DD_LEAF_CLUSTER_N1S},
+                **{f"leaft_a_{a}": lib.phastft_leaft_clusters(a) for a in LEAFT_CLUSTER_AS},
+                **{f"colfft_n1_{n1}_mode_{mode}": lib.phastft_colfft_clusters(n1, mode)
+                   for n1 in COL_CLUSTER_N1S for mode in (0, 1, 2)}}
     emit({"phase": "build", "seconds": build_s,
           "sources": sorted(os.listdir(_build.SRC_DIR)), "ptxas": ptxas,
           "resident_clusters": resident,
@@ -1145,6 +1160,18 @@ def main() -> int:
               "transform_bound_ms": bound_a[0] + bound_b[0],
               "library_ms": time_ms(lambda: torch.fft.fft(xc), flush)})
         summary[log_n] = row
+        if log_n == max(TIME_LOGS):
+            # the other route for the same row work: the leaf kernel on the n1
+            # rows of n2, then transpose2 into the natural order
+            fn, _, args, _ = leaf_call(PlannerDit32(n2))
+            rows2 = (xr.view(n1, n2), xi.view(n1, n2))
+            lo = fn(*rows2, *args)
+            leaf_ms = time_ms(lambda: fn(*rows2, *args), flush)
+            tr_ms = time_ms(lambda: transpose2(*lo), flush)
+            emit({"phase": "times", "n": n, "route": "leaf rows + transpose2", "card": smi,
+                  "leaf_rows_ms": leaf_ms, "transpose2_ms": tr_ms,
+                  "sum_ms": leaf_ms + tr_ms, "leaft_ms": row["leaft"]["ms"]})
+            del lo
         del c3, xc
 
     top = summary[max(TIME_LOGS)]

@@ -1,5 +1,5 @@
 // Launching a kernel on thread-block clusters whose size is set at launch
-// (leaf.cu, ddleaf.cu). Up to 8 blocks a cluster is portable; 16 needs the
+// (leaf.cu, ddleaf.cu, colfft.cu, leaft.cu). Up to 8 blocks a cluster is portable; 16 needs the
 // kernel's non-portable opt-in, and whether such clusters fit at all is for
 // the occupancy query to say.
 #pragma once

@@ -1,7 +1,7 @@
 // In-place radix-2 DIF FFTs over sequences held in shared memory, shared by
 // the column kernel (colfft.cu), the row kernel (leaft.cu) and the leaf
-// kernels (leaf.cu, leaf3.cu; leaf.cu through dif_fft16, up to four stages
-// a trip with the correction folded into the last).
+// kernels (leaf.cu, leaf3.cu; leaf.cu and leaft.cu through dif_fft16, up to
+// four stages a trip with the correction folded into the last).
 //
 // A pass retires up to three radix-2 stages in registers: each thread loads
 // a group of 2^S elements, runs the S stages on them and stores them back,
@@ -122,12 +122,14 @@ __device__ __forceinline__ void dif_fft(float* sr, float* si, int logN, int logM
 // One pass as dif_pass; with `fold` (the last pass of a leaf's F(n1),
 // logL == S) each output is then multiplied in registers by the correction
 // (cr, ci)[k1 * 128 + i2], k1 the bit reverse of its position and
-// i2 = col0 + (q mod 128). For the leaf kernels (leaf.cu).
+// i2 = col0 + (q & colmask) (sequences that are rows of several 128-column
+// blocks pass a smaller mask). For leaf.cu and leaft.cu.
 template <int S>
 __device__ __forceinline__ void dif_pass_fold(float* sr, float* si, int logN, int logL,
                                               int logM, int qs, int is, bool qfast,
                                               const float2* tw, const float* cr,
-                                              const float* ci, bool fold, int col0) {
+                                              const float* ci, bool fold, int col0,
+                                              int colmask = 127) {
   const int logR = logL - S;
   const int logG = logN - S;
   const int items = 1 << (logG + logM);
@@ -152,7 +154,7 @@ __device__ __forceinline__ void dif_pass_fold(float* sr, float* si, int logN, in
     }
     dif_group<S>(xr, xi, r, logR, logN, logL, tw);
     if (fold) {
-      const int i2 = col0 + (q & 127);
+      const int i2 = col0 + (q & colmask);
 #pragma unroll
       for (int j = 0; j < (1 << S); ++j) {
         const int t = (bitrev(base + j, logN) << 7) + i2;
@@ -173,24 +175,30 @@ __device__ __forceinline__ void dif_pass_fold(float* sr, float* si, int logN, in
 // The stages from span 2^logL down of an in-place DIF FFT of every
 // sequence (logL = logN: the whole FFT) in the fewest trips of at most four
 // stages, balanced: F(128) as 4 + 3, F(256) as 4 + 4, F(64) as 3 + 3.
-// `fold` folds the correction into the last trip (dif_pass_fold). The
-// caller synchronises before; this function synchronises after every pass.
+// `fold` folds the correction into the last trip (dif_pass_fold, with
+// `colmask`). The caller synchronises before; this function synchronises
+// after every pass.
 __device__ __forceinline__ void dif_fft16(float* sr, float* si, int logN, int logL,
                                           int logM, int qs, int is, bool qfast,
                                           const float2* tw, const float* cr,
-                                          const float* ci, bool fold, int col0) {
+                                          const float* ci, bool fold, int col0,
+                                          int colmask = 127) {
   while (logL > 0) {
     const int trips = (logL + 3) >> 2;
     const int S = (logL + trips - 1) / trips;
     const bool last = fold && logL == S;
     if (S == 4)
-      dif_pass_fold<4>(sr, si, logN, logL, logM, qs, is, qfast, tw, cr, ci, last, col0);
+      dif_pass_fold<4>(sr, si, logN, logL, logM, qs, is, qfast, tw, cr, ci, last, col0,
+                         colmask);
     else if (S == 3)
-      dif_pass_fold<3>(sr, si, logN, logL, logM, qs, is, qfast, tw, cr, ci, last, col0);
+      dif_pass_fold<3>(sr, si, logN, logL, logM, qs, is, qfast, tw, cr, ci, last, col0,
+                         colmask);
     else if (S == 2)
-      dif_pass_fold<2>(sr, si, logN, logL, logM, qs, is, qfast, tw, cr, ci, last, col0);
+      dif_pass_fold<2>(sr, si, logN, logL, logM, qs, is, qfast, tw, cr, ci, last, col0,
+                         colmask);
     else
-      dif_pass_fold<1>(sr, si, logN, logL, logM, qs, is, qfast, tw, cr, ci, last, col0);
+      dif_pass_fold<1>(sr, si, logN, logL, logM, qs, is, qfast, tw, cr, ci, last, col0,
+                         colmask);
     logL -= S;
     __syncthreads();
   }

@@ -40,7 +40,9 @@ _L = ctypes.c_int64
 #: batch or row count whose product with n can pass 2^31 is c_int64.
 _SIGNATURES = {
     "phastft_colfft": [_P] * 4 + [_L, _I, _I, _I, _L, _L, _P],
+    "phastft_colfft_clusters": [_I, _I],
     "phastft_leaft": [_P] * 10 + [_L, _I, _I, _P],
+    "phastft_leaft_clusters": [_I],
     "phastft_leaf": [_P] * 10 + [_L, _I, _I, _P],
     "phastft_leaf_clusters": [_I],
     "phastft_leaf3": [_P] * 12 + [_L, _P],

@@ -332,10 +332,12 @@ def colfft(re, im, tabs, n1: int, *, n_total=None, col_base: int = 0):
     out3d=False)``, with ``n_total`` as its distributed callers use it;
     unlike it, it takes n1 = 2 and 4 and every n2. Bound by memory (16 B
     per complex element, read once and written once); the kernel keeps the
-    whole size-n1 DFT of a slab of about 8 K points (512 columns at
-    n1 <= 16 down to 16 at n1 = 512, 8 at 2048, never more than n2) in
-    shared memory, so it touches device memory once each way, with float4
-    loads and stores."""
+    whole size-n1 DFT of a slab in shared memory, so it touches device
+    memory once each way: at n1 = 1024 and 2048 (n2 >= 32) a 32-column slab
+    split over a cluster of n1/256 blocks of 8192 points, which trade
+    through distributed shared memory; otherwise a slab of about 8 K points
+    in one block (512 columns at n1 <= 16 down to 16 at n1 = 512, never
+    more than n2), with float4 loads and stores."""
     batch, b, n2 = _check_any("colfft", re, im, tabs, n1, n_total, col_base)
     if re.device.type == "cpu":
         return colfft_plain(re, im, tabs, n1, n_total=n_total,
@@ -359,8 +361,9 @@ def colfft_out3d(re, im, tabs, n1: int):
     ``colfft_out3d.launches``.
 
     Replaces ``phastft_tpu/ops/pallas_col.py`` ``colfft_pallas(...,
-    out3d=True)``. Bound by memory as ``colfft`` is; the slab is 16
-    columns (8 at n1 = 2048)."""
+    out3d=True)``. Bound by memory as ``colfft`` is; the slab is 32
+    columns on a cluster of n1/256 blocks at n1 = 1024 and 2048, else 16
+    columns in one block."""
     batch, b, n2 = _check("colfft_out3d", re, im, tabs, n1, col_tile3d)
     if re.device.type == "cpu":
         return colfft_out3d_plain(re, im, tabs, n1)

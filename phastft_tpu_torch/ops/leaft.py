@@ -12,7 +12,8 @@ The four-step's output transpose is the store index.
 kernel ``csrc/leaft.cu``; on CPU tensors it runs ``leaft_plain``, the same
 function in plain torch that follows the JAX kernel's arithmetic (dense
 Karatsuba products with F(A) and F(128)). The kernel is bound by memory;
-its strided stores are its known limit (see the note in its source).
+a cluster of its blocks owns 8 consecutive rows, so that each store writes
+8 contiguous floats (see the note in its source).
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ __all__ = ["M_LANES", "leaft_tables_host", "leaft", "leaft_plain"]
 
 #: Second leaf factor (the lane axis of the column pass's 3-d output).
 M_LANES = 128
+
+#: Consecutive rows k1 a cluster of the kernel holds: on CUDA n1 must be a
+#: multiple (every fused level has n1 = 128..2048).
+KERNEL_ROWS = 8
 
 
 @functools.lru_cache(maxsize=64)
@@ -120,10 +125,11 @@ def leaft(cre, cim, mats, n1: int):
     ``leaft.launches``.
 
     Replaces ``phastft_tpu/ops/pallas_leaft.py`` ``leaft_pallas``. Bound
-    by memory (16 B per complex element, read once and written once); the
-    kernel keeps one whole row (up to 128 KB) in shared memory and reads
-    it with float4 loads, but its stores are strided by n1 (one float per
-    32-byte sector), its known limit."""
+    by memory (16 B per complex element, read once and written once); a
+    cluster of A/8 blocks of 8192 points holds 8 consecutive rows (n1 must
+    be a multiple of 8 on CUDA), reads them with float4 loads, trades the
+    two factors through distributed shared memory and writes 8 contiguous
+    floats per output run."""
     batch, b, a = _check(cre, cim, mats, n1)
     if cre.device.type == "cpu":
         return leaft_plain(cre, cim, mats, n1)
@@ -131,6 +137,9 @@ def leaft(cre, cim, mats, n1: int):
         raise ValueError(f"leaft: unsupported device {cre.device}")
     if not all(x.is_contiguous() for x in (cre, cim, *mats)):
         raise ValueError("leaft: inputs must be contiguous")
+    if n1 % KERNEL_ROWS:
+        raise ValueError(f"leaft: the kernel takes n1 a multiple of "
+                         f"{KERNEL_ROWS}, got {n1}")
     if cre.data_ptr() % 16 or cim.data_ptr() % 16:
         raise ValueError("leaft: inputs must be 16-byte aligned")
     f1r, f1i, _, f2r, f2i, _, cr, ci = mats
