@@ -12,8 +12,10 @@ on any failed check:
 2. ``build``: builds the CUDA kernels from ``phastft_tpu_torch/csrc``, and
    prints the clusters of each cluster shape resident at once (the CUDA
    occupancy query; none may be 0: ``leaf``, ``leaf3``, ``ddleaf``,
-   ``leaft`` at A = 8..128 and ``colfft`` at n1 = 1024, 2048 in its three
-   modes) and the FP32 issue rate of the dd bounds.
+   ``leaft`` at A = 8..128, ``colfft`` at n1 = 1024, 2048 in its three
+   modes, ``ozleaft`` at A = 8..64, and ``ozcol``'s blocks per SM), the
+   ``-Xptxas -v`` lines of the two oz kernels, and the FP32 issue rate of the
+   dd bounds.
 3. ``parity``: each kernel against its plain torch version on the card, at
    the slice's shapes (n1, n2) = (128, 8192), (1024, 16384), (2048, 16384),
    (128, 1024), at a batch of 32 of (128, 16384), the inner level of a 2^26
@@ -21,8 +23,9 @@ on any failed check:
 4. ``e2e``: the split plans' main path through the public entries, launch
    counters set to 0 just before and read just after: ``fft_32_dit``
    forward at 2^17, 2^19, 2^20, 2^24 and 2^25 against numpy's f64 FFT (rel L2 <= 5e-7 *
-   max(1, log2(n)/18)), a round trip at 2^24 (<= 1e-6), and one
-   ``PlannerDit32`` reused on a (4, 2^22) batch. Each transform must launch
+   max(1, log2(n)/18)), a round trip at 2^24 (<= 1e-6), one
+   ``PlannerDit32`` reused on a (4, 2^22) batch, and 2^20 on planes that
+   are views 4 bytes past a 16-byte boundary. Each transform must launch
    each two-pass kernel exactly once, and no leaf kernel.
 5. ``times``: device-time medians of 20 calls (CUDA events, the GPU kept
    busy until the call is enqueued), L2 flushed before each, at 2^17, 2^20,
@@ -113,12 +116,15 @@ on any failed check:
    per stage) and 42 per dd complex product of a correction.
 
 16. ``oz_exact``: the bf16 tensor-core product of ``csrc/oz.cuh`` alone on
-   random integer slices |s| <= 128 (128 x 64 outputs) at depths 32, 64, 128
-   and 512, equal to the int64 product bit for bit.
+   random integer slices |s| <= 128 (128 x 64 outputs), by the oz kernels'
+   path (cp.async tiles, ldmatrix, wgmma accumulating in place): one slice
+   pair at depths 32, 64, 128 and 512, and a tier's five pairs in one
+   accumulator at depths 16..512, equal to the int64 product bit for bit.
 17. ``parity_oz``: the Ozaki kernels against their plain versions on a
    ``PlannerDit64``'s tables, rel L2 <= 1e-13 on joined values (and whether
    they agree bit for bit): ``ozcol`` at (n1, n2) = (128, 8192), (2048,
-   8192), (512, 2048), 3 x (256, 1024) and 4 x (128, 8192); ``ozleaft`` at
+   8192), (512, 2048), 3 x (256, 1024), 4 x (128, 8192) and (1024, 2048);
+   ``ozleaft`` at
    A = 8, 16, 32, 64 and n1 = 128, 2048 on 3 entries, each also within 1e-10
    of an f64 FFT of the transform it ends.
 18. ``e2e_oz``: the ``f64_engine="df64-oz"`` main path, counters set to 0
@@ -132,7 +138,9 @@ on any failed check:
    kernels alone.
 19. ``times_oz``: as 15 at 2^20 and 2^24: ``ozcol`` and ``ozleaft`` with
    their plain versions (3 calls) and bounds, the whole oz transform (device
-   and host clock), the df64 transform and complex128 ``torch.fft.fft``. The
+   and host clock), the df64 transform and complex128 ``torch.fft.fft``;
+   and both kernels on the inner level of the nested 2^26 plan (64 x (128,
+   8192)) beside their bounds. The
    oz bound is the larger of 32 B per element plus the tables over the memory
    rate and the bf16 tensor-core flops of the JAX kernels' counts over
    989 TFLOP/s (``oz_bound``).
@@ -269,8 +277,16 @@ _SM_CLOCK_HZ = []
 #: pass's; (log2 n, leaf) of the transforms; the f64 contract bound.
 OZ_EXACT_ROWS, OZ_EXACT_COLS = 128, 64
 OZ_EXACT_DEPTHS = (32, 64, 128, 512)
+#: Depths of the exact product of a tier's five slice pairs in one
+#: accumulator (the oz kernels' accumulation chain).
+OZ_EXACT_TIER_DEPTHS = (16, 32, 64, 128, 256, 512)
+OZ_TIER_PAIRS = 5
 OZ_COL_SHAPES = ((1, 128, 8192), (1, 2048, 8192), (1, 512, 2048), (3, 256, 1024),
-                 (4, 128, 8192))
+                 (4, 128, 8192), (1, 1024, 2048))
+#: A of ozleaft's cluster shapes (8 rows a cluster over A/8 blocks).
+OZ_LEAF_CLUSTER_AS = (8, 16, 32, 64)
+#: The inner level of the nested 2^26 "df64-oz" plan: (batch, n1, n2).
+OZ_INNER_LEVEL = (64, 128, 8192)
 OZ_LEAF_AS = (8, 16, 32, 64)
 OZ_LEAF_N1S = (128, 2048)
 OZ_LEAF_BATCH = 3
@@ -570,21 +586,21 @@ def ddleaf_bound(rows: int, n1: int):
     return dd_bound(rows * n1 * 128, n1.bit_length() - 1 + 7, 0, tables)
 
 
-def oz_bound(kind: str, n: int, n1: int):
-    """The bound of an oz pass over n points (a split level n1 x n2): four
-    f32 planes read and written once (32 B per element) plus the tables,
-    against the bf16 tensor-core flops of the JAX kernels' own counts
-    (pallas_ozdd.py:275 and :404): 90 * n1/4 per element for ``ozcol``,
-    90 * (A + 128) for ``ozleaft``."""
+def oz_bound(kind: str, n: int, n1: int, batch: int = 1):
+    """The bound of an oz pass over ``batch`` entries of n points (a split
+    level n1 x n2): four f32 planes read and written once (32 B per
+    element) plus the tables, against the bf16 tensor-core flops of the JAX
+    kernels' own counts (pallas_ozdd.py:275 and :404): 90 * n1/4 per element
+    for ``ozcol``, 90 * (A + 128) for ``ozleaft``."""
     n2 = n // n1
     a, m = n2 // 128, n1 // 4
     if kind == "ozcol":
         tables = 2 * 15 * m * m + 16 * (4 * m + n1 * (n2 // 256) + n1 * 256)
-        flops = 90 * m * n
+        flops = 90 * m * n * batch
     else:
         tables = 2 * 15 * (a * a + 128 * 128) + 16 * a * 128
-        flops = 90 * (a + 128) * n
-    t_bytes = (32 * n + tables) / HBM_BYTES_PER_S * 1e3
+        flops = 90 * (a + 128) * n * batch
+    t_bytes = (32 * n * batch + tables) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1039,9 +1055,18 @@ def main() -> int:
                    for n1 in DD_LEAF_CLUSTER_N1S},
                 **{f"leaft_a_{a}": lib.phastft_leaft_clusters(a) for a in LEAFT_CLUSTER_AS},
                 **{f"colfft_n1_{n1}_mode_{mode}": lib.phastft_colfft_clusters(n1, mode)
-                   for n1 in COL_CLUSTER_N1S for mode in (0, 1, 2)}}
+                   for n1 in COL_CLUSTER_N1S for mode in (0, 1, 2)},
+                **{f"ozleaft_a_{a}": lib.phastft_ozleaft_clusters(a) for a in OZ_LEAF_CLUSTER_AS},
+                "ozcol_blocks_per_sm": lib.phastft_ozcol_blocks()}
+    oz_ptxas, section = [], ""
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            section = ln[3:].strip()
+        elif section in ("ozcol.cu", "ozleaft.cu") and ("Used" in ln or "spill" in ln
+                                                        or "Compiling" in ln):
+            oz_ptxas.append(f"{section}: {ln.strip()}")
     emit({"phase": "build", "seconds": build_s,
-          "sources": sorted(os.listdir(_build.SRC_DIR)), "ptxas": ptxas,
+          "sources": sorted(os.listdir(_build.SRC_DIR)), "ptxas": ptxas, "oz_ptxas": oz_ptxas,
           "resident_clusters": resident,
           "fp32_instr_per_s": fp32_instr_per_s(), "sm_clock_hz": _SM_CLOCK_HZ[0]})
     if min(resident.values()) < 1:
@@ -1111,6 +1136,22 @@ def main() -> int:
         err = oracle_err(out, re + 1j * im)
         errs.setdefault("planner_2^22_batch4", []).append(err)
         check("planner reuse 2^22 x4", err, 5e-7 * max(1.0, 22 / 18.0))
+    # planes that start 4 bytes past a 16-byte boundary: the entry copies them
+    n = 1 << 20
+    re, im = signal(rng, (n,))
+    views = []
+    for plane in (re, im):
+        buf = torch.zeros(n + 4, dtype=torch.float32, device=dev)
+        buf[1:1 + n] = torch.from_numpy(plane).to(dev)
+        views.append(buf[1:1 + n])
+    if any(v.data_ptr() % 16 == 0 for v in views):
+        raise AssertionError("the unaligned views are aligned")
+    out = fft_32_dit(views[0], views[1], Direction.Forward)
+    transforms += 1
+    err = oracle_err(out, re + 1j * im)
+    errs["fwd_2^20_unaligned_view"] = err
+    check("fft_32_dit 2^20 on unaligned views", err, 5e-7 * max(1.0, 20 / 18.0))
+    del views
     torch.cuda.synchronize()
     launches = {"colfft_out3d": colfft_out3d.launches, "leaft": leaft.launches}
     emit({"phase": "e2e", "rel_l2": errs, "transforms": transforms,
@@ -1803,7 +1844,7 @@ def main() -> int:
         a16, b16 = ia.to(torch.bfloat16), ib.to(torch.bfloat16)
         d = torch.empty((OZ_EXACT_ROWS, OZ_EXACT_COLS), device=dev)
         rc = _build.library().phastft_oz_exact(
-            a16.data_ptr(), b16.data_ptr(), d.data_ptr(), OZ_EXACT_ROWS, OZ_EXACT_COLS,
+            a16.data_ptr(), b16.data_ptr(), d.data_ptr(), 1, OZ_EXACT_ROWS, OZ_EXACT_COLS,
             depth, stream)
         torch.cuda.synchronize()
         if rc != 0:
@@ -1813,6 +1854,27 @@ def main() -> int:
                         and bool((d == d.round()).all()),
                         "max_abs_err": float((d.double() - want.double()).abs().max()),
                         "max_abs_sum": float(want.abs().max())}
+        del ia, ib, a16, b16, d, want
+    for depth in OZ_EXACT_TIER_DEPTHS:
+        # a tier: five slice pairs into one accumulator, chunk after chunk
+        shape_a = (OZ_TIER_PAIRS, OZ_EXACT_ROWS, depth)
+        shape_b = (OZ_TIER_PAIRS, OZ_EXACT_COLS, depth)
+        ia = torch.randint(-128, 129, shape_a, generator=gen, device=dev)
+        ib = torch.randint(-128, 129, shape_b, generator=gen, device=dev)
+        a16, b16 = ia.to(torch.bfloat16), ib.to(torch.bfloat16)
+        d = torch.empty((OZ_EXACT_ROWS, OZ_EXACT_COLS), device=dev)
+        rc = _build.library().phastft_oz_exact(
+            a16.data_ptr(), b16.data_ptr(), d.data_ptr(), OZ_TIER_PAIRS, OZ_EXACT_ROWS,
+            OZ_EXACT_COLS, depth, stream)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"oz_exact: CUDA error {rc}")
+        want = sum(ia[q].cpu() @ ib[q].cpu().T for q in range(OZ_TIER_PAIRS)).to(dev)
+        exact[f"tier_{depth}"] = {"pairs": OZ_TIER_PAIRS,
+                                  "equal": bool((d.to(torch.int64) == want).all())
+                                  and bool((d == d.round()).all()),
+                                  "max_abs_err": float((d.double() - want.double()).abs().max()),
+                                  "max_abs_sum": float(want.abs().max())}
         del ia, ib, a16, b16, d, want
     emit({"phase": "oz_exact", "rows": OZ_EXACT_ROWS, "cols": OZ_EXACT_COLS,
           "depths": exact})
@@ -1973,6 +2035,19 @@ def main() -> int:
         top.update(row)  # the kernels line: the last (largest) shape
         del xr, xi, xc
         torch.cuda.empty_cache()
+    # the inner level of the nested 2^26 plan: 64 entries of (128, 8192)
+    b, n1, n2 = OZ_INNER_LEVEL
+    ct, lt = oz_tables(n1, n2)
+    x = dd_quad((b, n1, n2))
+    c = ozcol(*x, ct, n1)
+    inner = {"ozcol": {"ms": time_ms(lambda: ozcol(*x, ct, n1), flush, 10),
+                       **oz_bound("ozcol", n1 * n2, n1, b)},
+             "ozleaft": {"ms": time_ms(lambda: ozleaft(*c, lt, n1), flush, 10),
+                         **oz_bound("ozleaft", n1 * n2, n1, b)}}
+    emit({"phase": "times_oz", "level": "inner level of 2^26", "batch": b, "n1": n1, "n2": n2,
+          "card": smi, "kernels": inner})
+    del x, c
+    torch.cuda.empty_cache()
 
     # -- the hybrid leaf, then the distributed four-step at world size 1
     hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err)

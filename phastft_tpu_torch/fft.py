@@ -90,8 +90,11 @@ def _coerce_direction(direction) -> Direction:
 
 
 def _as_tensor(x, planner) -> torch.Tensor:
-    """``x`` as a contiguous tensor of the planner's dtype on its device
-    (converted from another dtype, as the JAX package converts it)."""
+    """``x`` as a contiguous, 16-byte aligned tensor of the planner's dtype
+    on its device (converted from another dtype, as the JAX package
+    converts it). The kernels load float4s, so a view that starts off a
+    16-byte boundary (``buf[1:1 + n]``) is copied; an aligned contiguous
+    tensor of the right dtype is returned as it is."""
     device = planner.device
     if isinstance(x, torch.Tensor):
         if x.device != device:
@@ -99,11 +102,15 @@ def _as_tensor(x, planner) -> torch.Tensor:
                 f"input is on {x.device} but the planner is on {device}"
             )
         want = torch.float64 if planner.dtype == np.float64 else torch.float32
-        return x.to(want).contiguous()
-    arr = np.ascontiguousarray(np.asarray(x, dtype=planner.dtype))
-    if not arr.flags.writeable:  # torch tensors cannot wrap read-only memory
-        arr = arr.copy()
-    return torch.from_numpy(arr).to(device)
+        out = x.to(want).contiguous()
+    else:
+        arr = np.ascontiguousarray(np.asarray(x, dtype=planner.dtype))
+        if not arr.flags.writeable:  # torch tensors cannot wrap read-only memory
+            arr = arr.copy()
+        out = torch.from_numpy(arr).to(device)
+    if out.data_ptr() % 16:
+        out = out.clone()
+    return out
 
 
 def _length(x) -> int:

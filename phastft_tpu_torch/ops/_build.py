@@ -57,7 +57,9 @@ _SIGNATURES = {
     # the oz kernels take a host array of their device pointers
     "phastft_ozcol": [_P, _L, _I, _I, _P],
     "phastft_ozleaft": [_P, _L, _I, _I, _P],
-    "phastft_oz_exact": [_P] * 3 + [_I, _I, _I, _P],
+    "phastft_ozcol_blocks": [],
+    "phastft_ozleaft_clusters": [_I],
+    "phastft_oz_exact": [_P] * 3 + [_I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

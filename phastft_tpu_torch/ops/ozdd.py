@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -46,6 +47,8 @@ __all__ = [
     "ozcol_tables_host",
     "ozleaft_tables_host",
     "slice_count",
+    "ozcol_card",
+    "ozleaft_card",
     "ozcol",
     "ozcol_plain",
     "ozleaft",
@@ -144,6 +147,77 @@ def slice_count(key: str) -> int:
     """How many leading arrays of the oz table set under the JAX planner's
     ``key`` (``ozcol{n1}x{n2}`` or ``ozleafT{n2}``) are slice arrays."""
     return OZCOL_SLICES if key.startswith("ozcol") else OZLEAFT_SLICES
+
+
+# ------------------------------------------------------- card-layout tables
+#: The kernels' slice tiles: 16 depths of ``rows`` rows of each of the 15
+#: slice arrays, in wgmma's K-major layout without swizzle (csrc/oz.cuh
+#: tile_word): cores of 8 rows x 8 depths, the two depth halves 64
+#: half-words apart, groups of 8 rows 128 apart.
+TILE_DEPTH = 16
+OZCOL_TILE_ROWS = 32      # rows k_m of ozcol's block tile
+OZLEAFT_PASS_ROWS = 32    # rows k_M of F(128) in an ozleaft stage-2 pass
+
+
+def _tile_positions(rows: int):
+    """(rows, 16) half-word positions of a tile slice array."""
+    r = torch.arange(rows)[:, None]
+    k = torch.arange(TILE_DEPTH)[None, :]
+    j = k >> 1
+    word = (r >> 3) * 64 + (j >> 2) * 32 + (r & 7) * 4 + (j & 3)
+    return (2 * word + (k & 1)).reshape(-1)
+
+
+def _tiles(slices, rows: int, depth: int):
+    """The tiles of a slice set (15 arrays (R, D)) for row blocks of
+    ``rows`` and depth chunks of ``depth`` (16, or 8: the upper half zero),
+    as one flat bf16 tensor: tile (row block, chunk) after tile, each 15
+    slice arrays of rows x 16 half-words."""
+    f = torch.stack([t.to(torch.bfloat16) for t in slices])
+    sets, big_r, big_d = f.shape
+    nb, nc = big_r // rows, big_d // depth
+    v = f.reshape(sets, nb, rows, nc, depth).permute(1, 3, 0, 2, 4)
+    if depth < TILE_DEPTH:
+        v = torch.nn.functional.pad(v, (0, TILE_DEPTH - depth))
+    out = torch.empty((nb, nc, sets, rows * TILE_DEPTH), dtype=torch.bfloat16,
+                      device=f.device)
+    out[..., _tile_positions(rows).to(f.device)] = v.reshape(nb, nc, sets, -1)
+    return out.reshape(-1)
+
+
+def ozcol_card(tabs, n1: int):
+    """The F(n1/4) slice tiles of ``ozcol``'s blocks, one contiguous 15 KB
+    tile for each (k_m tile of 32 rows, 16-deep chunk): what csrc/ozcol.cu
+    copies into shared memory with one bulk copy. Built from ``tabs``
+    (``ozcol_tables_host``'s arrays on the device): 15 m^2 bf16."""
+    return _tiles(tabs[:OZCOL_SLICES], OZCOL_TILE_ROWS, TILE_DEPTH)
+
+
+def ozleaft_card(tabs, a: int):
+    """``ozleaft``'s slice tiles, stage 1's then stage 2's: F(A) in tiles of
+    min(A, 32) rows k_A by min(A, 16) depths (zero-padded to 16), and
+    F(128) in tiles of 32 rows k_M by 16 depths."""
+    kb = min(a, 32)
+    return torch.cat([_tiles(tabs[:3 * NSLICES], kb, min(a, TILE_DEPTH)),
+                      _tiles(tabs[3 * NSLICES:OZLEAFT_SLICES], OZLEAFT_PASS_ROWS,
+                             TILE_DEPTH)])
+
+
+#: A card table for each table set the kernels meet (a planner's), built on
+#: first use and dropped with the set: {id(first slice array): (weak
+#: reference to it, card)}.
+_CARDS = {}
+
+
+def _card(tabs, build):
+    key = id(tabs[0])
+    hit = _CARDS.get(key)
+    if hit is not None and hit[0]() is tabs[0]:
+        return hit[1]
+    card = build()
+    _CARDS[key] = (weakref.ref(tabs[0]), card)
+    weakref.finalize(tabs[0], _CARDS.pop, key, None)
+    return card
 
 
 def _exact_dot(f, x):
@@ -279,20 +353,28 @@ def ozcol(rh, rl, ih, il, tabs, n1: int):
     On CUDA it launches ``csrc/ozcol.cu`` on the current stream (a CPU
     tensor runs ``ozcol_plain``); shapes outside the window raise. Inputs
     are read, never written. Each launch adds one to ``ozcol.launches``.
+    The kernel copies its F(n1/4) tiles from ``ozcol_card(tabs, n1)``,
+    built on the first call with a table set and kept while the set lives.
 
     Replaces ``phastft_tpu/ops/pallas_ozdd.py`` ``ozcol_pallas``. The
     bf16 tensor-core products bound it (45 slice products of depth n1/4
-    per element); one block owns 8 columns and writes each digit's
-    phased contraction into its own output rows, where the radix-4
-    combine reads it back: no scratch beyond the output."""
+    per element); a block computes a 32 (k_m) x 64 (column) tile of every
+    digit from shared-memory tiles of 16-deep chunks (each F(n1/4) slice
+    serves 64 columns), and writes each digit's phased contraction into
+    its own output rows, where the radix-4 combine reads it back: no
+    scratch beyond the output."""
     planes = (rh, rl, ih, il)
     batch, b, n2 = _check_ozcol(planes, tabs, n1)
     if rh.device.type == "cpu":
         return ozcol_plain(rh, rl, ih, il, tabs, n1)
+    # the kernel reads the planes with 16-byte bulk copies and float4 loads
+    planes = tuple(p if p.data_ptr() % 16 == 0 else p.clone() for p in planes)
     shape = batch + (n2 // LANES, n1, LANES)
     out = tuple(torch.empty(shape, dtype=torch.float32, device=rh.device)
                 for _ in range(4))
-    _launch("ozcol", library().phastft_ozcol, (*planes, *tabs, *out), b, n1, n2)
+    card = _card(tabs, lambda: ozcol_card(tabs, n1))
+    _launch("ozcol", library().phastft_ozcol, (*planes, *tabs, *out, card), b, n1,
+            n2)
     ozcol.launches += 1
     return out
 
@@ -336,12 +418,16 @@ def ozleaft(crh, crl, cih, cil, tabs, n1: int):
     On CUDA it launches ``csrc/ozleaft.cu`` on the current stream (a CPU
     tensor runs ``ozleaft_plain``); shapes outside the window raise.
     Inputs are read, never written. Each launch adds one to
-    ``ozleaft.launches``.
+    ``ozleaft.launches``. The kernel copies its F(A) and F(128) tiles from
+    ``ozleaft_card(tabs, A)``, built on the first call with a table set and
+    kept while the set lives.
 
     Replaces ``phastft_tpu/ops/pallas_ozdd.py`` ``ozleaft_pallas``. The
     bf16 tensor-core products bound it (45 slice products of depth A and
     45 of depth 128 per element); a block holds 64 / A whole rows in
-    shared memory and stores them as runs of 64 / A consecutive floats."""
+    shared memory, a cluster of A / 8 blocks 8 consecutive rows, and each
+    F(128) slice tile serves the block's 64 rows (k1, k_A); the cluster
+    stores runs of 8 consecutive floats (32-byte sectors)."""
     planes = (crh, crl, cih, cil)
     batch, b, a = _check_ozleaft(planes, tabs, n1)
     if crh.device.type == "cpu":
@@ -349,7 +435,8 @@ def ozleaft(crh, crl, cih, cil, tabs, n1: int):
     shape = batch + (n1 * a * LANES,)
     out = tuple(torch.empty(shape, dtype=torch.float32, device=crh.device)
                 for _ in range(4))
-    _launch("ozleaft", library().phastft_ozleaft, (*planes, *tabs, *out),
+    card = _card(tabs, lambda: ozleaft_card(tabs, a))
+    _launch("ozleaft", library().phastft_ozleaft, (*planes, *tabs, *out, card),
             b, a, n1)
     ozleaft.launches += 1
     return out

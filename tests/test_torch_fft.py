@@ -54,6 +54,36 @@ def test_matches_jax_and_numpy(log_n, direction):
     assert _rel(g, _c(ref)) <= 2 * _bound(n)
 
 
+def test_unaligned_f32_view_is_copied_aligned():
+    # a contiguous f32 view that starts 4 bytes past a 16-byte boundary:
+    # the kernels load float4s, so _as_tensor hands them an aligned copy
+    from phastft_tpu_torch.fft import _as_tensor
+
+    n = N
+    rng = np.random.default_rng(6)
+    re, im = _pair(rng, (n,))
+    bufs = []
+    for plane in (re, im):
+        buf = torch.zeros(n + 4, dtype=torch.float32)
+        buf[1:1 + n] = torch.from_numpy(plane)
+        bufs.append(buf)
+    views = [buf[1:1 + n] for buf in bufs]
+    assert all(v.is_contiguous() and v.data_ptr() % 16 == 4 for v in views)
+    planner = pt.PlannerDit32(n, device="cpu")
+    got = _as_tensor(views[0], planner)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, views[0])
+    aligned = torch.from_numpy(re.copy())
+    assert aligned.data_ptr() % 16 == 0
+    assert _as_tensor(aligned, planner).data_ptr() == aligned.data_ptr()
+    out = pt.fft_32_dit(views[0], views[1], pt.Direction.Forward, device="cpu")
+    ref = phastft_tpu.fft_32_dit(re, im, phastft_tpu.Direction.Forward)
+    want = np.fft.fft(re.astype(np.float64) + 1j * im)
+    g = _c((out[0].numpy(), out[1].numpy()))
+    assert _rel(g, want) <= _bound(n)
+    assert _rel(g, _c(ref)) <= 2 * _bound(n)
+    assert torch.equal(bufs[0][1:1 + n], torch.from_numpy(re))  # input untouched
+
+
 def test_roundtrip():
     rng = np.random.default_rng(5)
     re, im = _pair(rng, (N,))
