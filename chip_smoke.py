@@ -13,9 +13,10 @@ on any failed check:
    prints the clusters of each cluster shape resident at once (the CUDA
    occupancy query; none may be 0: ``leaf``, ``leaf3``, ``ddleaf``,
    ``leaft`` at A = 8..128, ``colfft`` at n1 = 1024, 2048 in its three
-   modes, ``ozleaft`` at A = 8..64, and ``ozcol``'s blocks per SM), the
-   ``-Xptxas -v`` lines of the two oz kernels, and the FP32 issue rate of the
-   dd bounds.
+   modes, ``ddcol`` and ``ddcol_nocorr`` at n1 = 1024, 2048, ``ozleaft`` at
+   A = 8..64, and ``ozcol``'s blocks per SM), the ``-Xptxas -v`` lines of
+   the two oz kernels and of ``ddcol``, and the FP32 issue rate of the dd
+   bounds.
 3. ``parity``: each kernel against its plain torch version on the card, at
    the slice's shapes (n1, n2) = (128, 8192), (1024, 16384), (2048, 16384),
    (128, 1024), at a batch of 32 of (128, 16384), the inner level of a 2^26
@@ -80,10 +81,13 @@ on any failed check:
    with a residual of exactly 0 in f64.
 13. ``parity_dd``: the dd (double-float) kernels against their plain
    versions on joined f64 values (hi + lo), rel L2 <= 1e-13: ``ddcol`` at
-   (n1, n2) = (256, 2^16), 2 x (64, 2^16), (2048, 2^16), 5 x (2, 2^13), the
-   split leaf's 4096 x (64, 128) and 256 x (512, 128), and 3 x (2, 128)
-   (several entries per block); ``ddcol_nocorr`` at 4096 x (128, 64),
-   256 x (128, 512) and 5 x (128, 2); ``ddleaf`` at n1 = 1, 8, 64, 128, 256
+   (n1, n2) = (256, 2^16), 2 x (64, 2^16), (2048, 2^16), (1024, 2^16) (the
+   cluster shapes), (512, 2^16), 5 x (2, 2^13), the split leaf's
+   4096 x (64, 128) and 256 x (512, 128), and 3 x (2, 128) (several entries
+   per block); ``ddcol_nocorr`` at 4096 x (128, 64), 256 x (128, 512) and
+   5 x (128, 2); both at n1 = 1024 and 2048 on one more entry than their
+   clusters resident at once (``ddcol`` (n1, 128), ``ddcol_nocorr``
+   (n1, 32)); ``ddleaf`` at n1 = 1, 8, 64, 128, 256
    and 512 (several rows per block, and clusters of 2, 4, 8 and 16 blocks)
    with 1, 5 and 256 rows, the clusters also on one more row than are
    resident. The tables are those of a ``PlannerDit64``.
@@ -97,8 +101,9 @@ on any failed check:
    kernel) and at 2^24, forward then inverse at 2^24 (<= 1e-12), the
    inverse of N * delta (exactly ones), and the peak of allocated device
    memory at 2^27.
-15. ``times_dd``: as 5 with 10 calls: ``ddcol`` at the 2^24 and 2^27 plans'
-   shapes, ``ddleaf`` at 2^16 x 256, 2^16 x 2048, 2^13 x 2^11 and 2^10 x 2^14
+15. ``times_dd``: as 5 with 10 calls: ``ddcol`` at the 2^24..2^27 plans'
+   split levels (n1 = 256..2048 over 2^16) and the outer level of 2^28
+   (32 x 2^23), ``ddleaf`` at 2^16 x 256, 2^16 x 2048, 2^13 x 2^11 and 2^10 x 2^14
    (each beside the library call), the split
    leaf's two passes and its transposes at 2^16 x 256, each kernel's plain
    version at the smaller shape (3 calls), and the whole f64 transform at
@@ -112,8 +117,9 @@ on any failed check:
    single adds and multiplies, so the FMA rate would count each twice),
    both printed (``bound_bytes_ms``, ``bound_instr_ms``): a DFT by radix-4
    decimation with the trivial twiddles dropped (``dd_dft_instr``, the
-   schedule ``ddleaf`` runs; ``ddcol``'s radix-2 stages spend 43 per element
-   per stage) and 42 per dd complex product of a correction.
+   schedule the dd kernels run; ``ddcol``'s long-column split adds one
+   product per element between its factors) and 42 per dd complex product
+   of a correction.
 
 16. ``oz_exact``: the bf16 tensor-core product of ``csrc/oz.cuh`` alone on
    random integer slices |s| <= 128 (128 x 64 outputs), by the oz kernels'
@@ -251,7 +257,17 @@ DD_EXACT_PAIRS = 1 << 20
 #: (batch, n1, n2) of the dd column passes' parity checks, and (n1, rows) of
 #: the dd leaf's.
 DD_COL_SHAPES = ((1, 256, 1 << 16), (2, 64, 1 << 16), (1, 2048, 1 << 16),
+                 (1, 1024, 1 << 16), (1, 512, 1 << 16),
                  (5, 2, 1 << 13), (4096, 64, 128), (3, 2, 128), (256, 512, 128))
+#: n1 of the dd column kernel's cluster shapes (a 32-column slab over n1/128
+#: blocks), each also checked on one more entry than the clusters resident at
+#: once (a ragged last wave): ddcol on (2048, 128) entries, ddcol_nocorr on
+#: (2048, 32), one cluster an entry.
+DD_COL_CLUSTER_N1S = (1024, 2048)
+#: (n1, n2) of the dd column pass's timings: the 2^24..2^27 plans' split
+#: levels and the outer level of 2^28 (a PlannerDit64(2^28)'s table).
+DD_COL_TIME_SHAPES = ((256, 1 << 16), (512, 1 << 16), (1024, 1 << 16), (2048, 1 << 16),
+                      (32, 1 << 23))
 DD_NOCORR_SHAPES = ((4096, 128, 64), (5, 128, 2), (256, 128, 512))
 DD_LEAF_N1S = (1, 8, 64, 128, 256, 512)
 DD_LEAF_ROWS = (1, 5, 256)
@@ -536,8 +552,9 @@ def dd_dft_instr(log_len: int) -> float:
     four points is 8 dd complex sums (a product by -i is free) and 3 dd
     complex products, which the last radix-4 stage, whose twiddles are all
     1, does not need; an odd log2 ends on a radix-2 stage of sums alone.
-    csrc/ddleaf.cu runs this schedule (plus the product of its correction);
-    csrc/ddcol.cu's radix-2 stages spend (2 * 22 + 42) / 2 = 43 a stage."""
+    csrc/ddleaf.cu and csrc/ddcol.cu run this schedule (plus the products
+    of their corrections); ddcol.cu's clusters (n1 = 1024, 2048) run it per
+    factor, P = n1 / 128 and 128, with one more product between them."""
     radix4_with_products = max(0, (log_len + 1) // 2 - 1)
     return DD_CADD_INSTR * log_len + 0.75 * DD_CMUL_INSTR * radix4_with_products
 
@@ -1053,20 +1070,25 @@ def main() -> int:
                 **{f"leaf_n1_{n1}": lib.phastft_leaf_clusters(n1) for n1 in LEAF_CLUSTER_N1S},
                 **{f"ddleaf_n1_{n1}": lib.phastft_ddleaf_clusters(n1)
                    for n1 in DD_LEAF_CLUSTER_N1S},
+                **{f"ddcol{tag}_n1_{n1}": lib.phastft_ddcol_clusters(n1, corr)
+                   for n1 in DD_COL_CLUSTER_N1S for tag, corr in (("", 1), ("_nocorr", 0))},
                 **{f"leaft_a_{a}": lib.phastft_leaft_clusters(a) for a in LEAFT_CLUSTER_AS},
                 **{f"colfft_n1_{n1}_mode_{mode}": lib.phastft_colfft_clusters(n1, mode)
                    for n1 in COL_CLUSTER_N1S for mode in (0, 1, 2)},
                 **{f"ozleaft_a_{a}": lib.phastft_ozleaft_clusters(a) for a in OZ_LEAF_CLUSTER_AS},
                 "ozcol_blocks_per_sm": lib.phastft_ozcol_blocks()}
-    oz_ptxas, section = [], ""
+    oz_ptxas, ddcol_ptxas, section = [], [], ""
     for ln in log.splitlines():
         if ln.startswith("== "):
             section = ln[3:].strip()
-        elif section in ("ozcol.cu", "ozleaft.cu") and ("Used" in ln or "spill" in ln
-                                                        or "Compiling" in ln):
-            oz_ptxas.append(f"{section}: {ln.strip()}")
+        elif "Used" in ln or "spill" in ln or "Compiling" in ln:
+            if section in ("ozcol.cu", "ozleaft.cu"):
+                oz_ptxas.append(f"{section}: {ln.strip()}")
+            elif section == "ddcol.cu":
+                ddcol_ptxas.append(ln.strip())
     emit({"phase": "build", "seconds": build_s,
           "sources": sorted(os.listdir(_build.SRC_DIR)), "ptxas": ptxas, "oz_ptxas": oz_ptxas,
+          "ddcol_ptxas": ddcol_ptxas,
           "resident_clusters": resident,
           "fp32_instr_per_s": fp32_instr_per_s(), "sm_clock_hz": _SM_CLOCK_HZ[0]})
     if min(resident.values()) < 1:
@@ -1620,6 +1642,20 @@ def main() -> int:
         torch.cuda.synchronize()
         dd_parity("ddcol_nocorr", k, ddcol_nocorr_plain(*x, n1), batch=b, n1=n1, n2=n2)
         del k, x
+    # a ragged last wave of clusters: one more entry than are resident
+    for n1 in DD_COL_CLUSTER_N1S:
+        b = resident[f"ddcol_n1_{n1}"] + 1
+        x = dd_quad((b, n1, 128))
+        t1, t2 = col_tables(n1, 128)
+        k = ddcol(*x, t1, t2, n1)
+        torch.cuda.synchronize()
+        dd_parity("ddcol", k, ddcol_plain(*x, t1, t2, n1), batch=b, n1=n1, n2=128)
+        b = resident[f"ddcol_nocorr_n1_{n1}"] + 1
+        x = dd_quad((b, n1, 32))
+        k = ddcol_nocorr(*x, n1)
+        torch.cuda.synchronize()
+        dd_parity("ddcol_nocorr", k, ddcol_nocorr_plain(*x, n1), batch=b, n1=n1, n2=32)
+        del k, x
     for n1 in DD_LEAF_N1S:
         corr = leaf_corr(n1)
         ragged = (resident[f"ddleaf_n1_{n1}"] + 1,) if n1 in DD_LEAF_CLUSTER_N1S else ()
@@ -1752,11 +1788,12 @@ def main() -> int:
                 "library_ms": time_ms(library, flush, reps) if library else None,
                 "n": n, "rows": rows}
 
-    for n1, n2, with_plain in ((256, 1 << 16, True), (2048, 1 << 16, False)):
+    for n1, n2 in DD_COL_TIME_SHAPES:
         x = dd_quad((1, n1, n2))
-        t1, t2 = col_tables(n1, n2)
+        t1, t2 = (col_tables(n1, n2) if n2 <= 1 << 16 else
+                  PlannerDit64(n1 * n2).dd_state[1][f"ddpcol{n1}x{n2}"])
         bound = ddcol_bound(1, n1, n2)
-        if with_plain:
+        if n1 * n2 == 1 << 24:
             row = dd_row(lambda: ddcol(*x, t1, t2, n1),
                          lambda: ddcol_plain(*x, t1, t2, n1), bound, n1 * n2, 1)
             top["ddcol"] = row

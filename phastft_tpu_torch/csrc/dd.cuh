@@ -1,6 +1,6 @@
-// Double-float (dd) device arithmetic and in-place radix-2 DIF FFTs over dd
-// complex sequences held in shared memory, shared by the dd column kernels
-// (ddcol.cu, radix 2) and the dd leaf kernel (ddleaf.cu, radix 4).
+// Double-float (dd) device arithmetic and in-place radix-4 DIF FFTs over dd
+// complex sequences held in shared memory, shared by the dd column kernel
+// (ddcol.cu) and the dd leaf kernel (ddleaf.cu).
 //
 // A dd value is an unevaluated sum hi + lo of two floats (~48 significand
 // bits). A dd complex array is four float planes: re_hi, re_lo, im_hi,
@@ -137,79 +137,7 @@ __device__ __forceinline__ void load_twiddles(float4* tw, int m, const float* t)
                         __ldg(t + 3 * h + k));
 }
 
-// S radix-2 DIF stages on one group held in registers; the indexing is that
-// of phastft::dif_group. 47 flops per point per stage: two dd complex sums
-// (44) and one dd complex product (50) per butterfly of two points.
-template <int S>
-__device__ __forceinline__ void dif_group(ddc (&x)[1 << S], int r, int logR, int logN,
-                                          int logL, const float4* tw) {
-#pragma unroll
-  for (int t = 0; t < S; ++t) {
-    const int half = 1 << (S - 1 - t);
-    const int shift = logN - logL + t;
-#pragma unroll
-    for (int j = 0; j < (1 << S); ++j) {
-      if (j & half) continue;
-      const int q = r + ((j & (2 * half - 1)) << logR);
-      const ddc w = from_float4(tw[q << shift]);
-      const ddc a = x[j], b = x[j + half];
-      x[j] = cadd(a, b);
-      x[j + half] = cmul(csub(a, b), w);
-    }
-  }
-}
-
-// One pass of S stages over 2^logM sequences of length 2^logN; element i of
-// sequence q sits at pad(q*qs + i*is) of every plane. `qfast` puts
-// neighbouring threads on neighbouring sequences.
-template <int S>
-__device__ __forceinline__ void dif_pass(const Planes& s, int logN, int logL, int logM,
-                                         int qs, int is, bool qfast, const float4* tw) {
-  const int logR = logL - S;
-  const int logG = logN - S;
-  const int items = 1 << (logG + logM);
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    int q, grp;
-    if (qfast) {
-      q = it & ((1 << logM) - 1);
-      grp = it >> logM;
-    } else {
-      grp = it & ((1 << logG) - 1);
-      q = it >> logG;
-    }
-    const int r = grp & ((1 << logR) - 1);
-    const int base = ((grp >> logR) << logL) + r;
-    ddc x[1 << S];
-    int a[1 << S];
-#pragma unroll
-    for (int j = 0; j < (1 << S); ++j) {
-      a[j] = pad(q * qs + (base + (j << logR)) * is);
-      x[j] = load(s, a[j]);
-    }
-    dif_group<S>(x, r, logR, logN, logL, tw);
-#pragma unroll
-    for (int j = 0; j < (1 << S); ++j) store(s, a[j], x[j]);
-  }
-}
-
-// Whole in-place DIF FFT of every sequence, two stages per trip through
-// shared memory: natural order in, X[k] at position bitrev(k) out. The
-// caller synchronises before; this function synchronises after every pass.
-__device__ __forceinline__ void dif_fft(const Planes& s, int logN, int logM, int qs,
-                                        int is, bool qfast, const float4* tw) {
-  for (int logL = logN; logL > 0;) {
-    if (logL >= 2) {
-      dif_pass<2>(s, logN, logL, logM, qs, is, qfast, tw);
-      logL -= 2;
-    } else {
-      dif_pass<1>(s, logN, logL, logM, qs, is, qfast, tw);
-      logL -= 1;
-    }
-    __syncthreads();
-  }
-}
-
-// ---- radix-4 passes (the dd leaf kernel, ddleaf.cu) ----------------------
+// ---- radix-4 passes (ddleaf.cu, ddcol.cu) ----------------------------------
 //
 // A radix-4 DIF butterfly equals two radix-2 DIF stages with the outputs in
 // their bit-reversed places: on x0..x3 at r, r + Q, r + 2Q, r + 3Q of a span
@@ -219,6 +147,12 @@ __device__ __forceinline__ void dif_fft(const Planes& s, int logN, int logM, int
 // its products. Per point: 8 dd complex sums and 3 products over 4 points
 // (75.5 FP32 instructions, 81.5 flops), 44 at span 4, where two radix-2
 // stages with a product each take 2 * 43 (94 flops).
+//
+// The twiddles come from one table of W_W^k, k < W/2, W = 2^logW >= the
+// sequence length N: a kernel whose factors share a table (ddcol.cu's
+// P x Q split reads W_P, W_Q and W_n1 from the W_n1 table) passes its own
+// logW; W_W^(k W/N) is W_N^k exactly (the table's f64 angles differ by a
+// power of two).
 
 __device__ __forceinline__ ddc mul_neg_i(ddc a) { return ddc{a.im, neg(a.re)}; }
 
@@ -235,9 +169,9 @@ __device__ __forceinline__ ddc table_at(const ConstQuad& t, int i) {
              dd{__ldg(t.p[2] + i), __ldg(t.p[3] + i)}};
 }
 
-// k: the index of W_L^r in the length-2^logN table; trivial: r = 0.
+// k: the index of W_L^r in the length-2^logW table; trivial: r = 0.
 __device__ __forceinline__ void radix4(ddc& x0, ddc& x1, ddc& x2, ddc& x3, int k,
-                                       int logN, const float4* tw, bool trivial) {
+                                       int logW, const float4* tw, bool trivial) {
   const ddc a = cadd(x0, x2), b = cadd(x1, x3);
   const ddc c = csub(x0, x2), d = mul_neg_i(csub(x1, x3));
   x0 = cadd(a, b);
@@ -246,52 +180,55 @@ __device__ __forceinline__ void radix4(ddc& x0, ddc& x1, ddc& x2, ddc& x3, int k
     x2 = cadd(c, d);
     x3 = csub(c, d);
   } else {
-    x1 = cmul(csub(a, b), twiddle(tw, 2 * k, logN));
-    x2 = cmul(cadd(c, d), twiddle(tw, k, logN));
-    x3 = cmul(csub(c, d), twiddle(tw, 3 * k, logN));
+    x1 = cmul(csub(a, b), twiddle(tw, 2 * k, logW));
+    x2 = cmul(cadd(c, d), twiddle(tw, k, logW));
+    x3 = cmul(csub(c, d), twiddle(tw, 3 * k, logW));
   }
 }
 
-__device__ __forceinline__ void radix2(ddc& x0, ddc& x1, int k, int logN,
+__device__ __forceinline__ void radix2(ddc& x0, ddc& x1, int k, int logW,
                                        const float4* tw, bool trivial) {
   const ddc a = x0, b = x1;
   x0 = cadd(a, b);
-  x1 = trivial ? csub(a, b) : cmul(csub(a, b), twiddle(tw, k, logN));
+  x1 = trivial ? csub(a, b) : cmul(csub(a, b), twiddle(tw, k, logW));
 }
 
-// S radix-2 DIF stages on one group in registers, indexed as dif_group's,
-// taken as radix-4 butterflies and, for an odd S, a last radix-2 stage.
+// S radix-2 DIF stages on one group in registers, indexed as
+// phastft::dif_group's (fft_smem.cuh), taken as radix-4 butterflies and,
+// for an odd S, a last radix-2 stage; tw is the table of W_W^k, W = 2^logW.
 template <int S>
-__device__ __forceinline__ void dif4_group(ddc (&x)[1 << S], int r, int logR, int logN,
+__device__ __forceinline__ void dif4_group(ddc (&x)[1 << S], int r, int logR, int logW,
                                            int logL, const float4* tw) {
 #pragma unroll
   for (int t = 0; t + 2 <= S; t += 2) {
     const int h = 1 << (S - 2 - t);
-    const int shift = logN - logL + t;
+    const int shift = logW - logL + t;
     const bool trivial = logL - t == 2;
 #pragma unroll
     for (int j = 0; j < (1 << S); ++j) {
       if (j & (3 * h)) continue;
       const int q = r + ((j & (h - 1)) << logR);
-      radix4(x[j], x[j + h], x[j + 2 * h], x[j + 3 * h], q << shift, logN, tw, trivial);
+      radix4(x[j], x[j + h], x[j + 2 * h], x[j + 3 * h], q << shift, logW, tw, trivial);
     }
   }
   if (S & 1) {
-    const int shift = logN - logL + S - 1;
+    const int shift = logW - logL + S - 1;
     const bool trivial = logL - (S - 1) == 1;
 #pragma unroll
-    for (int j = 0; j < (1 << S); j += 2) radix2(x[j], x[j + 1], r << shift, logN, tw, trivial);
+    for (int j = 0; j < (1 << S); j += 2) radix2(x[j], x[j + 1], r << shift, logW, tw, trivial);
   }
 }
 
-// One pass of S stages over 2^logM sequences, laid out as dif_pass's. With
-// `fold` (the last pass of a leaf's F(n1), logL == S), each output is then
-// multiplied in registers by the correction corr[k1 * 128 + i2], k1 the
-// bit reverse of its position and i2 = col0 + (q mod 128).
-template <int S>
+// One pass of S stages over 2^logM sequences of length 2^logN; element i of
+// sequence q sits at pad(q*qs + i*is) of every plane, and `qfast` puts
+// neighbouring threads on neighbouring sequences. With `last` (the pass
+// that ends the transform, logL == S), each output is then replaced in
+// registers by fold(x, k, q): k the bit reverse of its position (the index
+// of the DFT output it holds), q its sequence.
+template <int S, class Fold>
 __device__ __forceinline__ void dif4_pass(const Planes& s, int logN, int logL, int logM,
                                           int qs, int is, bool qfast, const float4* tw,
-                                          const ConstQuad& corr, bool fold, int col0) {
+                                          int logW, const Fold& fold, bool last) {
   const int logR = logL - S;
   const int logG = logN - S;
   const int items = 1 << (logG + logM);
@@ -313,12 +250,10 @@ __device__ __forceinline__ void dif4_pass(const Planes& s, int logN, int logL, i
       a[j] = pad(q * qs + (base + (j << logR)) * is);
       x[j] = load(s, a[j]);
     }
-    dif4_group<S>(x, r, logR, logN, logL, tw);
-    if (fold) {
-      const int i2 = col0 + (q & 127);
+    dif4_group<S>(x, r, logR, logW, logL, tw);
+    if (last) {
 #pragma unroll
-      for (int j = 0; j < (1 << S); ++j)
-        x[j] = cmul(x[j], table_at(corr, (bitrev(base + j, logN) << 7) + i2));
+      for (int j = 0; j < (1 << S); ++j) x[j] = fold(x[j], bitrev(base + j, logN), q);
     }
 #pragma unroll
     for (int j = 0; j < (1 << S); ++j) store(s, a[j], x[j]);
@@ -327,21 +262,22 @@ __device__ __forceinline__ void dif4_pass(const Planes& s, int logN, int logL, i
 
 // The stages from span 2^logL down of an in-place DIF FFT of every
 // sequence (logL = logN: the whole FFT): radix-4 trips, the last one of an
-// odd count a radix-8 (radix-4 then radix-2) in registers. `fold` folds
-// the correction into the last trip (dif4_pass). The caller synchronises
+// odd count a radix-8 (radix-4 then radix-2) in registers. With `folds`,
+// `fold` is applied in the last trip (dif4_pass). The caller synchronises
 // before; this function synchronises after every pass.
+template <class Fold>
 __device__ __forceinline__ void dif4_fft(const Planes& s, int logN, int logL, int logM,
                                          int qs, int is, bool qfast, const float4* tw,
-                                         const ConstQuad& corr, bool fold, int col0) {
+                                         int logW, const Fold& fold, bool folds) {
   while (logL > 0) {
     const int S = logL == 3 ? 3 : logL == 1 ? 1 : 2;
-    const bool last = fold && logL == S;
+    const bool last = folds && logL == S;
     if (S == 3)
-      dif4_pass<3>(s, logN, logL, logM, qs, is, qfast, tw, corr, last, col0);
+      dif4_pass<3>(s, logN, logL, logM, qs, is, qfast, tw, logW, fold, last);
     else if (S == 1)
-      dif4_pass<1>(s, logN, logL, logM, qs, is, qfast, tw, corr, last, col0);
+      dif4_pass<1>(s, logN, logL, logM, qs, is, qfast, tw, logW, fold, last);
     else
-      dif4_pass<2>(s, logN, logL, logM, qs, is, qfast, tw, corr, last, col0);
+      dif4_pass<2>(s, logN, logL, logM, qs, is, qfast, tw, logW, fold, last);
     logL -= S;
     __syncthreads();
   }

@@ -75,6 +75,17 @@ constexpr size_t smem_bytes(int n1) {
   return 4 * sizeof(float) * WORDS + sizeof(float4) * (n1 / 2 + M / 2);
 }
 
+// The correction folded into the last F(n1) trip: output k1 of sequence q
+// times corr[k1 * 128 + i2], i2 = col0 + (q mod 128).
+struct LeafCorr {
+  ddk::ConstQuad corr;
+  int col0;
+  __device__ __forceinline__ ddk::ddc operator()(ddk::ddc x, int k1, int q) const {
+    const int i2 = col0 + (q & 127);
+    return ddk::cmul(x, ddk::table_at(corr, i2 + (k1 << 7)));
+  }
+};
+
 __global__ void __launch_bounds__(THREADS, 2)
 ddleaf_kernel(ddk::ConstQuad x, const float* __restrict__ tw1t,
               const float* __restrict__ tw2t, ddk::ConstQuad corr, ddk::Quad out,
@@ -112,9 +123,10 @@ ddleaf_kernel(ddk::ConstQuad x, const float* __restrict__ tw1t,
   // F(n1) over i1: R*128 sequences (the contiguous axis), stride R*128; the
   // correction W_n^(k1*i2) folded into the last trip
   if (n1 > 1)
-    ddk::dif4_fft(s, logn1, logn1, logr + LOGM, 1, rows * M, true, tw1, corr, true, 0);
+    ddk::dif4_fft(s, logn1, logn1, logr + LOGM, 1, rows * M, true, tw1, logn1,
+                  LeafCorr{corr, 0}, true);
   // F(128) along every row of 128 contiguous elements: n1*R sequences
-  ddk::dif4_fft(s, LOGM, LOGM, logn1 + logr, M, 1, false, tw2, corr, false, 0);
+  ddk::dif4_fft(s, LOGM, LOGM, logn1 + logr, M, 1, false, tw2, LOGM, LeafCorr{corr, 0}, false);
 
   // out[r*n + k1 + n1*k2] = shared (bitrev(k1), r, bitrev(k2))
   for (int f = 4 * threadIdx.x; f < valid; f += 4 * THREADS) {
@@ -175,7 +187,7 @@ ddleaf_cluster(ddk::ConstQuad x, const float* __restrict__ tw1t,
 
   // F(n1) over i1: W sequences (the contiguous axis), stride W, the
   // correction folded into the last trip
-  ddk::dif4_fft(s, LOGN1, LOGN1, LOGW, 1, W, true, tw1, corr, true, W * c);
+  ddk::dif4_fft(s, LOGN1, LOGN1, LOGW, 1, W, true, tw1, LOGN1, LeafCorr{corr, W * c}, true);
   cluster.sync();
 
   // exchange, straight into the first radix-4 pass of F(128): item (k_l, r)
@@ -211,7 +223,7 @@ ddleaf_cluster(ddk::ConstQuad x, const float* __restrict__ tw1t,
   __syncthreads();
 
   // the rest of F(128) (spans 32 .. 2) along each of the 32 rows k1 - 32c
-  ddk::dif4_fft(s, LOGM, 5, 5, M, 1, false, tw2, corr, false, 0);
+  ddk::dif4_fft(s, LOGM, 5, 5, M, 1, false, tw2, LOGM, LeafCorr{corr, 0}, false);
 
   // out[k1 + n1*k2], k1 in [32c, 32c + 32): 32 contiguous floats per k2 and
   // plane, written by four neighbouring lanes as 64-byte runs; the other

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "phastft_transpose2": [_P] * 4 + [_L, _L, _L, _P],
     "phastft_ddcol": [_P] * 17 + [_L, _I, _I, _P],
     "phastft_ddcol_nocorr": [_P] * 9 + [_L, _I, _I, _P],
+    "phastft_ddcol_clusters": [_I, _I],
     "phastft_ddleaf": [_P] * 14 + [_L, _I, _P],
     "phastft_ddleaf_clusters": [_I],
     "phastft_dd_exact": [_P] * 6 + [_L, _P],

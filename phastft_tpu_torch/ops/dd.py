@@ -17,10 +17,9 @@ paired-f32 arithmetic of ``ops/df64.py``.
 Each is a wrapper: on CUDA tensors it launches the hand-written kernel
 (``csrc/ddcol.cu``, ``csrc/ddleaf.cu``); on CPU tensors it runs its
 ``*_plain`` version, built from ``ops/df64.py``'s torch functions with the
-JAX package's radix-16 Stockham schedule. The kernels run DIF stages
-(``ddcol`` radix 2, ``ddleaf`` radix 4) and renormalise after every
-operation, so a kernel and its plain version agree on the joined f64
-values to ~1e-14, not bit for bit.
+JAX package's radix-16 Stockham schedule. The kernels run radix-4 DIF
+trips and renormalise after every operation, so a kernel and its plain
+version agree on the joined f64 values to ~1e-14, not bit for bit.
 """
 
 from __future__ import annotations
@@ -198,11 +197,15 @@ def ddcol(rh, rl, ih, il, t1, t2, n1: int):
     launch adds one to ``ddcol.launches``.
 
     Replaces ``phastft_tpu/ops/pallas_dd.py`` ``ddcol_pallas``; unlike it,
-    it takes n1 = 2, 4 and 2048, every n2 >= 128 and any batch. Bytes and
-    operations bound it about equally (32 B and 47 * log2(n1) + 100 f32
-    flops per complex element); the kernel keeps the whole size-n1 DFT of
-    a slab of 4 K points (8 K from n1 = 1024) in shared memory, so it
-    touches device memory once each way."""
+    it takes n1 = 2, 4 and 2048, every n2 >= 128 and any batch. FP32
+    instruction issue bounds it (a radix-4 dd DFT and two dd products per
+    element against 32 B). Blocks of 4096 points, two per SM, run radix-4
+    dd trips with the correction folded into the last one, so device
+    memory is touched once each way: up to n1 = 512 a block holds a slab of
+    4096 / n1 columns; at n1 = 1024 and 2048 a 32-column slab is split over
+    a cluster of 8 or 16 blocks that trade through distributed shared
+    memory (n1 = P * 128). A cluster shape that does not fit the device
+    raises."""
     planes = (rh, rl, ih, il)
     batch, b, n2 = _check_col("ddcol", planes, n1, LANES, (*t1, *t2))
     _check_corr("ddcol", t1, t2, n1, n2)
@@ -247,9 +250,9 @@ def ddcol_nocorr(rh, rl, ih, il, n1: int):
     launch adds one to ``ddcol_nocorr.launches``.
 
     Replaces ``phastft_tpu/ops/pallas_dd.py`` ``ddcol_pallas_nocorr``;
-    unlike it, it takes rows below 8 points and any batch. When a whole
-    (n1, n2) entry is smaller than the kernel's 4 K-point slab, a block
-    holds several entries."""
+    unlike it, it takes rows below 8 points and any batch. The blocks and
+    clusters are ``ddcol``'s; when a whole (n1, n2) entry is smaller than a
+    block's 4096 points, a block holds several entries."""
     planes = (rh, rl, ih, il)
     _, b, n2 = _check_col("ddcol_nocorr", planes, n1, 2)
     if rh.device.type == "cpu":
