@@ -91,9 +91,11 @@ on any failed check:
    and 512 (several rows per block, and clusters of 2, 4, 8 and 16 blocks)
    with 1, 5 and 256 rows, the clusters also on one more row than are
    resident. The tables are those of a ``PlannerDit64``.
-14. ``e2e_dd``: the f64 main path (the df64 engine), counters set to 0 just
+14. ``e2e_dd``: the df64 engine's main path, counters set to 0 just
    before and read just after, each transform's launches checked against
-   its plan: ``fft_64_dit`` at every n = 2^0..2^16 on 2^18 points against
+   its plan: ``fft_64_dit_with_planner`` on planners of the default leaf
+   rule pinned to ``"df64"`` (the default engine is the native one up to
+   2^25) at every n = 2^0..2^16 on 2^18 points against
    numpy's f64 FFT, at 2^20, 2^24, 2^27 and the nested plan of 2^28 against
    ``torch.fft.fft`` in complex128 on the card (rel L2 <= 1e-12), one
    ``PlannerDit64(2^22)`` reused on a (4, 2^22) batch, ``"df64-split"`` at
@@ -190,13 +192,44 @@ on any failed check:
    enqueue covered (median, min, max of 10), on the host clock, and 20
    calls back to back; then a ``torch.profiler`` breakdown.
 
-The line before the last is the kernel summary (thirteen rows, the TPU
-kernels' file:line beside each); the last line is the device record. No
-CUDA device: exit 1 before any result.
+The native f64 engine's phases run between 19 and 20:
+
+26. ``parity_native``: its three kernels against their plain versions on
+   the card: ``leaf64`` at every n = 2..2^16 on 5 rows and, at 2^13..2^16,
+   on one more row than its clusters resident at once; ``col64`` at n1 = 2,
+   64, 128, 512 over n2 = 2^13 (batches of 1 and 3) and 2^16; rel L2 <=
+   1e-13; ``transpose2_64`` at the same shapes, bit for bit.
+27. ``e2e_native``: its main path, counters set to 0 just before and read
+   just after, each transform's launches checked against its plan (one
+   ``leaf64``, or one ``col64``, ``leaf64`` and ``transpose2_64``, nothing
+   else): ``fft_64_dit`` forward and back at every n = 2^0..2^25 against
+   ``torch.fft.fft`` in complex128 on the card and the input (rel L2 <=
+   1e-12), a batch of 3 at 2^16 and 2^20 on one ``PlannerDit64``, an
+   engine-less ``Options()`` planner at 2^20, a per-call ``"native"`` on a
+   ``"df64"`` planner at 2^24, the inverse of N * delta at 2^25 (exactly
+   ones), and the peak of allocated device memory at 2^25.
+28. ``race_native`` / ``times_native``: at 2^10 x 2^14 rows, 2^13, 2^16,
+   2^20, 2^22, 2^24 and 2^25, ``fft_64_dit_with_planner`` on the native,
+   ``"df64"`` and (2^20..2^24, ``leaf_fft_size=2^13``) ``"df64-oz"``
+   planners and ``torch.fft.fft`` in complex128 on the same data, device
+   time and host clock (10 calls each), with the winner beside what
+   ``Options.guess_options`` picks; then each kernel of the native plan on
+   the shapes the transform gives it, beside its bound (32 B per element
+   and pass plus the tables, against 5 * log2(len) + 6 FP64 flops at 132 x
+   64 x 2 x ``clocks.max.sm``) and its library call (``torch.fft.fft`` of
+   the same rows for ``leaf64``, ``.transpose(-1, -2).contiguous()`` of both
+   planes for ``transpose2_64``; ``col64`` fuses a twiddle and has none),
+   and at (256, 2^16) its plain version.
+
+The line before the last is the kernel summary (sixteen rows: the TPU
+kernels' file:line beside each of the thirteen, and for the three native
+f64 kernels the JAX package's XLA code they stand for); the last line is
+the device record. No CUDA device: exit 1 before any result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -343,6 +376,26 @@ SHARD_BLOCK = (2048, 4096, 1 << 25, 8192)
 NOCORR_TIMES = ((2048, 1 << 14), (1024, 1 << 14))
 DIST_BATCH = (8, 1 << 20)
 DIST_TIME_REPEATS = 3
+#: The native f64 engine: row lengths of the leaf's parity (every n =
+#: 2..2^16, on NATIVE_LEAF_ROWS rows, an odd count, and from 2^13 also on one
+#: more row than its clusters resident at once), (n1, n2) of the column
+#: pass's and the 64-bit transpose's (every column factor of the native
+#: plans, 2..256 over 2^13 and 64..512 over 2^16, and 512 over 2^13; each
+#: over 2^13 also on a batch of 3), the transforms' sizes, and the race:
+#: (log2 n, rows) of each size.
+NATIVE_LEAF_ROWS = 5
+NATIVE_COL_SHAPES = tuple((1 << k, 1 << 13) for k in range(1, 10)) + tuple(
+    (1 << k, 1 << 16) for k in range(6, 10))
+NATIVE_E2E_LOGS = tuple(range(26))
+NATIVE_BATCH_LOGS = (16, 20)
+NATIVE_RACE = ((10, 1 << 14), (13, 1), (16, 1), (20, 1), (22, 1), (24, 1), (25, 1))
+#: The df64-oz contender's window on leaf_fft_size = 2^13.
+NATIVE_RACE_OZ_LOGS = (20, 22, 24)
+#: The kernels line's shapes: the 2^24 plan's split level (256 x 2^16).
+NATIVE_TOP = (256, 1 << 16)
+#: FP64 lanes of an H100 SM; each retires one fused multiply-add (2 flops)
+#: a clock.
+FP64_LANES = 64
 OUT_DIR = "chiprun_out"
 #: ~1 ms at the H100's clocks: the shortest sleep before a timed call.
 SLEEP_CYCLES = 2_000_000
@@ -622,6 +675,57 @@ def oz_bound(kind: str, n: int, n1: int, batch: int = 1):
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops}
+
+
+def fp64_flops_per_s() -> float:
+    """FP64 flops the card retires per second: SMS * FP64_LANES lanes, two
+    flops a fused multiply-add, at the SM clock ``nvidia-smi`` reports as
+    its maximum."""
+    fp32_instr_per_s()  # reads the clock once
+    return SMS * FP64_LANES * 2 * _SM_CLOCK_HZ[0]
+
+
+def native_bound(points: int, log_len: int, passes: int = 1, table_bytes: int = 0):
+    """The bound of ``passes`` native f64 passes over ``points`` complex
+    elements: two f64 planes read and written once a pass (32 B per
+    element) plus the tables, against 5 * log2(len) + 6 FP64 flops per
+    element (a length-2^log_len DFT; none for a copy, log_len None) at the
+    card's FP64 rate."""
+    t_bytes = (32 * points * passes + table_bytes) / HBM_BYTES_PER_S * 1e3
+    flops = 0 if log_len is None else points * (5 * log_len + 6)
+    t_ops = flops / fp64_flops_per_s() * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops}
+
+
+def native_tables(plan) -> int:
+    """Bytes of the tables a native transform of ``plan`` reads: the split
+    twiddles of every level and the leaf correction, each f64 (re, im), and
+    the kernels' W_m step tables (m/2 pairs)."""
+    nbytes = 0
+    while plan[0] == "split":
+        _, n1, plan, n2 = plan
+        s = 1 << ((n2.bit_length() - 1) // 2)
+        nbytes += 16 * n1 * (n2 // s + s) + 8 * n1
+    if plan[0] == "leaf":
+        n1 = plan[1]
+        nbytes += 8 * 128 + (16 * n1 * 128 + 8 * n1 if n1 > 1 else 0)
+    else:
+        nbytes += 8 * plan[1]
+    return nbytes
+
+
+def native_launches(plan):
+    """{kernel: launches} of one native f64 transform of ``plan``."""
+    want = {"col64": 0, "leaf64": 0, "transpose2_64": 0}
+    while plan[0] == "split":
+        want["col64"] += 1
+        want["transpose2_64"] += 1
+        plan = plan[2]
+    if plan[0] == "leaf" or plan[1] > 1:
+        want["leaf64"] += 1
+    return want
 
 
 def dd_launches(plan, split: bool):
@@ -1020,6 +1124,268 @@ def dist_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     torch.cuda.empty_cache()
 
 
+def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
+    """The native f64 engine: its three kernels against their plain
+    versions, its main path through the four f64 entries at every n =
+    2^0..2^25, and the race that sets the f64 default."""
+    import torch
+
+    from phastft_tpu_torch import (
+        Direction, Options, PlannerDit64, fft_64_dit, fft_64_dit_with_planner,
+        fft_64_dit_with_planner_and_opts,
+    )
+    from phastft_tpu_torch.ops.colfft import colfft, colfft_out3d
+    from phastft_tpu_torch.ops.dd import ddcol, ddcol_nocorr, ddleaf
+    from phastft_tpu_torch.ops.leaf import hybrid, leaf, leaf3
+    from phastft_tpu_torch.ops.leaft import leaft
+    from phastft_tpu_torch.ops.native import col64, col64_plain, leaf64, leaf64_plain
+    from phastft_tpu_torch.ops.ozdd import ozcol, ozleaft
+    from phastft_tpu_torch.ops.transpose import transpose2, transpose2_64, transpose2_plain
+
+    from phastft_tpu_torch.fft import _cached_planner
+    from phastft_tpu_torch.ops._build import library
+
+    lib = library()
+
+    def randn64(shape):
+        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float64),
+                torch.randn(shape, generator=gen, device=dev, dtype=torch.float64))
+
+    def engine_planner(n, engine):
+        """A planner on the default leaf rule of n, pinned to ``engine``."""
+        guess = Options.guess_options(n, np.float64)
+        return PlannerDit64(n, options=dataclasses.replace(guess, f64_engine=engine))
+
+    def leaf_args(state, n):
+        """leaf64's (correction, step tables) for n-point rows from a
+        native state that holds them (the correction is None below 256
+        points)."""
+        n1 = n // 128
+        return state.get(f"leaf{n1}"), (state[f"dif{n1}"][0] if n1 > 1 else None,
+                                        state[f"dif{min(n, 128)}"][0])
+
+    def leaf_state(n):
+        """The native state of a planner whose plan is one n-point leaf."""
+        return PlannerDit64(n, options=Options(leaf_fft_size=max(n, 128))).native_state
+
+    def col_args(state, n1, n2):
+        """col64's (split tables, step table) from a native state."""
+        return state[f"split{n1}x{n2}"], state[f"dif{n1}"][0]
+
+    def transpose_parity(k, p, **where):
+        equal = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        parity("transpose2_64", k, p, 0.0, **where)
+        if not equal:
+            raise AssertionError(f"transpose2_64 differs at {where}")
+
+    # -- parity: each kernel against its plain version on the card
+    max_err.update(leaf64=0.0, col64=0.0, transpose2_64=0.0)
+    resident = {n: lib.phastft_leaf64_clusters(n) for n in (1 << 13, 1 << 14, 1 << 15,
+                                                           1 << 16)}
+    emit({"phase": "build_native", "leaf64_resident_clusters": resident})
+    if min(resident.values()) < 1:
+        raise AssertionError(f"a leaf64 cluster shape does not fit the card: {resident}")
+
+    def parity(name, k, p, bound, **where):
+        err = rel_l2(k[0], k[1], p[0], p[1])
+        mabs = max_abs(k[0], k[1], p[0], p[1])
+        max_err[name] = max(max_err[name], mabs)
+        emit({"phase": "parity_native", "kernel": name, **where, "rel_l2": err,
+              "max_abs_err": mabs, "bound": bound})
+        check(f"{name} parity at {where}", err, bound)
+
+    for log_n in range(1, 17):
+        n = 1 << log_n
+        corr, steps = leaf_args(leaf_state(n), n)
+        ragged = (resident[n] + 1,) if n in resident else ()
+        for rows in (NATIVE_LEAF_ROWS,) + ragged:
+            x = randn64((rows, n))
+            k = leaf64(*x, corr, n, steps)
+            torch.cuda.synchronize()
+            parity("leaf64", k, leaf64_plain(*x, corr, n, steps), DD_KERNEL_TOL,
+                   n=n, rows=rows)
+            del k, x
+    for n1, n2 in NATIVE_COL_SHAPES:
+        tabs, w = col_args(PlannerDit64(n1 * n2, options=Options(
+            leaf_fft_size=n2)).native_state, n1, n2)
+        for b in ((1, 3) if n2 == 1 << 13 else (1,)):
+            x = randn64((b, n1, n2))
+            k = col64(*x, tabs, n1, w)
+            torch.cuda.synchronize()
+            parity("col64", k, col64_plain(*x, tabs, n1, w), DD_KERNEL_TOL,
+                   batch=b, n1=n1, n2=n2)
+            k = transpose2_64(*x)
+            torch.cuda.synchronize()
+            transpose_parity(k, transpose2_plain(*x), batch=b, n1=n1, n2=n2)
+            del k, x
+    torch.cuda.empty_cache()
+
+    # -- main path: counters at 0 just before, read just after; every
+    # transform's launches are checked against its plan
+    counters = (col64, leaf64, transpose2_64, transpose2, ddcol, ddcol_nocorr, ddleaf,
+                ozcol, ozleaft, leaf, leaf3, hybrid, colfft, colfft_out3d, leaft)
+    for k in counters:
+        k.launches = 0
+    run = counted(counters)
+    errs = {}
+    peak = held = None
+    for log_n in NATIVE_E2E_LOGS:
+        n = 1 << log_n
+        xr, xi = randn64((n,))
+        plan = PlannerDit64(n).plan
+        if log_n == NATIVE_E2E_LOGS[-1]:
+            _cached_planner(n, 64, dev).native_state  # fft_64_dit's tables, built
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        out = run(lambda: fft_64_dit(xr, xi, Direction.Forward), native_launches(plan))
+        if log_n == NATIVE_E2E_LOGS[-1]:
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        if out[0].dtype != torch.float64:
+            raise AssertionError(f"fft_64_dit returned {out[0].dtype}")
+        err = card_oracle_err(out, xr, xi)
+        back = run(lambda: fft_64_dit(out[0], out[1], Direction.Reverse),
+                   native_launches(plan))
+        rt = rel_l2(back[0], back[1], xr, xi)
+        errs[f"fwd_2^{log_n}"], errs[f"roundtrip_2^{log_n}"] = err, rt
+        check(f"native fft_64_dit 2^{log_n}", err, DD_E2E_TOL)
+        check(f"native round trip 2^{log_n}", rt, DD_E2E_TOL)
+        del out, back, xr, xi
+    for log_n in NATIVE_BATCH_LOGS:
+        n = 1 << log_n
+        planner = PlannerDit64(n)
+        xr, xi = randn64((3, n))
+        out = run(lambda: fft_64_dit_with_planner(xr, xi, Direction.Forward, planner),
+                  native_launches(planner.plan))
+        errs[f"batch3_2^{log_n}"] = err = card_oracle_err(out, xr, xi)
+        check(f"native 3 x 2^{log_n}", err, DD_E2E_TOL)
+        del out, xr, xi
+    # the other two entries: an engine-less Options() (2^16 leaves) and a
+    # per-call "native" on a df64 planner
+    n = 1 << 20
+    bare = PlannerDit64(n, options=Options())
+    xr, xi = randn64((n,))
+    out = run(lambda: fft_64_dit_with_planner(xr, xi, Direction.Forward, bare),
+              native_launches(bare.plan))
+    errs["options_bare_2^20"] = err = card_oracle_err(out, xr, xi)
+    check("native on Options() 2^20", err, DD_E2E_TOL)
+    df = engine_planner(1 << 24, "df64")
+    xr, xi = randn64((1 << 24,))
+    out = run(lambda: fft_64_dit_with_planner_and_opts(
+        xr, xi, Direction.Forward, df, Options(f64_engine="native")), native_launches(df.plan))
+    errs["per_call_native_2^24"] = err = card_oracle_err(out, xr, xi)
+    check("per-call native 2^24", err, DD_E2E_TOL)
+    n = 1 << NATIVE_E2E_LOGS[-1]
+    dr = torch.zeros(n, device=dev, dtype=torch.float64)
+    dr[0] = float(n)
+    back = run(lambda: fft_64_dit(dr, torch.zeros_like(dr), Direction.Reverse),
+               native_launches(PlannerDit64(n).plan))
+    exact = bool((back[0] == 1.0).all()) and bool((back[1] == 0.0).all())
+    errs[f"inverse_scale_exact_2^{NATIVE_E2E_LOGS[-1]}"] = exact
+    if not exact:
+        raise AssertionError("native inverse of N * delta is not exactly ones")
+    del out, back, dr, xr, xi
+    torch.cuda.synchronize()
+    got = {k.__name__: k.launches for k in counters}
+    emit({"phase": "e2e_native", "rel_l2": errs, "launches": got, "want": run.total,
+          "peak_bytes_2^25": peak, "held_before_2^25": held, "peak_gib_2^25": peak / 2 ** 30})
+    if got != run.total:
+        raise AssertionError(f"launches {got}, want {run.total}")
+    for name in ("col64", "leaf64", "transpose2_64"):
+        if got[name] < 1:
+            raise AssertionError(f"{name} was never launched on the native main path")
+        launches[name] = got[name]
+    torch.cuda.empty_cache()
+
+    # -- times: the race of the four f64 contenders, and each kernel of the
+    # native plan at each race size
+    def race_row(fn):
+        return {"ms": time_ms(fn, flush, 10), "wall_ms": wall_ms(fn, flush, 10)}
+
+    race = {}
+    for log_n, rows in NATIVE_RACE:
+        n = 1 << log_n
+        xr, xi = randn64((rows, n))
+        native = engine_planner(n, "native")
+        df = engine_planner(n, "df64")
+        plan = native.plan
+        row = {"native": race_row(lambda: fft_64_dit_with_planner(
+                   xr, xi, Direction.Forward, native)),
+               "df64": race_row(lambda: fft_64_dit_with_planner(
+                   xr, xi, Direction.Forward, df))}
+        if log_n in NATIVE_RACE_OZ_LOGS:
+            oz = PlannerDit64(n, options=Options(f64_engine="df64-oz", leaf_fft_size=1 << 13))
+            row["df64-oz"] = race_row(lambda: fft_64_dit_with_planner(
+                xr, xi, Direction.Forward, oz))
+            del oz
+        xc = torch.complex(xr, xi)
+        row["library"] = race_row(lambda: torch.fft.fft(xc))
+        del xc
+        passes = 1 if plan[0] != "split" else 3
+        bound = native_bound(rows * n, log_n, passes, native_tables(plan))
+        engines = [e for e in ("native", "df64", "df64-oz") if e in row]
+        winner = min(engines, key=lambda e: row[e]["ms"])
+        guess = Options.guess_options(n, np.float64).f64_engine or "native"
+        race[log_n] = winner
+        emit({"phase": "race_native", "n": n, "rows": rows, "plan": repr(plan), "card": smi,
+              **row, "transform_bound": bound, "winner": winner, "guess_options": guess})
+        # each kernel of the plan alone, on the shapes the transform gives it
+        kern = {}
+        if plan[0] == "split":
+            _, n1, _, n2 = plan
+            x = tuple(a.reshape(rows, n1, n2) for a in (xr, xi))
+            tabs, w = col_args(native.native_state, n1, n2)
+            s2 = 1 << ((n2.bit_length() - 1) // 2)
+            kern["col64"] = {"ms": time_ms(lambda: col64(*x, tabs, n1, w), flush, 10),
+                             **native_bound(rows * n, n1.bit_length() - 1, 1,
+                                            16 * n1 * (n2 // s2 + s2) + 8 * n1),
+                             "library_ms": None, "n1": n1, "n2": n2}
+            kern["transpose2_64"] = {
+                "ms": time_ms(lambda: transpose2_64(*x), flush, 10),
+                **native_bound(rows * n, None),
+                "library_ms": time_ms(lambda: (x[0].transpose(-1, -2).contiguous(),
+                                               x[1].transpose(-1, -2).contiguous()),
+                                      flush, 10), "n1": n1, "n2": n2}
+            lrows, ln = rows * n1, n2
+            if (n1, n2) == NATIVE_TOP:
+                # the kernels line's shapes: timed against, and held to,
+                # the plain versions on the same inputs
+                kern["col64"]["plain_ms"] = time_ms(lambda: col64_plain(*x, tabs, n1, w),
+                                                    flush, 3)
+                kern["transpose2_64"]["plain_ms"] = time_ms(
+                    lambda: transpose2_plain(*x), flush, 3)
+                parity("col64", col64(*x, tabs, n1, w), col64_plain(*x, tabs, n1, w),
+                       DD_KERNEL_TOL, batch=rows, n1=n1, n2=n2, timed=True)
+                transpose_parity(transpose2_64(*x), transpose2_plain(*x), batch=rows,
+                                 n1=n1, n2=n2, timed=True)
+            del x
+        else:
+            lrows, ln = rows, n
+        corr, steps = leaf_args(native.native_state, ln)
+        y = tuple(a.reshape(lrows, ln) for a in randn64((rows, n)))
+        yc = torch.complex(*y)
+        kern["leaf64"] = {"ms": time_ms(lambda: leaf64(*y, corr, ln, steps), flush, 10),
+                          **native_bound(lrows * ln, ln.bit_length() - 1, 1,
+                                         native_tables(("leaf", ln // 128) if ln >= 128
+                                                       else ("tiny", ln))),
+                          "library_ms": time_ms(lambda: torch.fft.fft(yc), flush, 10),
+                          "n": ln, "rows": lrows}
+        if plan[0] == "split" and (plan[1], plan[3]) == NATIVE_TOP:
+            kern["leaf64"]["plain_ms"] = time_ms(lambda: leaf64_plain(*y, corr, ln, steps),
+                                                 flush, 3)
+            parity("leaf64", leaf64(*y, corr, ln, steps), leaf64_plain(*y, corr, ln, steps),
+                   DD_KERNEL_TOL, n=ln, rows=lrows, timed=True)
+            for name in kern:
+                top[name] = {"plain_ms": None, "n": n, "rows": rows, **kern[name]}
+        emit({"phase": "times_native", "n": n, "rows": rows, "card": smi, "kernels": kern})
+        del xr, xi, y, yc, native, df
+        torch.cuda.empty_cache()
+    emit({"phase": "race_native_winners", "winners": race,
+          "guess_options": {log_n: Options.guess_options(1 << log_n, np.float64).f64_engine
+                            for log_n, _ in NATIVE_RACE}})
+
+
 def main() -> int:
     import torch
 
@@ -1029,8 +1395,7 @@ def main() -> int:
 
     from phastft_tpu_torch import (
         Direction, Options, PlannerDit32, PlannerDit64, fft_32_dit,
-        fft_32_dit_with_planner, fft_64_dit, fft_64_dit_with_planner,
-        fft_64_dit_with_planner_and_opts,
+        fft_32_dit_with_planner, fft_64_dit_with_planner, fft_64_dit_with_planner_and_opts,
     )
     from phastft_tpu_torch.ops import _build
     from phastft_tpu_torch.ops.dd import (
@@ -1680,6 +2045,12 @@ def main() -> int:
         """fn() once; it must launch what a df64 transform of ``plan`` does."""
         return run_counted(fn, dd_launches(plan, split))
 
+    def df64_planner(n):
+        """A planner on the default leaf rule of n, pinned to "df64" (the
+        default engine is the native one up to 2^25)."""
+        return PlannerDit64(n, options=dataclasses.replace(
+            Options.guess_options(n, np.float64), f64_engine="df64"))
+
     def randn64(shape):
         return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float64),
                 torch.randn(shape, generator=gen, device=dev, dtype=torch.float64))
@@ -1689,10 +2060,11 @@ def main() -> int:
         n = 1 << log_n
         re = rng.standard_normal((max(1, DD_E2E_POINTS // n), n))
         im = rng.standard_normal(re.shape)
-        plan = PlannerDit64(n).plan
-        out = run_dd(lambda: fft_64_dit(re, im, Direction.Forward), plan)
+        planner = df64_planner(n)
+        out = run_dd(lambda: fft_64_dit_with_planner(re, im, Direction.Forward, planner),
+                     planner.plan)
         if out[0].dtype != torch.float64:
-            raise AssertionError(f"fft_64_dit returned {out[0].dtype}")
+            raise AssertionError(f"fft_64_dit_with_planner returned {out[0].dtype}")
         err = oracle_err(out, re + 1j * im)
         errs[f"fwd_2^{log_n}"] = err
         check(f"fft_64_dit 2^{log_n}", err, DD_E2E_TOL)
@@ -1700,7 +2072,7 @@ def main() -> int:
     for log_n in (*DD_E2E_LOGS, DD_NESTED_LOG):
         n = 1 << log_n
         xr, xi = randn64((n,))
-        planner = PlannerDit64(n)
+        planner = df64_planner(n)
         if (log_n == DD_NESTED_LOG) != (planner.plan[2][0] == "split"):
             raise AssertionError(f"unexpected f64 plan {planner.plan}")
         planner.dd_state  # the tables are built before the memory reading
@@ -1716,14 +2088,16 @@ def main() -> int:
         errs[f"fwd_2^{log_n}"] = err
         check(f"fft_64_dit 2^{log_n}", err, DD_E2E_TOL)
         if log_n == 24:
-            back = run_dd(lambda: fft_64_dit(out[0], out[1], Direction.Reverse),
+            back = run_dd(lambda: fft_64_dit_with_planner(out[0], out[1],
+                                                          Direction.Reverse, planner),
                           planner.plan)
             rt = rel_l2(back[0], back[1], xr, xi)
             errs["roundtrip_2^24"] = rt
             check("f64 round trip 2^24", rt, DD_E2E_TOL)
             dr = torch.zeros(n, device=dev, dtype=torch.float64)
             dr[0] = float(n)
-            back = run_dd(lambda: fft_64_dit(dr, torch.zeros_like(dr), Direction.Reverse),
+            back = run_dd(lambda: fft_64_dit_with_planner(dr, torch.zeros_like(dr),
+                                                          Direction.Reverse, planner),
                           planner.plan)
             exact = bool((back[0] == 1.0).all()) and bool((back[1] == 0.0).all())
             errs["inverse_scale_exact_2^24"] = exact
@@ -1740,7 +2114,7 @@ def main() -> int:
             del back, dr
         del out, xr, xi
         torch.cuda.empty_cache()
-    planner = PlannerDit64(1 << 22)
+    planner = df64_planner(1 << 22)
     for _ in range(2):
         xr, xi = randn64((4, 1 << 22))
         out = run_dd(lambda: fft_64_dit_with_planner(xr, xi, Direction.Forward, planner),
@@ -1851,7 +2225,7 @@ def main() -> int:
     for log_n in DD_TIME_LOGS:
         n = 1 << log_n
         xr, xi = randn64((n,))
-        planner = PlannerDit64(n)
+        planner = df64_planner(n)
 
         def transform():
             return fft_64_dit_with_planner(xr, xi, Direction.Forward, planner)
@@ -2008,7 +2382,7 @@ def main() -> int:
             check(f"df64-oz inverse 2^{log_n}", err, OZ_E2E_TOL)
             del inv
             # a per-call "df64-oz" on a "df64" planner finds no oz tables
-            df = PlannerDit64(n)
+            df = df64_planner(n)
             out2 = run_counted(lambda: fft_64_dit_with_planner_and_opts(
                 xr, xi, Direction.Forward, df, Options(f64_engine="df64-oz")),
                 dd_launches(df.plan, False))
@@ -2056,7 +2430,7 @@ def main() -> int:
         }
         del x, c
         xr, xi = randn64((n,))
-        df = PlannerDit64(n)
+        df = df64_planner(n)
 
         def transform():
             return fft_64_dit_with_planner(xr, xi, Direction.Forward, planner)
@@ -2086,7 +2460,9 @@ def main() -> int:
     del x, c
     torch.cuda.empty_cache()
 
-    # -- the hybrid leaf, then the distributed four-step at world size 1
+    # -- the native f64 engine, the hybrid leaf, then the distributed
+    # four-step at world size 1
+    native_phases(dev, gen, flush, smi, top, launches, max_err)
     hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err)
     dist_phases(dev, gen, flush, smi, top, launches, max_err)
 
@@ -2117,6 +2493,13 @@ def main() -> int:
                    "phastft_tpu/ops/pallas_leaf.py:410"),
         "colfft_nocorr": ("phastft_tpu_torch/csrc/colfft.cu",
                           "phastft_tpu/ops/pallas_col.py:281"),
+        # the native f64 engine: no TPU kernel; what each stands for
+        "leaf64": ("phastft_tpu_torch/csrc/leaf64.cu",
+                   "phastft_tpu/ops/stockham.py:236"),
+        "col64": ("phastft_tpu_torch/csrc/col64.cu",
+                  "phastft_tpu/ops/fourstep.py:353-380"),
+        "transpose2_64": ("phastft_tpu_torch/csrc/transpose64.cu",
+                          "phastft_tpu/ops/fourstep.py:149"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

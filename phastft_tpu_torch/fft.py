@@ -18,15 +18,19 @@ The port runs planar f32 for n = 1..2^30 (one leaf kernel up to 2^16,
 the fused two-pass pipeline to 2^25, a classic outer level around it
 above, and classic levels wherever ``Options.leaf_fft_size`` forces a
 split the fused pipeline refuses; ``leaf_kernel="hybrid"``, per call or on
-the planner, runs the leaves on the opt-in hybrid kernel), and planar f64 for the same sizes on
-the df64 (paired-f32) engine: ``f64_engine`` = ``"df64"``, ``"df64-fused"``,
-``"df64-split"`` or ``"df64-oz"``, resolved as the JAX package resolves it
+the planner, runs the leaves on the opt-in hybrid kernel), and planar f64
+for the same sizes, ``f64_engine`` resolved as the JAX package resolves it
 (a per-call value that is not None, else the planner's, else
-``"native"``). A planner built with ``"df64-oz"`` runs its split levels
-inside the Ozaki kernels' window on them, whatever the per-call engine;
-the leaves and other levels run the df64 kernels. The native f64 engine and
-larger sizes raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that brings them.
+``"native"``): the native engine on the FP64 units for n <= 2^25 (every
+split level classic, n1 <= 512), or the df64 (paired-f32) engine,
+``"df64"``, ``"df64-fused"``, ``"df64-split"`` or ``"df64-oz"``. A planner
+built with ``"df64-oz"`` runs its split levels inside the Ozaki kernels'
+window on them, whatever the per-call engine; the leaves and other levels
+run the df64 kernels. The ``*_with_planner`` entries pass
+``Options.guess_options(n)`` per call, as the JAX package does: its
+``f64_engine`` is None up to 2^25 (the planner's engine decides) and
+``"df64"`` from 2^26. What the port does not run raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
 """
 
 from __future__ import annotations
@@ -43,9 +47,10 @@ from .errors import (
     ensure_power_of_two,
     not_ported,
 )
-from .options import Options
+from .options import NATIVE_MAX_LOGN, Options
 from .planner import Direction, PlannerDit32, PlannerDit64, resolve_device
-from .ops.dit import build_dd_fft, build_fast_fft
+from .ops.dit import build_dd_fft, build_fast_fft, build_native_fft
+from .ops.fourstep import native_window
 
 __all__ = [
     "fft_64_dit",
@@ -58,13 +63,15 @@ __all__ = [
 
 
 def _validate(reals, imags, planner):
-    """Shape/size validation shared by all entries."""
-    if reals.shape != imags.shape:
+    """Shape/size validation shared by all entries, on the shapes alone
+    (numpy arrays, tensors or nested lists), before any data is read."""
+    shape, other = tuple(np.shape(reals)), tuple(np.shape(imags))
+    if shape != other:
         raise LengthMismatchError(
-            f"reals and imags must be of equal length, got {tuple(reals.shape)} "
-            f"and {tuple(imags.shape)}"
+            f"reals and imags must be of equal length, got {shape} "
+            f"and {other}"
         )
-    n = int(reals.shape[-1]) if reals.dim() else 0
+    n = int(shape[-1]) if shape else 0
     log_n = ensure_power_of_two(n)
     if planner.n != n:
         raise PlannerSizeMismatchError(
@@ -121,9 +128,7 @@ def _length(x) -> int:
 
 def _run(reals, imags, direction, planner, opts: Options):
     direction = _coerce_direction(direction)
-    reals = _as_tensor(reals, planner)
-    imags = _as_tensor(imags, planner)
-    n, _ = _validate(reals, imags, planner)
+    n, log_n = _validate(reals, imags, planner)
     if opts.strategy == "staged":
         raise not_ported("strategy='staged'", "classic")
     use_pallas = (
@@ -143,13 +148,21 @@ def _run(reals, imags, direction, planner, opts: Options):
             else (planner.options.f64_engine or "native")
         )
         if not engine.startswith("df64"):
-            raise not_ported(f"f64_engine={engine!r}", "f64")
-        # "df64-split" / "df64-fused" pin the dd leaf lowering; an unknown
-        # suffix ("oz" among them) falls to the default, the one-kernel
-        # leaf. The Ozaki kernels run where the planner built their tables.
-        dd_leaf = engine.split("-", 1)[1] if "-" in engine else None
-        run = build_dd_fft(n, leaf, scale, dd_leaf)
-        args = planner.dd_state
+            # the native engine, as the JAX package runs every other value
+            if log_n > NATIVE_MAX_LOGN or not native_window(planner.plan):
+                raise not_ported(
+                    f"f64_engine={engine!r} at n = 2^{log_n} (plan "
+                    f"{planner.plan})", "native_big")
+            run = build_native_fft(n, leaf, scale)
+            args = (planner.native_state,)
+        else:
+            # "df64-split" / "df64-fused" pin the dd leaf lowering; an
+            # unknown suffix ("oz" among them) falls to the default, the
+            # one-kernel leaf. The Ozaki kernels run where the planner
+            # built their tables.
+            dd_leaf = engine.split("-", 1)[1] if "-" in engine else None
+            run = build_dd_fft(n, leaf, scale, dd_leaf)
+            args = planner.dd_state
     else:
         # Explicit per-call opts win over the planner's; None defers.
         leaf_kernel = (
@@ -158,6 +171,8 @@ def _run(reals, imags, direction, planner, opts: Options):
         )
         run = build_fast_fft(n, leaf, scale, leaf_kernel)
         args = (planner.tables_for(planner.plan, leaf_kernel),)
+    reals = _as_tensor(reals, planner)
+    imags = _as_tensor(imags, planner)
     if direction is Direction.Forward:
         return run(reals, imags, *args)
     # IFFT swap trick: swap(IDFT(z)) = (1/N) DFT(swap(z)); feed (im, re)
@@ -178,8 +193,11 @@ def fft_32_dit_with_planner_and_opts(reals, imags, direction, planner, opts):
 
 
 def fft_32_dit_with_planner(reals, imags, direction, planner):
-    """f32 planar C2C FFT with a reusable planner, on its options."""
-    return _run(reals, imags, direction, planner, planner.options)
+    """f32 planar C2C FFT with a reusable planner, on per-call
+    ``Options.guess_options(n)`` as in the JAX package: its fields are
+    None or "auto", so the planner's ``leaf_kernel`` and tables decide."""
+    return _run(reals, imags, direction, planner,
+                Options.guess_options(_length(reals)))
 
 
 def fft_32_dit(reals, imags, direction, device=None):
@@ -193,16 +211,20 @@ def fft_32_dit(reals, imags, direction, device=None):
 
 
 def fft_64_dit_with_planner_and_opts(reals, imags, direction, planner, opts):
-    """f64 planar C2C FFT with explicit planner and options, on the df64
-    (paired-f32) engine. ``opts.f64_engine``, when not None, overrides the
-    planner's; the Ozaki kernels run wherever the planner built their
-    tables."""
+    """f64 planar C2C FFT with explicit planner and options.
+    ``opts.f64_engine``, when not None, overrides the planner's, and None
+    on both runs the native engine; the Ozaki kernels run wherever the
+    planner built their tables."""
     return _run(reals, imags, direction, planner, opts)
 
 
 def fft_64_dit_with_planner(reals, imags, direction, planner):
-    """f64 planar C2C FFT with a reusable planner, on its options."""
-    return _run(reals, imags, direction, planner, planner.options)
+    """f64 planar C2C FFT with a reusable planner, on per-call
+    ``Options.guess_options(n)`` as in the JAX package: up to n = 2^25 its
+    ``f64_engine`` is None and the planner's engine runs; from 2^26 it is
+    ``"df64"``, whatever the planner's."""
+    return _run(reals, imags, direction, planner,
+                Options.guess_options(_length(reals)))
 
 
 def fft_64_dit(reals, imags, direction, device=None):

@@ -61,6 +61,11 @@ _SIGNATURES = {
     "phastft_ozcol_blocks": [],
     "phastft_ozleaft_clusters": [_I],
     "phastft_oz_exact": [_P] * 3 + [_I, _I, _I, _I, _P],
+    # the native f64 engine
+    "phastft_col64": [_P] * 9 + [_L, _I, _I, _P],
+    "phastft_leaf64": [_P] * 8 + [_L, _I, _P],
+    "phastft_leaf64_clusters": [_I],
+    "phastft_transpose2_64": [_P] * 4 + [_L, _L, _L, _P],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,7 @@
 """Transform builder.
 
-Counterpart of ``build_fast_fft`` and ``build_dd_fft`` in the JAX
-package's ``ops/dit.py``, without ``jit``: PyTorch runs eagerly, so a
+Counterpart of ``build_fast_fft`` (f32, and f64 on the native engine) and
+``build_dd_fft`` in the JAX package's ``ops/dit.py``, without ``jit``: PyTorch runs eagerly, so a
 "build" is the plan and a closure over it, cached per configuration.
 """
 
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import functools
 
-__all__ = ["build_fast_fft", "build_dd_fft"]
+__all__ = ["build_fast_fft", "build_dd_fft", "build_native_fft"]
 
 
 @functools.lru_cache(maxsize=256)
@@ -60,6 +60,29 @@ def build_dd_fft(n: int, leaf_limit: int, scale: bool, dd_leaf=None):
         out_im = ih.double()
         out_im += il
         del ih, il
+        if scale:
+            inv_n = 1.0 / n
+            out_re.mul_(inv_n)
+            out_im.mul_(inv_n)
+        return out_re, out_im
+
+    return run
+
+
+@functools.lru_cache(maxsize=64)
+def build_native_fft(n: int, leaf_limit: int, scale: bool):
+    """Callable (re, im, corrs) -> (re, im) for the native f64 engine: f64
+    planes through ``ops/fourstep.fft_rows_native`` with the planner's
+    ``native_state``, the JAX package's f64 use of its ``build_fast_fft``.
+    ``scale`` multiplies the result by 1/n in f64 after the rows, in place
+    on the freshly allocated outputs; the caller's tensors are never
+    written."""
+    from .fourstep import fft_rows_native, plan_rows
+
+    plan = plan_rows(n, leaf_limit)
+
+    def run(re, im, corrs):
+        out_re, out_im = fft_rows_native(re, im, plan, corrs)
         if scale:
             inv_n = 1.0 / n
             out_re.mul_(inv_n)

@@ -32,6 +32,12 @@ for every split level ``ddcol``, the inner plan, and ``transpose2`` twice
 (once per hi/lo pair of planes); a split level for which the planner built
 the Ozaki tables runs ``ozcol`` + ``ozleaft`` instead, two trips through
 device memory whose output is already in natural order.
+
+``fft_rows_native`` runs the same plans in f64 on two planes, the native
+engine, as the JAX package's f64 ``fft_rows`` runs them: every split level
+on the classic branch (``col64`` with the split twiddle, the inner plan,
+``transpose2_64``) and every leaf on ``leaf64`` (n = 2..2^16,
+the tiny plans included); n = 1 is a copy.
 """
 
 from __future__ import annotations
@@ -46,8 +52,9 @@ from .df64 import tiny_fft_dd
 from .ozdd import ozcol, ozleaft
 from .leaf import hybrid, leaf, leaf3
 from .leaft import leaft
+from .native import MAX_COL_N1, col64, leaf64
 from .stockham import LANES
-from .transpose import transpose2
+from .transpose import transpose2, transpose2_64
 
 __all__ = [
     "plan_rows",
@@ -55,6 +62,8 @@ __all__ = [
     "fused_two_pass",
     "fft_rows",
     "fft_rows_dd",
+    "fft_rows_native",
+    "native_window",
 ]
 
 # Largest row transform executed as a single leaf.
@@ -243,3 +252,52 @@ def fft_rows_dd(rh, rl, ih, il, plan, tables, corrs, dd_leaf=None):
     rows = fft_rows_dd(*col, plan2, tables, corrs, dd_leaf)
     del col
     return _out_transpose_dd(rows, batch, n1, n2)
+
+
+# --------------------------------------------------------------------------
+# Native f64 row transforms: the same plan shapes, f64 arithmetic on two
+# planes, the classic branch at every split level.
+# --------------------------------------------------------------------------
+
+
+def native_window(plan) -> bool:
+    """Whether the native kernels run ``plan``: every split level's column
+    factor is at most ``col64``'s 512 (a leaf takes up to 2^16 points)."""
+    return all(n1 <= MAX_COL_N1 for n1, _, _ in split_levels(plan))
+
+
+def fft_rows_native(re, im, plan, corrs):
+    """DFT along the last axis of (..., n) f64 planes following ``plan``.
+
+    ``corrs``: the planner's native tables under the JAX planner's keys,
+    ``split{n1}x{n2}`` (T1 re, T1 im, T2 re, T2 im) of every split level
+    and ``leaf{n1}`` (re, im) of the plan's leaf (n1 >= 2), and the step
+    tables ``dif{m}`` of every DFT size the kernels run. A tiny or leaf
+    plan runs ``leaf64`` (n = 1 is a copy); a split level runs ``col64``,
+    the inner plan on its n1 rows as one more batch dim, and
+    ``transpose2_64``, freeing each intermediate pair as soon as the next
+    pass has read it. Every branch returns new tensors."""
+
+    def steps(m):
+        return corrs[f"dif{m}"][0] if m > 1 else None
+
+    kind = plan[0]
+    if kind == "tiny":
+        if plan[1] == 1:
+            return re.clone(), im.clone()
+        return leaf64(re, im, None, plan[1], (None, steps(plan[1])))
+    if kind == "leaf":
+        n1 = plan[1]
+        return leaf64(re, im, corrs.get(f"leaf{n1}"), n1 * LANES,
+                      (steps(n1), steps(LANES)))
+    _, n1, plan2, n2 = plan
+    batch = tuple(re.shape[:-1])
+    view = batch + (n1, n2)
+    c_re, c_im = col64(re.reshape(view), im.reshape(view),
+                       corrs[f"split{n1}x{n2}"], n1, steps(n1))
+    d_re, d_im = fft_rows_native(c_re, c_im, plan2, corrs)
+    del c_re, c_im
+    o_re, o_im = transpose2_64(d_re, d_im)
+    del d_re, d_im
+    flat = batch + (n1 * n2,)
+    return o_re.reshape(flat), o_im.reshape(flat)

@@ -7,7 +7,9 @@ launch.
 
 ``transpose2`` is the wrapper: on CUDA tensors it launches the
 hand-written kernel ``csrc/transpose.cu``; on CPU tensors it runs
-``transpose2_plain``. The two agree bit for bit: nothing is computed.
+``transpose2_plain``. ``transpose2_64`` is the same on 64-bit words (the
+native f64 engine's classic levels), on ``csrc/transpose64.cu``. A kernel
+and the plain version agree bit for bit: nothing is computed.
 """
 
 from __future__ import annotations
@@ -17,37 +19,85 @@ import torch
 
 from ._build import library
 
-__all__ = ["transpose2", "transpose2_plain"]
+__all__ = ["transpose2", "transpose2_64", "transpose2_plain"]
 
 
-def _check(a, b):
-    """Validate the arguments shared by the kernel and its plain version;
-    return (batch shape, flat batch, rows, cols)."""
+def _check(a, b, dtypes=(torch.float32,), name="transpose2"):
+    """Validate the arguments shared by the kernels and their plain
+    version: two tensors of one of ``dtypes``; return (batch shape, flat
+    batch, rows, cols)."""
     for x in (a, b):
         if not isinstance(x, torch.Tensor):
-            raise TypeError("transpose2 takes torch tensors")
-        if x.dtype != torch.float32:
-            raise TypeError(f"transpose2 is float32 only, got {x.dtype}")
+            raise TypeError(f"{name} takes torch tensors")
+        if x.dtype not in dtypes or x.dtype != a.dtype:
+            raise TypeError(f"{name} takes two tensors of one dtype of "
+                            f"{[str(d) for d in dtypes]}, got {x.dtype}")
     if a.device != b.device:
-        raise ValueError("transpose2: both tensors must be on one device")
+        raise ValueError(f"{name}: both tensors must be on one device")
     if a.shape != b.shape or a.dim() < 2:
         raise ValueError(
-            f"transpose2: expected two (..., R, C) tensors of one shape, got "
+            f"{name}: expected two (..., R, C) tensors of one shape, got "
             f"{tuple(a.shape)} and {tuple(b.shape)}"
         )
     rows, cols = int(a.shape[-2]), int(a.shape[-1])
     if rows < 1 or cols < 1 or rows & (rows - 1) or cols & (cols - 1):
         raise ValueError(
-            f"transpose2: R and C must be powers of two, got {rows}, {cols}")
+            f"{name}: R and C must be powers of two, got {rows}, {cols}")
     batch = tuple(a.shape[:-2])
     return batch, int(np.prod(batch)) if batch else 1, rows, cols
 
 
 def transpose2_plain(a, b):
     """Plain-torch paired transpose: same arguments and result as
-    ``transpose2``."""
-    _check(a, b)
+    ``transpose2`` (f32) and ``transpose2_64`` (f64)."""
+    _check(a, b, (torch.float32, torch.float64), "transpose2_plain")
     return (a.swapaxes(-1, -2).contiguous(), b.swapaxes(-1, -2).contiguous())
+
+
+def _launch(name, entry, a, b, batch, bs, rows, cols):
+    """Launch the C entry ``entry`` (of ``phastft_transpose2``'s arguments)
+    on CUDA tensors; return the two outputs."""
+    if a.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    shape = batch + (cols, rows)
+    oa = torch.empty(shape, dtype=a.dtype, device=a.device)
+    ob = torch.empty(shape, dtype=a.dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = getattr(library(), entry)(a.data_ptr(), b.data_ptr(), oa.data_ptr(),
+                                        ob.data_ptr(), bs, rows, cols, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
+    return oa, ob
+
+
+def transpose2_64(a, b):
+    """(..., R, C) -> (..., C, R) for two f64 tensors of one shape, R and C
+    powers of two, as new contiguous tensors: ``transpose2`` on 64-bit
+    words.
+
+    On CUDA it launches ``csrc/transpose64.cu`` once for both tensors on
+    the current stream; a CPU tensor runs ``transpose2_plain``. Inputs are
+    read, never written. Each launch adds one to
+    ``transpose2_64.launches``.
+
+    Stands for the JAX package's XLA transpose of the native engine's
+    classic levels (``_out_transpose``, ``phastft_tpu/ops/fourstep.py:149``).
+    Bound by memory (16 B per double, read once and written once); a block
+    moves a tile of 2048 doubles of each tensor through shared memory
+    padded for 8-byte words."""
+    batch, bs, rows, cols = _check(a, b, (torch.float64,), "transpose2_64")
+    if a.device.type == "cpu":
+        return transpose2_plain(a, b)
+    out = _launch("transpose2_64", "phastft_transpose2_64", a, b, batch, bs,
+                  rows, cols)
+    transpose2_64.launches += 1
+    return out
+
+
+transpose2_64.launches = 0
 
 
 def transpose2(a, b):
@@ -68,24 +118,10 @@ def transpose2(a, b):
     batch, bs, rows, cols = _check(a, b)
     if a.device.type == "cpu":
         return transpose2_plain(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"transpose2: unsupported device {a.device}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("transpose2: inputs must be contiguous")
-    shape = batch + (cols, rows)
-    oa = torch.empty(shape, dtype=torch.float32, device=a.device)
-    ob = torch.empty(shape, dtype=torch.float32, device=a.device)
-    lib = library()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.phastft_transpose2(
-            a.data_ptr(), b.data_ptr(), oa.data_ptr(), ob.data_ptr(),
-            bs, rows, cols, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"transpose2: kernel launch failed, CUDA error {err}")
+    out = _launch("transpose2", "phastft_transpose2", a, b, batch, bs, rows,
+                  cols)
     transpose2.launches += 1
-    return oa, ob
+    return out
 
 
 transpose2.launches = 0

@@ -5,8 +5,10 @@ dataclass and field names, so one value can describe a call to either
 package. ``guess_options`` keeps both leaf rules of the JAX package,
 which fix the plan shapes (``ops/fourstep.plan_rows``). The f64 engine
 windows of the JAX package were measured on a TPU and are not carried
-over: the port's f64 default is ``"df64"`` at every size, and the Ozaki
-engine ``"df64-oz"`` is opt-in.
+over: the port's f64 windows come from a race on the H100 (``PERF.md``):
+the native engine (``f64_engine=None``) up to n = 2^25, ``"df64"`` from
+2^26, where the native engine does not run yet; the Ozaki engine
+``"df64-oz"`` is opt-in.
 """
 
 from __future__ import annotations
@@ -20,6 +22,10 @@ __all__ = ["Options"]
 
 #: Largest row transform executed as a single leaf.
 DEFAULT_LEAF_SIZE = 1 << 16
+
+#: log2 of the largest n the native f64 engine runs, and so of the
+#: largest n at which ``guess_options`` picks it.
+NATIVE_MAX_LOGN = 25
 
 #: log2(n) from which the staged strategy's bit reversal is tiled.
 TILED_BITREV_MIN_LOGN = 14
@@ -51,7 +57,11 @@ class Options:
 
     ``f64_engine`` (f64 planners only; the per-call value, when not None,
     overrides the planner's, and None on both means ``"native"``):
-    ``"df64"`` and ``"df64-fused"`` run the paired-f32 engine with one dd
+    ``"native"`` (and any value that does not start with ``"df64"``, as in
+    the JAX package) runs planar f64 on the H100's FP64 units, for n <=
+    2^25 with every split level's n1 <= 512; outside that it raises
+    ``NotImplementedError``. ``"df64"`` and ``"df64-fused"`` run the
+    paired-f32 engine with one dd
     leaf kernel per leaf, ``"df64-split"`` runs each leaf as two dd column
     passes with a transpose between. A planner built with ``"df64-oz"``
     runs every split level whose inner plan is a leaf, with
@@ -59,8 +69,7 @@ class Options:
     Ozaki bf16-slice kernels (rel L2 ~1e-11 against ~1e-14), whatever the
     per-call engine; pair it with ``leaf_fft_size=2^13`` (n = 2^20..2^24,
     and the inner level of larger plans), as the JAX package asks. Other
-    levels and leaves run the df64 kernels. ``"native"`` is not ported and
-    raises ``NotImplementedError``.
+    levels and leaves run the df64 kernels.
     """
 
     tiled_bit_reversal: Optional[bool] = None
@@ -83,8 +92,12 @@ class Options:
         factor is at least 128 and the row length n2 = A * 128 has
         A <= 128. Any other dtype, and None, takes the f64 rule: a leaf of
         2^13 up to n = 2^21 and 2^16 past it, clamped to [256, n], with
-        ``f64_engine="df64"`` at every size: a provisional default, decided
-        again by H100 times when the native engine is ported.
+        ``f64_engine=None`` (the native engine) up to n = 2^25, where it
+        won the H100 race against ``"df64"`` and ``"df64-oz"`` at every
+        size (complex128 ``torch.fft.fft``, not an engine of the port,
+        stays 1.3-2.2x faster; ``PERF.md``'s race table), and ``"df64"``
+        from 2^26, where the native engine does not run yet (ROADMAP.md
+        item 20).
         """
         log_n = max(n, 1).bit_length() - 1
         f64_engine = None
@@ -96,7 +109,8 @@ class Options:
         else:
             leaf = (1 << 13) if log_n <= 21 else DEFAULT_LEAF_SIZE
             leaf = min(max(n, 256), leaf)
-            f64_engine = "df64"
+            if log_n > NATIVE_MAX_LOGN:
+                f64_engine = "df64"
         return Options(
             tiled_bit_reversal=log_n >= TILED_BITREV_MIN_LOGN,
             leaf_fft_size=leaf,

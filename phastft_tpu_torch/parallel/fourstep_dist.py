@@ -169,10 +169,8 @@ def fft_distributed(reals, imags, direction, planner, *, group=None,
         )
     if planner.dtype == np.float64:
         engine = planner.options.f64_engine or "native"
-        if engine.startswith("df64"):
-            raise not_ported(f"fft_distributed with f64_engine={engine!r}",
-                             "dist_dd")
-        raise not_ported(f"fft_distributed with f64_engine={engine!r}", "f64")
+        raise not_ported(f"fft_distributed with f64_engine={engine!r}",
+                         "dist_f64")
     d = dist.get_world_size(group)
     rank = dist.get_rank(group)
     if d & (d - 1):

@@ -20,11 +20,14 @@ layouts:
 Twiddles are exact f64 angles rounded once to f32 (the reference's
 accuracy contract).
 
-The f64 planner serves the df64 (paired-f32) engine: it holds no f32
-tables, and builds its ``dd_state`` on first use: the dd radix tables of
-a tiny plan, else the dd corrections of the plan's leaf and split levels,
-and with ``f64_engine="df64-oz"`` the Ozaki slice tables of every split
-level inside the oz kernels' window (``ops/ozdd.oz_window``).
+The f64 planner holds no f32 tables. It builds, each on first use, the
+state of the engine a transform runs on it: ``native_state``, the native
+engine's f64 tables under the JAX planner's keys (``split{n1}x{n2}`` of
+every split level, ``leaf{n1}`` of the plan's leaf), and ``dd_state``, the
+df64 engine's: the dd radix tables of a tiny plan, else the dd corrections
+of the plan's leaf and split levels, and with ``f64_engine="df64-oz"`` the
+Ozaki slice tables of every split level inside the oz kernels' window
+(``ops/ozdd.oz_window``).
 
 ``PlannerDit32.tables_for(plan, leaf_kernel)`` builds, once, the tables
 of another plan on the same options (the row plan of a distributed
@@ -34,8 +37,9 @@ no default kernel reads).
 
 ``PlannerDit32.from_numpy_tables`` and ``PlannerDit64.from_numpy_tables``
 build a planner on tables handed over as numpy arrays, for instance the
-JAX planner's ``leaf_corrs`` or ``dd_state``, so both packages compute
-from the same bits.
+JAX planner's ``leaf_corrs``, ``dd_state`` or native state
+(``fast_tables``, ``leaf_corrs``), so both packages compute from the same
+bits.
 """
 
 from __future__ import annotations
@@ -60,7 +64,8 @@ from .ops.ozdd import (
 )
 from .ops.leaft import leaft_tables_host
 from .ops.mxu import mxu_leaf_tables3_host, mxu_leaf_tables_host
-from .ops.stockham import LANES, leaf_correction_host
+from .ops.native import dif_twiddles_host
+from .ops.stockham import LANES, leaf_correction_host, split_correction_host
 
 __all__ = [
     "Direction",
@@ -303,9 +308,39 @@ def _oz_to_device(key, arrays, device):
                  for i, a in enumerate(out))
 
 
+def _native_tables_host(plan):
+    """{key: (re, im, ...)} of what the native kernels read for ``plan``,
+    as f64 host arrays under the JAX planner's keys and layouts:
+    ``split{n1}x{n2}`` = (T1 re, T1 im, T2 re, T2 im) of every split level
+    and ``leaf{n1}`` = (re, im) of the plan's leaf factor (n1 >= 2); and,
+    under keys of the port's own (the JAX package holds no such table),
+    ``dif{m}`` = (pairs,), the (m/2, 2) step twiddles of every DFT size m
+    a kernel of the plan runs (``ops/native.dif_twiddles_host``)."""
+    out = {}
+    sizes = set()
+    inner = plan
+    for n1, inner, n2 in split_levels(plan):
+        out[f"split{n1}x{n2}"] = split_correction_host(n1, n2, "float64")[1:]
+        sizes.add(n1)
+    if inner[0] == "leaf":
+        n1 = inner[1]
+        if n1 > 1:
+            out[f"leaf{n1}"] = leaf_correction_host(n1, LANES, "float64")
+            sizes.add(n1)
+        sizes.add(LANES)
+    elif inner[1] > 1:
+        sizes.add(inner[1])
+    for m in sorted(sizes):
+        out[f"dif{m}"] = (dif_twiddles_host(m),)
+    return out
+
+
 class PlannerDit64(_PlannerDitBase):
     """f64 DIT planner for n = 1..2^30 on ``device`` (None = "cuda"), for
-    the df64 (paired-f32) engine.
+    the native and the df64 (paired-f32) engines.
+
+    ``native_state`` = {key: tensors}, built on first use and kept on the
+    planner's device: the native engine's tables (``_native_tables_host``).
 
     ``dd_state`` = (tables, corrs), built on first use and kept on the
     planner's device, holding what the transform reads under the JAX
@@ -315,9 +350,10 @@ class PlannerDit64(_PlannerDitBase):
     of every split level (two 4-tuples). With ``f64_engine="df64-oz"`` a
     split level inside ``ops/ozdd.oz_window`` holds ``ozcol{n1}x{n2}`` and
     ``ozleafT{n2}`` instead (flat tuples, the slice arrays as bfloat16),
-    and the transform runs it on the oz kernels. The default options carry
-    ``f64_engine="df64"``; a planner built with engine-less ``Options()``
-    resolves to the native engine, which is not ported."""
+    and the transform runs it on the oz kernels. The default options
+    (``guess_options``) carry ``f64_engine=None``, the native engine, up to
+    n = 2^25 and ``"df64"`` above, as does a planner built with engine-less
+    ``Options()`` wherever the native engine runs."""
 
     dtype = np.dtype(np.float64)
 
@@ -330,6 +366,15 @@ class PlannerDit64(_PlannerDitBase):
     ):
         self._setup(n, mode, options, device)
         self._dd_state = None
+        self._native_state = None
+
+    @property
+    def native_state(self):
+        if self._native_state is None:
+            self._native_state = {
+                key: _to_device(arrays, self.device)
+                for key, arrays in _native_tables_host(self.plan).items()}
+        return self._native_state
 
     @property
     def dd_state(self):
@@ -350,18 +395,51 @@ class PlannerDit64(_PlannerDitBase):
         )
 
     @classmethod
-    def from_numpy_tables(cls, n: int, dd_state, device=None,
-                          options: Optional[Options] = None):
-        """A planner for size ``n`` on ``device`` whose ``dd_state`` is
-        exactly the given arrays. ``dd_state`` = (tables, corrs) as the
-        JAX planner's ``dd_state`` holds them, converted to numpy. Only the
-        entries the plan's transform reads are taken (see ``dd_state``);
-        every other key is ignored. The oz slice arrays may be bfloat16 (as
-        the JAX planner holds them) or float32, and must be integers of at
-        most 128 in magnitude. Raises if an entry the plan needs is missing,
-        of another shape, or not f32."""
+    def from_numpy_tables(cls, n: int, dd_state=None, device=None,
+                          options: Optional[Options] = None,
+                          native_state=None):
+        """A planner for size ``n`` on ``device`` whose ``dd_state`` and
+        ``native_state`` are exactly the given arrays (either or both; one
+        not given is built on first use, as by the constructor).
+
+        ``dd_state`` = (tables, corrs) as the JAX planner's ``dd_state``
+        holds them, converted to numpy. Only the entries the plan's
+        transform reads are taken (see ``dd_state``); every other key is
+        ignored. The oz slice arrays may be bfloat16 (as the JAX planner
+        holds them) or float32, and must be integers of at most 128 in
+        magnitude. Raises if an entry the plan needs is missing, of another
+        shape, or not f32.
+
+        ``native_state`` = (fast_tables, leaf_corrs), a JAX native
+        planner's state converted to numpy. The native kernels read no
+        radix table, so ``fast_tables`` is ignored; of ``leaf_corrs`` the
+        plan's ``split{n1}x{n2}`` and ``leaf{n1}`` are taken, every other
+        key ignored, and the ``dif{m}`` step tables, which the JAX package
+        does not hold, are built. Raises if a taken table is missing, of
+        another shape, or not f64."""
         self = cls.__new__(cls)
         self._setup(n, PlannerMode.Heuristic, options, device)
+        self._native_state = None
+        if native_state is not None:
+            _, leaf_corrs = native_state
+            carried = {}
+            for key, want in _native_tables_host(self.plan).items():
+                if key.startswith("dif"):  # the port's own tables
+                    carried[key] = _to_device(want, self.device)
+                    continue
+                if key not in leaf_corrs:
+                    raise KeyError(f"table {key!r} missing for n = {n}")
+                arrays = [np.asarray(a) for a in leaf_corrs[key]]
+                shapes = [a.shape for a in want]
+                if [a.shape for a in arrays] != shapes:
+                    raise ValueError(f"table {key!r}: expected shapes {shapes}")
+                if any(a.dtype != np.float64 for a in arrays):
+                    raise TypeError(f"table {key!r} must be float64")
+                carried[key] = _to_device(arrays, self.device)
+            self._native_state = carried
+        self._dd_state = None
+        if dd_state is None:
+            return self
         tables, corrs = dd_state
         own_tables, own_corrs = _dd_tables_host(self.plan,
                                                 self.options.f64_engine)

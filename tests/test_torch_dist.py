@@ -296,7 +296,7 @@ WANT_ERRORS = {
     "planner_size": ("NonPowerOfTwoError", "planner is for size 4096"),
     "too_small": ("NonPowerOfTwoError", "too small to shard"),
     "f64_df64": ("NotImplementedError", "Queue 1 item 17"),
-    "f64_native": ("NotImplementedError", "Queue 1 item 6"),
+    "f64_native": ("NotImplementedError", "Queue 1 item 17"),
     "n1_over_2048": ("NotImplementedError", "Queue 1 item 18"),
     "batch_1d": ("LengthMismatchError", "at least 2 dims"),
 }

@@ -414,30 +414,40 @@ def test_sizes_outside_slice_not_implemented(log_n, leaf, item):
                                    "fft_64_dit_with_planner_and_opts",
                                    "PlannerDit64"])
 def test_f64_not_implemented(entry, monkeypatch):
-    """The native f64 engine is not ported: every f64 entry that resolves
-    to it raises, naming its ROADMAP item. An engine-less Options() on an
-    f64 planner resolves to "native", as in the JAX package."""
+    """Every f64 entry that resolves to the native engine runs it (it
+    raised until the engine was ported): an explicit "native" planner, a
+    per-call "native" on a df64 planner, and an engine-less Options() on an
+    f64 planner, which resolves to "native" as in the JAX package. The
+    result is the native transform's, bit for bit, and matches the df64
+    engine."""
+    from phastft_tpu_torch.ops.dit import build_native_fft
+
     n = 256
-    x = np.zeros(n)
+    rng = np.random.default_rng(256)
+    re, im = rng.standard_normal((2, n)), rng.standard_normal((2, n))
     native = pt.PlannerDit64(n, options=pt.Options(f64_engine="native"),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        if entry == "PlannerDit64":
-            bare = pt.PlannerDit64(n, options=pt.Options(), device="cpu")
-            pt.fft_64_dit_with_planner(x, x, pt.Direction.Forward, bare)
-        elif entry == "fft_64_dit":
-            import phastft_tpu_torch.fft as port_fft
+    df64 = pt.PlannerDit64(n, options=pt.Options(f64_engine="df64"), device="cpu")
+    if entry == "PlannerDit64":
+        bare = pt.PlannerDit64(n, options=pt.Options(), device="cpu")
+        got = pt.fft_64_dit_with_planner(re, im, pt.Direction.Forward, bare)
+    elif entry == "fft_64_dit":
+        import phastft_tpu_torch.fft as port_fft
 
-            monkeypatch.setattr(port_fft, "_cached_planner",
-                                lambda n, bits, device: native)
-            pt.fft_64_dit(x, x, pt.Direction.Forward, device="cpu")
-        elif entry == "fft_64_dit_with_planner":
-            pt.fft_64_dit_with_planner(x, x, pt.Direction.Forward, native)
-        else:
-            df64 = pt.PlannerDit64(n, device="cpu")
-            pt.fft_64_dit_with_planner_and_opts(
-                x, x, pt.Direction.Forward, df64,
-                pt.Options(f64_engine="native"))
+        monkeypatch.setattr(port_fft, "_cached_planner",
+                            lambda n, bits, device: native)
+        got = pt.fft_64_dit(re, im, pt.Direction.Forward, device="cpu")
+    elif entry == "fft_64_dit_with_planner":
+        got = pt.fft_64_dit_with_planner(re, im, pt.Direction.Forward, native)
+    else:
+        got = pt.fft_64_dit_with_planner_and_opts(
+            re, im, pt.Direction.Forward, df64, pt.Options(f64_engine="native"))
+    want = build_native_fft(n, 1 << 16, False)(
+        torch.from_numpy(re), torch.from_numpy(im), native.native_state)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ref = pt.fft_64_dit_with_planner(re, im, pt.Direction.Forward, df64)
+    assert _rel(_g(got), _g(ref)) <= 1e-12
+    assert _rel(_g(got), np.fft.fft(re + 1j * im, axis=-1)) <= 1e-12
 
 
 def test_tune_and_classic_not_implemented():
@@ -491,7 +501,7 @@ def test_f64_matches_jax_and_numpy(log_n, direction):
     rng = np.random.default_rng(200 + log_n)
     re, im = _pair64(rng, (2, n))
     planner = pt.PlannerDit64(n, device="cpu")
-    assert planner.options.f64_engine == "df64"
+    assert planner.options.f64_engine is None  # the native engine's window
     got = pt.fft_64_dit_with_planner_and_opts(
         re, im, getattr(pt.Direction, direction), planner,
         pt.Options(f64_engine="df64"))
@@ -700,8 +710,11 @@ def test_guess_options_without_f32_takes_the_f64_rule(dtype):
         n = 1 << log_n
         got = pt.Options.guess_options(n, *args)
         assert got.leaf_fft_size == JaxOptions.guess_options(n, *args).leaf_fft_size
-        assert got.f64_engine == "df64"
+        # the H100 race's windows: native (None) to 2^25, df64 above
+        assert got.f64_engine == (None if log_n <= 25 else "df64")
     assert pt.Options.guess_options(1 << 16, *args).leaf_fft_size == 1 << 13
+    # an f64 planner's default options run the native engine there
+    assert pt.PlannerDit64(1 << 10, device="cpu").options.f64_engine is None
 
 
 def test_planner_new_and_with_mode():
@@ -746,13 +759,36 @@ def test_shapes_are_checked_before_the_pipeline(field):
             x, y, "f", phastft_tpu.PlannerDit32(N), phastft_tpu.Options(**kw))
 
 
-def test_with_planner_runs_on_the_planners_options():
-    """Fault 2, kept until ROADMAP Queue 1 item 6 decides it: the port's
-    ``*_with_planner`` entries run on ``planner.options`` (the reference
-    passes ``Options.guess_options(n)``), so a planner built on the staged
-    strategy raises item 7's error."""
-    x = np.zeros(N, np.float32)
+def test_with_planner_runs_on_the_planners_options(monkeypatch):
+    """Fault 2, decided with the native f64 engine: the ``*_with_planner``
+    entries pass ``Options.guess_options(n)`` per call, as the reference
+    does. Its strategy is "auto", so a planner built on the staged strategy
+    runs the default pipeline there (the explicit-options entry on the
+    planner's own options raises item 7's error); its ``f64_engine`` is None
+    up to 2^25, so the planner's engine decides there."""
+    import phastft_tpu_torch.fft as port_fft
+
+    seen = []
+    run = port_fft._run
+    monkeypatch.setattr(port_fft, "_run",
+                        lambda *a: seen.append(a[-1]) or run(*a))
+    rng = np.random.default_rng(2)
+    re, im = _pair(rng, (N,))
     planner = pt.PlannerDit32(N, options=pt.Options(strategy="staged"),
                               device="cpu")
+    got = pt.fft_32_dit_with_planner(re, im, "f", planner)
+    want = np.fft.fft(re.astype(np.float64) + 1j * im)
+    assert _rel(_c((got[0].numpy(), got[1].numpy())), want) <= _bound(N)
     with pytest.raises(NotImplementedError, match="item 7"):
-        pt.fft_32_dit_with_planner(x, x, "f", planner)
+        pt.fft_32_dit_with_planner_and_opts(re, im, "f", planner, planner.options)
+    n = 1 << 13
+    x, y = rng.standard_normal(n), rng.standard_normal(n)
+    split = pt.PlannerDit64(n, options=pt.Options(leaf_fft_size=n,
+                                                  f64_engine="df64-split"),
+                            device="cpu")
+    a = pt.fft_64_dit_with_planner(x, y, "f", split)
+    b = pt.fft_64_dit_with_planner_and_opts(x, y, "f", split,
+                                            pt.Options(f64_engine="df64-split"))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert seen[0] == pt.Options.guess_options(N)
+    assert seen[2] == pt.Options.guess_options(n) and seen[2].f64_engine is None

@@ -295,7 +295,8 @@ def test_dd_correction_tables_bitwise(n1, n2):
 def test_f64_plans_match(log_n):
     """The f64 leaf rule and the plans it gives equal the JAX package's
     (whose f64 leaf is 2^13 inside its Ozaki window too); the port's f64
-    default engine is df64 at every size."""
+    default engine is the native one (None) up to 2^25 and df64 above,
+    as the H100 race decided."""
     from phastft_tpu.ops.fourstep import plan_rows as jax_plan
     from phastft_tpu.options import Options as JaxOptions
 
@@ -304,7 +305,7 @@ def test_f64_plans_match(log_n):
 
     n = 1 << log_n
     opts = Options.guess_options(n, np.float64)
-    assert opts.f64_engine == "df64"
+    assert opts.f64_engine == (None if log_n <= 25 else "df64")
     ref = JaxOptions.guess_options(n, np.float64)
     if not 20 <= log_n <= 24:  # there the JAX rule is the Ozaki kernels' 2^13
         assert opts.leaf_fft_size == ref.leaf_fft_size
@@ -344,7 +345,7 @@ def test_planner64_dd_state_matches_jax(log_n, corr_keys):
     jp, jtables, jcorrs = _jax_dd_state_numpy(n)
     planner = PlannerDit64(n, device="cpu")
     assert planner.plan == jp.plan
-    assert planner.options.f64_engine == "df64"
+    assert planner.options.f64_engine is None  # native; dd_state on demand
     tables, corrs = planner.dd_state
     assert planner.dd_state is planner.dd_state  # built once
     assert set(tables) == (set(jtables) if planner.plan[0] == "tiny" else set())
