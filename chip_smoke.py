@@ -195,10 +195,11 @@ on any failed check:
 The native f64 engine's phases run between 19 and 20:
 
 26. ``parity_native``: its three kernels against their plain versions on
-   the card: ``leaf64`` at every n = 2..2^16 on 5 rows and, at 2^13..2^16,
-   on one more row than its clusters resident at once; ``col64`` at n1 = 2,
-   64, 128, 512 over n2 = 2^13 (batches of 1 and 3) and 2^16; rel L2 <=
-   1e-13; ``transpose2_64`` at the same shapes, bit for bit.
+   the card: ``leaf64`` at every n = 2..2^16 on 5 rows, below 2^13 on three
+   blocks' rows and one, and at 2^13..2^16 on one row and on one more row than
+   its clusters resident at once; ``col64`` at every column factor n1 =
+   2..512 over n2 = 2^13 (batches of 1 and 3) and 64..512 over 2^16; rel L2
+   <= 1e-13; ``transpose2_64`` at the same shapes, bit for bit.
 27. ``e2e_native``: its main path, counters set to 0 just before and read
    just after, each transform's launches checked against its plan (one
    ``leaf64``, or one ``col64``, ``leaf64`` and ``transpose2_64``, nothing
@@ -219,7 +220,9 @@ The native f64 engine's phases run between 19 and 20:
    64 x 2 x ``clocks.max.sm``) and its library call (``torch.fft.fft`` of
    the same rows for ``leaf64``, ``.transpose(-1, -2).contiguous()`` of both
    planes for ``transpose2_64``; ``col64`` fuses a twiddle and has none),
-   and at (256, 2^16) its plain version.
+   and at (256, 2^16) its plain version; then ``leaf64`` alone at every row
+   length 2^1..2^16 on 2^24 points (``times_native_rows``), beside its bound
+   and complex128 ``torch.fft.fft`` on the same rows.
 
 The line before the last is the kernel summary (sixteen rows: the TPU
 kernels' file:line beside each of the thirteen, and for the three native
@@ -377,13 +380,16 @@ NOCORR_TIMES = ((2048, 1 << 14), (1024, 1 << 14))
 DIST_BATCH = (8, 1 << 20)
 DIST_TIME_REPEATS = 3
 #: The native f64 engine: row lengths of the leaf's parity (every n =
-#: 2..2^16, on NATIVE_LEAF_ROWS rows, an odd count, and from 2^13 also on one
+#: 2..2^16, on NATIVE_LEAF_ROWS rows, an odd count; below 2^13 also on three
+#: blocks' rows and one (a ragged last block), from 2^13 on one row and on one
 #: more row than its clusters resident at once), (n1, n2) of the column
 #: pass's and the 64-bit transpose's (every column factor of the native
 #: plans, 2..256 over 2^13 and 64..512 over 2^16, and 512 over 2^13; each
 #: over 2^13 also on a batch of 3), the transforms' sizes, and the race:
 #: (log2 n, rows) of each size.
 NATIVE_LEAF_ROWS = 5
+#: Points of the leaf's times at every row length 2^1..2^16 (2^24 / n rows).
+NATIVE_LEAF_TIME_POINTS = 1 << 24
 NATIVE_COL_SHAPES = tuple((1 << k, 1 << 13) for k in range(1, 10)) + tuple(
     (1 << k, 1 << 16) for k in range(6, 10))
 NATIVE_E2E_LOGS = tuple(range(26))
@@ -1197,7 +1203,7 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     for log_n in range(1, 17):
         n = 1 << log_n
         corr, steps = leaf_args(leaf_state(n), n)
-        ragged = (resident[n] + 1,) if n in resident else ()
+        ragged = (1, resident[n] + 1) if n in resident else (3 * (4096 // n) + 1,)
         for rows in (NATIVE_LEAF_ROWS,) + ragged:
             x = randn64((rows, n))
             k = leaf64(*x, corr, n, steps)
@@ -1384,6 +1390,22 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     emit({"phase": "race_native_winners", "winners": race,
           "guess_options": {log_n: Options.guess_options(1 << log_n, np.float64).f64_engine
                             for log_n, _ in NATIVE_RACE}})
+
+    # -- leaf64 at every row length on 2^24 points: every block and cluster
+    # shape of the kernel, beside its bound and complex128 torch.fft.fft
+    for log_n in range(1, 17):
+        n = 1 << log_n
+        rows = NATIVE_LEAF_TIME_POINTS // n
+        corr, steps = leaf_args(leaf_state(n), n)
+        y = randn64((rows, n))
+        yc = torch.complex(*y)
+        emit({"phase": "times_native_rows", "n": n, "rows": rows, "card": smi,
+              "ms": time_ms(lambda: leaf64(*y, corr, n, steps), flush, 10),
+              **native_bound(rows * n, log_n, 1,
+                             native_tables(("leaf", n // 128) if n >= 128 else ("tiny", n))),
+              "library_ms": time_ms(lambda: torch.fft.fft(yc), flush, 10)})
+        del y, yc
+    torch.cuda.empty_cache()
 
 
 def main() -> int:

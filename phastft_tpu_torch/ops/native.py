@@ -19,8 +19,9 @@ the 64-bit paired transpose (``ops/transpose.py``):
 Each is a wrapper: on CUDA tensors it launches its kernel (``csrc/col64.cu``,
 ``csrc/leaf64.cu``) or raises; on CPU tensors it runs its ``*_plain``
 version, the JAX package's radix-16 Stockham arithmetic in plain torch
-(``ops/stockham.py``). The kernels run radix-4 DIF trips with FMA, so a
-kernel and its plain version agree to ~1e-16 relative, not bit for bit.
+(``ops/stockham.py``). The kernels run DIF trips of radix-4 butterflies
+with FMA, so a kernel and its plain version agree to ~1e-16 relative, not
+bit for bit.
 """
 
 from __future__ import annotations
@@ -208,10 +209,11 @@ def leaf64(re, im, corr, n: int, steps):
 
     Stands for the JAX package's XLA ``leaf_fft`` and ``tiny_fft``
     (``phastft_tpu/ops/stockham.py:236``, ``:254``). Bound by memory (32 B
-    per element); blocks of 4096 points, two per SM, run radix-4 DIF trips
-    in shared memory. Up to 2^12 points a block holds whole rows; from
-    2^13 a cluster of 2, 4, 8 or 16 blocks holds one row and trades
-    through distributed shared memory between F(n1) and F(128)."""
+    per element); blocks of 4096 points, two per SM, run radix-16 and
+    radix-8 DIF trips in registers, the first straight from the loads and
+    the last straight to the stores. Up to 2^12 points a block holds whole
+    rows; from 2^13 a cluster of 2, 4, 8 or 16 blocks holds one row and
+    trades through distributed shared memory between F(n1) and F(128)."""
     b, n1, corr, tw = _check_leaf(re, im, corr, n, steps)
     if re.device.type == "cpu":
         return leaf64_plain(re, im, corr, n, steps)
