@@ -194,35 +194,55 @@ on any failed check:
 
 The native f64 engine's phases run between 19 and 20:
 
-26. ``parity_native``: its three kernels against their plain versions on
-   the card: ``leaf64`` at every n = 2..2^16 on 5 rows, below 2^13 on three
-   blocks' rows and one, and at 2^13..2^16 on one row and on one more row than
-   its clusters resident at once; ``col64`` at every column factor n1 =
-   2..512 over n2 = 2^13 (batches of 1 and 3) and 64..512 over 2^16; rel L2
-   <= 1e-13; ``transpose2_64`` at the same shapes, bit for bit.
+26. ``build_native`` / ``parity_native``: the clusters of ``leaf64``
+   (2^13..2^16) and ``col64`` (n1 = 1024, 2048) resident at once (none may
+   be 0); its three kernels against their plain versions on the card:
+   ``leaf64`` at every n = 2..2^16 on 5 rows, below 2^13 on three blocks'
+   rows and one, and at 2^13..2^16 on one row and on one more row than its
+   clusters resident at once; ``col64`` at every column factor n1 = 2..512
+   over n2 = 2^13 (batches of 1 and 3) and 64..512 over 2^16, at n1 = 1024
+   and 2048 over 2^13 (batches of 1 and 3) and 2^16, at n2 = 16 (the
+   one-block design) and on one more entry of 32 columns than its clusters
+   resident at once, and on the nested plans' levels: (32, 2^23), 32 x
+   (128, 2^16) and (128, 2^23) (2^30 points: ``col64_plain`` on each half
+   of the columns, the input held on the host meanwhile); rel L2 <= 1e-13;
+   ``transpose2_64`` at the same shapes, bit for bit.
 27. ``e2e_native``: its main path, counters set to 0 just before and read
    just after, each transform's launches checked against its plan (one
-   ``leaf64``, or one ``col64``, ``leaf64`` and ``transpose2_64``, nothing
-   else): ``fft_64_dit`` forward and back at every n = 2^0..2^25 against
-   ``torch.fft.fft`` in complex128 on the card and the input (rel L2 <=
-   1e-12), a batch of 3 at 2^16 and 2^20 on one ``PlannerDit64``, an
-   engine-less ``Options()`` planner at 2^20, a per-call ``"native"`` on a
-   ``"df64"`` planner at 2^24, the inverse of N * delta at 2^25 (exactly
-   ones), and the peak of allocated device memory at 2^25.
-28. ``race_native`` / ``times_native``: at 2^10 x 2^14 rows, 2^13, 2^16,
-   2^20, 2^22, 2^24 and 2^25, ``fft_64_dit_with_planner`` on the native,
-   ``"df64"`` and (2^20..2^24, ``leaf_fft_size=2^13``) ``"df64-oz"``
-   planners and ``torch.fft.fft`` in complex128 on the same data, device
-   time and host clock (10 calls each), with the winner beside what
-   ``Options.guess_options`` picks; then each kernel of the native plan on
-   the shapes the transform gives it, beside its bound (32 B per element
-   and pass plus the tables, against 5 * log2(len) + 6 FP64 flops at 132 x
-   64 x 2 x ``clocks.max.sm``) and its library call (``torch.fft.fft`` of
-   the same rows for ``leaf64``, ``.transpose(-1, -2).contiguous()`` of both
-   planes for ``transpose2_64``; ``col64`` fuses a twiddle and has none),
-   and at (256, 2^16) its plain version; then ``leaf64`` alone at every row
-   length 2^1..2^16 on 2^24 points (``times_native_rows``), beside its bound
-   and complex128 ``torch.fft.fft`` on the same rows.
+   ``leaf64``; per split level one ``col64`` and one ``transpose2_64``
+   around the inner plan; nothing else): ``fft_64_dit`` forward and back at
+   every n = 2^0..2^29 against ``torch.fft.fft`` in complex128 on the card
+   and the input (rel L2 <= 1e-12; at 2^29 also the direct f64 DFT's 256
+   bins against complex128, and the port against both on them), at 2^30 on
+   256 bins of a direct f64 DFT
+   and a round trip (the input made again from its seed, so that no more
+   than three 16 GiB pairs are held), a batch of 3 at 2^16 and 2^20 on one
+   ``PlannerDit64``, an engine-less ``Options()`` planner at 2^20, a
+   per-call ``"native"`` on a ``"df64"`` planner at 2^24, the inverse of
+   N * delta at 2^25 (exactly ones), and the peak of allocated device
+   memory at 2^25 and 2^30 (at 2^30 it fails past the input and two pairs).
+28. ``race_native`` / ``times_native``: at 2^10 x 2^14 rows and every
+   2^13, 2^16, 2^20, 2^22, 2^24..2^30, ``fft_64_dit_with_planner`` on the
+   native planner, the ``"df64"`` one up to 2^28, the ``"df64-oz"`` one
+   (2^20..2^24, ``leaf_fft_size=2^13``) and ``torch.fft.fft`` in complex128
+   on the same data up to 2^29, device time and host clock (10 calls each),
+   with the winner beside what ``Options.guess_options`` picks; then each
+   kernel of the native plan on the shapes the transform gives it (every
+   split level's ``col64`` and ``transpose2_64``, and the leaf), beside its
+   bound (32 B per element and pass plus the tables, against 5 * log2(len)
+   + 6 FP64 flops at 132 x 64 x 2 x ``clocks.max.sm``) and its library call
+   up to 2^29 (``torch.fft.fft`` of the same rows for ``leaf64``,
+   ``.transpose(-1, -2).contiguous()`` of both planes for ``transpose2_64``;
+   ``col64`` fuses a twiddle and has none), and at (256, 2^16) its plain
+   version; then ``col64`` at (1024, 2^16) and (2048, 2^16) on its
+   long-column (cluster) design and on a build of the same source with that
+   design off (every shape one block; ``times_col64_designs``, both held to
+   ``col64_plain``); then ``leaf64`` alone at every row length 2^1..2^16 on
+   2^24 points (``times_native_rows``), beside its bound and complex128
+   ``torch.fft.fft`` on the same rows.
+
+Every timing follows ``release_memory``'s wait where 8 GiB or more went
+back to CUDA (``cudaFree``) just before it.
 
 The line before the last is the kernel summary (sixteen rows: the TPU
 kernels' file:line beside each of the thirteen, and for the three native
@@ -232,6 +252,7 @@ the device record. No CUDA device: exit 1 before any result.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -383,20 +404,51 @@ DIST_TIME_REPEATS = 3
 #: 2..2^16, on NATIVE_LEAF_ROWS rows, an odd count; below 2^13 also on three
 #: blocks' rows and one (a ragged last block), from 2^13 on one row and on one
 #: more row than its clusters resident at once), (n1, n2) of the column
-#: pass's and the 64-bit transpose's (every column factor of the native
-#: plans, 2..256 over 2^13 and 64..512 over 2^16, and 512 over 2^13; each
-#: over 2^13 also on a batch of 3), the transforms' sizes, and the race:
-#: (log2 n, rows) of each size.
+#: pass's and the 64-bit transpose's (the column factors 2..512 of the
+#: native plans, 2..256 over 2^13 and 64..512 over 2^16, and 512 over 2^13;
+#: each over 2^13 also on a batch of 3), the transforms' sizes, and the
+#: race: (log2 n, rows) of each size.
 NATIVE_LEAF_ROWS = 5
 #: Points of the leaf's times at every row length 2^1..2^16 (2^24 / n rows).
 NATIVE_LEAF_TIME_POINTS = 1 << 24
 NATIVE_COL_SHAPES = tuple((1 << k, 1 << 13) for k in range(1, 10)) + tuple(
     (1 << k, 1 << 16) for k in range(6, 10))
-NATIVE_E2E_LOGS = tuple(range(26))
+#: (batch, n1, n2) of the column pass's long factors: the cluster design over
+#: 2^13 and 2^16 (batches of 1 and 3) and the one-block design at n2 = 16;
+#: besides, (resident clusters + 1, n1, 32), a ragged last wave.
+NATIVE_LONG_COL_SHAPES = tuple((b, n1, n2) for n1 in (1024, 2048) for b, n2 in (
+    (1, 1 << 13), (3, 1 << 13), (1, 1 << 16), (3, 16)))
+#: (batch, n1, n2) of the nested plans' levels: the outer level of 2^28 and
+#: the inner level batched as at 2^28; and the outer level of 2^30, whose
+#: plain column pass is held on each half of the columns (it does not fit
+#: the card whole beside the kernel's output).
+NATIVE_NESTED_COL_SHAPES = ((1, 32, 1 << 23), (32, 128, 1 << 16))
+NATIVE_TOP_COL_SHAPE = (1, 128, 1 << 23)
+#: (batch, n1, n2) at which col64's long-column (cluster) design is timed
+#: against its one-block design (COL64_ONEBLOCK).
+NATIVE_DESIGN_SHAPES = ((1, 1024, 1 << 16), (1, 2048, 1 << 16))
+#: Sizes of the forward / round-trip check against complex128 (the 2^30 top
+#: of the window is checked on NATIVE_TOP_BINS direct bins).
+NATIVE_E2E_LOGS = tuple(range(30))
+NATIVE_TOP_LOG = 30
+NATIVE_TOP_BINS = 256
+#: The size at which the direct bins are held against complex128 as well:
+#: the 2^30 check's oracle, measured where both run.
+NATIVE_BINS_LOG = 29
+#: log2 n at which the peak of allocated device memory is printed.
+NATIVE_PEAK_LOGS = (25, 30)
 NATIVE_BATCH_LOGS = (16, 20)
-NATIVE_RACE = ((10, 1 << 14), (13, 1), (16, 1), (20, 1), (22, 1), (24, 1), (25, 1))
+NATIVE_RACE = ((10, 1 << 14), (13, 1), (16, 1), (20, 1), (22, 1), (24, 1), (25, 1), (26, 1),
+               (27, 1), (28, 1), (29, 1), (30, 1))
+#: The race's contenders past 2^25: df64 up to 2^28, complex128 up to 2^29;
+#: 2^30 runs native alone.
+NATIVE_RACE_DF64_MAX_LOG = 28
+NATIVE_RACE_LIBRARY_MAX_LOG = 29
 #: The df64-oz contender's window on leaf_fft_size = 2^13.
 NATIVE_RACE_OZ_LOGS = (20, 22, 24)
+#: csrc/col64.cu built with -DCOL64_CLUSTER_N1=4096 (every shape on the
+#: one-block design), under the build directory.
+COL64_ONEBLOCK = "col64_oneblock.so"
 #: The kernels line's shapes: the 2^24 plan's split level (256 x 2^16).
 NATIVE_TOP = (256, 1 << 16)
 #: FP64 lanes of an H100 SM; each retires one fused multiply-add (2 flops)
@@ -407,6 +459,10 @@ OUT_DIR = "chiprun_out"
 SLEEP_CYCLES = 2_000_000
 #: Cycles of ``torch.cuda._sleep`` per ms on this card, measured once.
 _SLEEP_RATE = []
+#: ``release_memory`` waits RELEASE_WAIT_S once it has returned at least
+#: RELEASE_WAIT_BYTES to CUDA.
+RELEASE_WAIT_BYTES = 8 << 30
+RELEASE_WAIT_S = 1.0
 
 
 def emit(obj) -> None:
@@ -515,6 +571,20 @@ def sleep_cycles(ms: float) -> int:
         end.synchronize()
         _SLEEP_RATE.append(SLEEP_CYCLES / start.elapsed_time(end))
     return int(max(SLEEP_CYCLES, ms * _SLEEP_RATE[0]))
+
+
+def release_memory() -> None:
+    """``torch.cuda.empty_cache()``, then a wait of RELEASE_WAIT_S where it
+    returned RELEASE_WAIT_BYTES or more to CUDA. On the H100 the
+    kernels timed in the ~0.2 s after 16 GiB or more went back read 13%
+    slower, at an unchanged SM clock and no throttle reason; after 8 GiB,
+    or with the memory left in the allocator's cache, they did not."""
+    import torch
+
+    held = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    if held - torch.cuda.memory_reserved() >= RELEASE_WAIT_BYTES:
+        time.sleep(RELEASE_WAIT_S)
 
 
 def device_times(fn, flush, reps=20):
@@ -962,7 +1032,7 @@ def hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err) -> None:
                   xr, xi, Direction.Forward, planner), flush, 10)})
         top["hybrid"] = row  # the kernels line: the last (largest) leaf
         del xr, xi, xc
-    torch.cuda.empty_cache()
+    release_memory()
 
 
 def dist_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
@@ -1078,7 +1148,7 @@ def dist_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         if got != run.total or got["colfft_nocorr"] < 1:
             raise AssertionError(f"launches {got}, want {run.total}")
         launches["colfft_nocorr"] = got["colfft_nocorr"]
-        torch.cuda.empty_cache()
+        release_memory()
 
         # -- times: the bare column pass, and the whole distributed transform
         for n1, n2 in NOCORR_TIMES:
@@ -1127,13 +1197,13 @@ def dist_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         dist.destroy_process_group()
         if os.path.exists(store):
             os.remove(store)
-    torch.cuda.empty_cache()
+    release_memory()
 
 
 def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     """The native f64 engine: its three kernels against their plain
     versions, its main path through the four f64 entries at every n =
-    2^0..2^25, and the race that sets the f64 default."""
+    2^0..2^30, and the race that sets the f64 default."""
     import torch
 
     from phastft_tpu_torch import (
@@ -1144,18 +1214,23 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     from phastft_tpu_torch.ops.dd import ddcol, ddcol_nocorr, ddleaf
     from phastft_tpu_torch.ops.leaf import hybrid, leaf, leaf3
     from phastft_tpu_torch.ops.leaft import leaft
-    from phastft_tpu_torch.ops.native import col64, col64_plain, leaf64, leaf64_plain
+    from phastft_tpu_torch.ops.native import (
+        col64, col64_plain, dif_twiddles_host, leaf64, leaf64_plain,
+    )
     from phastft_tpu_torch.ops.ozdd import ozcol, ozleaft
+    from phastft_tpu_torch.ops.stockham import split_correction_host
     from phastft_tpu_torch.ops.transpose import transpose2, transpose2_64, transpose2_plain
 
     from phastft_tpu_torch.fft import _cached_planner
+    from phastft_tpu_torch.ops import _build
     from phastft_tpu_torch.ops._build import library
+    from phastft_tpu_torch.ops.fourstep import split_levels
 
     lib = library()
 
-    def randn64(shape):
-        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float64),
-                torch.randn(shape, generator=gen, device=dev, dtype=torch.float64))
+    def randn64(shape, g=gen):
+        return (torch.randn(shape, generator=g, device=dev, dtype=torch.float64),
+                torch.randn(shape, generator=g, device=dev, dtype=torch.float64))
 
     def engine_planner(n, engine):
         """A planner on the default leaf rule of n, pinned to ``engine``."""
@@ -1174,9 +1249,18 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         """The native state of a planner whose plan is one n-point leaf."""
         return PlannerDit64(n, options=Options(leaf_fft_size=max(n, 128))).native_state
 
-    def col_args(state, n1, n2):
-        """col64's (split tables, step table) from a native state."""
-        return state[f"split{n1}x{n2}"], state[f"dif{n1}"][0]
+    def col_args(n1, n2):
+        """col64's (split tables, step table): the planner's tables
+        (``split{n1}x{n2}``, ``dif{n1}``), built from the same host
+        functions for any (n1, n2)."""
+        return (tuple(torch.from_numpy(a.copy()).to(dev)
+                      for a in split_correction_host(n1, n2, "float64")[1:]),
+                torch.from_numpy(dif_twiddles_host(n1)).to(dev))
+
+    def col_bound(b, n1, n2):
+        s2 = 1 << ((n2.bit_length() - 1) // 2)
+        return native_bound(b * n1 * n2, n1.bit_length() - 1, 1,
+                            16 * n1 * (n2 // s2 + s2) + 8 * n1)
 
     def transpose_parity(k, p, **where):
         equal = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
@@ -1188,9 +1272,12 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     max_err.update(leaf64=0.0, col64=0.0, transpose2_64=0.0)
     resident = {n: lib.phastft_leaf64_clusters(n) for n in (1 << 13, 1 << 14, 1 << 15,
                                                            1 << 16)}
-    emit({"phase": "build_native", "leaf64_resident_clusters": resident})
-    if min(resident.values()) < 1:
-        raise AssertionError(f"a leaf64 cluster shape does not fit the card: {resident}")
+    col_resident = {n1: lib.phastft_col64_clusters(n1) for n1 in (1024, 2048)}
+    emit({"phase": "build_native", "leaf64_resident_clusters": resident,
+          "col64_resident_clusters": col_resident})
+    if min(resident.values()) < 1 or min(col_resident.values()) < 1:
+        raise AssertionError(f"a native cluster shape does not fit the card: {resident}, "
+                             f"{col_resident}")
 
     def parity(name, k, p, bound, **where):
         err = rel_l2(k[0], k[1], p[0], p[1])
@@ -1211,20 +1298,51 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
             parity("leaf64", k, leaf64_plain(*x, corr, n, steps), DD_KERNEL_TOL,
                    n=n, rows=rows)
             del k, x
-    for n1, n2 in NATIVE_COL_SHAPES:
-        tabs, w = col_args(PlannerDit64(n1 * n2, options=Options(
-            leaf_fft_size=n2)).native_state, n1, n2)
-        for b in ((1, 3) if n2 == 1 << 13 else (1,)):
-            x = randn64((b, n1, n2))
-            k = col64(*x, tabs, n1, w)
-            torch.cuda.synchronize()
-            parity("col64", k, col64_plain(*x, tabs, n1, w), DD_KERNEL_TOL,
-                   batch=b, n1=n1, n2=n2)
-            k = transpose2_64(*x)
-            torch.cuda.synchronize()
-            transpose_parity(k, transpose2_plain(*x), batch=b, n1=n1, n2=n2)
-            del k, x
-    torch.cuda.empty_cache()
+    col_shapes = ([(b, n1, n2) for n1, n2 in NATIVE_COL_SHAPES
+                   for b in ((1, 3) if n2 == 1 << 13 else (1,))]
+                  + list(NATIVE_LONG_COL_SHAPES)
+                  + [(col_resident[n1] + 1, n1, 32) for n1 in (1024, 2048)]
+                  + list(NATIVE_NESTED_COL_SHAPES))
+    for b, n1, n2 in col_shapes:
+        tabs, w = col_args(n1, n2)
+        x = randn64((b, n1, n2))
+        k = col64(*x, tabs, n1, w)
+        torch.cuda.synchronize()
+        parity("col64", k, col64_plain(*x, tabs, n1, w), DD_KERNEL_TOL,
+               batch=b, n1=n1, n2=n2)
+        del k
+        k = transpose2_64(*x)
+        torch.cuda.synchronize()
+        transpose_parity(k, transpose2_plain(*x), batch=b, n1=n1, n2=n2)
+        del k, x
+        release_memory()
+    # the outer level of 2^30 (16 GiB a pair): the transpose first; then
+    # col64_plain on each half of the columns, the input held on the host
+    # meanwhile. log2(n2) is odd, so a half keeps the split factor s and its
+    # tables are T1's matching columns and all of T2: the same products.
+    b, n1, n2 = NATIVE_TOP_COL_SHAPE
+    x = randn64((b, n1, n2))
+    transpose_parity(transpose2_64(*x), transpose2_plain(*x), batch=b, n1=n1, n2=n2)
+    release_memory()
+    tabs, w = col_args(n1, n2)
+    k = col64(*x, tabs, n1, w)
+    host = tuple(a.cpu() for a in x)
+    del x
+    release_memory()
+    h, s2 = n2 // 2, int(tabs[2].shape[1])
+    if (n2.bit_length() - 1) % 2 != 1:
+        raise AssertionError(f"col64 by halves needs an odd log2(n2), got n2 = {n2}")
+    for c in range(2):
+        cols = slice(c * h, (c + 1) * h)
+        xs = tuple(a[..., cols].contiguous().to(dev) for a in host)
+        ts = tuple(t[:, c * h // s2:(c + 1) * h // s2].contiguous() for t in tabs[:2])
+        p = col64_plain(*xs, ts + tabs[2:], n1, w)
+        del xs
+        parity("col64", tuple(a[..., cols] for a in k), p, DD_KERNEL_TOL, batch=b, n1=n1,
+               n2=n2, columns=f"{c * h}:{(c + 1) * h}")
+        del p
+    del k, host
+    release_memory()
 
     # -- main path: counters at 0 just before, read just after; every
     # transform's launches are checked against its plan
@@ -1233,24 +1351,59 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     for k in counters:
         k.launches = 0
     run = counted(counters)
-    errs = {}
-    peak = held = None
+    errs, peaks = {}, {}
+
+    def peak_run(log_n, fn, want):
+        """run(fn, want); at NATIVE_PEAK_LOGS with the peak of allocated
+        device memory above what was held before (fft_64_dit's tables
+        built first)."""
+        if log_n not in NATIVE_PEAK_LOGS:
+            return run(fn, want)
+        _cached_planner(1 << log_n, 64, dev).native_state
+        torch.cuda.synchronize()
+        release_memory()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out = run(fn, want)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        peaks[log_n] = {"peak_bytes": peak, "held_before": held, "peak_gib": peak / 2 ** 30,
+                        "added_gib": (peak - held) / 2 ** 30}
+        return out
+
+    def bins(n):
+        """NATIVE_TOP_BINS bins of n: 0, 1, n/2, n-1 and random ones."""
+        ks = torch.randint(0, n, (NATIVE_TOP_BINS,), generator=gen, device=dev)
+        ks[:4] = torch.tensor([0, 1, n // 2, n - 1], device=dev)
+        return ks
+
+    def rel(got, want):
+        return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
     for log_n in NATIVE_E2E_LOGS:
         n = 1 << log_n
         xr, xi = randn64((n,))
         plan = PlannerDit64(n).plan
-        if log_n == NATIVE_E2E_LOGS[-1]:
-            _cached_planner(n, 64, dev).native_state  # fft_64_dit's tables, built
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            held = torch.cuda.memory_allocated()
-        out = run(lambda: fft_64_dit(xr, xi, Direction.Forward), native_launches(plan))
-        if log_n == NATIVE_E2E_LOGS[-1]:
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
+        out = peak_run(log_n, lambda: fft_64_dit(xr, xi, Direction.Forward),
+                       native_launches(plan))
         if out[0].dtype != torch.float64:
             raise AssertionError(f"fft_64_dit returned {out[0].dtype}")
         err = card_oracle_err(out, xr, xi)
+        if log_n == NATIVE_BINS_LOG:
+            # the direct bins (the oracle at 2^30) against complex128, and
+            # the port against both, on the same bins
+            ks = bins(n)
+            want = torch.fft.fft(torch.complex(xr, xi))[ks]
+            release_memory()
+            direct = dft_bins(xr, xi, ks)
+            got = torch.complex(out[0][ks], out[1][ks])
+            errs.update({f"bins_direct_vs_c128_2^{log_n}": rel(direct, want),
+                         f"bins_port_vs_c128_2^{log_n}": rel(got, want),
+                         f"bins_port_vs_direct_2^{log_n}": rel(got, direct)})
+            check(f"direct bins at 2^{log_n}", errs[f"bins_direct_vs_c128_2^{log_n}"],
+                  DD_E2E_TOL)
+            del want, direct, got
+        release_memory()
         back = run(lambda: fft_64_dit(out[0], out[1], Direction.Reverse),
                    native_launches(plan))
         rt = rel_l2(back[0], back[1], xr, xi)
@@ -1258,6 +1411,38 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         check(f"native fft_64_dit 2^{log_n}", err, DD_E2E_TOL)
         check(f"native round trip 2^{log_n}", rt, DD_E2E_TOL)
         del out, back, xr, xi
+    release_memory()
+    # the top of the window: one f64 pair is 16 GiB. The input is dropped
+    # once the bins are read and made again from its seed for the round
+    # trip, so no more than three pairs are ever held.
+    n = 1 << NATIVE_TOP_LOG
+    plan = PlannerDit64(n).plan
+    top_gen = torch.Generator(device=dev)
+    xr, xi = randn64((n,), top_gen.manual_seed(NATIVE_TOP_LOG))
+    out = peak_run(NATIVE_TOP_LOG, lambda: fft_64_dit(xr, xi, Direction.Forward),
+                   native_launches(plan))
+    if not (bool(torch.isfinite(out[0]).all()) and bool(torch.isfinite(out[1]).all())):
+        raise AssertionError(f"native 2^{NATIVE_TOP_LOG}: output is not finite")
+    ks = bins(n)
+    want = dft_bins(xr, xi, ks)
+    got = torch.complex(out[0][ks], out[1][ks])
+    errs[f"bins_2^{NATIVE_TOP_LOG}"] = err = rel(got, want)
+    check(f"native fft_64_dit 2^{NATIVE_TOP_LOG}, {NATIVE_TOP_BINS} bins", err, DD_E2E_TOL)
+    del xr, xi, want, got
+    release_memory()
+    back = run(lambda: fft_64_dit(out[0], out[1], Direction.Reverse), native_launches(plan))
+    del out
+    release_memory()
+    xr, xi = randn64((n,), top_gen.manual_seed(NATIVE_TOP_LOG))
+    rt = rel_l2(back[0], back[1], xr, xi)
+    errs[f"roundtrip_2^{NATIVE_TOP_LOG}"] = rt
+    check(f"native round trip 2^{NATIVE_TOP_LOG}", rt, DD_E2E_TOL)
+    del back, xr, xi
+    release_memory()
+    pair = 16 * n  # one f64 pair at 2^30
+    if peaks[NATIVE_TOP_LOG]["peak_bytes"] - peaks[NATIVE_TOP_LOG]["held_before"] > 2 * pair:
+        raise AssertionError(f"native 2^{NATIVE_TOP_LOG} holds more than its input and two "
+                             f"pairs: {peaks[NATIVE_TOP_LOG]}")
     for log_n in NATIVE_BATCH_LOGS:
         n = 1 << log_n
         planner = PlannerDit64(n)
@@ -1282,29 +1467,29 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         xr, xi, Direction.Forward, df, Options(f64_engine="native")), native_launches(df.plan))
     errs["per_call_native_2^24"] = err = card_oracle_err(out, xr, xi)
     check("per-call native 2^24", err, DD_E2E_TOL)
-    n = 1 << NATIVE_E2E_LOGS[-1]
+    n = 1 << 25
     dr = torch.zeros(n, device=dev, dtype=torch.float64)
     dr[0] = float(n)
     back = run(lambda: fft_64_dit(dr, torch.zeros_like(dr), Direction.Reverse),
                native_launches(PlannerDit64(n).plan))
     exact = bool((back[0] == 1.0).all()) and bool((back[1] == 0.0).all())
-    errs[f"inverse_scale_exact_2^{NATIVE_E2E_LOGS[-1]}"] = exact
+    errs["inverse_scale_exact_2^25"] = exact
     if not exact:
         raise AssertionError("native inverse of N * delta is not exactly ones")
     del out, back, dr, xr, xi
     torch.cuda.synchronize()
     got = {k.__name__: k.launches for k in counters}
     emit({"phase": "e2e_native", "rel_l2": errs, "launches": got, "want": run.total,
-          "peak_bytes_2^25": peak, "held_before_2^25": held, "peak_gib_2^25": peak / 2 ** 30})
+          "peaks": {f"2^{k}": v for k, v in peaks.items()}})
     if got != run.total:
         raise AssertionError(f"launches {got}, want {run.total}")
     for name in ("col64", "leaf64", "transpose2_64"):
         if got[name] < 1:
             raise AssertionError(f"{name} was never launched on the native main path")
         launches[name] = got[name]
-    torch.cuda.empty_cache()
+    release_memory()
 
-    # -- times: the race of the four f64 contenders, and each kernel of the
+    # -- times: the race of the f64 contenders, and each kernel of the
     # native plan at each race size
     def race_row(fn):
         return {"ms": time_ms(fn, flush, 10), "wall_ms": wall_ms(fn, flush, 10)}
@@ -1314,47 +1499,53 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         n = 1 << log_n
         xr, xi = randn64((rows, n))
         native = engine_planner(n, "native")
-        df = engine_planner(n, "df64")
         plan = native.plan
         row = {"native": race_row(lambda: fft_64_dit_with_planner(
-                   xr, xi, Direction.Forward, native)),
-               "df64": race_row(lambda: fft_64_dit_with_planner(
-                   xr, xi, Direction.Forward, df))}
+                   xr, xi, Direction.Forward, native))}
+        if log_n <= NATIVE_RACE_DF64_MAX_LOG:
+            df = engine_planner(n, "df64")
+            row["df64"] = race_row(lambda: fft_64_dit_with_planner(
+                xr, xi, Direction.Forward, df))
+            del df
+            release_memory()
         if log_n in NATIVE_RACE_OZ_LOGS:
             oz = PlannerDit64(n, options=Options(f64_engine="df64-oz", leaf_fft_size=1 << 13))
             row["df64-oz"] = race_row(lambda: fft_64_dit_with_planner(
                 xr, xi, Direction.Forward, oz))
             del oz
-        xc = torch.complex(xr, xi)
-        row["library"] = race_row(lambda: torch.fft.fft(xc))
-        del xc
-        passes = 1 if plan[0] != "split" else 3
-        bound = native_bound(rows * n, log_n, passes, native_tables(plan))
+        if log_n <= NATIVE_RACE_LIBRARY_MAX_LOG:
+            xc = torch.complex(xr, xi)
+            row["library"] = race_row(lambda: torch.fft.fft(xc))
+            del xc
+            release_memory()
+        levels = [(n1, n2) for n1, _, n2 in split_levels(plan)]
+        bound = native_bound(rows * n, log_n, 1 + 2 * len(levels), native_tables(plan))
         engines = [e for e in ("native", "df64", "df64-oz") if e in row]
         winner = min(engines, key=lambda e: row[e]["ms"])
         guess = Options.guess_options(n, np.float64).f64_engine or "native"
         race[log_n] = winner
         emit({"phase": "race_native", "n": n, "rows": rows, "plan": repr(plan), "card": smi,
               **row, "transform_bound": bound, "winner": winner, "guess_options": guess})
-        # each kernel of the plan alone, on the shapes the transform gives it
+        # each kernel of the plan alone, on the shapes the transform gives
+        # it: every split level's col64 and transpose2_64, then the leaf on
+        # the innermost rows (inputs: views of xr, xi)
         kern = {}
-        if plan[0] == "split":
-            _, n1, _, n2 = plan
-            x = tuple(a.reshape(rows, n1, n2) for a in (xr, xi))
-            tabs, w = col_args(native.native_state, n1, n2)
-            s2 = 1 << ((n2.bit_length() - 1) // 2)
-            kern["col64"] = {"ms": time_ms(lambda: col64(*x, tabs, n1, w), flush, 10),
-                             **native_bound(rows * n, n1.bit_length() - 1, 1,
-                                            16 * n1 * (n2 // s2 + s2) + 8 * n1),
-                             "library_ms": None, "n1": n1, "n2": n2}
-            kern["transpose2_64"] = {
+        batch = rows
+        for i, (n1, n2) in enumerate(levels):
+            x = tuple(a.reshape(batch, n1, n2) for a in (xr, xi))
+            tabs, w = col_args(n1, n2)
+            tag = "" if i == 0 else f"_level{i}"
+            kern["col64" + tag] = {"ms": time_ms(lambda: col64(*x, tabs, n1, w), flush, 10),
+                                   **col_bound(batch, n1, n2), "library_ms": None,
+                                   "batch": batch, "n1": n1, "n2": n2}
+            kern["transpose2_64" + tag] = {
                 "ms": time_ms(lambda: transpose2_64(*x), flush, 10),
                 **native_bound(rows * n, None),
                 "library_ms": time_ms(lambda: (x[0].transpose(-1, -2).contiguous(),
                                                x[1].transpose(-1, -2).contiguous()),
-                                      flush, 10), "n1": n1, "n2": n2}
-            lrows, ln = rows * n1, n2
-            if (n1, n2) == NATIVE_TOP:
+                                      flush, 10) if log_n <= NATIVE_RACE_LIBRARY_MAX_LOG
+                else None, "batch": batch, "n1": n1, "n2": n2}
+            if levels == [NATIVE_TOP]:
                 # the kernels line's shapes: timed against, and held to,
                 # the plain versions on the same inputs
                 kern["col64"]["plain_ms"] = time_ms(lambda: col64_plain(*x, tabs, n1, w),
@@ -1366,30 +1557,67 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
                 transpose_parity(transpose2_64(*x), transpose2_plain(*x), batch=rows,
                                  n1=n1, n2=n2, timed=True)
             del x
-        else:
-            lrows, ln = rows, n
+            release_memory()
+            batch *= n1
+        ln = n * rows // batch
         corr, steps = leaf_args(native.native_state, ln)
-        y = tuple(a.reshape(lrows, ln) for a in randn64((rows, n)))
-        yc = torch.complex(*y)
+        y = tuple(a.reshape(batch, ln) for a in (xr, xi))
         kern["leaf64"] = {"ms": time_ms(lambda: leaf64(*y, corr, ln, steps), flush, 10),
-                          **native_bound(lrows * ln, ln.bit_length() - 1, 1,
+                          **native_bound(batch * ln, ln.bit_length() - 1, 1,
                                          native_tables(("leaf", ln // 128) if ln >= 128
                                                        else ("tiny", ln))),
-                          "library_ms": time_ms(lambda: torch.fft.fft(yc), flush, 10),
-                          "n": ln, "rows": lrows}
-        if plan[0] == "split" and (plan[1], plan[3]) == NATIVE_TOP:
+                          "library_ms": None, "n": ln, "rows": batch}
+        if log_n <= NATIVE_RACE_LIBRARY_MAX_LOG:
+            yc = torch.complex(*y)
+            kern["leaf64"]["library_ms"] = time_ms(lambda: torch.fft.fft(yc), flush, 10)
+            del yc
+            release_memory()
+        if levels == [NATIVE_TOP]:
             kern["leaf64"]["plain_ms"] = time_ms(lambda: leaf64_plain(*y, corr, ln, steps),
                                                  flush, 3)
             parity("leaf64", leaf64(*y, corr, ln, steps), leaf64_plain(*y, corr, ln, steps),
-                   DD_KERNEL_TOL, n=ln, rows=lrows, timed=True)
+                   DD_KERNEL_TOL, n=ln, rows=batch, timed=True)
             for name in kern:
                 top[name] = {"plain_ms": None, "n": n, "rows": rows, **kern[name]}
         emit({"phase": "times_native", "n": n, "rows": rows, "card": smi, "kernels": kern})
-        del xr, xi, y, yc, native, df
-        torch.cuda.empty_cache()
+        del xr, xi, y, native
+        release_memory()
     emit({"phase": "race_native_winners", "winners": race,
           "guess_options": {log_n: Options.guess_options(1 << log_n, np.float64).f64_engine
                             for log_n, _ in NATIVE_RACE}})
+
+    # -- col64 at n1 = 1024 / 2048: the long-column design (the entry as
+    # built) against the one-block design on the same inputs, turns
+    # cluster, one-block, one-block, cluster; both held to col64_plain
+    oneblock = ctypes.CDLL(str(_build.BUILD_DIR / COL64_ONEBLOCK))
+    oneblock.phastft_col64.argtypes = _build._SIGNATURES["phastft_col64"]
+    oneblock.phastft_col64.restype = ctypes.c_int
+
+    def col64_oneblock(xr, xi, tabs, n1, w):
+        out = (torch.empty_like(xr), torch.empty_like(xi))
+        rc = oneblock.phastft_col64(
+            xr.data_ptr(), xi.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in tabs),
+            out[0].data_ptr(), out[1].data_ptr(), xr.numel() // (n1 * xr.shape[-1]), n1,
+            xr.shape[-1], torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"col64's one-block build failed to launch: CUDA error {rc}")
+        return out
+
+    for b, n1, n2 in NATIVE_DESIGN_SHAPES:
+        tabs, w = col_args(n1, n2)
+        x = randn64((b, n1, n2))
+        p = col64_plain(*x, tabs, n1, w)
+        for name, fn in (("col64", col64), ("col64_oneblock", col64_oneblock)):
+            err = rel_l2(*fn(*x, tabs, n1, w), *p)
+            check(f"{name} parity at {(b, n1, n2)}", err, DD_KERNEL_TOL)
+        del p
+        turns = [time_ms(lambda: fn(*x, tabs, n1, w), flush, 10)
+                 for fn in (col64, col64_oneblock, col64_oneblock, col64)]
+        emit({"phase": "times_col64_designs", "batch": b, "n1": n1, "n2": n2, "card": smi,
+              "cluster_ms": [turns[0], turns[3]], "oneblock_ms": turns[1:3],
+              **col_bound(b, n1, n2)})
+        del x
+        release_memory()
 
     # -- leaf64 at every row length on 2^24 points: every block and cluster
     # shape of the kernel, beside its bound and complex128 torch.fft.fft
@@ -1405,7 +1633,7 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
                              native_tables(("leaf", n // 128) if n >= 128 else ("tiny", n))),
               "library_ms": time_ms(lambda: torch.fft.fft(yc), flush, 10)})
         del y, yc
-    torch.cuda.empty_cache()
+    release_memory()
 
 
 def main() -> int:
@@ -1444,13 +1672,24 @@ def main() -> int:
     emit({"phase": "device", "torch_name": kind, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    # col64's one-block build compiles beside the library's own sources
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    oneblock = subprocess.Popen(
+        [_build._nvcc(), *_build._NVCC_FLAGS, "-DCOL64_CLUSTER_N1=4096", "-shared", "-o",
+         str(_build.BUILD_DIR / COL64_ONEBLOCK), str(_build.SRC_DIR / "col64.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     t0 = time.perf_counter()
-    _build.library()
+    try:
+        _build.library()
+    finally:
+        oneblock_log, _ = oneblock.communicate()
     build_s = time.perf_counter() - t0
+    if oneblock.returncode != 0:
+        raise RuntimeError(f"nvcc failed on col64.cu's one-block build:\n{oneblock_log}")
     log = _build.build_log()
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
-        f.write(log)
+        f.write(f"{log}\n== col64.cu, one-block build\n{oneblock_log}")
     ptxas = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
     lib = _build.library()
     resident = {"leaf3": lib.phastft_leaf3_clusters(),
@@ -1775,7 +2014,7 @@ def main() -> int:
         if not same:
             raise AssertionError(f"transpose2 differs from its plain version at {shape}")
         del k, p, xa, xb
-    torch.cuda.empty_cache()
+    release_memory()
 
     # -- main path of the nested and classic plans: counters at 0 just before,
     # read just after; every transform's own launches are checked as it runs
@@ -1855,7 +2094,7 @@ def main() -> int:
         del out, xr, xi
     # the top of the window: 8 GiB per planar pair
     n = 1 << TOP_LOG
-    torch.cuda.empty_cache()
+    release_memory()
     xr, xi = randn_pair((n,))
     planner = PlannerDit32(n)
     torch.cuda.synchronize()
@@ -1907,13 +2146,13 @@ def main() -> int:
         out = {"transform_ms": time_ms(transform, flush, reps),
                "transform_wall_ms": wall_ms(transform, flush, reps),
                "transform_bound_ms": 4 * copy_bound(planner.n)[0]}
-        torch.cuda.empty_cache()
+        release_memory()
         xc = torch.complex(ar, ai)
         out["library_ms"] = time_ms(lambda: torch.fft.fft(xc), flush, reps)
         return out
 
     emit({"phase": "times_nested", "n": n, "card": smi, **time_transform(planner, 5)})
-    torch.cuda.empty_cache()
+    release_memory()
     for log_n in NESTED_TIME_LOGS:
         n = 1 << log_n
         planner = PlannerDit32(n)
@@ -1956,7 +2195,7 @@ def main() -> int:
         top.update(row)  # the kernels line: the last (largest) shape
     del xr, xi, ar, ai, br, bi  # the views hold the 2^30-point planes
 
-    torch.cuda.empty_cache()
+    release_memory()
 
     # -- dd arithmetic on the card: TwoSum and TwoProd exact against f64
     n_pairs = DD_EXACT_PAIRS
@@ -2052,7 +2291,7 @@ def main() -> int:
             torch.cuda.synchronize()
             dd_parity("ddleaf", k, ddleaf_plain(*x, corr, n1), n=n1 * 128, rows=rows)
             del k, x
-    torch.cuda.empty_cache()
+    release_memory()
 
     # -- main path of the f64 (df64) plans: counters at 0 just before, read
     # just after; every transform's own launches are checked against its plan
@@ -2135,7 +2374,7 @@ def main() -> int:
             check("df64-split 2^24", err, DD_E2E_TOL)
             del back, dr
         del out, xr, xi
-        torch.cuda.empty_cache()
+        release_memory()
     planner = df64_planner(1 << 22)
     for _ in range(2):
         xr, xi = randn64((4, 1 << 22))
@@ -2175,7 +2414,7 @@ def main() -> int:
         if launches_dd[name] < 1:
             raise AssertionError(f"{name} was never launched on the f64 main path")
         launches[name] = launches_dd[name]
-    torch.cuda.empty_cache()
+    release_memory()
 
     # -- dd times
     def dd_row(fn, plain, bound, n, rows, library=None, reps=10):
@@ -2243,7 +2482,7 @@ def main() -> int:
           "transposes_bound_ms": 2 * copy_bound(rows * n1 * 128)[0],
           "ddcol_nocorr": top["ddcol_nocorr"]})
     del x, xt
-    torch.cuda.empty_cache()
+    release_memory()
     for log_n in DD_TIME_LOGS:
         n = 1 << log_n
         xr, xi = randn64((n,))
@@ -2262,9 +2501,9 @@ def main() -> int:
         row["library_ms"] = time_ms(lambda: torch.fft.fft(xc), flush, 10)
         emit({"phase": "times_dd", "n": n, "n1": n1, "n2": n2, "card": smi, **row})
         del xr, xi, xc
-        torch.cuda.empty_cache()
+        release_memory()
 
-    torch.cuda.empty_cache()
+    release_memory()
 
     # -- Ozaki engine: the tensor-core product of integer slices is exact
     from phastft_tpu_torch.ops.ozdd import ozcol, ozcol_plain, ozleaft, ozleaft_plain
@@ -2356,7 +2595,7 @@ def main() -> int:
                   "rel_l2_vs_fft": err, "bound": OZ_E2E_TOL})
             check(f"ozleaft at A = {a}, n1 = {n1} against an f64 FFT", err, OZ_E2E_TOL)
             del x, c, k
-    torch.cuda.empty_cache()
+    release_memory()
 
     # -- main path of the "df64-oz" plans: counters at 0 just before, read just
     # after; every transform's own launches are checked against its plan
@@ -2413,7 +2652,7 @@ def main() -> int:
             check(f"per-call df64-oz on a df64 planner 2^{log_n}", err, DD_E2E_TOL)
             del out2
         del out, xr, xi
-        torch.cuda.empty_cache()
+        release_memory()
     planner = oz_planner(1 << 20)
     for _ in range(2):
         xr, xi = randn64((4, 1 << 20))
@@ -2432,7 +2671,7 @@ def main() -> int:
         if launches_oz[name] < 1:
             raise AssertionError(f"{name} was never launched on the df64-oz main path")
         launches[name] = launches_oz[name]
-    torch.cuda.empty_cache()
+    release_memory()
 
     # -- oz times, beside the df64 transform and the library's complex128 FFT
     for log_n in OZ_TIME_LOGS:
@@ -2467,7 +2706,7 @@ def main() -> int:
               "library_ms": time_ms(lambda: torch.fft.fft(xc), flush, 10)})
         top.update(row)  # the kernels line: the last (largest) shape
         del xr, xi, xc
-        torch.cuda.empty_cache()
+        release_memory()
     # the inner level of the nested 2^26 plan: 64 entries of (128, 8192)
     b, n1, n2 = OZ_INNER_LEVEL
     ct, lt = oz_tables(n1, n2)
@@ -2480,7 +2719,7 @@ def main() -> int:
     emit({"phase": "times_oz", "level": "inner level of 2^26", "batch": b, "n1": n1, "n2": n2,
           "card": smi, "kernels": inner})
     del x, c
-    torch.cuda.empty_cache()
+    release_memory()
 
     # -- the native f64 engine, the hybrid leaf, then the distributed
     # four-step at world size 1

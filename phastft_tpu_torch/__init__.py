@@ -15,18 +15,17 @@ leading batch dimensions: up to 2^16 through one leaf kernel per
 transform, to 2^25 through the fused two-pass four-step pipeline, above
 it through a classic outer level (column pass, inner transform, paired
 transpose) around that pipeline; a non-default ``Options.leaf_fft_size``
-of 128..2^16 points runs classic levels too. Planar f64 runs on the
-native engine, the default up to 2^25: the H100's FP64 units through
+of 128..2^16 points runs classic levels too. Planar f64 runs for the same
+sizes on the native engine, the default: the H100's FP64 units through
 three kernels (a leaf of up to 2^16 points, a column pass with the split
-twiddle for n1 <= 512, a transpose of 64-bit words). For every size
-n = 1..2^30 it runs on the df64 (paired-f32) engine, four f32 planes per
-complex array through the dd kernels (``f64_engine`` = ``"df64"``, the
-default from 2^26, ``"df64-fused"``, ``"df64-split"``), and with
-``"df64-oz"`` (opt-in) the split levels of n1 = 128..2048 over a leaf of
-2^10..2^13 points on the Ozaki bf16-slice kernels. Everything else (the
-native engine from 2^26, n >= 2^31, ...) raises ``NotImplementedError``
-naming the ``ROADMAP.md`` item that brings it. The package imports neither
-JAX nor phastft_tpu.
+twiddle for n1 = 2..2048, a transpose of 64-bit words). It also runs on
+the df64 (paired-f32) engine, four f32 planes per complex array through
+the dd kernels (``f64_engine`` = ``"df64"``, ``"df64-fused"``,
+``"df64-split"``), and with ``"df64-oz"`` the split levels of
+n1 = 128..2048 over a leaf of 2^10..2^13 points on the Ozaki bf16-slice
+kernels; both are opt-in. Everything else (n >= 2^31, ...) raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it. The
+package imports neither JAX nor phastft_tpu.
 """
 
 from __future__ import annotations

@@ -15,31 +15,56 @@
 //
 // Bound: memory. 16 B read and 16 B written per element; the FP64
 // arithmetic (radix-4 DIF with the trivial twiddles dropped, ~3.5 FP64
-// instructions per point and stage, and the two twiddle products) takes a
-// fourth of the bytes' time or less at n1 <= 512 (132 SMs x 64 FP64 lanes).
+// instructions per point and stage, and the two twiddle products) takes
+// less than the bytes' time at every n1 <= 2048 (132 SMs x 64 FP64 lanes).
 //
-// Design (ddcol.cu's one-block path, in double):
+// Design (ddcol.cu's two designs, in double):
 // - A block holds 4096 points (64 KB of data, 73,728 B of shared memory with
-//   padding, plus the W_n1 table) and runs 256 threads at <= 128 registers,
-//   two blocks per SM (__launch_bounds__(256, 2)).
-// - A block owns a slab of T = min(4096 / n1, n2) neighbouring columns of
-//   one entry (T >= 8 for n1 <= 512 and n2 >= 8): every row segment it reads
-//   and writes is T * 8 contiguous bytes of each plane. Threads move
-//   double2s (two neighbouring columns) of each plane, every load of a
-//   thread in flight before the first store to shared memory.
-// - Radix-4 DIF trips over the T sequences, neighbouring threads on
-//   neighbouring columns (f64.cuh: conflict-free, twiddle reads broadcast),
-//   the split twiddle's two products in the registers of the last trip, so
-//   the store is a copy; the DIF leaves X[k1] at position bitrev(k1), which
-//   the store's row index undoes.
+//   padding, plus the W_n1 table: 92,160 B at n1 = 2048) and runs 256
+//   threads at <= 128 registers, two blocks per SM
+//   (__launch_bounds__(256, 2)).
+// - One block a slab (col64_kernel: n1 <= 512, and n1 = 1024 / 2048 with
+//   n2 < 32): T = min(4096 / n1, n2) neighbouring columns of one entry
+//   (T >= 8 for n1 <= 512 and n2 >= 8): every row segment it reads and
+//   writes is T * 8 contiguous bytes of each plane. Threads move double2s
+//   (two neighbouring columns) of each plane, every load of a thread in
+//   flight before the first store to shared memory. Radix-4 DIF trips over
+//   the T sequences, neighbouring threads on neighbouring columns (f64.cuh:
+//   conflict-free, twiddle reads broadcast), the split twiddle's two
+//   products in the registers of the last trip, so the store is a copy; the
+//   DIF leaves X[k1] at position bitrev(k1), which the store's row index
+//   undoes.
+// - Long columns (col64_cluster: n1 = 1024 and 2048 with n2 >= 32): at
+//   4096 / n1 = 4 or 2 columns a block, the one-block design would read
+//   32- or 16-byte row pieces. Instead a slab of CT = 32 columns (256-byte
+//   row pieces in each plane) spans a cluster of C = n1 * CT / 4096 = P =
+//   n1 / 128 blocks (8, or 16 at n1 = 2048: a non-portable size, set at
+//   launch). With n1 = P * Q, Q = 128, i1 = Q*p + q and k1 = kp + P*kq:
+//   - block c loads the rows q in [Q/P*c, Q/P*(c+1)) for every p straight
+//     into registers (a thread 16 / P sequences (q, column), the column its
+//     lane, every load in flight at once), runs F(P) over p there,
+//     multiplies output kp by W_n1^(kp*q) and writes (kp, q, column) to
+//     shared memory;
+//   - after a cluster barrier it reads kp = c, every q, from every block
+//     (distributed shared memory, a warp 32 neighbouring columns of one q)
+//     straight into a radix-16 group, the first four stages of F(Q) (a
+//     thread one column and q = r + 8j, j < 16), and holds the results until
+//     a second barrier says no block reads its buffer any more;
+//   - the last three stages of F(Q) run as one radix-8 trip in its own
+//     buffer with the split twiddle folded in, and the store writes rows
+//     k1 = c + P*kq, 256 bytes a row and plane.
+//   The entry refuses a shape no cluster of which fits the device.
 // - Twiddles W_n1^k come from a table of exact f64 angles the wrapper builds
 //   on the host; no trigonometry runs in the kernel.
 // - The batch and the slabs are folded into gridDim.x; device offsets are
 //   64-bit.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "f64.cuh"
 
+namespace cg = cooperative_groups;
 using phastft::bitrev;
 namespace fk = phastft::f64k;
 using fk::cd;
@@ -51,18 +76,31 @@ constexpr int THREADS = 256;
 constexpr int LOCAL = 4096, LOG_LOCAL = 12;  // points a block holds
 constexpr int SLOTS = pad2(LOCAL);
 constexpr int PAIRS = LOCAL / 2 / THREADS;  // double2s of each plane a thread moves
+// Long columns: CT columns a slab, the second factor Q = 2^LOGQ, from
+// n1 = CLUSTER_N1. A build with -DCOL64_CLUSTER_N1=4096 runs every shape on
+// the one-block design: chip_smoke.py times the two designs against each
+// other that way.
+constexpr int LOGCT = 5, CT = 1 << LOGCT;
+constexpr int LOGQ = 7;
+#ifdef COL64_CLUSTER_N1
+constexpr int CLUSTER_N1 = COL64_CLUSTER_N1;
+#else
+constexpr int CLUSTER_N1 = 1024;
+#endif
 
 size_t smem_bytes(int n1) { return sizeof(cd) * (SLOTS + pad2(n1 / 2)); }
 
-// The split twiddle folded into the last trip: output k1 of sequence q
-// (column i2 = col0 + q) times T1[k1, i2 >> logs], then T2[k1, i2 mod s].
+// The split twiddle folded into the last trip: output k of sequence q is
+// row k1 = (k << logp) + kp0 and column i2 = col0 + q, times
+// T1[k1, i2 >> logs], then T2[k1, i2 mod s].
 struct SplitCorr {
   const double* __restrict__ t1r;
   const double* __restrict__ t1i;
   const double* __restrict__ t2r;
   const double* __restrict__ t2i;
-  int logs, t1cols, col0;
-  __device__ __forceinline__ cd operator()(cd v, int k1, int q) const {
+  int logs, t1cols, col0, logp, kp0;
+  __device__ __forceinline__ cd operator()(cd v, int k, int q) const {
+    const int k1 = (k << logp) + kp0;
     const int i2 = col0 + q;
     const int a = k1 * t1cols + (i2 >> logs);
     const int b = (k1 << logs) + (i2 & ((1 << logs) - 1));
@@ -128,32 +166,155 @@ col64_kernel(const double* __restrict__ xr, const double* __restrict__ xi,
   }
 }
 
+// One slab of CT columns of one entry per cluster of P = n1 / Q blocks
+// (n1 = 2^(LOGP + LOGQ); the cluster size is set at launch).
+template <int LOGP>
+__global__ void __launch_bounds__(THREADS, 2)
+col64_cluster(const double* __restrict__ xr, const double* __restrict__ xi,
+              const cd* __restrict__ twt, SplitCorr corr, double* __restrict__ outr,
+              double* __restrict__ outi, int n2) {
+  constexpr int P = 1 << LOGP, PER = 16 / P;  // sequences a thread in F(P)
+  constexpr int LOGN1 = LOGP + LOGQ;
+  constexpr int LOGQC = LOGQ - LOGP;   // rows q a block loads
+  constexpr int LOGM1 = LOGQC + LOGCT;  // F(P)'s sequences (ql, column)
+  extern __shared__ cd smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  cd* s = smem;
+  cd* tw = smem + SLOTS;  // W_n1^k, k < n1/2
+
+  const int c = static_cast<int>(cluster.block_rank());
+  // cluster -> (batch entry b, slab); n2 / CT slabs per entry
+  const unsigned slab = blockIdx.x >> LOGP;
+  const unsigned nblk = static_cast<unsigned>(n2 >> LOGCT);
+  const int col0 = static_cast<int>(slab & (nblk - 1)) << LOGCT;
+  const long long base =
+      (static_cast<long long>(slab >> (31 - __clz(nblk))) * n2 << LOGN1) + col0;
+
+  // F(P) in registers: sequence (ql, column) of block c loads rows
+  // i1 = Q*p + Q/P*c + ql, every load in flight at once
+  cd v[PER][P];
+#pragma unroll
+  for (int t = 0; t < PER; ++t) {
+    const int seq = threadIdx.x + t * THREADS;
+    const int col = seq & (CT - 1), ql = seq >> LOGCT;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const long long off =
+          base + static_cast<long long>((p << LOGQ) + (c << LOGQC) + ql) * n2 + col;
+      v[t][p] = make_double2(__ldg(xr + off), __ldg(xi + off));
+    }
+  }
+  fk::load_twiddles(tw, 1 << LOGN1, twt);
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < PER; ++t) {
+    const int seq = threadIdx.x + t * THREADS;
+    const int q = (c << LOGQC) + (seq >> LOGCT);
+    fk::dif4_group<LOGP>(v[t], 0, 0, LOGN1, LOGP, tw);
+    // output u holds kp = bitrev(u): shared (u, ql, column)
+#pragma unroll
+    for (int u = 0; u < P; ++u)
+      s[pad2((u << LOGM1) + seq)] =
+          fk::cmul(v[t][u], fk::twiddle(tw, bitrev(u, LOGP) * q, LOGN1));
+  }
+  cluster.sync();
+
+  // exchange, straight into a radix-16 group of F(Q) (spans 128 .. 16): the
+  // thread (r, column) takes q = r + 8j, j < 16, of kp = c, held at shared
+  // row bitrev(c) of block q / (Q/P)
+  const int col = threadIdx.x & (CT - 1), r = threadIdx.x >> LOGCT;
+  const int row = bitrev(c, LOGP) << LOGM1;
+  cd y[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int q = r + 8 * j;
+    const cd* src = cluster.map_shared_rank(s, static_cast<unsigned>(q >> LOGQC));
+    y[j] = src[pad2(row + ((q & ((1 << LOGQC) - 1)) << LOGCT) + col)];
+  }
+  fk::dif4_group<4>(y, r, 3, LOGN1, LOGQ, tw);
+  // no block reads another's buffer past this point
+  cluster.sync();
+  // shared (position, column)
+#pragma unroll
+  for (int j = 0; j < 16; ++j) s[pad2(((r + 8 * j) << LOGCT) + col)] = y[j];
+  __syncthreads();
+
+  // the last three stages of F(Q) (spans 8 .. 2), one radix-8 trip with the
+  // split twiddle folded in: output kq of column q is row k1 = c + P*kq
+  SplitCorr fold = corr;
+  fold.col0 = col0;
+  fold.logp = LOGP;
+  fold.kp0 = c;
+  fk::dif4_fft(s, LOGQ, 3, LOGCT, 1, CT, true, tw, LOGN1, fold, true);
+
+  // rows k1 = c + P*kq, shared position bitrev(kq): a warp writes a row's
+  // 256 bytes of each plane
+#pragma unroll
+  for (int j = 0; j < LOCAL / THREADS; ++j) {
+    const int e = threadIdx.x + j * THREADS;
+    const int ec = e & (CT - 1), kq = e >> LOGCT;
+    const cd a = s[pad2((bitrev(kq, LOGQ) << LOGCT) + ec)];
+    const long long o = base + static_cast<long long>(c + (kq << LOGP)) * n2 + ec;
+    outr[o] = a.x;
+    outi[o] = a.y;
+  }
+}
+
+// Whether the long-column design runs (n1, n2): n1 = CLUSTER_N1..2048 and a
+// whole CT-column slab.
+bool long_columns(int n1, int n2) { return n1 >= CLUSTER_N1 && n2 >= CT; }
+
+// The cluster kernel at n1 = 1024 (P = 8) or 2048 (P = 16), as a pointer.
+using ClusterKernel = void (*)(const double*, const double*, const cd*, SplitCorr, double*,
+                               double*, int);
+ClusterKernel cluster_kernel(int n1) {
+  return n1 == 2048 ? col64_cluster<4> : col64_cluster<3>;
+}
+
 }  // namespace
 
-// x*, o*: the two planes of (batch, n1, n2) arrays; n1 = 2..512 and n2 >= 2,
+// x*, o*: the two planes of (batch, n1, n2) arrays; n1 = 2..2048 and n2 >= 2,
 // powers of two. twt: n1/2 (re, im) pairs, W_n1^k. t1*: (n1, n2 / s) and
 // t2*: (n1, s), s = 2^(log2(n2) / 2), the factored split twiddle. Returns the
-// CUDA error code of the launch (0 on success).
+// CUDA error code of the launch (0 on success; cudaErrorInvalidConfiguration
+// when no cluster of a long-column shape fits the device).
 extern "C" int phastft_col64(const double* xr, const double* xi, const void* twt,
                              const double* t1r, const double* t1i, const double* t2r,
                              const double* t2i, double* outr, double* outi, long long batch,
                              int n1, int n2, void* stream) {
-  if (batch < 1 || !phastft::is_pow2(n1) || n1 < 2 || n1 > 512 || !phastft::is_pow2(n2) ||
+  if (batch < 1 || !phastft::is_pow2(n1) || n1 < 2 || n1 > 2048 || !phastft::is_pow2(n2) ||
       n2 < 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int logn1 = phastft::ilog2(n1), logn2 = phastft::ilog2(n2);
+  const int logs = logn2 / 2;
+  const SplitCorr corr{t1r, t1i, t2r, t2i, logs, n2 >> logs, 0, 0, 0};
+  const cd* tw = static_cast<const cd*>(twt);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (long_columns(n1, n2)) {
+    static int resident[2] = {0, 0};  // per n1, queried on first use
+    const int logp = logn1 - LOGQ;
+    const long long blocks = (batch * (n2 >> LOGCT)) << logp;
+    return phastft::launch_clusters(cluster_kernel(n1), 1 << logp, blocks, THREADS,
+                                    smem_bytes(n1), s, resident[logp - 3], xr, xi, tw, corr,
+                                    outr, outi, n2);
+  }
   const int logT = LOG_LOCAL - logn1 < logn2 ? LOG_LOCAL - logn1 : logn2;
   const long long blocks = batch << (logn2 - logT);
   if (blocks > 0x7fffffffLL || (blocks >> (logn2 - logT)) != batch)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int logs = logn2 / 2;
-  const SplitCorr corr{t1r, t1i, t2r, t2i, logs, n2 >> logs, 0};
   const size_t smem = smem_bytes(n1);
   cudaError_t err = cudaFuncSetAttribute(
       col64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  col64_kernel<<<static_cast<unsigned>(blocks), THREADS, smem,
-                 static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, static_cast<const cd*>(twt), corr, outr, outi, logn1, n2, logT);
+  col64_kernel<<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(xr, xi, tw, corr, outr,
+                                                                    outi, logn1, n2, logT);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The clusters of the long-column design at n1 = 1024 or 2048 the current
+// device holds at once (the CUDA occupancy query), or minus the CUDA error
+// code.
+extern "C" int phastft_col64_clusters(int n1) {
+  if (n1 != 1024 && n1 != 2048) return -static_cast<int>(cudaErrorInvalidValue);
+  return phastft::resident_clusters(cluster_kernel(n1), n1 >> LOGQ, THREADS, smem_bytes(n1));
 }

@@ -5,11 +5,10 @@ The same four classes, with the same messages, as the JAX package's
 (non-power-of-2 length, planar length mismatch, planner-size mismatch).
 
 ``not_ported`` builds the ``NotImplementedError`` raised for everything
-the port does not run yet (the native f64 engine from n = 2^26 and on
-split levels with n1 > 512, n >= 2^31, the staged and plain pipelines,
+the port does not run yet (n >= 2^31, the staged and plain pipelines,
 Tune, leaves outside 128..2^16 points, the distributed four-step in f64 or
-with a column factor past 2048);
-its message names the ``ROADMAP.md`` item that will bring it.
+with a column factor past 2048); its message names the ``ROADMAP.md`` item
+that will bring it.
 """
 
 from __future__ import annotations
@@ -50,8 +49,6 @@ def ensure_power_of_two(n: int) -> int:
 #: ROADMAP.md Queue 1 items that bring what the port does not run yet.
 ROADMAP_ITEMS = {
     "nested": "ROADMAP.md Queue 1 item 16 (transforms of n >= 2^31)",
-    "native_big": "ROADMAP.md Queue 1 item 20 (the native f64 engine for n "
-                  ">= 2^26 and split levels with n1 > 512)",
     "classic": "ROADMAP.md Queue 1 item 7 (use_pallas=False and the staged "
                "strategy)",
     "tune": "ROADMAP.md Queue 1 item 8 (PlannerMode.Tune)",

@@ -21,15 +21,14 @@ split the fused pipeline refuses; ``leaf_kernel="hybrid"``, per call or on
 the planner, runs the leaves on the opt-in hybrid kernel), and planar f64
 for the same sizes, ``f64_engine`` resolved as the JAX package resolves it
 (a per-call value that is not None, else the planner's, else
-``"native"``): the native engine on the FP64 units for n <= 2^25 (every
-split level classic, n1 <= 512), or the df64 (paired-f32) engine,
-``"df64"``, ``"df64-fused"``, ``"df64-split"`` or ``"df64-oz"``. A planner
-built with ``"df64-oz"`` runs its split levels inside the Ozaki kernels'
-window on them, whatever the per-call engine; the leaves and other levels
-run the df64 kernels. The ``*_with_planner`` entries pass
-``Options.guess_options(n)`` per call, as the JAX package does: its
-``f64_engine`` is None up to 2^25 (the planner's engine decides) and
-``"df64"`` from 2^26. What the port does not run raises
+``"native"``): the native engine on the FP64 units (every split level
+classic), or the df64 (paired-f32) engine, ``"df64"``, ``"df64-fused"``,
+``"df64-split"`` or ``"df64-oz"``. A planner built with ``"df64-oz"`` runs
+its split levels inside the Ozaki kernels' window on them, whatever the
+per-call engine; the leaves and other levels run the df64 kernels. The
+``*_with_planner`` entries pass ``Options.guess_options(n)`` per call, as
+the JAX package does: its ``f64_engine`` is None at every n, so the
+planner's engine decides. What the port does not run raises
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
 """
 
@@ -47,10 +46,9 @@ from .errors import (
     ensure_power_of_two,
     not_ported,
 )
-from .options import NATIVE_MAX_LOGN, Options
+from .options import Options
 from .planner import Direction, PlannerDit32, PlannerDit64, resolve_device
 from .ops.dit import build_dd_fft, build_fast_fft, build_native_fft
-from .ops.fourstep import native_window
 
 __all__ = [
     "fft_64_dit",
@@ -128,7 +126,7 @@ def _length(x) -> int:
 
 def _run(reals, imags, direction, planner, opts: Options):
     direction = _coerce_direction(direction)
-    n, log_n = _validate(reals, imags, planner)
+    n, _ = _validate(reals, imags, planner)
     if opts.strategy == "staged":
         raise not_ported("strategy='staged'", "classic")
     use_pallas = (
@@ -149,10 +147,6 @@ def _run(reals, imags, direction, planner, opts: Options):
         )
         if not engine.startswith("df64"):
             # the native engine, as the JAX package runs every other value
-            if log_n > NATIVE_MAX_LOGN or not native_window(planner.plan):
-                raise not_ported(
-                    f"f64_engine={engine!r} at n = 2^{log_n} (plan "
-                    f"{planner.plan})", "native_big")
             run = build_native_fft(n, leaf, scale)
             args = (planner.native_state,)
         else:
@@ -220,9 +214,8 @@ def fft_64_dit_with_planner_and_opts(reals, imags, direction, planner, opts):
 
 def fft_64_dit_with_planner(reals, imags, direction, planner):
     """f64 planar C2C FFT with a reusable planner, on per-call
-    ``Options.guess_options(n)`` as in the JAX package: up to n = 2^25 its
-    ``f64_engine`` is None and the planner's engine runs; from 2^26 it is
-    ``"df64"``, whatever the planner's."""
+    ``Options.guess_options(n)`` as in the JAX package: its ``f64_engine``
+    is None, so the planner's engine runs."""
     return _run(reals, imags, direction, planner,
                 Options.guess_options(_length(reals)))
 

@@ -37,7 +37,10 @@ device memory whose output is already in natural order.
 engine, as the JAX package's f64 ``fft_rows`` runs them: every split level
 on the classic branch (``col64`` with the split twiddle, the inner plan,
 ``transpose2_64``) and every leaf on ``leaf64`` (n = 2..2^16,
-the tiny plans included); n = 1 is a copy.
+the tiny plans included); n = 1 is a copy. The column pass's output is
+handed over to the inner plan, which drops it as soon as its own first
+kernel has read it, so a nested plan holds at most three pairs at once,
+the caller's input included.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from .df64 import tiny_fft_dd
 from .ozdd import ozcol, ozleaft
 from .leaf import hybrid, leaf, leaf3
 from .leaft import leaft
-from .native import MAX_COL_N1, col64, leaf64
+from .native import col64, leaf64
 from .stockham import LANES
 from .transpose import transpose2, transpose2_64
 
@@ -63,7 +66,6 @@ __all__ = [
     "fft_rows",
     "fft_rows_dd",
     "fft_rows_native",
-    "native_window",
 ]
 
 # Largest row transform executed as a single leaf.
@@ -260,12 +262,6 @@ def fft_rows_dd(rh, rl, ih, il, plan, tables, corrs, dd_leaf=None):
 # --------------------------------------------------------------------------
 
 
-def native_window(plan) -> bool:
-    """Whether the native kernels run ``plan``: every split level's column
-    factor is at most ``col64``'s 512 (a leaf takes up to 2^16 points)."""
-    return all(n1 <= MAX_COL_N1 for n1, _, _ in split_levels(plan))
-
-
 def fft_rows_native(re, im, plan, corrs):
     """DFT along the last axis of (..., n) f64 planes following ``plan``.
 
@@ -275,12 +271,24 @@ def fft_rows_native(re, im, plan, corrs):
     tables ``dif{m}`` of every DFT size the kernels run. A tiny or leaf
     plan runs ``leaf64`` (n = 1 is a copy); a split level runs ``col64``,
     the inner plan on its n1 rows as one more batch dim, and
-    ``transpose2_64``, freeing each intermediate pair as soon as the next
-    pass has read it. Every branch returns new tensors."""
+    ``transpose2_64``. Every branch returns new tensors; ``re`` and ``im``
+    are read, never written, and stay the caller's."""
+    return _rows_native([re, im], plan, corrs)
+
+
+def _rows_native(pair, plan, corrs):
+    """``fft_rows_native`` on the planes in the list ``pair``, which it
+    empties: the caller hands its references over. Each pass drops its
+    input as soon as its kernel has read it, so the column output of a
+    split level is freed when the inner plan's first kernel returns, not
+    when the inner plan ends (where the caller still holds the planes, as
+    ``fft_rows_native``'s caller does, they stay alive)."""
 
     def steps(m):
         return corrs[f"dif{m}"][0] if m > 1 else None
 
+    re, im = pair
+    pair.clear()
     kind = plan[0]
     if kind == "tiny":
         if plan[1] == 1:
@@ -293,10 +301,10 @@ def fft_rows_native(re, im, plan, corrs):
     _, n1, plan2, n2 = plan
     batch = tuple(re.shape[:-1])
     view = batch + (n1, n2)
-    c_re, c_im = col64(re.reshape(view), im.reshape(view),
-                       corrs[f"split{n1}x{n2}"], n1, steps(n1))
-    d_re, d_im = fft_rows_native(c_re, c_im, plan2, corrs)
-    del c_re, c_im
+    col = list(col64(re.reshape(view), im.reshape(view),
+                     corrs[f"split{n1}x{n2}"], n1, steps(n1)))
+    del re, im
+    d_re, d_im = _rows_native(col, plan2, corrs)
     o_re, o_im = transpose2_64(d_re, d_im)
     del d_re, d_im
     flat = batch + (n1 * n2,)

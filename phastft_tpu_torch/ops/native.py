@@ -9,7 +9,7 @@ the 64-bit paired transpose (``ops/transpose.py``):
   times the split twiddle W_n^(k1*i2) as two complex products
   T1[k1, i2 // s] * T2[k1, i2 % s] (the planner's ``split{n1}x{n2}``,
   ``ops/stockham.split_correction_host``): the column pass of every split
-  level, n1 = 2..512. Stands for the JAX package's ``stockham_axis2`` +
+  level, n1 = 2..2048. Stands for the JAX package's ``stockham_axis2`` +
   split correction (``phastft_tpu/ops/fourstep.py:353-380``).
 * ``leaf64``: the whole DFT of rows of n = 2..2^16 points, natural order
   in and out; from n = 256 as F(n1) over the (n1, 128) view, the planner's
@@ -36,7 +36,7 @@ __all__ = ["col64", "col64_plain", "dif_twiddles_host", "leaf64", "leaf64_plain"
            "MAX_COL_N1", "MAX_LEAF_N"]
 
 #: Column factors of ``col64`` and row lengths of ``leaf64`` (powers of two).
-MAX_COL_N1 = 512
+MAX_COL_N1 = 2048
 MAX_LEAF_N = 1 << 16
 
 
@@ -124,23 +124,28 @@ def col64_plain(re, im, tabs, n1: int, steps):
 
 def col64(re, im, tabs, n1: int, steps):
     """X[..., k1, i2] = W_n^(k1*i2) * sum_i1 x[..., i1, i2] W_n1^(i1*k1)
-    on (..., n1, n2) f64 planes, n1 = 2..512 and n2 >= 2 powers of two, n
+    on (..., n1, n2) f64 planes, n1 = 2..2048 and n2 >= 2 powers of two, n
     = n1 * n2; ``tabs`` = (T1 re, T1 im, T2 re, T2 im), the planner's
     ``split{n1}x{n2}``, and ``steps`` its ``dif{n1}`` table, on the planes'
     device. Returns two new planes, natural order, the classic (n1, n2)
     layout.
 
-    On CUDA it launches ``csrc/col64.cu`` on the current stream; a CPU
-    tensor runs ``col64_plain``. Inputs are read, never written. Each
-    launch adds one to ``col64.launches``.
+    On CUDA it launches ``csrc/col64.cu`` on the current stream, or raises
+    (a shape no cluster of which fits the card among them); a CPU tensor
+    runs ``col64_plain``. Inputs are read, never written. Each launch adds
+    one to ``col64.launches``.
 
     Stands for the JAX package's XLA column pass of the native engine
     (``stockham_axis2`` + ``split{n1}x{n2}``,
     ``phastft_tpu/ops/fourstep.py:353-380``). Bound by memory (32 B per
-    element; its FP64 arithmetic takes a fourth of that time or less); a
-    block of 4096 points (two per SM) holds 4096 / n1 neighbouring columns,
-    runs radix-4 DIF trips over them in shared memory with the two twiddle
-    products in the last, and stores rows in natural order."""
+    element; its FP64 arithmetic takes less than that time). A block of
+    4096 points (two per SM) holds 4096 / n1 neighbouring columns up to
+    n1 = 512, runs radix-4 DIF trips over them in shared memory with the two
+    twiddle products in the last, and stores rows in natural order; at
+    n1 = 1024 / 2048 (n2 >= 32) a 32-column slab spans a cluster of 8 / 16
+    blocks: F(n1 / 128) in registers from the loads, an exchange through
+    distributed shared memory, F(128) with the twiddle products in its last
+    trip."""
     b, n2 = _check_col(re, im, tabs, n1, steps)
     if re.device.type == "cpu":
         return col64_plain(re, im, tabs, n1, steps)

@@ -5,10 +5,9 @@ dataclass and field names, so one value can describe a call to either
 package. ``guess_options`` keeps both leaf rules of the JAX package,
 which fix the plan shapes (``ops/fourstep.plan_rows``). The f64 engine
 windows of the JAX package were measured on a TPU and are not carried
-over: the port's f64 windows come from a race on the H100 (``PERF.md``):
-the native engine (``f64_engine=None``) up to n = 2^25, ``"df64"`` from
-2^26, where the native engine does not run yet; the Ozaki engine
-``"df64-oz"`` is opt-in.
+over: the port's f64 default comes from a race on the H100 (``PERF.md``):
+the native engine (``f64_engine=None``) at every n = 1..2^30; ``"df64"``
+and the Ozaki engine ``"df64-oz"`` are opt-in.
 """
 
 from __future__ import annotations
@@ -22,10 +21,6 @@ __all__ = ["Options"]
 
 #: Largest row transform executed as a single leaf.
 DEFAULT_LEAF_SIZE = 1 << 16
-
-#: log2 of the largest n the native f64 engine runs, and so of the
-#: largest n at which ``guess_options`` picks it.
-NATIVE_MAX_LOGN = 25
 
 #: log2(n) from which the staged strategy's bit reversal is tiled.
 TILED_BITREV_MIN_LOGN = 14
@@ -58,12 +53,11 @@ class Options:
     ``f64_engine`` (f64 planners only; the per-call value, when not None,
     overrides the planner's, and None on both means ``"native"``):
     ``"native"`` (and any value that does not start with ``"df64"``, as in
-    the JAX package) runs planar f64 on the H100's FP64 units, for n <=
-    2^25 with every split level's n1 <= 512; outside that it raises
-    ``NotImplementedError``. ``"df64"`` and ``"df64-fused"`` run the
-    paired-f32 engine with one dd
-    leaf kernel per leaf, ``"df64-split"`` runs each leaf as two dd column
-    passes with a transpose between. A planner built with ``"df64-oz"``
+    the JAX package) runs planar f64 on the H100's FP64 units, at every n
+    and on every plan the planner takes. ``"df64"`` and ``"df64-fused"``
+    run the paired-f32 engine with one dd leaf kernel per leaf,
+    ``"df64-split"`` runs each leaf as two dd column passes with a
+    transpose between. A planner built with ``"df64-oz"``
     runs every split level whose inner plan is a leaf, with
     128 <= n1 <= 2048 and rows of A * 128 points, 8 <= A <= 64, on the
     Ozaki bf16-slice kernels (rel L2 ~1e-11 against ~1e-14), whatever the
@@ -92,15 +86,12 @@ class Options:
         factor is at least 128 and the row length n2 = A * 128 has
         A <= 128. Any other dtype, and None, takes the f64 rule: a leaf of
         2^13 up to n = 2^21 and 2^16 past it, clamped to [256, n], with
-        ``f64_engine=None`` (the native engine) up to n = 2^25, where it
-        won the H100 race against ``"df64"`` and ``"df64-oz"`` at every
-        size (complex128 ``torch.fft.fft``, not an engine of the port,
-        stays 1.3-2.2x faster; ``PERF.md``'s race table), and ``"df64"``
-        from 2^26, where the native engine does not run yet (ROADMAP.md
-        item 20).
+        ``f64_engine=None``: the native engine, which won the H100 race
+        against ``"df64"`` at every size from 2^10 to 2^28 (and against
+        ``"df64-oz"`` where it runs), and is the one engine raced at 2^29
+        and 2^30 (``PERF.md``'s race table).
         """
         log_n = max(n, 1).bit_length() - 1
-        f64_engine = None
         if dtype is not None and np.dtype(dtype) == np.float32:
             if n <= DEFAULT_LEAF_SIZE:
                 leaf = min(max(n, 256), DEFAULT_LEAF_SIZE)
@@ -109,10 +100,7 @@ class Options:
         else:
             leaf = (1 << 13) if log_n <= 21 else DEFAULT_LEAF_SIZE
             leaf = min(max(n, 256), leaf)
-            if log_n > NATIVE_MAX_LOGN:
-                f64_engine = "df64"
         return Options(
             tiled_bit_reversal=log_n >= TILED_BITREV_MIN_LOGN,
             leaf_fft_size=leaf,
-            f64_engine=f64_engine,
         )

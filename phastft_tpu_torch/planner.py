@@ -351,9 +351,8 @@ class PlannerDit64(_PlannerDitBase):
     split level inside ``ops/ozdd.oz_window`` holds ``ozcol{n1}x{n2}`` and
     ``ozleafT{n2}`` instead (flat tuples, the slice arrays as bfloat16),
     and the transform runs it on the oz kernels. The default options
-    (``guess_options``) carry ``f64_engine=None``, the native engine, up to
-    n = 2^25 and ``"df64"`` above, as does a planner built with engine-less
-    ``Options()`` wherever the native engine runs."""
+    (``guess_options``) carry ``f64_engine=None``, the native engine, as
+    does engine-less ``Options()``."""
 
     dtype = np.dtype(np.float64)
 

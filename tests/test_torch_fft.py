@@ -706,12 +706,12 @@ def test_guess_options_without_f32_takes_the_f64_rule(dtype):
     from phastft_tpu.options import Options as JaxOptions
 
     args = () if dtype is None else (dtype,)
-    for log_n in (7, 13, 16, 18, 25, 26):
+    for log_n in (7, 13, 16, 18, 25, 26, 28, 30):
         n = 1 << log_n
         got = pt.Options.guess_options(n, *args)
         assert got.leaf_fft_size == JaxOptions.guess_options(n, *args).leaf_fft_size
-        # the H100 race's windows: native (None) to 2^25, df64 above
-        assert got.f64_engine == (None if log_n <= 25 else "df64")
+        # the H100 race: native (None) at every size
+        assert got.f64_engine is None
     assert pt.Options.guess_options(1 << 16, *args).leaf_fft_size == 1 << 13
     # an f64 planner's default options run the native engine there
     assert pt.PlannerDit64(1 << 10, device="cpu").options.f64_engine is None
@@ -765,7 +765,7 @@ def test_with_planner_runs_on_the_planners_options(monkeypatch):
     does. Its strategy is "auto", so a planner built on the staged strategy
     runs the default pipeline there (the explicit-options entry on the
     planner's own options raises item 7's error); its ``f64_engine`` is None
-    up to 2^25, so the planner's engine decides there."""
+    at every n, so the planner's engine decides."""
     import phastft_tpu_torch.fft as port_fft
 
     seen = []
@@ -792,3 +792,5 @@ def test_with_planner_runs_on_the_planners_options(monkeypatch):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert seen[0] == pt.Options.guess_options(N)
     assert seen[2] == pt.Options.guess_options(n) and seen[2].f64_engine is None
+    # up to 2^30 no guess overrides an f64 planner's engine
+    assert all(pt.Options.guess_options(1 << k).f64_engine is None for k in range(31))

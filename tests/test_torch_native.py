@@ -200,9 +200,9 @@ def test_native_wrappers_reject_bad_arguments(bad):
     elif bad == "shape":
         with pytest.raises(ValueError):
             col64(x, x, tabs, n1 // 2, w)
-        with pytest.raises(ValueError):  # n1 past the kernel's 512
-            col64(torch.zeros(1024, 8, dtype=torch.float64),
-                  torch.zeros(1024, 8, dtype=torch.float64), tabs, 1024, w)
+        with pytest.raises(ValueError):  # n1 past the kernel's 2048
+            col64(torch.zeros(4096, 8, dtype=torch.float64),
+                  torch.zeros(4096, 8, dtype=torch.float64), tabs, 4096, w)
         with pytest.raises(ValueError):
             leaf64(y, y, corr, 256, steps)
         with pytest.raises(ValueError):  # past 2^16 points
@@ -246,15 +246,105 @@ def test_native_wrappers_run_plain_on_cpu():
     assert (col64.launches, leaf64.launches, transpose2_64.launches) == before
 
 
-@pytest.mark.parametrize("case", ["n_2^26", "n1_over_512"])
-def test_native_outside_window_not_implemented(case):
-    """n >= 2^26 and a split level with n1 > 512 raise item 20's error,
-    before any data is read."""
-    if case == "n_2^26":
-        n, opts = 1 << 26, pt.Options(f64_engine="native")
-    else:  # 2^17 on a 128-point leaf: one split level of n1 = 1024
-        n, opts = 1 << 17, pt.Options(leaf_fft_size=128, f64_engine="native")
-    planner = pt.PlannerDit64(n, options=opts, device="cpu")
-    x = np.broadcast_to(np.float64(0), (n,))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 20"):
-        pt.fft_64_dit_with_planner_and_opts(x, x, pt.Direction.Forward, planner, opts)
+#: The plan shapes of 2^26..2^30 on small leaves: one split level of
+#: n1 = 1024 / 2048 (2^26 / 2^27 on 2^16-point leaves), and nested plans of
+#: an outer level of 32 / 64 / 128 around a 128 x 128 inner level (2^28..2^30
+#: around 128 x 2^16).
+LONG_PLANS = {
+    (17, 128): ("split", 1024, ("leaf", 1), 128),
+    (18, 128): ("split", 2048, ("leaf", 1), 128),
+    (19, 128): ("split", 32, ("split", 128, ("leaf", 1), 128), 16384),
+    (20, 128): ("split", 64, ("split", 128, ("leaf", 1), 128), 16384),
+    (21, 128): ("split", 128, ("split", 128, ("leaf", 1), 128), 16384),
+    (18, 256): ("split", 1024, ("leaf", 2), 256),
+    (19, 256): ("split", 2048, ("leaf", 2), 256),
+}
+
+
+@pytest.mark.parametrize("log_n,leaf,direction,rows", [
+    *((log_n, leaf, "Forward", 1) for log_n, leaf in LONG_PLANS),
+    (17, 128, "Reverse", 1), (19, 128, "Reverse", 1), (19, 256, "Reverse", 1),
+    (18, 128, "Forward", 3), (20, 128, "Reverse", 3),
+])
+def test_native_long_columns_and_nested_plans(log_n, leaf, direction, rows):
+    """The plans of 2^26..2^30 on small leaves: column factors of 1024 and
+    2048, and nested plans (every level classic), forward, inverse and a
+    batch of 3, against the JAX package's native engine and numpy."""
+    n = 1 << log_n
+    assert pt.PlannerDit64(n, options=_opts(pt, n, leaf=leaf), device="cpu").plan == \
+        LONG_PLANS[log_n, leaf]
+    shape = (rows, n) if rows > 1 else (n,)
+    got, ref, x = _both(n, shape, direction, leaf=leaf)
+    want = np.fft.fft(x, axis=-1) if direction == "Forward" else np.fft.ifft(x, axis=-1)
+    assert _rel(got, ref) <= JAX_TOL
+    assert _rel(got, want) <= NUMPY_TOL
+
+
+@pytest.mark.parametrize("log_n", [17, 20])
+def test_from_numpy_tables_native_bitwise_long_and_nested(log_n):
+    """As test_from_numpy_tables_native_bitwise, on an n1 = 1024 plan and a
+    nested one (leaf 128): every level's split{n1}x{n2} carried over."""
+    n, leaf = 1 << log_n, 128
+    jp = phastft_tpu.PlannerDit64(n, options=_opts(phastft_tpu, n, leaf=leaf))
+    carried = pt.PlannerDit64.from_numpy_tables(
+        n, device="cpu", options=_opts(pt, n, leaf=leaf), native_state=_jax_native_state(jp))
+    own = pt.PlannerDit64(n, options=_opts(pt, n, leaf=leaf), device="cpu")
+    assert carried.native_state.keys() == own.native_state.keys()
+    assert sum(key.startswith("split") for key in own.native_state) == (
+        2 if log_n == 20 else 1)
+    rng = np.random.default_rng(log_n)
+    re, im = rng.standard_normal(n), rng.standard_normal(n)
+    for direction in ("f", "r"):
+        a = pt.fft_64_dit_with_planner_and_opts(re, im, direction, carried, carried.options)
+        b = pt.fft_64_dit_with_planner_and_opts(re, im, direction, own, own.options)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_column_output_is_handed_over(monkeypatch):
+    """The classic branch hands each column pass's output to the inner
+    plan, which drops it as soon as its own first kernel has read it: on a
+    nested plan the outer col64's output dies after the inner col64 returns
+    and before the leaf starts, the inner one's after the leaf returns and
+    before the inner transpose starts. The caller's input stays alive and
+    unchanged."""
+    import weakref
+
+    from phastft_tpu_torch.ops import fourstep
+
+    events, col_outs = [], []
+
+    def watch(name, fn):
+        def wrapped(*args, **kw):
+            events.append(("call", name))
+            out = fn(*args, **kw)
+            events.append(("return", name))
+            if name == "col64":
+                level = len(col_outs)
+                col_outs.append([weakref.ref(t) for t in out])
+                for t in out:
+                    weakref.finalize(t, events.append, ("dead", f"col{level}"))
+            return out
+        return wrapped
+
+    for name in ("col64", "leaf64", "transpose2_64"):
+        monkeypatch.setattr(fourstep, name, watch(name, getattr(fourstep, name)))
+    n, leaf = 1 << 19, 128  # outer 32 x 2^14 around 128 x 128
+    planner = pt.PlannerDit64(n, options=_opts(pt, n, leaf=leaf), device="cpu")
+    rng = np.random.default_rng(9)
+    re, im = (torch.from_numpy(rng.standard_normal(n)) for _ in range(2))
+    keep = (re.clone(), im.clone())
+    out = pt.fft_64_dit_with_planner_and_opts(re, im, "f", planner, planner.options)
+    calls = [e for e in events if e[0] != "dead"]
+    assert calls == [(k, nm) for nm in ("col64", "col64", "leaf64", "transpose2_64",
+                                        "transpose2_64") for k in ("call", "return")]
+    assert all(ref() is None for refs in col_outs for ref in refs)
+    # each death (of both planes) falls between its reader's return and the
+    # next kernel's call
+    for level, reader, nxt in ((0, 1, 2), (1, 2, 3)):
+        at = [i for i, e in enumerate(events) if e == ("dead", f"col{level}")]
+        ret = events.index(("return", calls[2 * reader][1]), 2 * reader)
+        start = [i for i, e in enumerate(events) if e[0] == "call"][nxt]
+        assert len(at) == 2 and all(ret < i < start for i in at)
+    assert torch.equal(re, keep[0]) and torch.equal(im, keep[1])
+    want = np.fft.fft(keep[0].numpy() + 1j * keep[1].numpy())
+    assert _rel(_g(out), want) <= NUMPY_TOL

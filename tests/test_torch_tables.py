@@ -295,8 +295,8 @@ def test_dd_correction_tables_bitwise(n1, n2):
 def test_f64_plans_match(log_n):
     """The f64 leaf rule and the plans it gives equal the JAX package's
     (whose f64 leaf is 2^13 inside its Ozaki window too); the port's f64
-    default engine is the native one (None) up to 2^25 and df64 above,
-    as the H100 race decided."""
+    default engine is the native one (None) at every n, as the H100 race
+    decided."""
     from phastft_tpu.ops.fourstep import plan_rows as jax_plan
     from phastft_tpu.options import Options as JaxOptions
 
@@ -305,7 +305,7 @@ def test_f64_plans_match(log_n):
 
     n = 1 << log_n
     opts = Options.guess_options(n, np.float64)
-    assert opts.f64_engine == (None if log_n <= 25 else "df64")
+    assert opts.f64_engine is None
     ref = JaxOptions.guess_options(n, np.float64)
     if not 20 <= log_n <= 24:  # there the JAX rule is the Ozaki kernels' 2^13
         assert opts.leaf_fft_size == ref.leaf_fft_size
