@@ -13,14 +13,16 @@ on any failed check:
    prints the clusters of each cluster shape resident at once (the CUDA
    occupancy query; none may be 0: ``leaf``, ``leaf3``, ``ddleaf``,
    ``leaft`` at A = 8..128, ``colfft`` at n1 = 1024, 2048 in its three
-   modes, ``ddcol`` and ``ddcol_nocorr`` at n1 = 1024, 2048, ``ozleaft`` at
-   A = 8..64, and ``ozcol``'s blocks per SM), the ``-Xptxas -v`` lines of
+   modes, ``col64`` at n1 = 1024, 2048 (8-block clusters), ``ddcol`` and
+   ``ddcol_nocorr`` at n1 = 1024, 2048, ``ozleaft`` at A = 8..64, and
+   ``ozcol``'s blocks per SM), the ``-Xptxas -v`` lines of
    the two oz kernels and of ``ddcol``, and the FP32 issue rate of the dd
    bounds.
 3. ``parity``: each kernel against its plain torch version on the card, at
    the slice's shapes (n1, n2) = (128, 8192), (1024, 16384), (2048, 16384),
-   (128, 1024), at a batch of 32 of (128, 16384), the inner level of a 2^26
-   nested plan, and at a batch of 3 of (128, 4096), rel L2 <= 1e-6.
+   (128, 1024), (128, 2048), (256, 16384), at a batch of 32 of (128, 16384),
+   the inner level of a 2^26 nested plan, and at batches of 3 of (128, 4096)
+   and (512, 16384), rel L2 <= 1e-6.
 4. ``e2e``: the split plans' main path through the public entries, launch
    counters set to 0 just before and read just after: ``fft_32_dit``
    forward at 2^17, 2^19, 2^20, 2^24 and 2^25 against numpy's f64 FFT (rel L2 <= 5e-7 *
@@ -52,11 +54,12 @@ on any failed check:
    rows.
 
 9. ``parity_nested``: ``colfft`` against ``colfft_plain`` at (n1, n2) =
-   (32, 2^21), (512, 2^21), (2, 2^16), (2048, 2^14) and batches of 3 at
-   (128, 2^14), 3 at (16, 2^16) and 5 at (2, 2^16) (the classic plans'
-   shapes), rel L2 <= 1e-6; ``transpose2`` against ``transpose2_plain`` at
-   (32, 2^21), (2, 2^16), (2048, 2^16), the same three batches and a narrow
-   (256, 8), bit for bit.
+   (32, 2^21), (128, 2^21), (256, 2^21), (512, 2^21) (the outer levels of
+   2^26 and 2^28..2^30), (2, 2^16), (4, 2^16), (8, 2^16), (64, 2^16),
+   (2048, 2^14) and batches of 3 at (128, 2^14), 3 at (16, 2^16) and 5 at
+   (2, 2^16) (the classic plans' shapes), rel L2 <= 1e-6; ``transpose2``
+   against ``transpose2_plain`` at (32, 2^21), (2, 2^16), (2048, 2^16), the
+   same three batches and a narrow (256, 8), bit for bit.
 10. ``e2e_nested``: the nested and classic plans' main path, counters set to
    0 just before and read just after, inputs made on the card from a seeded
    generator: ``fft_32_dit`` at 2^26 and 2^28 against an f64 FFT of the same
@@ -74,7 +77,10 @@ on any failed check:
    plain versions, the inner level's two kernels on the outer level's rows
    as one batch, the whole transform (device and host clock),
    ``torch.fft.fft`` on complex64, and ``x.transpose(-1, -2).contiguous()``
-   on both planes as the library call for ``transpose2``.
+   on both planes as the library call for ``transpose2``; then ``colfft``
+   alone at the outer levels of 2^29 and 2^30, (256, 2^21) and (512, 2^21),
+   and ``colfft_out3d`` at the fused 2^22 and 2^23 plans' (256, 2^14) and
+   (512, 2^14), each beside its bound.
 
 12. ``dd_exact``: TwoSum and TwoProd as the dd kernels' ``csrc/dd.cuh``
    computes them, on 2^20 random pairs: s + e = a + b and p + e = a * b
@@ -172,9 +178,10 @@ on any failed check:
    complex64, and the transform with and without the hybrid leaf.
 23. ``parity_nocorr``: ``colfft_nocorr`` against its plain version at
    (2048, 4096), (32, 2^14), (2, 2^16), 3 x (128, 2^14), (1024, 2^14),
-   3 x (2048, 4096) and 2 x (2048, 16) (narrower than a cluster's slab),
-   and ``colfft`` with ``n_total``/``col_base`` on a shard block of 2^25,
-   rel L2 <= 1e-6.
+   3 x (2048, 4096), 2 x (2048, 16) and 3 x (1024, 8) (narrower than a
+   cluster's slab), and ``colfft`` with ``n_total``/``col_base`` on shard
+   blocks (2048, 4096) of 2^25, (32, 64) of 2^16, and (512, 16) and (2048, 8)
+   (narrower than 32 columns), rel L2 <= 1e-6.
 24. ``dist``: ``torch.distributed`` on NCCL at world size 1 (a ``file://``
    store in the output directory), counters set to 0 just before and read
    just after, each transform's launches checked against its plan (one
@@ -202,9 +209,11 @@ The native f64 engine's phases run between 19 and 20:
    clusters resident at once; ``col64`` at every column factor n1 = 2..512
    over n2 = 2^13 (batches of 1 and 3) and 64..512 over 2^16, at n1 = 1024
    and 2048 over 2^13 (batches of 1 and 3) and 2^16, at n2 = 16 (the
-   one-block design) and on one more entry of 32 columns than its clusters
-   resident at once, and on the nested plans' levels: (32, 2^23), 32 x
-   (128, 2^16) and (128, 2^23) (2^30 points: ``col64_plain`` on each half
+   one-block design) and on a ragged last wave: one more entry of 32 columns
+   than its clusters resident at once at n1 = 1024 (one cluster an entry),
+   and at 2048 (two an entry) one or two more clusters than resident, and
+   on the nested plans' levels: (32, 2^23), 32 x (128, 2^16) and
+   (128, 2^23) (2^30 points: ``col64_plain`` on each half
    of the columns, the input held on the host meanwhile); rel L2 <= 1e-13;
    ``transpose2_64`` at the same shapes, bit for bit.
 27. ``e2e_native``: its main path, counters set to 0 just before and read
@@ -231,9 +240,10 @@ The native f64 engine's phases run between 19 and 20:
    split level's ``col64`` and ``transpose2_64``, and the leaf), beside its
    bound (32 B per element and pass plus the tables, against 5 * log2(len)
    + 6 FP64 flops at 132 x 64 x 2 x ``clocks.max.sm``) and its library call
-   up to 2^29 (``torch.fft.fft`` of the same rows for ``leaf64``,
-   ``.transpose(-1, -2).contiguous()`` of both planes for ``transpose2_64``;
-   ``col64`` fuses a twiddle and has none), and at (256, 2^16) its plain
+   (``torch.fft.fft`` of the same rows for ``leaf64``, at 2^30 only where
+   the card holds it, else the reason; ``.transpose(-1, -2).contiguous()``
+   of both planes for ``transpose2_64``; ``col64`` fuses a twiddle and has
+   none), and at (256, 2^16) its plain
    version; then ``col64`` at (1024, 2^16) and (2048, 2^16) on its
    long-column (cluster) design and on a build of the same source with that
    design off (every shape one block; ``times_col64_designs``, both held to
@@ -271,7 +281,8 @@ F32_FLOPS_PER_S = 67e12
 #: plans' levels, and the inner level of a 2^26 nested plan on the outer
 #: level's 32 rows as one batch.
 PARITY_SHAPES = [(1, 128, 8192), (1, 1024, 16384), (1, 2048, 16384),
-                 (32, 128, 16384), (1, 128, 1024), (1, 128, 2048), (3, 128, 4096)]
+                 (32, 128, 16384), (1, 128, 1024), (1, 128, 2048), (3, 128, 4096),
+                 (1, 256, 16384), (3, 512, 16384)]
 E2E_LOGS = (17, 18, 19, 20, 24, 25)
 TIME_LOGS = (17, 20, 24, 25)
 #: A of the row kernel's cluster shapes (8 rows a cluster over A/8 blocks)
@@ -291,16 +302,23 @@ LEAF_E2E_POINTS = 1 << 20
 #: row of 2^16 for latency.
 LEAF_TIME_SHAPES = ((8, 1 << 19), (10, 1 << 17), (12, 1 << 15), (13, 1 << 14),
                     (14, 1 << 13), (15, 1 << 12), (16, 1 << 11), (16, 1))
-#: (batch or None, n1, n2) of the classic column pass's parity checks, and
-#: (batch or None, R, C) of the paired transpose's.
-NESTED_COL_SHAPES = ((None, 32, 1 << 21), (None, 512, 1 << 21), (None, 2, 1 << 16),
-                     (None, 2048, 1 << 14), (3, 128, 1 << 14),
-                     (3, 16, 1 << 16), (5, 2, 1 << 16))
+#: (batch or None, n1, n2) of the classic column pass's parity checks (the
+#: outer levels of 2^26 and 2^28..2^30, every other one-block n1 = 2..512,
+#: a cluster shape, batches), and (batch or None, R, C) of the paired
+#: transpose's.
+NESTED_COL_SHAPES = ((None, 32, 1 << 21), (None, 128, 1 << 21), (None, 256, 1 << 21),
+                     (None, 512, 1 << 21), (None, 2, 1 << 16), (None, 4, 1 << 16),
+                     (None, 8, 1 << 16), (None, 64, 1 << 16), (None, 2048, 1 << 14),
+                     (3, 128, 1 << 14), (3, 16, 1 << 16), (5, 2, 1 << 16))
 NESTED_TRANSPOSE_SHAPES = ((None, 32, 1 << 21), (None, 2, 1 << 16),
                            (None, 2048, 1 << 16), (3, 128, 1 << 14),
                            (3, 16, 1 << 16), (5, 2, 1 << 16), (None, 256, 8))
 NESTED_E2E_LOGS = (26, 28)
 NESTED_TIME_LOGS = (26, 28)
+#: (n1, n2) of the column pass alone at the outer levels of 2^29 and 2^30
+#: (classic), and of the fused 2^22 and 2^23 plans (out3d), one-block shapes.
+NESTED_OUTER_TIMES = ((256, 1 << 21), (512, 1 << 21))
+FUSED_COL_TIMES = ((256, 1 << 14), (512, 1 << 14))
 TOP_LOG = 30
 TOP_BINS = 256
 #: Elements per step of the chunked error sums and the direct DFT.
@@ -390,12 +408,14 @@ HYBRID_TC_FLOPS = 3 * 3 * 2 * 128
 HYBRID_FLOPS = 1 + 3 + 6
 #: The distributed four-step at world size 1: its sizes (n1 = 128 at 2^19,
 #: 2048 at 2^25, one column pass each), the bare column pass's parity shapes
-#: (batch, n1, n2), a shard block of colfft (n1, n2, n_total, col_base), and
-#: batch_fft_sharded's rows.
+#: (batch, n1, n2), shard blocks of colfft (n1, n2, n_total, col_base: one
+#: on the cluster path, three one-block, two of them narrower than 32
+#: columns), and batch_fft_sharded's rows.
 DIST_LOGS = (19, 25)
 NOCORR_SHAPES = ((1, 2048, 4096), (1, 32, 1 << 14), (1, 2, 1 << 16), (3, 128, 1 << 14),
-                 (1, 1024, 1 << 14), (3, 2048, 4096), (2, 2048, 16))
-SHARD_BLOCK = (2048, 4096, 1 << 25, 8192)
+                 (1, 1024, 1 << 14), (3, 2048, 4096), (2, 2048, 16), (3, 1024, 8))
+SHARD_BLOCKS = ((2048, 4096, 1 << 25, 8192), (32, 64, 1 << 16, 512),
+                (512, 16, 1 << 20, 2032), (2048, 8, 1 << 22, 1000))
 #: (n1, n2) of the bare column pass's times; the first is the kernels line's.
 NOCORR_TIMES = ((2048, 1 << 14), (1024, 1 << 14))
 DIST_BATCH = (8, 1 << 20)
@@ -415,7 +435,8 @@ NATIVE_COL_SHAPES = tuple((1 << k, 1 << 13) for k in range(1, 10)) + tuple(
     (1 << k, 1 << 16) for k in range(6, 10))
 #: (batch, n1, n2) of the column pass's long factors: the cluster design over
 #: 2^13 and 2^16 (batches of 1 and 3) and the one-block design at n2 = 16;
-#: besides, (resident clusters + 1, n1, 32), a ragged last wave.
+#: besides, a ragged last wave: (resident clusters + 1, 1024, 32) and
+#: (resident clusters // 2 + 1, 2048, 32) (two 16-column slabs an entry).
 NATIVE_LONG_COL_SHAPES = tuple((b, n1, n2) for n1 in (1024, 2048) for b, n2 in (
     (1, 1 << 13), (3, 1 << 13), (1, 1 << 16), (3, 16)))
 #: (batch, n1, n2) of the nested plans' levels: the outer level of 2^28 and
@@ -1069,19 +1090,19 @@ def dist_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
               "n2": n2, "rel_l2": err, "max_abs_err": mabs, "bound": KERNEL_TOL})
         check(f"colfft_nocorr parity at ({b}, {n1}, {n2})", err, KERNEL_TOL)
         del k, p, xr, xi
-    n1, n2, n_total, base = SHARD_BLOCK
-    xr, xi = randn_pair((n1, n2))
-    k = colfft(xr, xi, None, n1, n_total=n_total, col_base=base)
-    torch.cuda.synchronize()
-    p = colfft_plain(xr, xi, None, n1, n_total=n_total, col_base=base)
-    err = rel_l2(k[0], k[1], p[0], p[1])
-    mabs = max_abs(k[0], k[1], p[0], p[1])
-    max_err["colfft"] = max(max_err["colfft"], mabs)
-    emit({"phase": "parity_nocorr", "kernel": "colfft", "n1": n1, "n2": n2,
-          "n_total": n_total, "col_base": base, "rel_l2": err, "max_abs_err": mabs,
-          "bound": KERNEL_TOL})
-    check("colfft parity on a shard block", err, KERNEL_TOL)
-    del k, p, xr, xi
+    for n1, n2, n_total, base in SHARD_BLOCKS:
+        xr, xi = randn_pair((n1, n2))
+        k = colfft(xr, xi, None, n1, n_total=n_total, col_base=base)
+        torch.cuda.synchronize()
+        p = colfft_plain(xr, xi, None, n1, n_total=n_total, col_base=base)
+        err = rel_l2(k[0], k[1], p[0], p[1])
+        mabs = max_abs(k[0], k[1], p[0], p[1])
+        max_err["colfft"] = max(max_err["colfft"], mabs)
+        emit({"phase": "parity_nocorr", "kernel": "colfft", "n1": n1, "n2": n2,
+              "n_total": n_total, "col_base": base, "rel_l2": err, "max_abs_err": mabs,
+              "bound": KERNEL_TOL})
+        check(f"colfft parity on a shard block {(n1, n2, n_total, base)}", err, KERNEL_TOL)
+        del k, p, xr, xi
 
     store = os.path.abspath(os.path.join(OUT_DIR, "nccl_store"))
     if os.path.exists(store):
@@ -1301,7 +1322,8 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     col_shapes = ([(b, n1, n2) for n1, n2 in NATIVE_COL_SHAPES
                    for b in ((1, 3) if n2 == 1 << 13 else (1,))]
                   + list(NATIVE_LONG_COL_SHAPES)
-                  + [(col_resident[n1] + 1, n1, 32) for n1 in (1024, 2048)]
+                  + [(col_resident[1024] + 1, 1024, 32),
+                     (col_resident[2048] // 2 + 1, 2048, 32)]
                   + list(NATIVE_NESTED_COL_SHAPES))
     for b, n1, n2 in col_shapes:
         tabs, w = col_args(n1, n2)
@@ -1543,8 +1565,7 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
                 **native_bound(rows * n, None),
                 "library_ms": time_ms(lambda: (x[0].transpose(-1, -2).contiguous(),
                                                x[1].transpose(-1, -2).contiguous()),
-                                      flush, 10) if log_n <= NATIVE_RACE_LIBRARY_MAX_LOG
-                else None, "batch": batch, "n1": n1, "n2": n2}
+                                      flush, 10), "batch": batch, "n1": n1, "n2": n2}
             if levels == [NATIVE_TOP]:
                 # the kernels line's shapes: timed against, and held to,
                 # the plain versions on the same inputs
@@ -1567,11 +1588,15 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
                                          native_tables(("leaf", ln // 128) if ln >= 128
                                                        else ("tiny", ln))),
                           "library_ms": None, "n": ln, "rows": batch}
-        if log_n <= NATIVE_RACE_LIBRARY_MAX_LOG:
+        try:  # past NATIVE_RACE_LIBRARY_MAX_LOG the card may not hold it
             yc = torch.complex(*y)
             kern["leaf64"]["library_ms"] = time_ms(lambda: torch.fft.fft(yc), flush, 10)
-            del yc
-            release_memory()
+        except (torch.cuda.OutOfMemoryError, RuntimeError) as exc:
+            if log_n <= NATIVE_RACE_LIBRARY_MAX_LOG:
+                raise
+            kern["leaf64"]["library_note"] = f"not run: {type(exc).__name__}: {exc}"[:300]
+        yc = None
+        release_memory()
         if levels == [NATIVE_TOP]:
             kern["leaf64"]["plain_ms"] = time_ms(lambda: leaf64_plain(*y, corr, ln, steps),
                                                  flush, 3)
@@ -1701,6 +1726,7 @@ def main() -> int:
                 **{f"leaft_a_{a}": lib.phastft_leaft_clusters(a) for a in LEAFT_CLUSTER_AS},
                 **{f"colfft_n1_{n1}_mode_{mode}": lib.phastft_colfft_clusters(n1, mode)
                    for n1 in COL_CLUSTER_N1S for mode in (0, 1, 2)},
+                **{f"col64_n1_{n1}": lib.phastft_col64_clusters(n1) for n1 in COL_CLUSTER_N1S},
                 **{f"ozleaft_a_{a}": lib.phastft_ozleaft_clusters(a) for a in OZ_LEAF_CLUSTER_AS},
                 "ozcol_blocks_per_sm": lib.phastft_ozcol_blocks()}
     oz_ptxas, ddcol_ptxas, section = [], [], ""
@@ -2193,6 +2219,20 @@ def main() -> int:
         emit({"phase": "times_nested", "n": n, "n1": n1, "n2": n2, "card": smi,
               "kernels": row, "inner": inner, **time_transform(planner, 10)})
         top.update(row)  # the kernels line: the last (largest) shape
+    # the column pass alone at the outer levels of 2^29 and 2^30 and on the
+    # fused 2^22 and 2^23 plans' column shapes (one-block paths)
+    for name, fn, tile, shapes in (("colfft", colfft, col_tile, NESTED_OUTER_TIMES),
+                                   ("colfft_out3d", colfft_out3d, col_tile3d,
+                                    FUSED_COL_TIMES)):
+        for n1, n2 in shapes:
+            n = n1 * n2
+            ar, ai = xr[:n].view(1, n1, n2), xi[:n].view(1, n1, n2)
+            tabs = tuple(torch.from_numpy(a).to(dev) for a in
+                         col_split_tables_host(n1, n2, "float32", t=tile(n1, n2)))
+            bound = kernel_bound(n, n1.bit_length() - 1)
+            emit({"phase": "times_nested", "kernel": name, "n1": n1, "n2": n2, "card": smi,
+                  "ms": time_ms(lambda: fn(ar, ai, tabs, n1), flush, 10),
+                  "bound_ms": bound[0], "bound_by": bound[1]})
     del xr, xi, ar, ai, br, bi  # the views hold the 2^30-point planes
 
     release_memory()

@@ -36,24 +36,37 @@
 //   undoes.
 // - Long columns (col64_cluster: n1 = 1024 and 2048 with n2 >= 32): at
 //   4096 / n1 = 4 or 2 columns a block, the one-block design would read
-//   32- or 16-byte row pieces. Instead a slab of CT = 32 columns (256-byte
-//   row pieces in each plane) spans a cluster of C = n1 * CT / 4096 = P =
-//   n1 / 128 blocks (8, or 16 at n1 = 2048: a non-portable size, set at
-//   launch). With n1 = P * Q, Q = 128, i1 = Q*p + q and k1 = kp + P*kq:
-//   - block c loads the rows q in [Q/P*c, Q/P*(c+1)) for every p straight
-//     into registers (a thread 16 / P sequences (q, column), the column its
-//     lane, every load in flight at once), runs F(P) over p there,
-//     multiplies output kp by W_n1^(kp*q) and writes (kp, q, column) to
-//     shared memory;
-//   - after a cluster barrier it reads kp = c, every q, from every block
-//     (distributed shared memory, a warp 32 neighbouring columns of one q)
-//     straight into a radix-16 group, the first four stages of F(Q) (a
-//     thread one column and q = r + 8j, j < 16), and holds the results until
-//     a second barrier says no block reads its buffer any more;
-//   - the last three stages of F(Q) run as one radix-8 trip in its own
-//     buffer with the split twiddle folded in, and the store writes rows
-//     k1 = c + P*kq, 256 bytes a row and plane.
-//   The entry refuses a shape no cluster of which fits the device.
+//   32- or 16-byte row pieces. Instead a slab of W = 256 / P columns (32 at
+//   n1 = 1024, 16 at 2048: 256- or 128-byte row pieces in each plane) spans
+//   a cluster of CB = 8 blocks, a portable size that every block slot of
+//   the card can hold. With n1 = P * Q, Q = 128, P = n1 / 128 (8, 16),
+//   i1 = Q*p + q and k1 = kp + P*kq:
+//   - block c loads the rows q in [16c, 16c + 16) for every p straight into
+//     registers (a thread W / 16 sequences (q, column), the column its lane,
+//     every load in flight at once), runs F(P) over p there, multiplies
+//     output kp by W_n1^(kp*q) and writes (kp, q, column) to shared memory;
+//   - after a cluster barrier it reads its KP = P / 8 values of kp (kp =
+//     KP*c + kl), every q, from every block (mapa + ld.shared::cluster, a
+//     quarter-warp 8 neighbouring columns of one q) straight into a radix-16
+//     group, the first four stages of F(Q) (a thread one column, one kl and
+//     q = r + 8j, j < 16); it arrives on a second cluster barrier right after
+//     its last remote read, runs the radix-16, and waits on that barrier just
+//     before it writes its own buffer;
+//   - the last three stages of F(Q) run as one radix-8 straight from its
+//     buffer, with the split twiddle folded in, to the stores: rows
+//     k1 = kp + P*kq, W * 8 bytes a row and plane.
+//   256 threads at 128 registers, no spills (-Xptxas -v, sm_90a), two
+//   blocks an SM: 30 clusters resident on the H100 at either n1. The entry
+//   refuses a shape no cluster of which fits the device. On the H100 (NVIDIA
+//   H100 80GB HBM3, 700.00 W) this design reads 1.09 / 2.44 ms at
+//   (1024, 2^16) / (2048, 2^16); the first cluster design (a 32-column slab
+//   over P blocks, 16 at n1 = 2048, a non-portable size of which 14 fitted
+//   the card at once, two full cluster barriers and a trip back through
+//   shared memory before the store) read 1.24 / 3.01 in the same call.
+//   Three blocks an SM (80 registers: 136 B of spills) measured 1.15-1.18x
+//   slower, an L2 prefetch of the next wave's slab 1.07-1.15x, and
+//   persistent clusters that load the next slab into a second buffer
+//   (cp.async; one block an SM) 1.29-1.38x.
 // - Twiddles W_n1^k come from a table of exact f64 angles the wrapper builds
 //   on the host; no trigonometry runs in the kernel.
 // - The batch and the slabs are folded into gridDim.x; device offsets are
@@ -82,6 +95,10 @@ constexpr int PAIRS = LOCAL / 2 / THREADS;  // double2s of each plane a thread m
 // other that way.
 constexpr int LOGCT = 5, CT = 1 << LOGCT;
 constexpr int LOGQ = 7;
+// A cluster: CB = 8 blocks (portable) on a slab of n1 * W = 8 * 4096 points,
+// W = 256 / P columns (32 at n1 = 1024, 16 at 2048).
+constexpr int LOGCB = 3, CB = 1 << LOGCB;
+constexpr int LOG_SLAB_POINTS = 8;  // log2(P * W)
 #ifdef COL64_CLUSTER_N1
 constexpr int CLUSTER_N1 = COL64_CLUSTER_N1;
 #else
@@ -166,42 +183,81 @@ col64_kernel(const double* __restrict__ xr, const double* __restrict__ xi,
   }
 }
 
-// One slab of CT columns of one entry per cluster of P = n1 / Q blocks
-// (n1 = 2^(LOGP + LOGQ); the cluster size is set at launch).
+// A read-only load that has L2 fetch the 256-byte span around it: at
+// n1 = 2048 a cluster reads 128-byte pieces of each row, and the cluster of
+// the neighbouring slab, running at the same time, the rest (1.02x there on
+// the H100 80GB HBM3 at 700.00 W; at n1 = 1024 the pieces are 256 bytes
+// already).
+__device__ __forceinline__ double load_span(const double* p) {
+  double v;
+  asm volatile("ld.global.nc.L2::256B.f64 %0, [%1];" : "=d"(v) : "l"(p));
+  return v;
+}
+
+// The cluster's shared-memory window: the address of slot w of block
+// `rank`'s buffer (mapa), and a load from it.
+__device__ __forceinline__ unsigned remote_slot(const cd* s, int w, unsigned rank) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(s + w));
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(a), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ cd load_remote(unsigned addr) {
+  cd v;
+  asm volatile("ld.shared::cluster.v2.f64 {%0, %1}, [%2];" : "=d"(v.x), "=d"(v.y) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// One slab of W = 256 / P columns of one entry per cluster of CB = 8 blocks,
+// n1 = P * Q (n1 = 2^(LOGP + LOGQ)).
 template <int LOGP>
 __global__ void __launch_bounds__(THREADS, 2)
 col64_cluster(const double* __restrict__ xr, const double* __restrict__ xi,
               const cd* __restrict__ twt, SplitCorr corr, double* __restrict__ outr,
               double* __restrict__ outi, int n2) {
-  constexpr int P = 1 << LOGP, PER = 16 / P;  // sequences a thread in F(P)
+  constexpr int P = 1 << LOGP;
   constexpr int LOGN1 = LOGP + LOGQ;
-  constexpr int LOGQC = LOGQ - LOGP;   // rows q a block loads
-  constexpr int LOGM1 = LOGQC + LOGCT;  // F(P)'s sequences (ql, column)
+  constexpr int LOGW = LOG_SLAB_POINTS - LOGP, W = 1 << LOGW;  // the slab's columns
+  constexpr int LOGKP = LOGP - LOGCB, KP = 1 << LOGKP;        // kp a block owns
+  constexpr int LOGQC = LOGQ - LOGCB;                          // rows q a block loads
+  constexpr int LOGM1 = LOGQC + LOGW;                          // F(P)'s sequences (ql, column)
+  constexpr int PER = (1 << LOGM1) / THREADS;                  // sequences a thread in F(P)
+  static_assert(PER >= 1 && KP >= 1 && (W << 3 << LOGKP) == THREADS, "the cluster map");
   extern __shared__ cd smem[];
-  cg::cluster_group cluster = cg::this_cluster();
   cd* s = smem;
   cd* tw = smem + SLOTS;  // W_n1^k, k < n1/2
 
-  const int c = static_cast<int>(cluster.block_rank());
-  // cluster -> (batch entry b, slab); n2 / CT slabs per entry
-  const unsigned slab = blockIdx.x >> LOGP;
-  const unsigned nblk = static_cast<unsigned>(n2 >> LOGCT);
-  const int col0 = static_cast<int>(slab & (nblk - 1)) << LOGCT;
+  const int c = static_cast<int>(cg::this_cluster().block_rank());
+  // cluster -> (batch entry b, slab); n2 / W slabs per entry
+  const unsigned slab = blockIdx.x >> LOGCB;
+  const unsigned nblk = static_cast<unsigned>(n2 >> LOGW);
+  const int col0 = static_cast<int>(slab & (nblk - 1)) << LOGW;
   const long long base =
       (static_cast<long long>(slab >> (31 - __clz(nblk))) * n2 << LOGN1) + col0;
 
   // F(P) in registers: sequence (ql, column) of block c loads rows
-  // i1 = Q*p + Q/P*c + ql, every load in flight at once
+  // i1 = Q*p + Q/CB*c + ql, a warp 256 / W rows of W * 8 bytes a plane, every
+  // load in flight at once
   cd v[PER][P];
 #pragma unroll
   for (int t = 0; t < PER; ++t) {
     const int seq = threadIdx.x + t * THREADS;
-    const int col = seq & (CT - 1), ql = seq >> LOGCT;
+    const int col = seq & (W - 1), ql = seq >> LOGW;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const long long off =
           base + static_cast<long long>((p << LOGQ) + (c << LOGQC) + ql) * n2 + col;
-      v[t][p] = make_double2(__ldg(xr + off), __ldg(xi + off));
+      v[t][p] = W < CT ? make_double2(load_span(xr + off), load_span(xi + off))
+                       : make_double2(__ldg(xr + off), __ldg(xi + off));
     }
   }
   fk::load_twiddles(tw, 1 << LOGN1, twt);
@@ -209,7 +265,7 @@ col64_cluster(const double* __restrict__ xr, const double* __restrict__ xi,
 #pragma unroll
   for (int t = 0; t < PER; ++t) {
     const int seq = threadIdx.x + t * THREADS;
-    const int q = (c << LOGQC) + (seq >> LOGCT);
+    const int q = (c << LOGQC) + (seq >> LOGW);
     fk::dif4_group<LOGP>(v[t], 0, 0, LOGN1, LOGP, tw);
     // output u holds kp = bitrev(u): shared (u, ql, column)
 #pragma unroll
@@ -217,46 +273,58 @@ col64_cluster(const double* __restrict__ xr, const double* __restrict__ xi,
       s[pad2((u << LOGM1) + seq)] =
           fk::cmul(v[t][u], fk::twiddle(tw, bitrev(u, LOGP) * q, LOGN1));
   }
-  cluster.sync();
+  cluster_arrive();
+  cluster_wait();
 
-  // exchange, straight into a radix-16 group of F(Q) (spans 128 .. 16): the
-  // thread (r, column) takes q = r + 8j, j < 16, of kp = c, held at shared
-  // row bitrev(c) of block q / (Q/P)
-  const int col = threadIdx.x & (CT - 1), r = threadIdx.x >> LOGCT;
-  const int row = bitrev(c, LOGP) << LOGM1;
-  cd y[16];
+  // the exchange, straight into a radix-16 group of F(Q) (spans 128 .. 16):
+  // item (column, r, kl) takes q = r + 8j, j < 16, of kp = KP*c + kl, held at
+  // shared row bitrev(kp) of block q / (Q/CB) (mapa + ld.shared::cluster)
+  const int col = threadIdx.x & (W - 1), r = (threadIdx.x >> LOGW) & 7;
+  const int kl = threadIdx.x >> (LOGW + 3), kp = (c << LOGKP) + kl;
+  const int row = bitrev(kp, LOGP) << LOGM1;
+  unsigned at[16];
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int q = r + 8 * j;
-    const cd* src = cluster.map_shared_rank(s, static_cast<unsigned>(q >> LOGQC));
-    y[j] = src[pad2(row + ((q & ((1 << LOGQC) - 1)) << LOGCT) + col)];
+    at[j] = remote_slot(s, pad2(row + ((q & ((1 << LOGQC) - 1)) << LOGW) + col),
+                        static_cast<unsigned>(q >> LOGQC));
   }
-  fk::dif4_group<4>(y, r, 3, LOGN1, LOGQ, tw);
-  // no block reads another's buffer past this point
-  cluster.sync();
-  // shared (position, column)
+  cd y[16];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) s[pad2(((r + 8 * j) << LOGCT) + col)] = y[j];
+  for (int j = 0; j < 16; ++j) y[j] = load_remote(at[j]);
+  // no read of another block's buffer follows
+  cluster_arrive();
+  fk::dif4_group<4>(y, r, 3, LOGN1, LOGQ, tw);
+  cluster_wait();
+  // shared (kl, position, column)
+#pragma unroll
+  for (int j = 0; j < 16; ++j) s[pad2((((kl << LOGQ) + r + 8 * j) << LOGW) + col)] = y[j];
   __syncthreads();
 
-  // the last three stages of F(Q) (spans 8 .. 2), one radix-8 trip with the
-  // split twiddle folded in: output kq of column q is row k1 = c + P*kq
-  SplitCorr fold = corr;
-  fold.col0 = col0;
-  fold.logp = LOGP;
-  fold.kp0 = c;
-  fk::dif4_fft(s, LOGQ, 3, LOGCT, 1, CT, true, tw, LOGN1, fold, true);
-
-  // rows k1 = c + P*kq, shared position bitrev(kq): a warp writes a row's
-  // 256 bytes of each plane
+  // the last three stages of F(Q) (spans 8 .. 2), one radix-8 with the split
+  // twiddle folded in, straight to the stores: item (column, g, kl), q =
+  // 8g + s; output s is kq = bitrev(8g + s), row k1 = kp + P*kq, a warp W
+  // columns of 256 / W rows (W * 8 bytes a row and plane)
 #pragma unroll
-  for (int j = 0; j < LOCAL / THREADS; ++j) {
-    const int e = threadIdx.x + j * THREADS;
-    const int ec = e & (CT - 1), kq = e >> LOGCT;
-    const cd a = s[pad2((bitrev(kq, LOGQ) << LOGCT) + ec)];
-    const long long o = base + static_cast<long long>(c + (kq << LOGP)) * n2 + ec;
-    outr[o] = a.x;
-    outi[o] = a.y;
+  for (int it = 0; it < 2; ++it) {
+    const int e = threadIdx.x + it * THREADS;
+    const int ec = e & (W - 1), g = (e >> LOGW) & 15, el = e >> (LOGW + 4);
+    cd x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = s[pad2((((el << LOGQ) + 8 * g + j) << LOGW) + ec)];
+    fk::dif4_group<3>(x, 0, 0, LOGN1, 3, tw);
+    SplitCorr fold = corr;
+    fold.col0 = col0;
+    fold.logp = LOGP;
+    fold.kp0 = (c << LOGKP) + el;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int kq = bitrev(8 * g + j, LOGQ);
+      const cd a = fold(x[j], kq, ec);
+      const long long o = base + static_cast<long long>(fold.kp0 + (kq << LOGP)) * n2 + ec;
+      outr[o] = a.x;
+      outi[o] = a.y;
+    }
   }
 }
 
@@ -293,10 +361,9 @@ extern "C" int phastft_col64(const double* xr, const double* xi, const void* twt
   if (long_columns(n1, n2)) {
     static int resident[2] = {0, 0};  // per n1, queried on first use
     const int logp = logn1 - LOGQ;
-    const long long blocks = (batch * (n2 >> LOGCT)) << logp;
-    return phastft::launch_clusters(cluster_kernel(n1), 1 << logp, blocks, THREADS,
-                                    smem_bytes(n1), s, resident[logp - 3], xr, xi, tw, corr,
-                                    outr, outi, n2);
+    const long long blocks = (batch * (n2 >> (LOG_SLAB_POINTS - logp))) << LOGCB;
+    return phastft::launch_clusters(cluster_kernel(n1), CB, blocks, THREADS, smem_bytes(n1), s,
+                                    resident[logp - 3], xr, xi, tw, corr, outr, outi, n2);
   }
   const int logT = LOG_LOCAL - logn1 < logn2 ? LOG_LOCAL - logn1 : logn2;
   const long long blocks = batch << (logn2 - logT);
@@ -316,5 +383,5 @@ extern "C" int phastft_col64(const double* xr, const double* xi, const void* twt
 // code.
 extern "C" int phastft_col64_clusters(int n1) {
   if (n1 != 1024 && n1 != 2048) return -static_cast<int>(cudaErrorInvalidValue);
-  return phastft::resident_clusters(cluster_kernel(n1), n1 >> LOGQ, THREADS, smem_bytes(n1));
+  return phastft::resident_clusters(cluster_kernel(n1), CB, THREADS, smem_bytes(n1));
 }

@@ -39,7 +39,7 @@ _L = ctypes.c_int64
 #: c_void_p (a c_int would cut a 64-bit pointer), sizes are c_int, and a
 #: batch or row count whose product with n can pass 2^31 is c_int64.
 _SIGNATURES = {
-    "phastft_colfft": [_P] * 4 + [_L, _I, _I, _I, _L, _L, _P],
+    "phastft_colfft": [_P] * 5 + [_I, _P, _P, _L, _I, _I, _I, _L, _L, _P],
     "phastft_colfft_clusters": [_I, _I],
     "phastft_leaft": [_P] * 10 + [_L, _I, _I, _P],
     "phastft_leaft_clusters": [_I],

@@ -21,8 +21,10 @@ column DFT, no twiddle, as (..., n1, n2): the column pass of the
 distributed four-step's permuted-input branch.
 
 All three are wrappers: on CUDA tensors they launch the hand-written
-kernel ``csrc/colfft.cu`` (one kernel, the store index and the twiddle a
-template argument); on CPU tensors they run ``colfft_plain``,
+kernel ``csrc/colfft.cu`` (one kernel, the store index and the twiddle
+chosen by mode; the split twiddle as T1 of the block's first column times
+the T2 table, the in-block twiddles from a host-built table, no
+trigonometry per element); on CPU tensors they run ``colfft_plain``,
 ``colfft_out3d_plain`` and ``colfft_nocorr_plain``. The bare pass's plain
 version is the JAX kernel's Stockham (``ops/stockham.stockham_axis2``);
 the other two follow the arithmetic of the JAX package's default column
@@ -124,6 +126,16 @@ def _residue_mats(n1: int, device: torch.device):
            np.sin(ang).astype(np.float32)[:, :, None], hr, hi]
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in out)
+
+
+@functools.lru_cache(maxsize=16)
+def _steps(n1: int, device: torch.device):
+    """W_n1^k, k < n1/2, as (n1/2, 2) f32 (re, im) pairs from exact f64
+    angles rounded once: the kernel's in-block twiddles, built on the host
+    once per (n1, device)."""
+    ang = -2.0 * np.pi * np.arange(n1 // 2, dtype=np.float64) / n1
+    pairs = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    return torch.from_numpy(pairs).to(device)
 
 
 def _t1(n1: int, n: int, t: int, nblk: int, device: torch.device):
@@ -284,25 +296,30 @@ _CLASSIC, _OUT3D, _NOCORR = 0, 1, 2
 
 
 def _launch(name, re, im, b: int, n1: int, n2: int, shape, mode: int,
-            n_total: int, col_base: int = 0):
+            n_total: int, col_base: int = 0, t2=None):
     """Launch ``csrc/colfft.cu`` in ``mode`` on the current stream into new
-    tensors of ``shape``."""
+    tensors of ``shape``; ``t2`` is the (n1, t) T2 pair of the split
+    twiddle (None in the bare mode)."""
     if re.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {re.device}")
-    if not (re.is_contiguous() and im.is_contiguous()):
+    tabs = tuple(t2) if t2 is not None else ()
+    if not all(x.is_contiguous() for x in (re, im, *tabs)):
         raise ValueError(f"{name}: inputs must be contiguous")
     if re.data_ptr() % 16 or im.data_ptr() % 16:
         raise ValueError(f"{name}: inputs must be 16-byte aligned")
     if n2 < MIN_KERNEL_N2:
         raise ValueError(f"{name}: the kernel takes n2 >= {MIN_KERNEL_N2}, "
                          f"got {n2}")
+    steps = _steps(n1, re.device)
     ore = torch.empty(shape, dtype=torch.float32, device=re.device)
     oim = torch.empty(shape, dtype=torch.float32, device=re.device)
     lib = library()
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         err = lib.phastft_colfft(
-            re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+            re.data_ptr(), im.data_ptr(), steps.data_ptr(),
+            *((tabs[0].data_ptr(), tabs[1].data_ptr()) if tabs else (None, None)),
+            int(tabs[0].shape[1]) if tabs else 0, ore.data_ptr(), oim.data_ptr(),
             b, n1, n2, mode, n_total, col_base, stream,
         )
     if err != 0:
@@ -322,28 +339,31 @@ def colfft(re, im, tabs, n1: int, *, n_total=None, col_base: int = 0):
     ``tabs=None``: the twiddle is W_{n_total}^(k1*(col_base + i2)), and any
     n2 >= 1 is taken (>= 4 on CUDA).
 
-    On CUDA it launches ``csrc/colfft.cu`` on the current stream; the
-    kernel forms the split twiddle itself from the exact phase, so
-    ``tabs`` feeds only the plain version (a CPU tensor runs
-    ``colfft_plain``). Inputs are read, never written; the outputs are new
-    tensors. Each launch adds one to ``colfft.launches``.
+    On CUDA it launches ``csrc/colfft.cu`` on the current stream (a CPU
+    tensor runs ``colfft_plain``). The kernel takes the split twiddle as
+    T1 * T2: T1 of the block's first column from the exact phase, once a
+    block, and T2 from ``tabs`` (a shard block's T2 is built here, as
+    ``colfft_plain`` builds it). Inputs are read, never written; the
+    outputs are new tensors. Each launch adds one to ``colfft.launches``.
 
     Replaces ``phastft_tpu/ops/pallas_col.py`` ``colfft_pallas(...,
     out3d=False)``, with ``n_total`` as its distributed callers use it;
     unlike it, it takes n1 = 2 and 4 and every n2. Bound by memory (16 B
-    per complex element, read once and written once); the kernel keeps the
-    whole size-n1 DFT of a slab in shared memory, so it touches device
-    memory once each way: at n1 = 1024 and 2048 (n2 >= 32) a 32-column slab
-    split over a cluster of n1/256 blocks of 8192 points, which trade
-    through distributed shared memory; otherwise a slab of about 8 K points
-    in one block (512 columns at n1 <= 16 down to 16 at n1 = 512, never
-    more than n2), with float4 loads and stores."""
+    per complex element, read once and written once); the kernel touches
+    device memory once each way: at n1 = 1024 and 2048 (n2 >= 32) a
+    32-column slab split over a cluster of n1/256 blocks of 8192 points,
+    which trade through distributed shared memory; otherwise a slab of up
+    to 8192 points in one block (512 columns at n1 <= 16 down to 16 at
+    n1 = 512, never more than n2), F(n1) in register trips, the first from
+    the loads and the last to the stores."""
     batch, b, n2 = _check_any("colfft", re, im, tabs, n1, n_total, col_base)
     if re.device.type == "cpu":
         return colfft_plain(re, im, tabs, n1, n_total=n_total,
                             col_base=col_base)
+    t2 = tabs if n_total is None else _shard_t2(
+        n1, col_tile(n1, n2), n_total, col_base, re.device)
     out = _launch("colfft", re, im, b, n1, n2, batch + (n1, n2), _CLASSIC,
-                  n_total or n1 * n2, col_base)
+                  n_total or n1 * n2, col_base, t2)
     colfft.launches += 1
     return out
 
@@ -361,14 +381,15 @@ def colfft_out3d(re, im, tabs, n1: int):
     ``colfft_out3d.launches``.
 
     Replaces ``phastft_tpu/ops/pallas_col.py`` ``colfft_pallas(...,
-    out3d=True)``. Bound by memory as ``colfft`` is; the slab is 32
-    columns on a cluster of n1/256 blocks at n1 = 1024 and 2048, else 16
-    columns in one block."""
+    out3d=True)``. Bound by memory as ``colfft`` is, with the same slabs:
+    32 columns on a cluster of n1/256 blocks at n1 = 1024 and 2048, else
+    8192 / n1 columns in one block (64 at n1 = 128, 16 at 512)."""
     batch, b, n2 = _check("colfft_out3d", re, im, tabs, n1, col_tile3d)
     if re.device.type == "cpu":
         return colfft_out3d_plain(re, im, tabs, n1)
     shape = batch + (n2 // LANES, n1, LANES)
-    out = _launch("colfft_out3d", re, im, b, n1, n2, shape, _OUT3D, n1 * n2)
+    out = _launch("colfft_out3d", re, im, b, n1, n2, shape, _OUT3D, n1 * n2,
+                  t2=tabs)
     colfft_out3d.launches += 1
     return out
 

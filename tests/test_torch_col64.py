@@ -6,13 +6,14 @@ at the long column factors, trip for trip and block for block, with the
 kernel's own index formulas, on a flat copy of each block's shared memory
 (NaN until written, so a read of a slot no step wrote shows in the output):
 
-* ``col64_cluster`` (n1 = 1024, 2048 with n2 >= 32): a 32-column slab over a
-  cluster of P = n1 / 128 blocks, n1 = P * 128, i1 = 128 p + q,
-  k1 = kp + P kq: F(P) over p in registers straight from the loads (16 / P
+* ``col64_cluster`` (n1 = 1024, 2048 with n2 >= 32): a slab of W = 256 / P
+  columns (32, 16) over a cluster of 8 blocks, n1 = P * 128, i1 = 128 p + q,
+  k1 = kp + P kq: F(P) over p in registers straight from the loads (W / 16
   sequences a thread, the column its lane) and W_n1^(kp q), the exchange of
-  kp = c from every block (a thread one column and q = r + 8 j) into a
-  radix-16 group of F(128), the last radix-8 trip with the split twiddle
-  T1 then T2 folded in, the store of rows c + P kq;
+  the block's P / 8 values of kp from every block (a thread one column, one
+  kp and q = r + 8 j) into a radix-16 group of F(128), the last radix-8
+  with the split twiddle T1 then T2 folded in straight from the block's
+  buffer to the store of rows kp + P kq;
 * ``col64_kernel`` at those n1 with n2 < 32: one block a slab of
   min(4096 / n1, n2) columns, radix-4 DIF trips with the fold in the last.
 
@@ -40,6 +41,8 @@ THREADS = 256
 LOCAL, LOG_LOCAL = 4096, 12
 LOGCT, CT = 5, 32
 LOGQ = 7
+LOGCB, CB = 3, 8
+LOG_SLAB_POINTS = 8
 CLUSTER_N1 = 1024
 SLOTS = LOCAL + (LOCAL >> 3)
 
@@ -231,21 +234,25 @@ def _cluster(x, n1, tables, tw, out):
     log_n1 = _log2(n1)
     log_p = log_n1 - LOGQ
     p_ = 1 << log_p
-    assert n1 * CT // LOCAL == p_  # the cluster: one slab, P blocks of 4096 points
-    log_qc = LOGQ - log_p
-    log_m1 = log_qc + LOGCT
-    nblk = n2 >> LOGCT
+    log_w = LOG_SLAB_POINTS - log_p
+    w_ = 1 << log_w
+    log_kp = log_p - LOGCB
+    assert n1 * w_ == CB * LOCAL  # the cluster: one slab, 8 blocks of 4096 points
+    log_qc = LOGQ - LOGCB
+    log_m1 = log_qc + log_w
+    nblk = n2 >> log_w
     slab = np.arange(b * nblk)[:, None]
-    col0, entry = (slab & (nblk - 1)) << LOGCT, slab >> _log2(nblk)
+    col0, entry = (slab & (nblk - 1)) << log_w, slab >> _log2(nblk)
 
-    # block c: a thread owns 16 / P sequences seq = tid + 256 t, the column
-    # its lane; loads rows i1 = 128 p + (c QC + ql), runs F(P), multiplies
+    # block c: a thread owns W / 16 sequences seq = tid + 256 t, the column
+    # its lane; loads rows i1 = 128 p + (16 c + ql), runs F(P), multiplies
     # output u (kp = bitrev(u)) by W_n1^(kp q), writes shared (u, ql, column)
-    seq = (np.arange(THREADS)[None, :] + THREADS * np.arange(16 // p_)[:, None]).reshape(-1)
+    seq = (np.arange(THREADS)[None, :]
+           + THREADS * np.arange((1 << log_m1) // THREADS)[:, None]).reshape(-1)
     assert np.array_equal(np.sort(seq), np.arange(1 << log_m1))
-    col, ql = seq & (CT - 1), seq >> LOGCT
+    col, ql = seq & (w_ - 1), seq >> log_w
     shared = []
-    for c in range(p_):
+    for c in range(CB):
         q = (c << log_qc) + ql
         v = [x[_t(entry), _t((p << LOGQ) + q[None, :]), _t(col0 + col[None, :])]
              for p in range(p_)]
@@ -256,35 +263,42 @@ def _cluster(x, n1, tables, tw, out):
                      v[u] * _twiddle(tw, _bitrev(u, log_p) * q, log_n1))
         shared.append(sh)
 
-    # block d: thread (r, column) takes q = r + 8 j, j < 16, of kp = d from
-    # block q / QC, shared row bitrev(d), into a radix-16 group of F(128)
+    # block d: item (column, r, kl) takes q = r + 8 j, j < 16, of
+    # kp = KP d + kl from block q / 16, shared row bitrev(kp), into a
+    # radix-16 group of F(128)
     t = np.arange(THREADS)
-    tc, r = t & (CT - 1), t >> LOGCT
-    for d in range(p_):
-        row = _bitrev(d, log_p) << log_m1
+    tc, r, kl = t & (w_ - 1), (t >> log_w) & 7, t >> (log_w + 3)
+    for d in range(CB):
+        row = _bitrev((d << log_kp) + kl, log_p) << log_m1
         y = []
         for j in range(16):
             q = r + 8 * j
             src = q >> log_qc
-            w = _pad2(row + ((q & ((1 << log_qc) - 1)) << LOGCT) + tc)
+            w = _pad2(row + ((q & ((1 << log_qc) - 1)) << log_w) + tc)
             got = torch.empty(len(slab), THREADS, dtype=torch.complex128)
-            for s in range(p_):
+            for s in range(CB):
                 sel = np.nonzero(src == s)[0]
                 got[:, _t(sel)] = shared[s].read(w[sel])
             y.append(got)
         y = _dif4_group(y, 4, r, 3, log_n1, LOGQ, tw)
         own = _Shared((len(slab),))
         for j in range(16):
-            own.write(_pad2(((r + 8 * j) << LOGCT) + tc), y[j])
-        fold = _split_fold(tables, n2, col0[:, 0], log_p, d)
-        _dif4_fft(own, LOGQ, 3, LOGCT, 1, CT, tw, log_n1, fold)
+            own.write(_pad2((((kl << LOGQ) + r + 8 * j) << log_w) + tc), y[j])
 
-        # rows k1 = d + P kq from shared position bitrev(kq), the column the
-        # fast axis
-        e = np.arange(LOCAL)[None, :]
-        ec, kq = e & (CT - 1), e >> LOGCT
-        _store(out, entry, d + (kq << log_p), col0 + ec,
-               own.read(_pad2((_bitrev(kq, LOGQ) << LOGCT) + ec)[0]))
+        # the last radix-8 of F(128) straight from the buffer to the stores:
+        # item (column, g, kl), output j is kq = bitrev(8 g + j), row
+        # k1 = kp + P kq, the split twiddle folded in
+        for it in range(2):
+            e = t + it * THREADS
+            ec, g, el = e & (w_ - 1), (e >> log_w) & 15, e >> (log_w + 4)
+            xs = [own.read(_pad2((((el << LOGQ) + 8 * g + j) << log_w) + ec))
+                  for j in range(8)]
+            xs = _dif4_group(xs, 3, np.zeros_like(e), 0, log_n1, 3, tw)
+            kp0 = (d << log_kp) + el
+            fold = _split_fold(tables, n2, col0[:, 0], log_p, kp0)
+            for j in range(8):
+                kq = _bitrev(8 * g + j, LOGQ)
+                _store(out, entry, kp0 + (kq << log_p), col0 + ec, fold(xs[j], kq, ec))
 
 
 # -- cases --------------------------------------------------------------------
@@ -368,6 +382,7 @@ def test_model_constants_are_the_kernels():
     assert const("THREADS") == THREADS
     assert const("LOCAL") == LOCAL and const("LOG_LOCAL") == LOG_LOCAL
     assert const("LOGCT") == LOGCT and const("LOGQ") == LOGQ
+    assert const("LOGCB") == LOGCB and const("LOG_SLAB_POINTS") == LOG_SLAB_POINTS
     assert const("CLUSTER_N1") == CLUSTER_N1
     assert "__launch_bounds__(THREADS, 2)" in src
     assert "n1 > 2048" in src and "phastft_col64_clusters" in src

@@ -15,7 +15,8 @@ replaces in interpret mode (1e-6) and numpy's f64 FFT (5e-7):
   loaded column pairs, W_n1^(kp*q), an exchange of two kp a block into the first
   radix-16 trip of F(Q), its last three stages in the block's own buffer,
   and the store of rows k1 = kp + P*kq in the classic, out3d and bare
-  modes.
+  modes, the split twiddle as T1 of the slab's first column (exact phase)
+  times the T2 table.
 * ``leaft`` at A = 8, 16, 32, 64 and 128 (1 to 16 blocks) on n1 = 128 (16
   row groups of 8): F(A) over iA on each block's W = 128/C columns with the
   correction folded in, an exchange of A/C values of kA a block into the
@@ -115,9 +116,10 @@ class _Smem:
 CT, CQ, CKP = 32, 128, 2
 
 
-def _colfft_by_kernel(re, im, mode, n_total=None, col_base=0):
+def _colfft_by_kernel(re, im, mode, t2=None, n_total=None):
     """csrc/colfft.cu's colfft_cluster on (b, n1, n2), n1 = 1024 or 2048,
-    block for block; mode "classic", "out3d" or "nocorr"."""
+    block for block; mode "classic", "out3d" or "nocorr", the split twiddle
+    T1 of the slab's first column (exact phase) times the T2 pair ``t2``."""
     b, n1, n2 = re.shape
     p_ = n1 // CQ
     log_p = _log2(p_)
@@ -189,11 +191,10 @@ def _colfft_by_kernel(re, im, mode, n_total=None, col_base=0):
         k1 = CKP * d + kl + p_ * kq
         i2 = np.arange(slabs)[:, None] * CT + (4 * v + u)[None, :]  # (slab, elem)
         if mode != "nocorr":
-            ph = (k1[None, :].astype(np.int64) * (col_base + i2)) % n_total
-            ang = -2.0 * np.pi * ph / n_total
-            wr = torch.from_numpy(np.cos(ang).astype(np.float32))
-            wi = torch.from_numpy(np.sin(ang).astype(np.float32))
-            vr, vi = vr * wr - vi * wi, vr * wi + vi * wr
+            ph = (k1[None, :].astype(np.int64) * (np.arange(slabs)[:, None] * CT)) % n_total
+            t1 = torch.from_numpy(np.exp(-2j * np.pi * ph / n_total).astype(np.complex64))
+            w = t1 * torch.complex(t2[0], t2[1])[torch.as_tensor(k1), torch.as_tensor(4 * v + u)]
+            vr, vi = vr * w.real - vi * w.imag, vr * w.imag + vi * w.real
         k1t = torch.as_tensor(np.broadcast_to(k1[None, :], i2.shape).copy())
         assert torch.isnan(out_r[:, k1t, torch.as_tensor(i2)]).all()  # once each
         out_r[:, k1t, torch.as_tensor(i2)] = vr
@@ -236,8 +237,8 @@ def test_colfft_cluster_split_matches_plain_and_pallas(n1, mode):
     rng = np.random.default_rng(n1 + len(mode))
     re, im = _pair(rng, (b, n1, n2))
     x = (torch.from_numpy(re), torch.from_numpy(im))
-    got = _colfft_by_kernel(*x, mode)
     if mode == "nocorr":
+        got = _colfft_by_kernel(*x, mode)
         plain = col.colfft_nocorr_plain(*x, n1)
         want = _run_interpret(pallas_col.colfft_pallas_nocorr, jnp.asarray(re),
                               jnp.asarray(im), n1)
@@ -246,6 +247,7 @@ def test_colfft_cluster_split_matches_plain_and_pallas(n1, mode):
         t = col.col_tile3d(n1, n2) if out3d else col.col_tile(n1, n2)
         host = col.col_split_tables_host(n1, n2, "float32", t=t)
         tabs = tuple(torch.from_numpy(a) for a in host)
+        got = _colfft_by_kernel(*x, mode, tabs)
         plain = (col.colfft_out3d_plain if out3d else col.colfft_plain)(*x, tabs, n1)
         want = _run_interpret(pallas_col.colfft_pallas, jnp.asarray(re), jnp.asarray(im),
                               tuple(jnp.asarray(a) for a in host), n1, out3d=out3d)
@@ -263,7 +265,8 @@ def test_colfft_cluster_split_on_a_shard_block():
     rng = np.random.default_rng(11)
     re, im = _pair(rng, (1, n1, n2))
     x = (torch.from_numpy(re), torch.from_numpy(im))
-    got = _colfft_by_kernel(*x, "classic", n_total, base)
+    t2 = col._shard_t2(n1, col.col_tile(n1, n2), n_total, base, torch.device("cpu"))
+    got = _colfft_by_kernel(*x, "classic", t2, n_total)
     plain = col.colfft_plain(*x, None, n1, n_total=n_total, col_base=base)
     assert _rel(got, plain) <= TOL
     assert _rel(got, _col_numpy(re, im, "classic", n_total, base)) <= NUMPY_TOL
