@@ -182,8 +182,8 @@ on any failed check:
    cluster's slab), and ``colfft`` with ``n_total``/``col_base`` on shard
    blocks (2048, 4096) of 2^25, (32, 64) of 2^16, and (512, 16) and (2048, 8)
    (narrower than 32 columns), rel L2 <= 1e-6.
-24. ``dist``: ``torch.distributed`` on NCCL at world size 1 (a ``file://``
-   store in the output directory), counters set to 0 just before and read
+24. ``dist``: ``torch.distributed`` on NCCL at world size 1 (``nccl_world``:
+   a ``file://`` store in the output directory), counters set to 0 just before and read
    just after, each transform's launches checked against its plan (one
    ``colfft`` or ``colfft_nocorr``, the row plan's leaf kernel,
    ``transpose2`` for natural output): ``fft_distributed`` at 2^19 (n1 = 128)
@@ -251,13 +251,49 @@ The native f64 engine's phases run between 19 and 20:
    2^24 points (``times_native_rows``), beside its bound and complex128
    ``torch.fft.fft`` on the same rows.
 
+The distributed four-step in f64 and past n1 = 2048 runs after 25, in the
+same world of one rank:
+
+29. ``parity_dist64``: ``col64`` on shard blocks with ``col64_shard_tables``
+   (n, n1, ncols, col_base) = (2^25, 2048, 4096, 8192) and (2^22, 1024, 32,
+   2016) (clusters), (2^20, 128, 2048, 6144) and (2^16, 64, 2, 510) (one
+   block); ``col64_nocorr`` (its bare mode) at (2048, 2^16), 3 x (1024, 32)
+   (clusters), 3 x (128, 4096), (2, 2^16) and 2 x (2048, 16) (one block);
+   ``ddcol`` on ``dd_shard_tables`` of (2^20, 8, 2^15, 2^16); rel L2 <= 1e-13
+   against the plain versions.
+30. ``dist64``: counters set to 0 just before and read just after, each
+   transform's launches checked against its plan: ``fft_distributed`` on the
+   default ``PlannerDit64`` (native) at 2^20, 2^27 (n1 = 2048), 2^29 and 2^30
+   (n1 = 2^13, 2^14: the long-column route) and on the default
+   ``PlannerDit32`` at 2^27 and 2^30 (n1 = 2^13, 2^16), each forward against
+   complex128 ``torch.fft.fft`` (at 2^30 on 256 direct bins), a
+   ``permuted_output`` forward into a ``permuted_input`` inverse (the input
+   made again from its seed), the ``permuted_input`` forward of the permuted
+   signal (2^20, 2^27), the inverse of N * delta (exactly ones) and the peak
+   of allocated device memory of the natural forward (at 2^30 it fails past
+   the input and three pairs); df64 at 2^20 and 2^24, and ``"df64-oz"``
+   (``leaf_fft_size=2^13``) at 2^20 and 2^24 (where its rows arm ``ozcol`` +
+   ``ozleaft``), natural order, against complex128 (<= 1e-12, <= 1e-10).
+31. ``times_dist64`` / ``times_long_columns``: ``col64_nocorr`` at (2048,
+   2^16) beside its bound, its plain version, ``col64`` and complex128
+   ``torch.fft.fft(dim=-2)``; the two routes for a column factor past 2048
+   on the block of a world of one, the package's (the block transposed, the
+   row plan of n1, the twiddle in torch, transposed back) and two column
+   passes with the twiddles folded and two transposes, at f32 2^30 (256 x
+   256) and f64 2^29 (64 x 128), held to each other; the whole f64
+   ``fft_distributed`` at 2^27 and 2^30 beside ``fft_64_dit_with_planner``
+   (medians of 5, min and max), with a ``torch.profiler`` breakdown split
+   into NCCL's copies and the kernels; the f32 one at 2^30 beside
+   ``fft_32_dit_with_planner``.
+
 Every timing follows ``release_memory``'s wait where 8 GiB or more went
 back to CUDA (``cudaFree``) just before it.
 
-The line before the last is the kernel summary (sixteen rows: the TPU
-kernels' file:line beside each of the thirteen, and for the three native
-f64 kernels the JAX package's XLA code they stand for); the last line is
-the device record. No CUDA device: exit 1 before any result.
+The line before the last is the kernel summary (seventeen rows: the TPU
+kernels' file:line beside each of the thirteen, and for the native f64
+kernels, ``col64_nocorr`` among them, the JAX package's XLA code they stand
+for); the last line is the device record. No CUDA device: exit 1 before any
+result.
 """
 
 from __future__ import annotations
@@ -420,6 +456,34 @@ SHARD_BLOCKS = ((2048, 4096, 1 << 25, 8192), (32, 64, 1 << 16, 512),
 NOCORR_TIMES = ((2048, 1 << 14), (1024, 1 << 14))
 DIST_BATCH = (8, 1 << 20)
 DIST_TIME_REPEATS = 3
+#: The distributed four-step in f64 and past n1 = 2048 at world size 1: the
+#: native sizes (n1 = 128, 2048, 2^13 and 2^14 on the default leaves: the
+#: last two past the column kernels, as the long-column route), the df64 and
+#: df64-oz sizes (n1 = 8), the f32 sizes through the long columns (n1 = 2^13,
+#: 2^16), the sizes at which the permuted-input forward of the permuted
+#: signal is checked (its index tensor is 8 GiB at 2^30), and the sizes timed.
+DIST64_LOGS = (20, 27, 29, 30)
+DIST64_DD_LOGS = (20, 24)
+DIST64_OZ_LOGS = (20, 24)
+DIST64_F32_LOGS = (27, 30)
+DIST64_PERMUTED_IN_LOGS = (20, 27)
+DIST64_TIME_LOGS = (27, 30)
+#: col64 on shard blocks (n, n1, ncols, col_base): the cluster design, a
+#: 32-column cluster slab, the one-block design and the narrowest block, each
+#: off column 0; ddcol on one (n, n1 = 8, ncols, col_base).
+COL64_SHARD_BLOCKS = ((1 << 25, 2048, 4096, 8192), (1 << 22, 1024, 32, 2016),
+                      (1 << 20, 128, 2048, 6144), (1 << 16, 64, 2, 510))
+DDCOL_SHARD_BLOCK = (1 << 20, 8, 1 << 15, 1 << 16)
+#: col64_nocorr's parity shapes (batch, n1, n2): the cluster design at 1024 /
+#: 2048, the one-block design at 2..512 and at 2048 under a 32-column slab;
+#: its time at the 2^27 permuted-input column pass (2048, 2^16).
+COL64_NOCORR_SHAPES = ((1, 2048, 1 << 16), (3, 1024, 32), (3, 128, 4096), (1, 2, 1 << 16),
+                       (2, 2048, 16))
+COL64_NOCORR_TIME = (2048, 1 << 16)
+#: The two routes for a column factor past 2048, timed on the column block
+#: of a world of one: (dtype, n, n2) at f32 2^30 (n1 = 2^16 = 256 x 256) and
+#: f64 2^29 (n1 = 2^13 = 64 x 128).
+LONG_COLUMN_ROUTES = (("f32", 1 << 30, 1 << 14), ("f64", 1 << 29, 1 << 16))
 #: The native f64 engine: row lengths of the leaf's parity (every n =
 #: 2..2^16, on NATIVE_LEAF_ROWS rows, an odd count; below 2^13 also on three
 #: blocks' rows and one (a ragged last block), from 2^13 on one row and on one
@@ -1104,120 +1168,542 @@ def dist_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         check(f"colfft parity on a shard block {(n1, n2, n_total, base)}", err, KERNEL_TOL)
         del k, p, xr, xi
 
-    store = os.path.abspath(os.path.join(OUT_DIR, "nccl_store"))
-    if os.path.exists(store):
-        os.remove(store)
-    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
-    try:
-        counters = (colfft, colfft_nocorr, colfft_out3d, leaft, leaf, leaf3, hybrid,
-                    transpose2)
-        for k in counters:
-            k.launches = 0
-        run = counted(counters)
-        errs = {}
-        for log_n in DIST_LOGS:
-            n = 1 << log_n
-            planner = PlannerDit32(n)
-            n1, n2 = _factor(n, 1, planner.options.leaf_fft_size)
-            cols = 1 if n1 > 1 else 0  # n1 = 1: the column pass is a copy
-            rows = {"leaf3" if n2 == 1 << 16 else "leaf": 1}
-            fwd = {"colfft": cols, **rows}
-            emit({"phase": "dist_plan", "n": n, "n1": n1, "n2": n2})
-            xr, xi = randn_pair((n,))
-            out = run(lambda: fft_distributed(xr, xi, Direction.Forward, planner),
-                      {**fwd, "transpose2": 1})
-            errs[f"fwd_2^{log_n}"] = err = card_oracle_err(out, xr, xi)
-            check(f"fft_distributed 2^{log_n}", err, 5e-7 * max(1.0, log_n / 18.0))
-            po = run(lambda: fft_distributed(xr, xi, Direction.Forward, planner,
-                                             permuted_output=True), fwd)
-            back = run(lambda: fft_distributed(po[0], po[1], Direction.Reverse, planner,
-                                               permuted_input=True),
-                       {"colfft_nocorr": cols, **rows})
-            errs[f"permuted_roundtrip_2^{log_n}"] = rt = rel_l2(back[0], back[1], xr, xi)
-            check(f"permuted round trip 2^{log_n}", rt, 1e-6)
-            del po, back
+    counters = (colfft, colfft_nocorr, colfft_out3d, leaft, leaf, leaf3, hybrid,
+                transpose2)
+    for k in counters:
+        k.launches = 0
+    run = counted(counters)
+    errs = {}
+    for log_n in DIST_LOGS:
+        n = 1 << log_n
+        planner = PlannerDit32(n)
+        n1, n2 = _factor(n, 1, planner.options.leaf_fft_size)
+        cols = 1 if n1 > 1 else 0  # n1 = 1: the column pass is a copy
+        rows = {"leaf3" if n2 == 1 << 16 else "leaf": 1}
+        fwd = {"colfft": cols, **rows}
+        emit({"phase": "dist_plan", "n": n, "n1": n1, "n2": n2})
+        xr, xi = randn_pair((n,))
+        out = run(lambda: fft_distributed(xr, xi, Direction.Forward, planner),
+                  {**fwd, "transpose2": 1})
+        errs[f"fwd_2^{log_n}"] = err = card_oracle_err(out, xr, xi)
+        check(f"fft_distributed 2^{log_n}", err, 5e-7 * max(1.0, log_n / 18.0))
+        po = run(lambda: fft_distributed(xr, xi, Direction.Forward, planner,
+                                         permuted_output=True), fwd)
+        back = run(lambda: fft_distributed(po[0], po[1], Direction.Reverse, planner,
+                                           permuted_input=True),
+                   {"colfft_nocorr": cols, **rows})
+        errs[f"permuted_roundtrip_2^{log_n}"] = rt = rel_l2(back[0], back[1], xr, xi)
+        check(f"permuted round trip 2^{log_n}", rt, 1e-6)
+        del po, back
+        # the permuted layout of x: P[k1*n2 + k2] = x[k1 + k2*n1]
+        perm = torch.arange(n, device=dev).view(n2, n1).t().reshape(-1)
+        pin = run(lambda: fft_distributed(xr[perm], xi[perm], Direction.Forward,
+                                          planner, permuted_input=True),
+                  {"colfft_nocorr": cols, **rows})
+        errs[f"permuted_input_fwd_2^{log_n}"] = err = card_oracle_err(pin, xr, xi)
+        check(f"permuted-input forward 2^{log_n}", err, 5e-7 * max(1.0, log_n / 18.0))
+        del pin, perm
+        dr = torch.zeros(n, device=dev)
+        dr[0] = float(n)
+        ones = run(lambda: fft_distributed(dr, torch.zeros_like(dr), Direction.Reverse,
+                                           planner), {**fwd, "transpose2": 1})
+        exact = bool((ones[0] == 1.0).all()) and bool((ones[1] == 0.0).all())
+        errs[f"inverse_scale_exact_2^{log_n}"] = exact
+        if not exact:
+            raise AssertionError("distributed inverse of N * delta is not exactly ones")
+        del out, ones, dr, xr, xi
+    rows, n = DIST_BATCH
+    planner = PlannerDit32(n)
+    xr, xi = randn_pair((rows, n))
+    out = run(lambda: batch_fft_sharded(xr, xi, Direction.Forward, planner),
+              {"colfft_out3d": 1, "leaft": 1})
+    errs[f"batch_{rows}x2^{n.bit_length() - 1}"] = err = card_oracle_err(out, xr, xi)
+    check("batch_fft_sharded", err, 5e-7 * max(1.0, 20 / 18.0))
+    del out, xr, xi
+    torch.cuda.synchronize()
+    got = {k.__name__: k.launches for k in counters}
+    emit({"phase": "dist", "world_size": dist.get_world_size(),
+          "backend": dist.get_backend(), "rel_l2": errs, "launches": got,
+          "want": run.total})
+    if got != run.total or got["colfft_nocorr"] < 1:
+        raise AssertionError(f"launches {got}, want {run.total}")
+    launches["colfft_nocorr"] = got["colfft_nocorr"]
+    release_memory()
+
+    # -- times: the bare column pass, and the whole distributed transform
+    for n1, n2 in NOCORR_TIMES:
+        xr, xi = randn_pair((n1, n2))
+        xc = torch.complex(xr, xi)
+        bound = kernel_bound(n1 * n2, n1.bit_length() - 1)
+        row = {
+            "ms": time_ms(lambda: colfft_nocorr(xr, xi, n1), flush, 10),
+            "plain_ms": time_ms(lambda: colfft_nocorr_plain(xr, xi, n1), flush, 3),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": time_ms(lambda: torch.fft.fft(xc, dim=-2), flush, 10),
+            "n": n1 * n2, "rows": 1}
+        emit({"phase": "times_dist", "kernel": "colfft_nocorr", "n1": n1, "n2": n2,
+              "card": smi, **row})
+        top.setdefault("colfft_nocorr", row)  # the kernels line: the first shape
+        del xr, xi, xc
+    n = 1 << max(DIST_LOGS)
+    planner = PlannerDit32(n)
+    xr, xi = randn_pair((n,))
+
+    def whole():
+        return fft_distributed(xr, xi, Direction.Forward, planner)
+
+    def single():
+        return fft_32_dit_with_planner(xr, xi, Direction.Forward, planner)
+
+    # three readings of each, in one process: device time with the
+    # enqueue covered (median, min, max), host clock, back to back
+    for rep in range(DIST_TIME_REPEATS):
+        d_times, d_enq = device_times(whole, flush, 10)
+        s_times, s_enq = device_times(single, flush, 10)
+        emit({"phase": "times_dist", "n": n, "card": smi, "repeat": rep,
+              "fft_distributed_ms": float(np.median(d_times)),
+              "fft_distributed_min_max_ms": [min(d_times), max(d_times)],
+              "fft_distributed_enqueue_ms": d_enq,
+              "fft_distributed_wall_ms": wall_ms(whole, flush, 10),
+              "fft_distributed_stream_ms": stream_ms(whole),
+              "fft_32_dit_ms": float(np.median(s_times)),
+              "fft_32_dit_min_max_ms": [min(s_times), max(s_times)],
+              "fft_32_dit_enqueue_ms": s_enq,
+              "fft_32_dit_wall_ms": wall_ms(single, flush, 10),
+              "fft_32_dit_stream_ms": stream_ms(single)})
+    emit({"phase": "times_dist", "n": n, "breakdown_ms": device_breakdown(whole)})
+    del xr, xi
+    release_memory()
+
+
+class nccl_world:
+    """A ``torch.distributed`` world of one rank on NCCL (a ``file://`` store
+    in the output directory), for the distributed phases; destroyed, and the
+    store removed, on exit."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.store = os.path.abspath(os.path.join(OUT_DIR, "nccl_store"))
+        if os.path.exists(self.store):
+            os.remove(self.store)
+        dist.init_process_group("nccl", init_method=f"file://{self.store}", rank=0,
+                                world_size=1)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        if os.path.exists(self.store):
+            os.remove(self.store)
+        return False
+
+
+def f32_row_launches(plan):
+    """{kernel: launches} of ``ops/fourstep.fft_rows`` on ``plan`` with the
+    default leaf kernels."""
+    from phastft_tpu_torch.ops.fourstep import fused_two_pass
+
+    want = {}
+
+    def add(name):
+        want[name] = want.get(name, 0) + 1
+
+    while plan[0] == "split":
+        _, n1, plan2, n2 = plan
+        if fused_two_pass(n1, plan2, n2):
+            add("colfft_out3d")
+            add("leaft")
+            return want
+        add("colfft")
+        add("transpose2")
+        plan = plan2
+    if plan[0] == "leaf":
+        add("leaf3" if plan[1] == 512 else "leaf")
+    elif plan[1] > 1:
+        add("leaf")
+    return want
+
+
+def dist_launches(n: int, leaf: int, f64: bool, layout: str):
+    """{kernel: launches} of one ``fft_distributed`` at world size 1 on the
+    native (``f64``) or f32 pipeline: the column pass (``col64`` /
+    ``colfft``, their bare modes for ``permuted_input``; past n1 = 2048 two
+    column passes and two transposes, the second pass nested again past
+    2048), the row plan of n2, and for natural output the last
+    transpose."""
+    from phastft_tpu_torch.ops.fourstep import plan_rows
+    from phastft_tpu_torch.parallel.fourstep_dist import _factor
+
+    n1, n2 = _factor(n, 1, leaf)
+    rows = native_launches if f64 else f32_row_launches
+    tr = "transpose2_64" if f64 else "transpose2"
+    want = {}
+
+    def merge(counts):
+        for k, v in counts.items():
+            want[k] = want.get(k, 0) + v
+
+    merge(rows(plan_rows(n2, leaf)))
+    col = "col64" if f64 else "colfft"
+    bare = layout == "permuted_input"
+    m = n1
+    while m > 2048:  # two column passes and two transposes a level
+        p = 1 << ((m.bit_length() - 1) // 2)
+        # the first pass: col64 on its tables; in f32 colfft's own shard
+        # twiddle at world size 1, its bare mode (and the twiddle in torch)
+        # for permuted input
+        merge({col + ("_nocorr" if bare and not f64 else ""): 1, tr: 2})
+        m //= p
+    if m > 1:
+        merge({col + ("_nocorr" if bare else ""): 1})
+    if layout == "natural":
+        merge({tr: 1})
+    return {k: v for k, v in want.items() if v}
+
+
+def nccl_split(breakdown):
+    """The device ms of a ``device_breakdown`` split into NCCL's self-copies
+    at world size 1 (the ``Memcpy DtoD`` rows) and the kernels; the
+    ``nccl:*`` rows are the profiler's ranges around those copies, which
+    hold the same device time, and count in neither."""
+    copies = sum(ms for k, (ms, _) in breakdown.items() if "memcpy" in k.lower())
+    ranges = sum(ms for k, (ms, _) in breakdown.items() if k.lower().startswith("nccl:"))
+    return {"nccl_copies_ms": copies,
+            "kernels_ms": sum(ms for ms, _ in breakdown.values()) - copies - ranges}
+
+
+def dist64_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
+    """The distributed four-step in f64 (native in its three layouts, df64
+    and df64-oz in natural order) and past n1 = 2048 (f32 and f64) at world
+    size 1 on NCCL: the column kernels on shard blocks against their plain
+    versions, the main path's errors, launches and peaks, and times. The
+    checks return memory with ``torch.cuda.empty_cache`` alone; the timings
+    follow ``release_memory``'s wait."""
+    import torch
+
+    from phastft_tpu_torch import (
+        Direction, Options, PlannerDit32, PlannerDit64, fft_32_dit_with_planner,
+        fft_64_dit_with_planner,
+    )
+    from phastft_tpu_torch.ops.colfft import colfft, colfft_nocorr, colfft_out3d
+    from phastft_tpu_torch.ops.dd import dd_shard_tables, ddcol, ddcol_nocorr, ddcol_plain, ddleaf
+    from phastft_tpu_torch.ops.df64 import split_f64
+    from phastft_tpu_torch.ops.fourstep import plan_rows
+    from phastft_tpu_torch.ops.leaf import hybrid, leaf, leaf3
+    from phastft_tpu_torch.ops.leaft import leaft
+    from phastft_tpu_torch.ops.native import (
+        col64, col64_nocorr, col64_nocorr_plain, col64_plain, col64_shard_tables,
+        dif_twiddles, leaf64,
+    )
+    from phastft_tpu_torch.ops.ozdd import ozcol, ozleaft
+    from phastft_tpu_torch.ops.stockham import split_correction_host
+    from phastft_tpu_torch.ops.transpose import transpose2, transpose2_64
+    from phastft_tpu_torch.parallel import fft_distributed
+    from phastft_tpu_torch.parallel.fourstep_dist import (
+        _Plan, _dd_row_planner, _factor, _factor_dd, _long_columns, _row_pass, _twiddle_,
+    )
+
+    def randn(shape, dtype=torch.float64, g=gen):
+        return (torch.randn(shape, generator=g, device=dev, dtype=dtype),
+                torch.randn(shape, generator=g, device=dev, dtype=dtype))
+
+    def parity(name, k, p, **where):
+        err = rel_l2(k[0], k[1], p[0], p[1])
+        mabs = max_abs(k[0], k[1], p[0], p[1])
+        max_err[name] = max(max_err.get(name, 0.0), mabs)
+        emit({"phase": "parity_dist64", "kernel": name, **where, "rel_l2": err,
+              "max_abs_err": mabs, "bound": DD_KERNEL_TOL})
+        check(f"{name} parity at {where}", err, DD_KERNEL_TOL)
+
+    # -- the column kernels on shard blocks, and the bare mode
+    for n, n1, ncols, base in COL64_SHARD_BLOCKS:
+        x = randn((n1, ncols))
+        tabs, w = col64_shard_tables(n, n1, ncols, base, dev), dif_twiddles(n1, dev)
+        k = col64(*x, tabs, n1, w)
+        torch.cuda.synchronize()
+        parity("col64", k, col64_plain(*x, tabs, n1, w), n=n, n1=n1, ncols=ncols,
+               col_base=base)
+        del k, x
+    for b, n1, n2 in COL64_NOCORR_SHAPES:
+        x = randn((b, n1, n2))
+        w = dif_twiddles(n1, dev)
+        k = col64_nocorr(*x, n1, w)
+        torch.cuda.synchronize()
+        parity("col64_nocorr", k, col64_nocorr_plain(*x, n1, w), batch=b, n1=n1, n2=n2)
+        del k, x
+    n, n1, ncols, base = DDCOL_SHARD_BLOCK
+    quad = [*split_f64(randn((n1, ncols))[0]), *split_f64(randn((n1, ncols))[1])]
+    t1, t2 = dd_shard_tables(n, n1, ncols, base, dev)
+    k = ddcol(*quad, t1, t2, n1)
+    torch.cuda.synchronize()
+    p = ddcol_plain(*quad, t1, t2, n1)
+    err, mabs = dd_rel(k, p)
+    max_err["ddcol"] = max(max_err["ddcol"], mabs)
+    emit({"phase": "parity_dist64", "kernel": "ddcol", "n": n, "n1": n1, "ncols": ncols,
+          "col_base": base, "rel_l2": err, "max_abs_err": mabs, "bound": DD_KERNEL_TOL})
+    check("ddcol parity on a shard block", err, DD_KERNEL_TOL)
+    del k, p, quad
+    torch.cuda.empty_cache()
+
+    # -- the main path: counters at 0 just before, read just after
+    counters = (col64, col64_nocorr, leaf64, transpose2_64, transpose2, ddcol, ddcol_nocorr,
+                ddleaf, ozcol, ozleaft, colfft, colfft_nocorr, colfft_out3d, leaft, leaf,
+                leaf3, hybrid)
+    for k in counters:
+        k.launches = 0
+    run = counted(counters)
+    errs, peaks = {}, {}
+
+    def peak(tag, fn, want):
+        """run(fn, want) with the peak of allocated device memory above what
+        was held before."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out = run(fn, want)
+        torch.cuda.synchronize()
+        top_bytes = torch.cuda.max_memory_allocated()
+        peaks[tag] = {"peak_gib": top_bytes / 2 ** 30, "held_before_gib": held / 2 ** 30,
+                      "added_gib": (top_bytes - held) / 2 ** 30}
+        return out
+
+    def bins(n):
+        ks = torch.randint(0, n, (NATIVE_TOP_BINS,), generator=gen, device=dev)
+        ks[:4] = torch.tensor([0, 1, n // 2, n - 1], device=dev)
+        return ks
+
+    def spectrum_err(out, xr, xi, log_n):
+        """rel L2 against complex128 ``torch.fft.fft`` of the input, and from
+        2^30 on NATIVE_TOP_BINS bins of a direct f64 DFT instead."""
+        if log_n < NATIVE_TOP_LOG:
+            return card_oracle_err(out, xr, xi)
+        ks = bins(xr.numel())
+        want = dft_bins(xr, xi, ks)
+        got = torch.complex(out[0][ks].double(), out[1][ks].double())
+        return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+    def inverse_exact(planner, n, dtype, want):
+        dr = torch.zeros(n, device=dev, dtype=dtype)
+        dr[0] = float(n)
+        ones = run(lambda: fft_distributed(dr, torch.zeros_like(dr), Direction.Reverse,
+                                           planner), want)
+        exact = bool((ones[0] == 1.0).all()) and bool((ones[1] == 0.0).all())
+        del ones, dr
+        return exact
+
+    def layouts(log_n, planner, dtype, tol, tag):
+        """Natural forward, permuted output into a permuted-input inverse,
+        the permuted-input forward of the permuted signal (up to 2^27), and
+        the inverse of N * delta; the input made again from its seed where
+        it was dropped."""
+        n = 1 << log_n
+        f64 = dtype == torch.float64
+        leaf_n = planner.options.leaf_fft_size
+        n1, n2 = _factor(n, 1, leaf_n)
+        emit({"phase": "dist64_plan", "dtype": tag, "n": n, "n1": n1, "n2": n2,
+              "long_columns": n1 > 2048})
+        seeded = torch.Generator(device=dev)
+        xr, xi = randn((n,), dtype, seeded.manual_seed(log_n))
+        want = {lay: dist_launches(n, leaf_n, f64, lay)
+                for lay in ("natural", "permuted_output", "permuted_input")}
+        out = peak(f"{tag}_2^{log_n}",
+                   lambda: fft_distributed(xr, xi, Direction.Forward, planner),
+                   want["natural"])
+        errs[f"{tag}_fwd_2^{log_n}"] = err = spectrum_err(out, xr, xi, log_n)
+        check(f"{tag} fft_distributed 2^{log_n}", err, tol)
+        del out
+        torch.cuda.empty_cache()
+        po = run(lambda: fft_distributed(xr, xi, Direction.Forward, planner,
+                                         permuted_output=True), want["permuted_output"])
+        if log_n in DIST64_PERMUTED_IN_LOGS:
             # the permuted layout of x: P[k1*n2 + k2] = x[k1 + k2*n1]
             perm = torch.arange(n, device=dev).view(n2, n1).t().reshape(-1)
             pin = run(lambda: fft_distributed(xr[perm], xi[perm], Direction.Forward,
                                               planner, permuted_input=True),
-                      {"colfft_nocorr": cols, **rows})
-            errs[f"permuted_input_fwd_2^{log_n}"] = err = card_oracle_err(pin, xr, xi)
-            check(f"permuted-input forward 2^{log_n}", err, 5e-7 * max(1.0, log_n / 18.0))
+                      want["permuted_input"])
+            errs[f"{tag}_permuted_input_fwd_2^{log_n}"] = err = card_oracle_err(pin, xr, xi)
+            check(f"{tag} permuted-input forward 2^{log_n}", err, tol)
             del pin, perm
-            dr = torch.zeros(n, device=dev)
-            dr[0] = float(n)
-            ones = run(lambda: fft_distributed(dr, torch.zeros_like(dr), Direction.Reverse,
-                                               planner), {**fwd, "transpose2": 1})
-            exact = bool((ones[0] == 1.0).all()) and bool((ones[1] == 0.0).all())
-            errs[f"inverse_scale_exact_2^{log_n}"] = exact
-            if not exact:
-                raise AssertionError("distributed inverse of N * delta is not exactly ones")
-            del out, ones, dr, xr, xi
-        rows, n = DIST_BATCH
-        planner = PlannerDit32(n)
-        xr, xi = randn_pair((rows, n))
-        out = run(lambda: batch_fft_sharded(xr, xi, Direction.Forward, planner),
-                  {"colfft_out3d": 1, "leaft": 1})
-        errs[f"batch_{rows}x2^{n.bit_length() - 1}"] = err = card_oracle_err(out, xr, xi)
-        check("batch_fft_sharded", err, 5e-7 * max(1.0, 20 / 18.0))
-        del out, xr, xi
-        torch.cuda.synchronize()
-        got = {k.__name__: k.launches for k in counters}
-        emit({"phase": "dist", "world_size": dist.get_world_size(),
-              "backend": dist.get_backend(), "rel_l2": errs, "launches": got,
-              "want": run.total})
-        if got != run.total or got["colfft_nocorr"] < 1:
-            raise AssertionError(f"launches {got}, want {run.total}")
-        launches["colfft_nocorr"] = got["colfft_nocorr"]
+        del xr, xi
+        torch.cuda.empty_cache()
+        back = run(lambda: fft_distributed(po[0], po[1], Direction.Reverse, planner,
+                                           permuted_input=True), want["permuted_input"])
+        del po
+        torch.cuda.empty_cache()
+        xr, xi = randn((n,), dtype, seeded.manual_seed(log_n))
+        errs[f"{tag}_permuted_roundtrip_2^{log_n}"] = rt = rel_l2(back[0], back[1], xr, xi)
+        check(f"{tag} permuted round trip 2^{log_n}", rt, tol)
+        del back, xr, xi
+        torch.cuda.empty_cache()
+        exact = inverse_exact(planner, n, dtype, want["natural"])
+        errs[f"{tag}_inverse_scale_exact_2^{log_n}"] = exact
+        if not exact:
+            raise AssertionError(f"{tag} distributed inverse of N * delta at 2^{log_n} is "
+                                 "not exactly ones")
+        torch.cuda.empty_cache()
+
+    for log_n in DIST64_LOGS:
+        layouts(log_n, PlannerDit64(1 << log_n), torch.float64, DD_E2E_TOL, "native")
+    for log_n in DIST64_F32_LOGS:
+        layouts(log_n, PlannerDit32(1 << log_n), torch.float32,
+                5e-7 * max(1.0, log_n / 18.0), "f32")
+    # df64 and df64-oz: natural order, against complex128
+    for engine, logs, tol, leaf_n in (("df64", DIST64_DD_LOGS, DD_E2E_TOL, None),
+                                      ("df64-oz", DIST64_OZ_LOGS, OZ_E2E_TOL, 1 << 13)):
+        for log_n in logs:
+            n = 1 << log_n
+            guess = Options.guess_options(n, np.float64)
+            opts = dataclasses.replace(guess, f64_engine=engine,
+                                       leaf_fft_size=leaf_n or guess.leaf_fft_size)
+            planner = PlannerDit64(n, options=opts)
+            n1, n2 = _factor_dd(n, 1)
+            rp = _dd_row_planner(n2, opts.leaf_fft_size, engine, dev)
+            corrs = rp.dd_state[1]
+            oz = any(k.startswith("oz") for k in corrs)
+            # the row plan as fft_rows_dd runs it: a level with oz tables is
+            # ozcol + ozleaft and ends the plan
+            want = {"ddcol": 1, "transpose2": 2}  # the column pass, the last transpose
+            plan = rp.plan
+            while plan[0] == "split":
+                _, p1, plan2, p2 = plan
+                if f"ozcol{p1}x{p2}" in corrs:
+                    want.update(ozcol=1, ozleaft=1)
+                    break
+                want["ddcol"] += 1
+                want["transpose2"] += 2
+                plan = plan2
+            else:
+                if plan[0] == "leaf":
+                    want["ddleaf"] = 1
+            xr, xi = randn((n,))
+            out = run(lambda: fft_distributed(xr, xi, Direction.Forward, planner),
+                      {k: v for k, v in want.items() if v})
+            errs[f"{engine}_fwd_2^{log_n}"] = err = card_oracle_err(out, xr, xi)
+            errs[f"{engine}_oz_rows_2^{log_n}"] = oz
+            check(f"{engine} fft_distributed 2^{log_n}", err, tol)
+            del out, xr, xi
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    got = {k.__name__: k.launches for k in counters}
+    emit({"phase": "dist64", "world_size": 1, "rel_l2": errs, "launches": got,
+          "want": run.total, "peaks": peaks})
+    if got != run.total:
+        raise AssertionError(f"launches {got}, want {run.total}")
+    for name in ("col64", "col64_nocorr", "leaf64", "transpose2_64"):
+        if got[name] < 1:
+            raise AssertionError(f"{name} was never launched on the distributed f64 path")
+    launches["col64_nocorr"] = got["col64_nocorr"]
+    top_peak = peaks[f"native_2^{max(DIST64_LOGS)}"]
+    if top_peak["added_gib"] > 2 * 16 * 2 ** (max(DIST64_LOGS) - 30) + 1:
+        raise AssertionError(f"native 2^{max(DIST64_LOGS)} holds more than its input, two "
+                             f"pairs and 1 GiB: {top_peak}")
+    torch.cuda.empty_cache()
+
+    # -- times: col64_nocorr at the 2^27 permuted-input column pass
+    n1, n2 = COL64_NOCORR_TIME
+    x = randn((n1, n2))
+    w = dif_twiddles(n1, dev)
+    xc = torch.complex(*x)
+    bound = native_bound(n1 * n2, n1.bit_length() - 1, 1, 8 * n1)
+    row = {"ms": time_ms(lambda: col64_nocorr(*x, n1, w), flush, 10),
+           "plain_ms": time_ms(lambda: col64_nocorr_plain(*x, n1, w), flush, 3),
+           "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+           "bound_bytes_ms": bound["bound_bytes_ms"], "bound_ops_ms": bound["bound_ops_ms"],
+           "library_ms": time_ms(lambda: torch.fft.fft(xc, dim=-2), flush, 10),
+           "n": n1 * n2, "rows": 1}
+    tabs = tuple(torch.from_numpy(a.copy()).to(dev)
+                 for a in split_correction_host(n1, n2, "float64")[1:])
+    emit({"phase": "times_dist64", "kernel": "col64_nocorr", "n1": n1, "n2": n2, "card": smi,
+          **row, "col64_ms": time_ms(lambda: col64(*x, tabs, n1, w), flush, 10)})
+    top["col64_nocorr"] = row
+    del x, xc, tabs
+    release_memory()
+
+    # -- the two routes past n1 = 2048, on the column block of a world of one
+    for tag, n, n2 in LONG_COLUMN_ROUTES:
+        f64 = tag == "f64"
+        dtype = torch.float64 if f64 else torch.float32
+        n1 = n // n2
+        planner = (PlannerDit64 if f64 else PlannerDit32)(n)
+        leaf_n = planner.options.leaf_fft_size
+        if _factor(n, 1, leaf_n) != (n1, n2):
+            raise AssertionError(f"route shapes {(n, n2)} are not the plan's")
+        x = randn((n1, n2), dtype)
+        tr = transpose2_64 if f64 else transpose2
+        plan = _Plan(n, n1, n2, 1, 0, None, f64, rows=None, transpose=tr)
+        long_rows = _row_pass(planner, plan_rows(n1, leaf_n), None)
+        k1 = torch.arange(n1, dtype=torch.int64, device=dev)
+        j = torch.arange(n2, dtype=torch.int64, device=dev)
+
+        def nested_route():  # the package's: two column passes, two transposes
+            return _long_columns(list(x), plan, n, n1, 0, False)
+
+        def rows_route():  # transposed, the row plan of n1, the twiddle in torch, back
+            r = long_rows(list(tr(*x)))
+            _twiddle_(r[0], r[1], n, j, k1)
+            return tr(*r)
+
+        a_out = nested_route()
+        b_out = rows_route()
+        agree = rel_l2(a_out[0], a_out[1], b_out[0], b_out[1])
+        del a_out, b_out
+        release_memory()
+        ms_a = time_ms(nested_route, flush, 5)
+        ms_b = time_ms(rows_route, flush, 5)
+        ms_a2 = time_ms(nested_route, flush, 5)
+        pp = 1 << ((n1.bit_length() - 1) // 2)
+        emit({"phase": "times_long_columns", "dtype": tag, "n": n, "n1": n1, "n2": n2,
+              "P": pp, "Q": n1 // pp, "card": smi, "routes_agree_rel_l2": agree,
+              "nested_route_ms": [ms_a, ms_a2], "rows_route_ms": ms_b,
+              "bound_ms": (native_bound(n1 * n2, n1.bit_length() - 1)["bound_ms"] if f64
+                           else kernel_bound(n1 * n2, n1.bit_length() - 1)[0])})
+        check(f"the two long-column routes agree ({tag})", agree,
+              DD_KERNEL_TOL if f64 else KERNEL_TOL)
+        del x
         release_memory()
 
-        # -- times: the bare column pass, and the whole distributed transform
-        for n1, n2 in NOCORR_TIMES:
-            xr, xi = randn_pair((n1, n2))
-            xc = torch.complex(xr, xi)
-            bound = kernel_bound(n1 * n2, n1.bit_length() - 1)
-            row = {
-                "ms": time_ms(lambda: colfft_nocorr(xr, xi, n1), flush, 10),
-                "plain_ms": time_ms(lambda: colfft_nocorr_plain(xr, xi, n1), flush, 3),
-                "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": time_ms(lambda: torch.fft.fft(xc, dim=-2), flush, 10),
-                "n": n1 * n2, "rows": 1}
-            emit({"phase": "times_dist", "kernel": "colfft_nocorr", "n1": n1, "n2": n2,
-                  "card": smi, **row})
-            top.setdefault("colfft_nocorr", row)  # the kernels line: the first shape
-            del xr, xi, xc
-        n = 1 << max(DIST_LOGS)
-        planner = PlannerDit32(n)
-        xr, xi = randn_pair((n,))
+    # -- times: the whole distributed transform beside the single-device
+    # entry at the same n, and where the distributed one spends its time
+    for log_n in DIST64_TIME_LOGS:
+        n = 1 << log_n
+        planner = PlannerDit64(n)
+        xr, xi = randn((n,))
 
         def whole():
             return fft_distributed(xr, xi, Direction.Forward, planner)
 
         def single():
-            return fft_32_dit_with_planner(xr, xi, Direction.Forward, planner)
+            return fft_64_dit_with_planner(xr, xi, Direction.Forward, planner)
 
-        # three readings of each, in one process: device time with the
-        # enqueue covered (median, min, max), host clock, back to back
-        for rep in range(DIST_TIME_REPEATS):
-            d_times, d_enq = device_times(whole, flush, 10)
-            s_times, s_enq = device_times(single, flush, 10)
-            emit({"phase": "times_dist", "n": n, "card": smi, "repeat": rep,
-                  "fft_distributed_ms": float(np.median(d_times)),
-                  "fft_distributed_min_max_ms": [min(d_times), max(d_times)],
-                  "fft_distributed_enqueue_ms": d_enq,
-                  "fft_distributed_wall_ms": wall_ms(whole, flush, 10),
-                  "fft_distributed_stream_ms": stream_ms(whole),
-                  "fft_32_dit_ms": float(np.median(s_times)),
-                  "fft_32_dit_min_max_ms": [min(s_times), max(s_times)],
-                  "fft_32_dit_enqueue_ms": s_enq,
-                  "fft_32_dit_wall_ms": wall_ms(single, flush, 10),
-                  "fft_32_dit_stream_ms": stream_ms(single)})
-        emit({"phase": "times_dist", "n": n, "breakdown_ms": device_breakdown(whole)})
+        d_times, d_enq = device_times(whole, flush, 5)
+        release_memory()
+        s_times, s_enq = device_times(single, flush, 5)
+        release_memory()
+        breakdown = device_breakdown(whole, 24)
+        release_memory()
+        emit({"phase": "times_dist64", "n": n, "card": smi,
+              "fft_distributed_ms": float(np.median(d_times)),
+              "fft_distributed_min_max_ms": [min(d_times), max(d_times)],
+              "fft_distributed_enqueue_ms": d_enq,
+              "fft_64_dit_ms": float(np.median(s_times)),
+              "fft_64_dit_min_max_ms": [min(s_times), max(s_times)],
+              "fft_64_dit_enqueue_ms": s_enq,
+              "breakdown_ms": breakdown, **nccl_split(breakdown)})
         del xr, xi
-    finally:
-        dist.destroy_process_group()
-        if os.path.exists(store):
-            os.remove(store)
+        release_memory()
+    n = 1 << max(DIST64_F32_LOGS)
+    planner = PlannerDit32(n)
+    xr, xi = randn((n,), torch.float32)
+    whole_ms = time_ms(lambda: fft_distributed(xr, xi, Direction.Forward, planner), flush, 5)
+    release_memory()
+    single_ms = time_ms(lambda: fft_32_dit_with_planner(xr, xi, Direction.Forward, planner),
+                        flush, 5)
+    emit({"phase": "times_dist64", "dtype": "f32", "n": n, "card": smi,
+          "fft_distributed_ms": whole_ms, "fft_32_dit_ms": single_ms})
+    del xr, xi
     release_memory()
 
 
@@ -2765,7 +3251,9 @@ def main() -> int:
     # four-step at world size 1
     native_phases(dev, gen, flush, smi, top, launches, max_err)
     hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err)
-    dist_phases(dev, gen, flush, smi, top, launches, max_err)
+    with nccl_world():
+        dist_phases(dev, gen, flush, smi, top, launches, max_err)
+        dist64_phases(dev, gen, flush, smi, top, launches, max_err)
 
     sources = {
         "colfft_out3d": ("phastft_tpu_torch/csrc/colfft.cu",
@@ -2794,6 +3282,8 @@ def main() -> int:
                    "phastft_tpu/ops/pallas_leaf.py:410"),
         "colfft_nocorr": ("phastft_tpu_torch/csrc/colfft.cu",
                           "phastft_tpu/ops/pallas_col.py:281"),
+        "col64_nocorr": ("phastft_tpu_torch/csrc/col64.cu",
+                         "phastft_tpu/parallel/fourstep_dist.py:203"),
         # the native f64 engine: no TPU kernel; what each stands for
         "leaf64": ("phastft_tpu_torch/csrc/leaf64.cu",
                    "phastft_tpu/ops/stockham.py:236"),

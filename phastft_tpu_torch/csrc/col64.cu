@@ -11,7 +11,12 @@
 //   out[b, k1, i2] = (y[k1, i2] * T1[k1, i2 / s]) * T2[k1, i2 % s]
 // with T1 (n1, n2/s) and T2 (n1, s), s = 2^(log2(n2) / 2), the planner's
 // factored tables of W_n^(k1*i2) (exact f64 angles; their product adds one
-// rounding, ~1e-16).
+// rounding, ~1e-16), or the tables of a distributed shard's column block,
+// W_N^(k1*(col_base + i2)) (ops/native.col64_shard_tables). The bare mode
+// (phastft_col64_nocorr, the distributed permuted-input branch's column
+// pass; it stands for the JAX package's stockham_axis2 at
+// phastft_tpu/parallel/fourstep_dist.py:203) stores y: the twiddle products
+// are a template argument of both designs, as in ddcol.cu.
 //
 // Bound: memory. 16 B read and 16 B written per element; the FP64
 // arithmetic (radix-4 DIF with the trivial twiddles dropped, ~3.5 FP64
@@ -127,6 +132,7 @@ struct SplitCorr {
   }
 };
 
+template <bool CORR>
 __global__ void __launch_bounds__(THREADS, 2)
 col64_kernel(const double* __restrict__ xr, const double* __restrict__ xi,
              const cd* __restrict__ twt, SplitCorr corr, double* __restrict__ outr,
@@ -164,10 +170,10 @@ col64_kernel(const double* __restrict__ xr, const double* __restrict__ xi,
   __syncthreads();
 
   // F(n1) over i1: T sequences along the contiguous axis, stride T; the
-  // split twiddle folded into the last trip
+  // split twiddle (CORR) folded into the last trip
   SplitCorr c = corr;
   c.col0 = col0;
-  fk::dif4_fft(s, logn1, logn1, logT, 1, T, true, tw, logn1, c, true);
+  fk::dif4_fft(s, logn1, logn1, logT, 1, T, true, tw, logn1, c, CORR);
 
   // shared (row, c): row holds k1 = bitrev(row), stored at its row of device
   // memory
@@ -218,8 +224,8 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // One slab of W = 256 / P columns of one entry per cluster of CB = 8 blocks,
-// n1 = P * Q (n1 = 2^(LOGP + LOGQ)).
-template <int LOGP>
+// n1 = P * Q (n1 = 2^(LOGP + LOGQ)); CORR: the split twiddle's products.
+template <int LOGP, bool CORR>
 __global__ void __launch_bounds__(THREADS, 2)
 col64_cluster(const double* __restrict__ xr, const double* __restrict__ xi,
               const cd* __restrict__ twt, SplitCorr corr, double* __restrict__ outr,
@@ -320,7 +326,7 @@ col64_cluster(const double* __restrict__ xr, const double* __restrict__ xi,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int kq = bitrev(8 * g + j, LOGQ);
-      const cd a = fold(x[j], kq, ec);
+      const cd a = CORR ? fold(x[j], kq, ec) : x[j];
       const long long o = base + static_cast<long long>(fold.kp0 + (kq << LOGP)) * n2 + ec;
       outr[o] = a.x;
       outi[o] = a.y;
@@ -335,8 +341,39 @@ bool long_columns(int n1, int n2) { return n1 >= CLUSTER_N1 && n2 >= CT; }
 // The cluster kernel at n1 = 1024 (P = 8) or 2048 (P = 16), as a pointer.
 using ClusterKernel = void (*)(const double*, const double*, const cd*, SplitCorr, double*,
                                double*, int);
+template <bool CORR>
 ClusterKernel cluster_kernel(int n1) {
-  return n1 == 2048 ? col64_cluster<4> : col64_cluster<3>;
+  return n1 == 2048 ? col64_cluster<4, CORR> : col64_cluster<3, CORR>;
+}
+
+bool shape_ok(long long batch, int n1, int n2) {
+  return !(batch < 1 || !phastft::is_pow2(n1) || n1 < 2 || n1 > 2048 || !phastft::is_pow2(n2) ||
+           n2 < 2);
+}
+
+template <bool CORR>
+int launch(const double* xr, const double* xi, const cd* tw, const SplitCorr& corr,
+           double* outr, double* outi, long long batch, int n1, int n2, cudaStream_t s) {
+  const int logn1 = phastft::ilog2(n1), logn2 = phastft::ilog2(n2);
+  if (long_columns(n1, n2)) {
+    static int resident[2] = {0, 0};  // per n1, queried on first use
+    const int logp = logn1 - LOGQ;
+    const long long blocks = (batch * (n2 >> (LOG_SLAB_POINTS - logp))) << LOGCB;
+    return phastft::launch_clusters(cluster_kernel<CORR>(n1), CB, blocks, THREADS,
+                                    smem_bytes(n1), s, resident[logp - 3], xr, xi, tw, corr,
+                                    outr, outi, n2);
+  }
+  const int logT = LOG_LOCAL - logn1 < logn2 ? LOG_LOCAL - logn1 : logn2;
+  const long long blocks = batch << (logn2 - logT);
+  if (blocks > 0x7fffffffLL || (blocks >> (logn2 - logT)) != batch)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(n1);
+  cudaError_t err = cudaFuncSetAttribute(
+      col64_kernel<CORR>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  col64_kernel<CORR><<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(
+      xr, xi, tw, corr, outr, outi, logn1, n2, logT);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -350,32 +387,21 @@ extern "C" int phastft_col64(const double* xr, const double* xi, const void* twt
                              const double* t1r, const double* t1i, const double* t2r,
                              const double* t2i, double* outr, double* outi, long long batch,
                              int n1, int n2, void* stream) {
-  if (batch < 1 || !phastft::is_pow2(n1) || n1 < 2 || n1 > 2048 || !phastft::is_pow2(n2) ||
-      n2 < 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int logn1 = phastft::ilog2(n1), logn2 = phastft::ilog2(n2);
-  const int logs = logn2 / 2;
+  if (!shape_ok(batch, n1, n2)) return static_cast<int>(cudaErrorInvalidValue);
+  const int logs = phastft::ilog2(n2) / 2;
   const SplitCorr corr{t1r, t1i, t2r, t2i, logs, n2 >> logs, 0, 0, 0};
-  const cd* tw = static_cast<const cd*>(twt);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (long_columns(n1, n2)) {
-    static int resident[2] = {0, 0};  // per n1, queried on first use
-    const int logp = logn1 - LOGQ;
-    const long long blocks = (batch * (n2 >> (LOG_SLAB_POINTS - logp))) << LOGCB;
-    return phastft::launch_clusters(cluster_kernel(n1), CB, blocks, THREADS, smem_bytes(n1), s,
-                                    resident[logp - 3], xr, xi, tw, corr, outr, outi, n2);
-  }
-  const int logT = LOG_LOCAL - logn1 < logn2 ? LOG_LOCAL - logn1 : logn2;
-  const long long blocks = batch << (logn2 - logT);
-  if (blocks > 0x7fffffffLL || (blocks >> (logn2 - logT)) != batch)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(n1);
-  cudaError_t err = cudaFuncSetAttribute(
-      col64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  col64_kernel<<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(xr, xi, tw, corr, outr,
-                                                                    outi, logn1, n2, logT);
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(xr, xi, static_cast<const cd*>(twt), corr, outr, outi, batch, n1, n2,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// As phastft_col64 with no twiddle: out = y, the bare column DFT.
+extern "C" int phastft_col64_nocorr(const double* xr, const double* xi, const void* twt,
+                                    double* outr, double* outi, long long batch, int n1,
+                                    int n2, void* stream) {
+  if (!shape_ok(batch, n1, n2)) return static_cast<int>(cudaErrorInvalidValue);
+  const SplitCorr none{nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, 0};
+  return launch<false>(xr, xi, static_cast<const cd*>(twt), none, outr, outi, batch, n1, n2,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // The clusters of the long-column design at n1 = 1024 or 2048 the current
@@ -383,5 +409,5 @@ extern "C" int phastft_col64(const double* xr, const double* xi, const void* twt
 // code.
 extern "C" int phastft_col64_clusters(int n1) {
   if (n1 != 1024 && n1 != 2048) return -static_cast<int>(cudaErrorInvalidValue);
-  return phastft::resident_clusters(cluster_kernel(n1), CB, THREADS, smem_bytes(n1));
+  return phastft::resident_clusters(cluster_kernel<true>(n1), CB, THREADS, smem_bytes(n1));
 }

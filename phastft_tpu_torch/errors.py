@@ -6,9 +6,9 @@ The same four classes, with the same messages, as the JAX package's
 
 ``not_ported`` builds the ``NotImplementedError`` raised for everything
 the port does not run yet (n >= 2^31, the staged and plain pipelines,
-Tune, leaves outside 128..2^16 points, the distributed four-step in f64 or
-with a column factor past 2048); its message names the ``ROADMAP.md`` item
-that will bring it.
+Tune, leaves outside 128..2^16 points, distributed column blocks under the
+column kernel's floor); its message names the ``ROADMAP.md`` item that will
+bring it.
 """
 
 from __future__ import annotations
@@ -54,10 +54,9 @@ ROADMAP_ITEMS = {
     "tune": "ROADMAP.md Queue 1 item 8 (PlannerMode.Tune)",
     "leaf_size": "ROADMAP.md Queue 1 item 15 (leaves outside 128..2^16 "
                  "points, Options.leaf_fft_size > 2^16 or < 128)",
-    "dist_f64": "ROADMAP.md Queue 1 item 17 (the distributed four-step in "
-                "f64: the native, df64 and df64-oz engines)",
-    "dist_col": "ROADMAP.md Queue 1 item 18 (distributed column factors "
-                "n1 > 2048, and column blocks under 4 columns on the GPU)",
+    "dist_col": "ROADMAP.md Queue 1 item 18 (distributed column blocks "
+                "under the column kernel's floor: 4 columns in f32 on the "
+                "GPU, 2 in f64)",
 }
 
 

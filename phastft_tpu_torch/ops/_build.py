@@ -63,6 +63,7 @@ _SIGNATURES = {
     "phastft_oz_exact": [_P] * 3 + [_I, _I, _I, _I, _P],
     # the native f64 engine
     "phastft_col64": [_P] * 9 + [_L, _I, _I, _P],
+    "phastft_col64_nocorr": [_P] * 5 + [_L, _I, _I, _P],
     "phastft_col64_clusters": [_I],
     "phastft_leaf64": [_P] * 8 + [_L, _I, _P],
     "phastft_leaf64_clusters": [_I],

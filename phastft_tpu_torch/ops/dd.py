@@ -42,6 +42,7 @@ from .stockham import LANES
 __all__ = [
     "DD_COL_TILE",
     "dd_col_tables_host",
+    "dd_shard_tables",
     "ddcol",
     "ddcol_plain",
     "ddcol_nocorr",
@@ -80,6 +81,35 @@ def dd_col_tables_host(n1: int, n2: int):
         tuple(a.astype(np.float32) for a in t1),
         tuple(a.astype(np.float32) for a in t2),
     )
+
+
+@functools.lru_cache(maxsize=32)
+def dd_shard_tables(n: int, n1: int, ncols: int, col_base: int,
+                    device: torch.device):
+    """``ddcol``'s correction tables for the column block [col_base,
+    col_base + ncols) of a length-n transform split n1 x n / n1, factored on
+    the block's own width t = min(DD_COL_TILE, ncols):
+    T1[k1, j] = W_n^(k1*(col_base + j*t)) and T2[k1, c] = W_n^(k1*c), so
+    that T1[k1, i // t] * T2[k1, i % t] is the block's global twiddle
+    W_n^(k1*(col_base + i)). Returns (T1 4-tuple (n1, ncols/t), T2 4-tuple
+    (n1, t)) of dd planes on ``device``, from exact integer phases, built
+    once per argument set. (The JAX package slices its global T1 instead,
+    ``phastft_tpu/parallel/fourstep_dist.py:465-472``, and synthesises the
+    blocks that do not align with it in its graph, ``:490-494``.)"""
+    if n % n1 or ncols < 1 or col_base + ncols > n // n1:
+        raise ValueError(f"dd_shard_tables: columns [{col_base}, "
+                         f"{col_base + ncols}) do not lie in {n1} x {n // n1}")
+    t = min(DD_COL_TILE, ncols)
+    k1 = np.arange(n1, dtype=np.int64)[:, None]
+
+    def planes(i):
+        ang = (-2.0 * np.pi / n) * ((k1 * i[None, :]) % n).astype(np.float64)
+        quad = split_hi_lo(np.cos(ang)) + split_hi_lo(np.sin(ang))
+        return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+                     for a in quad)
+
+    return (planes(col_base + t * np.arange(ncols // t, dtype=np.int64)),
+            planes(np.arange(t, dtype=np.int64)))
 
 
 @functools.lru_cache(maxsize=16)

@@ -10,7 +10,12 @@ the 64-bit paired transpose (``ops/transpose.py``):
   T1[k1, i2 // s] * T2[k1, i2 % s] (the planner's ``split{n1}x{n2}``,
   ``ops/stockham.split_correction_host``): the column pass of every split
   level, n1 = 2..2048. Stands for the JAX package's ``stockham_axis2`` +
-  split correction (``phastft_tpu/ops/fourstep.py:353-380``).
+  split correction (``phastft_tpu/ops/fourstep.py:353-380``). On a
+  distributed shard's column block the same kernel takes the tables of the
+  block's global twiddle, ``col64_shard_tables``;
+  ``col64_nocorr`` is its bare mode, the column DFT alone (the JAX
+  package's ``stockham_axis2`` at ``phastft_tpu/parallel/
+  fourstep_dist.py:203``).
 * ``leaf64``: the whole DFT of rows of n = 2..2^16 points, natural order
   in and out; from n = 256 as F(n1) over the (n1, 128) view, the planner's
   ``leaf{n1}`` correction, F(128). Stands for ``leaf_fft`` and ``tiny_fft``
@@ -26,14 +31,17 @@ bit for bit.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ._build import library
 from .stockham import LANES, leaf_fft, stockham_axis2, tiny_fft
 
-__all__ = ["col64", "col64_plain", "dif_twiddles_host", "leaf64", "leaf64_plain",
-           "MAX_COL_N1", "MAX_LEAF_N"]
+__all__ = ["col64", "col64_plain", "col64_nocorr", "col64_nocorr_plain",
+           "col64_shard_tables", "col64_tables", "dif_twiddles", "dif_twiddles_host", "leaf64",
+           "leaf64_plain", "MAX_COL_N1", "MAX_LEAF_N"]
 
 #: Column factors of ``col64`` and row lengths of ``leaf64`` (powers of two).
 MAX_COL_N1 = 2048
@@ -46,6 +54,60 @@ def dif_twiddles_host(m: int) -> np.ndarray:
     (W_m^(k + m/2) = -W_m^k, exact). The planner holds it as ``dif{m}``."""
     ang = -2.0 * np.pi * np.arange(m // 2, dtype=np.float64) / m
     return np.ascontiguousarray(np.stack([np.cos(ang), np.sin(ang)], axis=-1))
+
+
+@functools.lru_cache(maxsize=32)
+def dif_twiddles(m: int, device: torch.device) -> torch.Tensor:
+    """``dif_twiddles_host(m)`` on ``device``, built once: the ``dif{m}``
+    step table of a column pass that no planner's plan holds (a
+    distributed shard's)."""
+    return torch.from_numpy(dif_twiddles_host(m)).to(device)
+
+
+def _phase_tables(n: int, k: np.ndarray, i: np.ndarray):
+    """(cos, sin) of W_n^(k*i) on the grid k[:, None] x i[None, :], from the
+    exact integer phase k*i mod n (every product < 2^63)."""
+    phase = (k[:, None] * i[None, :]) % n
+    ang = (-2.0 * np.pi / n) * phase.astype(np.float64)
+    return np.cos(ang), np.sin(ang)
+
+
+def col64_tables(n: int, n1: int, exps: np.ndarray, device: torch.device):
+    """``col64``'s tables for the twiddle W_n^(k1 * exps[i2]) of a
+    (n1, ncols) block, ncols = len(exps) a power of two >= 2: (T1 re, T1 im,
+    T2 re, T2 im) with s = 2^(log2(ncols) // 2), T1[k1, a] =
+    W_n^(k1 * exps[s*a]) (n1, ncols / s) and T2[k1, b] =
+    W_n^(k1 * (exps[b] - exps[0])) (n1, s). Exact f64 angles from integer
+    phases. Raises unless the exponents split so, exps[s*a + b] =
+    exps[s*a] + exps[b] - exps[0], as a block's global columns and the
+    levels of a long column pass do."""
+    exps = np.asarray(exps, dtype=np.int64)
+    ncols = len(exps)
+    if ncols < 2 or ncols & (ncols - 1):
+        raise ValueError(f"col64_tables: {ncols} columns, not a power of two >= 2")
+    s = 1 << ((ncols.bit_length() - 1) // 2)
+    grid = exps.reshape(ncols // s, s)
+    if not np.array_equal(grid, grid[:, :1] + (grid[:1] - exps[0])):
+        raise ValueError("col64_tables: the exponents do not factor on the tables' width")
+    k1 = np.arange(n1, dtype=np.int64)
+    t1 = _phase_tables(n, k1, grid[:, 0])
+    t2 = _phase_tables(n, k1, grid[0] - exps[0])
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (*t1, *t2))
+
+
+@functools.lru_cache(maxsize=32)
+def col64_shard_tables(n: int, n1: int, ncols: int, col_base: int,
+                       device: torch.device):
+    """``col64``'s tables for the column block [col_base, col_base + ncols)
+    of a length-n transform split n1 x n / n1 (``col64_tables`` of the
+    exponents col_base + j): T1[k1, j // s] * T2[k1, j % s] =
+    W_n^(k1*(col_base + j)), the block's global twiddle. Built on the host
+    once per argument set (the JAX package builds the angles inside its
+    graph, ``phastft_tpu/parallel/fourstep_dist.py:113``)."""
+    if ncols < 2 or n % n1 or col_base + ncols > n // n1:
+        raise ValueError(f"col64_shard_tables: columns [{col_base}, "
+                         f"{col_base + ncols}) do not lie in {n1} x {n // n1}")
+    return col64_tables(n, n1, col_base + np.arange(ncols, dtype=np.int64), device)
 
 
 def _check_steps(name, steps, m: int):
@@ -82,19 +144,20 @@ def _launch_ready(name, planes, tabs=()):
 
 
 # ---------------------------------------------------------------- col64
-def _check_col(re, im, tabs, n1: int, steps):
-    """Validate the column pass's arguments; return (flat batch, n2)."""
-    tabs = tuple(tabs)
-    _check_planes("col64", re, im, (*tabs, _check_steps("col64", steps, n1)))
+def _check_col(re, im, tabs, n1: int, steps, name="col64"):
+    """Validate the column pass's arguments (``tabs`` None: the bare mode);
+    return (flat batch, n2)."""
+    tabs = () if tabs is None else tuple(tabs)
+    _check_planes(name, re, im, (*tabs, _check_steps(name, steps, n1)))
     if re.dim() < 2 or re.shape[-2] != n1:
         raise ValueError(
-            f"col64: expected (..., {n1}, n2) planes, got {tuple(re.shape)}")
+            f"{name}: expected (..., {n1}, n2) planes, got {tuple(re.shape)}")
     n2 = int(re.shape[-1])
     if n1 < 2 or n1 > MAX_COL_N1 or n1 & (n1 - 1) or n2 < 2 or n2 & (n2 - 1):
-        raise ValueError(f"col64: unsupported shape n1={n1}, n2={n2}")
+        raise ValueError(f"{name}: unsupported shape n1={n1}, n2={n2}")
     s = 1 << ((n2.bit_length() - 1) // 2)
     shapes = [(n1, n2 // s)] * 2 + [(n1, s)] * 2
-    if len(tabs) != 4 or [tuple(t.shape) for t in tabs] != shapes:
+    if name == "col64" and (len(tabs) != 4 or [tuple(t.shape) for t in tabs] != shapes):
         raise ValueError(
             f"col64: the split tables must be 2 x ({n1}, {n2 // s}) and "
             f"2 x ({n1}, {s})")
@@ -167,6 +230,50 @@ def col64(re, im, tabs, n1: int, steps):
 
 
 col64.launches = 0
+
+
+def col64_nocorr_plain(re, im, n1: int, steps):
+    """Plain-torch bare column pass: same arguments and result as
+    ``col64_nocorr`` (the JAX package's ``stockham_axis2`` in torch;
+    ``steps`` is checked, not read)."""
+    _check_col(re, im, None, n1, steps, "col64_nocorr")
+    return stockham_axis2(re, im, n1)
+
+
+def col64_nocorr(re, im, n1: int, steps):
+    """X[..., k1, i2] = sum_i1 x[..., i1, i2] W_n1^(i1*k1) on (..., n1, n2)
+    f64 planes, n1 = 2..2048 and n2 >= 2 powers of two: ``col64`` with no
+    twiddle, the column pass of the distributed four-step's permuted-input
+    branch. ``steps``: the ``dif{n1}`` table (``dif_twiddles``) on the
+    planes' device. Returns two new planes.
+
+    On CUDA it launches ``csrc/col64.cu``'s bare mode (the same designs,
+    the twiddle products compiled out) on the current stream, or raises; a
+    CPU tensor runs ``col64_nocorr_plain``. Inputs are read, never written.
+    Each launch adds one to ``col64_nocorr.launches``.
+
+    Stands for the JAX package's ``stockham_axis2`` on a shard's column
+    block (``phastft_tpu/parallel/fourstep_dist.py:203``). Bound by memory
+    (32 B per element)."""
+    b, n2 = _check_col(re, im, None, n1, steps, "col64_nocorr")
+    if re.device.type == "cpu":
+        return col64_nocorr_plain(re, im, n1, steps)
+    _launch_ready("col64_nocorr", (re, im), (steps,))
+    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+    dev = re.device
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.phastft_col64_nocorr(
+            re.data_ptr(), im.data_ptr(), steps.data_ptr(), out_re.data_ptr(),
+            out_im.data_ptr(), b, n1, n2, stream)
+    if err != 0:
+        raise RuntimeError(f"col64_nocorr: kernel launch failed, CUDA error {err}")
+    col64_nocorr.launches += 1
+    return out_re, out_im
+
+
+col64_nocorr.launches = 0
 
 
 # ---------------------------------------------------------------- leaf64

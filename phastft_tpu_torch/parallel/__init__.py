@@ -10,8 +10,9 @@ given.
 
 * ``batch_fft_sharded``: a batch of independent transforms split over the
   ranks, no communication;
-* ``fft_distributed``: one length-n f32 transform split over the ranks, its
-  global transposes as ``all_to_all_single``.
+* ``fft_distributed``: one length-n transform split over the ranks, in
+  f32 or f64 (the native, df64 and df64-oz engines), its global transposes
+  as ``all_to_all_single``.
 
 The distributed real transforms (``parallel/real_dist.py``) wait for R2C
 (ROADMAP.md Queue 1 item 10).

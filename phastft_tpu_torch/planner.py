@@ -33,7 +33,8 @@ Ozaki slice tables of every split level inside the oz kernels' window
 of another plan on the same options (the row plan of a distributed
 shard), or of a plan whose leaf runs the opt-in hybrid kernel
 (``leaf_kernel="hybrid"``: ``mxu512`` and ``leaf512`` at n1 = 512, which
-no default kernel reads).
+no default kernel reads); ``PlannerDit64.native_tables_for(plan)`` does
+the same for the native engine's tables.
 
 ``PlannerDit32.from_numpy_tables`` and ``PlannerDit64.from_numpy_tables``
 build a planner on tables handed over as numpy arrays, for instance the
@@ -374,6 +375,19 @@ class PlannerDit64(_PlannerDitBase):
                 key: _to_device(arrays, self.device)
                 for key, arrays in _native_tables_host(self.plan).items()}
         return self._native_state
+
+    def native_tables_for(self, plan):
+        """The native tables ``ops/fourstep.fft_rows_native`` reads for
+        ``plan`` (a plan on this planner's leaf, such as a distributed
+        shard's row plan), on the planner's device: built on first use and
+        kept, and ``native_state`` itself for the planner's own plan."""
+        if plan == self.plan:
+            return self.native_state
+        if plan not in self._derived:
+            self._derived[plan] = {
+                key: _to_device(arrays, self.device)
+                for key, arrays in _native_tables_host(plan).items()}
+        return self._derived[plan]
 
     @property
     def dd_state(self):

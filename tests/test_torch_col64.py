@@ -1,5 +1,6 @@
 """The native f64 column kernel csrc/col64.cu at n1 = 1024 and 2048, rebuilt
-in torch on the CPU.
+in torch on the CPU, its bare mode, and its tables on a distributed shard's
+column block.
 
 A CUDA kernel cannot run here, so this file repeats what ``col64.cu`` does
 at the long column factors, trip for trip and block for block, with the
@@ -20,7 +21,13 @@ kernel's own index formulas, on a flat copy of each block's shared memory
 The model is held against ``col64_plain`` (rel L2 <= 1e-13: the same DFT
 summed in another order) and numpy. ``col64_plain`` itself is held against
 the JAX package's ``stockham_axis2`` and its ``split{n1}x{n2}`` correction
-at both factors. The kernel on the card is checked by ``chip_smoke.py``.
+at both factors. The bare mode (``col64_nocorr``, the twiddle products a
+template argument of both designs) is the same model with no fold, held
+against ``col64_nocorr_plain``; that and ``col64_plain`` on the tables of
+``col64_shard_tables`` are held against the JAX package's ``stockham_axis2``
+and its shard twiddle ``_local_correction_cols``
+(``phastft_tpu/parallel/fourstep_dist.py:103``). The kernel on the card is
+checked by ``chip_smoke.py``.
 """
 
 import os
@@ -30,7 +37,10 @@ import numpy as np
 import pytest
 import torch
 
-from phastft_tpu_torch.ops.native import col64_plain, dif_twiddles_host
+from phastft_tpu_torch.ops.native import (
+    col64, col64_nocorr, col64_nocorr_plain, col64_plain, col64_shard_tables,
+    dif_twiddles_host,
+)
 from phastft_tpu_torch.ops.stockham import split_correction_host
 
 TOL = 1e-13        # the same algorithm, summed in another order
@@ -159,7 +169,10 @@ def _dif4_fft(sh, log_n, log_l, log_m, qs, is_, tw, log_w, fold):
 def _split_fold(tables, n2, col0, log_p=0, kp0=0):
     """col64.cu SplitCorr: output k of sequence q is row k1 = (k << log_p) +
     kp0 and column i2 = col0 + q, times T1[k1, i2 >> logs], then
-    T2[k1, i2 mod s]. col0 per block (leading dims)."""
+    T2[k1, i2 mod s]. col0 per block (leading dims). ``tables`` None: the
+    bare mode (CORR false), which folds nothing."""
+    if tables is None:
+        return lambda v, k, q: v
     t1r, t1i, t2r, t2i = (torch.from_numpy(a) for a in tables)
     t1, t2 = torch.complex(t1r, t1i).reshape(-1), torch.complex(t2r, t2i).reshape(-1)
     logs = _log2(n2) // 2
@@ -368,6 +381,100 @@ def test_col64_plain_matches_jax_column_pass(n1, n2):
     assert _rel(got, _oracle(z, n1, n2)) <= NUMPY_TOL
 
 
+def _nocorr_plain(z, n1):
+    steps = torch.from_numpy(dif_twiddles_host(n1))
+    out = col64_nocorr_plain(torch.from_numpy(z.real.copy()),
+                             torch.from_numpy(z.imag.copy()), n1, steps)
+    return out[0].numpy() + 1j * out[1].numpy()
+
+
+@pytest.mark.parametrize("b,n1,n2,design", [
+    (1, 1024, 32, "cluster"), (1, 2048, 64, "cluster"), (3, 1024, 16, "block"),
+    (2, 64, 64, "block"), (1, 8, 2, "block"),
+])
+def test_nocorr_schedule_matches_plain(b, n1, n2, design):
+    """The bare mode: both designs with no twiddle product in the last trip,
+    against col64_nocorr_plain and numpy's column DFT."""
+    z, _ = _case(b, n1, n2)
+    got, ran = _col64_by_kernel(torch.from_numpy(z), n1, None)
+    assert ran == design
+    got = got.numpy()
+    assert _rel(got, _nocorr_plain(z, n1)) <= TOL
+    assert _rel(got, np.fft.fft(z, axis=-2)) <= NUMPY_TOL
+
+
+def _jax_columns(z, n1):
+    """The JAX package's f64 stockham_axis2 on its radix tables."""
+    import jax.numpy as jnp
+    from phastft_tpu.ops.stockham import radix_tables_host
+    from phastft_tpu.ops.stockham import stockham_axis2 as jax_st
+
+    radix = {k: tuple((jnp.asarray(a), jnp.asarray(b)) for a, b in v)
+             for k, v in radix_tables_host(n1, "float64").items()}
+    br, bi = jax_st(jnp.asarray(z.real), jnp.asarray(z.imag), radix, n1)
+    return np.asarray(br) + 1j * np.asarray(bi)
+
+
+@pytest.mark.parametrize("n1,n2", [(8, 2), (256, 8), (2048, 4)])
+def test_col64_nocorr_plain_matches_jax_stockham(n1, n2):
+    """col64_nocorr_plain against the JAX package's stockham_axis2, the
+    permuted-input branch's column pass (fourstep_dist.py:203)."""
+    z, _ = _case(2, n1, n2)
+    got = _nocorr_plain(z, n1)
+    assert _rel(got, _jax_columns(z, n1)) <= TOL
+    assert _rel(got, np.fft.fft(z, axis=-2)) <= NUMPY_TOL
+
+
+#: (n, n1, ncols, col_base) of shard blocks: the one-block and cluster
+#: designs' shapes, a base that is not a multiple of the block's width, and
+#: the narrowest block col64 takes.
+SHARD_BLOCKS = [(1 << 16, 64, 256, 512), (1 << 20, 1024, 64, 960),
+                (1 << 12, 8, 2, 510), (1 << 22, 2048, 32, 2016)]
+
+
+@pytest.mark.parametrize("n,n1,ncols,col_base", SHARD_BLOCKS)
+def test_shard_tables_match_jax_local_correction(n, n1, ncols, col_base):
+    """col64 on a shard's (n1, ncols) block with col64_shard_tables: the
+    JAX package's column DFT times its _local_correction_cols, W_n^(k1 *
+    (col_base + j)), and numpy; the kernel model runs the same tables."""
+    import jax.numpy as jnp
+    from phastft_tpu.parallel.fourstep_dist import _local_correction_cols
+
+    rng = np.random.default_rng(ncols)
+    z = rng.standard_normal((n1, ncols)) + 1j * rng.standard_normal((n1, ncols))
+    tabs = col64_shard_tables(n, n1, ncols, col_base, torch.device("cpu"))
+    steps = torch.from_numpy(dif_twiddles_host(n1))
+    out = col64(torch.from_numpy(z.real.copy()), torch.from_numpy(z.imag.copy()), tabs,
+                n1, steps)
+    got = out[0].numpy() + 1j * out[1].numpy()
+    cr, ci = _local_correction_cols(n1, n // n1, jnp.asarray(col_base), ncols,
+                                    jnp.float64)
+    want = _jax_columns(z, n1) * (np.asarray(cr) + 1j * np.asarray(ci))
+    assert _rel(got, want) <= TOL
+    k1, j = np.arange(n1)[:, None], np.arange(ncols)[None, :]
+    oracle = np.fft.fft(z, axis=0) * np.exp(-2j * np.pi * (k1 * (col_base + j)) / n)
+    assert _rel(got, oracle) <= NUMPY_TOL
+    model, _ = _col64_by_kernel(torch.from_numpy(z[None]), n1,
+                                tuple(t.numpy() for t in tabs))
+    assert _rel(model.numpy()[0], got) <= TOL
+
+
+def test_shard_tables_and_nocorr_check_their_arguments():
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="do not lie"):
+        col64_shard_tables(1 << 12, 8, 256, 384, cpu)  # past the 512 columns
+    with pytest.raises(ValueError, match="do not lie"):
+        col64_shard_tables(1 << 12, 8, 1, 0, cpu)  # under col64's 2 columns
+    x = torch.zeros(8, 16, dtype=torch.float64)
+    steps = torch.from_numpy(dif_twiddles_host(8))
+    with pytest.raises(ValueError, match="col64_nocorr: unsupported shape"):
+        col64_nocorr(x[:, :1], x[:, :1], 8, steps)
+    with pytest.raises(TypeError, match="float64"):
+        col64_nocorr(x.float(), x.float(), 8, steps)
+    with pytest.raises(ValueError, match="dif8"):
+        col64_nocorr(x, x, 8, torch.from_numpy(dif_twiddles_host(16)))
+
+
 def test_model_constants_are_the_kernels():
     """The model's block, slab and cluster constants are csrc/col64.cu's,
     and the entry takes n1 up to 2048."""
@@ -386,3 +493,4 @@ def test_model_constants_are_the_kernels():
     assert const("CLUSTER_N1") == CLUSTER_N1
     assert "__launch_bounds__(THREADS, 2)" in src
     assert "n1 > 2048" in src and "phastft_col64_clusters" in src
+    assert "phastft_col64_nocorr" in src and "CORR ? fold(x[j], kq, ec) : x[j]" in src

@@ -45,8 +45,7 @@ TRANSFORMS = {
 }
 JAX_CHUNKED = "jax_chunked_2^13"
 BATCH_ROWS, BATCH_LOG = 2, 10
-ERRORS = ("flags", "planner_size", "too_small", "f64_df64", "f64_native",
-          "n1_over_2048", "batch_1d")
+ERRORS = ("flags", "planner_size", "too_small", "batch_1d")
 
 
 def _signal(log_n, seed, rows=None):
@@ -129,7 +128,6 @@ def _rank_cases(rank, d):
     # the errors, each before any collective
     n10 = np.zeros((1 << 10) // d, np.float32)
     tiny = np.zeros(1, np.float32)
-    big = np.zeros((1 << 19) // d, np.float32)
     calls = {
         "flags": lambda: fft_distributed(n10, n10, fwd, planner(10),
                                          permuted_output=True,
@@ -137,13 +135,6 @@ def _rank_cases(rank, d):
         "planner_size": lambda: fft_distributed(n10, n10, fwd, planner(12)),
         "too_small": lambda: fft_distributed(tiny, tiny, fwd, planner(
             d.bit_length() - 1)),
-        "f64_df64": lambda: fft_distributed(
-            n10, n10, fwd, pt.PlannerDit64(1 << 10, device="cpu")),
-        "f64_native": lambda: fft_distributed(
-            n10, n10, fwd, pt.PlannerDit64(1 << 10, options=pt.Options(),
-                                           device="cpu")),
-        "n1_over_2048": lambda: fft_distributed(
-            big, big, fwd, planner(19, options=pt.Options(leaf_fft_size=128))),
         "batch_1d": lambda: batch_fft_sharded(n10, n10, fwd, planner(10)),
     }
     errors = {}
@@ -295,9 +286,6 @@ WANT_ERRORS = {
     "flags": ("ValueError", "mutually exclusive"),
     "planner_size": ("NonPowerOfTwoError", "planner is for size 4096"),
     "too_small": ("NonPowerOfTwoError", "too small to shard"),
-    "f64_df64": ("NotImplementedError", "Queue 1 item 17"),
-    "f64_native": ("NotImplementedError", "Queue 1 item 17"),
-    "n1_over_2048": ("NotImplementedError", "Queue 1 item 18"),
     "batch_1d": ("LengthMismatchError", "at least 2 dims"),
 }
 

@@ -2,13 +2,13 @@
 JAX package's ``ops/ozaki.py`` and ``ops/pallas_ozdd.py``.
 
 The slicing and the scale are compared bit for bit (bf16 as f32). The
-contraction is compared on joined f64 values. The fused two-pass kernels of
-the JAX package run under the Pallas interpreter, which breaks TwoSum (see
-tests/test_ozaki.py), so the port's plain ``ozcol`` -> ``ozleaft`` is held
-to those runs at that test's own 1e-6, and to numpy's f64 FFT at 1e-10 (the
-contract bound; ~1e-11 is the slice truncation). The entries are held to
-the JAX package's entries, which take its XLA dd path on the CPU, and to
-numpy at 1e-10.
+contraction is compared on joined f64 values. The port's plain ``ozcol`` ->
+``ozleaft`` is held to numpy's f64 FFT at 1e-10 (the contract bound; ~1e-11
+is the slice truncation), and to the JAX package's fused two-pass kernels in
+tests/test_torch_ozaki_twopass.py (a file of its own: the Pallas
+interpreter's runs take most of this suite's time, and a file runs on one
+worker). The entries are held to the JAX package's entries, which take its
+XLA dd path on the CPU, and to numpy at 1e-10.
 """
 
 import numpy as np
@@ -154,54 +154,6 @@ def test_cmatmul_dd_matches_jax_and_f64():
 
 
 # -- the two passes ----------------------------------------------------------
-
-SHAPES = [(128, 1024), (256, 1024)]
-
-
-@pytest.fixture(scope="module")
-def jax_two_pass():
-    """The JAX package's ozcol_pallas -> ozleaft_pallas in interpret mode,
-    once per shape for the module: {(n1, n2): (x, relayout, output)}."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from phastft_tpu.ops.pallas_ozdd import (
-        ozcol_pallas, ozcol_tables_host, ozleaft_pallas, ozleaft_tables_host,
-    )
-
-    runs = {}
-    for n1, n2 in SHAPES:
-        rng = np.random.default_rng(n1)
-        n = n1 * n2
-        x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
-        arrs = [jnp.asarray(a).reshape(n1, n2)
-                for pair in (split_hi_lo(x.real), split_hi_lo(x.imag))
-                for a in pair]
-        ctabs = tuple(jnp.asarray(a) for a in ozcol_tables_host(n1, n2))
-        ltabs = tuple(jnp.asarray(a) for a in ozleaft_tables_host(n2))
-        with pltpu.force_tpu_interpret_mode():
-            c = ozcol_pallas(*arrs, ctabs, n1)
-            out = ozleaft_pallas(*c, ltabs, n1)
-        runs[(n1, n2)] = (x, c, out)
-    return runs
-
-
-@pytest.mark.parametrize("n1,n2", SHAPES)
-def test_two_pass_plain_matches_pallas_and_numpy(jax_two_pass, n1, n2):
-    x, jc, jout = jax_two_pass[(n1, n2)]
-    planes = [torch.from_numpy(a).reshape(n1, n2)
-              for pair in (split_hi_lo(x.real), split_hi_lo(x.imag)) for a in pair]
-    ctabs = _tabs_torch(ozdd.ozcol_tables_host(n1, n2), ozdd.OZCOL_SLICES)
-    ltabs = _tabs_torch(ozdd.ozleaft_tables_host(n2), ozdd.OZLEAFT_SLICES)
-    c = ozdd.ozcol(*planes, ctabs, n1)  # CPU tensors: the plain version
-    assert tuple(c[0].shape) == (n2 // 128, n1, 128) == tuple(jc[0].shape)
-    assert _rel(_joined(c), _joined(jc)) <= INTERPRET_TOL
-    out = ozdd.ozleaft(*c, ltabs, n1)
-    assert tuple(out[0].shape) == (n1 * n2,)
-    got = _joined(out)
-    assert _rel(got, _joined(jout)) <= INTERPRET_TOL
-    assert _rel(got, np.fft.fft(x)) <= OZ_TOL
-
 
 def test_two_pass_batch_and_natural_order():
     """A batch of 3 at (128, 1024): each entry equals its own transform, and
