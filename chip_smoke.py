@@ -286,14 +286,51 @@ same world of one rank:
    into NCCL's copies and the kernels; the f32 one at 2^30 beside
    ``fft_32_dit_with_planner``.
 
+The real transforms run last, in the same world of one rank:
+
+32. ``parity_r2c``: the four passes of ``csrc/r2c.cu`` (``deinterleave``,
+   ``untangle``, ``pre_untangle``, ``interleave_scale``) against their plain
+   versions in f32 and f64 at N = 4, 8, 2^16, 2^26 and on 257 rows of 2^12,
+   rel L2 <= 1e-6 (f32) and 1e-14 (f64), and whether they agree bit for
+   bit; and the two untangles in the distributed real transforms' mirror
+   form: z and the bins of 2^16, 2^26 and 257 rows of 2^12 cut into the
+   shards of 2 and 4 ranks, each shard with its partner's as the mirror,
+   its first bin and the wrap element as ``parallel/real_dist.py`` passes
+   them, bit for bit with the plain versions on the same arguments, and
+   the shards' outputs joined bit for bit with the one-device kernel's.
+33. ``e2e_r2c``: the real transforms' main path, counters set to 0 just
+   before and read just after: every R2C launches ``deinterleave`` and
+   ``untangle`` exactly once, every C2R ``pre_untangle`` and
+   ``interleave_scale`` once, and each some kernel of the half-length
+   transform: ``r2c_fft_f32`` / ``r2c_fft_f64`` at 2^16, 2^20, 2^24, 2^26
+   against numpy's f64 rfft (f32 5e-7 * max(1, log2(n)/18), f64 1e-12) and
+   back (1e-6, 1e-12), a (4, 2^22) batch twice on one reused planner, f64
+   at 2^29 (a nested inner plan) on 256 bins of ``dft_bins`` and a round
+   trip, the ``"df64"`` and ``"df64-oz"`` inner planners at 2^24 (which
+   must run ``ddcol``/``ddleaf`` and ``ozcol``/``ozleaft``), and
+   ``r2c_fft_distributed`` / ``c2r_fft_distributed`` at 2^26 in both
+   dtypes.
+34. ``times_r2c``: at 2^26 each pass beside its bound (``r2c_bounds``: each
+   input read once, each output written once; on one device the mirror is
+   the input itself, and both untangles need only the quarter table; the
+   bytes the untangle kernels' loads request, the mirror and the table
+   loads counted again, are reported beside it), its plain version (3 calls) and, for ``deinterleave`` and
+   ``interleave_scale``, one torch call computing the same function
+   (``x.view(n/2, 2).movedim(-1, 0).contiguous()``, ``torch.stack``); at
+   2^16, 2^20, 2^24, 2^26 (and f64 2^29) each whole transform through
+   ``*_with_planner`` (device and host clock) beside ``torch.fft.rfft`` /
+   ``irfft`` of the same dtype (a yardstick the port never calls) and the
+   port's zero-imaginary C2C of n, forward and inverse.
+
 Every timing follows ``release_memory``'s wait where 8 GiB or more went
 back to CUDA (``cudaFree``) just before it.
 
-The line before the last is the kernel summary (seventeen rows: the TPU
+Then a ``run`` line gives the whole run's seconds, the build included. The
+line before the last is the kernel summary (twenty-one rows: the TPU
 kernels' file:line beside each of the thirteen, and for the native f64
-kernels, ``col64_nocorr`` among them, the JAX package's XLA code they stand
-for); the last line is the device record. No CUDA device: exit 1 before any
-result.
+kernels, ``col64_nocorr`` among them, and the real transforms' four passes
+(f32 at 2^26), the JAX package's XLA code they stand for); the last line is
+the device record. No CUDA device: exit 1 before any result.
 """
 
 from __future__ import annotations
@@ -549,31 +586,75 @@ _SLEEP_RATE = []
 RELEASE_WAIT_BYTES = 8 << 30
 RELEASE_WAIT_S = 1.0
 
+#: The real transforms' four passes (``csrc/r2c.cu``) against their plain
+#: versions: rel L2 bounds per dtype (they agree bit for bit on the H100).
+R2C_KERNEL_TOL = {"f32": 1e-6, "f64": 1e-14}
+#: (rows, n) of the passes' parity: N = 4, 8, 2^16, 2^26 and 257 rows of
+#: 2^12.
+R2C_PARITY_SHAPES = ((1, 4), (1, 8), (1, 1 << 16), (1, 1 << 26), (257, 1 << 12))
+#: (rows, n) and world sizes of the untangles' mirror-form parity.
+R2C_MIRROR_SHAPES = ((1, 1 << 16), (1, 1 << 26), (257, 1 << 12))
+R2C_MIRROR_RANKS = (2, 4)
+#: log2 n of the real entries held to numpy's f64 rfft / irfft, and timed
+#: (BASELINE.md's R2C config, 2^16..2^26 at full width).
+R2C_E2E_LOGS = (16, 20, 24, 26)
+#: f64 at 2^29 (its inner 2^28 runs the nested plan), held to a direct DFT
+#: on R2C_TOP_BINS bins of the compact spectrum.
+R2C_TOP_LOG = 29
+R2C_TOP_BINS = 256
+#: (rows, n) of the batch on one reused planner.
+R2C_BATCH = (4, 1 << 22)
+#: The df64 and df64-oz inner planners, and the distributed real
+#: transforms at world size 1.
+R2C_DD_LOG = 24
+R2C_DIST_LOG = 26
+#: (f64_engine, other inner options, kernels the inner transform must run)
+#: of the dd inner planners at R2C_DD_LOG.
+R2C_DD_ENGINES = (("df64", {}, ("ddcol", "ddleaf")),
+                  ("df64-oz", {"leaf_fft_size": 1 << 13}, ("ozcol", "ozleaft")))
+#: FP operations per bin of an untangle (s and d: 4, tw * d: 6, the output:
+#: 4), and per real of interleave_scale (the scale).
+R2C_UNTANGLE_FLOPS = 14
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def rel_l2(got_re, got_im, want_re, want_im) -> float:
+def rel_l2(got_re, got_im, want_re, want_im, worst: bool = False):
     """rel L2 of a planar pair against another, summed in f64 in chunks of
-    CHUNK elements (at 2^30 points a plane in f64 is 8 GiB)."""
-    num = den = 0.0
+    CHUNK elements (at 2^30 points a plane in f64 is 8 GiB). ``got_im`` and
+    ``want_im`` None: one plane. ``worst``: (rel L2, max abs error), and a
+    result that is not finite raises."""
+    num = den = top = 0.0
     for got, want in ((got_re, want_re), (got_im, want_im)):
+        if got is None:
+            continue
         got, want = got.reshape(-1), want.reshape(-1)
         for s in range(0, got.numel(), CHUNK):
             w = want[s:s + CHUNK].double()
-            num += float(((got[s:s + CHUNK].double() - w) ** 2).sum())
+            d = got[s:s + CHUNK].double() - w
+            num += float((d ** 2).sum())
             den += float((w ** 2).sum())
-    return float(np.sqrt(num / den))
+            if worst:
+                top = max(top, float(d.abs().max()))
+    err = float(np.sqrt(num / den))
+    if not worst:
+        return err
+    if not np.isfinite(err):
+        raise AssertionError("output is not finite")
+    return err, top
 
 
 def max_abs(got_re, got_im, want_re, want_im) -> float:
     return float(max((got_re - want_re).abs().max(), (got_im - want_im).abs().max()))
 
 
-def oracle_err(got, x) -> float:
-    """rel L2 of (re, im) tensors against numpy's f64 FFT of complex x."""
-    want = np.fft.fft(x.astype(np.complex128), axis=-1)
+def oracle_err(got, x, real: bool = False) -> float:
+    """rel L2 of (re, im) tensors against numpy's f64 FFT of complex x, or
+    with ``real`` its compact rfft of real x."""
+    want = (np.fft.rfft(x.astype(np.float64), axis=-1) if real
+            else np.fft.fft(x.astype(np.complex128), axis=-1))
     g = got[0].cpu().numpy().astype(np.float64) + 1j * got[1].cpu().numpy()
     if not np.all(np.isfinite(g)) or g.shape != want.shape:
         raise AssertionError(f"bad output: shape {g.shape}, finite {np.isfinite(g).all()}")
@@ -1118,6 +1199,371 @@ def hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err) -> None:
         top["hybrid"] = row  # the kernels line: the last (largest) leaf
         del xr, xi, xc
     release_memory()
+
+
+def r2c_bounds(rows: int, n: int, f64: bool):
+    """{pass: bound} of the four passes of a real transform of ``rows`` rows
+    of n points on one device: each input read once, each output written
+    once, against the passes' FP operations at the f32 / FP64 peak. The
+    untangles' mirror is their input itself (a k / H - k pairing reads each
+    element once), and both need only the quarter table (H/2 + 1 entries,
+    tw[H - k] = -conj(tw[k]) past it). ``requested_ms`` is the time of the
+    bytes the untangle kernels' loads ask for: the mirror loaded apart from
+    the input, a table entry per bin (the inverse's full-length table)."""
+    e = 8 if f64 else 4
+    h = n // 2
+    rate = fp64_flops_per_s() if f64 else F32_FLOPS_PER_S
+    quarter = 2 * (h // 2 + 1)
+
+    def bound(nbytes, flops, requested=None):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / rate * 1e3
+        out = {"bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops}
+        if requested is not None:
+            out["requested_ms"] = requested * e / HBM_BYTES_PER_S * 1e3
+        return out
+
+    spectrum = 2 * rows * (h + 1)
+    planes = 2 * rows * h
+    return {
+        "deinterleave": bound(2 * rows * n * e, 0),
+        "untangle": bound((planes + quarter + spectrum) * e, R2C_UNTANGLE_FLOPS * rows * h,
+                          requested=2 * planes + 2 * rows * h + spectrum),
+        "pre_untangle": bound((spectrum + quarter + planes) * e, R2C_UNTANGLE_FLOPS * rows * h,
+                              requested=2 * planes + 2 * rows * h + planes),
+        "interleave_scale": bound(2 * rows * n * e, rows * n),
+    }
+
+
+def r2c_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
+    """The real transforms (run inside ``nccl_world``): the four passes
+    against their plain versions, the main path through the public entries
+    with its launches, the distributed real transforms at world size 1, and
+    times."""
+    import torch
+
+    from phastft_tpu_torch import (
+        Direction, Options, PlannerDit32, PlannerDit64, PlannerR2c32, PlannerR2c64,
+        c2r_fft_f32, c2r_fft_f32_with_planner, c2r_fft_f64, c2r_fft_f64_with_planner,
+        fft_32_dit_with_planner, fft_64_dit_with_planner, r2c_fft_f32,
+        r2c_fft_f32_with_planner, r2c_fft_f64, r2c_fft_f64_with_planner,
+    )
+    from phastft_tpu_torch.ops import r2c as R
+    from phastft_tpu_torch.ops.colfft import colfft, colfft_nocorr, colfft_out3d
+    from phastft_tpu_torch.ops.dd import ddcol, ddcol_nocorr, ddleaf
+    from phastft_tpu_torch.ops.leaf import hybrid, leaf, leaf3
+    from phastft_tpu_torch.ops.leaft import leaft
+    from phastft_tpu_torch.ops.native import col64, col64_nocorr, leaf64
+    from phastft_tpu_torch.ops.ozdd import ozcol, ozleaft
+    from phastft_tpu_torch.ops.transpose import transpose2, transpose2_64
+    from phastft_tpu_torch.parallel import c2r_fft_distributed, r2c_fft_distributed
+
+    passes = (R.deinterleave, R.untangle, R.pre_untangle, R.interleave_scale)
+    inner = (colfft, colfft_nocorr, colfft_out3d, leaft, leaf, leaf3, hybrid, transpose2,
+             ddcol, ddcol_nocorr, ddleaf, ozcol, ozleaft, col64, col64_nocorr, leaf64,
+             transpose2_64)
+    dtypes = {"f32": torch.float32, "f64": torch.float64}
+    planners = {"f32": PlannerR2c32, "f64": PlannerR2c64}
+    entries = {"f32": (r2c_fft_f32, c2r_fft_f32, r2c_fft_f32_with_planner,
+                       c2r_fft_f32_with_planner, fft_32_dit_with_planner, PlannerDit32),
+               "f64": (r2c_fft_f64, c2r_fft_f64, r2c_fft_f64_with_planner,
+                       c2r_fft_f64_with_planner, fft_64_dit_with_planner, PlannerDit64)}
+
+    def randn(shape, tag):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtypes[tag])
+
+    def parity(got, want):
+        """(rel L2, max abs error, bit for bit) of a kernel's output planes
+        against its plain version's."""
+        if [g.shape for g in got] != [w.shape for w in want]:
+            raise AssertionError(f"shapes {[tuple(g.shape) for g in got]}, "
+                                 f"want {[tuple(w.shape) for w in want]}")
+        two = len(got) == 2
+        err, mabs = rel_l2(got[0], got[1] if two else None, want[0],
+                           want[1] if two else None, worst=True)
+        return err, mabs, all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+
+    # -- parity: each pass against its plain version on the same inputs
+    for k in passes:
+        max_err[k.__name__] = 0.0
+    for tag in dtypes:
+        for rows, n in R2C_PARITY_SHAPES:
+            p = planners[tag](n)
+            x = randn((rows, n), tag)
+            z = (randn((rows, n // 2), tag), randn((rows, n // 2), tag))
+            sp = (randn((rows, n // 2 + 1), tag), randn((rows, n // 2 + 1), tag))
+            tw, ctw = (p.twiddles_re, p.twiddles_im), p.c2r_twiddles
+            cases = (
+                ("deinterleave", lambda: R.deinterleave(x), lambda: R.deinterleave_plain(x)),
+                ("untangle", lambda: R.untangle(*z, *tw), lambda: R.untangle_plain(*z, *tw)),
+                ("pre_untangle", lambda: R.pre_untangle(*sp, *ctw),
+                 lambda: R.pre_untangle_plain(*sp, *ctw)),
+                ("interleave_scale", lambda: (R.interleave_scale(*z, 2.0 / n),),
+                 lambda: (R.interleave_scale_plain(*z, 2.0 / n),)),
+            )
+            for name, kernel, plain in cases:
+                k = kernel()
+                torch.cuda.synchronize()
+                err, mabs, equal = parity(k, plain())
+                max_err[name] = max(max_err[name], mabs)
+                emit({"phase": "parity_r2c", "kernel": name, "dtype": tag, "rows": rows,
+                      "n": n, "rel_l2": err, "max_abs_err": mabs, "bit_equal": equal,
+                      "bound": R2C_KERNEL_TOL[tag]})
+                check(f"{name} parity {tag} at {rows} x {n}", err, R2C_KERNEL_TOL[tag])
+                del k
+            del x, z, sp, p
+    torch.cuda.empty_cache()
+
+    # -- the untangles in the mirror form of d ranks (parallel/real_dist.py):
+    # rank r's shard z[rL, (r+1)L), its partner d-1-r's shard as the mirror
+    # (with bin H on the inverse's last shard), the wrap element z[(d-r)L]
+    # (z[0] / X[H] for r = 0), bins from k0 = rL, the Nyquist bin on the last
+    for tag in dtypes:
+        for rows, n in R2C_MIRROR_SHAPES:
+            p = planners[tag](n)
+            half = n // 2
+            tw, ctw = (p.twiddles_re, p.twiddles_im), p.c2r_twiddles
+            z = (randn((rows, half), tag), randn((rows, half), tag))
+            sp = (randn((rows, half + 1), tag), randn((rows, half + 1), tag))
+            whole = (R.untangle(*z, *tw), R.pre_untangle(*sp, *ctw))
+            for d in R2C_MIRROR_RANKS:
+                length = half // d
+
+                def shard(x, r, extra=0):
+                    return x[..., r * length:(r + 1) * length + extra].contiguous()
+
+                outs = {"untangle": [], "pre_untangle": []}
+                for r in range(d):
+                    partner = d - 1 - r
+                    wrap = 0 if r == 0 else (d - r) * length
+                    mirror = (shard(z[0], partner), shard(z[1], partner),
+                              z[0][..., wrap], z[1][..., wrap])
+                    args = (shard(z[0], r), shard(z[1], r), *tw, mirror)
+                    kw = {"k0": r * length, "half": half, "nyquist": r == d - 1}
+                    k = R.untangle(*args, **kw)
+                    torch.cuda.synchronize()
+                    outs["untangle"].append((k, R.untangle_plain(*args, **kw)))
+                    last = int(partner == d - 1)
+                    wrap = half if r == 0 else (d - r) * length
+                    mirror = (shard(sp[0], partner, last), shard(sp[1], partner, last),
+                              sp[0][..., wrap], sp[1][..., wrap])
+                    args = (shard(sp[0], r), shard(sp[1], r), *ctw, mirror)
+                    kw = {"k0": r * length, "half": half}
+                    k = R.pre_untangle(*args, **kw)
+                    torch.cuda.synchronize()
+                    outs["pre_untangle"].append((k, R.pre_untangle_plain(*args, **kw)))
+                for (name, pairs), one in zip(outs.items(), whole):
+                    err = mabs = 0.0
+                    equal = True
+                    for k, pl in pairs:
+                        e, m, eq = parity(k, pl)
+                        err, mabs, equal = max(err, e), max(mabs, m), equal and eq
+                    joined = all(bool(torch.equal(torch.cat([k[i] for k, _ in pairs], -1),
+                                                  one[i])) for i in range(2))
+                    max_err[name] = max(max_err[name], mabs)
+                    emit({"phase": "parity_r2c_mirror", "kernel": name, "dtype": tag,
+                          "rows": rows, "n": n, "ranks": d, "rel_l2": err,
+                          "max_abs_err": mabs, "bit_equal": equal,
+                          "joined_equals_one_device": joined, "bound": R2C_KERNEL_TOL[tag]})
+                    check(f"{name} mirror form {tag} at {rows} x {n}, {d} ranks", err,
+                          R2C_KERNEL_TOL[tag])
+                    if not joined:
+                        raise AssertionError(f"{name} mirror form {tag} at {rows} x {n}, "
+                                             f"{d} ranks: the shards do not join to the "
+                                             f"one-device result")
+                del outs, pairs, k
+            del z, sp, whole, p
+    torch.cuda.empty_cache()
+
+    # -- the main path: counters at 0 just before, read just after
+    for k in (*passes, *inner):
+        k.launches = 0
+    run = counted(passes)
+    fwd = {"deinterleave": 1, "untangle": 1}
+    inv = {"pre_untangle": 1, "interleave_scale": 1}
+    inner_seen = {}
+
+    def transform(fn, want, what):
+        """run(fn, want), which must also launch the half-length transform's
+        kernels; the inner kernels it launched are recorded under ``what``."""
+        before = {k.__name__: k.launches for k in inner}
+        out = run(fn, want)
+        got = {k.__name__: k.launches - before[k.__name__] for k in inner}
+        got = {k: v for k, v in got.items() if v}
+        if not got:
+            raise AssertionError(f"{what}: no kernel of the half-length transform ran")
+        inner_seen[what] = got
+        return out
+
+    def spec_err(spec, x):
+        """rel L2 against numpy's f64 rfft of x; the DC and Nyquist bins must
+        be real."""
+        if bool(spec[1][..., 0].any()) or bool(spec[1][..., -1].any()):
+            raise AssertionError("the DC or Nyquist bin is not real")
+        return oracle_err(spec, x.cpu().numpy(), real=True)
+
+    def back_err(back, x):
+        return rel_l2(back, None, x, None, worst=True)[0]
+
+    def fwd_tol(tag, log_n):
+        return 5e-7 * max(1.0, log_n / 18.0) if tag == "f32" else DD_E2E_TOL
+
+    def rt_tol(tag):
+        return 1e-6 if tag == "f32" else DD_E2E_TOL
+
+    errs = {}
+    for tag in dtypes:
+        r2c, c2r, r2c_p, c2r_p, _, _ = entries[tag]
+        for log_n in R2C_E2E_LOGS:
+            n = 1 << log_n
+            x = randn((n,), tag)
+            spec = transform(lambda: r2c(x), fwd, f"{tag} r2c 2^{log_n}")
+            errs[f"{tag}_r2c_2^{log_n}"] = err = spec_err(spec, x)
+            check(f"{tag} r2c 2^{log_n}", err, fwd_tol(tag, log_n))
+            back = transform(lambda: c2r(*spec), inv, f"{tag} c2r 2^{log_n}")
+            errs[f"{tag}_roundtrip_2^{log_n}"] = rt = back_err(back, x)
+            check(f"{tag} round trip 2^{log_n}", rt, rt_tol(tag))
+            del x, spec, back
+        # one planner reused on a batch
+        rows, n = R2C_BATCH
+        log_b = n.bit_length() - 1
+        p = planners[tag](n)
+        for i in range(2):
+            x = randn((rows, n), tag)
+            spec = transform(lambda: r2c_p(x, p), fwd, f"{tag} r2c {rows} x {n}")
+            err = spec_err(spec, x)
+            errs.setdefault(f"{tag}_planner_batch{rows}_2^{log_b}", []).append(err)
+            check(f"{tag} r2c planner reuse {rows} x {n}", err, fwd_tol(tag, log_b))
+            back = transform(lambda: c2r_p(*spec, p), inv, f"{tag} c2r {rows} x {n}")
+            rt = back_err(back, x)
+            errs.setdefault(f"{tag}_planner_roundtrip_batch{rows}_2^{log_b}", []).append(rt)
+            check(f"{tag} planner round trip {rows} x {n}", rt, rt_tol(tag))
+            del x, spec, back
+        torch.cuda.empty_cache()
+    # f64 at 2^29: 256 bins of a direct DFT (0, 1, n/4 and n/2 among them),
+    # and a round trip
+    n = 1 << R2C_TOP_LOG
+    x = randn((n,), "f64")
+    spec = transform(lambda: r2c_fft_f64(x), fwd, f"f64 r2c 2^{R2C_TOP_LOG}")
+    ks = torch.randint(0, n // 2 + 1, (R2C_TOP_BINS,), generator=gen, device=dev)
+    ks[:4] = torch.tensor([0, 1, n // 4, n // 2], device=dev)
+    zero = torch.zeros_like(x)
+    want = dft_bins(x, zero, ks)
+    del zero
+    got = torch.complex(spec[0][ks], spec[1][ks])
+    err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    errs[f"f64_r2c_2^{R2C_TOP_LOG}_{R2C_TOP_BINS}_bins"] = err
+    check(f"f64 r2c 2^{R2C_TOP_LOG} on {R2C_TOP_BINS} bins", err, DD_E2E_TOL)
+    if bool(spec[1][0] != 0) or bool(spec[1][-1] != 0):
+        raise AssertionError(f"f64 r2c 2^{R2C_TOP_LOG}: the DC or Nyquist bin is not real")
+    back = transform(lambda: c2r_fft_f64(*spec), inv, f"f64 c2r 2^{R2C_TOP_LOG}")
+    errs[f"f64_roundtrip_2^{R2C_TOP_LOG}"] = rt = back_err(back, x)
+    check(f"f64 round trip 2^{R2C_TOP_LOG}", rt, DD_E2E_TOL)
+    del x, spec, back, want, got
+    release_memory()
+    # the df64 and df64-oz inner planners
+    n = 1 << R2C_DD_LOG
+    for engine, opts, arms in R2C_DD_ENGINES:
+        p = PlannerR2c64(n, inner_options=Options(f64_engine=engine, **opts))
+        x = randn((n,), "f64")
+        spec = transform(lambda: r2c_fft_f64_with_planner(x, p), fwd,
+                         f"{engine} r2c 2^{R2C_DD_LOG}")
+        if not all(inner_seen[f"{engine} r2c 2^{R2C_DD_LOG}"].get(k) for k in arms):
+            raise AssertionError(f"{engine}: the inner transform did not run {arms}")
+        tol = OZ_E2E_TOL if engine == "df64-oz" else DD_E2E_TOL
+        errs[f"{engine}_r2c_2^{R2C_DD_LOG}"] = err = spec_err(spec, x)
+        check(f"{engine} r2c 2^{R2C_DD_LOG}", err, tol)
+        back = transform(lambda: c2r_fft_f64_with_planner(*spec, p), inv,
+                         f"{engine} c2r 2^{R2C_DD_LOG}")
+        errs[f"{engine}_roundtrip_2^{R2C_DD_LOG}"] = rt = back_err(back, x)
+        check(f"{engine} round trip 2^{R2C_DD_LOG}", rt, tol)
+        del p, x, spec, back
+    # the distributed real transforms at world size 1 (NCCL)
+    n = 1 << R2C_DIST_LOG
+    for tag in dtypes:
+        p = planners[tag](n)
+        x = randn((n,), tag)
+        spec = transform(lambda: r2c_fft_distributed(x, p), fwd, f"{tag} r2c_dist 2^{R2C_DIST_LOG}")
+        errs[f"{tag}_r2c_distributed_2^{R2C_DIST_LOG}"] = err = spec_err(spec, x)
+        check(f"{tag} r2c_fft_distributed 2^{R2C_DIST_LOG}", err, fwd_tol(tag, R2C_DIST_LOG))
+        back = transform(lambda: c2r_fft_distributed(*spec, p), inv,
+                         f"{tag} c2r_dist 2^{R2C_DIST_LOG}")
+        errs[f"{tag}_distributed_roundtrip_2^{R2C_DIST_LOG}"] = rt = back_err(back, x)
+        check(f"{tag} distributed round trip 2^{R2C_DIST_LOG}", rt, rt_tol(tag))
+        del p, x, spec, back
+    torch.cuda.synchronize()
+    got = {k.__name__: k.launches for k in passes}
+    emit({"phase": "e2e_r2c", "rel_l2": errs, "launches": got, "want": run.total,
+          "inner_launches": inner_seen})
+    if got != run.total:
+        raise AssertionError(f"launches {got}, want {run.total}")
+    for name, count in got.items():
+        if count < 1:
+            raise AssertionError(f"{name} was never launched on the real transforms' path")
+        launches[name] = count
+    from phastft_tpu_torch.real_fft import _cached_planner
+
+    _cached_planner.cache_clear()  # the auto-planned entries' tables
+    release_memory()
+
+    # -- times: each pass beside its bound, its plain version and its
+    # one-call library equivalent; each whole transform beside
+    # torch.fft.rfft / irfft and the port's zero-imaginary C2C of n
+    for tag in dtypes:
+        r2c, c2r, r2c_p, c2r_p, c2c, dit = entries[tag]
+        logs = R2C_E2E_LOGS + ((R2C_TOP_LOG,) if tag == "f64" else ())
+        for log_n in logs:
+            n = 1 << log_n
+            reps = 20 if log_n <= 24 else 10 if log_n <= 26 else 5
+            p = planners[tag](n)
+            x = randn((n,), tag)
+            spec = r2c_p(x, p)
+            row = {}
+            if log_n == max(R2C_E2E_LOGS):
+                z = R.deinterleave(x)
+                bounds = r2c_bounds(1, n, tag == "f64")
+                calls = {
+                    "deinterleave": (lambda: R.deinterleave(x), lambda: R.deinterleave_plain(x),
+                                     lambda: x.view(n // 2, 2).movedim(-1, 0).contiguous()),
+                    "untangle": (lambda: R.untangle(*z, p.twiddles_re, p.twiddles_im),
+                                 lambda: R.untangle_plain(*z, p.twiddles_re, p.twiddles_im),
+                                 None),
+                    "pre_untangle": (lambda: R.pre_untangle(*spec, *p.c2r_twiddles),
+                                     lambda: R.pre_untangle_plain(*spec, *p.c2r_twiddles),
+                                     None),
+                    "interleave_scale": (lambda: R.interleave_scale(*z, 2.0 / n),
+                                         lambda: R.interleave_scale_plain(*z, 2.0 / n),
+                                         lambda: torch.stack(z, -1)),
+                }
+                for name, (kern, plain, lib) in calls.items():
+                    row[name] = {"ms": time_ms(kern, flush, reps),
+                                 "plain_ms": time_ms(plain, flush, 3),
+                                 "library_ms": None if lib is None else time_ms(lib, flush, reps),
+                                 "n": n, "rows": 1, "dtype": tag, **bounds[name]}
+                    row[name]["bound_share"] = row[name]["bound_ms"] / row[name]["ms"]
+                if tag == "f32":  # the kernels line: f32 at the top of BASELINE's range
+                    top.update(row)
+                del z
+            zero = torch.zeros_like(x)
+            sc = torch.complex(*spec)
+            c2c_planner = dit(n)
+            out = {
+                "r2c_ms": time_ms(lambda: r2c_p(x, p), flush, reps),
+                "r2c_wall_ms": wall_ms(lambda: r2c_p(x, p), flush, reps),
+                "c2r_ms": time_ms(lambda: c2r_p(*spec, p), flush, reps),
+                "rfft_library_ms": time_ms(lambda: torch.fft.rfft(x), flush, reps),
+                "irfft_library_ms": time_ms(lambda: torch.fft.irfft(sc), flush, reps),
+                "c2c_forward_ms": time_ms(
+                    lambda: c2c(x, zero, Direction.Forward, c2c_planner), flush, reps),
+                "c2c_inverse_ms": time_ms(
+                    lambda: c2c(x, zero, Direction.Reverse, c2c_planner), flush, reps),
+            }
+            emit({"phase": "times_r2c", "dtype": tag, "n": n, "card": smi, **out,
+                  "passes": row})
+            del p, x, spec, sc, zero, c2c_planner
+            release_memory()
 
 
 def dist_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
@@ -2148,6 +2594,7 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3254,6 +3701,7 @@ def main() -> int:
     with nccl_world():
         dist_phases(dev, gen, flush, smi, top, launches, max_err)
         dist64_phases(dev, gen, flush, smi, top, launches, max_err)
+        r2c_phases(dev, gen, flush, smi, top, launches, max_err)
 
     sources = {
         "colfft_out3d": ("phastft_tpu_torch/csrc/colfft.cu",
@@ -3291,7 +3739,14 @@ def main() -> int:
                   "phastft_tpu/ops/fourstep.py:353-380"),
         "transpose2_64": ("phastft_tpu_torch/csrc/transpose64.cu",
                           "phastft_tpu/ops/fourstep.py:149"),
+        # the real transforms' passes: no TPU kernel; the XLA code of
+        # phastft_tpu/ops/r2c.py that each stands for
+        "deinterleave": ("phastft_tpu_torch/csrc/r2c.cu", "phastft_tpu/ops/r2c.py:302"),
+        "untangle": ("phastft_tpu_torch/csrc/r2c.cu", "phastft_tpu/ops/r2c.py:65"),
+        "pre_untangle": ("phastft_tpu_torch/csrc/r2c.cu", "phastft_tpu/ops/r2c.py:96"),
+        "interleave_scale": ("phastft_tpu_torch/csrc/r2c.cu", "phastft_tpu/ops/r2c.py:451"),
     }
+    emit({"phase": "run", "seconds": time.perf_counter() - t_run, "card": smi})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": max_err[name],

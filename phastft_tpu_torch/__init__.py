@@ -24,8 +24,14 @@ the dd kernels (``f64_engine`` = ``"df64"``, ``"df64-fused"``,
 ``"df64-split"``), and with ``"df64-oz"`` the split levels of
 n1 = 128..2048 over a leaf of 2^10..2^13 points on the Ozaki bf16-slice
 kernels; both are opt-in. Everything else (n >= 2^31, ...) raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it. The
-package imports neither JAX nor phastft_tpu.
+``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
+
+The real transforms (``PlannerR2c32/64``, ``r2c_*`` / ``c2r_*``, compact
+N/2 + 1 spectrum, n = 4..2^31) run the half-length C2C between the four
+streaming kernels of ``csrc/r2c.cu``; the interleaved-complex entries
+(``*_interleaved``) and ``numpy_like`` (``numpy.fft``'s surface, numpy in
+and out) ride the planar entries. The package imports neither JAX nor
+phastft_tpu.
 """
 
 from __future__ import annotations
@@ -37,7 +43,14 @@ from .errors import (
     PlannerSizeMismatchError,
 )
 from .options import Options
-from .planner import Direction, PlannerDit32, PlannerDit64, PlannerMode
+from .planner import (
+    Direction,
+    PlannerDit32,
+    PlannerDit64,
+    PlannerMode,
+    PlannerR2c32,
+    PlannerR2c64,
+)
 from .fft import (
     fft_32_dit,
     fft_32_dit_with_planner,
@@ -46,14 +59,38 @@ from .fft import (
     fft_64_dit_with_planner,
     fft_64_dit_with_planner_and_opts,
 )
+from .real_fft import (
+    c2r_fft_f32,
+    c2r_fft_f32_with_planner,
+    c2r_fft_f32_with_planner_and_scratch,
+    c2r_fft_f64,
+    c2r_fft_f64_with_planner,
+    c2r_fft_f64_with_planner_and_scratch,
+    r2c_fft_f32,
+    r2c_fft_f32_with_planner,
+    r2c_fft_f64,
+    r2c_fft_f64_with_planner,
+)
+from . import numpy_like
+from .interleaved import (
+    fft_32_interleaved,
+    fft_32_interleaved_with_planner,
+    fft_32_interleaved_with_planner_and_opts,
+    fft_64_interleaved,
+    fft_64_interleaved_with_planner,
+    fft_64_interleaved_with_planner_and_opts,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "numpy_like",
     "Direction",
     "PlannerMode",
     "PlannerDit32",
     "PlannerDit64",
+    "PlannerR2c32",
+    "PlannerR2c64",
     "Options",
     "PhastftError",
     "NonPowerOfTwoError",
@@ -65,5 +102,21 @@ __all__ = [
     "fft_64_dit_with_planner",
     "fft_32_dit_with_planner_and_opts",
     "fft_64_dit_with_planner_and_opts",
+    "r2c_fft_f32",
+    "r2c_fft_f64",
+    "r2c_fft_f32_with_planner",
+    "r2c_fft_f64_with_planner",
+    "c2r_fft_f32",
+    "c2r_fft_f64",
+    "c2r_fft_f32_with_planner",
+    "c2r_fft_f64_with_planner",
+    "c2r_fft_f32_with_planner_and_scratch",
+    "c2r_fft_f64_with_planner_and_scratch",
+    "fft_32_interleaved",
+    "fft_64_interleaved",
+    "fft_32_interleaved_with_planner",
+    "fft_64_interleaved_with_planner",
+    "fft_32_interleaved_with_planner_and_opts",
+    "fft_64_interleaved_with_planner_and_opts",
     "__version__",
 ]

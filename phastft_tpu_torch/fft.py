@@ -124,6 +124,30 @@ def _length(x) -> int:
     return int(np.shape(x)[-1]) if np.ndim(x) else 0
 
 
+def engine_of(planner, f64_engine=None, leaf_kernel=None):
+    """(build, variant, args) of the planner's C2C engine: the closure
+    builder of ``ops/dit.py``, called as ``build(n, leaf, scale,
+    *variant)``, and the planner state its closure takes after the two
+    planes, ``run(re, im, *args)``.
+
+    An explicit ``f64_engine`` / ``leaf_kernel`` (per-call options) wins
+    over the planner's; None defers. f64 runs the native engine, as the JAX
+    package runs every value that does not start with "df64"; "df64-split" /
+    "df64-fused" pin the dd leaf lowering, and an unknown suffix ("oz" among
+    them) falls to the default, the one-kernel leaf. The Ozaki kernels run
+    where the planner built their tables. f32 runs the leaf kernel on its
+    tables."""
+    if planner.dtype == np.float64:
+        engine = (f64_engine if f64_engine is not None
+                  else (planner.options.f64_engine or "native"))
+        if not engine.startswith("df64"):
+            return build_native_fft, (), (planner.native_state,)
+        dd_leaf = engine.split("-", 1)[1] if "-" in engine else None
+        return build_dd_fft, (dd_leaf,), planner.dd_state
+    kernel = leaf_kernel if leaf_kernel is not None else planner.options.leaf_kernel
+    return build_fast_fft, (kernel,), (planner.tables_for(planner.plan, kernel),)
+
+
 def _run(reals, imags, direction, planner, opts: Options):
     direction = _coerce_direction(direction)
     n, _ = _validate(reals, imags, planner)
@@ -138,33 +162,8 @@ def _run(reals, imags, direction, planner, opts: Options):
     scale = direction is Direction.Reverse
     # The leaf size must match the planner's tables, so it comes from the
     # planner's own options, not the per-call opts.
-    leaf = planner.options.leaf_fft_size
-    if planner.dtype == np.float64:
-        # Explicit per-call opts win over the planner's; None defers.
-        engine = (
-            opts.f64_engine if opts.f64_engine is not None
-            else (planner.options.f64_engine or "native")
-        )
-        if not engine.startswith("df64"):
-            # the native engine, as the JAX package runs every other value
-            run = build_native_fft(n, leaf, scale)
-            args = (planner.native_state,)
-        else:
-            # "df64-split" / "df64-fused" pin the dd leaf lowering; an
-            # unknown suffix ("oz" among them) falls to the default, the
-            # one-kernel leaf. The Ozaki kernels run where the planner
-            # built their tables.
-            dd_leaf = engine.split("-", 1)[1] if "-" in engine else None
-            run = build_dd_fft(n, leaf, scale, dd_leaf)
-            args = planner.dd_state
-    else:
-        # Explicit per-call opts win over the planner's; None defers.
-        leaf_kernel = (
-            opts.leaf_kernel if opts.leaf_kernel is not None
-            else planner.options.leaf_kernel
-        )
-        run = build_fast_fft(n, leaf, scale, leaf_kernel)
-        args = (planner.tables_for(planner.plan, leaf_kernel),)
+    build, variant, args = engine_of(planner, opts.f64_engine, opts.leaf_kernel)
+    run = build(n, planner.options.leaf_fft_size, scale, *variant)
     reals = _as_tensor(reals, planner)
     imags = _as_tensor(imags, planner)
     if direction is Direction.Forward:

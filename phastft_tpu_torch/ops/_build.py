@@ -35,6 +35,7 @@ _NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_D = ctypes.c_double
 #: C entry points and their argument types: pointers and the stream are
 #: c_void_p (a c_int would cut a 64-bit pointer), sizes are c_int, and a
 #: batch or row count whose product with n can pass 2^31 is c_int64.
@@ -68,6 +69,10 @@ _SIGNATURES = {
     "phastft_leaf64": [_P] * 8 + [_L, _I, _P],
     "phastft_leaf64_clusters": [_I],
     "phastft_transpose2_64": [_P] * 4 + [_L, _L, _L, _P],
+    # the real transforms' passes (f64 flag first)
+    "phastft_r2c_deinterleave": [_I, _P, _P, _P, _L, _P],
+    "phastft_r2c_interleave": [_I, _P, _P, _P, _L, _D, _P],
+    "phastft_r2c_untangle": [_I, _I] + ([_P, _P, _L] * 3) + [_P] * 4 + [_L] * 5 + [_I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,456 @@
+"""Real-input (R2C) and real-output (C2R) transforms via the half-length
+complex trick: the compact N/2 + 1 spectrum.
+
+Counterpart of the JAX package's ``ops/r2c.py``. The math is its own (the
+reference's r2c.rs): pack the N reals into an N/2-point complex FFT, then a
+conjugate-symmetric untangle with mirrored pairs:
+
+  forward   z = FFT_{N/2}(even + i odd)
+            X[k] = s/2 - i tw[k] d,  s = z[k] + conj(z[N/2-k]),
+            d = z[k] - conj(z[N/2-k]), tw = 0.5 W_N^k; X[N/2] = Re z0 - Im z0
+  inverse   z[k] = s/2 + i conj(tw[k]) d,  s = X[k] + conj(X[N/2-k]),
+            d = X[k] - conj(X[N/2-k])
+            x = interleave(IFFT_{N/2}(z)) (the swap trick, 2/N folded into
+            the interleave)
+
+The four streaming passes are hand-written kernels (``csrc/r2c.cu``), each
+beside its plain torch version, which a CPU tensor runs:
+
+* ``deinterleave``: N reals -> even / odd planes of N/2 (stands for
+  ``_deinterleave``, ``phastft_tpu/ops/r2c.py:302``);
+* ``untangle``: z -> the bins (``_untangle``, ``:65``);
+* ``pre_untangle``: the bins -> z (``_pre_untangle``, ``:96``);
+* ``interleave_scale``: the two planes x 2/N -> N reals
+  (``_scale_interleave``, ``:451``).
+
+The untangles take the mirror's source as an argument of its own, so the
+distributed real transforms (``parallel/real_dist.py``) run the same kernels
+on a partner rank's shard. The forward reads the planner's quarter table
+(0.5 W_N^k, k = 0..N/4) and the symmetry tw[N/2 - k] = -conj(tw[k]); the
+inverse reads the full-length table (k = 0..N/2 - 1), as the JAX package's
+two passes do. For every k the forward computes the JAX package's
+first-half formula, which for k > N/4 gives the same products and sums as
+its second half, X[N/2 - k] = conj(s)/2 - i conj(u).
+
+What is not carried over (XLA:TPU workarounds): the three-executable C2R
+composite and its ``C2R_COMPOSITE_MIN_N`` switch, ``_scale_interleave_sel``
+and the pad-based interleave, the wide-row deinterleave, and the lazy-dd
+untangle with ``PHASTFT_TPU_R2C_POST``. Every f64 engine runs the untangles
+in f64 on the joined half-length spectrum (the JAX package's ``"f64"`` post
+branch): the H100 has FP64 units.
+
+Each kernel is bound by memory: it reads its inputs once and writes its
+output once. On one device an untangle's mirror is its input, which its
+kernel loads a second time in reverse (a k / H - k pairing would read each
+element once, and both untangles need only the quarter table). Products
+are rounded as written (no FMA), so a kernel and its plain version agree
+bit for bit.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ._build import library
+
+__all__ = [
+    "r2c_twiddles_host",
+    "deinterleave",
+    "deinterleave_plain",
+    "interleave_scale",
+    "interleave_scale_plain",
+    "untangle",
+    "untangle_plain",
+    "pre_untangle",
+    "pre_untangle_plain",
+    "build_r2c_fft",
+    "build_c2r_fft",
+]
+
+#: Twiddles are made in chunks of this many angles (bounds the host's f64
+#: temporaries at the largest sizes).
+_TW_CHUNK = 1 << 24
+
+
+def r2c_twiddles_host(n: int, count: int, dtype) -> tuple[np.ndarray, np.ndarray]:
+    """(re, im) of 0.5 * W_n^k for k in [0, count), from exact f64 angles
+    (-2 pi k / n, the JAX planner's expression) rounded once to ``dtype``:
+    the untangle tables (``count`` = n/4 + 1) and the C2R preprocess table
+    (``count`` = n/2)."""
+    dtype = np.dtype(dtype)
+    out_re = np.empty(count, dtype)
+    out_im = np.empty(count, dtype)
+    for s in range(0, count, _TW_CHUNK):
+        k = np.arange(s, min(count, s + _TW_CHUNK), dtype=np.float64)
+        ang = -2.0 * np.pi * k / float(n)
+        out_re[s:s + len(k)] = 0.5 * np.cos(ang)
+        out_im[s:s + len(k)] = 0.5 * np.sin(ang)
+    return out_re, out_im
+
+
+_DTYPES = (torch.float32, torch.float64)
+
+
+def _check_tensors(name, *xs):
+    """Every argument is a torch tensor of one float dtype on one device."""
+    for x in xs:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} takes torch tensors")
+        if x.dtype not in _DTYPES or x.dtype != xs[0].dtype:
+            raise TypeError(f"{name} takes float32 or float64 tensors of one dtype, "
+                            f"got {x.dtype}")
+        if x.device != xs[0].device:
+            raise ValueError(f"{name}: all tensors must be on one device")
+
+
+def _cuda(name, x):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
+
+
+def _rows(batch) -> int:
+    return int(np.prod(batch)) if batch else 1
+
+
+# ----------------------------------------------------------- deinterleave
+def _check_deinterleave(x):
+    _check_tensors("deinterleave", x)
+    n = int(x.shape[-1]) if x.dim() else 0
+    if n < 4 or n & (n - 1):
+        raise ValueError(f"deinterleave: rows of a power-of-two length >= 4, got {n}")
+    return n
+
+
+def deinterleave_plain(x):
+    """Plain-torch deinterleave: same arguments and result as
+    ``deinterleave``."""
+    _check_deinterleave(x)
+    return x[..., 0::2].contiguous(), x[..., 1::2].contiguous()
+
+
+def deinterleave(x):
+    """(even, odd) = (x[..., 0::2], x[..., 1::2]) of (..., N) f32 or f64
+    reals, N >= 4 a power of two, as two new contiguous tensors: the
+    packing of the real signal into the half-length complex transform's
+    input.
+
+    On CUDA it launches ``csrc/r2c.cu``'s deinterleave on the current stream
+    (``x`` contiguous and 16-byte aligned), or raises; a CPU tensor runs
+    ``deinterleave_plain``. The input is read, never written. Each launch
+    adds one to ``deinterleave.launches``.
+
+    Stands for the JAX package's ``_deinterleave``
+    (``phastft_tpu/ops/r2c.py:302``). Bound by memory (each real read once
+    and written once)."""
+    n = _check_deinterleave(x)
+    if x.device.type == "cpu":
+        return deinterleave_plain(x)
+    _cuda("deinterleave", x)
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("deinterleave: the input must be contiguous and 16-byte aligned")
+    shape = tuple(x.shape[:-1]) + (n // 2,)
+    even = torch.empty(shape, dtype=x.dtype, device=x.device)
+    odd = torch.empty(shape, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = library().phastft_r2c_deinterleave(
+            int(x.dtype == torch.float64), x.data_ptr(), even.data_ptr(), odd.data_ptr(),
+            x.numel() // 4, _stream(x.device))
+    _raise_on("deinterleave", err)
+    deinterleave.launches += 1
+    return even, odd
+
+
+deinterleave.launches = 0
+
+
+# ------------------------------------------------------- interleave_scale
+def _check_interleave(re, im):
+    _check_tensors("interleave_scale", re, im)
+    if re.shape != im.shape or re.dim() < 1:
+        raise ValueError("interleave_scale: two planes of one shape")
+    h = int(re.shape[-1])
+    if h < 2 or h & (h - 1):
+        raise ValueError(f"interleave_scale: rows of a power-of-two length >= 2, got {h}")
+    return h
+
+
+def interleave_scale_plain(re, im, scale: float):
+    """Plain-torch interleave: same arguments and result as
+    ``interleave_scale``."""
+    h = _check_interleave(re, im)
+    out = torch.stack((re * scale, im * scale), dim=-1)
+    return out.reshape(tuple(re.shape[:-1]) + (2 * h,))
+
+
+def interleave_scale(re, im, scale: float):
+    """x[..., 2i] = re[..., i] * scale, x[..., 2i + 1] = im[..., i] * scale
+    for two (..., H) f32 or f64 planes, H >= 2 a power of two: a new
+    (..., 2H) tensor. The C2R's last pass, with its 2/N scale folded in.
+
+    On CUDA it launches ``csrc/r2c.cu``'s interleave on the current stream,
+    or raises; a CPU tensor runs ``interleave_scale_plain``. Inputs are
+    read, never written. Each launch adds one to
+    ``interleave_scale.launches``.
+
+    Stands for the JAX package's ``_scale_interleave``
+    (``phastft_tpu/ops/r2c.py:451``). Bound by memory."""
+    h = _check_interleave(re, im)
+    if re.device.type == "cpu":
+        return interleave_scale_plain(re, im, scale)
+    _cuda("interleave_scale", re)
+    if not (re.is_contiguous() and im.is_contiguous()) or (re.data_ptr() | im.data_ptr()) % 16:
+        raise ValueError("interleave_scale: the planes must be contiguous and 16-byte aligned")
+    out = torch.empty(tuple(re.shape[:-1]) + (2 * h,), dtype=re.dtype, device=re.device)
+    with torch.cuda.device(re.device):
+        err = library().phastft_r2c_interleave(
+            int(re.dtype == torch.float64), re.data_ptr(), im.data_ptr(), out.data_ptr(),
+            re.numel() // 2, float(scale), _stream(re.device))
+    _raise_on("interleave_scale", err)
+    interleave_scale.launches += 1
+    return out
+
+
+interleave_scale.launches = 0
+
+
+# ------------------------------------------------------------- untangles
+def _check_untangle(name, a_re, a_im, tw_re, tw_im, mirror, k0, half, inverse):
+    """Validate an untangle's arguments; return (L, half, k0, p_re, p_im,
+    w_re, w_im), the mirror resolved (None: the input itself)."""
+    _check_tensors(name, a_re, a_im, tw_re, tw_im,
+                   *(() if mirror is None else tuple(mirror)))
+    if a_re.shape != a_im.shape or a_re.dim() < 1:
+        raise ValueError(f"{name}: two planes of one shape")
+    batch = tuple(a_re.shape[:-1])
+    la = int(a_re.shape[-1])
+    if mirror is None:
+        length = la - 1 if inverse else la
+        half = length
+        k0 = 0
+        p_re, p_im = a_re, a_im
+        w_re = a_re[..., length] if inverse else a_re[..., 0]
+        w_im = a_im[..., length] if inverse else a_im[..., 0]
+    else:
+        p_re, p_im, w_re, w_im = mirror
+        if half is None:
+            raise ValueError(f"{name}: a mirror needs the half length")
+        length = la
+        if tuple(p_re.shape[:-1]) != batch or p_re.shape != p_im.shape or \
+                int(p_re.shape[-1]) < length:
+            raise ValueError(f"{name}: the mirror's planes must be (..., >= {length})")
+        if tuple(w_re.shape) != batch or w_re.shape != w_im.shape:
+            raise ValueError(f"{name}: the mirror's wrap element must be of shape {batch}")
+    if length < 1 or length & (length - 1):
+        raise ValueError(f"{name}: unsupported row length {la}")
+    if half < 2 or half & (half - 1) or k0 < 0 or k0 + length > half:
+        raise ValueError(f"{name}: bins [{k0}, {k0 + length}) do not lie in a "
+                         f"half length of {half}")
+    want = half if inverse else half // 2 + 1
+    if tw_re.dim() != 1 or tw_re.shape != tw_im.shape or int(tw_re.shape[0]) != want:
+        raise ValueError(f"{name}: the twiddle table must hold {want} entries")
+    return length, half, k0, p_re, p_im, w_re, w_im
+
+
+def _mirror_plain(length, p_re, p_im, w_re, w_im):
+    """(re, im) of the mirror element of every j: w at j = 0, p[L - j]
+    else."""
+    return (torch.cat((w_re[..., None], p_re[..., 1:length].flip(-1)), dim=-1),
+            torch.cat((w_im[..., None], p_im[..., 1:length].flip(-1)), dim=-1))
+
+
+def _sums(a_re, a_im, m_re, m_im):
+    """s = a + conj(m), d = a - conj(m)."""
+    return a_re + m_re, a_im - m_im, a_re - m_re, a_im + m_im
+
+
+def untangle_plain(z_re, z_im, tw_re, tw_im, mirror=None, *, k0=0, half=None,
+                   nyquist=None):
+    """Plain-torch forward untangle: same arguments and result as
+    ``untangle``."""
+    length, half, k0, p_re, p_im, w_re, w_im = _check_untangle(
+        "untangle", z_re, z_im, tw_re, tw_im, mirror, k0, half, False)
+    nyquist = mirror is None if nyquist is None else nyquist
+    a_re, a_im = z_re[..., :length], z_im[..., :length]
+    s_re, s_im, d_re, d_im = _sums(a_re, a_im, *_mirror_plain(length, p_re, p_im, w_re, w_im))
+    k = k0 + torch.arange(length, device=z_re.device)
+    low = k <= half // 2
+    idx = torch.where(low, k, half - k)
+    t_re = tw_re[idx]
+    t_re = torch.where(low, t_re, -t_re)
+    t_im = tw_im[idx]
+    u_re = t_re * d_re - t_im * d_im
+    u_im = t_re * d_im + t_im * d_re
+    x_re = 0.5 * s_re + u_im
+    x_im = 0.5 * s_im - u_re
+    if nyquist:
+        ny = (p_re[..., 0] - p_im[..., 0])[..., None]
+        x_re = torch.cat((x_re, ny), dim=-1)
+        x_im = torch.cat((x_im, torch.zeros_like(ny)), dim=-1)
+    return x_re, x_im
+
+
+def pre_untangle_plain(x_re, x_im, tw_re, tw_im, mirror=None, *, k0=0, half=None):
+    """Plain-torch C2R preprocess: same arguments and result as
+    ``pre_untangle``."""
+    length, half, k0, p_re, p_im, w_re, w_im = _check_untangle(
+        "pre_untangle", x_re, x_im, tw_re, tw_im, mirror, k0, half, True)
+    a_re, a_im = x_re[..., :length], x_im[..., :length]
+    s_re, s_im, d_re, d_im = _sums(a_re, a_im, *_mirror_plain(length, p_re, p_im, w_re, w_im))
+    t_re, t_im = tw_re[k0:k0 + length], tw_im[k0:k0 + length]
+    p_r = t_re * d_re + t_im * d_im
+    p_i = t_re * d_im - t_im * d_re
+    return 0.5 * s_re - p_i, 0.5 * s_im + p_r
+
+
+def _launch_untangle(name, inverse, a_re, a_im, tw_re, tw_im, length, half, k0,
+                     p_re, p_im, w_re, w_im, nyquist):
+    """Launch ``phastft_r2c_untangle`` on CUDA tensors; return the output
+    planes (..., L + nyquist)."""
+    _cuda(name, a_re)
+    batch = tuple(a_re.shape[:-1])
+    rows = _rows(batch)
+    planes = (a_re, a_im, p_re, p_im)
+    if not all(x.is_contiguous() for x in (*planes, tw_re, tw_im)):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    w_re, w_im = w_re.reshape(rows), w_im.reshape(rows)
+    if w_re.stride() != w_im.stride():
+        raise ValueError(f"{name}: the wrap elements must share one stride")
+    shape = batch + (length + int(nyquist),)
+    o_re = torch.empty(shape, dtype=a_re.dtype, device=a_re.device)
+    o_im = torch.empty(shape, dtype=a_re.dtype, device=a_re.device)
+    with torch.cuda.device(a_re.device):
+        err = library().phastft_r2c_untangle(
+            int(a_re.dtype == torch.float64), int(inverse),
+            a_re.data_ptr(), a_im.data_ptr(), int(a_re.shape[-1]),
+            p_re.data_ptr(), p_im.data_ptr(), int(p_re.shape[-1]),
+            w_re.data_ptr(), w_im.data_ptr(), int(w_re.stride(0)) if rows > 1 else 0,
+            tw_re.data_ptr(), tw_im.data_ptr(), o_re.data_ptr(), o_im.data_ptr(),
+            shape[-1], rows, length, k0, half, int(nyquist), _stream(a_re.device))
+    _raise_on(name, err)
+    return o_re, o_im
+
+
+def untangle(z_re, z_im, tw_re, tw_im, mirror=None, *, k0=0, half=None, nyquist=None):
+    """The compact spectrum's bins from the half-length transform z of a
+    real signal: X[k] = s/2 - i tw[k] d for k = k0 .. k0 + L - 1, with
+    s = z[k] + conj(z[H - k]), d = z[k] - conj(z[H - k]), H the half length
+    and tw the quarter table ``tw_re``/``tw_im`` (0.5 W_N^k, k = 0..H/2,
+    the planner's ``twiddles``), tw[k] = -conj(tw[H - k]) past it.
+
+    ``z``: (..., L) f32 or f64 planes. ``mirror`` = None: one device, z is
+    the whole half-length spectrum (L = H), its own mirror, and the result
+    is (..., H + 1) with X[H] = Re z0 - Im z0. Else ``mirror`` = (p_re,
+    p_im, w_re, w_im): z[(H - k) mod H] is p[L - j] for j = k - k0 >= 1 and
+    w for j = 0 (p (..., >= L), w (...,)), with ``k0`` and ``half`` given;
+    ``nyquist`` appends X[H] = Re p0 - Im p0 (default: with no mirror only).
+    Returns two new planes.
+
+    On CUDA it launches ``csrc/r2c.cu``'s untangle on the current stream, or
+    raises; a CPU tensor runs ``untangle_plain``, bit for bit the same.
+    Inputs are read, never written. Each launch adds one to
+    ``untangle.launches``.
+
+    Stands for the JAX package's ``_untangle``
+    (``phastft_tpu/ops/r2c.py:65``). Bound by memory: the input (with a
+    mirror, the mirror too) and the quarter table read once, the output
+    written once."""
+    length, half, k0, p_re, p_im, w_re, w_im = _check_untangle(
+        "untangle", z_re, z_im, tw_re, tw_im, mirror, k0, half, False)
+    if z_re.device.type == "cpu":
+        return untangle_plain(z_re, z_im, tw_re, tw_im, mirror, k0=k0, half=half,
+                              nyquist=nyquist)
+    nyquist = mirror is None if nyquist is None else nyquist
+    out = _launch_untangle("untangle", False, z_re, z_im, tw_re, tw_im, length, half,
+                           k0, p_re, p_im, w_re, w_im, nyquist)
+    untangle.launches += 1
+    return out
+
+
+untangle.launches = 0
+
+
+def pre_untangle(x_re, x_im, tw_re, tw_im, mirror=None, *, k0=0, half=None):
+    """The inverse real transform's first pass, the compact spectrum's bins
+    -> the half-length complex input z: z[k] = s/2 + i conj(tw[k]) d for
+    k = k0 .. k0 + L - 1, with s = X[k] + conj(X[H - k]),
+    d = X[k] - conj(X[H - k]) and tw the full table ``tw_re``/``tw_im``
+    (0.5 W_N^k, k = 0..H - 1, the planner's ``c2r_twiddles``).
+
+    ``x``: (..., H + 1) f32 or f64 planes with ``mirror`` = None (one
+    device: X is its own mirror). Else (..., L) planes (the distributed last
+    shard passes its first L bins; its bin H is read only as a mirror) with
+    ``mirror`` = (p_re, p_im, w_re, w_im): X[H - k] is p[L - j] for
+    j = k - k0 >= 1 and w for j = 0, and ``k0`` and ``half`` given. Returns
+    two new (..., L) planes.
+
+    On CUDA it launches ``csrc/r2c.cu``'s pre-untangle on the current
+    stream, or raises; a CPU tensor runs ``pre_untangle_plain``, bit for
+    bit the same. Inputs are read, never written. Each launch adds one to
+    ``pre_untangle.launches``.
+
+    Stands for the JAX package's ``_pre_untangle``
+    (``phastft_tpu/ops/r2c.py:96``). Bound by memory."""
+    length, half, k0, p_re, p_im, w_re, w_im = _check_untangle(
+        "pre_untangle", x_re, x_im, tw_re, tw_im, mirror, k0, half, True)
+    if x_re.device.type == "cpu":
+        return pre_untangle_plain(x_re, x_im, tw_re, tw_im, mirror, k0=k0, half=half)
+    out = _launch_untangle("pre_untangle", True, x_re, x_im, tw_re, tw_im, length, half,
+                           k0, p_re, p_im, w_re, w_im, False)
+    pre_untangle.launches += 1
+    return out
+
+
+pre_untangle.launches = 0
+
+
+# ------------------------------------------------------- whole transforms
+@functools.lru_cache(maxsize=128)
+def build_r2c_fft(n: int, leaf_limit: int, build, variant=()):
+    """Callable (signal, args, tw_re, tw_im) -> (spec_re, spec_im) of length
+    n/2 + 1: ``deinterleave``, the half-length transform, and ``untangle``
+    on the planner's quarter table. ``build``, ``variant`` and ``args`` are
+    the inner planner's engine as ``fft.engine_of`` gives it: the port's own
+    C2C closure is ``build(n // 2, leaf_limit, False, *variant)`` (unscaled),
+    called on the planner state ``args``. Each intermediate is dropped once
+    the next pass has read it; the caller's signal stays."""
+    inner = build(n // 2, leaf_limit, False, *variant)
+
+    def run(signal, args, tw_re, tw_im):
+        even, odd = deinterleave(signal)
+        z_re, z_im = inner(even, odd, *args)
+        del even, odd
+        return untangle(z_re, z_im, tw_re, tw_im)
+
+    return run
+
+
+@functools.lru_cache(maxsize=128)
+def build_c2r_fft(n: int, leaf_limit: int, build, variant=()):
+    """Callable (spec_re, spec_im, args, tw_re, tw_im) -> the length-n real
+    signal: ``pre_untangle`` on the planner's full-length table, the
+    half-length inverse by the swap trick (unscaled, the inner closure as in
+    ``build_r2c_fft``), and ``interleave_scale`` with the 2/n scale, so that
+    C2R(R2C(x)) == x."""
+    inner = build(n // 2, leaf_limit, False, *variant)
+    scale = 2.0 / n
+
+    def run(spec_re, spec_im, args, tw_re, tw_im):
+        z_re, z_im = pre_untangle(spec_re, spec_im, tw_re, tw_im)
+        # swap trick: swap(IDFT(z)) = DFT(swap(z)) / H, the 1/H in `scale`
+        o_im, o_re = inner(z_im, z_re, *args)
+        del z_re, z_im
+        return interleave_scale(o_re, o_im, scale)
+
+    return run

@@ -12,13 +12,16 @@ given.
   ranks, no communication;
 * ``fft_distributed``: one length-n transform split over the ranks, in
   f32 or f64 (the native, df64 and df64-oz engines), its global transposes
-  as ``all_to_all_single``.
-
-The distributed real transforms (``parallel/real_dist.py``) wait for R2C
-(ROADMAP.md Queue 1 item 10).
+  as ``all_to_all_single``;
+* ``r2c_fft_distributed`` / ``c2r_fft_distributed``: the real transforms
+  of one signal split over the ranks, ``fft_distributed`` on half the
+  length between the untangle kernels, the mirror swapped with a partner
+  rank (``parallel/real_dist.py``).
 """
 
 from .batch import batch_fft_sharded
 from .fourstep_dist import fft_distributed
+from .real_dist import c2r_fft_distributed, r2c_fft_distributed
 
-__all__ = ["batch_fft_sharded", "fft_distributed"]
+__all__ = ["batch_fft_sharded", "fft_distributed", "r2c_fft_distributed",
+           "c2r_fft_distributed"]

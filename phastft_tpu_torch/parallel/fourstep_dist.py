@@ -397,6 +397,24 @@ def _natural_dd(re_l, im_l, p: _Plan, rp: PlannerDit64, dd_leaf):
     return out_re.reshape(-1), out_im.reshape(-1)
 
 
+def _layout(n: int, d: int, planner, cuda: bool, permuted: bool):
+    """(f64, engine, dd, n1, n2) of a length-n transform over d ranks on
+    ``planner`` (``permuted``: a permuted flag is set), raising what
+    ``fft_distributed`` raises for its shape before any collective: too
+    small for d ranks, or column blocks under the column kernel's floor."""
+    f64 = planner.dtype == np.float64
+    engine = (planner.options.f64_engine or "native") if f64 else None
+    dd = f64 and engine.startswith("df64") and not permuted
+    n1, n2 = (_factor_dd(n, d) if dd
+              else _factor(n, d, planner.options.leaf_fft_size))
+    local = n2 // d
+    if n1 > 1 and local < (MIN_KERNEL_N2 if not f64 else 2) and (f64 or cuda):
+        raise not_ported(
+            f"fft_distributed with column blocks of {local} "
+            f"columns (n = 2^{n.bit_length() - 1} over {d} ranks)", "dist_col")
+    return f64, engine, dd, n1, n2
+
+
 def fft_distributed(reals, imags, direction, planner, *, group=None,
                     permuted_output: bool = False,
                     permuted_input: bool = False):
@@ -447,17 +465,9 @@ def fft_distributed(reals, imags, direction, planner, *, group=None,
         raise NonPowerOfTwoError(
             f"planner is for size {planner.n} but input has size {n}"
         )
-    f64 = planner.dtype == np.float64
-    engine = (planner.options.f64_engine or "native") if f64 else None
-    dd = f64 and engine.startswith("df64") and not (permuted_input or permuted_output)
+    f64, engine, dd, n1, n2 = _layout(n, d, planner, re_l.is_cuda,
+                                      permuted_input or permuted_output)
     leaf_limit = planner.options.leaf_fft_size
-    n1, n2 = _factor_dd(n, d) if dd else _factor(n, d, leaf_limit)
-    local = n2 // d
-    if n1 > 1 and local < (MIN_KERNEL_N2 if not f64 else 2) and (
-            f64 or re_l.is_cuda):
-        raise not_ported(
-            f"fft_distributed with column blocks of {local} "
-            f"columns (n = 2^{n.bit_length() - 1} over {d} ranks)", "dist_col")
     scale = direction is Direction.Reverse
     if scale:  # IFFT swap trick: swap(IDFT(z)) = (1/N) DFT(swap(z))
         re_l, im_l = im_l, re_l

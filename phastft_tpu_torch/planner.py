@@ -41,6 +41,11 @@ build a planner on tables handed over as numpy arrays, for instance the
 JAX planner's ``leaf_corrs``, ``dd_state`` or native state
 (``fast_tables``, ``leaf_corrs``), so both packages compute from the same
 bits.
+
+``PlannerR2c32`` / ``PlannerR2c64`` plan a real transform of n points: an
+n/2 DIT planner of the same dtype and device (on ``inner_options``) and the
+untangle tables 0.5 W_n^k, the quarter table for k = 0..n/4 and, built on
+first inverse use, the full-length one for k = 0..n/2 - 1.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .errors import ensure_power_of_two, not_ported
+from .errors import NonPowerOfTwoError, ensure_power_of_two, not_ported
 from .options import Options
 from .ops.colfft import col_split_tables_host, col_tile, col_tile3d
 from .ops.dd import dd_col_tables_host
@@ -66,6 +71,7 @@ from .ops.ozdd import (
 from .ops.leaft import leaft_tables_host
 from .ops.mxu import mxu_leaf_tables3_host, mxu_leaf_tables_host
 from .ops.native import dif_twiddles_host
+from .ops.r2c import r2c_twiddles_host
 from .ops.stockham import LANES, leaf_correction_host, split_correction_host
 
 __all__ = [
@@ -73,6 +79,8 @@ __all__ = [
     "PlannerMode",
     "PlannerDit32",
     "PlannerDit64",
+    "PlannerR2c32",
+    "PlannerR2c64",
     "resolve_device",
 ]
 
@@ -493,3 +501,85 @@ class PlannerDit64(_PlannerDitBase):
             picked.append(out)
         self._dd_state = self._dd_to_device(*picked)
         return self
+
+
+class _PlannerR2cBase:
+    """What both real-transform planners share (the JAX package's
+    ``_PlannerR2cBase``, ``phastft_tpu/planner.py:417``): an n/2 DIT planner
+    of the same dtype, ``dit_planner``, on ``inner_options`` (None: its
+    ``guess_options``), and the untangle tables on its device.
+
+    ``twiddles_re`` / ``twiddles_im``: 0.5 * W_n^k for k in [0, n/4], from
+    exact f64 angles rounded once to the dtype. ``c2r_twiddles`` (and its
+    ``_re`` / ``_im``): the full-length table, k in [0, n/2), built on first
+    inverse use, so a forward-only planner does not pay for it. n >= 4; the
+    inner planner takes n/2 up to 2^30 (n up to 2^31). ``PlannerMode.Tune``
+    raises (not ported)."""
+
+    dtype: np.dtype
+    _dit_cls: type
+
+    def __init__(
+        self,
+        n: int,
+        mode: PlannerMode = PlannerMode.Heuristic,
+        inner_options: Optional[Options] = None,
+        device=None,
+    ):
+        log_n = ensure_power_of_two(n)
+        if n < 4:
+            raise NonPowerOfTwoError(
+                f"R2C requires n to be a power of 2 and n >= 4, got {n}"
+            )
+        if mode is PlannerMode.Tune:
+            raise not_ported("PlannerMode.Tune", "tune")
+        self.n = n
+        self.log_n = log_n
+        self.mode = mode
+        self.dit_planner = self._dit_cls(
+            n // 2, PlannerMode.Heuristic, options=inner_options, device=device
+        )
+        self.inner_opts: Options = self.dit_planner.options
+        self.device = self.dit_planner.device
+        self.twiddles_re, self.twiddles_im = _to_device(
+            r2c_twiddles_host(n, n // 4 + 1, self.dtype), self.device)
+        self._c2r_tw = None
+
+    @property
+    def c2r_twiddles(self):
+        """(re, im) of 0.5 * W_n^k for k in [0, n/2), the C2R preprocess's
+        full-length table, built on first use."""
+        if self._c2r_tw is None:
+            self._c2r_tw = _to_device(
+                r2c_twiddles_host(self.n, self.n // 2, self.dtype), self.device)
+        return self._c2r_tw
+
+    @property
+    def c2r_twiddles_re(self):
+        return self.c2r_twiddles[0]
+
+    @property
+    def c2r_twiddles_im(self):
+        return self.c2r_twiddles[1]
+
+    @classmethod
+    def new(cls, n: int, device=None):
+        """Constructor alias of the reference's ``PlannerR2c::new``."""
+        return cls(n, device=device)
+
+
+class PlannerR2c64(_PlannerR2cBase):
+    """f64 real-transform planner for n = 4..2^31 on ``device`` (None =
+    "cuda"); the inner ``PlannerDit64``'s engine runs the half-length
+    transform."""
+
+    dtype = np.dtype(np.float64)
+    _dit_cls = PlannerDit64
+
+
+class PlannerR2c32(_PlannerR2cBase):
+    """f32 real-transform planner for n = 4..2^31 on ``device`` (None =
+    "cuda")."""
+
+    dtype = np.dtype(np.float32)
+    _dit_cls = PlannerDit32
