@@ -322,6 +322,35 @@ The real transforms run last, in the same world of one rank:
    ``irfft`` of the same dtype (a yardstick the port never calls) and the
    port's zero-imaginary C2C of n, forward and inverse.
 
+Past 2^30 (ROADMAP item 16) last, in the same world of one rank
+(``giant_phases``):
+
+35. ``parity_giant``: the kernels of the 2^31 f32 plan at its shapes:
+   ``colfft`` at the outer level (1024, 2^21) on its clusters against
+   ``colfft_plain`` on three slices of 4096 columns (the first, middle and
+   last, with their columns' twiddle), ``transpose2`` of its output on the
+   matching rows bit for bit, and ``colfft_out3d`` / ``leaft`` on the inner
+   level, 1024 entries of (128, 2^14), on entries 0, 512 and 1023, rel L2 <=
+   1e-6; then ``times_giant`` for those four beside their bounds (and
+   ``.transpose(-1, -2).contiguous()`` for ``transpose2``); then
+   ``e2e_giant_leaf``: ``leaf`` on (2^17, 2^14), ``leaf3`` on (2^15, 2^16)
+   f32 and ``leaf64`` on (2^15, 2^16) f64, 2^31 elements each, their first,
+   middle and last four rows against complex128 ``torch.fft.fft`` and
+   their plain versions.
+36. ``e2e_giant``: the main path, counters set to 0 just before and read
+   just after, each transform's launches checked against its plan:
+   ``fft_32_dit_with_planner`` and ``fft_distributed`` (world size 1) at
+   2^31 on 256 bins of ``dft_bins``, a round trip (<= 1e-6) and the inverse
+   of N * delta (exactly ones); f32 R2C / C2R at 2^32 and f64 at 2^31 on 256
+   bins, a round trip (the signal made again from its seed: the C2R cannot
+   hold it beside the spectrum and both tables) and the C2R of N * delta;
+   the peak of allocated memory of each (the f32 C2C's may not pass 50
+   GiB); then ``giant_tables``: the quarter table of 2^32 by numpy on the
+   host against the card's build.
+37. ``times_giant``: each whole transform, medians of 5, beside the bound
+   of its passes and ``torch.fft.fft`` complex64 / ``torch.fft.rfft`` of
+   the same data (the reason where the card cannot run one).
+
 Every timing follows ``release_memory``'s wait where 8 GiB or more went
 back to CUDA (``cudaFree``) just before it.
 
@@ -616,6 +645,29 @@ R2C_DD_ENGINES = (("df64", {}, ("ddcol", "ddleaf")),
 #: 4), and per real of interleave_scale (the scale).
 R2C_UNTANGLE_FLOPS = 14
 
+#: Past 2^30 (ROADMAP item 16), what one H100 holds: f32 C2C at 2^31 (the
+#: input and two pairs of 16 GiB), through the single-device entry and
+#: ``fft_distributed`` at world size 1; R2C / C2R of (dtype, log2 n).
+GIANT_LOG = 31
+GIANT_R2C = (("f32", 32), ("f64", 31))
+#: Output bins held to ``dft_bins``; the inputs' seeds (made again from them
+#: where a transform cannot hold its input beside it).
+GIANT_BINS = 256
+GIANT_SEED = 31
+#: The f32 C2C at 2^31 may hold at most this many GiB, its input included:
+#: the input and two pairs (48 GiB) and the plan's tables.
+GIANT_PEAK_GIB = 50
+#: Columns (rows) of each slice of colfft's (transpose2's) output at the
+#: outer level (1024, 2^21) held to the plain version: the first, middle
+#: and last.
+GIANT_SLICE = 4096
+#: The leaf kernels on batches of 2^31 elements: (kernel, rows, n, dtype);
+#: GIANT_LEAF_ROWS rows at the start, middle and end held to an f64 FFT.
+GIANT_LEAF_BATCHES = (("leaf", 1 << 17, 1 << 14, "f32"), ("leaf3", 1 << 15, 1 << 16, "f32"),
+                      ("leaf64", 1 << 15, 1 << 16, "f64"))
+GIANT_LEAF_ROWS = 4
+GIANT_TIME_REPS = 5
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -684,10 +736,11 @@ def card_oracle_err(got, xr, xi) -> float:
 
 
 def dft_bins(xr, xi, ks):
-    """X[k] for the bins ``ks`` (int64 tensor) of one length-n planar f32
-    signal, by a direct DFT in f64 with integer-exact phases: i = i1*n2 + i2,
-    X[k] = sum_i2 W_n^(i2*k) sum_i1 W_n1^(i1*k) x[i1, i2], the inner sum a
-    complex128 product over i1, column chunk by column chunk."""
+    """X[k] for the bins ``ks`` (int64 tensor) of one length-n planar
+    signal (``xi`` None: a real one), by a direct DFT in f64 with
+    integer-exact phases: i = i1*n2 + i2, X[k] = sum_i2 W_n^(i2*k) sum_i1
+    W_n1^(i1*k) x[i1, i2], the inner sum a complex128 product over i1,
+    column chunk by column chunk."""
     import torch
 
     n = xr.numel()
@@ -701,9 +754,12 @@ def dft_bins(xr, xi, ks):
     w1 = torch.complex(torch.cos(ang * np.pi), torch.sin(ang * np.pi))
     acc = torch.zeros(len(ks), dtype=torch.complex128, device=dev)
     cols = max(1, CHUNK // n1)
-    x2r, x2i = xr.view(n1, n2), xi.view(n1, n2)
+    x2r = xr.view(n1, n2)
+    x2i = None if xi is None else xi.view(n1, n2)
     for c0 in range(0, n2, cols):
-        xc = torch.complex(x2r[:, c0:c0 + cols].double(), x2i[:, c0:c0 + cols].double())
+        part = x2r[:, c0:c0 + cols].double()
+        xc = torch.complex(part, torch.zeros_like(part) if x2i is None
+                           else x2i[:, c0:c0 + cols].double())
         y = w1 @ xc
         i2 = torch.arange(c0, min(c0 + cols, n2), dtype=torch.int64, device=dev)[None, :]
         ang = ((k * i2) % n).double() * (-2.0 / n)
@@ -1780,7 +1836,7 @@ def dist_launches(n: int, leaf: int, f64: bool, layout: str):
     2048), the row plan of n2, and for natural output the last
     transpose."""
     from phastft_tpu_torch.ops.fourstep import plan_rows
-    from phastft_tpu_torch.parallel.fourstep_dist import _factor
+    from phastft_tpu_torch.parallel.fourstep_dist import _factor, _long_split
 
     n1, n2 = _factor(n, 1, leaf)
     rows = native_launches if f64 else f32_row_launches
@@ -1796,7 +1852,7 @@ def dist_launches(n: int, leaf: int, f64: bool, layout: str):
     bare = layout == "permuted_input"
     m = n1
     while m > 2048:  # two column passes and two transposes a level
-        p = 1 << ((m.bit_length() - 1) // 2)
+        p, _ = _long_split(m)
         # the first pass: col64 on its tables; in f32 colfft's own shard
         # twiddle at world size 1, its bare mode (and the twiddle in torch)
         # for permuted input
@@ -2591,6 +2647,393 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
               "library_ms": time_ms(lambda: torch.fft.fft(yc), flush, 10)})
         del y, yc
     release_memory()
+
+
+def giant_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
+    """Transforms past 2^30 (run inside ``nccl_world``): the kernels on the
+    shapes those plans give them, the main path through the public entries
+    at f32 C2C 2^31 (also on ``fft_distributed``), f32 R2C / C2R 2^32 and
+    f64 R2C / C2R 2^31 with each one's peak of allocated memory, the leaf
+    kernels on batches of 2^31 elements, the untangle table's build on the
+    host and on the card, and times."""
+    import torch
+
+    from phastft_tpu_torch import (
+        Direction, Options, PlannerDit32, PlannerDit64, PlannerR2c32, PlannerR2c64,
+        c2r_fft_f32_with_planner, c2r_fft_f64_with_planner, fft_32_dit_with_planner,
+        r2c_fft_f32_with_planner, r2c_fft_f64_with_planner,
+    )
+    from phastft_tpu_torch.ops import r2c as R
+    from phastft_tpu_torch.ops.colfft import (
+        col_tile3d, colfft, colfft_nocorr, colfft_out3d, colfft_out3d_plain, colfft_plain,
+    )
+    from phastft_tpu_torch.ops.leaf import hybrid, leaf, leaf3
+    from phastft_tpu_torch.ops.leaft import leaft, leaft_plain
+    from phastft_tpu_torch.ops.native import col64, col64_nocorr, leaf64, leaf64_plain
+    from phastft_tpu_torch.ops.transpose import transpose2, transpose2_64
+    from phastft_tpu_torch.parallel import fft_distributed
+
+    n = 1 << GIANT_LOG
+    gib = float(1 << 30)
+
+    def randn(shape, dtype=torch.float32, g=gen):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    def seeded(seed, shape, dtype=torch.float32):
+        """Made again from its seed after a transform that could not hold it."""
+        return randn(shape, dtype, torch.Generator(device=dev).manual_seed(seed))
+
+    def parity(name, got, want, tol, **where):
+        err, mabs = rel_l2(got[0], got[1], want[0], want[1], worst=True)
+        max_err[name] = max(max_err.get(name, 0.0), mabs)
+        emit({"phase": "parity_giant", "kernel": name, **where, "rel_l2": err,
+              "max_abs_err": mabs, "bound": tol})
+        check(f"{name} at {where}", err, tol)
+
+    def bins_err(got, want, ks):
+        g = torch.complex(got[0][ks].double(), got[1][ks].double())
+        return float(torch.linalg.vector_norm(g - want) / torch.linalg.vector_norm(want))
+
+    # -- the kernels at the shapes of the 2^31 plan: the outer level (1024,
+    # 2^21) on colfft's clusters and transpose2, the inner level 1024 x (128,
+    # 2^14) on colfft_out3d and leaft; slices that include the last columns,
+    # rows and entries against the plain versions
+    release_memory()
+    planner = PlannerDit32(n)
+    _, n1, inner, n2 = planner.plan
+    _, a1, _, a2 = inner
+    corrs = planner.leaf_corrs
+    xr, xi = randn((n1, n2)), randn((n1, n2))
+    c = colfft(xr, xi, corrs[f"pcol{n1}x{n2}"], n1)
+    torch.cuda.synchronize()
+    w = GIANT_SLICE
+    for c0 in (0, n2 // 2, n2 - w):
+        want = colfft_plain(xr[:, c0:c0 + w].contiguous(), xi[:, c0:c0 + w].contiguous(),
+                            None, n1, n_total=n, col_base=c0)
+        parity("colfft", (c[0][:, c0:c0 + w], c[1][:, c0:c0 + w]), want, KERNEL_TOL,
+               n1=n1, n2=n2, columns=[c0, c0 + w])
+        del want
+    times = {"colfft": {"ms": time_ms(lambda: colfft(xr, xi, corrs[f"pcol{n1}x{n2}"], n1),
+                                      flush, GIANT_TIME_REPS),
+                        "n1": n1, "n2": n2,
+                        **dict(zip(("bound_ms", "bound_by"),
+                                   kernel_bound(n, n1.bit_length() - 1, 2 * n1 * 128)))}}
+    del xr, xi
+    release_memory()
+    t = transpose2(*c)
+    torch.cuda.synchronize()
+    for r0 in (0, n2 // 2, n2 - w):
+        same = all(bool(torch.equal(t[i][r0:r0 + w], c[i][:, r0:r0 + w].t())) for i in (0, 1))
+        max_err["transpose2"] = max(max_err.get("transpose2", 0.0), 0.0 if same else 1.0)
+        emit({"phase": "parity_giant", "kernel": "transpose2", "rows": n1, "cols": n2,
+              "out_rows": [r0, r0 + w], "bit_for_bit": same})
+        if not same:
+            raise AssertionError(f"transpose2 at ({n1}, {n2}) rows {r0}: not bit for bit")
+    del t
+    times["transpose2"] = {
+        "ms": time_ms(lambda: transpose2(*c), flush, GIANT_TIME_REPS), "rows": n1, "cols": n2,
+        "library_ms": time_ms(lambda: [x.transpose(-1, -2).contiguous() for x in c], flush,
+                              GIANT_TIME_REPS),
+        **dict(zip(("bound_ms", "bound_by"), copy_bound(n)))}
+    release_memory()
+    # the inner level on the outer level's rows: n1 entries of (a1, a2)
+    view = (n1, a1, a2)
+    tabs3, mats = corrs[f"pcolT{a1}x{a2}"], corrs[f"leafT{a2}"]
+    c3 = colfft_out3d(c[0].view(view), c[1].view(view), tabs3, a1)
+    torch.cuda.synchronize()
+    for b in (0, n1 // 2, n1 - 1):
+        want = colfft_out3d_plain(c[0][b:b + 1].view(1, a1, a2),
+                                  c[1][b:b + 1].view(1, a1, a2), tabs3, a1)
+        parity("colfft_out3d", (c3[0][b:b + 1], c3[1][b:b + 1]), want, KERNEL_TOL,
+               batch_entry=b, n1=a1, n2=a2)
+    times["colfft_out3d"] = {
+        "ms": time_ms(lambda: colfft_out3d(c[0].view(view), c[1].view(view), tabs3, a1),
+                      flush, GIANT_TIME_REPS), "batch": n1, "n1": a1, "n2": a2,
+        **dict(zip(("bound_ms", "bound_by"),
+                   kernel_bound(n, a1.bit_length() - 1, 2 * a1 * col_tile3d(a1, a2))))}
+    del c
+    release_memory()
+    d = leaft(*c3, mats, a1)
+    torch.cuda.synchronize()
+    for b in (0, n1 // 2, n1 - 1):
+        want = leaft_plain(c3[0][b:b + 1], c3[1][b:b + 1], mats, a1)
+        parity("leaft", (d[0][b:b + 1], d[1][b:b + 1]), want, KERNEL_TOL,
+               batch_entry=b, n1=a1, n2=a2)
+    del d
+    times["leaft"] = {
+        "ms": time_ms(lambda: leaft(*c3, mats, a1), flush, GIANT_TIME_REPS),
+        "batch": n1, "n1": a1, "n2": a2,
+        **dict(zip(("bound_ms", "bound_by"),
+                   kernel_bound(n, a2.bit_length() - 1, 2 * (a2 // 128) * 128)))}
+    for row in times.values():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    emit({"phase": "times_giant", "level": f"the kernels of 2^{GIANT_LOG}", "card": smi,
+          "kernels": times})
+    del c3
+    release_memory()
+
+    # -- the leaf kernels on batches of 2^31 elements: the first, middle and
+    # last rows against an f64 FFT and the plain version (a wrapped 32-bit
+    # offset lands on the last rows)
+    for name, rows, m, tag in GIANT_LEAF_BATCHES:
+        f64 = tag == "f64"
+        dtype = torch.float64 if f64 else torch.float32
+        x = (randn((rows, m), dtype), randn((rows, m), dtype))
+        if f64:
+            state = PlannerDit64(m, options=Options(leaf_fft_size=m)).native_state
+            args = (state.get(f"leaf{m // 128}"), m,
+                    (state[f"dif{m // 128}"][0], state["dif128"][0]))
+            kern, plain = leaf64, leaf64_plain
+        else:
+            kern, plain, args, _ = leaf_call(PlannerDit32(m))
+            if kern.__name__ != name:
+                raise AssertionError(f"the {m}-point plan runs {kern.__name__}, not {name}")
+        y = kern(*x, *args)
+        torch.cuda.synchronize()
+        errs = {}
+        for r0 in (0, rows // 2, rows - GIANT_LEAF_ROWS):
+            sl = slice(r0, r0 + GIANT_LEAF_ROWS)
+            got = (y[0][sl], y[1][sl])
+            want = torch.fft.fft(torch.complex(x[0][sl].double(), x[1][sl].double()), dim=-1)
+            errs[f"rows_{r0}"] = err = rel_l2(got[0], got[1], want.real, want.imag)
+            check(f"{name} ({rows}, {m}) rows {r0}", err,
+                  DD_E2E_TOL if f64 else 5e-7 * max(1.0, (m.bit_length() - 1) / 18.0))
+            parity(name, got, plain(x[0][sl], x[1][sl], *args),
+                   DD_KERNEL_TOL if f64 else KERNEL_TOL, rows=[r0, r0 + GIANT_LEAF_ROWS],
+                   batch=rows, n=m)
+        del y, got, want
+        release_memory()
+        log_m = m.bit_length() - 1
+        bound = (native_bound(rows * m, log_m) if f64
+                 else dict(zip(("bound_ms", "bound_by"), kernel_bound(rows * m, log_m))))
+        ms = time_ms(lambda: kern(*x, *args), flush, GIANT_TIME_REPS)
+        emit({"phase": "e2e_giant_leaf", "kernel": name, "rows": rows, "n": m,
+              "elements": rows * m, "rel_l2_vs_f64_fft": errs, "ms": ms, **bound,
+              "bound_share": bound["bound_ms"] / ms, "card": smi})
+        del x
+        release_memory()
+
+    # -- the main path: counters at 0 just before, read just after
+    counters = (colfft, colfft_out3d, colfft_nocorr, leaft, leaf, leaf3, hybrid, transpose2,
+                col64, col64_nocorr, leaf64, transpose2_64, R.deinterleave, R.untangle,
+                R.pre_untangle, R.interleave_scale)
+    for k in counters:
+        k.launches = 0
+    run = counted(counters)
+    c2c = f32_row_launches(planner.plan)
+    errs, peaks, builds = {}, {}, {}
+
+    def peaked(key, fn, want):
+        """run(fn, want) with the peak of allocated bytes over it in peaks,
+        the allocator's cache emptied first (the transforms of 2^31 points
+        fill the card to within 8 GiB)."""
+        release_memory()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out = run(fn, want)
+        torch.cuda.synchronize()
+        peaks[key] = {"peak_gib": torch.cuda.max_memory_allocated() / gib,
+                      "held_before_gib": held / gib}
+        return out
+
+    def ones_exact(key, re, im=None):
+        """The inverse of N * delta: exactly ones (the scale is 1/N)."""
+        exact = bool((re == 1.0).all()) and (im is None or bool((im == 0.0).all()))
+        errs[f"inverse_of_n_delta_exact_{key}"] = exact
+        if not exact:
+            raise AssertionError(f"{key}: the inverse of N * delta is not exactly ones")
+
+    xr, xi = seeded(GIANT_SEED, (n,)), seeded(GIANT_SEED + 1, (n,))
+    ks = torch.randint(0, n, (GIANT_BINS,), generator=gen, device=dev)
+    ks[:4] = torch.tensor([0, 1, n // 2, n - 1], device=dev)
+    want = dft_bins(xr, xi, ks)
+    tol = 5e-7 * max(1.0, GIANT_LOG / 18.0)
+    entries = {
+        "c2c": lambda a, b, direction: fft_32_dit_with_planner(a, b, direction, planner),
+        "fft_distributed": lambda a, b, direction: fft_distributed(a, b, direction, planner),
+    }
+    wants = {"c2c": c2c, "fft_distributed": dist_launches(n, planner.options.leaf_fft_size,
+                                                          False, "natural")}
+    for key, entry in entries.items():
+        out = peaked(f"{key}_forward", lambda: entry(xr, xi, Direction.Forward), wants[key])
+        errs[f"{key}_bins"] = err = bins_err(out, want, ks)
+        check(f"{key} 2^{GIANT_LOG} on {GIANT_BINS} bins", err, tol)
+        back = peaked(f"{key}_inverse", lambda: entry(*out, Direction.Reverse), wants[key])
+        del out
+        errs[f"{key}_roundtrip"] = rt = rel_l2(back[0], back[1], xr, xi, worst=True)[0]
+        check(f"{key} round trip 2^{GIANT_LOG}", rt, 1e-6)
+        del back
+        release_memory()
+        dr = torch.zeros(n, device=dev)
+        dr[0] = float(n)
+        ones_exact(key, *run(lambda: entry(dr, torch.zeros_like(dr), Direction.Reverse),
+                             wants[key]))
+        del dr
+        release_memory()
+    check(f"peak of the f32 C2C at 2^{GIANT_LOG}, GiB", peaks["c2c_forward"]["peak_gib"],
+          GIANT_PEAK_GIB)
+    del xr, xi, want
+    release_memory()
+
+    real = {"f32": (PlannerR2c32, r2c_fft_f32_with_planner, c2r_fft_f32_with_planner,
+                    torch.float32),
+            "f64": (PlannerR2c64, r2c_fft_f64_with_planner, c2r_fft_f64_with_planner,
+                    torch.float64)}
+    for tag, log_r in GIANT_R2C:
+        cls, r2c_p, c2r_p, dtype = real[tag]
+        m = 1 << log_r
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = cls(m)
+        torch.cuda.synchronize()
+        builds[f"{tag}_planner_r2c_2^{log_r}_s"] = time.perf_counter() - t0
+        inner = (native_launches if tag == "f64" else f32_row_launches)(p.dit_planner.plan)
+        fwd = {"deinterleave": 1, "untangle": 1, **inner}
+        inv = {"pre_untangle": 1, "interleave_scale": 1, **inner}
+        x = seeded(GIANT_SEED + 2, (m,), dtype)
+        spec = peaked(f"{tag}_r2c_2^{log_r}", lambda: r2c_p(x, p), fwd)
+        rk = torch.randint(0, m // 2 + 1, (GIANT_BINS,), generator=gen, device=dev)
+        rk[:4] = torch.tensor([0, 1, m // 4, m // 2], device=dev)
+        errs[f"{tag}_r2c_2^{log_r}_bins"] = err = bins_err(spec, dft_bins(x, None, rk), rk)
+        check(f"{tag} r2c 2^{log_r} on {GIANT_BINS} bins", err,
+              DD_E2E_TOL if tag == "f64" else 5e-7 * max(1.0, log_r / 18.0))
+        if bool(spec[1][0] != 0) or bool(spec[1][-1] != 0):
+            raise AssertionError(f"{tag} r2c 2^{log_r}: the DC or Nyquist bin is not real")
+        del x
+        release_memory()
+        back = peaked(f"{tag}_c2r_2^{log_r}", lambda: c2r_p(*spec, p), inv)
+        del spec
+        x = seeded(GIANT_SEED + 2, (m,), dtype)
+        errs[f"{tag}_roundtrip_2^{log_r}"] = rt = rel_l2(back, None, x, None, worst=True)[0]
+        check(f"{tag} round trip 2^{log_r}", rt, DD_E2E_TOL if tag == "f64" else 1e-6)
+        del back, x
+        release_memory()
+        sr = torch.zeros(m // 2 + 1, device=dev, dtype=dtype)
+        sr[0] = float(m)
+        back = run(lambda: c2r_p(sr, torch.zeros_like(sr), p), inv)
+        ones_exact(f"{tag}_c2r_2^{log_r}", back)
+        del sr, back, p
+        release_memory()
+    torch.cuda.synchronize()
+    got = {k.__name__: k.launches for k in counters}
+    emit({"phase": "e2e_giant", "n": n, "rel_l2": errs, "peaks": peaks, "builds": builds,
+          "launches": got, "want": run.total, "card": smi})
+    if got != run.total:
+        raise AssertionError(f"launches {got}, want {run.total}")
+    for name, count in got.items():
+        if count:
+            launches[name] = launches.get(name, 0) + count
+
+    # -- the untangle table of n = 2^32 (2^30 + 1 entries a plane): numpy on
+    # the host (what the planner ran before) against the card's build
+    m = 1 << GIANT_R2C[0][1]
+    t0 = time.perf_counter()
+    host = R.r2c_twiddles_host(m, m // 4 + 1, np.float32)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = R.r2c_twiddles(m, m // 4 + 1, np.float32, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    probe = torch.arange(0, m // 4 + 1, (m // 4) // 4096, dtype=torch.int64)
+    diff = max(float(np.abs(h[probe.numpy()] - c[probe.to(dev)].cpu().numpy()).max())
+               for h, c in zip(host, card))
+    emit({"phase": "giant_tables", "n": m, "entries": m // 4 + 1, "host_numpy_s": host_s,
+          "card_s": card_s, "max_abs_diff_on_4097_entries": diff, "card": smi})
+    del host, card
+    release_memory()
+
+    # -- times: each whole transform, medians of GIANT_TIME_REPS, beside the
+    # bound of its passes and one torch call computing the same function
+    def library(fn):
+        try:
+            ms = time_ms(fn, flush, GIANT_TIME_REPS)
+        except (torch.OutOfMemoryError, RuntimeError) as exc:
+            torch.cuda.synchronize()
+            return f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+        return ms
+
+    # the real transforms' four passes at n = 2^32 (2^31 bins), each beside
+    # its bound and, for the two copies, one torch call
+    m = 1 << GIANT_R2C[0][1]
+    p = PlannerR2c32(m)
+    tw = (p.twiddles_re, p.twiddles_im)
+    b = r2c_bounds(1, m, False)
+    x = seeded(GIANT_SEED + 2, (m,))
+    passes = {
+        "deinterleave": {
+            "ms": time_ms(lambda: R.deinterleave(x), flush, GIANT_TIME_REPS),
+            "library_ms": time_ms(lambda: x.view(m // 2, 2).movedim(-1, 0).contiguous(),
+                                  flush, GIANT_TIME_REPS)}}
+    z = R.deinterleave(x)
+    del x
+    release_memory()
+    passes["untangle"] = {"ms": time_ms(lambda: R.untangle(*z, *tw), flush, GIANT_TIME_REPS),
+                          "library_ms": None}
+    spec = R.untangle(*z, *tw)
+    passes["interleave_scale"] = {
+        "ms": time_ms(lambda: R.interleave_scale(*z, 2.0 / m), flush, GIANT_TIME_REPS),
+        "library_ms": time_ms(lambda: torch.stack(z, -1), flush, GIANT_TIME_REPS)}
+    del z
+    release_memory()
+    full = p.c2r_twiddles
+    passes["pre_untangle"] = {
+        "ms": time_ms(lambda: R.pre_untangle(*spec, *full), flush, GIANT_TIME_REPS),
+        "library_ms": None}
+    for name, row in passes.items():
+        row.update(n=m, rows=1, dtype="f32", **b[name])
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    emit({"phase": "times_giant", "level": f"the real transforms' passes at 2^{m.bit_length() - 1}",
+          "card": smi, "passes": passes})
+    del p, tw, full, spec
+    release_memory()
+
+    xr, xi = seeded(GIANT_SEED, (n,)), seeded(GIANT_SEED + 1, (n,))
+    out = {}
+    for key, entry in entries.items():
+        out[key] = {
+            "forward_ms": time_ms(lambda: entry(xr, xi, Direction.Forward), flush,
+                                  GIANT_TIME_REPS),
+            "forward_wall_ms": wall_ms(lambda: entry(xr, xi, Direction.Forward), flush,
+                                       GIANT_TIME_REPS),
+            "inverse_ms": time_ms(lambda: entry(xr, xi, Direction.Reverse), flush,
+                                  GIANT_TIME_REPS),
+            "bound_ms": 4 * copy_bound(n)[0]}
+        release_memory()
+    xc = torch.complex(xr, xi)
+    del xr, xi
+    release_memory()
+    out["c2c"]["library_ms"] = library(lambda: torch.fft.fft(xc))
+    del xc
+    release_memory()
+    for tag, log_r in GIANT_R2C:
+        cls, r2c_p, c2r_p, dtype = real[tag]
+        m = 1 << log_r
+        p = cls(m)
+        x = seeded(GIANT_SEED + 2, (m,), dtype)
+        b = r2c_bounds(1, m, tag == "f64")
+        inner_passes = sum(f32_row_launches(p.dit_planner.plan).values()) if tag == "f32" \
+            else sum(native_launches(p.dit_planner.plan).values())
+        inner_ms = inner_passes * (16 if tag == "f32" else 32) * (m // 2) / HBM_BYTES_PER_S * 1e3
+        row = {"r2c_ms": time_ms(lambda: r2c_p(x, p), flush, GIANT_TIME_REPS),
+               "r2c_wall_ms": wall_ms(lambda: r2c_p(x, p), flush, GIANT_TIME_REPS),
+               "r2c_bound_ms": b["deinterleave"]["bound_ms"] + inner_ms
+               + b["untangle"]["bound_ms"]}
+        spec = r2c_p(x, p)
+        del x
+        release_memory()
+        row["c2r_ms"] = time_ms(lambda: c2r_p(*spec, p), flush, GIANT_TIME_REPS)
+        row["c2r_bound_ms"] = (b["pre_untangle"]["bound_ms"] + inner_ms
+                               + b["interleave_scale"]["bound_ms"])
+        del spec, p
+        release_memory()
+        x = seeded(GIANT_SEED + 2, (m,), dtype)
+        row["rfft_library_ms"] = library(lambda: torch.fft.rfft(x))
+        out[f"{tag}_r2c_2^{log_r}"] = row
+        del x
+        release_memory()
+    emit({"phase": "times_giant", "n": n, "card": smi, **out})
 
 
 def main() -> int:
@@ -3702,6 +4145,7 @@ def main() -> int:
         dist_phases(dev, gen, flush, smi, top, launches, max_err)
         dist64_phases(dev, gen, flush, smi, top, launches, max_err)
         r2c_phases(dev, gen, flush, smi, top, launches, max_err)
+        giant_phases(dev, gen, flush, smi, top, launches, max_err)
 
     sources = {
         "colfft_out3d": ("phastft_tpu_torch/csrc/colfft.cu",

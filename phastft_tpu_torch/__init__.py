@@ -10,8 +10,8 @@ Device rule: planners and entries take ``device=None``, which means
 ``"cuda"``; with no GPU present that raises. Pass ``device="cpu"`` to run
 on the CPU.
 
-The port runs planar f32 for n = 1..2^30, forward and inverse, with
-leading batch dimensions: up to 2^16 through one leaf kernel per
+The port plans planar f32 for every power of two n, forward and inverse,
+with leading batch dimensions (one H100 holds up to 2^31 points): up to 2^16 through one leaf kernel per
 transform, to 2^25 through the fused two-pass four-step pipeline, above
 it through a classic outer level (column pass, inner transform, paired
 transpose) around that pipeline; a non-default ``Options.leaf_fft_size``
@@ -23,11 +23,13 @@ the df64 (paired-f32) engine, four f32 planes per complex array through
 the dd kernels (``f64_engine`` = ``"df64"``, ``"df64-fused"``,
 ``"df64-split"``), and with ``"df64-oz"`` the split levels of
 n1 = 128..2048 over a leaf of 2^10..2^13 points on the Ozaki bf16-slice
-kernels; both are opt-in. Everything else (n >= 2^31, ...) raises
+kernels; both are opt-in. A transform the card cannot hold fails with
+``torch.OutOfMemoryError``. What the port does not run yet (the staged and
+plain pipelines, Tune, leaves outside 128..2^16 points) raises
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
 
 The real transforms (``PlannerR2c32/64``, ``r2c_*`` / ``c2r_*``, compact
-N/2 + 1 spectrum, n = 4..2^31) run the half-length C2C between the four
+N/2 + 1 spectrum, n >= 4; one H100 holds f32 up to 2^32) run the half-length C2C between the four
 streaming kernels of ``csrc/r2c.cu``; the interleaved-complex entries
 (``*_interleaved``) and ``numpy_like`` (``numpy.fft``'s surface, numpy in
 and out) ride the planar entries. The package imports neither JAX nor

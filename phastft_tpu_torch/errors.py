@@ -5,10 +5,10 @@ The same four classes, with the same messages, as the JAX package's
 (non-power-of-2 length, planar length mismatch, planner-size mismatch).
 
 ``not_ported`` builds the ``NotImplementedError`` raised for everything
-the port does not run yet (n >= 2^31, the staged and plain pipelines,
-Tune, leaves outside 128..2^16 points, distributed column blocks under the
-column kernel's floor); its message names the ``ROADMAP.md`` item that will
-bring it.
+the port does not run yet (the staged and plain pipelines, Tune, leaves
+outside 128..2^16 points, distributed column blocks under the column
+kernel's floor); its message names the ``ROADMAP.md`` item that will bring
+it. Item numbers are names: an item that is done keeps its number.
 """
 
 from __future__ import annotations
@@ -48,7 +48,6 @@ def ensure_power_of_two(n: int) -> int:
 
 #: ROADMAP.md Queue 1 items that bring what the port does not run yet.
 ROADMAP_ITEMS = {
-    "nested": "ROADMAP.md Queue 1 item 16 (transforms of n >= 2^31)",
     "classic": "ROADMAP.md Queue 1 item 7 (use_pallas=False and the staged "
                "strategy)",
     "tune": "ROADMAP.md Queue 1 item 8 (PlannerMode.Tune)",

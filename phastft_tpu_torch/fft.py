@@ -164,13 +164,15 @@ def _run(reals, imags, direction, planner, opts: Options):
     # planner's own options, not the per-call opts.
     build, variant, args = engine_of(planner, opts.f64_engine, opts.leaf_kernel)
     run = build(n, planner.options.leaf_fft_size, scale, *variant)
-    reals = _as_tensor(reals, planner)
-    imags = _as_tensor(imags, planner)
+    # handed over: a conversion made here is dropped once the first kernel
+    # has read it (a tensor of the caller's stays the caller's)
+    pair = [_as_tensor(reals, planner), _as_tensor(imags, planner)]
     if direction is Direction.Forward:
-        return run(reals, imags, *args)
+        return run.take(pair, *args)
     # IFFT swap trick: swap(IDFT(z)) = (1/N) DFT(swap(z)); feed (im, re)
     # and swap the outputs back.
-    out_re, out_im = run(imags, reals, *args)
+    pair.reverse()
+    out_re, out_im = run.take(pair, *args)
     return out_im, out_re
 
 

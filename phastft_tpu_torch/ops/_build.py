@@ -21,7 +21,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["library", "build_log", "SRC_DIR", "BUILD_DIR"]
+__all__ = ["library", "build_log", "call", "check_args", "SRC_DIR", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -38,7 +38,11 @@ _L = ctypes.c_int64
 _D = ctypes.c_double
 #: C entry points and their argument types: pointers and the stream are
 #: c_void_p (a c_int would cut a 64-bit pointer), sizes are c_int, and a
-#: batch or row count whose product with n can pass 2^31 is c_int64.
+#: batch or row count whose product with n can pass 2^31 is c_int64. Every
+#: c_int is a length of one axis (n1, n2, a row length, a table's width) or
+#: a flag. Every wrapper launches through ``call``, whose ``check_args``
+#: refuses a value past its type, which ctypes would cut without a word.
+#: Inside the kernels every offset into a tensor is 64-bit.
 _SIGNATURES = {
     "phastft_colfft": [_P] * 5 + [_I, _P, _P, _L, _I, _I, _I, _L, _L, _P],
     "phastft_colfft_clusters": [_I, _I],
@@ -154,6 +158,29 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def check_args(name: str, args) -> tuple:
+    """``args`` of the C entry ``name`` as a tuple, checked against its
+    signature: as many as it takes, each c_int within 32 bits and each
+    c_int64 within 64 (ctypes would pass the low bits of a larger int).
+    Needs neither the library nor a GPU."""
+    types = _SIGNATURES[name]
+    args = tuple(args)
+    if len(args) != len(types):
+        raise TypeError(f"{name} takes {len(types)} arguments, got {len(args)}")
+    for i, (value, kind) in enumerate(zip(args, types)):
+        bits = 32 if kind is _I else 64 if kind is _L else 0
+        if bits and not -(1 << (bits - 1)) <= int(value) < 1 << (bits - 1):
+            raise OverflowError(
+                f"{name}: argument {i} = {value} does not fit a {bits}-bit int")
+    return args
+
+
+def call(name: str, args) -> int:
+    """The C entry ``name`` on ``check_args(name, args)``; returns its CUDA
+    error code."""
+    return getattr(library(), name)(*check_args(name, args))
 
 
 def build_log() -> str:

@@ -43,15 +43,17 @@ dense F(n1) product sums 2048 terms per output at n1 = 2048 and measured
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
-from ._build import library
+from ._build import call
 from .mxu import dft_matrix_host
 from .stockham import LANES, stockham_axis2
 
 __all__ = [
+    "colfft_args",
     "col_tile",
     "col_tile3d",
     "col_split_tables_host",
@@ -295,8 +297,25 @@ def colfft_nocorr_plain(re, im, n1: int):
 _CLASSIC, _OUT3D, _NOCORR = 0, 1, 2
 
 
-def _launch(name, re, im, b: int, n1: int, n2: int, shape, mode: int,
-            n_total: int, col_base: int = 0, t2=None):
+def colfft_args(shape, n1: int, mode: int, n_total=None, col_base: int = 0,
+                ptrs=(None,) * 7, stream=None) -> tuple:
+    """``phastft_colfft``'s arguments for an input of ``shape`` (..., n1,
+    n2) in ``mode``: the pointers ``ptrs`` (re, im, steps, t2r, t2i, ore,
+    oim), the width of the mode's T2 table (``col_tile`` in the classic
+    mode and a shard's, ``col_tile3d`` in out3d, none bare), the flat
+    batch, n1, n2, the mode, ``n_total`` (default n1 * n2), ``col_base``
+    and the stream."""
+    n2 = int(shape[-1])
+    b = math.prod(shape[:-2])
+    ldt = (0 if mode == _NOCORR else col_tile3d(n1, n2) if mode == _OUT3D
+           else col_tile(n1, n2))
+    re, im, steps, t2r, t2i, ore, oim = ptrs
+    return (re, im, steps, t2r, t2i, ldt, ore, oim, b, n1, n2, mode,
+            n_total or n1 * n2, col_base, stream)
+
+
+def _launch(name, re, im, n1: int, shape, mode: int, n_total=None,
+            col_base: int = 0, t2=None):
     """Launch ``csrc/colfft.cu`` in ``mode`` on the current stream into new
     tensors of ``shape``; ``t2`` is the (n1, t) T2 pair of the split
     twiddle (None in the bare mode)."""
@@ -307,21 +326,20 @@ def _launch(name, re, im, b: int, n1: int, n2: int, shape, mode: int,
         raise ValueError(f"{name}: inputs must be contiguous")
     if re.data_ptr() % 16 or im.data_ptr() % 16:
         raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    n2 = int(re.shape[-1])
     if n2 < MIN_KERNEL_N2:
         raise ValueError(f"{name}: the kernel takes n2 >= {MIN_KERNEL_N2}, "
                          f"got {n2}")
     steps = _steps(n1, re.device)
     ore = torch.empty(shape, dtype=torch.float32, device=re.device)
     oim = torch.empty(shape, dtype=torch.float32, device=re.device)
-    lib = library()
+    ptrs = (re.data_ptr(), im.data_ptr(), steps.data_ptr(),
+            *((tabs[0].data_ptr(), tabs[1].data_ptr()) if tabs else (None, None)),
+            ore.data_ptr(), oim.data_ptr())
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = lib.phastft_colfft(
-            re.data_ptr(), im.data_ptr(), steps.data_ptr(),
-            *((tabs[0].data_ptr(), tabs[1].data_ptr()) if tabs else (None, None)),
-            int(tabs[0].shape[1]) if tabs else 0, ore.data_ptr(), oim.data_ptr(),
-            b, n1, n2, mode, n_total, col_base, stream,
-        )
+        err = call("phastft_colfft", colfft_args(re.shape, n1, mode, n_total,
+                                                 col_base, ptrs, stream))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     return ore, oim
@@ -356,14 +374,14 @@ def colfft(re, im, tabs, n1: int, *, n_total=None, col_base: int = 0):
     to 8192 points in one block (512 columns at n1 <= 16 down to 16 at
     n1 = 512, never more than n2), F(n1) in register trips, the first from
     the loads and the last to the stores."""
-    batch, b, n2 = _check_any("colfft", re, im, tabs, n1, n_total, col_base)
+    batch, _, n2 = _check_any("colfft", re, im, tabs, n1, n_total, col_base)
     if re.device.type == "cpu":
         return colfft_plain(re, im, tabs, n1, n_total=n_total,
                             col_base=col_base)
     t2 = tabs if n_total is None else _shard_t2(
         n1, col_tile(n1, n2), n_total, col_base, re.device)
-    out = _launch("colfft", re, im, b, n1, n2, batch + (n1, n2), _CLASSIC,
-                  n_total or n1 * n2, col_base, t2)
+    out = _launch("colfft", re, im, n1, batch + (n1, n2), _CLASSIC, n_total,
+                  col_base, t2)
     colfft.launches += 1
     return out
 
@@ -384,12 +402,11 @@ def colfft_out3d(re, im, tabs, n1: int):
     out3d=True)``. Bound by memory as ``colfft`` is, with the same slabs:
     32 columns on a cluster of n1/256 blocks at n1 = 1024 and 2048, else
     8192 / n1 columns in one block (64 at n1 = 128, 16 at 512)."""
-    batch, b, n2 = _check("colfft_out3d", re, im, tabs, n1, col_tile3d)
+    batch, _, n2 = _check("colfft_out3d", re, im, tabs, n1, col_tile3d)
     if re.device.type == "cpu":
         return colfft_out3d_plain(re, im, tabs, n1)
     shape = batch + (n2 // LANES, n1, LANES)
-    out = _launch("colfft_out3d", re, im, b, n1, n2, shape, _OUT3D, n1 * n2,
-                  t2=tabs)
+    out = _launch("colfft_out3d", re, im, n1, shape, _OUT3D, t2=tabs)
     colfft_out3d.launches += 1
     return out
 
@@ -411,11 +428,10 @@ def colfft_nocorr(re, im, n1: int):
     Replaces ``phastft_tpu/ops/pallas_col.py`` ``colfft_pallas_nocorr``;
     unlike it, it takes n1 = 2 and 4. Bound by memory as ``colfft`` is,
     with the same slabs."""
-    batch, b, n2 = _check("colfft_nocorr", re, im, None, n1, None, 1)
+    batch, _, n2 = _check("colfft_nocorr", re, im, None, n1, None, 1)
     if re.device.type == "cpu":
         return colfft_nocorr_plain(re, im, n1)
-    out = _launch("colfft_nocorr", re, im, b, n1, n2, batch + (n1, n2),
-                  _NOCORR, n1 * n2)
+    out = _launch("colfft_nocorr", re, im, n1, batch + (n1, n2), _NOCORR)
     colfft_nocorr.launches += 1
     return out
 

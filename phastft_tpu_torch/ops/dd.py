@@ -29,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from ._build import library
+from ._build import call
 from .df64 import (
     dd_cmul,
     dd_radix_tables_host,
@@ -244,13 +244,12 @@ def ddcol(rh, rl, ih, il, t1, t2, n1: int):
     _launch_ready("ddcol", planes, (*t1, *t2))
     out = tuple(torch.empty_like(rh) for _ in range(4))
     tw = _dif_twiddles(n1, rh.device)
-    lib = library()
     with torch.cuda.device(rh.device):
         stream = torch.cuda.current_stream(rh.device).cuda_stream
-        err = lib.phastft_ddcol(
+        err = call("phastft_ddcol", (
             *_ptrs(planes), tw.data_ptr(), *_ptrs(t1), *_ptrs(t2),
             *_ptrs(out), b, n1, n2, stream,
-        )
+        ))
     if err != 0:
         raise RuntimeError(f"ddcol: kernel launch failed, CUDA error {err}")
     ddcol.launches += 1
@@ -290,12 +289,11 @@ def ddcol_nocorr(rh, rl, ih, il, n1: int):
     _launch_ready("ddcol_nocorr", planes)
     out = tuple(torch.empty_like(rh) for _ in range(4))
     tw = _dif_twiddles(n1, rh.device)
-    lib = library()
     with torch.cuda.device(rh.device):
         stream = torch.cuda.current_stream(rh.device).cuda_stream
-        err = lib.phastft_ddcol_nocorr(
+        err = call("phastft_ddcol_nocorr", (
             *_ptrs(planes), tw.data_ptr(), *_ptrs(out), b, n1, n2, stream,
-        )
+        ))
     if err != 0:
         raise RuntimeError(
             f"ddcol_nocorr: kernel launch failed, CUDA error {err}")
@@ -363,13 +361,12 @@ def ddleaf(rh, rl, ih, il, corr, n1: int):
     dev = rh.device
     tw1 = _dif_twiddles(n1, dev).data_ptr() if n1 > 1 else None
     tw2 = _dif_twiddles(LANES, dev).data_ptr()
-    lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.phastft_ddleaf(
+        err = call("phastft_ddleaf", (
             *_ptrs(planes), tw1, tw2, *(_ptrs(corr) or [None] * 4),
             *_ptrs(out), b, n1, stream,
-        )
+        ))
     if err != 0:
         raise RuntimeError(f"ddleaf: kernel launch failed, CUDA error {err}")
     ddleaf.launches += 1

@@ -37,10 +37,14 @@ device memory whose output is already in natural order.
 engine, as the JAX package's f64 ``fft_rows`` runs them: every split level
 on the classic branch (``col64`` with the split twiddle, the inner plan,
 ``transpose2_64``) and every leaf on ``leaf64`` (n = 2..2^16,
-the tiny plans included); n = 1 is a copy. The column pass's output is
-handed over to the inner plan, which drops it as soon as its own first
-kernel has read it, so a nested plan holds at most three pairs at once,
-the caller's input included.
+the tiny plans included); n = 1 is a copy.
+
+In all three engines each pass drops its input as soon as its kernel has
+read it, unless the input is the caller's: a split level hands its column
+output over to the inner plan, whose first kernel reads it and lets it go.
+So a transform holds at most three pairs at once (dd: quadruples), the
+caller's input included, whatever the depth of its plan: 48 GiB for an f32
+transform of 2^31 points. The caller's planes are read, never written.
 """
 
 from __future__ import annotations
@@ -66,6 +70,9 @@ __all__ = [
     "fft_rows",
     "fft_rows_dd",
     "fft_rows_native",
+    "rows_f32",
+    "rows_dd",
+    "rows_native",
 ]
 
 # Largest row transform executed as a single leaf.
@@ -132,9 +139,20 @@ def fft_rows(re, im, plan, corrs, leaf_kernel=None):
     (all of ``mxu1`` at n1 = 1); a tiny plan needs no table. A split level
     runs the fused two-pass branch on
     ``pcolT{n1}x{n2}`` and ``leafT{n2}`` when ``fused_two_pass`` holds,
-    else the classic branch on ``pcol{n1}x{n2}``, which frees each
-    intermediate pair as soon as the next pass has read it. Every branch
-    returns new tensors."""
+    else the classic branch on ``pcol{n1}x{n2}``. Every branch returns new
+    tensors; ``re`` and ``im`` are read, never written, and stay the
+    caller's."""
+    return rows_f32([re, im], plan, corrs, leaf_kernel)
+
+
+def rows_f32(pair, plan, corrs, leaf_kernel=None):
+    """``fft_rows`` on the planes in the list ``pair``, which it empties:
+    the caller hands its references over. Each pass drops its input as soon
+    as its kernel has read it, so a split level's column output is freed
+    when the inner plan's first kernel returns (where the caller still
+    holds the planes, they stay alive)."""
+    re, im = pair
+    pair.clear()
     kind = plan[0]
     if kind == "tiny":
         if plan[1] == 1:
@@ -158,11 +176,12 @@ def fft_rows(re, im, plan, corrs, leaf_kernel=None):
     if fused_two_pass(n1, plan2, n2):
         c3re, c3im = colfft_out3d(re.reshape(view), im.reshape(view),
                                   corrs[f"pcolT{n1}x{n2}"], n1)
+        del re, im
         return leaft(c3re, c3im, corrs[f"leafT{n2}"], n1)
-    c_re, c_im = colfft(re.reshape(view), im.reshape(view),
-                        corrs[f"pcol{n1}x{n2}"], n1)
-    d_re, d_im = fft_rows(c_re, c_im, plan2, corrs, leaf_kernel)
-    del c_re, c_im
+    col = list(colfft(re.reshape(view), im.reshape(view),
+                      corrs[f"pcol{n1}x{n2}"], n1))
+    del re, im
+    d_re, d_im = rows_f32(col, plan2, corrs, leaf_kernel)
     o_re, o_im = transpose2(d_re, d_im)
     del d_re, d_im
     flat = batch + (n1 * n2,)
@@ -232,8 +251,17 @@ def fft_rows_dd(rh, rl, ih, il, plan, tables, corrs, dd_leaf=None):
     arms the oz branch, as in the JAX package, whatever the per-call
     engine. ``dd_leaf`` = "split" runs a leaf with n1 > 1 as
     ``_ddleaf_split``; anything else runs ``ddleaf``. Every branch returns
-    new tensors, and a split level frees each quadruple as soon as the next
-    pass has read it."""
+    new tensors; the four planes are read, never written, and stay the
+    caller's."""
+    return rows_dd([rh, rl, ih, il], plan, tables, corrs, dd_leaf)
+
+
+def rows_dd(quad, plan, tables, corrs, dd_leaf=None):
+    """``fft_rows_dd`` on the four planes in the list ``quad``, which it
+    empties: the caller hands its references over, and a split level's
+    column output is freed when the inner plan's first kernel returns."""
+    rh, rl, ih, il = quad
+    quad.clear()
     kind = plan[0]
     if kind == "tiny":
         return tiny_fft_dd(rh, rl, ih, il, tables, plan[1])
@@ -248,11 +276,12 @@ def fft_rows_dd(rh, rl, ih, il, plan, tables, corrs, dd_leaf=None):
     oztabs = corrs.get(f"ozcol{n1}x{n2}")
     if oztabs is not None:
         col = ozcol(*(a.reshape(view) for a in (rh, rl, ih, il)), oztabs, n1)
+        del rh, rl, ih, il
         return ozleaft(*col, corrs[f"ozleafT{n2}"], n1)
     t1, t2 = corrs[f"ddpcol{n1}x{n2}"]
-    col = ddcol(*(a.reshape(view) for a in (rh, rl, ih, il)), t1, t2, n1)
-    rows = fft_rows_dd(*col, plan2, tables, corrs, dd_leaf)
-    del col
+    col = list(ddcol(*(a.reshape(view) for a in (rh, rl, ih, il)), t1, t2, n1))
+    del rh, rl, ih, il
+    rows = rows_dd(col, plan2, tables, corrs, dd_leaf)
     return _out_transpose_dd(rows, batch, n1, n2)
 
 
@@ -273,10 +302,10 @@ def fft_rows_native(re, im, plan, corrs):
     the inner plan on its n1 rows as one more batch dim, and
     ``transpose2_64``. Every branch returns new tensors; ``re`` and ``im``
     are read, never written, and stay the caller's."""
-    return _rows_native([re, im], plan, corrs)
+    return rows_native([re, im], plan, corrs)
 
 
-def _rows_native(pair, plan, corrs):
+def rows_native(pair, plan, corrs):
     """``fft_rows_native`` on the planes in the list ``pair``, which it
     empties: the caller hands its references over. Each pass drops its
     input as soon as its kernel has read it, so the column output of a
@@ -304,7 +333,7 @@ def _rows_native(pair, plan, corrs):
     col = list(col64(re.reshape(view), im.reshape(view),
                      corrs[f"split{n1}x{n2}"], n1, steps(n1)))
     del re, im
-    d_re, d_im = _rows_native(col, plan2, corrs)
+    d_re, d_im = rows_native(col, plan2, corrs)
     o_re, o_im = transpose2_64(d_re, d_im)
     del d_re, d_im
     flat = batch + (n1 * n2,)

@@ -46,16 +46,17 @@ memory.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
-from ._build import library
+from ._build import call
 from .mxu import dft_matrix_host
 from .stockham import LANES, stockham_axis2
 
 __all__ = ["leaf", "leaf_plain", "leaf3", "leaf3_plain", "hybrid",
-           "hybrid_plain"]
+           "hybrid_plain", "leaf_args", "leaf3_args", "hybrid_args"]
 
 #: Largest n1 of ``leaf`` (n = 2^15, the largest two-factor leaf plan).
 MAX_N1 = 256
@@ -243,6 +244,26 @@ def _cuda_args(name, re, im, tables):
     return torch.empty_like(re), torch.empty_like(im)
 
 
+def leaf_args(shape, n1: int, ptrs=(None,) * 10, stream=None) -> tuple:
+    """``phastft_leaf``'s arguments for rows of ``shape`` (..., n): the
+    pointers ``ptrs`` (the planes, rows 1 of F(n1) and F(128) and the
+    correction, each re and im, where present, and the outputs), the rows,
+    n1, n / n1 and the stream."""
+    return (*ptrs, math.prod(shape[:-1]), n1, int(shape[-1]) // n1, stream)
+
+
+def leaf3_args(shape, ptrs=(None,) * 12, stream=None) -> tuple:
+    """``phastft_leaf3``'s arguments for rows of ``shape`` (..., 2^16): the
+    pointers ``ptrs``, the rows and the stream."""
+    return (*ptrs, math.prod(shape[:-1]), stream)
+
+
+def hybrid_args(shape, n1: int, ptrs=(None,) * 8, stream=None) -> tuple:
+    """``phastft_hybrid``'s arguments for rows of ``shape`` (..., n): the
+    pointers ``ptrs``, the rows, n1 and the stream."""
+    return (*ptrs, math.prod(shape[:-1]), n1, stream)
+
+
 def leaf(re, im, mats, n1: int):
     """Length-n DFT of every row of (..., n) f32 planar tensors, n = 2..2^15,
     in natural order (see the module docstring for ``mats`` and ``n1``).
@@ -262,7 +283,7 @@ def leaf(re, im, mats, n1: int):
     correction folded into the last F(n1) pass. Any batch: rows go in
     ``gridDim.x``."""
     mats = tuple(mats)
-    _, b, n = _check(re, im, mats, n1)
+    _check(re, im, mats, n1)
     if re.device.type == "cpu":
         return leaf_plain(re, im, mats, n1)
     ore, oim = _cuda_args("leaf", re, im, mats)
@@ -272,12 +293,10 @@ def leaf(re, im, mats, n1: int):
         ptrs = [None, None, mats[3].data_ptr(), mats[4].data_ptr(), None, None]
     else:
         ptrs = [mats[i].data_ptr() for i in (0, 1, 3, 4, 6, 7)]
-    lib = library()
+    ptrs = (re.data_ptr(), im.data_ptr(), *ptrs, ore.data_ptr(), oim.data_ptr())
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = lib.phastft_leaf(re.data_ptr(), im.data_ptr(), *ptrs,
-                               ore.data_ptr(), oim.data_ptr(), b, n1,
-                               n // n1, stream)
+        err = call("phastft_leaf", leaf_args(re.shape, n1, ptrs, stream))
     if err != 0:
         raise RuntimeError(f"leaf: kernel launch failed, CUDA error {err}")
     leaf.launches += 1
@@ -305,21 +324,19 @@ def leaf3(re, im, mats, a: int, b: int):
     memory) into the radix-4 and c2, runs F(b) and stores 16 contiguous
     floats per (k_b, p). Any batch: rows go in ``gridDim.x``."""
     mats = tuple(mats)
-    _, bs, _ = _check3(re, im, mats, a, b)
+    _check3(re, im, mats, a, b)
     if re.device.type == "cpu":
         return leaf3_plain(re, im, mats, a, b)
     ore, oim = _cuda_args("leaf3", re, im, mats)
     if a != LANES or b != LANES:
         raise ValueError(f"leaf3: the kernel takes a = b = {LANES}, got "
                          f"a={a}, b={b}")
-    lib = library()
+    ptrs = (re.data_ptr(), im.data_ptr(),
+            *(mats[i].data_ptr() for i in (0, 1, 3, 4, 6, 7, 8, 9)),
+            ore.data_ptr(), oim.data_ptr())
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = lib.phastft_leaf3(
-            re.data_ptr(), im.data_ptr(),
-            *(mats[i].data_ptr() for i in (0, 1, 3, 4, 6, 7, 8, 9)),
-            ore.data_ptr(), oim.data_ptr(), bs, stream,
-        )
+        err = call("phastft_leaf3", leaf3_args(re.shape, ptrs, stream))
     if err != 0:
         raise RuntimeError(f"leaf3: kernel launch failed, CUDA error {err}")
     leaf3.launches += 1
@@ -349,18 +366,15 @@ def hybrid(re, im, mats, n1: int):
     row is spread over a cluster of n1 / 64 blocks that read each other's
     columns through distributed shared memory."""
     mats = tuple(mats)
-    _, b, _ = _check_hybrid(re, im, mats, n1)
+    _check_hybrid(re, im, mats, n1)
     if re.device.type == "cpu":
         return hybrid_plain(re, im, mats, n1)
     ore, oim = _cuda_args("hybrid", re, im, mats)
-    lib = library()
+    ptrs = (re.data_ptr(), im.data_ptr(), mats[0].data_ptr(), mats[1].data_ptr(),
+            mats[3].data_ptr(), mats[4].data_ptr(), ore.data_ptr(), oim.data_ptr())
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = lib.phastft_hybrid(
-            re.data_ptr(), im.data_ptr(), mats[0].data_ptr(), mats[1].data_ptr(),
-            mats[3].data_ptr(), mats[4].data_ptr(), ore.data_ptr(),
-            oim.data_ptr(), b, n1, stream,
-        )
+        err = call("phastft_hybrid", hybrid_args(re.shape, n1, ptrs, stream))
     if err != 0:
         raise RuntimeError(f"hybrid: kernel launch failed, CUDA error {err}")
     hybrid.launches += 1

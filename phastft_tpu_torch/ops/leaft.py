@@ -19,15 +19,16 @@ a cluster of its blocks owns 8 consecutive rows, so that each store writes
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
-from ._build import library
+from ._build import call
 from .mxu import dft_matrix_host
 from .stockham import leaf_correction_host
 
-__all__ = ["M_LANES", "leaft_tables_host", "leaft", "leaft_plain"]
+__all__ = ["M_LANES", "leaft_tables_host", "leaft", "leaft_args", "leaft_plain"]
 
 #: Second leaf factor (the lane axis of the column pass's 3-d output).
 M_LANES = 128
@@ -112,6 +113,15 @@ def leaft_plain(cre, cim, mats, n1: int):
     return store(q1 - q2), store(q3 - q1 - q2)
 
 
+def leaft_args(shape, ptrs=(None,) * 10, stream=None) -> tuple:
+    """``phastft_leaft``'s arguments for an input of ``shape`` (..., A, n1,
+    128): the pointers ``ptrs`` (the two planes, F(A), F(128) and the
+    correction, each re and im, and the two outputs), the flat batch, n1,
+    A and the stream."""
+    b = math.prod(shape[:-3])
+    return (*ptrs, b, int(shape[-2]), int(shape[-3]), stream)
+
+
 def leaft(cre, cim, mats, n1: int):
     """Row FFTs of length n2 = A * 128 over the column pass's
     (..., A, n1, 128) f32 output, written as (..., n) in the final natural
@@ -130,7 +140,7 @@ def leaft(cre, cim, mats, n1: int):
     be a multiple of 8 on CUDA), reads them with float4 loads, trades the
     two factors through distributed shared memory and writes 8 contiguous
     floats per output run."""
-    batch, b, a = _check(cre, cim, mats, n1)
+    batch, _, a = _check(cre, cim, mats, n1)
     if cre.device.type == "cpu":
         return leaft_plain(cre, cim, mats, n1)
     if cre.device.type != "cuda":
@@ -146,14 +156,10 @@ def leaft(cre, cim, mats, n1: int):
     shape = batch + (a * M_LANES * n1,)
     ore = torch.empty(shape, dtype=torch.float32, device=cre.device)
     oim = torch.empty(shape, dtype=torch.float32, device=cre.device)
-    lib = library()
+    ptrs = tuple(x.data_ptr() for x in (cre, cim, f1r, f1i, f2r, f2i, cr, ci, ore, oim))
     with torch.cuda.device(cre.device):
         stream = torch.cuda.current_stream(cre.device).cuda_stream
-        err = lib.phastft_leaft(
-            cre.data_ptr(), cim.data_ptr(), f1r.data_ptr(), f1i.data_ptr(),
-            f2r.data_ptr(), f2i.data_ptr(), cr.data_ptr(), ci.data_ptr(),
-            ore.data_ptr(), oim.data_ptr(), b, n1, a, stream,
-        )
+        err = call("phastft_leaft", leaft_args(cre.shape, ptrs, stream))
     if err != 0:
         raise RuntimeError(f"leaft: kernel launch failed, CUDA error {err}")
     leaft.launches += 1

@@ -32,16 +32,17 @@ bit for bit.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
-from ._build import library
+from ._build import call
 from .stockham import LANES, leaf_fft, stockham_axis2, tiny_fft
 
-__all__ = ["col64", "col64_plain", "col64_nocorr", "col64_nocorr_plain",
+__all__ = ["col64", "col64_args", "col64_plain", "col64_nocorr", "col64_nocorr_plain",
            "col64_shard_tables", "col64_tables", "dif_twiddles", "dif_twiddles_host", "leaf64",
-           "leaf64_plain", "MAX_COL_N1", "MAX_LEAF_N"]
+           "leaf64_args", "leaf64_plain", "MAX_COL_N1", "MAX_LEAF_N"]
 
 #: Column factors of ``col64`` and row lengths of ``leaf64`` (powers of two).
 MAX_COL_N1 = 2048
@@ -144,6 +145,15 @@ def _launch_ready(name, planes, tabs=()):
 
 
 # ---------------------------------------------------------------- col64
+def col64_args(shape, n1: int, ptrs=(None,) * 9, stream=None) -> tuple:
+    """``phastft_col64``'s arguments for planes of ``shape`` (..., n1, n2):
+    the pointers ``ptrs`` (the planes, the steps, T1 and T2 re and im, the
+    outputs), the flat batch, n1, n2 and the stream; with seven pointers
+    (no tables), ``phastft_col64_nocorr``'s."""
+    b = math.prod(shape[:-2])
+    return (*ptrs, b, n1, int(shape[-1]), stream)
+
+
 def _check_col(re, im, tabs, n1: int, steps, name="col64"):
     """Validate the column pass's arguments (``tabs`` None: the bare mode);
     return (flat batch, n2)."""
@@ -209,20 +219,17 @@ def col64(re, im, tabs, n1: int, steps):
     blocks: F(n1 / 128) in registers from the loads, an exchange through
     distributed shared memory, F(128) with the twiddle products in its last
     trip."""
-    b, n2 = _check_col(re, im, tabs, n1, steps)
+    _check_col(re, im, tabs, n1, steps)
     if re.device.type == "cpu":
         return col64_plain(re, im, tabs, n1, steps)
     tabs = tuple(tabs)
     _launch_ready("col64", (re, im), (*tabs, steps))
     out_re, out_im = torch.empty_like(re), torch.empty_like(im)
     dev = re.device
-    lib = library()
+    ptrs = tuple(x.data_ptr() for x in (re, im, steps, *tabs, out_re, out_im))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.phastft_col64(
-            re.data_ptr(), im.data_ptr(), steps.data_ptr(),
-            *(t.data_ptr() for t in tabs), out_re.data_ptr(), out_im.data_ptr(),
-            b, n1, n2, stream)
+        err = call("phastft_col64", col64_args(re.shape, n1, ptrs, stream))
     if err != 0:
         raise RuntimeError(f"col64: kernel launch failed, CUDA error {err}")
     col64.launches += 1
@@ -255,18 +262,16 @@ def col64_nocorr(re, im, n1: int, steps):
     Stands for the JAX package's ``stockham_axis2`` on a shard's column
     block (``phastft_tpu/parallel/fourstep_dist.py:203``). Bound by memory
     (32 B per element)."""
-    b, n2 = _check_col(re, im, None, n1, steps, "col64_nocorr")
+    _check_col(re, im, None, n1, steps, "col64_nocorr")
     if re.device.type == "cpu":
         return col64_nocorr_plain(re, im, n1, steps)
     _launch_ready("col64_nocorr", (re, im), (steps,))
     out_re, out_im = torch.empty_like(re), torch.empty_like(im)
     dev = re.device
-    lib = library()
+    ptrs = tuple(x.data_ptr() for x in (re, im, steps, out_re, out_im))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.phastft_col64_nocorr(
-            re.data_ptr(), im.data_ptr(), steps.data_ptr(), out_re.data_ptr(),
-            out_im.data_ptr(), b, n1, n2, stream)
+        err = call("phastft_col64_nocorr", col64_args(re.shape, n1, ptrs, stream))
     if err != 0:
         raise RuntimeError(f"col64_nocorr: kernel launch failed, CUDA error {err}")
     col64_nocorr.launches += 1
@@ -277,6 +282,14 @@ col64_nocorr.launches = 0
 
 
 # ---------------------------------------------------------------- leaf64
+def leaf64_args(shape, ptrs=(None,) * 8, stream=None) -> tuple:
+    """``phastft_leaf64``'s arguments for rows of ``shape`` (..., n): the
+    pointers ``ptrs`` (the planes, the two step tables, the correction re
+    and im, the outputs; None where absent), the rows, n and the stream."""
+    b = math.prod(shape[:-1])
+    return (*ptrs, b, int(shape[-1]), stream)
+
+
 def _check_leaf(re, im, corr, n: int, steps):
     """Validate the leaf's arguments; return (flat batch, n1, corr, steps)."""
     if n < 2 or n > MAX_LEAF_N or n & (n - 1):
@@ -326,7 +339,7 @@ def leaf64(re, im, corr, n: int, steps):
     the last straight to the stores. Up to 2^12 points a block holds whole
     rows; from 2^13 a cluster of 2, 4, 8 or 16 blocks holds one row and
     trades through distributed shared memory between F(n1) and F(128)."""
-    b, n1, corr, tw = _check_leaf(re, im, corr, n, steps)
+    _, n1, corr, tw = _check_leaf(re, im, corr, n, steps)
     if re.device.type == "cpu":
         return leaf64_plain(re, im, corr, n, steps)
     _launch_ready("leaf64", (re, im), (*corr, *tw))
@@ -334,13 +347,12 @@ def leaf64(re, im, corr, n: int, steps):
     dev = re.device
     tw1 = tw[0].data_ptr() if n1 > 1 else None
     tw2 = tw[-1].data_ptr()
-    lib = library()
+    ptrs = (re.data_ptr(), im.data_ptr(), tw1, tw2,
+            *((corr[0].data_ptr(), corr[1].data_ptr()) if corr else (None, None)),
+            out_re.data_ptr(), out_im.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.phastft_leaf64(
-            re.data_ptr(), im.data_ptr(), tw1, tw2,
-            *((corr[0].data_ptr(), corr[1].data_ptr()) if corr else (None, None)),
-            out_re.data_ptr(), out_im.data_ptr(), b, n, stream)
+        err = call("phastft_leaf64", leaf64_args(re.shape, ptrs, stream))
     if err != 0:
         raise RuntimeError(f"leaf64: kernel launch failed, CUDA error {err}")
     leaf64.launches += 1

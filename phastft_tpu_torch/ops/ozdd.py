@@ -34,7 +34,7 @@ import weakref
 import numpy as np
 import torch
 
-from ._build import library
+from ._build import call
 from .dd import _check_planes as check_dd_planes
 from .df64 import _dft_regs_dd, dd_cmul, split_hi_lo
 from .ozaki import NSLICES, oz_cmatmul_dd, oz_slice_matrix_host
@@ -292,9 +292,9 @@ def _check_ozleaft(planes, tabs, n1: int):
     return batch, int(np.prod(batch)) if batch else 1, a
 
 
-def _launch(name, fn, tensors, *sizes):
-    """Call the C entry ``fn`` with a host array of the tensors' pointers on
-    the current stream of their device; raise on a CUDA error."""
+def _launch(name, entry, tensors, *sizes):
+    """Call the C entry ``entry`` with a host array of the tensors' pointers
+    on the current stream of their device; raise on a CUDA error."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -303,7 +303,7 @@ def _launch(name, fn, tensors, *sizes):
     ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptrs, *sizes, stream)
+        err = call(entry, (ptrs, *sizes, stream))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
 
@@ -373,7 +373,7 @@ def ozcol(rh, rl, ih, il, tabs, n1: int):
     out = tuple(torch.empty(shape, dtype=torch.float32, device=rh.device)
                 for _ in range(4))
     card = _card(tabs, lambda: ozcol_card(tabs, n1))
-    _launch("ozcol", library().phastft_ozcol, (*planes, *tabs, *out, card), b, n1,
+    _launch("ozcol", "phastft_ozcol", (*planes, *tabs, *out, card), b, n1,
             n2)
     ozcol.launches += 1
     return out
@@ -436,7 +436,7 @@ def ozleaft(crh, crl, cih, cil, tabs, n1: int):
     out = tuple(torch.empty(shape, dtype=torch.float32, device=crh.device)
                 for _ in range(4))
     card = _card(tabs, lambda: ozleaft_card(tabs, a))
-    _launch("ozleaft", library().phastft_ozleaft, (*planes, *tabs, *out, card),
+    _launch("ozleaft", "phastft_ozleaft", (*planes, *tabs, *out, card),
             b, a, n1)
     ozleaft.launches += 1
     return out

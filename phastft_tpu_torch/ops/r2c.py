@@ -50,14 +50,20 @@ bit for bit.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
-from ._build import library
+from ._build import call
 
 __all__ = [
+    "deinterleave_args",
+    "interleave_args",
+    "untangle_args",
+    "r2c_twiddles",
     "r2c_twiddles_host",
+    "r2c_twiddles_torch",
     "deinterleave",
     "deinterleave_plain",
     "interleave_scale",
@@ -91,6 +97,32 @@ def r2c_twiddles_host(n: int, count: int, dtype) -> tuple[np.ndarray, np.ndarray
     return out_re, out_im
 
 
+def r2c_twiddles_torch(n: int, count: int, dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``r2c_twiddles_host``'s tables built by torch on ``device``, in slabs
+    of _TW_CHUNK angles: the same f64 expression (-2 pi k / n) and one
+    rounding to ``dtype``; cos and sin are the device's own f64 functions,
+    so an entry may differ from the host's in its last place."""
+    tdt = torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
+    out_re = torch.empty(count, dtype=tdt, device=device)
+    out_im = torch.empty(count, dtype=tdt, device=device)
+    for s in range(0, count, _TW_CHUNK):
+        e = min(count, s + _TW_CHUNK)
+        ang = -2.0 * np.pi * torch.arange(s, e, dtype=torch.float64, device=device) / float(n)
+        out_re[s:e] = 0.5 * torch.cos(ang)
+        out_im[s:e] = 0.5 * torch.sin(ang)
+    return out_re, out_im
+
+
+def r2c_twiddles(n: int, count: int, dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The untangle table of ``count`` entries as tensors on ``device``:
+    ``r2c_twiddles_host`` on the CPU, ``r2c_twiddles_torch`` on a GPU (at
+    n = 2^32 the host's numpy takes tens of seconds for the 2^30 + 1 entries
+    of the quarter table: ``chip_smoke.py``'s ``giant_tables``)."""
+    if torch.device(device).type == "cpu":
+        return tuple(torch.from_numpy(a) for a in r2c_twiddles_host(n, count, dtype))
+    return r2c_twiddles_torch(n, count, dtype, device)
+
+
 _DTYPES = (torch.float32, torch.float64)
 
 
@@ -113,6 +145,37 @@ def _cuda(name, x):
 
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def deinterleave_args(shape, f64: bool, ptrs=(None,) * 3, stream=None) -> tuple:
+    """``phastft_r2c_deinterleave``'s arguments for reals of ``shape``: the
+    f64 flag, the pointers ``ptrs`` (x, even, odd), the count of four-real
+    groups and the stream."""
+    return (int(f64), *ptrs, math.prod(shape) // 4, stream)
+
+
+def interleave_args(shape, f64: bool, scale: float, ptrs=(None,) * 3,
+                    stream=None) -> tuple:
+    """``phastft_r2c_interleave``'s arguments for planes of ``shape``: the
+    f64 flag, the pointers ``ptrs`` (re, im, x), the count of pairs of
+    values a plane, the scale and the stream."""
+    return (int(f64), *ptrs, math.prod(shape) // 2, float(scale), stream)
+
+
+def untangle_args(f64: bool, inverse: bool, shape, p_len: int, w_stride: int,
+                  length: int, k0: int, half: int, nyquist: bool,
+                  ptrs=(None,) * 10, stream=None) -> tuple:
+    """``phastft_r2c_untangle``'s arguments for input planes of ``shape``
+    (..., row stride): the flags, the pointers ``ptrs`` (a, the mirror p,
+    the wrap elements w, the table, the outputs; each re and im) with the
+    row strides of a, p and w (``p_len``, ``w_stride``), the output's row
+    stride, the rows, L = ``length``, ``k0``, ``half`` and the Nyquist
+    flag, and the stream."""
+    a_re, a_im, p_re, p_im, w_re, w_im, tw_re, tw_im, o_re, o_im = ptrs
+    rows = math.prod(shape[:-1])
+    return (int(f64), int(inverse), a_re, a_im, int(shape[-1]), p_re, p_im, p_len,
+            w_re, w_im, w_stride, tw_re, tw_im, o_re, o_im, length + int(nyquist), rows,
+            length, k0, half, int(nyquist), stream)
 
 
 def _raise_on(name, err):
@@ -163,10 +226,10 @@ def deinterleave(x):
     shape = tuple(x.shape[:-1]) + (n // 2,)
     even = torch.empty(shape, dtype=x.dtype, device=x.device)
     odd = torch.empty(shape, dtype=x.dtype, device=x.device)
+    ptrs = (x.data_ptr(), even.data_ptr(), odd.data_ptr())
     with torch.cuda.device(x.device):
-        err = library().phastft_r2c_deinterleave(
-            int(x.dtype == torch.float64), x.data_ptr(), even.data_ptr(), odd.data_ptr(),
-            x.numel() // 4, _stream(x.device))
+        err = call("phastft_r2c_deinterleave", deinterleave_args(
+            x.shape, x.dtype == torch.float64, ptrs, _stream(x.device)))
     _raise_on("deinterleave", err)
     deinterleave.launches += 1
     return even, odd
@@ -213,10 +276,10 @@ def interleave_scale(re, im, scale: float):
     if not (re.is_contiguous() and im.is_contiguous()) or (re.data_ptr() | im.data_ptr()) % 16:
         raise ValueError("interleave_scale: the planes must be contiguous and 16-byte aligned")
     out = torch.empty(tuple(re.shape[:-1]) + (2 * h,), dtype=re.dtype, device=re.device)
+    ptrs = (re.data_ptr(), im.data_ptr(), out.data_ptr())
     with torch.cuda.device(re.device):
-        err = library().phastft_r2c_interleave(
-            int(re.dtype == torch.float64), re.data_ptr(), im.data_ptr(), out.data_ptr(),
-            re.numel() // 2, float(scale), _stream(re.device))
+        err = call("phastft_r2c_interleave", interleave_args(
+            re.shape, re.dtype == torch.float64, scale, ptrs, _stream(re.device)))
     _raise_on("interleave_scale", err)
     interleave_scale.launches += 1
     return out
@@ -330,14 +393,13 @@ def _launch_untangle(name, inverse, a_re, a_im, tw_re, tw_im, length, half, k0,
     shape = batch + (length + int(nyquist),)
     o_re = torch.empty(shape, dtype=a_re.dtype, device=a_re.device)
     o_im = torch.empty(shape, dtype=a_re.dtype, device=a_re.device)
+    ptrs = tuple(x.data_ptr() for x in (a_re, a_im, p_re, p_im, w_re, w_im, tw_re,
+                                        tw_im, o_re, o_im))
     with torch.cuda.device(a_re.device):
-        err = library().phastft_r2c_untangle(
-            int(a_re.dtype == torch.float64), int(inverse),
-            a_re.data_ptr(), a_im.data_ptr(), int(a_re.shape[-1]),
-            p_re.data_ptr(), p_im.data_ptr(), int(p_re.shape[-1]),
-            w_re.data_ptr(), w_im.data_ptr(), int(w_re.stride(0)) if rows > 1 else 0,
-            tw_re.data_ptr(), tw_im.data_ptr(), o_re.data_ptr(), o_im.data_ptr(),
-            shape[-1], rows, length, k0, half, int(nyquist), _stream(a_re.device))
+        err = call("phastft_r2c_untangle", untangle_args(
+            a_re.dtype == torch.float64, inverse, a_re.shape, int(p_re.shape[-1]),
+            int(w_re.stride(0)) if rows > 1 else 0, length, k0, half, nyquist, ptrs,
+            _stream(a_re.device)))
     _raise_on(name, err)
     return o_re, o_im
 
@@ -424,13 +486,12 @@ def build_r2c_fft(n: int, leaf_limit: int, build, variant=()):
     the inner planner's engine as ``fft.engine_of`` gives it: the port's own
     C2C closure is ``build(n // 2, leaf_limit, False, *variant)`` (unscaled),
     called on the planner state ``args``. Each intermediate is dropped once
-    the next pass has read it; the caller's signal stays."""
+    the next pass has read it (the deinterleaved pair is handed over to the
+    inner transform, ``take``); the caller's signal stays."""
     inner = build(n // 2, leaf_limit, False, *variant)
 
     def run(signal, args, tw_re, tw_im):
-        even, odd = deinterleave(signal)
-        z_re, z_im = inner(even, odd, *args)
-        del even, odd
+        z_re, z_im = inner.take([*deinterleave(signal)], *args)
         return untangle(z_re, z_im, tw_re, tw_im)
 
     return run
@@ -441,16 +502,16 @@ def build_c2r_fft(n: int, leaf_limit: int, build, variant=()):
     """Callable (spec_re, spec_im, args, tw_re, tw_im) -> the length-n real
     signal: ``pre_untangle`` on the planner's full-length table, the
     half-length inverse by the swap trick (unscaled, the inner closure as in
-    ``build_r2c_fft``), and ``interleave_scale`` with the 2/n scale, so that
-    C2R(R2C(x)) == x."""
+    ``build_r2c_fft``, z handed over to it), and ``interleave_scale`` with
+    the 2/n scale, so that C2R(R2C(x)) == x."""
     inner = build(n // 2, leaf_limit, False, *variant)
     scale = 2.0 / n
 
     def run(spec_re, spec_im, args, tw_re, tw_im):
-        z_re, z_im = pre_untangle(spec_re, spec_im, tw_re, tw_im)
+        z = [*pre_untangle(spec_re, spec_im, tw_re, tw_im)]
         # swap trick: swap(IDFT(z)) = DFT(swap(z)) / H, the 1/H in `scale`
-        o_im, o_re = inner(z_im, z_re, *args)
-        del z_re, z_im
+        z.reverse()
+        o_im, o_re = inner.take(z, *args)
         return interleave_scale(o_re, o_im, scale)
 
     return run

@@ -14,12 +14,14 @@ and the plain version agree bit for bit: nothing is computed.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-from ._build import library
+from ._build import call
 
-__all__ = ["transpose2", "transpose2_64", "transpose2_plain"]
+__all__ = ["transpose2", "transpose2_64", "transpose2_plain", "transpose_args"]
 
 
 def _check(a, b, dtypes=(torch.float32,), name="transpose2"):
@@ -54,7 +56,15 @@ def transpose2_plain(a, b):
     return (a.swapaxes(-1, -2).contiguous(), b.swapaxes(-1, -2).contiguous())
 
 
-def _launch(name, entry, a, b, batch, bs, rows, cols):
+def transpose_args(shape, ptrs=(None,) * 4, stream=None) -> tuple:
+    """The arguments of ``phastft_transpose2`` and ``phastft_transpose2_64``
+    for inputs of ``shape`` (..., R, C): the pointers ``ptrs`` (a, b, oa,
+    ob), the flat batch, R, C and the stream."""
+    bs = math.prod(shape[:-2])
+    return (*ptrs, bs, int(shape[-2]), int(shape[-1]), stream)
+
+
+def _launch(name, entry, a, b, batch, rows, cols):
     """Launch the C entry ``entry`` (of ``phastft_transpose2``'s arguments)
     on CUDA tensors; return the two outputs."""
     if a.device.type != "cuda":
@@ -64,10 +74,10 @@ def _launch(name, entry, a, b, batch, bs, rows, cols):
     shape = batch + (cols, rows)
     oa = torch.empty(shape, dtype=a.dtype, device=a.device)
     ob = torch.empty(shape, dtype=a.dtype, device=a.device)
+    ptrs = (a.data_ptr(), b.data_ptr(), oa.data_ptr(), ob.data_ptr())
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = getattr(library(), entry)(a.data_ptr(), b.data_ptr(), oa.data_ptr(),
-                                        ob.data_ptr(), bs, rows, cols, stream)
+        err = call(entry, transpose_args(a.shape, ptrs, stream))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     return oa, ob
@@ -88,11 +98,11 @@ def transpose2_64(a, b):
     Bound by memory (16 B per double, read once and written once); a block
     moves a tile of 2048 doubles of each tensor through shared memory
     padded for 8-byte words."""
-    batch, bs, rows, cols = _check(a, b, (torch.float64,), "transpose2_64")
+    batch, _, rows, cols = _check(a, b, (torch.float64,), "transpose2_64")
     if a.device.type == "cpu":
         return transpose2_plain(a, b)
-    out = _launch("transpose2_64", "phastft_transpose2_64", a, b, batch, bs,
-                  rows, cols)
+    out = _launch("transpose2_64", "phastft_transpose2_64", a, b, batch, rows,
+                  cols)
     transpose2_64.launches += 1
     return out
 
@@ -115,11 +125,10 @@ def transpose2(a, b):
     tensor through padded shared memory, and when R is below the tile's
     rows (the outer column factor of a nested plan) the tile covers all of
     R, so its output is one contiguous span."""
-    batch, bs, rows, cols = _check(a, b)
+    batch, _, rows, cols = _check(a, b)
     if a.device.type == "cpu":
         return transpose2_plain(a, b)
-    out = _launch("transpose2", "phastft_transpose2", a, b, batch, bs, rows,
-                  cols)
+    out = _launch("transpose2", "phastft_transpose2", a, b, batch, rows, cols)
     transpose2.launches += 1
     return out
 

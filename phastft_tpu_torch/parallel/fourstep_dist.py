@@ -89,11 +89,11 @@ from ..ops.colfft import MAX_N1, MIN_KERNEL_N2, colfft, colfft_nocorr
 from ..ops.dd import dd_shard_tables, ddcol, ddcol_nocorr
 from ..ops.df64 import dd_cmul, split_f64
 from ..ops.fourstep import (
-    _rows_native,
     _transpose4,
-    fft_rows,
-    fft_rows_dd,
     plan_rows,
+    rows_dd,
+    rows_f32,
+    rows_native,
 )
 from ..ops.native import (
     col64,
@@ -202,20 +202,14 @@ class _Plan:
 
 def _row_pass(planner, plan, leaf_kernel) -> Callable:
     """The row DFTs of ``plan`` on the planner's kernels, as a function of
-    a list [re, im] that it empties: ``fft_rows_native`` on an f64
-    planner's native tables (which drops the planes once its first kernel
-    has read them), ``fft_rows`` on an f32 planner's."""
+    a list [re, im] that it empties: ``rows_native`` on an f64 planner's
+    native tables, ``rows_f32`` on an f32 planner's; each drops the planes
+    once its first kernel has read them."""
     if planner.dtype == np.float64:
         corrs = planner.native_tables_for(plan)
-        return lambda pair: _rows_native(pair, plan, corrs)
+        return lambda pair: rows_native(pair, plan, corrs)
     corrs = planner.tables_for(plan, leaf_kernel)
-
-    def run(pair):
-        re, im = pair
-        pair.clear()
-        return fft_rows(re, im, plan, corrs, leaf_kernel)
-
-    return run
+    return lambda pair: rows_f32(pair, plan, corrs, leaf_kernel)
 
 
 def _columns(pair, p: _Plan, n: int, n1: int, col_base: int, bare: bool):
@@ -256,11 +250,19 @@ def _level_tables(n: int, n1: int, pp: int, c: int, col_base: int, bare: bool, d
     return col64_tables(n, pp, _level_exponents(n, n1, pp, c, col_base, bare), device)
 
 
+def _long_split(n1: int) -> tuple[int, int]:
+    """(P, Q) of a column factor n1 past 2048: P = 2^(log2 n1 // 2), at most
+    2048 (the column kernels' largest factor), and Q = n1 / P >= P, which
+    ``_long_columns`` splits again past 2048."""
+    pp = 1 << min((n1.bit_length() - 1) // 2, MAX_N1.bit_length() - 1)
+    return pp, n1 // pp
+
+
 def _long_columns(pair, p: _Plan, n: int, n1: int, col_base: int, bare: bool):
     """A column factor past the column kernels' 2048 (the JAX package's XLA
     column pass there), as two column passes and two transposes on the
-    (..., n1, c) block handed over in ``pair``. With n1 = P * Q (P = 2^(log2
-    n1 // 2) <= 2048), i1 = Q p + q and k1 = kp + P kq:
+    (..., n1, c) block handed over in ``pair``. With n1 = P * Q
+    (``_long_split``), i1 = Q p + q and k1 = kp + P kq:
 
       1. the DFT over p on the (P, Q c) view, times W_n1^(kp q) and the
          block's twiddle's share W_n^(kp (col_base + j)): ``col64`` on
@@ -276,8 +278,7 @@ def _long_columns(pair, p: _Plan, n: int, n1: int, col_base: int, bare: bool):
     batch = tuple(pair[0].shape[:-2])
     c = int(pair[0].shape[-1])
     dev = pair[0].device
-    pp = 1 << ((n1.bit_length() - 1) // 2)
-    qq = n1 // pp
+    pp, qq = _long_split(n1)
     view = batch + (pp, qq * c)
     re, im = (x.reshape(view) for x in pair)
     pair.clear()
@@ -385,8 +386,7 @@ def _natural_dd(re_l, im_l, p: _Plan, rp: PlannerDit64, dd_leaf):
     while z:
         rows += _to_rows([z.pop(0)], p)
     tables, corrs = rp.dd_state
-    out = list(fft_rows_dd(*rows, rp.plan, tables, corrs, dd_leaf))
-    del rows
+    out = list(rows_dd(rows, rp.plan, tables, corrs, dd_leaf))
     cols = []
     while out:
         cols.append(_row_to_col(out.pop(0), p.n1, p.n2, p.d, p.group))

@@ -71,7 +71,7 @@ from .ops.ozdd import (
 from .ops.leaft import leaft_tables_host
 from .ops.mxu import mxu_leaf_tables3_host, mxu_leaf_tables_host
 from .ops.native import dif_twiddles_host
-from .ops.r2c import r2c_twiddles_host
+from .ops.r2c import r2c_twiddles
 from .ops.stockham import LANES, leaf_correction_host, split_correction_host
 
 __all__ = [
@@ -83,10 +83,6 @@ __all__ = [
     "PlannerR2c64",
     "resolve_device",
 ]
-
-#: The largest size the port runs: at 2^30 one planar f32 pair is 8 GiB
-#: and a nested transform holds four.
-MAX_LOG_N = 30
 
 #: Leaf factor of the three-factor leaf (n = 2^16 = 128 * 4 * 128), the
 #: only leaf past 2^15 that the default leaf rule plans.
@@ -177,8 +173,6 @@ class _PlannerDitBase:
         self.mode = mode
         if mode is PlannerMode.Tune:
             raise not_ported("PlannerMode.Tune", "tune")
-        if self.log_n > MAX_LOG_N:
-            raise not_ported(f"n = 2^{self.log_n}", "nested")
         self.device = resolve_device(device)
         self._derived = {}
         self.options = (
@@ -207,7 +201,10 @@ class _PlannerDitBase:
 
 
 class PlannerDit32(_PlannerDitBase):
-    """f32 DIT planner for n = 1..2^30 on ``device`` (None = "cuda")."""
+    """f32 DIT planner for any power of two n on ``device`` (None =
+    "cuda"). One H100 holds a transform up to n = 2^31 (the input and two
+    more pairs of 16 GiB); past it the planner plans, and the transform
+    fails with ``torch.OutOfMemoryError`` where the card cannot hold it."""
 
     dtype = np.dtype(np.float32)
 
@@ -345,8 +342,9 @@ def _native_tables_host(plan):
 
 
 class PlannerDit64(_PlannerDitBase):
-    """f64 DIT planner for n = 1..2^30 on ``device`` (None = "cuda"), for
-    the native and the df64 (paired-f32) engines.
+    """f64 DIT planner for any power of two n on ``device`` (None =
+    "cuda"), for the native and the df64 (paired-f32) engines. One H100
+    holds a native transform up to n = 2^30 (three pairs of 16 GiB).
 
     ``native_state`` = {key: tensors}, built on first use and kept on the
     planner's device: the native engine's tables (``_native_tables_host``).
@@ -512,9 +510,10 @@ class _PlannerR2cBase:
     ``twiddles_re`` / ``twiddles_im``: 0.5 * W_n^k for k in [0, n/4], from
     exact f64 angles rounded once to the dtype. ``c2r_twiddles`` (and its
     ``_re`` / ``_im``): the full-length table, k in [0, n/2), built on first
-    inverse use, so a forward-only planner does not pay for it. n >= 4; the
-    inner planner takes n/2 up to 2^30 (n up to 2^31). ``PlannerMode.Tune``
-    raises (not ported)."""
+    inverse use, so a forward-only planner does not pay for it. n >= 4, any
+    power of two; on a GPU both tables are built on the card
+    (``ops/r2c.r2c_twiddles``). ``PlannerMode.Tune`` raises (not
+    ported)."""
 
     dtype: np.dtype
     _dit_cls: type
@@ -541,8 +540,8 @@ class _PlannerR2cBase:
         )
         self.inner_opts: Options = self.dit_planner.options
         self.device = self.dit_planner.device
-        self.twiddles_re, self.twiddles_im = _to_device(
-            r2c_twiddles_host(n, n // 4 + 1, self.dtype), self.device)
+        self.twiddles_re, self.twiddles_im = r2c_twiddles(
+            n, n // 4 + 1, self.dtype, self.device)
         self._c2r_tw = None
 
     @property
@@ -550,8 +549,8 @@ class _PlannerR2cBase:
         """(re, im) of 0.5 * W_n^k for k in [0, n/2), the C2R preprocess's
         full-length table, built on first use."""
         if self._c2r_tw is None:
-            self._c2r_tw = _to_device(
-                r2c_twiddles_host(self.n, self.n // 2, self.dtype), self.device)
+            self._c2r_tw = r2c_twiddles(self.n, self.n // 2, self.dtype,
+                                        self.device)
         return self._c2r_tw
 
     @property
@@ -569,7 +568,7 @@ class _PlannerR2cBase:
 
 
 class PlannerR2c64(_PlannerR2cBase):
-    """f64 real-transform planner for n = 4..2^31 on ``device`` (None =
+    """f64 real-transform planner for n >= 4 on ``device`` (None =
     "cuda"); the inner ``PlannerDit64``'s engine runs the half-length
     transform."""
 
@@ -578,7 +577,7 @@ class PlannerR2c64(_PlannerR2cBase):
 
 
 class PlannerR2c32(_PlannerR2cBase):
-    """f32 real-transform planner for n = 4..2^31 on ``device`` (None =
+    """f32 real-transform planner for n >= 4 on ``device`` (None =
     "cuda")."""
 
     dtype = np.dtype(np.float32)

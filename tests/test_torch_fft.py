@@ -2,9 +2,9 @@
 numpy's f64 FFT, plus its error paths.
 
 The error-path tests mirror tests/test_errors.py on the f32 and f64
-entries: the same classes and messages. Sizes outside the port's slice, the
-native f64 engine and PlannerMode.Tune raise NotImplementedError naming
-their ROADMAP.md item. The f64 entries run the df64 (paired-f32)
+entries: the same classes and messages. Leaves outside the port's slice and
+PlannerMode.Tune raise NotImplementedError naming their ROADMAP.md item;
+n = 2^31 is planned as the JAX package plans it. The f64 entries run the df64 (paired-f32)
 engine; their tolerances are on f64 values.
 """
 
@@ -391,23 +391,32 @@ def test_tensor_dtype_and_device_checked():
 # -- outside the slice --------------------------------------------------------
 
 @pytest.mark.parametrize("log_n,leaf,item", [
-    (31, None, "item 16"),      # past 2^30: four pairs of 16 GiB
+    (31, None, "item 16"),      # past 2^30: planned since item 16 landed
     (17, 64, "item 15"),        # rows of 64 points: below the column kernel
     (17, 1 << 17, "item 15"),   # a leaf past 2^16
     (20, 1 << 17, "item 15"),   # the same under a classic split
 ])
 def test_sizes_outside_slice_not_implemented(log_n, leaf, item):
+    """Leaves outside 128..2^16 points raise their item; n = 2^31, which
+    raised item 16 until that item was ported, is planned as the JAX
+    package plans it, on tables of a few MiB (no transform runs here: one
+    pair is 16 GiB)."""
     n = 1 << log_n
+    if item == "item 16":
+        from phastft_tpu.ops.fourstep import plan_rows
+
+        planner = pt.PlannerDit32(n, device="cpu")
+        opts = phastft_tpu.Options.guess_options(n, np.float32)
+        assert planner.plan == plan_rows(n, opts.leaf_fft_size)
+        assert planner.plan[:2] == ("split", 1024)
+        floats = sum(t.numel() for ts in planner.leaf_corrs.values() for t in ts)
+        assert floats < 1 << 22
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        if leaf is None:
-            # a zero-stride view: the size is refused before any data is read
-            x = np.broadcast_to(np.float32(0), (n,))
-            pt.fft_32_dit(x, x, pt.Direction.Forward, device="cpu")
-        else:
-            x = np.zeros(n, np.float32)
-            planner = pt.PlannerDit32(
-                n, options=pt.Options(leaf_fft_size=leaf), device="cpu")
-            pt.fft_32_dit_with_planner(x, x, pt.Direction.Forward, planner)
+        x = np.zeros(n, np.float32)
+        planner = pt.PlannerDit32(
+            n, options=pt.Options(leaf_fft_size=leaf), device="cpu")
+        pt.fft_32_dit_with_planner(x, x, pt.Direction.Forward, planner)
 
 
 @pytest.mark.parametrize("entry", ["fft_64_dit", "fft_64_dit_with_planner",
@@ -685,9 +694,15 @@ def test_f64_error_paths(case, monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pt.PlannerDit64(n)
     else:
-        with pytest.raises(NotImplementedError, match="item 16"):
-            x = np.broadcast_to(np.float64(0), (1 << 31,))
-            pt.fft_64_dit(x, x, "f", device="cpu")
+        # n = 2^31 (item 16, done) is planned as the JAX package plans it;
+        # the native tables wait for the first transform, which no CPU test
+        # runs (one f64 pair is 32 GiB)
+        from phastft_tpu.ops.fourstep import plan_rows
+
+        big = pt.PlannerDit64(1 << 31, device="cpu")
+        opts = phastft_tpu.Options.guess_options(1 << 31, np.float64)
+        assert big.plan == plan_rows(1 << 31, opts.leaf_fft_size)
+        assert big._native_state is None and big._dd_state is None
         for leaf in (64, 1 << 17):
             with pytest.raises(NotImplementedError, match="item 15"):
                 pt.PlannerDit64(1 << 18, options=pt.Options(

@@ -25,6 +25,7 @@ import torch
 import phastft_tpu
 import phastft_tpu_torch as pt
 from phastft_tpu.ops import r2c as jr2c
+from phastft_tpu_torch import planner as planner_module
 from phastft_tpu_torch.ops import r2c as tr2c
 
 TOL_F64 = 1e-12
@@ -86,7 +87,7 @@ def test_planner_inner_options_and_device_rule():
 # mirrors tests/test_planner.py::test_r2c_planner_minimum_size and
 # tests/test_r2c.py::test_minimum_size_n4's bound
 @pytest.mark.parametrize("cls", ["PlannerR2c32", "PlannerR2c64"])
-def test_planner_errors(cls):
+def test_planner_errors(cls, monkeypatch):
     c = getattr(pt, cls)
     for n in (1, 2):
         with pytest.raises(pt.NonPowerOfTwoError,
@@ -96,9 +97,23 @@ def test_planner_errors(cls):
         c(12, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         c(16, pt.PlannerMode.Tune, device="cpu")
-    # the inner planner takes n/2 up to 2^30: n = 2^32 raises its item 16
-    with pytest.raises(NotImplementedError, match="item 16"):
-        c(1 << 32, device="cpu")
+    # n = 2^32 (item 16, done): the inner planner is asked for n/2 = 2^31,
+    # and the quarter table for n/4 + 1 entries (built here as a stand-in:
+    # 8 GiB on the host otherwise)
+    from phastft_tpu.ops.fourstep import plan_rows
+
+    asked = []
+
+    def table(n, count, dtype, device):
+        asked.append((n, count))
+        return torch.zeros(1), torch.zeros(1)
+
+    monkeypatch.setattr(planner_module, "r2c_twiddles", table)
+    big = c(1 << 32, device="cpu")
+    inner = big.dit_planner
+    opts = phastft_tpu.Options.guess_options(1 << 31, inner.dtype)
+    assert inner.n == 1 << 31 and asked == [(1 << 32, (1 << 30) + 1)]
+    assert inner.plan == plan_rows(1 << 31, opts.leaf_fft_size)
 
 
 # -- the passes' plain versions against the JAX package's XLA ops -----------
