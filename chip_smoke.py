@@ -351,8 +351,46 @@ Past 2^30 (ROADMAP item 16) last, in the same world of one rank
    of its passes and ``torch.fft.fft`` complex64 / ``torch.fft.rfft`` of
    the same data (the reason where the card cannot run one).
 
+38. ``edge_phases`` (the window's edges: every ``Options.leaf_fft_size``
+   and every shard width; its seconds on the ``edge_phases`` line):
+   ``parity_edges``, the four kernels that take the new shapes against
+   their plain versions on the card: ``colfft`` at n1 = 16, 1024, 2048 and
+   n2 = 1, 2, 4, 64 (classic mode on the planner's ``pcol{n1}x{n2}``, and
+   the shard mode on the block of each of 4 ranks) and its bare mode at
+   n2 = 1, 2 (rel L2 <= 1e-6); ``col64`` / ``col64_nocorr`` at n2 = 1 on
+   the blocks of 4 ranks, ``ddcol`` at n2 = 1, 8, 64 and ``ddcol_nocorr``
+   at n2 = 1 (<= 1e-13); ``leaf3`` at 2^17 on 2^10 rows (2^27 points), its
+   first and last rows against ``leaf3_plain`` (<= 1e-6); then
+   ``e2e_edges``, the main path through ``fft_32_dit_with_planner`` /
+   ``fft_64_dit_with_planner``, counters set to 0 just before each
+   transform and its launches checked against its plan: f32, native f64
+   and df64 at 2^20 with ``leaf_fft_size`` = 1, 16, 64, and at 2^24 with
+   2^17, 2^18, 2^20, 2^24 (at 2^24 the whole transform is one leaf of
+   n1 = 2^17 on the long columns), each against complex128
+   ``torch.fft.fft`` on the card (f32 <= 5e-7 * max(1, log2(n)/18), f64
+   <= 1e-12), forward then inverse (f32 <= 1e-6, f64 <= 1e-12) and the
+   inverse of N * delta (exactly ones); ``fft_distributed`` at world size
+   1 with ``leaf_fft_size = 2^17`` (f32 2^24: the shard's rows on ``leaf3``
+   at a = 256), and with leaves of 2 (f32) and 1 (f64) at 2^20: blocks of
+   two and one columns, natural order against the oracle and a
+   ``permuted_output`` forward into a ``permuted_input`` inverse; then
+   ``times_edges``: each new shape's kernel
+   time beside its bound (``kernel_bound`` / ``native_bound`` /
+   ``ddcol_bound``), its plain version and, where one call computes the
+   same function, that call (``torch.fft.fft`` of the 2^17 rows for
+   ``leaf3``, ``torch.fft.fft(dim=-2)`` for the bare column passes), and
+   each transform beside ``torch.fft.fft``.
+
 Every timing follows ``release_memory``'s wait where 8 GiB or more went
 back to CUDA (``cudaFree``) just before it.
+
+``python3 chip_smoke.py --turns PARENT`` runs none of this: it times the
+existing transforms (f32 2^20, 2^25, 2^28 and native f64 2^24, 2^27, CUDA
+events, medians) of the package under the directory PARENT (a
+``git archive`` of another commit) and of this checkout's, in turns parent,
+this, this, parent, each turn a process of its own
+(``--time-tree DIR``), and prints each turn's times and this tree's ratio
+to the parent's.
 
 Then a ``run`` line gives the whole run's seconds, the build included. The
 line before the last is the kernel summary (twenty-one rows: the TPU
@@ -667,6 +705,36 @@ GIANT_LEAF_BATCHES = (("leaf", 1 << 17, 1 << 14, "f32"), ("leaf3", 1 << 15, 1 <<
                       ("leaf64", 1 << 15, 1 << 16, "f64"))
 GIANT_LEAF_ROWS = 4
 GIANT_TIME_REPS = 5
+
+#: The window's edges (ROADMAP items 15 and 18). The column kernels' new
+#: widths: n1 and n2 of colfft (classic on the planner's table, and the
+#: shard mode on the block of each of EDGE_RANKS ranks), the bare mode's
+#: n2, col64's n1 at n2 = 1, ddcol's (n1, n2); each on EDGE_COL_POINTS
+#: points (a batch), the shard blocks on one entry.
+EDGE_COL_N1S = (16, 1024, 2048)
+EDGE_COL_N2S = (1, 2, 4, 64)
+EDGE_NOCORR_N2S = (1, 2)
+EDGE_RANKS = 4
+EDGE_DD_COL = ((64, 1), (64, 8), (64, 64), (1024, 1), (2048, 8), (2048, 64))
+EDGE_COL_POINTS = 1 << 22
+#: leaf3 at a = 256: rows of 2^17, EDGE_LEAF3_ROWS of them (2^27 points);
+#: EDGE_LEAF3_CHECK rows at each end held to the plain version.
+EDGE_LEAF3_ROWS = 1 << 10
+EDGE_LEAF3_CHECK = 2
+#: (log2 n, leaf_fft_size, engines) of the main-path transforms.
+EDGE_E2E = ((20, 1, ("f32", "native", "df64")), (20, 16, ("f32", "native", "df64")),
+            (20, 64, ("f32", "native", "df64")),
+            (24, 1 << 17, ("f32", "native", "df64")), (24, 1 << 18, ("f32", "native", "df64")),
+            (24, 1 << 20, ("f32", "native", "df64")), (24, 1 << 24, ("f32", "native", "df64")))
+#: fft_distributed at world size 1: (log2 n, leaf_fft_size), f32; and the
+#: narrow blocks a small leaf gives at world size 1, (dtype, log2 n, leaf):
+#: n2 = leaf columns, the column factor past 2048 on the long columns.
+EDGE_DIST = (24, 1 << 17)
+EDGE_DIST_NARROW = (("f32", 20, 2), ("f64", 20, 1))
+EDGE_TIME_REPS = 10
+#: The transforms of --turns: (dtype, log2 n).
+TURN_SIZES = (("f32", 20), ("f32", 25), ("f32", 28), ("f64", 24), ("f64", 27))
+TURN_REPS = 20
 
 
 def emit(obj) -> None:
@@ -1021,6 +1089,10 @@ def native_launches(plan):
         want["col64"] += 1
         want["transpose2_64"] += 1
         plan = plan[2]
+    if plan[0] == "leaf" and plan[1] > 512:  # leaf_columns
+        for name, count in long_column_launches(plan[1], "native").items():
+            want[name] += count
+        want["transpose2_64"] += 1
     if plan[0] == "leaf" or plan[1] > 1:
         want["leaf64"] += 1
     return want
@@ -1035,8 +1107,11 @@ def dd_launches(plan, split: bool):
         want["transpose2"] += 2
         plan = plan[2]
     if plan[0] == "leaf":
-        if split and plan[1] > 1:
-            want["ddcol"] += 1
+        if plan[1] > 512 or (split and plan[1] > 1):
+            # the split leaf: its first pass on the long dd columns, two
+            # transposes, ddcol_nocorr over 128
+            for name, count in long_column_launches(plan[1], "dd").items():
+                want[name] += count
             want["transpose2"] += 2
             want["ddcol_nocorr"] += 1
         else:
@@ -1821,10 +1896,43 @@ def f32_row_launches(plan):
         add("colfft")
         add("transpose2")
         plan = plan2
-    if plan[0] == "leaf":
-        add("leaf3" if plan[1] == 512 else "leaf")
+    if plan[0] == "leaf" and plan[1] > 1024:  # leaf_columns
+        for name, count in long_column_launches(plan[1], "f32").items():
+            want[name] = want.get(name, 0) + count
+        add("leaf")
+        add("transpose2")
+    elif plan[0] == "leaf":
+        add("leaf3" if plan[1] in (512, 1024) else "leaf")
     elif plan[1] > 1:
         add("leaf")
+    return want
+
+
+def long_column_launches(n1: int, engine: str, bare: bool = False):
+    """{kernel: launches} of ``ops/longcol.columns`` (``engine`` "f32" or
+    "native") or ``longcol.dd_columns`` ("dd") over n1 on a block of every
+    column (a single-device leaf's, or a world of one's), ``bare`` for
+    permuted input: one column pass up to 2048; past it two passes (the
+    first one nested again past 2048^2) and two transposes a level (dd: two
+    paired transposes of a quadruple, four transpose2)."""
+    from phastft_tpu_torch.ops.longcol import long_split
+
+    col = {"f32": "colfft", "native": "col64", "dd": "ddcol"}[engine]
+    tr = "transpose2_64" if engine == "native" else "transpose2"
+    # a level's first pass: col64 and ddcol on their tables; in f32 colfft's
+    # own shard twiddle, its bare mode (and the twiddle in torch) for a bare
+    # block
+    first = col + ("_nocorr" if bare and engine == "f32" else "")
+    last = col + ("_nocorr" if bare else "")
+    want = {}
+    m = n1
+    while m > 2048:
+        p, _ = long_split(m)
+        want[first] = want.get(first, 0) + 1
+        want[tr] = want.get(tr, 0) + (4 if engine == "dd" else 2)
+        m //= p
+    if m > 1:
+        want[last] = want.get(last, 0) + 1
     return want
 
 
@@ -1832,15 +1940,13 @@ def dist_launches(n: int, leaf: int, f64: bool, layout: str):
     """{kernel: launches} of one ``fft_distributed`` at world size 1 on the
     native (``f64``) or f32 pipeline: the column pass (``col64`` /
     ``colfft``, their bare modes for ``permuted_input``; past n1 = 2048 two
-    column passes and two transposes, the second pass nested again past
-    2048), the row plan of n2, and for natural output the last
-    transpose."""
+    column passes and two transposes, ``long_column_launches``), the row
+    plan of n2, and for natural output the last transpose."""
     from phastft_tpu_torch.ops.fourstep import plan_rows
-    from phastft_tpu_torch.parallel.fourstep_dist import _factor, _long_split
+    from phastft_tpu_torch.parallel.fourstep_dist import _factor
 
     n1, n2 = _factor(n, 1, leaf)
     rows = native_launches if f64 else f32_row_launches
-    tr = "transpose2_64" if f64 else "transpose2"
     want = {}
 
     def merge(counts):
@@ -1848,20 +1954,9 @@ def dist_launches(n: int, leaf: int, f64: bool, layout: str):
             want[k] = want.get(k, 0) + v
 
     merge(rows(plan_rows(n2, leaf)))
-    col = "col64" if f64 else "colfft"
-    bare = layout == "permuted_input"
-    m = n1
-    while m > 2048:  # two column passes and two transposes a level
-        p, _ = _long_split(m)
-        # the first pass: col64 on its tables; in f32 colfft's own shard
-        # twiddle at world size 1, its bare mode (and the twiddle in torch)
-        # for permuted input
-        merge({col + ("_nocorr" if bare and not f64 else ""): 1, tr: 2})
-        m //= p
-    if m > 1:
-        merge({col + ("_nocorr" if bare else ""): 1})
+    merge(long_column_launches(n1, "native" if f64 else "f32", layout == "permuted_input"))
     if layout == "natural":
-        merge({tr: 1})
+        merge({"transpose2_64" if f64 else "transpose2": 1})
     return {k: v for k, v in want.items() if v}
 
 
@@ -1903,8 +1998,9 @@ def dist64_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     from phastft_tpu_torch.ops.stockham import split_correction_host
     from phastft_tpu_torch.ops.transpose import transpose2, transpose2_64
     from phastft_tpu_torch.parallel import fft_distributed
+    from phastft_tpu_torch.ops.longcol import long_columns, twiddle_
     from phastft_tpu_torch.parallel.fourstep_dist import (
-        _Plan, _dd_row_planner, _factor, _factor_dd, _long_columns, _row_pass, _twiddle_,
+        _dd_row_planner, _factor, _factor_dd, _row_pass,
     )
 
     def randn(shape, dtype=torch.float64, g=gen):
@@ -2135,17 +2231,16 @@ def dist64_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
             raise AssertionError(f"route shapes {(n, n2)} are not the plan's")
         x = randn((n1, n2), dtype)
         tr = transpose2_64 if f64 else transpose2
-        plan = _Plan(n, n1, n2, 1, 0, None, f64, rows=None, transpose=tr)
         long_rows = _row_pass(planner, plan_rows(n1, leaf_n), None)
         k1 = torch.arange(n1, dtype=torch.int64, device=dev)
         j = torch.arange(n2, dtype=torch.int64, device=dev)
 
         def nested_route():  # the package's: two column passes, two transposes
-            return _long_columns(list(x), plan, n, n1, 0, False)
+            return long_columns(list(x), n, n1, 0, False, f64)
 
         def rows_route():  # transposed, the row plan of n1, the twiddle in torch, back
             r = long_rows(list(tr(*x)))
-            _twiddle_(r[0], r[1], n, j, k1)
+            twiddle_(r[0], r[1], n, j, k1)
             return tr(*r)
 
         a_out = nested_route()
@@ -3036,6 +3131,322 @@ def giant_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     emit({"phase": "times_giant", "n": n, "card": smi, **out})
 
 
+def edge_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
+    """The window's edges (run inside ``nccl_world``, module docstring item
+    38): the four kernels at their new shapes against their plain versions,
+    the main path at every kind of leaf size and on a world of one, and the
+    new shapes' times."""
+    import torch
+
+    from phastft_tpu_torch import (
+        Direction, Options, PlannerDit32, PlannerDit64, fft_32_dit_with_planner,
+        fft_64_dit_with_planner,
+    )
+    from phastft_tpu_torch.ops.colfft import (
+        col_split_tables_host, col_tile, colfft, colfft_nocorr, colfft_nocorr_plain,
+        colfft_out3d, colfft_plain,
+    )
+    from phastft_tpu_torch.ops.dd import (
+        dd_col_tables_host, ddcol, ddcol_nocorr, ddcol_nocorr_plain, ddcol_plain, ddleaf,
+    )
+    from phastft_tpu_torch.ops.df64 import split_f64
+    from phastft_tpu_torch.ops.leaf import hybrid, leaf, leaf3, leaf3_plain
+    from phastft_tpu_torch.ops.leaft import leaft
+    from phastft_tpu_torch.ops.mxu import mxu_leaf_tables3_host
+    from phastft_tpu_torch.ops.native import (
+        col64, col64_nocorr, col64_nocorr_plain, col64_plain, col64_shard_tables,
+        dif_twiddles, leaf64,
+    )
+    from phastft_tpu_torch.ops.ozdd import ozcol, ozleaft
+    from phastft_tpu_torch.ops.transpose import transpose2, transpose2_64
+    from phastft_tpu_torch.parallel import fft_distributed
+
+    t_edges = time.perf_counter()
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def parity(name, got, want, tol, dd=False, **where):
+        err, mabs = (dd_rel(got, want) if dd
+                     else rel_l2(got[0], got[1], want[0], want[1], worst=True))
+        max_err[name] = max(max_err.get(name, 0.0), mabs)
+        emit({"phase": "parity_edges", "kernel": name, **where, "rel_l2": err,
+              "max_abs_err": mabs, "bound": tol})
+        check(f"{name} at {where}", err, tol)
+
+    def timed(name, fn, plain, bound, library=None, **where):
+        emit({"phase": "times_edges", "kernel": name, **where, "card": smi,
+              "ms": time_ms(fn, flush, EDGE_TIME_REPS),
+              "plain_ms": time_ms(plain, flush, 3), **bound,
+              "library_ms": time_ms(library, flush, EDGE_TIME_REPS) if library else None})
+
+    def bound_of(pair):
+        return dict(zip(("bound_ms", "bound_by"), pair))
+
+    # -- colfft: the classic mode on the planner's tables (n2 columns wide
+    # below 128), the shard mode on the block of each of EDGE_RANKS ranks,
+    # the bare mode; each shape timed
+    for n1 in EDGE_COL_N1S:
+        for n2 in EDGE_COL_N2S:
+            b = max(1, EDGE_COL_POINTS // (n1 * n2))
+            x = (randn((b, n1, n2)), randn((b, n1, n2)))
+            tabs = tuple(torch.from_numpy(a).to(dev) for a in
+                         col_split_tables_host(n1, n2, "float32", t=col_tile(n1, n2)))
+            parity("colfft", colfft(*x, tabs, n1), colfft_plain(*x, tabs, n1), KERNEL_TOL,
+                   n1=n1, n2=n2, batch=b, mode="classic")
+            block = (x[0][-1].contiguous(), x[1][-1].contiguous())
+            n_total = n1 * n2 * EDGE_RANKS
+            for r in range(EDGE_RANKS):
+                kw = dict(n_total=n_total, col_base=r * n2)
+                parity("colfft", colfft(*block, None, n1, **kw),
+                       colfft_plain(*block, None, n1, **kw), KERNEL_TOL,
+                       n1=n1, n2=n2, mode="shard", rank=r, ranks=EDGE_RANKS)
+            timed("colfft", lambda: colfft(*x, tabs, n1), lambda: colfft_plain(*x, tabs, n1),
+                  bound_of(kernel_bound(b * n1 * n2, n1.bit_length() - 1, 2 * n1 * n2)),
+                  n1=n1, n2=n2, batch=b, mode="classic")
+            if n2 in EDGE_NOCORR_N2S:
+                parity("colfft_nocorr", colfft_nocorr(*x, n1), colfft_nocorr_plain(*x, n1),
+                       KERNEL_TOL, n1=n1, n2=n2, batch=b)
+                xc = torch.complex(*x)
+                timed("colfft_nocorr", lambda: colfft_nocorr(*x, n1),
+                      lambda: colfft_nocorr_plain(*x, n1),
+                      bound_of(kernel_bound(b * n1 * n2, n1.bit_length() - 1)),
+                      lambda: torch.fft.fft(xc, dim=-2), n1=n1, n2=n2, batch=b)
+                del xc
+            del x, block
+
+    # -- col64 and its bare mode on one-column blocks (the shard tables of
+    # each of EDGE_RANKS ranks' column; rank 0's is the split table of a
+    # tiny-row split, W^0 = 1)
+    for n1 in EDGE_COL_N1S:
+        b = EDGE_COL_POINTS // n1
+        x = (randn((b, n1, 1), torch.float64), randn((b, n1, 1), torch.float64))
+        steps = dif_twiddles(n1, dev)
+        for r in range(EDGE_RANKS):
+            tabs = col64_shard_tables(n1 * EDGE_RANKS, n1, 1, r, dev)
+            parity("col64", col64(*x, tabs, n1, steps), col64_plain(*x, tabs, n1, steps),
+                   DD_KERNEL_TOL, n1=n1, n2=1, batch=b, rank=r, ranks=EDGE_RANKS)
+        parity("col64_nocorr", col64_nocorr(*x, n1, steps),
+               col64_nocorr_plain(*x, n1, steps), DD_KERNEL_TOL, n1=n1, n2=1, batch=b)
+        tabs = col64_shard_tables(n1, n1, 1, 0, dev)
+        log1 = n1.bit_length() - 1
+        timed("col64", lambda: col64(*x, tabs, n1, steps),
+              lambda: col64_plain(*x, tabs, n1, steps),
+              native_bound(b * n1, log1, table_bytes=32 * n1 + 8 * n1), n1=n1, n2=1, batch=b)
+        xc = torch.complex(*x)
+        timed("col64_nocorr", lambda: col64_nocorr(*x, n1, steps),
+              lambda: col64_nocorr_plain(*x, n1, steps),
+              native_bound(b * n1, log1, table_bytes=8 * n1),
+              lambda: torch.fft.fft(xc, dim=-2), n1=n1, n2=1, batch=b)
+        del x, xc
+
+    # -- ddcol at n2 = 1..64 on dd_col_tables_host(n1, n2), ddcol_nocorr at
+    # n2 = 1
+    def quad(shape):
+        return (*split_f64(randn(shape, torch.float64)), *split_f64(randn(shape, torch.float64)))
+
+    for n1, n2 in EDGE_DD_COL:
+        b = max(1, EDGE_COL_POINTS // (n1 * n2))
+        q = quad((b, n1, n2))
+        _, t1, t2 = dd_col_tables_host(n1, n2)
+        t1, t2 = (tuple(torch.from_numpy(a.copy()).to(dev) for a in t) for t in (t1, t2))
+        parity("ddcol", ddcol(*q, t1, t2, n1), ddcol_plain(*q, t1, t2, n1), DD_KERNEL_TOL,
+               dd=True, n1=n1, n2=n2, batch=b)
+        timed("ddcol", lambda: ddcol(*q, t1, t2, n1), lambda: ddcol_plain(*q, t1, t2, n1),
+              ddcol_bound(b, n1, n2), n1=n1, n2=n2, batch=b)
+        if n2 == 1:
+            parity("ddcol_nocorr", ddcol_nocorr(*q, n1), ddcol_nocorr_plain(*q, n1),
+                   DD_KERNEL_TOL, dd=True, n1=n1, n2=n2, batch=b)
+            xc = torch.complex(q[0].double() + q[1].double(), q[2].double() + q[3].double())
+            timed("ddcol_nocorr", lambda: ddcol_nocorr(*q, n1),
+                  lambda: ddcol_nocorr_plain(*q, n1), ddcol_bound(b, n1, n2, False),
+                  lambda: torch.fft.fft(xc, dim=-2), n1=n1, n2=n2, batch=b)
+            del xc
+        del q
+    release_memory()
+
+    # -- leaf3 at a = 256 (rows of 2^17) on EDGE_LEAF3_ROWS rows, the first
+    # and last rows against the plain version
+    mats = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in mxu_leaf_tables3_host(256, 128, "float32"))
+    rows, n = EDGE_LEAF3_ROWS, 1 << 17
+    x = (randn((rows, n)), randn((rows, n)))
+    out = leaf3(*x, mats, 256, 128)
+    k = EDGE_LEAF3_CHECK
+    for r0 in (0, rows - k):
+        part = tuple(a[r0:r0 + k] for a in x)
+        parity("leaf3", tuple(o[r0:r0 + k] for o in out), leaf3_plain(*part, mats, 256, 128),
+               KERNEL_TOL, n=n, rows=[r0, r0 + k], of_rows=rows)
+    del out
+    xc = torch.complex(*x)
+    bound = bound_of(kernel_bound(rows * n, 17, 2 * 256 + 2 * 128 + 2 * 256 * 512 + 2 * 4 * 128))
+    timed("leaf3", lambda: leaf3(*x, mats, 256, 128), lambda: leaf3_plain(*x, mats, 256, 128),
+          bound, lambda: torch.fft.fft(xc), n=n, rows=rows)
+    del x, xc
+    release_memory()
+
+    # -- the main path: each transform's launches against its plan, the
+    # error against complex128 torch.fft.fft on the card, the round trip
+    # and the inverse of N * delta
+    kernels = (colfft, colfft_nocorr, colfft_out3d, leaft, leaf, leaf3, hybrid, transpose2,
+               col64, col64_nocorr, leaf64, transpose2_64, ddcol, ddcol_nocorr, ddleaf,
+               ozcol, ozleaft)
+    run = counted(kernels)
+    for log_n, leaf_n, engines in EDGE_E2E:
+        n = 1 << log_n
+        for engine in engines:
+            f32 = engine == "f32"
+            dtype = torch.float32 if f32 else torch.float64
+            if f32:
+                planner = PlannerDit32(n, options=Options(leaf_fft_size=leaf_n))
+                entry, want = fft_32_dit_with_planner, f32_row_launches(planner.plan)
+                tol, back_tol = 5e-7 * max(1.0, log_n / 18.0), 1e-6
+            else:
+                planner = PlannerDit64(n, options=Options(leaf_fft_size=leaf_n,
+                                                          f64_engine=engine))
+                entry = fft_64_dit_with_planner
+                want = (native_launches(planner.plan) if engine == "native"
+                        else dd_launches(planner.plan, False))
+                tol = back_tol = DD_E2E_TOL
+            x = (randn((n,), dtype), randn((n,), dtype))
+            for k in kernels:
+                k.launches = 0
+            out = run(lambda: entry(*x, Direction.Forward, planner), want)
+            counts = {k.__name__: k.launches for k in kernels if k.launches}
+            err = card_oracle_err(out, *x)
+            back = run(lambda: entry(*out, Direction.Reverse, planner), want)
+            rt = rel_l2(back[0], back[1], x[0], x[1])
+            delta = torch.zeros(n, dtype=dtype, device=dev)
+            delta[0] = n
+            ones = run(lambda: entry(delta, torch.zeros_like(delta), Direction.Reverse,
+                                     planner), want)
+            exact = bool(torch.all(ones[0] == 1.0)) and bool(torch.all(ones[1] == 0.0))
+            ms = time_ms(lambda: entry(*x, Direction.Forward, planner), flush, EDGE_TIME_REPS)
+            xc = torch.complex(*x)
+            lib = time_ms(lambda: torch.fft.fft(xc), flush, EDGE_TIME_REPS)
+            emit({"phase": "e2e_edges", "dtype": engine, "n": n, "leaf_fft_size": leaf_n,
+                  "plan": str(planner.plan), "launches": counts, "rel_l2": err,
+                  "bound": tol, "roundtrip_rel_l2": rt, "inverse_delta_exact": exact,
+                  "card": smi, "ms": ms, "library_ms": lib})
+            check(f"{engine} 2^{log_n} leaf {leaf_n}", err, tol)
+            check(f"{engine} 2^{log_n} leaf {leaf_n} round trip", rt, back_tol)
+            if not exact:
+                raise AssertionError(f"{engine} 2^{log_n} leaf {leaf_n}: 1/N not exact")
+            del x, out, back, ones, delta, xc
+        release_memory()
+
+    # -- fft_distributed at world size 1 over NCCL: the shard's rows on the
+    # 2^17 leaf (leaf3 at a = 256)
+    log_n, leaf_n = EDGE_DIST
+    n = 1 << log_n
+    planner = PlannerDit32(n, options=Options(leaf_fft_size=leaf_n))
+    x = (randn((n,)), randn((n,)))
+    want = dist_launches(n, leaf_n, False, "natural")
+    if want.get("leaf3") != 1:
+        raise AssertionError(f"the shard's rows do not run leaf3: {want}")
+    for k in kernels:
+        k.launches = 0
+    out = run(lambda: fft_distributed(*x, Direction.Forward, planner), want)
+    err = card_oracle_err(out, *x)
+    emit({"phase": "e2e_edges", "entry": "fft_distributed", "world": 1, "dtype": "f32",
+          "n": n, "leaf_fft_size": leaf_n, "launches": want, "rel_l2": err,
+          "bound": 5e-7 * max(1.0, log_n / 18.0), "card": smi})
+    check("fft_distributed leaf 2^17", err, 5e-7 * max(1.0, log_n / 18.0))
+    del x, out
+    # blocks of one and two columns: natural order against the oracle, and
+    # a permuted_output forward into a permuted_input inverse (the bare
+    # column passes) back to the input
+    for tag, log_n, leaf_n in EDGE_DIST_NARROW:
+        n = 1 << log_n
+        f64 = tag == "f64"
+        dtype = torch.float64 if f64 else torch.float32
+        planner = (PlannerDit64 if f64 else PlannerDit32)(
+            n, options=Options(leaf_fft_size=leaf_n))
+        x = (randn((n,), dtype), randn((n,), dtype))
+        want = dist_launches(n, leaf_n, f64, "natural")
+        for k in kernels:
+            k.launches = 0
+        out = run(lambda: fft_distributed(*x, Direction.Forward, planner), want)
+        err = card_oracle_err(out, *x)
+        perm = fft_distributed(*x, Direction.Forward, planner, permuted_output=True)
+        back = fft_distributed(*perm, Direction.Reverse, planner, permuted_input=True)
+        rt = rel_l2(back[0], back[1], x[0], x[1])
+        tol = DD_E2E_TOL if f64 else 5e-7 * max(1.0, log_n / 18.0)
+        emit({"phase": "e2e_edges", "entry": "fft_distributed", "world": 1, "dtype": tag,
+              "n": n, "leaf_fft_size": leaf_n, "columns": leaf_n, "launches": want,
+              "rel_l2": err, "bound": tol, "permuted_roundtrip_rel_l2": rt, "card": smi})
+        check(f"fft_distributed {tag} blocks of {leaf_n} columns", err, tol)
+        check(f"fft_distributed {tag} permuted round trip", rt, DD_E2E_TOL if f64 else 1e-6)
+        del x, out, perm, back
+    release_memory()
+    emit({"phase": "edge_phases", "seconds": time.perf_counter() - t_edges, "card": smi})
+
+
+def time_tree(tree: str) -> int:
+    """``--time-tree``: the TURN_SIZES transforms of the package under
+    ``tree`` (medians of TURN_REPS calls, CUDA events), as one JSON line."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import phastft_tpu_torch as P
+
+    here = os.path.dirname(os.path.abspath(P.__file__))
+    if not here.startswith(os.path.abspath(tree)):
+        raise AssertionError(f"{here} is not under {tree}")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB, as main
+    out = {}
+    for tag, log_n in TURN_SIZES:
+        n = 1 << log_n
+        f32 = tag == "f32"
+        dtype = torch.float32 if f32 else torch.float64
+        planner = (P.PlannerDit32 if f32 else P.PlannerDit64)(n)
+        entry = P.fft_32_dit_with_planner if f32 else P.fft_64_dit_with_planner
+        x = tuple(torch.randn((n,), generator=gen, device=dev, dtype=dtype) for _ in range(2))
+        out[f"{tag}_2^{log_n}"] = time_ms(lambda: entry(*x, P.Direction.Forward, planner),
+                                          flush, TURN_REPS)
+        del x, planner
+        release_memory()
+    print(json.dumps({"tree": tree, "package": here, "ms": out}), flush=True)
+    return 0
+
+
+def turns(parent: str) -> int:
+    """``--turns PARENT``: ``time_tree`` of the parent's package and this
+    checkout's in turns parent, this, this, parent, one process each; the
+    medians and this tree's ratio to the parent's (mean of its two turns
+    over the parent's two), beside the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(smi, flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    rows = []
+    for tree in (parent, here, here, parent):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-tree", tree],
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"--time-tree {tree} failed:\n{res.stdout}\n{res.stderr}")
+        row = json.loads(res.stdout.strip().splitlines()[-1])
+        row["turn"] = "parent" if tree == parent else "this"
+        rows.append(row)
+        emit({"phase": "turn", **row, "card": smi})
+    ratio = {}
+    for key in rows[0]["ms"]:
+        mine = (rows[1]["ms"][key] + rows[2]["ms"][key]) / 2
+        theirs = (rows[0]["ms"][key] + rows[3]["ms"][key]) / 2
+        ratio[key] = mine / theirs
+    emit({"phase": "turns", "card": smi, "this_over_parent": ratio})
+    return 0
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -3093,7 +3504,8 @@ def main() -> int:
         f.write(f"{log}\n== col64.cu, one-block build\n{oneblock_log}")
     ptxas = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
     lib = _build.library()
-    resident = {"leaf3": lib.phastft_leaf3_clusters(),
+    resident = {"leaf3": lib.phastft_leaf3_clusters(128),
+                "leaf3_a_256": lib.phastft_leaf3_clusters(256),
                 **{f"leaf_n1_{n1}": lib.phastft_leaf_clusters(n1) for n1 in LEAF_CLUSTER_N1S},
                 **{f"ddleaf_n1_{n1}": lib.phastft_ddleaf_clusters(n1)
                    for n1 in DD_LEAF_CLUSTER_N1S},
@@ -4146,6 +4558,7 @@ def main() -> int:
         dist64_phases(dev, gen, flush, smi, top, launches, max_err)
         r2c_phases(dev, gen, flush, smi, top, launches, max_err)
         giant_phases(dev, gen, flush, smi, top, launches, max_err)
+        edge_phases(dev, gen, flush, smi, top, launches, max_err)
 
     sources = {
         "colfft_out3d": ("phastft_tpu_torch/csrc/colfft.cu",
@@ -4208,4 +4621,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--turns"]:
+        sys.exit(turns(sys.argv[2]))
+    if sys.argv[1:2] == ["--time-tree"]:
+        sys.exit(time_tree(sys.argv[2]))
     sys.exit(main())

@@ -14,8 +14,11 @@ The port plans planar f32 for every power of two n, forward and inverse,
 with leading batch dimensions (one H100 holds up to 2^31 points): up to 2^16 through one leaf kernel per
 transform, to 2^25 through the fused two-pass four-step pipeline, above
 it through a classic outer level (column pass, inner transform, paired
-transpose) around that pipeline; a non-default ``Options.leaf_fft_size``
-of 128..2^16 points runs classic levels too. Planar f64 runs for the same
+transpose) around that pipeline; every ``Options.leaf_fft_size`` the JAX
+package takes runs, planned as it plans it: 128..2^16 points on classic
+levels, rows of 1..64 points under a column pass of n2 = 1..64 columns,
+2^17 on ``leaf3``, and larger leaves as a column pass (two past n1 = 2048)
+over 128-point rows and a transpose. Planar f64 runs for the same
 sizes on the native engine, the default: the H100's FP64 units through
 three kernels (a leaf of up to 2^16 points, a column pass with the split
 twiddle for n1 = 2..2048, a transpose of 64-bit words). It also runs on
@@ -25,8 +28,8 @@ the dd kernels (``f64_engine`` = ``"df64"``, ``"df64-fused"``,
 n1 = 128..2048 over a leaf of 2^10..2^13 points on the Ozaki bf16-slice
 kernels; both are opt-in. A transform the card cannot hold fails with
 ``torch.OutOfMemoryError``. What the port does not run yet (the staged and
-plain pipelines, Tune, leaves outside 128..2^16 points) raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
+plain pipelines, Tune) raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that brings it.
 
 The real transforms (``PlannerR2c32/64``, ``r2c_*`` / ``c2r_*``, compact
 N/2 + 1 spectrum, n >= 4; one H100 holds f32 up to 2^32) run the half-length C2C between the four

@@ -30,7 +30,10 @@
 //   (__launch_bounds__(256, 2)).
 // - One block a slab (col64_kernel: n1 <= 512, and n1 = 1024 / 2048 with
 //   n2 < 32): T = min(4096 / n1, n2) neighbouring columns of one entry
-//   (T >= 8 for n1 <= 512 and n2 >= 8): every row segment it reads and
+//   (T >= 8 for n1 <= 512 and n2 >= 8; at n2 = 1, a distributed shard's
+//   one-column block or the rows of a split planned with leaf_fft_size < 128,
+//   a thread's double2 holds two rows of the column, each stored to its own
+//   row): every row segment it reads and
 //   writes is T * 8 contiguous bytes of each plane. Threads move double2s
 //   (two neighbouring columns) of each plane, every load of a thread in
 //   flight before the first store to shared memory. Radix-4 DIF trips over
@@ -181,8 +184,16 @@ col64_kernel(const double* __restrict__ xr, const double* __restrict__ xi,
   for (int j = 0; j < PAIRS; ++j) {
     const int f = 2 * (threadIdx.x + j * THREADS);
     if (f >= points) continue;
-    const int k1 = bitrev(f >> logT, logn1);
     const cd a = s[pad2(f)], b = s[pad2(f + 1)];
+    if (T == 1) {  // one column: the pair is rows f and f + 1, each to its own row
+      const long long o0 = base + bitrev(f, logn1), o1 = base + bitrev(f + 1, logn1);
+      outr[o0] = a.x;
+      outi[o0] = a.y;
+      outr[o1] = b.x;
+      outi[o1] = b.y;
+      continue;
+    }
+    const int k1 = bitrev(f >> logT, logn1);
     const long long off = base + static_cast<long long>(k1) * n2 + (f & (T - 1));
     *reinterpret_cast<double2*>(outr + off) = make_double2(a.x, b.x);
     *reinterpret_cast<double2*>(outi + off) = make_double2(a.y, b.y);
@@ -348,7 +359,7 @@ ClusterKernel cluster_kernel(int n1) {
 
 bool shape_ok(long long batch, int n1, int n2) {
   return !(batch < 1 || !phastft::is_pow2(n1) || n1 < 2 || n1 > 2048 || !phastft::is_pow2(n2) ||
-           n2 < 2);
+           n2 < 1);
 }
 
 template <bool CORR>
@@ -378,7 +389,7 @@ int launch(const double* xr, const double* xi, const cd* tw, const SplitCorr& co
 
 }  // namespace
 
-// x*, o*: the two planes of (batch, n1, n2) arrays; n1 = 2..2048 and n2 >= 2,
+// x*, o*: the two planes of (batch, n1, n2) arrays; n1 = 2..2048 and n2 >= 1,
 // powers of two. twt: n1/2 (re, im) pairs, W_n1^k. t1*: (n1, n2 / s) and
 // t2*: (n1, s), s = 2^(log2(n2) / 2), the factored split twiddle. Returns the
 // CUDA error code of the launch (0 on success; cudaErrorInvalidConfiguration

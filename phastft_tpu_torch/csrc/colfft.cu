@@ -106,8 +106,12 @@
 //   slower, a 64-column slab (8- and 16-block clusters) 1.06x slower at
 //   n1 = 2048, and this design at n1 = 512 0.87-0.91x the one-block path.
 //
-// Both designs take any n2 >= 4 in the classic and nocorr modes (a shard's
-// column block can be narrower than a slab: the slab is then n2 wide). The
+// The classic and nocorr modes take any n2 >= 1: a shard's column block, and
+// the rows of a split planned with leaf_fft_size < 128, can be narrower than
+// a slab, which is then n2 wide. Below 4 columns (T = 1, 2) colfft_block
+// runs as it does at T = 4: one thread a group of 2^S points of one column,
+// scalar loads and stores, the same F(n1) trips and T1 * T2 twiddle (a
+// one-column table at n2 = 1), and a block of n1 * T points. The
 // batch is folded into gridDim.x (up to 2^31 - 1 blocks, the cluster factor
 // counted) and every device-memory offset is 64-bit: the inner level of a
 // nested plan has a batch of 32..512 per transform, and one transform of
@@ -638,7 +642,7 @@ ClusterKernel cluster_kernel(int mode, int n1) {
 
 // re, im: (batch, n1, n2); ore, oim: (batch, n1, n2), or with mode 1
 // (out3d) (batch, n2/128, n1, 128). mode 0 (classic), 1 (out3d), 2 (nocorr:
-// no twiddle). n1 = 2..2048 and n2 >= 4 (>= 128 for out3d), powers of two.
+// no twiddle). n1 = 2..2048 and n2 >= 1 (>= 128 for out3d), powers of two.
 // steps: n1/2 (re, im) f32 pairs, W_n1^k. t2r, t2i: the (n1, ldt) T2 table,
 // T2[k1, c] = W_{n_total}^(k1*(col_base + c)), at least as wide as a slab
 // (min(8192 / n1, 512, n2) columns, 32 at n1 = 1024 / 2048 with n2 >= 32;
@@ -650,7 +654,7 @@ extern "C" int phastft_colfft(const float* re, const float* im, const void* step
                               float* oim, long long batch, int n1, int n2, int mode,
                               long long n_total, long long col_base, void* stream) {
   if (batch < 1 || !phastft::is_pow2(n1) || n1 < 2 || n1 > 2048 ||
-      !phastft::is_pow2(n2) || n2 < (mode == OUT3D ? 128 : 4) || mode < CLASSIC ||
+      !phastft::is_pow2(n2) || (mode == OUT3D && n2 < 128) || mode < CLASSIC ||
       mode > NOCORR || n_total < 1 || (n_total & (n_total - 1)) || col_base < 0 ||
       n_total / n1 < col_base + n2 || steps == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -59,7 +59,9 @@
 //   issued before the last trip's butterflies 1.02-1.20x (T2 alone: 0.99x
 //   at n1 = 2048).
 // - Device memory is read and written as float4s per plane (columns narrower
-//   than 4, n2 = 2, element by element); the DIF leaves X[k] at position
+//   than 4, n2 = 1 and 2, element by element: the one- and two-column blocks
+//   of a distributed shard and the rows of a split planned with
+//   leaf_fft_size < 128); the DIF leaves X[k] at position
 //   bitrev(k), which the store index undoes.
 // - Step twiddles W_n1^k are dd pairs from a table the wrapper builds on the
 //   host in f64; every factor reads it (dd.cuh). No trigonometry runs in the
@@ -396,7 +398,7 @@ int launch(ddk::ConstQuad x, const float* twt, ddk::ConstQuad t1, ddk::ConstQuad
 
 bool shape_ok(long long batch, int n1, int n2) {
   return batch >= 1 && phastft::is_pow2(n1) && n1 >= 2 && n1 <= 2048 &&
-         phastft::is_pow2(n2) && n2 >= 2;
+         phastft::is_pow2(n2);
 }
 
 // TwoSum and TwoProd of dd.cuh on n pairs: s + e = a + b, p + pe = a * b.
@@ -418,7 +420,7 @@ __global__ void dd_exact_kernel(const float* __restrict__ a, const float* __rest
 }  // namespace
 
 // x*, o*: the four planes (re_hi, re_lo, im_hi, im_lo) of (batch, n1, n2)
-// arrays; n1 = 2..2048 and n2 >= 2, powers of two. twt: four planes of n1/2
+// arrays; n1 = 2..2048 and n2 >= 1, powers of two. twt: four planes of n1/2
 // floats, W_n1^k. t1*: (n1, n2 / t) and t2*: (n1, t) with t = min(256, n2),
 // the factored correction. Returns the CUDA error code of the launch (0 on
 // success; cudaErrorInvalidConfiguration when no cluster of a long-column

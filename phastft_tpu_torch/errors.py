@@ -5,10 +5,9 @@ The same four classes, with the same messages, as the JAX package's
 (non-power-of-2 length, planar length mismatch, planner-size mismatch).
 
 ``not_ported`` builds the ``NotImplementedError`` raised for everything
-the port does not run yet (the staged and plain pipelines, Tune, leaves
-outside 128..2^16 points, distributed column blocks under the column
-kernel's floor); its message names the ``ROADMAP.md`` item that will bring
-it. Item numbers are names: an item that is done keeps its number.
+the port does not run yet (the staged and plain pipelines, Tune); its
+message names the ``ROADMAP.md`` item that will bring it. Item numbers are
+names: an item that is done keeps its number.
 """
 
 from __future__ import annotations
@@ -51,11 +50,6 @@ ROADMAP_ITEMS = {
     "classic": "ROADMAP.md Queue 1 item 7 (use_pallas=False and the staged "
                "strategy)",
     "tune": "ROADMAP.md Queue 1 item 8 (PlannerMode.Tune)",
-    "leaf_size": "ROADMAP.md Queue 1 item 15 (leaves outside 128..2^16 "
-                 "points, Options.leaf_fft_size > 2^16 or < 128)",
-    "dist_col": "ROADMAP.md Queue 1 item 18 (distributed column blocks "
-                "under the column kernel's floor: 4 columns in f32 on the "
-                "GPU, 2 in f64)",
 }
 
 

@@ -50,8 +50,8 @@ _SIGNATURES = {
     "phastft_leaft_clusters": [_I],
     "phastft_leaf": [_P] * 10 + [_L, _I, _I, _P],
     "phastft_leaf_clusters": [_I],
-    "phastft_leaf3": [_P] * 12 + [_L, _P],
-    "phastft_leaf3_clusters": [],
+    "phastft_leaf3": [_P] * 12 + [_L, _I, _P],
+    "phastft_leaf3_clusters": [_I],
     "phastft_hybrid": [_P] * 8 + [_L, _I, _P],
     "phastft_transpose2": [_P] * 4 + [_L, _L, _L, _P],
     "phastft_ddcol": [_P] * 17 + [_L, _I, _I, _P],

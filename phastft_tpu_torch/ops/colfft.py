@@ -68,9 +68,6 @@ __all__ = [
 #: Column factors the kernel takes (powers of two).
 MIN_N1, MAX_N1 = 2, 2048
 
-#: Fewest columns the kernel's classic and bare modes take (one float4).
-MIN_KERNEL_N2 = 4
-
 
 def col_tile(n1: int, n2: int) -> int:
     """Slab width T of the JAX kernel's classic mode: the width the
@@ -194,7 +191,7 @@ def _check_any(name, re, im, tabs, n1: int, n_total, col_base: int):
     if n_total is None:
         if col_base:
             raise ValueError(f"{name}: col_base needs n_total")
-        return _check(name, re, im, tabs, n1, col_tile)
+        return _check(name, re, im, tabs, n1, col_tile, 1)
     out = _check(name, re, im, None, n1, None, 1)
     n2 = out[2]
     if (n_total < 1 or n_total & (n_total - 1) or col_base < 0
@@ -205,10 +202,11 @@ def _check_any(name, re, im, tabs, n1: int, n_total, col_base: int):
     return out
 
 
+@functools.lru_cache(maxsize=64)
 def _shard_t2(n1: int, t: int, n_total: int, col_base: int, device):
     """T2 of a shard's column block: W_{n_total}^(k1*(col_base + c)),
     c < t, from exact f64 angles cast once, as the JAX package's
-    ``_pallas_col_chunk`` builds it."""
+    ``_pallas_col_chunk`` builds it; built once per argument set."""
     k1 = torch.arange(n1, dtype=torch.float64, device=device)[:, None]
     i2 = torch.arange(t, dtype=torch.float64, device=device)[None, :] + col_base
     ang = (-2.0 * np.pi) * ((k1 * i2) * (1.0 / float(n_total)))
@@ -326,10 +324,6 @@ def _launch(name, re, im, n1: int, shape, mode: int, n_total=None,
         raise ValueError(f"{name}: inputs must be contiguous")
     if re.data_ptr() % 16 or im.data_ptr() % 16:
         raise ValueError(f"{name}: inputs must be 16-byte aligned")
-    n2 = int(re.shape[-1])
-    if n2 < MIN_KERNEL_N2:
-        raise ValueError(f"{name}: the kernel takes n2 >= {MIN_KERNEL_N2}, "
-                         f"got {n2}")
     steps = _steps(n1, re.device)
     ore = torch.empty(shape, dtype=torch.float32, device=re.device)
     oim = torch.empty(shape, dtype=torch.float32, device=re.device)
@@ -348,14 +342,15 @@ def _launch(name, re, im, n1: int, shape, mode: int, n_total=None,
 def colfft(re, im, tabs, n1: int, *, n_total=None, col_base: int = 0):
     """Column DFT of size n1 = 2..2048 along axis -2 of (..., n1, n2) f32
     planar tensors, fused with the split twiddle W_n^(k1*i2), as
-    (..., n1, n2). ``tabs`` = (t2r, t2i) from
+    (..., n1, n2), for any power of two n2 >= 1. ``tabs`` = (t2r, t2i) from
     ``col_split_tables_host(..., t=col_tile(n1, n2))`` on the tensors'
-    device, for n2 >= 128.
+    device (n2 columns wide below n2 = 128: the rows of a split planned
+    with ``leaf_fft_size`` < 128).
 
     A distributed shard's column block passes ``n_total`` (the length of
     its transform, a power of two) and ``col_base`` (its first column) with
-    ``tabs=None``: the twiddle is W_{n_total}^(k1*(col_base + i2)), and any
-    n2 >= 1 is taken (>= 4 on CUDA).
+    ``tabs=None``: the twiddle is W_{n_total}^(k1*(col_base + i2)), any
+    n2 >= 1 (one- and two-column blocks included).
 
     On CUDA it launches ``csrc/colfft.cu`` on the current stream (a CPU
     tensor runs ``colfft_plain``). The kernel takes the split twiddle as
@@ -372,8 +367,9 @@ def colfft(re, im, tabs, n1: int, *, n_total=None, col_base: int = 0):
     32-column slab split over a cluster of n1/256 blocks of 8192 points,
     which trade through distributed shared memory; otherwise a slab of up
     to 8192 points in one block (512 columns at n1 <= 16 down to 16 at
-    n1 = 512, never more than n2), F(n1) in register trips, the first from
-    the loads and the last to the stores."""
+    n1 = 512, never more than n2: one or two columns a block at n2 = 1, 2),
+    F(n1) in register trips, the first from the loads and the last to the
+    stores."""
     batch, _, n2 = _check_any("colfft", re, im, tabs, n1, n_total, col_base)
     if re.device.type == "cpu":
         return colfft_plain(re, im, tabs, n1, n_total=n_total,
@@ -416,9 +412,10 @@ colfft_out3d.launches = 0
 
 def colfft_nocorr(re, im, n1: int):
     """Bare column DFT of size n1 = 2..2048 along axis -2 of (..., n1, n2)
-    f32 planar tensors, no twiddle, as (..., n1, n2), for any n2 (>= 4 on
-    CUDA): the column pass of the distributed four-step's permuted-input
-    branch, whose twiddle came before its all_to_all.
+    f32 planar tensors, no twiddle, as (..., n1, n2), for any n2 >= 1: the
+    column pass of the distributed four-step's permuted-input branch, whose
+    twiddle came before its all_to_all (and of long columns past 2048 whose
+    twiddle ``colfft`` cannot express, ``ops/longcol.py``).
 
     On CUDA it launches ``csrc/colfft.cu`` in its bare mode on the current
     stream; a CPU tensor runs ``colfft_nocorr_plain``. Inputs are read,

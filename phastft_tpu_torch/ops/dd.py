@@ -204,7 +204,7 @@ def ddcol_plain(rh, rl, ih, il, t1, t2, n1: int):
     ``ddcol``. The Stockham DFT of ``ops/df64.py`` along axis -2, then the
     two dd complex products of the correction, T1 first."""
     planes = (rh, rl, ih, il)
-    batch, _, n2 = _check_col("ddcol", planes, n1, LANES, (*t1, *t2))
+    batch, _, n2 = _check_col("ddcol", planes, n1, 1, (*t1, *t2))
     t = _check_corr("ddcol", t1, t2, n1, n2)
     tables = _radix_tables(n1, rh.device)
     out = stockham_axis2_dd(rh, rl, ih, il, tables, n1)
@@ -217,7 +217,7 @@ def ddcol_plain(rh, rl, ih, il, t1, t2, n1: int):
 
 def ddcol(rh, rl, ih, il, t1, t2, n1: int):
     """dd column DFT of size n1 = 2..2048 along axis -2 of four
-    (..., n1, n2) f32 planes (n2 >= 128), fused with the dd split
+    (..., n1, n2) f32 planes (n2 >= 1), fused with the dd split
     correction W_n^(k1*i2) = T1[k1, i2 // t] * T2[k1, i2 % t]. ``t1``,
     ``t2``: the 4-tuples of ``dd_col_tables_host(n1, n2)`` on the planes'
     device. Returns four new (..., n1, n2) planes.
@@ -227,7 +227,9 @@ def ddcol(rh, rl, ih, il, t1, t2, n1: int):
     launch adds one to ``ddcol.launches``.
 
     Replaces ``phastft_tpu/ops/pallas_dd.py`` ``ddcol_pallas``; unlike it,
-    it takes n1 = 2, 4 and 2048, every n2 >= 128 and any batch. FP32
+    it takes n1 = 2, 4 and 2048, every n2 >= 1 (under 128: the rows of a
+    split planned with ``leaf_fft_size`` < 128, and a distributed shard's
+    narrow block) and any batch. FP32
     instruction issue bounds it (a radix-4 dd DFT and two dd products per
     element against 32 B). Blocks of 4096 points, two per SM, run radix-4
     dd trips with the correction folded into the last one, so device
@@ -237,7 +239,7 @@ def ddcol(rh, rl, ih, il, t1, t2, n1: int):
     memory (n1 = P * 128). A cluster shape that does not fit the device
     raises."""
     planes = (rh, rl, ih, il)
-    batch, b, n2 = _check_col("ddcol", planes, n1, LANES, (*t1, *t2))
+    batch, b, n2 = _check_col("ddcol", planes, n1, 1, (*t1, *t2))
     _check_corr("ddcol", t1, t2, n1, n2)
     if rh.device.type == "cpu":
         return ddcol_plain(rh, rl, ih, il, t1, t2, n1)
@@ -262,16 +264,16 @@ ddcol.launches = 0
 def ddcol_nocorr_plain(rh, rl, ih, il, n1: int):
     """Plain-torch bare dd column DFT: same arguments and result as
     ``ddcol_nocorr``."""
-    _check_col("ddcol_nocorr", (rh, rl, ih, il), n1, 2)
+    _check_col("ddcol_nocorr", (rh, rl, ih, il), n1, 1)
     tables = _radix_tables(n1, rh.device)
     return tuple(stockham_axis2_dd(rh, rl, ih, il, tables, n1))
 
 
 def ddcol_nocorr(rh, rl, ih, il, n1: int):
     """Bare dd column DFT of size n1 = 2..2048 along axis -2 of four
-    (..., n1, n2) f32 planes, n2 >= 2: the second pass of the split dd
-    leaf, whose rows are the leaf's n1 = 2..512 points wide. Returns four
-    new planes.
+    (..., n1, n2) f32 planes, n2 >= 1: the second pass of the split dd
+    leaf, whose rows are the leaf's n1 = 2..2048 points wide, and the long
+    dd columns' passes (``ops/longcol.py``). Returns four new planes.
 
     On CUDA it launches ``csrc/ddcol.cu`` (the same kernel as ``ddcol``,
     compiled without the correction) on the current stream; a CPU tensor
@@ -283,7 +285,7 @@ def ddcol_nocorr(rh, rl, ih, il, n1: int):
     clusters are ``ddcol``'s; when a whole (n1, n2) entry is smaller than a
     block's 4096 points, a block holds several entries."""
     planes = (rh, rl, ih, il)
-    _, b, n2 = _check_col("ddcol_nocorr", planes, n1, 2)
+    _, b, n2 = _check_col("ddcol_nocorr", planes, n1, 1)
     if rh.device.type == "cpu":
         return ddcol_nocorr_plain(rh, rl, ih, il, n1)
     _launch_ready("ddcol_nocorr", planes)

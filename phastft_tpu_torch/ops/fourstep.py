@@ -4,11 +4,21 @@ Counterpart of the JAX package's ``ops/fourstep.py``. ``plan_rows`` is
 carried verbatim, so both packages plan every size the same way.
 ``fft_rows`` runs
 
-* the ``tiny`` and ``leaf`` plans (n <= 2^16): one trip through device
-  memory, ``leaf3`` when the planner holds the three-factor tables
-  ``mxu3_{n1}`` (n = 2^16), else ``leaf`` (n = 2..2^15), or with
-  ``leaf_kernel="hybrid"`` and n1 > 1 the opt-in ``hybrid``; n = 1 is a
-  copy;
+* the ``tiny`` and ``leaf`` plans up to 2^17 points: one trip through
+  device memory, ``leaf3`` when the planner holds the three-factor tables
+  ``mxu3_{n1}`` (n = 2^16, 2^17), else ``leaf`` (n = 2..2^15), or with
+  ``leaf_kernel="hybrid"`` and n1 = 2..512 the opt-in ``hybrid``; n = 1 is
+  a copy;
+* a leaf past the leaf kernels (n1 > 1024, ``Options.leaf_fft_size`` past
+  2^17; the JAX package's XLA ``leaf_fft``, ``phastft_tpu/ops/
+  stockham.py:236``) as that function's own steps on the port's kernels,
+  ``leaf_columns``:
+
+    columns       F(n1) over the (n1, 128) view times the leaf correction
+                  W_n^(k1*i2): ``colfft`` up to n1 = 2048, past it the long
+                  columns' two passes and two transposes (``ops/longcol``)
+    leaf          F(128) of the n1 rows
+    transpose2    (n1, 128) -> (128, n1), the natural order;
 * the fused two-pass branch: one split level n = n1 * n2 whose inner plan
   is a leaf, under the JAX package's gates (``fused_two_pass``),
 
@@ -26,8 +36,10 @@ carried verbatim, so both packages plan every size the same way.
   two trips more than its inner plan makes.
 
 ``fft_rows_dd`` runs the same plans on dd (double-float) quadruples of f32
-planes, the df64 engine: ``tiny_fft_dd`` below 128 points, ``ddleaf`` (or
-the split leaf: ``ddcol``, a transpose, ``ddcol_nocorr``) for a leaf, and
+planes, the df64 engine: ``tiny_fft_dd`` below 128 points, ``ddleaf`` for a
+leaf up to 2^16 points (or the split leaf: ``ddcol``, a transpose,
+``ddcol_nocorr``; past 2^16 points always the split leaf, its first pass
+the long dd columns past n1 = 2048, ``ops/longcol.dd_columns``), and
 for every split level ``ddcol``, the inner plan, and ``transpose2`` twice
 (once per hi/lo pair of planes); a split level for which the planner built
 the Ozaki tables runs ``ozcol`` + ``ozleaft`` instead, two trips through
@@ -36,8 +48,9 @@ device memory whose output is already in natural order.
 ``fft_rows_native`` runs the same plans in f64 on two planes, the native
 engine, as the JAX package's f64 ``fft_rows`` runs them: every split level
 on the classic branch (``col64`` with the split twiddle, the inner plan,
-``transpose2_64``) and every leaf on ``leaf64`` (n = 2..2^16,
-the tiny plans included); n = 1 is a copy.
+``transpose2_64``) and every leaf on ``leaf64`` (n = 2..2^16, the tiny
+plans included; past 2^16 points ``leaf_columns`` on ``col64``,
+``leaf64`` and ``transpose2_64``); n = 1 is a copy.
 
 In all three engines each pass drops its input as soon as its kernel has
 read it, unless the input is the caller's: a split level hands its column
@@ -49,17 +62,15 @@ transform of 2^31 points. The caller's planes are read, never written.
 
 from __future__ import annotations
 
-import functools
-
-import torch
-
 from .colfft import colfft, colfft_out3d
-from .dd import dd_col_tables_host, ddcol, ddcol_nocorr, ddleaf
+from .dd import MAX_LEAF_N1 as DD_MAX_LEAF_N1
+from .dd import ddcol, ddcol_nocorr, ddleaf
 from .df64 import tiny_fft_dd
 from .ozdd import ozcol, ozleaft
-from .leaf import hybrid, leaf, leaf3
+from .leaf import HYBRID_MAX_N1, LEAF3_AS, hybrid, leaf, leaf3
 from .leaft import leaft
-from .native import col64, leaf64
+from .longcol import columns, dd_columns, transpose4
+from .native import MAX_LEAF_N, col64, leaf64
 from .stockham import LANES
 from .transpose import transpose2, transpose2_64
 
@@ -73,6 +84,8 @@ __all__ = [
     "rows_f32",
     "rows_dd",
     "rows_native",
+    "leaf_columns",
+    "LEAF_KERNEL_N1",
 ]
 
 # Largest row transform executed as a single leaf.
@@ -84,6 +97,10 @@ _MAX_COL_N1 = 2048
 
 # Column factor of the outer level(s) of a deeply nested split.
 _NESTED_COL_N1 = 256
+
+#: Largest leaf factor n1 a single f32 leaf kernel takes (``leaf3`` at
+#: n = 2^17: a = 256); a larger leaf runs ``leaf_columns``.
+LEAF_KERNEL_N1 = 4 * max(LEAF3_AS)
 
 
 def plan_rows(n: int, leaf_limit: int = DEFAULT_LEAF_LIMIT):
@@ -160,7 +177,10 @@ def rows_f32(pair, plan, corrs, leaf_kernel=None):
         return leaf(re, im, (), 1)
     if kind == "leaf":
         n1 = plan[1]
-        if n1 > 1 and leaf_kernel == "hybrid":
+        if n1 > LEAF_KERNEL_N1:
+            mats1 = corrs["mxu1"]
+            return leaf_columns([re, im], n1, lambda r, i: leaf(r, i, mats1, 1), False)
+        if 1 < n1 <= HYBRID_MAX_N1 and leaf_kernel == "hybrid":
             mats = corrs[f"mxu{n1}"][3:6] + tuple(corrs[f"leaf{n1}"])
             return hybrid(re, im, mats, n1)
         mats3 = corrs.get(f"mxu3_{n1}")
@@ -188,44 +208,45 @@ def rows_f32(pair, plan, corrs, leaf_kernel=None):
     return o_re.reshape(flat), o_im.reshape(flat)
 
 
+def leaf_columns(pair, n1: int, rows, f64: bool):
+    """A leaf of n1 * 128 points on the planes in the list ``pair`` (which
+    it empties; f64 planes for the native engine), as the JAX package's XLA
+    ``leaf_fft`` runs it: F(n1) over the (..., n1, 128) view times the
+    correction W_n^(k1*i2) (``ops/longcol.columns`` on the block of every
+    column: the column kernel up to n1 = 2048, the long columns past it),
+    ``rows(re, im)``, F(128) of the n1 rows, and the paired transpose to the
+    natural order X[k1 + n1*k2]."""
+    batch = tuple(pair[0].shape[:-1])
+    n = n1 * LANES
+    view = batch + (n1, LANES)
+    col = [x.reshape(view) for x in pair]
+    pair.clear()
+    col = [*columns(col, n, n1, 0, False, f64)]
+    d_re, d_im = rows(*col)
+    col.clear()
+    o_re, o_im = (transpose2_64 if f64 else transpose2)(d_re, d_im)
+    del d_re, d_im
+    return o_re.reshape(batch + (n,)), o_im.reshape(batch + (n,))
+
+
 # --------------------------------------------------------------------------
 # Double-float (df64) row transforms: the same plan shapes as fft_rows, dd
 # arithmetic on quadruples of f32 planes, dd tables from the planner.
 # --------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=16)
-def _split_leaf_tables(n1: int, device):
-    """``dd_col_tables_host(n1, 128)`` on ``device``: the leaf correction
-    W_{n1*128}^(k1*i2) in the column kernel's factoring (T1 all ones)."""
-    _, t1, t2 = dd_col_tables_host(n1, LANES)
-
-    def put(arrays):
-        return tuple(torch.from_numpy(a.copy()).to(device) for a in arrays)
-
-    return put(t1), put(t2)
-
-
-def _transpose4(quad):
-    """(..., R, C) -> (..., C, R) of a dd quadruple: the paired transpose
-    once per hi/lo pair of planes."""
-    rh, ih = transpose2(quad[0], quad[2])
-    rl, il = transpose2(quad[1], quad[3])
-    return rh, rl, ih, il
-
-
 def _ddleaf_split(rh, rl, ih, il, n1: int):
     """dd leaf as two dd column passes with a transpose between. Pass 1:
     ``ddcol`` over the n1 factor with the leaf correction folded in
     (``dd_col_tables_host(n1, 128)`` is the factored W_{n1*128}^(k1*i2)
-    table). Pass 2, after the transpose: the bare dd column DFT over the
-    128-point factor. The output (128, n1) read flat is the natural order
+    table; past n1 = 2048 the long dd columns, ``ops/longcol.dd_columns``).
+    Pass 2, after the transpose: the bare dd column DFT over the 128-point
+    factor. The output (128, n1) read flat is the natural order
     X[k1 + k2*n1]."""
     batch = tuple(rh.shape[:-1])
     view = batch + (n1, LANES)
-    t1, t2 = _split_leaf_tables(n1, rh.device)
-    quad = ddcol(*(a.reshape(view) for a in (rh, rl, ih, il)), t1, t2, n1)
-    quad = _transpose4(quad)
+    quad = dd_columns([a.reshape(view) for a in (rh, rl, ih, il)], n1)
+    quad = transpose4(quad)
     quad = ddcol_nocorr(*quad, LANES)
     flat = batch + (n1 * LANES,)
     return tuple(a.reshape(flat) for a in quad)
@@ -234,7 +255,7 @@ def _ddleaf_split(rh, rl, ih, il, n1: int):
 def _out_transpose_dd(quad, batch, n1: int, n2: int):
     """Four-step output reordering of a dd quadruple of (..., n1, n2)."""
     view = batch + (n1, n2)
-    out = _transpose4(tuple(a.reshape(view) for a in quad))
+    out = transpose4(tuple(a.reshape(view) for a in quad))
     flat = batch + (n1 * n2,)
     return tuple(a.reshape(flat) for a in out)
 
@@ -250,7 +271,8 @@ def fft_rows_dd(rh, rl, ih, il, plan, tables, corrs, dd_leaf=None):
     ``ozcol{n1}x{n2}`` and ``ozleafT{n2}``. The presence of the oz tables
     arms the oz branch, as in the JAX package, whatever the per-call
     engine. ``dd_leaf`` = "split" runs a leaf with n1 > 1 as
-    ``_ddleaf_split``; anything else runs ``ddleaf``. Every branch returns
+    ``_ddleaf_split``; anything else runs ``ddleaf`` up to n1 = 512 and
+    ``_ddleaf_split`` past it, where ``ddleaf`` ends. Every branch returns
     new tensors; the four planes are read, never written, and stay the
     caller's."""
     return rows_dd([rh, rl, ih, il], plan, tables, corrs, dd_leaf)
@@ -267,7 +289,7 @@ def rows_dd(quad, plan, tables, corrs, dd_leaf=None):
         return tiny_fft_dd(rh, rl, ih, il, tables, plan[1])
     if kind == "leaf":
         n1 = plan[1]
-        if n1 > 1 and dd_leaf == "split":
+        if n1 > DD_MAX_LEAF_N1 or (n1 > 1 and dd_leaf == "split"):
             return _ddleaf_split(rh, rl, ih, il, n1)
         return ddleaf(rh, rl, ih, il, corrs[f"ddleaf{n1}"] if n1 > 1 else None, n1)
     _, n1, plan2, n2 = plan
@@ -296,9 +318,10 @@ def fft_rows_native(re, im, plan, corrs):
 
     ``corrs``: the planner's native tables under the JAX planner's keys,
     ``split{n1}x{n2}`` (T1 re, T1 im, T2 re, T2 im) of every split level
-    and ``leaf{n1}`` (re, im) of the plan's leaf (n1 >= 2), and the step
+    and ``leaf{n1}`` (re, im) of the plan's leaf (n1 = 2..512), and the step
     tables ``dif{m}`` of every DFT size the kernels run. A tiny or leaf
-    plan runs ``leaf64`` (n = 1 is a copy); a split level runs ``col64``,
+    plan runs ``leaf64`` (n = 1 is a copy; past 2^16 points
+    ``leaf_columns``); a split level runs ``col64``,
     the inner plan on its n1 rows as one more batch dim, and
     ``transpose2_64``. Every branch returns new tensors; ``re`` and ``im``
     are read, never written, and stay the caller's."""
@@ -325,6 +348,9 @@ def rows_native(pair, plan, corrs):
         return leaf64(re, im, None, plan[1], (None, steps(plan[1])))
     if kind == "leaf":
         n1 = plan[1]
+        if n1 * LANES > MAX_LEAF_N:
+            tw = (None, steps(LANES))
+            return leaf_columns([re, im], n1, lambda r, i: leaf64(r, i, None, LANES, tw), True)
         return leaf64(re, im, corrs.get(f"leaf{n1}"), n1 * LANES,
                       (steps(n1), steps(LANES)))
     _, n1, plan2, n2 = plan

@@ -18,7 +18,8 @@ is their length-n DFT in natural order, as new tensors.
 ``leaf3(re, im, mats, a, b)`` takes n = a * 4 * b, ``mats`` = the JAX
 planner's ``mxu3_{n1}``: F(a) over i_a, W_n^(k_a*i_r), a radix-4 of adds
 over i_p, W_4b^(p*i_b), F(b) over i_b, out = X[k_a + a*k_p + 4a*k_b]
-(``leaf_fft_pallas3``). The kernel takes a = b = 128 (n = 2^16).
+(``leaf_fft_pallas3``). The kernel takes b = 128 and a = 128 or 256
+(n = 2^16, the default leaf rule's, and 2^17, ``leaf_fft_size = 2^17``'s).
 
 ``hybrid(re, im, mats, n1)`` takes n = n1 * 128, n1 = 2..512, ``mats`` =
 the JAX planner's ``mxu{n1}[3:6] + leaf{n1}`` (F(128) with its Karatsuba
@@ -61,8 +62,12 @@ __all__ = ["leaf", "leaf_plain", "leaf3", "leaf3_plain", "hybrid",
 #: Largest n1 of ``leaf`` (n = 2^15, the largest two-factor leaf plan).
 MAX_N1 = 256
 
-#: Largest n1 of ``hybrid`` (n = 2^16, the largest leaf plan).
+#: Largest n1 of ``hybrid`` (n = 2^16).
 HYBRID_MAX_N1 = 512
+
+#: First factors a of the rows ``leaf3``'s kernel takes (n = a * 512: 2^16,
+#: 2^17).
+LEAF3_AS = (128, 256)
 
 
 def _check_pair(name, re, im, tables):
@@ -253,9 +258,9 @@ def leaf_args(shape, n1: int, ptrs=(None,) * 10, stream=None) -> tuple:
 
 
 def leaf3_args(shape, ptrs=(None,) * 12, stream=None) -> tuple:
-    """``phastft_leaf3``'s arguments for rows of ``shape`` (..., 2^16): the
-    pointers ``ptrs``, the rows and the stream."""
-    return (*ptrs, math.prod(shape[:-1]), stream)
+    """``phastft_leaf3``'s arguments for rows of ``shape`` (..., a * 512):
+    the pointers ``ptrs``, the rows, a and the stream."""
+    return (*ptrs, math.prod(shape[:-1]), int(shape[-1]) // (4 * LANES), stream)
 
 
 def hybrid_args(shape, n1: int, ptrs=(None,) * 8, stream=None) -> tuple:
@@ -311,26 +316,29 @@ def leaf3(re, im, mats, a: int, b: int):
     in natural order, through the three-factor split of the tables
     ``mats`` (``mxu_leaf_tables3_host(a, b)`` on the tensors' device).
 
-    On CUDA it launches ``csrc/leaf3.cu`` on the current stream, for
-    a = b = 128 (n = 2^16); a CPU tensor runs ``leaf3_plain`` at any (a, b).
+    On CUDA it launches ``csrc/leaf3.cu`` on the current stream, for b = 128
+    and a = 128 or 256 (n = 2^16, 2^17); a CPU tensor runs ``leaf3_plain``
+    at any (a, b).
     Inputs are read, never written; the outputs are new tensors. Each
     launch adds one to ``leaf3.launches``.
 
     Replaces ``phastft_tpu/ops/pallas_leaf.py`` ``leaf_fft_pallas3``.
-    Bound by memory; a row (512 KB) is held by a cluster of 8 blocks of 256
-    threads, several resident per SM: block c runs F(a) and c1 on the
-    columns i_r in [64c, 64c + 64), then reads k_a in [16c, 16c + 16) of
-    every i_p straight from the blocks that hold them (distributed shared
-    memory) into the radix-4 and c2, runs F(b) and stores 16 contiguous
-    floats per (k_b, p). Any batch: rows go in ``gridDim.x``."""
+    Bound by memory; a row (512 KB, 1 MiB at a = 256) is held by a cluster
+    of a / 16 blocks (8, or 16: a non-portable size) of 256 threads, three
+    (a = 128) or two (a = 256) resident per SM: block c runs F(a) and c1 on
+    its 8192 / a columns i_r,
+    then reads k_a in [16c, 16c + 16) of every i_p straight from the blocks
+    that hold them (distributed shared memory) into the radix-4 and c2, runs
+    F(b) and stores 16 contiguous floats per (k_b, p). Any batch: rows go in
+    ``gridDim.x``. A cluster shape that does not fit the device raises."""
     mats = tuple(mats)
     _check3(re, im, mats, a, b)
     if re.device.type == "cpu":
         return leaf3_plain(re, im, mats, a, b)
     ore, oim = _cuda_args("leaf3", re, im, mats)
-    if a != LANES or b != LANES:
-        raise ValueError(f"leaf3: the kernel takes a = b = {LANES}, got "
-                         f"a={a}, b={b}")
+    if a not in LEAF3_AS or b != LANES:
+        raise ValueError(f"leaf3: the kernel takes b = {LANES} and a in "
+                         f"{LEAF3_AS}, got a={a}, b={b}")
     ptrs = (re.data_ptr(), im.data_ptr(),
             *(mats[i].data_ptr() for i in (0, 1, 3, 4, 6, 7, 8, 9)),
             ore.data_ptr(), oim.data_ptr())

@@ -75,7 +75,7 @@ def _phase_tables(n: int, k: np.ndarray, i: np.ndarray):
 
 def col64_tables(n: int, n1: int, exps: np.ndarray, device: torch.device):
     """``col64``'s tables for the twiddle W_n^(k1 * exps[i2]) of a
-    (n1, ncols) block, ncols = len(exps) a power of two >= 2: (T1 re, T1 im,
+    (n1, ncols) block, ncols = len(exps) a power of two: (T1 re, T1 im,
     T2 re, T2 im) with s = 2^(log2(ncols) // 2), T1[k1, a] =
     W_n^(k1 * exps[s*a]) (n1, ncols / s) and T2[k1, b] =
     W_n^(k1 * (exps[b] - exps[0])) (n1, s). Exact f64 angles from integer
@@ -84,8 +84,8 @@ def col64_tables(n: int, n1: int, exps: np.ndarray, device: torch.device):
     levels of a long column pass do."""
     exps = np.asarray(exps, dtype=np.int64)
     ncols = len(exps)
-    if ncols < 2 or ncols & (ncols - 1):
-        raise ValueError(f"col64_tables: {ncols} columns, not a power of two >= 2")
+    if ncols < 1 or ncols & (ncols - 1):
+        raise ValueError(f"col64_tables: {ncols} columns, not a power of two")
     s = 1 << ((ncols.bit_length() - 1) // 2)
     grid = exps.reshape(ncols // s, s)
     if not np.array_equal(grid, grid[:, :1] + (grid[:1] - exps[0])):
@@ -105,7 +105,7 @@ def col64_shard_tables(n: int, n1: int, ncols: int, col_base: int,
     W_n^(k1*(col_base + j)), the block's global twiddle. Built on the host
     once per argument set (the JAX package builds the angles inside its
     graph, ``phastft_tpu/parallel/fourstep_dist.py:113``)."""
-    if ncols < 2 or n % n1 or col_base + ncols > n // n1:
+    if ncols < 1 or n % n1 or col_base + ncols > n // n1:
         raise ValueError(f"col64_shard_tables: columns [{col_base}, "
                          f"{col_base + ncols}) do not lie in {n1} x {n // n1}")
     return col64_tables(n, n1, col_base + np.arange(ncols, dtype=np.int64), device)
@@ -163,7 +163,7 @@ def _check_col(re, im, tabs, n1: int, steps, name="col64"):
         raise ValueError(
             f"{name}: expected (..., {n1}, n2) planes, got {tuple(re.shape)}")
     n2 = int(re.shape[-1])
-    if n1 < 2 or n1 > MAX_COL_N1 or n1 & (n1 - 1) or n2 < 2 or n2 & (n2 - 1):
+    if n1 < 2 or n1 > MAX_COL_N1 or n1 & (n1 - 1) or n2 < 1 or n2 & (n2 - 1):
         raise ValueError(f"{name}: unsupported shape n1={n1}, n2={n2}")
     s = 1 << ((n2.bit_length() - 1) // 2)
     shapes = [(n1, n2 // s)] * 2 + [(n1, s)] * 2
@@ -197,7 +197,7 @@ def col64_plain(re, im, tabs, n1: int, steps):
 
 def col64(re, im, tabs, n1: int, steps):
     """X[..., k1, i2] = W_n^(k1*i2) * sum_i1 x[..., i1, i2] W_n1^(i1*k1)
-    on (..., n1, n2) f64 planes, n1 = 2..2048 and n2 >= 2 powers of two, n
+    on (..., n1, n2) f64 planes, n1 = 2..2048 and n2 >= 1 powers of two, n
     = n1 * n2; ``tabs`` = (T1 re, T1 im, T2 re, T2 im), the planner's
     ``split{n1}x{n2}``, and ``steps`` its ``dif{n1}`` table, on the planes'
     device. Returns two new planes, natural order, the classic (n1, n2)
@@ -212,8 +212,9 @@ def col64(re, im, tabs, n1: int, steps):
     (``stockham_axis2`` + ``split{n1}x{n2}``,
     ``phastft_tpu/ops/fourstep.py:353-380``). Bound by memory (32 B per
     element; its FP64 arithmetic takes less than that time). A block of
-    4096 points (two per SM) holds 4096 / n1 neighbouring columns up to
-    n1 = 512, runs radix-4 DIF trips over them in shared memory with the two
+    4096 points (two per SM) holds min(4096 / n1, n2) neighbouring columns
+    up to n1 = 512 (one column: a distributed shard's one-column block, the
+    rows of a split planned with ``leaf_fft_size`` < 128), runs radix-4 DIF trips over them in shared memory with the two
     twiddle products in the last, and stores rows in natural order; at
     n1 = 1024 / 2048 (n2 >= 32) a 32-column slab spans a cluster of 8 / 16
     blocks: F(n1 / 128) in registers from the loads, an exchange through
@@ -249,7 +250,7 @@ def col64_nocorr_plain(re, im, n1: int, steps):
 
 def col64_nocorr(re, im, n1: int, steps):
     """X[..., k1, i2] = sum_i1 x[..., i1, i2] W_n1^(i1*k1) on (..., n1, n2)
-    f64 planes, n1 = 2..2048 and n2 >= 2 powers of two: ``col64`` with no
+    f64 planes, n1 = 2..2048 and n2 >= 1 powers of two: ``col64`` with no
     twiddle, the column pass of the distributed four-step's permuted-input
     branch. ``steps``: the ``dif{n1}`` table (``dif_twiddles``) on the
     planes' device. Returns two new planes.

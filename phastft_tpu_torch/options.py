@@ -33,18 +33,19 @@ class Options:
     The port reads ``leaf_fft_size`` (through the planner), ``strategy``,
     ``use_pallas`` and ``leaf_kernel``: ``strategy="staged"`` and
     ``use_pallas=False`` name pipelines it does not run yet and raise
-    ``NotImplementedError``, as does a ``leaf_fft_size`` outside 128..2^16
-    that the plan reaches.
+    ``NotImplementedError``. Every power-of-two ``leaf_fft_size`` runs,
+    planned as the JAX package plans it.
 
     ``leaf_kernel`` (f32; the per-call value, when not None, overrides the
     planner's): ``"hybrid"`` runs every leaf of n = 2^8..2^16 points (a
     leaf plan, the inner leaf of a classic level, a distributed shard's
-    rows) on the hybrid kernel: a Stockham F(n1) and a dense F(128)
+    rows; a leaf past 2^16 keeps the default route) on the hybrid kernel:
+    a Stockham F(n1) and a dense F(128)
     contraction, bound by operations and slower than the default leaf
     kernels on the H100 (``PERF.md``), so opt-in. A tiny plan and the
     128-point leaf keep ``leaf``, as in the JAX package; ``None``,
     ``"mxu2"``, ``"mxu3"`` and any value the JAX package does not know keep
-    the default kernels (``leaf``, and ``leaf3`` at 2^16). The JAX
+    the default kernels (``leaf``, and ``leaf3`` at 2^16 and 2^17). The JAX
     package's ``PHASTFT_TPU_LEAF_KERNEL`` variable, a TPU tuning knob, is
     not read. The other fields (``leaf_engine``, ``col_engine``, ...)
     select TPU engines and are accepted and ignored: the port has one

@@ -40,28 +40,28 @@ The branches, and the JAX lines each stands for (``_build_distributed``
   alive, as in the f32 branch.
 * column factors n1 > 2048, f32 and native f64 (the JAX package's XLA
   column pass there, ``:103-110`` and ``:266-274``, where its column kernel
-  declines the shape): ``_long_columns``, n1 = P * Q as two column passes
-  with the twiddles folded into their tables and two transposes (nested
-  again past 2048^2). It won the H100 timing against the other route, the
-  block transposed to (c, n1), the row plan of length n1, the twiddle in
-  torch and the transpose back (``PERF.md``).
+  declines the shape): ``ops/longcol.long_columns``, n1 = P * Q as two
+  column passes with the twiddles folded into their tables and two
+  transposes (nested again past 2048^2).
+* column blocks of any width, one and two columns included (n = d^2 in
+  f64, n < 4 d^2 in f32; the JAX package's XLA ``stockham_axis2``,
+  ``:203``, ``:255``): the same kernels, which take every n2 >= 1.
 * df64 and df64-oz, natural order only (``_build_distributed_dd``
   ``:412-550``): n1 = max(``DD_DIST_MIN_COL``, d) (``_factor_dd`` ``:345``),
   the input split into hi/lo f32 planes (``_dd_split4`` ``:386``), the
   column pass on ``ddcol`` with dd tables of the block's own width
-  (``ops/dd.dd_shard_tables``; a block under 128 columns, which ``ddcol``
-  does not take: ``ddcol_nocorr`` and the dd products of the same tables in
-  torch, where the JAX package synthesises its ``_dd_corr_trig``), the rows
+  (``ops/dd.dd_shard_tables``, at any width; the JAX package synthesises
+  the twiddle of a block under its kernel's slab, ``_dd_corr_trig``), the rows
   on ``fft_rows_dd`` of a cached row planner (``_dd_dist_state`` ``:363``:
   on a "df64-oz" planner its oz tables arm ``ozcol`` + ``ozleaft`` where the
   JAX package's do), ``transpose2`` per hi/lo pair, the join and the 1/n
   scale in f64.
 
 The permuted-input twiddle W_n^(k1*m2), and in f32 the first long-column
-pass's where ``colfft``'s own twiddle cannot express it, are plain torch,
-as the JAX package computes them in XLA (``:181-191``): exact integer
-phases and f64 angles, in slabs of rows (an f64 angle array of the whole
-block is 8 GiB at 2^30).
+pass's where ``colfft``'s own twiddle cannot express it, are plain torch
+(``ops/longcol.twiddle_``), as the JAX package computes them in XLA
+(``:181-191``): exact integer phases and f64 angles, in slabs of rows (an
+f64 angle array of the whole block is 8 GiB at 2^30).
 
 A collective is ``all_to_all_single`` on a contiguous copy permuted so that
 the block for rank j is the j-th; every rank makes the same calls in the
@@ -82,27 +82,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..errors import NonPowerOfTwoError, ensure_power_of_two, not_ported
+from ..errors import NonPowerOfTwoError, ensure_power_of_two
 from ..fft import _as_tensor, _coerce_direction
 from ..options import Options
-from ..ops.colfft import MAX_N1, MIN_KERNEL_N2, colfft, colfft_nocorr
-from ..ops.dd import dd_shard_tables, ddcol, ddcol_nocorr
-from ..ops.df64 import dd_cmul, split_f64
-from ..ops.fourstep import (
-    _transpose4,
-    plan_rows,
-    rows_dd,
-    rows_f32,
-    rows_native,
-)
-from ..ops.native import (
-    col64,
-    col64_nocorr,
-    col64_shard_tables,
-    col64_tables,
-    dif_twiddles,
-)
-from ..ops.stockham import LANES
+from ..ops.dd import dd_shard_tables, ddcol
+from ..ops.df64 import split_f64
+from ..ops.fourstep import plan_rows, rows_dd, rows_f32, rows_native
+from ..ops.longcol import columns, transpose4, twiddle_
 from ..ops.transpose import transpose2, transpose2_64
 from ..planner import Direction, PlannerDit64
 
@@ -111,9 +97,6 @@ __all__ = ["fft_distributed", "DD_DIST_MIN_COL"]
 #: Smallest column factor of the dd factorization (the JAX package's): the
 #: dd column pass stays shallow and the rows carry the log-n work.
 DD_DIST_MIN_COL = 8
-
-#: Points of one slab of the plain-torch twiddle.
-_TWIDDLE_SLAB = 1 << 22
 
 
 def _factor(n: int, d: int, leaf_limit: int) -> tuple[int, int]:
@@ -166,24 +149,6 @@ def _col_to_row(x, n1: int, d: int, group):
     return _all_to_all(x.reshape(d, n1 // d, x.shape[-1]), group)
 
 
-def _twiddle_(re, im, n: int, rows, cols) -> None:
-    """(R, C) planes times W_n^(rows[r] * cols[c]), in place, in slabs of
-    rows (``rows``, ``cols``: int64 exponents on the planes' device): the
-    phase as an exact integer mod n, the angle in f64, the product in the
-    planes' precision (complex64 for f32, as the JAX package casts its cos
-    and sin to f32)."""
-    cdt = torch.complex128 if re.dtype == torch.float64 else torch.complex64
-    step = max(1, _TWIDDLE_SLAB // len(cols))
-    for r0 in range(0, len(rows), step):
-        r1 = min(len(rows), r0 + step)
-        ang = ((rows[r0:r1, None] * cols[None, :]) % n).double() * (-2.0 * np.pi / n)
-        w = torch.polar(torch.ones_like(ang), ang).to(cdt)
-        del ang
-        z = torch.complex(re[r0:r1], im[r0:r1]) * w
-        re[r0:r1] = z.real
-        im[r0:r1] = z.imag
-
-
 @dataclasses.dataclass(frozen=True)
 class _Plan:
     """What one rank runs: the sizes, the group, and the dtype's passes."""
@@ -212,97 +177,6 @@ def _row_pass(planner, plan, leaf_kernel) -> Callable:
     return lambda pair: rows_f32(pair, plan, corrs, leaf_kernel)
 
 
-def _columns(pair, p: _Plan, n: int, n1: int, col_base: int, bare: bool):
-    """The column pass of a block (..., n1, c) handed over in the list
-    ``pair``, whose columns [col_base, col_base + c) lie in a transform of
-    n points split n1 x n / n1: the DFT over n1 and, unless ``bare``, the
-    twiddle W_n^(k1*(col_base + j)). n1 = 1 is the block itself (its only
-    twiddle is W^0); past the column kernels' 2048, ``_long_columns``."""
-    if n1 > MAX_N1:
-        return _long_columns(pair, p, n, n1, col_base, bare)
-    re, im = pair
-    pair.clear()
-    if n1 == 1:
-        return re, im
-    if p.f64:
-        steps = dif_twiddles(n1, re.device)
-        if bare:
-            return col64_nocorr(re, im, n1, steps)
-        tabs = col64_shard_tables(n, n1, int(re.shape[-1]), col_base, re.device)
-        return col64(re, im, tabs, n1, steps)
-    if bare:
-        return colfft_nocorr(re, im, n1)
-    return colfft(re, im, None, n1, n_total=n, col_base=col_base)
-
-
-def _level_exponents(n: int, n1: int, pp: int, c: int, col_base: int, bare: bool):
-    """The twiddle exponents of the first pass of ``_long_columns``, one a
-    column (q, j) of its (pp, n1/pp * c) view: q*(n/n1), plus
-    col_base + j unless ``bare``; output kp takes W_n^(kp * exponent)."""
-    q = np.arange(n1 // pp, dtype=np.int64)[:, None] * (n // n1)
-    j = np.zeros(c, np.int64) if bare else col_base + np.arange(c, dtype=np.int64)
-    return (q + j[None, :]).reshape(-1)
-
-
-@functools.lru_cache(maxsize=16)
-def _level_tables(n: int, n1: int, pp: int, c: int, col_base: int, bare: bool, device):
-    """``col64``'s tables of ``_level_exponents``."""
-    return col64_tables(n, pp, _level_exponents(n, n1, pp, c, col_base, bare), device)
-
-
-def _long_split(n1: int) -> tuple[int, int]:
-    """(P, Q) of a column factor n1 past 2048: P = 2^(log2 n1 // 2), at most
-    2048 (the column kernels' largest factor), and Q = n1 / P >= P, which
-    ``_long_columns`` splits again past 2048."""
-    pp = 1 << min((n1.bit_length() - 1) // 2, MAX_N1.bit_length() - 1)
-    return pp, n1 // pp
-
-
-def _long_columns(pair, p: _Plan, n: int, n1: int, col_base: int, bare: bool):
-    """A column factor past the column kernels' 2048 (the JAX package's XLA
-    column pass there), as two column passes and two transposes on the
-    (..., n1, c) block handed over in ``pair``. With n1 = P * Q
-    (``_long_split``), i1 = Q p + q and k1 = kp + P kq:
-
-      1. the DFT over p on the (P, Q c) view, times W_n1^(kp q) and the
-         block's twiddle's share W_n^(kp (col_base + j)): ``col64`` on
-         ``_level_tables``; in f32, ``colfft`` where that is its own shard
-         twiddle (a block of every column, c = n / n1, not bare), else
-         ``colfft_nocorr`` and the twiddle in plain torch (``_twiddle_``);
-      2. the DFT over q of the (Q, c) blocks, a batch of P, times the rest
-         W_{n/P}^(kq (col_base + j)): this function once more, on a
-         transform of n / P points;
-      3. (P, Q, c) -> (Q, P, c), rows k1 in natural order: two transposes.
-
-    Each intermediate is dropped once the next pass has read it."""
-    batch = tuple(pair[0].shape[:-2])
-    c = int(pair[0].shape[-1])
-    dev = pair[0].device
-    pp, qq = _long_split(n1)
-    view = batch + (pp, qq * c)
-    re, im = (x.reshape(view) for x in pair)
-    pair.clear()
-    if p.f64:
-        y = [*col64(re, im, _level_tables(n, n1, pp, c, col_base, bare, dev), pp,
-                    dif_twiddles(pp, dev))]
-    elif not bare and c == n // n1:
-        y = [*colfft(re, im, None, pp, n_total=n, col_base=0)]
-    else:
-        y = [*colfft_nocorr(re, im, pp)]
-        kp = torch.arange(pp, dtype=torch.int64, device=dev)
-        exps = _level_exponents(n, n1, pp, c, col_base, bare)
-        _twiddle_(y[0].view(-1, qq * c), y[1].view(-1, qq * c), n,
-                  kp.repeat(y[0].numel() // (pp * qq * c)), torch.from_numpy(exps).to(dev))
-    del re, im
-    y = [x.view(batch + (pp, qq, c)) for x in y]
-    z = [*_columns(y, p, n // pp, qq, col_base, bare)]
-    t = [*p.transpose(*(x.view(view) for x in z))]  # (..., Q c, P)
-    z.clear()
-    out = p.transpose(*(x.view(batch + (qq, c, pp)) for x in t))  # (..., Q, P, c)
-    t.clear()
-    return tuple(x.view(batch + (n1, c)) for x in out)
-
-
 def _to_rows(pair, p: _Plan):
     """The column -> row all_to_all of the (n1, n2/d) pair handed over in
     ``pair``: this rank's (n1/d, n2) rows, global column s*n2/d + j."""
@@ -316,7 +190,7 @@ def _to_rows(pair, p: _Plan):
 def _natural(re_l, im_l, p: _Plan, permuted_output: bool):
     """Steps 1-6 on this rank's (n1/d, n2) rows; returns its flat shard."""
     cols = [_row_to_col(x, p.n1, p.n2, p.d, p.group) for x in (re_l, im_l)]
-    t = list(_columns(cols, p, p.n, p.n1, p.rank * (p.n2 // p.d), False))
+    t = list(columns(cols, p.n, p.n1, p.rank * (p.n2 // p.d), False, p.f64))
     d_re, d_im = p.rows(_to_rows(t, p))
     if permuted_output:
         return d_re.reshape(-1), d_im.reshape(-1)
@@ -335,14 +209,14 @@ def _permuted_in(re_l, im_l, p: _Plan):
     r_re, r_im = p.rows([re_l, im_l])
     rows = p.n1 // p.d
     dev = r_re.device
-    _twiddle_(r_re, r_im, p.n,
+    twiddle_(r_re, r_im, p.n,
               torch.arange(p.rank * rows, (p.rank + 1) * rows, dtype=torch.int64, device=dev),
               torch.arange(p.n2, dtype=torch.int64, device=dev))
     cols = [_row_to_col(r_re, p.n1, p.n2, p.d, p.group)]
     del r_re
     cols.append(_row_to_col(r_im, p.n1, p.n2, p.d, p.group))
     del r_im
-    z = list(_columns(cols, p, p.n, p.n1, 0, True))
+    z = list(columns(cols, p.n, p.n1, 0, True, p.f64))
     # block s holds this rank's rows of columns [s*n2/d, (s+1)*n2/d)
     out = []
     while z:
@@ -362,15 +236,11 @@ def _dd_row_planner(n2: int, leaf_limit: int, engine: str, device):
 
 
 def _dd_columns(quad, n: int, n1: int, col_base: int):
-    """The dd column pass of this rank's (n1, c) quadruple: ``ddcol`` with
-    the block's tables, or for c < 128 (``ddcol``'s floor) ``ddcol_nocorr``
-    and the two dd products of the same tables."""
+    """The dd column pass of this rank's (n1, c) quadruple, any width:
+    ``ddcol`` with the block's tables."""
     cols = int(quad[0].shape[-1])
     t1, t2 = dd_shard_tables(n, n1, cols, col_base, quad[0].device)
-    if cols >= LANES:
-        return ddcol(*quad, t1, t2, n1)
-    z = ddcol_nocorr(*quad, n1)
-    return dd_cmul(*dd_cmul(*z, *t1), *t2)  # T1 is (n1, 1): one column
+    return ddcol(*quad, t1, t2, n1)
 
 
 def _natural_dd(re_l, im_l, p: _Plan, rp: PlannerDit64, dd_leaf):
@@ -390,28 +260,23 @@ def _natural_dd(re_l, im_l, p: _Plan, rp: PlannerDit64, dd_leaf):
     cols = []
     while out:
         cols.append(_row_to_col(out.pop(0), p.n1, p.n2, p.d, p.group))
-    flat = _transpose4(cols)
+    flat = transpose4(cols)
     del cols
     out_re = flat[0].double() + flat[1].double()
     out_im = flat[2].double() + flat[3].double()
     return out_re.reshape(-1), out_im.reshape(-1)
 
 
-def _layout(n: int, d: int, planner, cuda: bool, permuted: bool):
+def _layout(n: int, d: int, planner, permuted: bool):
     """(f64, engine, dd, n1, n2) of a length-n transform over d ranks on
     ``planner`` (``permuted``: a permuted flag is set), raising what
     ``fft_distributed`` raises for its shape before any collective: too
-    small for d ranks, or column blocks under the column kernel's floor."""
+    small for d ranks."""
     f64 = planner.dtype == np.float64
     engine = (planner.options.f64_engine or "native") if f64 else None
     dd = f64 and engine.startswith("df64") and not permuted
     n1, n2 = (_factor_dd(n, d) if dd
               else _factor(n, d, planner.options.leaf_fft_size))
-    local = n2 // d
-    if n1 > 1 and local < (MIN_KERNEL_N2 if not f64 else 2) and (f64 or cuda):
-        raise not_ported(
-            f"fft_distributed with column blocks of {local} "
-            f"columns (n = 2^{n.bit_length() - 1} over {d} ranks)", "dist_col")
     return f64, engine, dd, n1, n2
 
 
@@ -437,12 +302,11 @@ def fft_distributed(reals, imags, direction, planner, *, group=None,
     planner's rows run the oz kernels inside their window), and with a
     permuted flag, like every other engine, the native pipeline.
 
-    Raises ``NonPowerOfTwoError`` when n is not a power of two, differs from
-    the planner's or is too small for d ranks (the JAX package's classes),
-    and ``NotImplementedError`` naming ROADMAP.md Queue 1 item 18 for a
-    column block under its column kernel's floor: below 4 columns in f32 on
-    the GPU (n < 4 d^2), below 2 in f64 (``col64``, ``ddcol_nocorr``). Every
-    check precedes the first collective and fails alike on every rank."""
+    Every shape the JAX package shards runs, column blocks of one and two
+    columns included. Raises ``NonPowerOfTwoError`` when n is not a power
+    of two, differs from the planner's or is too small for d ranks (the JAX
+    package's classes). Every check precedes the first collective and fails
+    alike on every rank."""
     direction = _coerce_direction(direction)
     if permuted_input and permuted_output:
         raise ValueError(
@@ -465,8 +329,7 @@ def fft_distributed(reals, imags, direction, planner, *, group=None,
         raise NonPowerOfTwoError(
             f"planner is for size {planner.n} but input has size {n}"
         )
-    f64, engine, dd, n1, n2 = _layout(n, d, planner, re_l.is_cuda,
-                                      permuted_input or permuted_output)
+    f64, engine, dd, n1, n2 = _layout(n, d, planner, permuted_input or permuted_output)
     leaf_limit = planner.options.leaf_fft_size
     scale = direction is Direction.Reverse
     if scale:  # IFFT swap trick: swap(IDFT(z)) = (1/N) DFT(swap(z))

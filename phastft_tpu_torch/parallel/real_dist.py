@@ -123,7 +123,7 @@ def r2c_fft_distributed(signal, planner, *, group=None):
     _check_r2c_size(n, d)
     half = n // 2
     length = half // d
-    _layout(half, d, planner.dit_planner, x.is_cuda, False)
+    _layout(half, d, planner.dit_planner, False)
     even, odd = deinterleave(x)
     z_re, z_im = fft_distributed(even, odd, Direction.Forward, planner.dit_planner,
                                  group=group)
@@ -158,7 +158,7 @@ def c2r_fft_distributed(spec_re, spec_im, planner, *, group=None):
         )
     _check_r2c_size(n, d)
     half = n // 2
-    _layout(half, d, planner.dit_planner, a_re.is_cuda, False)
+    _layout(half, d, planner.dit_planner, False)
     mirror = _mirror(a_re, a_im, length, rank, d, group, True)
     tw_re, tw_im = planner.c2r_twiddles
     z_re, z_im = pre_untangle(a_re[:length], a_im[:length], tw_re, tw_im, mirror,

@@ -6,16 +6,20 @@ only the tables its plan's kernels read, under the JAX planner's keys and
 layouts:
 
 * a tiny plan (n < 128): none;
-* a leaf plan of n1 = 1..512 (n = 2^7..2^16): ``mxu{n1}`` (F(n1), F(128)
+* a leaf plan of n1 = 1..256 (n = 2^7..2^15): ``mxu{n1}`` (F(n1), F(128)
   with their Karatsuba sums and the transposed correction, zero-size
   placeholders at n1 = 1) and ``leaf{n1}`` (the (n1, 128) correction,
-  n1 >= 2); at n = 2^16 (n1 = 512) ``mxu3_512`` only;
+  n1 >= 2); at n = 2^16 and 2^17 (n1 = 512, 1024) ``mxu3_{n1}`` only; past
+  2^17 (``Options.leaf_fft_size`` > 2^17) ``mxu1``, the tables of the
+  leaf's 128-point rows (its column pass builds its own, ``ops/longcol``);
 * every split level that runs the fused two-pass pipeline (the JAX
   planner's gates): ``pcolT{n1}x{n2}`` (the column pass's T2 split-twiddle
   table) and ``leafT{n2}`` (the row pass's DFT matrices and correction);
 * every other split level (classic): ``pcol{n1}x{n2}`` (the T2 table
-  factored on the classic slab width), and when the innermost level is
-  classic the leaf tables of the plan's leaf, as for a leaf plan.
+  factored on the classic slab width, n2 columns wide below 128: the rows
+  of a split planned with ``leaf_fft_size`` < 128), and when the innermost
+  level is classic the leaf tables of the plan's leaf, as for a leaf
+  plan.
 
 Twiddles are exact f64 angles rounded once to f32 (the reference's
 accuracy contract).
@@ -23,9 +27,10 @@ accuracy contract).
 The f64 planner holds no f32 tables. It builds, each on first use, the
 state of the engine a transform runs on it: ``native_state``, the native
 engine's f64 tables under the JAX planner's keys (``split{n1}x{n2}`` of
-every split level, ``leaf{n1}`` of the plan's leaf), and ``dd_state``, the
-df64 engine's: the dd radix tables of a tiny plan, else the dd corrections
-of the plan's leaf and split levels, and with ``f64_engine="df64-oz"`` the
+every split level, ``leaf{n1}`` of the plan's leaf up to 2^16 points), and
+``dd_state``, the df64 engine's: the dd radix tables of a tiny plan or of
+the tiny rows under a split, the dd corrections of the plan's leaf (up to
+2^16 points) and split levels, and with ``f64_engine="df64-oz"`` the
 Ozaki slice tables of every split level inside the oz kernels' window
 (``ops/ozdd.oz_window``).
 
@@ -59,9 +64,10 @@ import torch
 from .errors import NonPowerOfTwoError, ensure_power_of_two, not_ported
 from .options import Options
 from .ops.colfft import col_split_tables_host, col_tile, col_tile3d
+from .ops.dd import MAX_LEAF_N1 as DD_MAX_LEAF_N1
 from .ops.dd import dd_col_tables_host
 from .ops.df64 import dd_leaf_correction_host, dd_radix_tables_host
-from .ops.fourstep import fused_two_pass, plan_rows, split_levels
+from .ops.fourstep import LEAF_KERNEL_N1, fused_two_pass, plan_rows, split_levels
 from .ops.ozdd import (
     oz_window,
     ozcol_tables_host,
@@ -69,8 +75,9 @@ from .ops.ozdd import (
     slice_count,
 )
 from .ops.leaft import leaft_tables_host
+from .ops.leaf import HYBRID_MAX_N1, LEAF3_AS
 from .ops.mxu import mxu_leaf_tables3_host, mxu_leaf_tables_host
-from .ops.native import dif_twiddles_host
+from .ops.native import MAX_LEAF_N, dif_twiddles_host
 from .ops.r2c import r2c_twiddles
 from .ops.stockham import LANES, leaf_correction_host, split_correction_host
 
@@ -84,9 +91,10 @@ __all__ = [
     "resolve_device",
 ]
 
-#: Leaf factor of the three-factor leaf (n = 2^16 = 128 * 4 * 128), the
-#: only leaf past 2^15 that the default leaf rule plans.
-LEAF3_N1 = 512
+#: Leaf factors n1 = 4a of the three-factor leaf ``leaf3`` (n = a * 4 * 128):
+#: 512 (2^16, the only leaf past 2^15 the default leaf rule plans) and 1024
+#: (2^17, ``Options.leaf_fft_size = 2^17``), the JAX planner's ``mxu3_{n1}``.
+LEAF3_N1 = frozenset(4 * a for a in LEAF3_AS)
 
 
 class Direction(enum.Enum):
@@ -123,10 +131,13 @@ def resolve_device(device=None) -> torch.device:
 
 def _leaf_tables_host(n1: int, dtype_name: str, hybrid: bool = False):
     """{key: host arrays} of the tables a ("leaf", n1) plan's kernel reads
-    (``leaf``, ``leaf3``, or with ``hybrid`` the hybrid leaf), as the JAX
+    (``leaf``, ``leaf3``, or with ``hybrid`` the hybrid leaf up to n1 = 512;
+    past n1 = 1024 the ``leaf`` tables of its 128-point rows), as the JAX
     planner holds them."""
-    if n1 == LEAF3_N1 and not hybrid:
-        return {f"mxu3_{n1}": mxu_leaf_tables3_host(LANES, LANES, dtype_name)}
+    if n1 > LEAF_KERNEL_N1:
+        return _leaf_tables_host(1, dtype_name)
+    if n1 in LEAF3_N1 and not (hybrid and n1 <= HYBRID_MAX_N1):
+        return {f"mxu3_{n1}": mxu_leaf_tables3_host(n1 // 4, LANES, dtype_name)}
     f1, f2, corr = mxu_leaf_tables_host(n1, dtype_name)
     zero = np.zeros((0,), np.dtype(dtype_name))
     out = {f"mxu{n1}": (*(f1 or (zero,) * 3), *f2, *(corr or (zero,) * 2))}
@@ -180,14 +191,6 @@ class _PlannerDitBase:
             else Options.guess_options(n, self.dtype)
         )
         self.plan = plan_rows(n, self.options.leaf_fft_size)
-        node = self.plan
-        for _, node, n2 in split_levels(self.plan):
-            if n2 < LANES:  # rows shorter than the column kernel's slab
-                raise not_ported(f"a split with rows of {n2} points",
-                                 "leaf_size")
-        if node[0] == "leaf" and node[1] > LEAF3_N1:
-            raise not_ported(f"a leaf of {node[1] * LANES} points",
-                             "leaf_size")
 
     @classmethod
     def new(cls, n: int, device=None):
@@ -242,7 +245,8 @@ class PlannerDit32(_PlannerDitBase):
                           options: Optional[Options] = None):
         """A planner for size ``n`` on ``device`` whose tables are exactly
         the given arrays. ``tables`` maps each key the plan reads
-        (``mxu{n1}``, ``leaf{n1}`` or ``mxu3_512`` for leaf rows,
+        (``mxu{n1}``, ``leaf{n1}`` or ``mxu3_{n1}`` for leaf rows, ``mxu1``
+        for the rows of a leaf past 2^17 points,
         ``pcolT{n1}x{n2}`` and ``leafT{n2}`` for a fused split level,
         ``pcol{n1}x{n2}`` for a classic one) to its arrays, as the JAX
         planner's ``leaf_corrs`` holds them. The hybrid leaf's ``mxu512``
@@ -284,8 +288,10 @@ def _dd_tables_host(plan, engine=None):
     else no radix table and, for every split level, ``ozcol{n1}x{n2}`` and
     ``ozleafT{n2}`` (the flat tuples of ``ozcol_tables_host`` and
     ``ozleaft_tables_host``) when ``engine`` starts with "df64-oz" and the
-    level is in ``oz_window``, else ``ddpcol{n1}x{n2}``; and ``ddleaf{n1}``
-    for the plan's leaf factor (n1 >= 2) unless an oz level runs it."""
+    level is in ``oz_window``, else ``ddpcol{n1}x{n2}``; ``ddleaf{n1}`` for
+    the plan's leaf factor (n1 = 2..512) unless an oz level runs it; and the
+    radix tables up to the length of the innermost plan when it is tiny,
+    under a split planned with ``leaf_fft_size`` < 128."""
     if plan[0] == "tiny":
         return dd_radix_tables_host(plan[1]), {}
     oz = (engine or "").startswith("df64-oz")
@@ -300,7 +306,9 @@ def _dd_tables_host(plan, engine=None):
         else:
             _, p1, p2 = dd_col_tables_host(n1, n2)
             corrs[f"ddpcol{n1}x{n2}"] = (p1, p2)
-    if inner[0] == "leaf" and inner[1] > 1 and leaf_read:
+    if inner[0] == "tiny":
+        return dd_radix_tables_host(inner[1]), corrs
+    if inner[0] == "leaf" and 1 < inner[1] <= DD_MAX_LEAF_N1 and leaf_read:
         corrs[f"ddleaf{inner[1]}"] = dd_leaf_correction_host(inner[1], LANES)
     return {}, corrs
 
@@ -318,8 +326,9 @@ def _native_tables_host(plan):
     """{key: (re, im, ...)} of what the native kernels read for ``plan``,
     as f64 host arrays under the JAX planner's keys and layouts:
     ``split{n1}x{n2}`` = (T1 re, T1 im, T2 re, T2 im) of every split level
-    and ``leaf{n1}`` = (re, im) of the plan's leaf factor (n1 >= 2); and,
-    under keys of the port's own (the JAX package holds no such table),
+    and ``leaf{n1}`` = (re, im) of the plan's leaf factor (n1 = 2..512; a
+    leaf past 2^16 points builds its column pass's own, ``ops/longcol``);
+    and, under keys of the port's own (the JAX package holds no such table),
     ``dif{m}`` = (pairs,), the (m/2, 2) step twiddles of every DFT size m
     a kernel of the plan runs (``ops/native.dif_twiddles_host``)."""
     out = {}
@@ -330,7 +339,7 @@ def _native_tables_host(plan):
         sizes.add(n1)
     if inner[0] == "leaf":
         n1 = inner[1]
-        if n1 > 1:
+        if 1 < n1 and n1 * LANES <= MAX_LEAF_N:
             out[f"leaf{n1}"] = leaf_correction_host(n1, LANES, "float64")
             sizes.add(n1)
         sizes.add(LANES)

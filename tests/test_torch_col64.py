@@ -464,11 +464,11 @@ def test_shard_tables_and_nocorr_check_their_arguments():
     with pytest.raises(ValueError, match="do not lie"):
         col64_shard_tables(1 << 12, 8, 256, 384, cpu)  # past the 512 columns
     with pytest.raises(ValueError, match="do not lie"):
-        col64_shard_tables(1 << 12, 8, 1, 0, cpu)  # under col64's 2 columns
+        col64_shard_tables(1 << 12, 8, 0, 0, cpu)  # no column
     x = torch.zeros(8, 16, dtype=torch.float64)
     steps = torch.from_numpy(dif_twiddles_host(8))
     with pytest.raises(ValueError, match="col64_nocorr: unsupported shape"):
-        col64_nocorr(x[:, :1], x[:, :1], 8, steps)
+        col64_nocorr(x[:, :3], x[:, :3], 8, steps)  # not a power of two
     with pytest.raises(TypeError, match="float64"):
         col64_nocorr(x.float(), x.float(), 8, steps)
     with pytest.raises(ValueError, match="dif8"):

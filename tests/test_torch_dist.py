@@ -35,13 +35,17 @@ WORLDS = (2, 4)
 #: case -> (log2 n, flags): the transforms each rank runs, natural or with
 #: the permuted layouts. The port runs one chunk; for "jax_chunked" the JAX
 #: reference is forced to 4 chunks of the column block, which leave the
-#: layout as it is.
+#: layout as it is. The "two_column" cases plan both packages on a leaf of
+#: 2d points: n2 = 2d, column blocks of two columns (colfft's shard and bare
+#: modes at n2 = 2), tiny rows of 2d points.
 TRANSFORMS = {
     "natural_2^10": (10, {}),
     "natural_2^12": (12, {}),
     "jax_chunked_2^13": (13, {}),
     "permuted_output_2^12": (12, {"permuted_output": True}),
     "permuted_input_2^12": (12, {"permuted_input": True}),
+    "two_column_2^10": (10, {}),
+    "two_column_permuted_input_2^10": (10, {"permuted_input": True}),
 }
 JAX_CHUNKED = "jax_chunked_2^13"
 BATCH_ROWS, BATCH_LOG = 2, 10
@@ -55,15 +59,23 @@ def _signal(log_n, seed, rows=None):
             rng.standard_normal(shape).astype(np.float32))
 
 
-def _perm(n, d):
-    """Indices of the permuted layout: P[k1*n2 + k2] = x[k1 + k2*n1], for
-    the JAX package's factorization of n over d ranks at its default
-    leaf."""
+def _leaf(case, n, d):
+    """The planners' leaf of a case over d ranks: 2d points for the
+    two-column cases, else the default leaf of n."""
     import phastft_tpu_torch as pt
+
+    if case.startswith("two_column"):
+        return 2 * d
+    return pt.Options.guess_options(n, np.float32).leaf_fft_size
+
+
+def _perm(n, d, case=""):
+    """Indices of the permuted layout: P[k1*n2 + k2] = x[k1 + k2*n1], for
+    the JAX package's factorization of n over d ranks at the case's
+    leaf."""
     from phastft_tpu_torch.parallel.fourstep_dist import _factor
 
-    leaf = pt.Options.guess_options(n, np.float32).leaf_fft_size
-    n1, n2 = _factor(n, d, leaf)
+    n1, n2 = _factor(n, d, _leaf(case, n, d))
     return np.arange(n).reshape(n2, n1).T.reshape(-1)
 
 
@@ -71,7 +83,7 @@ def _inputs(case, d):
     log_n, flags = TRANSFORMS[case]
     re, im = _signal(log_n, log_n)
     if flags.get("permuted_input"):
-        p = _perm(1 << log_n, d)
+        p = _perm(1 << log_n, d, case)
         re, im = re[p], im[p]
     return re, im
 
@@ -97,8 +109,9 @@ def _rank_cases(rank, d):
     out = {}
     for case, (log_n, flags) in TRANSFORMS.items():
         re, im = _inputs(case, d)
+        opts = pt.Options(leaf_fft_size=_leaf(case, 1 << log_n, d))
         out[case] = pair(fft_distributed(shard(re), shard(im), fwd,
-                                         planner(log_n), **flags))
+                                         planner(log_n, options=opts), **flags))
     # round trips: natural, and permuted output into permuted input
     re, im = _signal(12, 12)
     p = planner(12)
@@ -195,13 +208,14 @@ def world(request, tmp_path_factory):
 
 # -- the reference -----------------------------------------------------------
 
-def _jax_distributed(re, im, d, direction="Forward", **flags):
+def _jax_distributed(re, im, d, direction="Forward", leaf=None, **flags):
     import jax
     import phastft_tpu
     from phastft_tpu.parallel import default_mesh, fft_distributed
 
     mesh = default_mesh("x", devices=jax.devices()[:d])
-    p = phastft_tpu.PlannerDit32(re.shape[-1])
+    opts = None if leaf is None else phastft_tpu.Options(leaf_fft_size=leaf)
+    p = phastft_tpu.PlannerDit32(re.shape[-1], options=opts)
     out = fft_distributed(re, im, getattr(phastft_tpu.Direction, direction),
                           p, mesh=mesh, **flags)
     return np.asarray(out[0]), np.asarray(out[1])
@@ -225,7 +239,7 @@ def test_transform_matches_jax_and_numpy(world, case, monkeypatch):
 
         monkeypatch.setenv("PHASTFT_TPU_DIST_CHUNKS", "4")
         _build_distributed.cache_clear()  # its key does not hold the chunks
-    want_jax = _c(_jax_distributed(re, im, d, **flags))
+    want_jax = _c(_jax_distributed(re, im, d, leaf=_leaf(case, 1 << log_n, d), **flags))
     g = _c(got[case])
     assert g.shape == (1 << log_n,)
     # element for element: the permuted layout too
@@ -233,7 +247,7 @@ def test_transform_matches_jax_and_numpy(world, case, monkeypatch):
     x, y = _signal(log_n, log_n)
     spectrum = np.fft.fft(x.astype(np.float64) + 1j * y)
     if flags.get("permuted_output"):
-        spectrum = spectrum[_perm(1 << log_n, d)]
+        spectrum = spectrum[_perm(1 << log_n, d, case)]
     assert _rel(g, spectrum) <= TOL_F64
 
 

@@ -33,7 +33,11 @@ WORLDS = (2, 4)
 #: case -> (log2 n, dtype, options, flags) of the transforms each rank runs.
 #: "long": leaf 128 at 2^19 gives n1 = 4096 at d = 2 and 4, past the column
 #: kernels' 2048. "df64_narrow": 2^10 gives column blocks of 64 / 32 columns,
-#: under ddcol's 128.
+#: under the JAX dd kernel's 128. "one_column": a leaf of d points ("d")
+#: gives n2 = d, column blocks of one column (col64 and col64_nocorr at
+#: n2 = 1). "df64_narrowest": 2^7, the smallest n the dd factorization
+#: shards over 4 ranks, gives blocks of 8 / 4 columns (the dd factorization
+#: n1 = max(8, d) keeps n2 / d >= 4 at d <= 4: no one-column dd block).
 TRANSFORMS = {
     "native_2^10": (10, "f64", {}, {}),
     "native_2^12": (12, "f64", {}, {}),
@@ -51,6 +55,12 @@ TRANSFORMS = {
     "long_f64_permuted_input_2^19": (19, "f64", {"leaf_fft_size": 128},
                                      {"permuted_input": True}),
     "long_f32_2^19": (19, "f32", {"leaf_fft_size": 128}, {}),
+    "native_one_column_2^10": (10, "f64", {"leaf_fft_size": "d"}, {}),
+    "native_one_column_permuted_output_2^10": (10, "f64", {"leaf_fft_size": "d"},
+                                               {"permuted_output": True}),
+    "native_one_column_permuted_input_2^10": (10, "f64", {"leaf_fft_size": "d"},
+                                              {"permuted_input": True}),
+    "df64_narrowest_2^7": (7, "f64", {"f64_engine": "df64"}, {}),
 }
 #: The cases held to numpy alone: the JAX package compiles its dd pipeline
 #: for ~11 s a shape on the CPU, so of the dd cases only df64_2^12 is held to
@@ -62,7 +72,7 @@ NUMPY_ONLY = ("df64_narrow_2^10", "df64_split_2^13", "df64_oz_2^12")
 #: graphs take ~2-3 s each to compile); to numpy at both world sizes.
 JAX_LONG_WORLD = 2
 ROUNDTRIPS = ("native", "native_permuted", "df64", "long_f64")
-ERRORS = ("f64_narrow_block", "dd_too_small", "f64_planner_size", "f64_flags")
+ERRORS = ("dd_too_small", "f64_planner_size", "f64_flags")
 
 
 def _signal(log_n, seed, dtype=np.float64):
@@ -71,13 +81,15 @@ def _signal(log_n, seed, dtype=np.float64):
             rng.standard_normal(1 << log_n).astype(dtype))
 
 
-def _leaf(log_n, opts):
-    """The leaf of the planners of a case: the options', else the f64 rule
-    of ``guess_options`` (the same in both packages)."""
+def _leaf(log_n, opts, d):
+    """The leaf of the planners of a case over d ranks: the options' ("d":
+    d points), else the f64 rule of ``guess_options`` (the same in both
+    packages)."""
     import phastft_tpu_torch as pt
 
-    return opts.get("leaf_fft_size",
+    leaf = opts.get("leaf_fft_size",
                     pt.Options.guess_options(1 << log_n).leaf_fft_size)
+    return d if leaf == "d" else leaf
 
 
 def _perm(log_n, d, opts):
@@ -86,7 +98,7 @@ def _perm(log_n, d, opts):
     from phastft_tpu_torch.parallel.fourstep_dist import _factor
 
     n = 1 << log_n
-    n1, n2 = _factor(n, d, _leaf(log_n, opts))
+    n1, n2 = _factor(n, d, _leaf(log_n, opts, d))
     return np.arange(n).reshape(n2, n1).T.reshape(-1)
 
 
@@ -111,7 +123,7 @@ def _rank_cases(rank, d):
 
     def planner(log_n, dtype="f64", **opts):
         cls = pt.PlannerDit32 if dtype == "f32" else pt.PlannerDit64
-        options = pt.Options(leaf_fft_size=_leaf(log_n, opts), **{
+        options = pt.Options(leaf_fft_size=_leaf(log_n, opts, d), **{
             k: v for k, v in opts.items() if k != "leaf_fft_size"})
         return cls(1 << log_n, options=options, device="cpu")
 
@@ -153,12 +165,8 @@ def _rank_cases(rank, d):
     out["convolution"] = pair(fft_distributed(
         xr * hr - xi * hi, xr * hi + xi * hr, inv, p, permuted_input=True))
     # the errors, each before any collective
-    n4 = np.zeros(d)
     n10 = np.zeros((1 << 10) // d)
     calls = {
-        # n = d^2: column blocks of one column, under col64's two
-        "f64_narrow_block": lambda: fft_distributed(
-            n4, n4, fwd, pt.PlannerDit64(d * d, device="cpu")),
         "dd_too_small": lambda: fft_distributed(
             np.zeros(32 // d), np.zeros(32 // d), fwd,
             planner(5, f64_engine="df64")),
@@ -241,7 +249,7 @@ def _jax_distributed(re, im, d, log_n, dtype="f64", opts=None,
     from phastft_tpu.parallel.fourstep_dist import _build_distributed, _factor
 
     opts = dict(opts or {})
-    leaf = _leaf(log_n, opts)
+    leaf = _leaf(log_n, opts, d)
     opts.pop("leaf_fft_size", None)
     cls = phastft_tpu.PlannerDit32 if dtype == "f32" else phastft_tpu.PlannerDit64
     n = 1 << log_n
@@ -329,7 +337,6 @@ def test_convolution_pipeline(world):
 
 #: error case -> (class, words its message holds), on every rank alike.
 WANT_ERRORS = {
-    "f64_narrow_block": ("NotImplementedError", "Queue 1 item 18"),
     "dd_too_small": ("NonPowerOfTwoError", "too small to dd-shard"),
     "f64_planner_size": ("NonPowerOfTwoError", "planner is for size 4096"),
     "f64_flags": ("ValueError", "mutually exclusive"),
@@ -374,7 +381,9 @@ def test_df64_oz_rows_arm_the_oz_kernels_in_both_packages():
     assert "ddpcol128x8192" in plain.dd_state[1]
 
 
-#: _long_columns on one block (no process group): (dtype, batch, n1, c, n,
+#: The long columns on one block (no process group; ``ops/longcol``, which
+#: the distributed four-step and the single-device leaves past 2^17 run):
+#: (dtype, batch, n1, c, n,
 #: col_base, bare, MAX_N1 lowered to). n1 = 4096 over n = 2^16: one level of
 #: 64 x 64; c = 16 is a block of every column (f32: colfft's own shard
 #: twiddle), c = 4 a shard block (f32: colfft_nocorr and the twiddle in
@@ -405,21 +414,18 @@ def test_long_columns_match_jax_and_numpy(monkeypatch, dtype, batch, n1, c, n, c
     from phastft_tpu.ops.stockham import stockham_axis2 as jax_st
     from phastft_tpu.parallel.fourstep_dist import _local_correction_cols
 
-    from phastft_tpu_torch.ops.transpose import transpose2, transpose2_64
-    from phastft_tpu_torch.parallel import fourstep_dist as fd
+    from phastft_tpu_torch.ops import longcol
 
     if max_n1:
-        monkeypatch.setattr(fd, "MAX_N1", max_n1)
+        monkeypatch.setattr(longcol, "MAX_N1", max_n1)
     f64 = dtype == "f64"
     np_dtype = np.float64 if f64 else np.float32
     rng = np.random.default_rng(n1 + c + col_base)
     shape = batch + (n1, c)
     re = rng.standard_normal(shape).astype(np_dtype)
     im = rng.standard_normal(shape).astype(np_dtype)
-    p = fd._Plan(n, n1, n // n1, 1, 0, None, f64, rows=None,
-                 transpose=transpose2_64 if f64 else transpose2)
-    out = fd._long_columns([torch.from_numpy(re), torch.from_numpy(im)], p, n, n1,
-                           col_base, bare)
+    out = longcol.long_columns([torch.from_numpy(re), torch.from_numpy(im)], n, n1,
+                               col_base, bare, f64)
     got = out[0].numpy().astype(np.float64) + 1j * out[1].numpy()
     assert got.shape == shape
     z = re.astype(np.float64) + 1j * im

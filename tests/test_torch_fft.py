@@ -2,9 +2,9 @@
 numpy's f64 FFT, plus its error paths.
 
 The error-path tests mirror tests/test_errors.py on the f32 and f64
-entries: the same classes and messages. Leaves outside the port's slice and
-PlannerMode.Tune raise NotImplementedError naming their ROADMAP.md item;
-n = 2^31 is planned as the JAX package plans it. The f64 entries run the df64 (paired-f32)
+entries: the same classes and messages. PlannerMode.Tune raises
+NotImplementedError naming its ROADMAP.md item; n = 2^31 is planned as the
+JAX package plans it, and leaves outside 128..2^16 points run. The f64 entries run the df64 (paired-f32)
 engine; their tolerances are on f64 values.
 """
 
@@ -392,15 +392,16 @@ def test_tensor_dtype_and_device_checked():
 
 @pytest.mark.parametrize("log_n,leaf,item", [
     (31, None, "item 16"),      # past 2^30: planned since item 16 landed
-    (17, 64, "item 15"),        # rows of 64 points: below the column kernel
-    (17, 1 << 17, "item 15"),   # a leaf past 2^16
+    (17, 64, "item 15"),        # rows of 64 points under a 2048-point column pass
+    (17, 1 << 17, "item 15"),   # a leaf past 2^16: leaf3 at a = 256
     (20, 1 << 17, "item 15"),   # the same under a classic split
 ])
 def test_sizes_outside_slice_not_implemented(log_n, leaf, item):
-    """Leaves outside 128..2^16 points raise their item; n = 2^31, which
-    raised item 16 until that item was ported, is planned as the JAX
-    package plans it, on tables of a few MiB (no transform runs here: one
-    pair is 16 GiB)."""
+    """The sizes that raised until their item was ported. n = 2^31 (item
+    16) is planned as the JAX package plans it, on tables of a few MiB (no
+    transform runs here: one pair is 16 GiB). Leaves outside 128..2^16
+    points (item 15) run: a batch of 2, planned as the JAX package plans it,
+    against it and numpy."""
     n = 1 << log_n
     if item == "item 16":
         from phastft_tpu.ops.fourstep import plan_rows
@@ -412,11 +413,17 @@ def test_sizes_outside_slice_not_implemented(log_n, leaf, item):
         floats = sum(t.numel() for ts in planner.leaf_corrs.values() for t in ts)
         assert floats < 1 << 22
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        x = np.zeros(n, np.float32)
-        planner = pt.PlannerDit32(
-            n, options=pt.Options(leaf_fft_size=leaf), device="cpu")
-        pt.fft_32_dit_with_planner(x, x, pt.Direction.Forward, planner)
+    re, im = _pair(np.random.default_rng(log_n + leaf), (2, n))
+    planner = pt.PlannerDit32(n, options=pt.Options(leaf_fft_size=leaf), device="cpu")
+    jax_planner = phastft_tpu.PlannerDit32(
+        n, options=phastft_tpu.Options(leaf_fft_size=leaf))
+    assert planner.plan == jax_planner.plan
+    got = _c(pt.fft_32_dit_with_planner(re, im, pt.Direction.Forward, planner))
+    ref = _c(phastft_tpu.fft_32_dit_with_planner(re, im, phastft_tpu.Direction.Forward,
+                                                 jax_planner))
+    want = np.fft.fft(re.astype(np.float64) + 1j * im, axis=-1)
+    assert _rel(got, want) <= _bound(n)
+    assert _rel(got, ref) <= 2 * _bound(n)
 
 
 @pytest.mark.parametrize("entry", ["fft_64_dit", "fft_64_dit_with_planner",
@@ -703,10 +710,25 @@ def test_f64_error_paths(case, monkeypatch):
         opts = phastft_tpu.Options.guess_options(1 << 31, np.float64)
         assert big.plan == plan_rows(1 << 31, opts.leaf_fft_size)
         assert big._native_state is None and big._dd_state is None
-        for leaf in (64, 1 << 17):
-            with pytest.raises(NotImplementedError, match="item 15"):
-                pt.PlannerDit64(1 << 18, options=pt.Options(
-                    leaf_fft_size=leaf, f64_engine="df64"), device="cpu")
+        # df64 planners on leaves outside 128..2^16 points (they raised
+        # item 15 until it was ported) run, planned as the JAX package plans
+        # them, against its f64 transform on the same plan (its native engine:
+        # its dd pipeline compiles for ~12-22 s a shape here;
+        # tests/test_torch_edges.py holds the 2^17 leaf to its df64) and numpy
+        for log_m, leaf in ((12, 64), (17, 1 << 17)):
+            m = 1 << log_m
+            rng = np.random.default_rng(log_m)
+            re, im = rng.standard_normal((2, m)), rng.standard_normal((2, m))
+            planner = pt.PlannerDit64(m, options=pt.Options(
+                leaf_fft_size=leaf, f64_engine="df64"), device="cpu")
+            jax_planner = phastft_tpu.PlannerDit64(m, options=phastft_tpu.Options(
+                leaf_fft_size=leaf, f64_engine="native"))
+            assert planner.plan == jax_planner.plan
+            got = _g(pt.fft_64_dit_with_planner(re, im, pt.Direction.Forward, planner))
+            ref = phastft_tpu.fft_64_dit_with_planner(
+                re, im, phastft_tpu.Direction.Forward, jax_planner)
+            assert _rel(got, _c(ref)) <= 1e-13
+            assert _rel(got, np.fft.fft(re + 1j * im, axis=-1)) <= 1e-12
         with pytest.raises(NotImplementedError, match="item 8"):
             pt.PlannerDit64(n, pt.PlannerMode.Tune, device="cpu")
 

@@ -32,7 +32,7 @@ from phastft_tpu.ops.fourstep import plan_rows as jax_plan_rows
 from phastft_tpu.parallel import fourstep_dist as jax_dist
 from phastft_tpu_torch.ops import _build, colfft as colmod, fourstep
 from phastft_tpu_torch.ops import leaf as leafmod, leaft as leaftmod
-from phastft_tpu_torch.ops import native, r2c, transpose
+from phastft_tpu_torch.ops import longcol, native, r2c, transpose
 from phastft_tpu_torch.parallel import fourstep_dist as dist
 
 GIANT_LOGS = range(31, 41)
@@ -84,7 +84,8 @@ def test_dist_factors_match_jax(tag):
     """``_factor`` / ``_factor_dd`` and the layout ``fft_distributed`` takes
     agree with the JAX package's factorizations at n = 2^31..2^40 over
     d = 1..64 ranks, and every column factor past 2048 splits, level by
-    level (``_long_split``), into factors the column kernels take."""
+    level (``ops/longcol.long_split``), into factors the column kernels
+    take."""
     dtype = DTYPES[tag]
     for log_n in GIANT_LOGS:
         n = 1 << log_n
@@ -95,17 +96,17 @@ def test_dist_factors_match_jax(tag):
                     == _jax_or_error(jax_dist._factor_dd, n, d))
             engines = (None,) if tag == "f32" else (None, "df64")
             for engine in engines:
-                got = dist._layout(n, d, _Planner(dtype, leaf, engine), True, False)
+                got = dist._layout(n, d, _Planner(dtype, leaf, engine), False)
                 want = (jax_dist._factor_dd(n, d) if engine
                         else jax_dist._factor(n, d, leaf))
                 assert got[3:] == want
                 n1, todo = got[3], [got[3]]
                 while todo:
                     m = todo.pop()
-                    if m <= dist.MAX_N1:
+                    if m <= longcol.MAX_N1:
                         continue
-                    p, q = dist._long_split(m)
-                    assert p * q == m and p <= dist.MAX_N1 and q >= p
+                    p, q = longcol.long_split(m)
+                    assert p * q == m and p <= longcol.MAX_N1 and q >= p
                     todo.append(q)
                 assert n1 >= 1
 
@@ -118,14 +119,14 @@ def test_twiddle_phases_exact_past_2_31():
     cols = torch.tensor([(1 << 20) - 1, (1 << 20) - 3, 7], dtype=torch.int64)
     re = torch.ones(3, 3, dtype=torch.float64)
     im = torch.zeros(3, 3, dtype=torch.float64)
-    dist._twiddle_(re, im, n, rows, cols)
+    longcol.twiddle_(re, im, n, rows, cols)
     phase = np.array([[(int(r) * int(c)) % n for c in cols] for r in rows], np.float64)
     ang = phase * (-2.0 * np.pi / n)
     np.testing.assert_allclose(re.numpy(), np.cos(ang), rtol=0, atol=4e-16)
     np.testing.assert_allclose(im.numpy(), np.sin(ang), rtol=0, atol=4e-16)
     # the long columns' first-pass exponents q * (n / n1) + col_base + j
     n1, pp, c, base = 1 << 20, 1 << 10, 4, (1 << 20) - 4
-    exps = dist._level_exponents(n, n1, pp, c, base, False)
+    exps = longcol.level_exponents(n, n1, pp, c, base, False)
     want = [q * (n // n1) + base + j for q in range(n1 // pp) for j in range(c)]
     assert exps.dtype == np.int64 and exps.tolist() == want
 
@@ -186,14 +187,15 @@ def _pair(shape, dtype=torch.float32):
 
 
 class _Launches:
-    """Stand-ins for the kernel wrappers of ``ops/fourstep`` and
-    ``parallel/fourstep_dist`` on meta tensors: each checks the arguments
+    """Stand-ins for the kernel wrappers of ``ops/fourstep``,
+    ``ops/longcol`` and ``parallel/fourstep_dist`` on meta tensors: each
+    checks the arguments
     its wrapper would pass (the wrapper's own ``*_args``) and returns the
     output's shape."""
 
     def __init__(self, monkeypatch):
         self.seen = []
-        for mod in (fourstep, dist):
+        for mod in (fourstep, longcol, dist):
             for name in ("colfft", "colfft_out3d", "leaft", "leaf", "leaf3",
                          "transpose2", "col64", "leaf64", "transpose2_64"):
                 if hasattr(mod, name):
@@ -315,14 +317,11 @@ def test_kernel_args_dist_2_31(monkeypatch):
     transposes, then the rows, every 32-bit argument in range."""
     run = _Launches(monkeypatch)
     n, d = 1 << 31, 1
-    f64, _, _, n1, n2 = dist._layout(n, d, _Planner(np.float32, 1 << 14), True, False)
+    f64, _, _, n1, n2 = dist._layout(n, d, _Planner(np.float32, 1 << 14), False)
     assert (f64, n1, n2) == (False, 1 << 17, 1 << 14)
-    p = dist._Plan(n, n1, n2, d, 0, None, False,
-                   rows=lambda pair: fourstep.rows_f32(pair, ("leaf", 128), _ANY_TABLE),
-                   transpose=run.transpose2)
-    t = dist._columns([*_pair((n1, n2))], p, n, n1, 0, False)
+    t = longcol.columns([*_pair((n1, n2))], n, n1, 0, False, False)
     assert tuple(t[0].shape) == (n1, n2)
-    rows = p.rows([*t])
+    rows = fourstep.rows_f32([*t], ("leaf", 128), _ANY_TABLE)
     assert tuple(rows[0].shape) == (n1, n2)
     cols = [(a[8], a[9], a[10], a[12]) for e, a in run.seen if e == "phastft_colfft"]
     assert cols == [(1, 256, 1 << 23, n), (256, 512, 1 << 14, 1 << 23)]
@@ -408,8 +407,8 @@ def test_f32_column_output_handed_over(log_n, leaf, kernels, monkeypatch):
 def test_dd_column_output_handed_over(monkeypatch):
     """``fft_rows_dd``: the outer ``ddcol``'s four planes die after the inner
     ``ddcol`` returns, the inner one's after ``ddleaf`` returns."""
-    events, outs = _watch(monkeypatch, [(fourstep, ("ddcol", "ddleaf", "transpose2"))],
-                          ("ddcol",))
+    events, outs = _watch(monkeypatch, [(fourstep, ("ddcol", "ddleaf")),
+                                        (longcol, ("transpose2",))], ("ddcol",))
     n = 1 << 19
     planner = pt.PlannerDit64(n, options=pt.Options(leaf_fft_size=128, f64_engine="df64"),
                               device="cpu")

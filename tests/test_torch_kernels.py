@@ -295,7 +295,7 @@ def test_classic_wrappers_reject_bad_arguments(bad):
     elif bad == "shape":
         with pytest.raises(ValueError):
             colfft(x, x[:, :128], tabs, n1)
-        with pytest.raises(ValueError):  # n2 below the kernel's 128 columns
+        with pytest.raises(ValueError):  # tables of another width than n2's
             colfft(x[:, :64], x[:, :64], tabs, n1)
         with pytest.raises(ValueError):
             transpose2(x, x[:, :128])
@@ -693,7 +693,9 @@ def test_ddcol_checks_its_arguments():
 
     quad, _ = _quad(np.random.default_rng(0), (8, 128))
     _, t1, t2 = dd.dd_col_tables_host(8, 128)
-    with pytest.raises(ValueError, match="unsupported shape"):
+    with pytest.raises(ValueError, match="unsupported shape"):  # not a power of two
+        dd.ddcol(*_t(tuple(q[:, :96] for q in quad)), _t(t1), _t(t2), 8)
+    with pytest.raises(ValueError, match="correction tables"):  # another n2's
         dd.ddcol(*_t(tuple(q[:, :64] for q in quad)), _t(t1), _t(t2), 8)
     with pytest.raises(ValueError, match="correction tables"):
         dd.ddcol(*_t(quad), _t(t2), _t(t1), 8)
