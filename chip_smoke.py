@@ -14,8 +14,9 @@ on any failed check:
    occupancy query; none may be 0: ``leaf``, ``leaf3``, ``ddleaf``,
    ``leaft`` at A = 8..128, ``colfft`` at n1 = 1024, 2048 in its three
    modes, ``col64`` at n1 = 1024, 2048 (8-block clusters), ``ddcol`` and
-   ``ddcol_nocorr`` at n1 = 1024, 2048, ``ozleaft`` at A = 8..64, and
-   ``ozcol``'s blocks per SM), the ``-Xptxas -v`` lines of
+   ``ddcol_nocorr`` at n1 = 1024, 2048, ``ozleaft`` at A = 8..64,
+   ``hybrid`` at n1 = 128..1024 (2..16 blocks), and ``ozcol``'s blocks per
+   SM), the ``-Xptxas -v`` lines of
    the two oz kernels and of ``ddcol``, and the FP32 issue rate of the dd
    bounds.
 3. ``parity``: each kernel against its plain torch version on the card, at
@@ -160,16 +161,22 @@ on any failed check:
    989 TFLOP/s (``oz_bound``).
 
 20. ``parity_hybrid``: the hybrid leaf against its plain version at n1 = 2,
-   8, 64, 128, 256, 512 (one block, and clusters of 2, 4, 8 blocks) on 257
-   rows and on 1, rel L2 <= 1e-6.
+   8, 64, 128, 256, 512, 1024 (one block, and clusters of 2, 4, 8, 16
+   blocks) on 257 rows and on 1, rel L2 <= 1e-6.
 21. ``e2e_hybrid``: the leaf plans with ``Options(leaf_kernel="hybrid")``,
    counters set to 0 just before and read just after: per call at every
-   n = 2^8..2^16 on 2^20 points against numpy's f64 FFT (the leaf plans'
-   bound), a planner built with it at 2^12 x 256 rows, the classic plan of
-   ``leaf_fft_size=2^16`` at 2^20 (``colfft``, ``hybrid``, ``transpose2``),
-   a round trip at 2^16 x 16 rows (<= 1e-6). Each leaf transform launches
-   ``hybrid`` once and no ``leaf``/``leaf3``.
-22. ``times_hybrid``: as 8, on 2^27 points at n = 2^8, 2^12, 2^15, 2^16:
+   n = 2^8..2^17 on 2^20 points against numpy's f64 FFT (the leaf plans'
+   bound; 2^17 on ``leaf_fft_size=2^17``), planners built with it at
+   2^12 x 256 rows and at 2^17 x 4, the classic plans of
+   ``leaf_fft_size=2^16`` at 2^20 and of ``leaf_fft_size=2^17`` at 2^24
+   (``colfft``, ``hybrid``, ``transpose2``), an f32 R2C / C2R round trip
+   at 2^18 on an inner planner of ``leaf_fft_size=2^17`` (against numpy's
+   rfft and back, <= 1e-6), a round trip at 2^16 x 16 rows (<= 1e-6). Each
+   leaf transform launches ``hybrid`` once and no ``leaf``/``leaf3``. The
+   2^17 leaf, the 2^24 plan and the R2C / C2R on the same inputs without
+   ``"hybrid"`` launch ``leaf3`` and no ``hybrid``.
+22. ``times_hybrid``: as 8, on 2^27 points at n = 2^8, 2^12, 2^15, 2^16,
+   2^17 (2^17: the default leaf kernel is ``leaf3`` at a = 256):
    ``hybrid`` beside its bound (``hybrid_bound``: the bytes or flops of a
    length-n DFT; beside it the time of the kernel's own 3xTF32 products at
    the TF32 tensor-core peak and of its F(n1) and correction at the f32
@@ -385,8 +392,9 @@ Every timing follows ``release_memory``'s wait where 8 GiB or more went
 back to CUDA (``cudaFree``) just before it.
 
 ``python3 chip_smoke.py --turns PARENT`` runs none of this: it times the
-existing transforms (f32 2^20, 2^25, 2^28 and native f64 2^24, 2^27, CUDA
-events, medians) of the package under the directory PARENT (a
+existing transforms (f32 2^20, 2^25, 2^28, native f64 2^24, 2^27, and the
+hybrid leaf at 2^16 x 2^11 rows; CUDA events, medians) of the package under
+the directory PARENT (a
 ``git archive`` of another commit) and of this checkout's, in turns parent,
 this, this, parent, each turn a process of its own
 (``--time-tree DIR``), and prints each turn's times and this tree's ratio
@@ -532,11 +540,13 @@ TF32_FLOPS_PER_S = 495e12
 #: The hybrid leaf's checks: n1 and row counts of its parity, the leaf
 #: sizes of its transforms (on HYBRID_E2E_POINTS points each), and the leaf
 #: sizes it is timed at on 2^27 points.
-HYBRID_N1S = (2, 8, 64, 128, 256, 512)
+HYBRID_N1S = (2, 8, 64, 128, 256, 512, 1024)
 HYBRID_ROWS = (257, 1)
-HYBRID_E2E_LOGS = tuple(range(8, 17))
+HYBRID_E2E_LOGS = tuple(range(8, 18))
 HYBRID_E2E_POINTS = 1 << 20
-HYBRID_TIME_LOGS = (8, 12, 15, 16)
+HYBRID_TIME_LOGS = (8, 12, 15, 16, 17)
+#: n1 of the hybrid's cluster shapes (2, 4, 8, 16 blocks).
+HYBRID_CLUSTER_N1S = (128, 256, 512, 1024)
 HYBRID_TIME_POINTS = 1 << 27
 #: The hybrid kernel's own arithmetic per element, printed beside the bound,
 #: not the bound (a length-n DFT needs 5 * log2(n) + 6): on the tensor
@@ -732,8 +742,9 @@ EDGE_E2E = ((20, 1, ("f32", "native", "df64")), (20, 16, ("f32", "native", "df64
 EDGE_DIST = (24, 1 << 17)
 EDGE_DIST_NARROW = (("f32", 20, 2), ("f64", 20, 1))
 EDGE_TIME_REPS = 10
-#: The transforms of --turns: (dtype, log2 n).
-TURN_SIZES = (("f32", 20), ("f32", 25), ("f32", 28), ("f64", 24), ("f64", 27))
+#: The transforms of --turns: (dtype, log2 n); "hybrid" is the f32 leaf
+#: transform with Options(leaf_kernel="hybrid") on HYBRID_TIME_POINTS points.
+TURN_SIZES = (("f32", 20), ("f32", 25), ("f32", 28), ("f64", 24), ("f64", 27), ("hybrid", 16))
 TURN_REPS = 20
 
 
@@ -1148,9 +1159,10 @@ def leaf_call(planner):
     if kind == "tiny":
         return leaf, leaf_plain, ((), 1), 0
     mats3 = corrs.get(f"mxu3_{n1}")
-    if mats3 is not None:  # rows 1 of F(128) twice, c1 (128, 512), c2 (4, 128)
-        tables = 2 * 128 + 2 * 128 * 512 + 2 * 4 * 128
-        return leaf3, leaf3_plain, (mats3, 128, 128), tables
+    if mats3 is not None:  # rows 1 of F(a) and F(128), c1 (a, 512), c2 (4, 128)
+        a = mats3[0].shape[0]
+        tables = a + 128 + 2 * a * 512 + 2 * 4 * 128
+        return leaf3, leaf3_plain, (mats3, a, 128), tables
     if n1 == 1:  # row 1 of F(128)
         return leaf, leaf_plain, (corrs["mxu1"], 1), 128
     # rows 1 of F(n1) and F(128), and the (n1, 128) correction
@@ -1229,9 +1241,10 @@ def hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err) -> None:
     import torch
 
     from phastft_tpu_torch import (
-        Direction, Options, PlannerDit32, fft_32_dit_with_planner,
-        fft_32_dit_with_planner_and_opts,
+        Direction, Options, PlannerDit32, PlannerR2c32, c2r_fft_f32_with_planner,
+        fft_32_dit_with_planner, fft_32_dit_with_planner_and_opts, r2c_fft_f32_with_planner,
     )
+    from phastft_tpu_torch.ops import r2c as R
     from phastft_tpu_torch.ops.colfft import colfft, colfft_out3d
     from phastft_tpu_torch.ops.leaf import hybrid, hybrid_plain, leaf, leaf3
     from phastft_tpu_torch.ops.leaft import leaft
@@ -1241,9 +1254,16 @@ def hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err) -> None:
         corrs = planner.tables_for(planner.plan, "hybrid")
         return corrs[f"mxu{n1}"][3:6] + corrs[f"leaf{n1}"]
 
+    def leaf_planner(n, **opts):
+        """A planner whose plan is the leaf of n points (2^17:
+        ``leaf_fft_size=2^17``)."""
+        if n > 1 << 16:
+            opts["leaf_fft_size"] = n
+        return PlannerDit32(n, options=Options(**opts) if opts else None)
+
     max_err["hybrid"] = 0.0
     for n1 in HYBRID_N1S:
-        m = mats(PlannerDit32(n1 * 128), n1)
+        m = mats(leaf_planner(n1 * 128), n1)
         for rows in HYBRID_ROWS:
             xr = torch.randn((rows, n1 * 128), generator=gen, device=dev)
             xi = torch.randn((rows, n1 * 128), generator=gen, device=dev)
@@ -1259,7 +1279,8 @@ def hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err) -> None:
             del k, p, xr, xi
 
     # -- main path: counters at 0 just before, read just after
-    counters = (hybrid, leaf, leaf3, colfft, colfft_out3d, leaft, transpose2)
+    passes = (R.deinterleave, R.untangle, R.pre_untangle, R.interleave_scale)
+    counters = (hybrid, leaf, leaf3, colfft, colfft_out3d, leaft, transpose2, *passes)
     for k in counters:
         k.launches = 0
     run = counted(counters)
@@ -1268,18 +1289,54 @@ def hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err) -> None:
     for log_n in HYBRID_E2E_LOGS:
         n = 1 << log_n
         re, im = signal(rng, (HYBRID_E2E_POINTS // n, n))
-        planner = PlannerDit32(n)
+        planner = leaf_planner(n)
         out = run(lambda: fft_32_dit_with_planner_and_opts(
             re, im, Direction.Forward, planner, opts), {"hybrid": 1})
         err = oracle_err(out, re + 1j * im)
         errs[f"fwd_2^{log_n}"] = err
         check(f"hybrid leaf 2^{log_n}", err, 5e-7 * max(1.0, log_n / 18.0))
-    planner = PlannerDit32(1 << 12, options=opts)
-    re, im = signal(rng, (256, 1 << 12))
+    for n, rows in ((1 << 12, 256), (1 << 17, 4)):
+        planner = leaf_planner(n, leaf_kernel="hybrid")
+        re, im = signal(rng, (rows, n))
+        out = run(lambda: fft_32_dit_with_planner(re, im, Direction.Forward, planner),
+                  {"hybrid": 1})
+        errs[f"hybrid_planner_2^{n.bit_length() - 1}_x{rows}"] = err = oracle_err(
+            out, re + 1j * im)
+        check(f"hybrid planner {n} x {rows}", err, 5e-7)
+    # the 2^17 leaf under a classic level, and under a real transform, with
+    # "hybrid" and without it (leaf3 at a = 256): the same inputs
+    n = 1 << 24
+    xr, xi = (torch.randn((n,), generator=gen, device=dev) for _ in range(2))
+    for kernel, leaf_kernel in (("hybrid", "hybrid"), ("leaf3", None)):
+        planner = PlannerDit32(n, options=Options(leaf_fft_size=1 << 17,
+                                                  leaf_kernel=leaf_kernel))
+        out = run(lambda: fft_32_dit_with_planner(xr, xi, Direction.Forward, planner),
+                  {"colfft": 1, kernel: 1, "transpose2": 1})
+        errs[f"classic_2^24_leaf_2^17_{kernel}"] = err = card_oracle_err(out, xr, xi)
+        check(f"classic 2^24 over {kernel} 2^17 rows", err, 5e-7 * max(1.0, 24 / 18.0))
+        del out
+    del xr, xi
+    n = 1 << 18
+    x = rng.standard_normal((n,)).astype(np.float32)
+    for kernel, leaf_kernel in (("hybrid", "hybrid"), ("leaf3", None)):
+        planner = PlannerR2c32(n, inner_options=Options(leaf_fft_size=1 << 17,
+                                                        leaf_kernel=leaf_kernel))
+        spec = run(lambda: r2c_fft_f32_with_planner(x, planner),
+                   {"deinterleave": 1, kernel: 1, "untangle": 1})
+        errs[f"r2c_2^18_leaf_2^17_{kernel}"] = err = oracle_err(spec, x, real=True)
+        check(f"R2C 2^18 over {kernel} 2^17 rows", err, 5e-7)
+        back = run(lambda: c2r_fft_f32_with_planner(spec[0], spec[1], planner),
+                   {"pre_untangle": 1, kernel: 1, "interleave_scale": 1})
+        rt = rel_l2(back, None, torch.from_numpy(x).to(dev), None)
+        errs[f"r2c_c2r_roundtrip_2^18_{kernel}"] = rt
+        check(f"R2C / C2R round trip 2^18 over {kernel}", rt, 1e-6)
+        del spec, back
+    re, im = signal(rng, (4, 1 << 17))
+    planner = leaf_planner(1 << 17)
     out = run(lambda: fft_32_dit_with_planner(re, im, Direction.Forward, planner),
-              {"hybrid": 1})
-    errs["hybrid_planner_2^12_x256"] = err = oracle_err(out, re + 1j * im)
-    check("hybrid planner 2^12 x 256", err, 5e-7)
+              {"leaf3": 1})
+    errs["leaf_2^17_x4_leaf3"] = err = oracle_err(out, re + 1j * im)
+    check("2^17 leaf x 4 on leaf3", err, 5e-7)
     planner = PlannerDit32(1 << 20, options=Options(leaf_fft_size=1 << 16,
                                                     leaf_kernel="hybrid"))
     re, im = signal(rng, (1 << 20,))
@@ -1310,7 +1367,7 @@ def hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err) -> None:
         n = 1 << log_n
         n1 = n // 128
         rows = HYBRID_TIME_POINTS // n
-        planner = PlannerDit32(n)
+        planner = leaf_planner(n)
         m = mats(planner, n1)
         xr = torch.randn((rows, n), generator=gen, device=dev)
         xi = torch.randn((rows, n), generator=gen, device=dev)
@@ -3399,11 +3456,13 @@ def time_tree(tree: str) -> int:
     out = {}
     for tag, log_n in TURN_SIZES:
         n = 1 << log_n
-        f32 = tag == "f32"
+        f32 = tag != "f64"
         dtype = torch.float32 if f32 else torch.float64
-        planner = (P.PlannerDit32 if f32 else P.PlannerDit64)(n)
+        options = P.Options(leaf_kernel="hybrid") if tag == "hybrid" else None
+        planner = (P.PlannerDit32 if f32 else P.PlannerDit64)(n, options=options)
         entry = P.fft_32_dit_with_planner if f32 else P.fft_64_dit_with_planner
-        x = tuple(torch.randn((n,), generator=gen, device=dev, dtype=dtype) for _ in range(2))
+        shape = (HYBRID_TIME_POINTS // n, n) if tag == "hybrid" else (n,)
+        x = tuple(torch.randn(shape, generator=gen, device=dev, dtype=dtype) for _ in range(2))
         out[f"{tag}_2^{log_n}"] = time_ms(lambda: entry(*x, P.Direction.Forward, planner),
                                           flush, TURN_REPS)
         del x, planner
@@ -3516,6 +3575,8 @@ def main() -> int:
                    for n1 in COL_CLUSTER_N1S for mode in (0, 1, 2)},
                 **{f"col64_n1_{n1}": lib.phastft_col64_clusters(n1) for n1 in COL_CLUSTER_N1S},
                 **{f"ozleaft_a_{a}": lib.phastft_ozleaft_clusters(a) for a in OZ_LEAF_CLUSTER_AS},
+                **{f"hybrid_n1_{n1}": lib.phastft_hybrid_clusters(n1)
+                   for n1 in HYBRID_CLUSTER_N1S},
                 "ozcol_blocks_per_sm": lib.phastft_ozcol_blocks()}
     oz_ptxas, ddcol_ptxas, section = [], [], ""
     for ln in log.splitlines():

@@ -1,5 +1,5 @@
 // Hybrid leaf FFT: the length-n DFT of every row, n = n1*128 with
-// n1 = 2..512, planar f32, for sm_90a.
+// n1 = 2..1024, planar f32, for sm_90a.
 //
 // Replaces: phastft_tpu/ops/pallas_leaf.py, leaf_fft_pallas_hybrid (the
 // opt-in Options.leaf_kernel="hybrid"): a Stockham F(n1) on the vector
@@ -51,12 +51,19 @@
 //   long in one call.
 // - Every block holds 8192 points (64 columns of u): 64/n1 whole rows up
 //   to n1 = 64. From n1 = 128 a row (n1 KB planar) is spread over a
-//   cluster of C = n1/64 blocks (2, 4, 8). Phase 1 needs whole columns and
-//   phase 3 whole rows, so block c runs F(n1) and the correction on the
-//   columns i2 in [c*W, c*W + W), W = 128/C, and then contracts the rows
-//   k1 in [64c, 64c + 64), reading each 16-point run of i2 from the block
-//   that holds it through distributed shared memory (float4 loads, in
-//   flight while the previous run's products issue).
+//   cluster of C = n1/64 blocks (2, 4, 8, 16). Phase 1 needs whole columns
+//   and phase 3 whole rows, so block c runs F(n1) and the correction on
+//   the columns i2 in [c*W, c*W + W), W = 128/C, and then contracts the
+//   rows k1 in [64c, 64c + 64), reading each 16-point run of i2 from the
+//   blocks that hold it through distributed shared memory (float4 loads,
+//   in flight while the previous run's products issue). A float4 is 4
+//   consecutive i2 and W >= 8, so each one lies in one block: at n1 = 1024
+//   (W = 8) a run's first 8 i2 come from block 2r and its last 8 from
+//   2r + 1, and runs stay 16 deep, the partial sums that hold parity.
+// - The 16-block cluster of n1 = 1024 is not a portable size: that kernel
+//   has no compile-time cluster and is launched through cluster.cuh with
+//   the non-portable opt-in. A block's 148 KB of shared memory leaves one
+//   block an SM.
 // - Loads and stores are float4s of contiguous floats: the output is
 //   staged in shared memory in its natural order X[k1 + n1*k2] first.
 #include <cooperative_groups.h>
@@ -64,6 +71,7 @@
 
 #include <cstdint>
 
+#include "cluster.cuh"
 #include "fft_smem.cuh"
 
 namespace cg = cooperative_groups;
@@ -334,8 +342,9 @@ __device__ __forceinline__ void hybrid_body(const float* __restrict__ re,
       ni = *reinterpret_cast<const float4*>(si + w);
     } else {
       cg::cluster_group cluster = cg::this_cluster();
-      const unsigned src = static_cast<unsigned>(i0 >> LOGW);
-      const int w = pad(prow + (i0 & (W - 1)) + 4 * q4);
+      const int i2 = i0 + 4 * q4;
+      const unsigned src = static_cast<unsigned>(i2 >> LOGW);
+      const int w = pad(prow + (i2 & (W - 1)));
       nr = *reinterpret_cast<const float4*>(cluster.map_shared_rank(sr, src) + w);
       ni = *reinterpret_cast<const float4*>(cluster.map_shared_rank(si, src) + w);
     }
@@ -424,6 +433,22 @@ PHASTFT_HYBRID_CLUSTER(1)  // n1 = 128
 PHASTFT_HYBRID_CLUSTER(2)  // n1 = 256
 PHASTFT_HYBRID_CLUSTER(3)  // n1 = 512
 
+// n1 = 1024: a cluster of 16 blocks, set at launch (cluster.cuh).
+__global__ void __launch_bounds__(THREADS, 1)
+hybrid_cluster4(const float* __restrict__ re, const float* __restrict__ im,
+                const float* __restrict__ f2r, const float* __restrict__ f2i,
+                const float* __restrict__ cr, const float* __restrict__ ci,
+                float* __restrict__ ore, float* __restrict__ oim, long long batch, int logn1) {
+  hybrid_body<4>(re, im, f2r, f2i, cr, ci, ore, oim, batch, logn1);
+}
+
+constexpr int CLUSTER1024 = 16;
+
+size_t smem_bytes(int n1) {
+  return sizeof(float) * 2 * STAGE + 2 * sizeof(float) * padded_words(BLOCK_POINTS) +
+         (sizeof(float4) + sizeof(float2)) * COPIES * TSTRIDE + sizeof(float2) * (n1 / 2);
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, int logc, const float* re, const float* im, const float* f2r,
            const float* f2i, const float* cr, const float* ci, float* ore, float* oim,
@@ -432,9 +457,7 @@ int launch(Kernel kernel, int logc, const float* re, const float* im, const floa
   const int logr = logc ? 0 : LOG_BLOCK_POINTS - LOGM - logn1;
   const long long blocks = ((batch + (1LL << logr) - 1) >> logr) << logc;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * 2 * STAGE + 2 * sizeof(float) * padded_words(BLOCK_POINTS) +
-                      (sizeof(float4) + sizeof(float2)) * COPIES * TSTRIDE +
-                      sizeof(float2) * (n1 / 2);
+  const size_t smem = smem_bytes(n1);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -445,18 +468,36 @@ int launch(Kernel kernel, int logc, const float* re, const float* im, const floa
 
 }  // namespace
 
-// re, im, ore, oim: (batch, n1*128), n1 = 2..512 a power of two. f2r, f2i:
+// re, im, ore, oim: (batch, n1*128), n1 = 2..1024 a power of two. f2r, f2i:
 // the planner's F(128) (row 1 is read); cr, ci: the (n1, 128) correction
 // W_n^(k1*i2). Returns the CUDA error code of the launch (0 on success).
 extern "C" int phastft_hybrid(const float* re, const float* im, const float* f2r,
                               const float* f2i, const float* cr, const float* ci, float* ore,
                               float* oim, long long batch, int n1, void* stream) {
-  if (batch < 1 || !phastft::is_pow2(n1) || n1 < 2 || n1 > 512 || f2r == nullptr ||
+  if (batch < 1 || !phastft::is_pow2(n1) || n1 < 2 || n1 > 1024 || f2r == nullptr ||
       f2i == nullptr || cr == nullptr || ci == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n1 == 1024) {
+    static int resident = 0;  // queried on first use
+    return phastft::launch_clusters(hybrid_cluster4, CLUSTER1024, CLUSTER1024 * batch, THREADS,
+                                    smem_bytes(n1), s, resident, re, im, f2r, f2i, cr, ci, ore,
+                                    oim, batch, phastft::ilog2(n1));
+  }
   if (n1 == 128) return launch(hybrid_cluster1, 1, re, im, f2r, f2i, cr, ci, ore, oim, batch, n1, s);
   if (n1 == 256) return launch(hybrid_cluster2, 2, re, im, f2r, f2i, cr, ci, ore, oim, batch, n1, s);
   if (n1 == 512) return launch(hybrid_cluster3, 3, re, im, f2r, f2i, cr, ci, ore, oim, batch, n1, s);
   return launch(hybrid_kernel, 0, re, im, f2r, f2i, cr, ci, ore, oim, batch, n1, s);
+}
+
+// The number of hybrid clusters at n1 = 128, 256, 512 or 1024 (2, 4, 8, 16
+// blocks) the current device holds at once (the CUDA occupancy query), or
+// minus the CUDA error code.
+extern "C" int phastft_hybrid_clusters(int n1) {
+  const size_t smem = smem_bytes(n1);
+  if (n1 == 128) return phastft::resident_clusters(hybrid_cluster1, 2, THREADS, smem);
+  if (n1 == 256) return phastft::resident_clusters(hybrid_cluster2, 4, THREADS, smem);
+  if (n1 == 512) return phastft::resident_clusters(hybrid_cluster3, 8, THREADS, smem);
+  if (n1 == 1024) return phastft::resident_clusters(hybrid_cluster4, CLUSTER1024, THREADS, smem);
+  return -static_cast<int>(cudaErrorInvalidValue);
 }

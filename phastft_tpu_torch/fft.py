@@ -14,12 +14,13 @@ JAX package converts it; a tensor must lie on the planner's device. Unlike
 the JAX package, which donates its input buffers, the port never writes the
 caller's tensors: every result is a new tensor.
 
-The port runs planar f32 for n = 1..2^30 (one leaf kernel up to 2^16,
-the fused two-pass pipeline to 2^25, a classic outer level around it
-above, and classic levels wherever ``Options.leaf_fft_size`` forces a
-split the fused pipeline refuses; ``leaf_kernel="hybrid"``, per call or on
-the planner, runs the leaves on the opt-in hybrid kernel), and planar f64
-for the same sizes, ``f64_engine`` resolved as the JAX package resolves it
+The port plans planar f32 for every power of two n, one H100 holding C2C
+to 2^31 (one leaf kernel up to 2^16, the fused two-pass pipeline to 2^25,
+a classic outer level around it above, and classic levels wherever
+``Options.leaf_fft_size`` forces a split the fused pipeline refuses;
+``leaf_kernel="hybrid"``, per call or on the planner, runs the leaves on
+the opt-in hybrid kernel), and planar f64 for every power of two, one
+H100 holding 2^30, ``f64_engine`` resolved as the JAX package resolves it
 (a per-call value that is not None, else the planner's, else
 ``"native"``): the native engine on the FP64 units (every split level
 classic), or the df64 (paired-f32) engine, ``"df64"``, ``"df64-fused"``,

@@ -53,6 +53,7 @@ _SIGNATURES = {
     "phastft_leaf3": [_P] * 12 + [_L, _I, _P],
     "phastft_leaf3_clusters": [_I],
     "phastft_hybrid": [_P] * 8 + [_L, _I, _P],
+    "phastft_hybrid_clusters": [_I],
     "phastft_transpose2": [_P] * 4 + [_L, _L, _L, _P],
     "phastft_ddcol": [_P] * 17 + [_L, _I, _I, _P],
     "phastft_ddcol_nocorr": [_P] * 9 + [_L, _I, _I, _P],

@@ -7,7 +7,7 @@ carried verbatim, so both packages plan every size the same way.
 * the ``tiny`` and ``leaf`` plans up to 2^17 points: one trip through
   device memory, ``leaf3`` when the planner holds the three-factor tables
   ``mxu3_{n1}`` (n = 2^16, 2^17), else ``leaf`` (n = 2..2^15), or with
-  ``leaf_kernel="hybrid"`` and n1 = 2..512 the opt-in ``hybrid``; n = 1 is
+  ``leaf_kernel="hybrid"`` and n1 = 2..1024 the opt-in ``hybrid``; n = 1 is
   a copy;
 * a leaf past the leaf kernels (n1 > 1024, ``Options.leaf_fft_size`` past
   2^17; the JAX package's XLA ``leaf_fft``, ``phastft_tpu/ops/
@@ -148,7 +148,8 @@ def fft_rows(re, im, plan, corrs, leaf_kernel=None):
     """DFT along the last axis of (..., n) f32 tensors following ``plan``.
 
     ``corrs``: the planner's tables under the JAX planner's keys. A leaf
-    plan with n1 > 1 runs ``hybrid`` on ``mxu{n1}[3:6] + leaf{n1}`` when
+    plan with n1 = 2..1024 (``HYBRID_MAX_N1``, the 2^17 leaf included) runs
+    ``hybrid`` on ``mxu{n1}[3:6] + leaf{n1}`` when
     ``leaf_kernel`` is "hybrid" (the resolved ``Options.leaf_kernel``; any
     other value keeps the default kernels, as the JAX package's
     ``_resolve_leaf_kernel`` ignores an unknown one); else ``leaf3`` on

@@ -21,7 +21,7 @@ over i_p, W_4b^(p*i_b), F(b) over i_b, out = X[k_a + a*k_p + 4a*k_b]
 (``leaf_fft_pallas3``). The kernel takes b = 128 and a = 128 or 256
 (n = 2^16, the default leaf rule's, and 2^17, ``leaf_fft_size = 2^17``'s).
 
-``hybrid(re, im, mats, n1)`` takes n = n1 * 128, n1 = 2..512, ``mats`` =
+``hybrid(re, im, mats, n1)`` takes n = n1 * 128, n1 = 2..1024, ``mats`` =
 the JAX planner's ``mxu{n1}[3:6] + leaf{n1}`` (F(128) with its Karatsuba
 sum, and the (n1, 128) correction): a Stockham F(n1) over i1, the
 correction W_n^(k1*i2), then F(128) over i2 as Karatsuba's three
@@ -40,8 +40,8 @@ contraction on the tensor cores as three TF32 passes per product
 in shared memory (several rows below 2^13 points) and stages its stores
 there, so loads and stores are contiguous float4 accesses; a row of 2^14,
 2^15 or 2^16 points is held by a cluster of 2, 4 or 8 blocks of 2^13
-points, which exchange the second factor's data through distributed shared
-memory.
+points (the hybrid's 2^17 row by 16), which exchange the second factor's
+data through distributed shared memory.
 """
 
 from __future__ import annotations
@@ -62,8 +62,9 @@ __all__ = ["leaf", "leaf_plain", "leaf3", "leaf3_plain", "hybrid",
 #: Largest n1 of ``leaf`` (n = 2^15, the largest two-factor leaf plan).
 MAX_N1 = 256
 
-#: Largest n1 of ``hybrid`` (n = 2^16).
-HYBRID_MAX_N1 = 512
+#: Largest n1 of ``hybrid`` (n = 2^17, the JAX planner's largest hybrid
+#: leaf: it builds ``mxu{n1}`` up to n1 = 1024).
+HYBRID_MAX_N1 = 1024
 
 #: First factors a of the rows ``leaf3``'s kernel takes (n = a * 512: 2^16,
 #: 2^17).
@@ -265,7 +266,9 @@ def leaf3_args(shape, ptrs=(None,) * 12, stream=None) -> tuple:
 
 def hybrid_args(shape, n1: int, ptrs=(None,) * 8, stream=None) -> tuple:
     """``phastft_hybrid``'s arguments for rows of ``shape`` (..., n): the
-    pointers ``ptrs``, the rows, n1 and the stream."""
+    pointers ``ptrs``, the rows, n1 and the stream. The kernel takes the
+    cluster from n1: one block of 64 / n1 rows up to n1 = 64, n1 / 64
+    blocks a row above (16 at n1 = 1024, set at launch)."""
     return (*ptrs, math.prod(shape[:-1]), n1, stream)
 
 
@@ -356,7 +359,7 @@ leaf3.launches = 0
 
 def hybrid(re, im, mats, n1: int):
     """Length-n DFT of every row of (..., n) f32 planar tensors,
-    n = n1 * 128 with n1 = 2..512, in natural order, on the operands of the
+    n = n1 * 128 with n1 = 2..1024, in natural order, on the operands of the
     opt-in hybrid leaf (see the module docstring for ``mats``).
 
     On CUDA it launches ``csrc/hybrid.cu`` on the current stream (the kernel
@@ -372,7 +375,9 @@ def hybrid(re, im, mats, n1: int):
     small*big), which holds the 1e-6 parity with ``hybrid_plain``. Every
     block holds 8192 points: 64 / n1 rows up to n1 = 64, and from n1 = 128 a
     row is spread over a cluster of n1 / 64 blocks that read each other's
-    columns through distributed shared memory."""
+    columns through distributed shared memory (16 blocks at n1 = 1024, a
+    non-portable size set at launch; a cluster shape that does not fit the
+    device raises)."""
     mats = tuple(mats)
     _check_hybrid(re, im, mats, n1)
     if re.device.type == "cpu":

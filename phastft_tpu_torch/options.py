@@ -6,7 +6,7 @@ package. ``guess_options`` keeps both leaf rules of the JAX package,
 which fix the plan shapes (``ops/fourstep.plan_rows``). The f64 engine
 windows of the JAX package were measured on a TPU and are not carried
 over: the port's f64 default comes from a race on the H100 (``PERF.md``):
-the native engine (``f64_engine=None``) at every n = 1..2^30; ``"df64"``
+the native engine (``f64_engine=None``) at every power of two n; ``"df64"``
 and the Ozaki engine ``"df64-oz"`` are opt-in.
 """
 
@@ -37,9 +37,10 @@ class Options:
     planned as the JAX package plans it.
 
     ``leaf_kernel`` (f32; the per-call value, when not None, overrides the
-    planner's): ``"hybrid"`` runs every leaf of n = 2^8..2^16 points (a
+    planner's): ``"hybrid"`` runs every leaf of n = 2^8..2^17 points (a
     leaf plan, the inner leaf of a classic level, a distributed shard's
-    rows; a leaf past 2^16 keeps the default route) on the hybrid kernel:
+    rows; a leaf past 2^17 keeps the default route, as the JAX planner
+    builds the hybrid's tables up to n1 = 1024) on the hybrid kernel:
     a Stockham F(n1) and a dense F(128)
     contraction, bound by operations and slower than the default leaf
     kernels on the H100 (``PERF.md``), so opt-in. A tiny plan and the

@@ -37,9 +37,10 @@ Ozaki slice tables of every split level inside the oz kernels' window
 ``PlannerDit32.tables_for(plan, leaf_kernel)`` builds, once, the tables
 of another plan on the same options (the row plan of a distributed
 shard), or of a plan whose leaf runs the opt-in hybrid kernel
-(``leaf_kernel="hybrid"``: ``mxu512`` and ``leaf512`` at n1 = 512, which
-no default kernel reads); ``PlannerDit64.native_tables_for(plan)`` does
-the same for the native engine's tables.
+(``leaf_kernel="hybrid"``: ``mxu{n1}`` and ``leaf{n1}`` at n1 = 512 and
+1024, which no default kernel reads);
+``PlannerDit64.native_tables_for(plan)`` does the same for the native
+engine's tables.
 
 ``PlannerDit32.from_numpy_tables`` and ``PlannerDit64.from_numpy_tables``
 build a planner on tables handed over as numpy arrays, for instance the
@@ -131,7 +132,7 @@ def resolve_device(device=None) -> torch.device:
 
 def _leaf_tables_host(n1: int, dtype_name: str, hybrid: bool = False):
     """{key: host arrays} of the tables a ("leaf", n1) plan's kernel reads
-    (``leaf``, ``leaf3``, or with ``hybrid`` the hybrid leaf up to n1 = 512;
+    (``leaf``, ``leaf3``, or with ``hybrid`` the hybrid leaf up to n1 = 1024;
     past n1 = 1024 the ``leaf`` tables of its 128-point rows), as the JAX
     planner holds them."""
     if n1 > LEAF_KERNEL_N1:
@@ -249,10 +250,11 @@ class PlannerDit32(_PlannerDitBase):
         for the rows of a leaf past 2^17 points,
         ``pcolT{n1}x{n2}`` and ``leafT{n2}`` for a fused split level,
         ``pcol{n1}x{n2}`` for a classic one) to its arrays, as the JAX
-        planner's ``leaf_corrs`` holds them. The hybrid leaf's ``mxu512``
-        and ``leaf512`` are taken too when both are present (as
-        ``tables_for``'s hybrid tables); other keys are ignored. Raises if a table the plan
-        needs is missing, of another shape, or not f32."""
+        planner's ``leaf_corrs`` holds them. The hybrid leaf's ``mxu{n1}``
+        and ``leaf{n1}`` at n1 = 512 and 1024 are taken too when both are
+        present (as ``tables_for``'s hybrid tables); other keys are
+        ignored. Raises if a table the plan needs is missing, of another
+        shape, or not f32."""
         self = cls.__new__(cls)
         self._setup(n, PlannerMode.Heuristic, options, device)
         name = self.dtype.name

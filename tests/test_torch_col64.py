@@ -43,6 +43,17 @@ from phastft_tpu_torch.ops.native import (
 )
 from phastft_tpu_torch.ops.stockham import split_correction_host
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the suite runs on several workers at once,
+    and each worker's own thread pool would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 1e-13        # the same algorithm, summed in another order
 NUMPY_TOL = 1e-12  # the f64 contract of the port's tests
 

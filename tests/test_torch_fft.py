@@ -15,6 +15,17 @@ import torch
 import phastft_tpu
 import phastft_tpu_torch as pt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the suite runs on several workers at once,
+    and each worker's own thread pool would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N = 1 << 17
 
 

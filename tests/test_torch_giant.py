@@ -35,6 +35,17 @@ from phastft_tpu_torch.ops import leaf as leafmod, leaft as leaftmod
 from phastft_tpu_torch.ops import longcol, native, r2c, transpose
 from phastft_tpu_torch.parallel import fourstep_dist as dist
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the suite runs on several workers at once,
+    and each worker's own thread pool would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GIANT_LOGS = range(31, 41)
 DTYPES = {"f32": np.float32, "f64": np.float64}
 #: Table budget of a planner: 256 MiB (the f64 native state past 2^37 is

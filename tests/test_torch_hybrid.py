@@ -16,7 +16,18 @@ import torch
 import phastft_tpu
 import phastft_tpu_torch as pt
 from phastft_tpu_torch.ops import fourstep
-from phastft_tpu_torch.ops.leaf import hybrid, hybrid_plain
+from phastft_tpu_torch.ops.leaf import hybrid, hybrid_plain, leaf3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the suite runs on several workers at once,
+    and each worker's own thread pool would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 TOL = 1e-6
 
@@ -48,6 +59,13 @@ def _carried(n, **opts):
     return mine, jp
 
 
+def _carried_leaf(n1):
+    """``_carried`` for the leaf plan of n1 * 128 points (the 2^17 leaf
+    needs ``leaf_fft_size=2^17``)."""
+    n = n1 * 128
+    return _carried(n, **({"leaf_fft_size": n} if n > 1 << 16 else {}))
+
+
 def _hybrid_mats(planner, n1):
     corrs = planner.tables_for(planner.plan, "hybrid")
     return corrs[f"mxu{n1}"][3:6] + corrs[f"leaf{n1}"]
@@ -67,14 +85,14 @@ def hybrid_calls(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("n1,rows", [(8, 2), (16, 8), (512, 8)])
+@pytest.mark.parametrize("n1,rows", [(8, 2), (16, 8), (512, 8), (1024, 2)])
 def test_hybrid_plain_matches_pallas(n1, rows):
     import jax.numpy as jnp
     from jax.experimental.pallas import tpu as pltpu
     from phastft_tpu.ops.pallas_leaf import leaf_fft_pallas_hybrid
 
     n = n1 * 128
-    mine, jp = _carried(n)
+    mine, jp = _carried_leaf(n1)
     rng = np.random.default_rng(n1 + rows)
     re, im = _pair(rng, (rows, n))
     jmats = jp.leaf_corrs[f"mxu{n1}"][3:6] + jp.leaf_corrs[f"leaf{n1}"]
@@ -186,18 +204,121 @@ def test_leaf_kernel_dispatch(log_n, kernel, want, hybrid_calls):
     assert _rel(_c(got), np.fft.fft(x, axis=-1)) <= _bound(n)
 
 
+# -- the 2^17 leaf: n1 = 1024, the JAX planner's largest hybrid leaf ---------
+
+LEAF17 = dict(leaf_fft_size=1 << 17, leaf_kernel="hybrid")
+
+
+@pytest.mark.parametrize("where", ["per_call", "planner"])
+def test_2_17_leaf_with_hybrid_matches_jax_and_numpy(where, hybrid_calls):
+    """The ("leaf", 1024) plan runs the hybrid at n1 = 1024, not leaf3."""
+    n = 1 << 17
+    rng = np.random.default_rng(17)
+    re, im = _pair(rng, (2, n))
+    mine, jp = _carried(n, **LEAF17)
+    assert mine.plan == jp.plan == ("leaf", 1024)
+    if where == "per_call":
+        planner = pt.PlannerDit32(n, options=pt.Options(leaf_fft_size=1 << 17),
+                                  device="cpu")
+        got = pt.fft_32_dit_with_planner_and_opts(
+            re, im, pt.Direction.Forward, planner, pt.Options(leaf_kernel="hybrid"))
+    else:
+        got = pt.fft_32_dit_with_planner(re, im, pt.Direction.Forward, mine)
+    assert hybrid_calls == [1024]
+    ref = phastft_tpu.fft_32_dit_with_planner(re, im, phastft_tpu.Direction.Forward, jp)
+    g = _c(got)
+    assert _rel(g, np.fft.fft(re.astype(np.float64) + 1j * im, axis=-1)) <= _bound(n)
+    assert _rel(g, _c(ref)) <= TOL
+
+
+@pytest.mark.parametrize("direction", ["Forward", "Reverse"])
+def test_classic_2_18_plan_over_hybrid_2_17_leaf(direction, hybrid_calls):
+    """2^18 on a 2^17 leaf: one classic level (n1 = 2) over hybrid rows."""
+    n = 1 << 18
+    mine, jp = _carried(n, **LEAF17)
+    assert mine.plan == jp.plan == ("split", 2, ("leaf", 1024), 1 << 17)
+    rng = np.random.default_rng(18)
+    re, im = _pair(rng, (n,))
+    got = pt.fft_32_dit_with_planner(re, im, getattr(pt.Direction, direction), mine)
+    assert hybrid_calls == [1024]
+    ref = phastft_tpu.fft_32_dit_with_planner(
+        re, im, getattr(phastft_tpu.Direction, direction), jp)
+    x = re.astype(np.float64) + 1j * im
+    want = np.fft.fft(x) if direction == "Forward" else np.fft.ifft(x)
+    g = _c(got)
+    assert _rel(g, want) <= _bound(n)
+    assert _rel(g, _c(ref)) <= TOL
+
+
+def test_r2c_2_18_over_hybrid_2_17_leaf(hybrid_calls):
+    """An f32 R2C of 2^18 reals: its 2^17-point C2C on the hybrid leaf."""
+    n = 1 << 18
+    x = np.random.default_rng(181).standard_normal((n,)).astype(np.float32)
+    mine = pt.PlannerR2c32(n, inner_options=pt.Options(**LEAF17), device="cpu")
+    jp = phastft_tpu.PlannerR2c32(n, inner_options=phastft_tpu.Options(**LEAF17))
+    assert mine.dit_planner.plan == ("leaf", 1024)
+    got = pt.r2c_fft_f32_with_planner(x, mine)
+    assert hybrid_calls == [1024]
+    want = phastft_tpu.r2c_fft_f32_with_planner(x, jp)
+    g = _c(got)
+    assert g.shape == (n // 2 + 1,)
+    assert _rel(g, _c(want)) <= TOL
+    assert _rel(g, np.fft.rfft(x.astype(np.float64))) <= _bound(n)
+
+
+def test_planner_2_17_builds_the_hybrid_tables_on_demand():
+    """The 2^17 leaf planner holds only leaf3's mxu3_1024; the hybrid's
+    mxu1024 and leaf1024 are built on demand, equal to the JAX planner's
+    bit for bit, and carried over from them by from_numpy_tables."""
+    n = 1 << 17
+    mine = pt.PlannerDit32(n, options=pt.Options(leaf_fft_size=n), device="cpu")
+    ref = phastft_tpu.PlannerDit32(
+        n, options=phastft_tpu.Options(leaf_fft_size=n)).leaf_corrs
+    assert set(mine.leaf_corrs) == {"mxu3_1024"}
+    corrs = mine.tables_for(mine.plan, "hybrid")
+    assert set(corrs) == {"mxu1024", "leaf1024"}
+    assert mine.tables_for(mine.plan, "hybrid") is corrs
+    assert set(mine.leaf_corrs) == {"mxu3_1024"}
+    for key in ("mxu1024", "leaf1024"):
+        for a, b in zip(corrs[key], ref[key], strict=True):
+            assert np.array_equal(a.numpy(), np.asarray(b))
+    carried, _ = _carried(n, **LEAF17)
+    assert set(carried.leaf_corrs) == {"mxu3_1024"}
+    assert set(carried.tables_for(carried.plan, "hybrid")) == {"mxu1024", "leaf1024"}
+
+
+def test_2_17_leaf_without_hybrid_runs_leaf3(hybrid_calls, monkeypatch):
+    """Without "hybrid" the 2^17 leaf keeps leaf3 at a = 256."""
+    calls3 = []
+
+    def counted(*args):
+        calls3.append(args[3])
+        return leaf3(*args)
+
+    monkeypatch.setattr(fourstep, "leaf3", counted)
+    n = 1 << 17
+    rng = np.random.default_rng(171)
+    re, im = _pair(rng, (1, n))
+    planner = pt.PlannerDit32(n, options=pt.Options(leaf_fft_size=n), device="cpu")
+    got = pt.fft_32_dit_with_planner(re, im, pt.Direction.Forward, planner)
+    assert hybrid_calls == []
+    assert calls3 == [256]
+    x = re.astype(np.float64) + 1j * im
+    assert _rel(_c(got), np.fft.fft(x, axis=-1)) <= _bound(n)
+
+
 def _mats(n1, dtype=torch.float32):
     planner = pt.PlannerDit32(n1 * 128, device="cpu")
     return tuple(m.to(dtype) for m in _hybrid_mats(planner, n1))
 
 
-@pytest.mark.parametrize("case", ["n1_1", "n1_1024", "not_pow2", "tables",
+@pytest.mark.parametrize("case", ["n1_1", "n1_2048", "not_pow2", "tables",
                                   "f64", "shapes", "numpy"])
 def test_hybrid_rejects_bad_arguments(case):
     x = torch.zeros(2, 1024)
     args = {
         "n1_1": (x[:, :128], x[:, :128], _mats(8), 1),
-        "n1_1024": (torch.zeros(1, 1 << 17), torch.zeros(1, 1 << 17), _mats(8), 1024),
+        "n1_2048": (torch.zeros(1, 1 << 18), torch.zeros(1, 1 << 18), _mats(8), 2048),
         "not_pow2": (torch.zeros(1, 768), torch.zeros(1, 768), _mats(8), 6),
         "tables": (x, x, _mats(16), 8),
         "f64": (x.double(), x.double(), _mats(8), 8),
@@ -270,7 +391,7 @@ def _rows(kind, rng, shape):
 
 
 @pytest.mark.parametrize("kind", ["randn", "range_1e6"])
-@pytest.mark.parametrize("n1", [2, 8, 64, 128, 256, 512])
+@pytest.mark.parametrize("n1", [2, 8, 64, 128, 256, 512, 1024])
 def test_3xtf32_contraction_holds_parity(n1, kind):
     """The kernel's arithmetic, emulated: within 1e-6 of hybrid_plain and
     of the Pallas kernel in interpret mode, and within the leaf plans'
@@ -280,7 +401,7 @@ def test_3xtf32_contraction_holds_parity(n1, kind):
     from phastft_tpu.ops.pallas_leaf import leaf_fft_pallas_hybrid
 
     n = n1 * 128
-    mine, jp = _carried(n)
+    mine, jp = _carried_leaf(n1)
     mats = _hybrid_mats(mine, n1)
     assert torch.equal(mats[0] + mats[1], mats[2])
     rng = np.random.default_rng(n1 + (7 if kind == "randn" else 11))

@@ -19,6 +19,17 @@ from phastft_tpu import numpy_like as jfft
 from phastft_tpu_torch import numpy_like as pfft
 from phastft_tpu_torch.ops.complex_interop import combine_re_im, deinterleave, interleave
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the suite runs on several workers at once,
+    and each worker's own thread pool would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CPU = {"device": "cpu"}
 
 

@@ -7,6 +7,18 @@ import subprocess
 import sys
 
 import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the suite runs on several workers at once,
+    and each worker's own thread pool would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "phastft_tpu_torch")

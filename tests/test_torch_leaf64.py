@@ -26,6 +26,17 @@ from phastft_tpu.ops import stockham as jax_stockham
 from phastft_tpu_torch import Options, PlannerDit64
 from phastft_tpu_torch.ops.native import leaf64_plain
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the suite runs on several workers at once,
+    and each worker's own thread pool would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 1e-13
 LOCAL, THREADS, M = 4096, 256, 128
 TID = np.arange(THREADS)

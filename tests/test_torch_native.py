@@ -19,6 +19,17 @@ import phastft_tpu
 import phastft_tpu_torch as pt
 from phastft_tpu_torch.ops.native import col64, col64_plain, leaf64, leaf64_plain
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the suite runs on several workers at once,
+    and each worker's own thread pool would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 JAX_TOL = 1e-13    # the same algorithm, summed in another order
 NUMPY_TOL = 1e-12  # the f64 contract of the port's tests
 

@@ -20,6 +20,17 @@ import phastft_tpu_torch as pt
 from phastft_tpu_torch.ops import fourstep, ozaki, ozdd
 from phastft_tpu_torch.ops.df64 import split_hi_lo
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the suite runs on several workers at once,
+    and each worker's own thread pool would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 OZ_TOL = 1e-10        # the f64 contract; the slice truncation is ~1e-11
 INTERPRET_TOL = 1e-6  # tests/test_ozaki.py's gate for interpret-mode runs
 JOINED_TOL = 1e-13    # the same slice integers in both packages

@@ -38,6 +38,17 @@ from phastft_tpu_torch.ops import ozdd
 from phastft_tpu_torch.ops.df64 import _dft_regs_dd, dd_cmul, split_hi_lo
 from phastft_tpu_torch.ops.ozaki import MAXTIER, NSLICES, oz_sigma
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the suite runs on several workers at once,
+    and each worker's own thread pool would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 OZ_TOL = 1e-10        # the f64 contract
 INTERPRET_TOL = 1e-6  # tests/test_ozaki.py's gate for interpret-mode runs
 NSETS = 3 * NSLICES

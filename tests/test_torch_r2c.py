@@ -28,6 +28,17 @@ from phastft_tpu.ops import r2c as jr2c
 from phastft_tpu_torch import planner as planner_module
 from phastft_tpu_torch.ops import r2c as tr2c
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the suite runs on several workers at once,
+    and each worker's own thread pool would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL_F64 = 1e-12
 TOL_JAX_F32 = 2e-6
 TOL_NUMPY_F32 = 1e-5

@@ -7,6 +7,18 @@ the f32 leaf rule must give the same plans over the port's window.
 
 import numpy as np
 import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op torch thread: the suite runs on several workers at once,
+    and each worker's own thread pool would oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 N1S = (128, 2048)
 N2S = (1024, 16384)
