@@ -297,14 +297,17 @@ The real transforms run last, in the same world of one rank:
 
 32. ``parity_r2c``: the four passes of ``csrc/r2c.cu`` (``deinterleave``,
    ``untangle``, ``pre_untangle``, ``interleave_scale``) against their plain
-   versions in f32 and f64 at N = 4, 8, 2^16, 2^26 and on 257 rows of 2^12,
-   rel L2 <= 1e-6 (f32) and 1e-14 (f64), and whether they agree bit for
-   bit; and the two untangles in the distributed real transforms' mirror
-   form: z and the bins of 2^16, 2^26 and 257 rows of 2^12 cut into the
+   versions in f32 and f64 at N = 4, 8, 2^16, 2^26 and on 257 rows of 2^12
+   and 4 of 2^22, rel L2 <= 1e-6 (f32) and 1e-14 (f64), and whether they
+   agree bit for bit; the one-device untangles' paired kernel in both its
+   schedules (``parity_r2c_pair``: scalar and vector) on the quarter table,
+   which must agree bit for bit; and the two untangles in the distributed
+   real transforms' mirror form: z and the bins of 2^16, 2^26 and 257 rows of 2^12 cut into the
    shards of 2 and 4 ranks, each shard with its partner's as the mirror,
    its first bin and the wrap element as ``parallel/real_dist.py`` passes
    them, bit for bit with the plain versions on the same arguments, and
-   the shards' outputs joined bit for bit with the one-device kernel's.
+   the shards' outputs joined bit for bit with the one-device (paired)
+   kernel's.
 33. ``e2e_r2c``: the real transforms' main path, counters set to 0 just
    before and read just after: every R2C launches ``deinterleave`` and
    ``untangle`` exactly once, every C2R ``pre_untangle`` and
@@ -319,10 +322,11 @@ The real transforms run last, in the same world of one rank:
    dtypes.
 34. ``times_r2c``: at 2^26 each pass beside its bound (``r2c_bounds``: each
    input read once, each output written once; on one device the mirror is
-   the input itself, and both untangles need only the quarter table; the
-   bytes the untangle kernels' loads request, the mirror and the table
-   loads counted again, are reported beside it), its plain version (3 calls) and, for ``deinterleave`` and
-   ``interleave_scale``, one torch call computing the same function
+   the input itself, and both untangles read only the quarter table; the
+   bytes the paired kernel's loads and stores request are reported beside
+   it, and each untangle's time in both schedules), its plain version (3
+   calls) and, for ``deinterleave`` and ``interleave_scale``, one torch
+   call computing the same function
    (``x.view(n/2, 2).movedim(-1, 0).contiguous()``, ``torch.stack``); at
    2^16, 2^20, 2^24, 2^26 (and f64 2^29) each whole transform through
    ``*_with_planner`` (device and host clock) beside ``torch.fft.rfft`` /
@@ -343,20 +347,24 @@ Past 2^30 (ROADMAP item 16) last, in the same world of one rank
    ``e2e_giant_leaf``: ``leaf`` on (2^17, 2^14), ``leaf3`` on (2^15, 2^16)
    f32 and ``leaf64`` on (2^15, 2^16) f64, 2^31 elements each, their first,
    middle and last four rows against complex128 ``torch.fft.fft`` and
-   their plain versions.
+   their plain versions, each timed beside ``torch.fft.fft`` of the same
+   rows (complex64 / complex128; on half the rows where the card cannot
+   hold the call).
 36. ``e2e_giant``: the main path, counters set to 0 just before and read
    just after, each transform's launches checked against its plan:
    ``fft_32_dit_with_planner`` and ``fft_distributed`` (world size 1) at
    2^31 on 256 bins of ``dft_bins``, a round trip (<= 1e-6) and the inverse
    of N * delta (exactly ones); f32 R2C / C2R at 2^32 and f64 at 2^31 on 256
-   bins, a round trip (the signal made again from its seed: the C2R cannot
-   hold it beside the spectrum and both tables) and the C2R of N * delta;
+   bins, a round trip (the signal made again from its seed) and the C2R of
+   N * delta, the C2R leaving the planner's full-length table unbuilt;
    the peak of allocated memory of each (the f32 C2C's may not pass 50
    GiB); then ``giant_tables``: the quarter table of 2^32 by numpy on the
    host against the card's build.
 37. ``times_giant``: each whole transform, medians of 5, beside the bound
    of its passes and ``torch.fft.fft`` complex64 / ``torch.fft.rfft`` of
-   the same data (the reason where the card cannot run one).
+   the same data (the reason where the card cannot run one), and the real
+   transforms' four passes at f32 2^32 beside their bounds (the untangles
+   in both schedules).
 
 38. ``edge_phases`` (the window's edges: every ``Options.leaf_fft_size``
    and every shard width; its seconds on the ``edge_phases`` line):
@@ -392,8 +400,9 @@ Every timing follows ``release_memory``'s wait where 8 GiB or more went
 back to CUDA (``cudaFree``) just before it.
 
 ``python3 chip_smoke.py --turns PARENT`` runs none of this: it times the
-existing transforms (f32 2^20, 2^25, 2^28, native f64 2^24, 2^27, and the
-hybrid leaf at 2^16 x 2^11 rows; CUDA events, medians) of the package under
+existing transforms (f32 2^20, 2^25, 2^28, native f64 2^24, 2^27, the
+hybrid leaf at 2^16 x 2^11 rows, and the f32 and f64 R2C and C2R at 2^26;
+CUDA events, medians) of the package under
 the directory PARENT (a
 ``git archive`` of another commit) and of this checkout's, in turns parent,
 this, this, parent, each turn a process of its own
@@ -412,6 +421,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -666,9 +676,12 @@ RELEASE_WAIT_S = 1.0
 #: The real transforms' four passes (``csrc/r2c.cu``) against their plain
 #: versions: rel L2 bounds per dtype (they agree bit for bit on the H100).
 R2C_KERNEL_TOL = {"f32": 1e-6, "f64": 1e-14}
-#: (rows, n) of the passes' parity: N = 4, 8, 2^16, 2^26 and 257 rows of
-#: 2^12.
-R2C_PARITY_SHAPES = ((1, 4), (1, 8), (1, 1 << 16), (1, 1 << 26), (257, 1 << 12))
+#: (rows, n) of the passes' parity: N = 4, 8, 2^16, 2^26, 257 rows of 2^12
+#: and 4 of 2^22 (the untangles' rows of H + 1 bins, unaligned past row 0).
+R2C_PARITY_SHAPES = ((1, 4), (1, 8), (1, 1 << 16), (1, 1 << 26), (257, 1 << 12),
+                     (4, 1 << 22))
+#: The paired untangle kernel's schedules (``ops/r2c.pair_schedule``).
+R2C_PAIR_SCHEDULES = {"scalar": 0, "vector": 1}
 #: (rows, n) and world sizes of the untangles' mirror-form parity.
 R2C_MIRROR_SHAPES = ((1, 1 << 16), (1, 1 << 26), (257, 1 << 12))
 R2C_MIRROR_RANKS = (2, 4)
@@ -743,8 +756,10 @@ EDGE_DIST = (24, 1 << 17)
 EDGE_DIST_NARROW = (("f32", 20, 2), ("f64", 20, 1))
 EDGE_TIME_REPS = 10
 #: The transforms of --turns: (dtype, log2 n); "hybrid" is the f32 leaf
-#: transform with Options(leaf_kernel="hybrid") on HYBRID_TIME_POINTS points.
-TURN_SIZES = (("f32", 20), ("f32", 25), ("f32", 28), ("f64", 24), ("f64", 27), ("hybrid", 16))
+#: transform with Options(leaf_kernel="hybrid") on HYBRID_TIME_POINTS points,
+#: "r2c_*" / "c2r_*" the real transforms through their planner entries.
+TURN_SIZES = (("f32", 20), ("f32", 25), ("f32", 28), ("f64", 24), ("f64", 27), ("hybrid", 16),
+              ("r2c_f32", 26), ("c2r_f32", 26), ("r2c_f64", 26), ("c2r_f64", 26))
 TURN_REPS = 20
 
 
@@ -1393,11 +1408,11 @@ def r2c_bounds(rows: int, n: int, f64: bool):
     """{pass: bound} of the four passes of a real transform of ``rows`` rows
     of n points on one device: each input read once, each output written
     once, against the passes' FP operations at the f32 / FP64 peak. The
-    untangles' mirror is their input itself (a k / H - k pairing reads each
-    element once), and both need only the quarter table (H/2 + 1 entries,
-    tw[H - k] = -conj(tw[k]) past it). ``requested_ms`` is the time of the
-    bytes the untangle kernels' loads ask for: the mirror loaded apart from
-    the input, a table entry per bin (the inverse's full-length table)."""
+    untangles' mirror is their input itself, and both read only the quarter
+    table (H/2 + 1 entries, tw[H - k] = -conj(tw[k]) past it).
+    ``requested_ms`` is the time of the bytes the paired kernel's loads and
+    stores ask for: z, the bins and the quarter table once a row (on one
+    row, the bound's bytes)."""
     e = 8 if f64 else 4
     h = n // 2
     rate = fp64_flops_per_s() if f64 else F32_FLOPS_PER_S
@@ -1418,11 +1433,24 @@ def r2c_bounds(rows: int, n: int, f64: bool):
     return {
         "deinterleave": bound(2 * rows * n * e, 0),
         "untangle": bound((planes + quarter + spectrum) * e, R2C_UNTANGLE_FLOPS * rows * h,
-                          requested=2 * planes + 2 * rows * h + spectrum),
+                          requested=planes + rows * quarter + spectrum),
         "pre_untangle": bound((spectrum + quarter + planes) * e, R2C_UNTANGLE_FLOPS * rows * h,
-                              requested=2 * planes + 2 * rows * h + planes),
+                              requested=spectrum + rows * quarter + planes),
         "interleave_scale": bound(2 * rows * n * e, rows * n),
     }
+
+
+def pair_schedule_ms(name: str, src, tw, flush, reps: int) -> dict:
+    """{schedule: ms} of the paired untangle kernel (``name``: "untangle" or
+    "pre_untangle") on the planes ``src`` and the quarter table ``tw``, in
+    each of R2C_PAIR_SCHEDULES."""
+    from phastft_tpu_torch.ops import r2c as R
+
+    inverse = name == "pre_untangle"
+    half = int(src[0].shape[-1]) - int(inverse)
+    return {sched: time_ms(lambda: R._launch_untangle_pair(name, inverse, *src, *tw, half, code),
+                           flush, reps)
+            for sched, code in R2C_PAIR_SCHEDULES.items()}
 
 
 def r2c_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
@@ -1482,25 +1510,41 @@ def r2c_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
             x = randn((rows, n), tag)
             z = (randn((rows, n // 2), tag), randn((rows, n // 2), tag))
             sp = (randn((rows, n // 2 + 1), tag), randn((rows, n // 2 + 1), tag))
-            tw, ctw = (p.twiddles_re, p.twiddles_im), p.c2r_twiddles
+            tw = (p.twiddles_re, p.twiddles_im)
             cases = (
                 ("deinterleave", lambda: R.deinterleave(x), lambda: R.deinterleave_plain(x)),
                 ("untangle", lambda: R.untangle(*z, *tw), lambda: R.untangle_plain(*z, *tw)),
-                ("pre_untangle", lambda: R.pre_untangle(*sp, *ctw),
-                 lambda: R.pre_untangle_plain(*sp, *ctw)),
+                ("pre_untangle", lambda: R.pre_untangle(*sp, *tw),
+                 lambda: R.pre_untangle_plain(*sp, *tw)),
                 ("interleave_scale", lambda: (R.interleave_scale(*z, 2.0 / n),),
                  lambda: (R.interleave_scale_plain(*z, 2.0 / n),)),
             )
             for name, kernel, plain in cases:
                 k = kernel()
                 torch.cuda.synchronize()
-                err, mabs, equal = parity(k, plain())
+                want = plain()
+                err, mabs, equal = parity(k, want)
                 max_err[name] = max(max_err[name], mabs)
                 emit({"phase": "parity_r2c", "kernel": name, "dtype": tag, "rows": rows,
                       "n": n, "rel_l2": err, "max_abs_err": mabs, "bit_equal": equal,
                       "bound": R2C_KERNEL_TOL[tag]})
                 check(f"{name} parity {tag} at {rows} x {n}", err, R2C_KERNEL_TOL[tag])
-                del k
+                if name in ("untangle", "pre_untangle"):
+                    # the paired kernel in each schedule, bit for bit
+                    inverse = name == "pre_untangle"
+                    src = sp if inverse else z
+                    for sched, code in R2C_PAIR_SCHEDULES.items():
+                        got = R._launch_untangle_pair(name, inverse, *src, *tw, n // 2, code)
+                        torch.cuda.synchronize()
+                        _, m, eq = parity(got, want)
+                        emit({"phase": "parity_r2c_pair", "kernel": name, "schedule": sched,
+                              "dtype": tag, "rows": rows, "n": n, "max_abs_err": m,
+                              "bit_equal": eq})
+                        if not eq:
+                            raise AssertionError(f"{name} {sched} schedule {tag} at {rows} x "
+                                                 f"{n}: not bit for bit the plain version")
+                        del got
+                del k, want
             del x, z, sp, p
     torch.cuda.empty_cache()
 
@@ -1512,10 +1556,10 @@ def r2c_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         for rows, n in R2C_MIRROR_SHAPES:
             p = planners[tag](n)
             half = n // 2
-            tw, ctw = (p.twiddles_re, p.twiddles_im), p.c2r_twiddles
+            tw = (p.twiddles_re, p.twiddles_im)
             z = (randn((rows, half), tag), randn((rows, half), tag))
             sp = (randn((rows, half + 1), tag), randn((rows, half + 1), tag))
-            whole = (R.untangle(*z, *tw), R.pre_untangle(*sp, *ctw))
+            whole = (R.untangle(*z, *tw), R.pre_untangle(*sp, *tw))
             for d in R2C_MIRROR_RANKS:
                 length = half // d
 
@@ -1537,7 +1581,7 @@ def r2c_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
                     wrap = half if r == 0 else (d - r) * length
                     mirror = (shard(sp[0], partner, last), shard(sp[1], partner, last),
                               sp[0][..., wrap], sp[1][..., wrap])
-                    args = (shard(sp[0], r), shard(sp[1], r), *ctw, mirror)
+                    args = (shard(sp[0], r), shard(sp[1], r), *tw, mirror)
                     kw = {"k0": r * length, "half": half}
                     k = R.pre_untangle(*args, **kw)
                     torch.cuda.synchronize()
@@ -1718,8 +1762,9 @@ def r2c_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
                     "untangle": (lambda: R.untangle(*z, p.twiddles_re, p.twiddles_im),
                                  lambda: R.untangle_plain(*z, p.twiddles_re, p.twiddles_im),
                                  None),
-                    "pre_untangle": (lambda: R.pre_untangle(*spec, *p.c2r_twiddles),
-                                     lambda: R.pre_untangle_plain(*spec, *p.c2r_twiddles),
+                    "pre_untangle": (lambda: R.pre_untangle(*spec, p.twiddles_re, p.twiddles_im),
+                                     lambda: R.pre_untangle_plain(*spec, p.twiddles_re,
+                                                                  p.twiddles_im),
                                      None),
                     "interleave_scale": (lambda: R.interleave_scale(*z, 2.0 / n),
                                          lambda: R.interleave_scale_plain(*z, 2.0 / n),
@@ -1731,6 +1776,20 @@ def r2c_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
                                  "library_ms": None if lib is None else time_ms(lib, flush, reps),
                                  "n": n, "rows": 1, "dtype": tag, **bounds[name]}
                     row[name]["bound_share"] = row[name]["bound_ms"] / row[name]["ms"]
+                tw = (p.twiddles_re, p.twiddles_im)
+                row["untangle"]["schedule_ms"] = pair_schedule_ms("untangle", z, tw, flush, reps)
+                row["pre_untangle"]["schedule_ms"] = pair_schedule_ms("pre_untangle", spec, tw,
+                                                                      flush, reps)
+                # and on the batch: rows of H + 1 start aligned every V-th row
+                rows_b, n_b = R2C_BATCH
+                p_b = planners[tag](n_b)
+                tw_b = (p_b.twiddles_re, p_b.twiddles_im)
+                for name, width in (("untangle", n_b // 2), ("pre_untangle", n_b // 2 + 1)):
+                    src = (randn((rows_b, width), tag), randn((rows_b, width), tag))
+                    row[name]["batch_schedule_ms"] = {
+                        "rows": rows_b, "n": n_b,
+                        **pair_schedule_ms(name, src, tw_b, flush, reps)}
+                del p_b, tw_b, src
                 if tag == "f32":  # the kernels line: f32 at the top of BASELINE's range
                     top.update(row)
                 del z
@@ -2959,10 +3018,27 @@ def giant_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         bound = (native_bound(rows * m, log_m) if f64
                  else dict(zip(("bound_ms", "bound_by"), kernel_bound(rows * m, log_m))))
         ms = time_ms(lambda: kern(*x, *args), flush, GIANT_TIME_REPS)
+        # one library call on the same rows: torch.fft.fft of complex64 /
+        # complex128; where it cannot hold its output beside the input, on
+        # the first half of the rows (the shape is named)
+        xc = torch.complex(*x)
+        del x
+        release_memory()
+        library = {"rows": rows, "n": m}
+        try:
+            library["ms"] = time_ms(lambda: torch.fft.fft(xc), flush, GIANT_TIME_REPS)
+        except (torch.OutOfMemoryError, RuntimeError) as exc:
+            torch.cuda.synchronize()
+            library["error"] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+            release_memory()
+            part = xc[:rows // 2]
+            library["half_rows"] = {"rows": rows // 2, "n": m, "ms": time_ms(
+                lambda: torch.fft.fft(part), flush, GIANT_TIME_REPS)}
+            del part
         emit({"phase": "e2e_giant_leaf", "kernel": name, "rows": rows, "n": m,
               "elements": rows * m, "rel_l2_vs_f64_fft": errs, "ms": ms, **bound,
-              "bound_share": bound["bound_ms"] / ms, "card": smi})
-        del x
+              "bound_share": bound["bound_ms"] / ms, "library": library, "card": smi})
+        del xc
         release_memory()
 
     # -- the main path: counters at 0 just before, read just after
@@ -3055,6 +3131,8 @@ def giant_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         del x
         release_memory()
         back = peaked(f"{tag}_c2r_2^{log_r}", lambda: c2r_p(*spec, p), inv)
+        if p._c2r_tw is not None:
+            raise AssertionError(f"{tag} c2r 2^{log_r} built the full-length table")
         del spec
         x = seeded(GIANT_SEED + 2, (m,), dtype)
         errs[f"{tag}_roundtrip_2^{log_r}"] = rt = rel_l2(back, None, x, None, worst=True)[0]
@@ -3122,23 +3200,25 @@ def giant_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     del x
     release_memory()
     passes["untangle"] = {"ms": time_ms(lambda: R.untangle(*z, *tw), flush, GIANT_TIME_REPS),
-                          "library_ms": None}
+                          "library_ms": None,
+                          "schedule_ms": pair_schedule_ms("untangle", z, tw, flush,
+                                                          GIANT_TIME_REPS)}
     spec = R.untangle(*z, *tw)
     passes["interleave_scale"] = {
         "ms": time_ms(lambda: R.interleave_scale(*z, 2.0 / m), flush, GIANT_TIME_REPS),
         "library_ms": time_ms(lambda: torch.stack(z, -1), flush, GIANT_TIME_REPS)}
     del z
     release_memory()
-    full = p.c2r_twiddles
     passes["pre_untangle"] = {
-        "ms": time_ms(lambda: R.pre_untangle(*spec, *full), flush, GIANT_TIME_REPS),
-        "library_ms": None}
+        "ms": time_ms(lambda: R.pre_untangle(*spec, *tw), flush, GIANT_TIME_REPS),
+        "library_ms": None,
+        "schedule_ms": pair_schedule_ms("pre_untangle", spec, tw, flush, GIANT_TIME_REPS)}
     for name, row in passes.items():
         row.update(n=m, rows=1, dtype="f32", **b[name])
         row["bound_share"] = row["bound_ms"] / row["ms"]
     emit({"phase": "times_giant", "level": f"the real transforms' passes at 2^{m.bit_length() - 1}",
           "card": smi, "passes": passes})
-    del p, tw, full, spec
+    del p, tw, spec
     release_memory()
 
     xr, xi = seeded(GIANT_SEED, (n,)), seeded(GIANT_SEED + 1, (n,))
@@ -3456,8 +3536,21 @@ def time_tree(tree: str) -> int:
     out = {}
     for tag, log_n in TURN_SIZES:
         n = 1 << log_n
-        f32 = tag != "f64"
+        f32 = not tag.endswith("f64")
         dtype = torch.float32 if f32 else torch.float64
+        if tag[:4] in ("r2c_", "c2r_"):
+            planner = (P.PlannerR2c32 if f32 else P.PlannerR2c64)(n)
+            r2c = P.r2c_fft_f32_with_planner if f32 else P.r2c_fft_f64_with_planner
+            c2r = P.c2r_fft_f32_with_planner if f32 else P.c2r_fft_f64_with_planner
+            x = torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+            if tag.startswith("r2c_"):
+                call = functools.partial(r2c, x, planner)
+            else:
+                call = functools.partial(c2r, *r2c(x, planner), planner)
+            out[f"{tag}_2^{log_n}"] = time_ms(call, flush, TURN_REPS)
+            del x, call, planner
+            release_memory()
+            continue
         options = P.Options(leaf_kernel="hybrid") if tag == "hybrid" else None
         planner = (P.PlannerDit32 if f32 else P.PlannerDit64)(n, options=options)
         entry = P.fft_32_dit_with_planner if f32 else P.fft_64_dit_with_planner

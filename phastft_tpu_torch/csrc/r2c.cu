@@ -14,20 +14,15 @@
 //   pre_untangle      the bins X -> z, the input of the inverse FFT_H
 //   interleave_scale  re, im (rows, H) * scale -> x (rows, N) reals
 //
-// The mirror. Both untangles pair bin k with z[(H - k) mod H] (or X[H - k]).
-// Each takes the mirror's source as pointers of its own: `p` (row stride
-// `sp`) holds the mirror of element j >= 1 at p[L - j], and `w` (row stride
-// `sw`) the mirror of element 0. On one device p is the input itself and w
-// its first element (the forward) or its bin H (the inverse); in the
-// distributed real transforms p is the partner rank's shard and w one element
-// of another rank (phastft_tpu_torch/parallel/real_dist.py), so both paths
-// run this kernel. With m = conj(mirror):
+// The untangles. Both combine bin k with its mirror, z[(H - k) mod H] (the
+// forward) or X[H - k] (the inverse). With m = conj(mirror) and tw = 0.5 W_N^k
+// from the quarter table Q[0 .. H/2] (tw[k] = Q[k] for k <= H/2, else
+// -conj(Q[H - k])), in both directions:
 //
 //   s = a + m, d = a - m
-//   forward:  X = s/2 - i tw[k] d     tw = 0.5 W_N^k from the quarter table
-//             Q[0 .. H/2]: tw[k] = Q[k] for k <= H/2, else -conj(Q[H - k])
-//   inverse:  z = s/2 + i conj(tw[k]) d,  tw the full table (H entries)
-//   forward, nyq:  X[H] = Re p[0] - Im p[0]   (p[0] = z[0])
+//   forward:  X = s/2 - i tw[k] d
+//   inverse:  z = s/2 + i conj(tw[k]) d
+//   forward, Nyquist:  X[H] = Re z[0] - Im z[0]
 //
 // For k <= H/2 this is the JAX package's formula as written; for k > H/2 its
 // second half, X[H - k] = conj(s)/2 - i conj(u), rewritten per bin (the same
@@ -35,15 +30,37 @@
 // (__fmul_rn / __fadd_rn: no contraction into FMA), so each kernel and its
 // plain torch version (phastft_tpu_torch/ops/r2c.py) agree bit for bit.
 //
-// Bound: memory. No pass does more than ~10 flops per point against 16-40
+// Two forms, one per-bin function (`bin`):
+//
+// * The paired form (`untangle_pair_kernel` and `untangle_pair_vec_kernel`,
+//   one device). A row's work is
+//   the pairs (k, H - k), 1 <= k < H/2: one thread reads z[k], z[H - k] and
+//   Q[k] once and writes both bins, X[k] = bin(z[k], z[H - k], Q[k]) and
+//   X[H - k] = bin(z[H - k], z[k], -conj(Q[k])); the bins that pair with
+//   themselves (k = 0 with z[0] or X[H], k = H/2) take one thread a row.
+//   Consecutive lanes take consecutive k, so the rising loads and the falling
+//   ones are each one span a warp. Two schedules: scalar (each lane one pair
+//   of four planes' elements, kPairItems pairs in flight a thread), and
+//   vector (each lane V = 16 / sizeof(T) consecutive k, 16-byte loads and
+//   stores: the falling run H - Vt - V + 1 .. H - Vt is one element off
+//   alignment, so a lane moves the aligned run below it and trades its end
+//   element with the neighbouring lane by a warp shuffle; rows of H + 1
+//   start aligned only at every V-th row, and the other rows' side of H + 1
+//   goes element by element). z, the quarter table and the bins each cross
+//   HBM once: the bound (on an H100, 83-84% of it at f32 / f64 2^26 and 77%
+//   at f32 2^32; the vector schedule on one row, the scalar one on a batch,
+//   where the forward's unaligned rows make the vector one the slower).
+// * The mirror form (`untangle_kernel`, the distributed real transforms,
+//   phastft_tpu_torch/parallel/real_dist.py). The mirror is a pointer of its
+//   own: `p` (row stride `sp`) holds the mirror of element j >= 1 at
+//   p[L - j], `w` (row stride `sw`) the mirror of element 0; p is the partner
+//   rank's shard and w one element of another rank. One bin a thread and step,
+//   the mirror read in reverse (still one coalesced span a warp).
+//
+// Bound: memory. No pass does more than ~14 flops per point against 16-40
 // bytes. deinterleave and interleave_scale read each element once and write it
 // once (16-byte loads or stores on the interleaved side, 8- or 16-byte on the
-// planar side); the untangles read the input, the mirror (in reverse order,
-// still one coalesced span per warp) and the twiddle, and write the output,
-// one element a thread and step. On one device the mirror is the input, so
-// these loads ask for z twice and a table entry per bin, above the bound of z
-// once and the quarter table that a k / H - k pairing would reach. Every pass is a grid-stride loop over the
-// flat element index with 64-bit offsets.
+// planar side). Every pass is a grid-stride loop with 64-bit offsets.
 #include <cuda_runtime.h>
 
 namespace {
@@ -132,8 +149,28 @@ interleave_kernel(const T* __restrict__ re, const T* __restrict__ im, T* __restr
   }
 }
 
-// The forward untangle (Inverse = false) and the inverse's pre-untangle
-// (Inverse = true) of `rows` rows of L = 2^logl elements, bins k = k0 + j.
+// One bin of the forward untangle (Inverse = false) or the inverse's
+// pre-untangle (Inverse = true): input a, mirror b (not yet conjugated),
+// twiddle (tr, ti) = tw[k].
+template <typename T, bool Inverse>
+__device__ __forceinline__ void bin(T ar, T ai, T br, T bi, T tr, T ti, T& xr, T& xi) {
+  const T h = T(0.5);
+  const T sr = add(ar, br), si = sub(ai, bi);
+  const T dr = sub(ar, br), di = add(ai, bi);
+  if (Inverse) {  // p = conj(tw) d; z = s/2 + i p
+    const T pr = add(mul(tr, dr), mul(ti, di));
+    const T pi = sub(mul(tr, di), mul(ti, dr));
+    xr = sub(mul(h, sr), pi);
+    xi = add(mul(h, si), pr);
+  } else {  // u = tw d; X = s/2 - i u
+    const T ur = sub(mul(tr, dr), mul(ti, di));
+    const T ui = add(mul(tr, di), mul(ti, dr));
+    xr = add(mul(h, sr), ui);
+    xi = sub(mul(h, si), ur);
+  }
+}
+
+// The mirror form of `rows` rows of L = 2^logl elements, bins k = k0 + j.
 template <typename T, bool Inverse>
 __global__ void __launch_bounds__(kThreads)
 untangle_kernel(const T* __restrict__ a_re, const T* __restrict__ a_im, long long sa,
@@ -145,7 +182,6 @@ untangle_kernel(const T* __restrict__ a_re, const T* __restrict__ a_im, long lon
   const long long len = 1LL << logl;
   const long long total = rows << logl;
   const long long quarter = half >> 1;
-  const T h = T(0.5);
   const long long step = static_cast<long long>(gridDim.x) * kThreads;
   const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   for (long long idx = first; idx < total; idx += step) {
@@ -159,11 +195,9 @@ untangle_kernel(const T* __restrict__ a_re, const T* __restrict__ a_im, long lon
       mr = __ldg(p_re + row * sp + len - j);
       mi = __ldg(p_im + row * sp + len - j);
     }
-    const T sr = add(ar, mr), si = sub(ai, mi);
-    const T dr = sub(ar, mr), di = add(ai, mi);
     const long long k = k0 + j;
     T tr, ti;
-    if (Inverse || k <= quarter) {
+    if (k <= quarter) {
       tr = __ldg(tw_re + k);
       ti = __ldg(tw_im + k);
     } else {
@@ -171,17 +205,7 @@ untangle_kernel(const T* __restrict__ a_re, const T* __restrict__ a_im, long lon
       ti = __ldg(tw_im + half - k);
     }
     T xr, xi;
-    if (Inverse) {  // p = conj(tw) d; z = s/2 + i p
-      const T pr = add(mul(tr, dr), mul(ti, di));
-      const T pi = sub(mul(tr, di), mul(ti, dr));
-      xr = sub(mul(h, sr), pi);
-      xi = add(mul(h, si), pr);
-    } else {  // u = tw d; X = s/2 - i u
-      const T ur = sub(mul(tr, dr), mul(ti, di));
-      const T ui = add(mul(tr, di), mul(ti, dr));
-      xr = add(mul(h, sr), ui);
-      xi = sub(mul(h, si), ur);
-    }
+    bin<T, Inverse>(ar, ai, mr, mi, tr, ti, xr, xi);
     o_re[row * so + j] = xr;
     o_im[row * so + j] = xi;
   }
@@ -189,6 +213,252 @@ untangle_kernel(const T* __restrict__ a_re, const T* __restrict__ a_im, long lon
     for (long long row = first; row < rows; row += step) {
       o_re[row * so + len] = sub(__ldg(p_re + row * sp), __ldg(p_im + row * sp));
       o_im[row * so + len] = T(0);
+    }
+  }
+}
+
+// Pairs a thread keeps in flight in the paired form's scalar schedule.
+constexpr int kPairItems = 4;
+
+// The bins of a row that pair with themselves: k = 0 against z[0] (the
+// forward, which also writes X[H]) or X[H] (the inverse), and k = H/2.
+// `a` and `o` point at the row.
+template <typename T, bool Inverse>
+__device__ __forceinline__ void self_bins(const T* __restrict__ a_re, const T* __restrict__ a_im,
+                                          const T* __restrict__ tw_re,
+                                          const T* __restrict__ tw_im, T* __restrict__ o_re,
+                                          T* __restrict__ o_im, long long half) {
+  const T ar = __ldg(a_re), ai = __ldg(a_im);
+  const T br = Inverse ? __ldg(a_re + half) : ar, bi = Inverse ? __ldg(a_im + half) : ai;
+  T xr, xi;
+  bin<T, Inverse>(ar, ai, br, bi, __ldg(tw_re), __ldg(tw_im), xr, xi);
+  o_re[0] = xr;
+  o_im[0] = xi;
+  if (!Inverse) {
+    o_re[half] = sub(ar, ai);
+    o_im[half] = T(0);
+  }
+  const long long q = half >> 1;
+  const T cr = __ldg(a_re + q), ci = __ldg(a_im + q);
+  bin<T, Inverse>(cr, ci, cr, ci, __ldg(tw_re + q), __ldg(tw_im + q), xr, xi);
+  o_re[q] = xr;
+  o_im[q] = xi;
+}
+
+// The paired form, scalar schedule: H/2 items a row of H = 2^logh bins,
+// item j >= 1 the pair (j, H - j), item 0 the row's self-paired bins. The
+// input's rows are H long (the forward) or H + 1 (the inverse), the
+// output's the other.
+template <typename T, bool Inverse>
+__global__ void __launch_bounds__(kThreads)
+untangle_pair_kernel(const T* __restrict__ a_re, const T* __restrict__ a_im,
+                     const T* __restrict__ tw_re, const T* __restrict__ tw_im,
+                     T* __restrict__ o_re, T* __restrict__ o_im, long long rows, int logh) {
+  const long long half = 1LL << logh;
+  const long long sa = Inverse ? half + 1 : half, so = Inverse ? half : half + 1;
+  const long long per_row = half >> 1;
+  const long long total = rows << (logh - 1);
+  const long long chunk = static_cast<long long>(kThreads) * kPairItems;
+  const long long step = static_cast<long long>(gridDim.x) * chunk;
+  for (long long base = static_cast<long long>(blockIdx.x) * chunk + threadIdx.x; base < total;
+       base += step) {
+    T ar[kPairItems], ai[kPairItems], br[kPairItems], bi[kPairItems], tr[kPairItems],
+        ti[kPairItems];
+#pragma unroll
+    for (int u = 0; u < kPairItems; ++u) {
+      const long long idx = base + u * kThreads;
+      if (idx >= total) break;
+      const long long row = idx >> (logh - 1), j = idx & (per_row - 1);
+      if (j == 0) continue;
+      const T* ra = a_re + row * sa;
+      const T* ia = a_im + row * sa;
+      ar[u] = __ldg(ra + j);
+      ai[u] = __ldg(ia + j);
+      br[u] = __ldg(ra + half - j);
+      bi[u] = __ldg(ia + half - j);
+      tr[u] = __ldg(tw_re + j);
+      ti[u] = __ldg(tw_im + j);
+    }
+#pragma unroll
+    for (int u = 0; u < kPairItems; ++u) {
+      const long long idx = base + u * kThreads;
+      if (idx >= total) break;
+      const long long row = idx >> (logh - 1), j = idx & (per_row - 1);
+      T* ro = o_re + row * so;
+      T* io = o_im + row * so;
+      if (j == 0) {
+        self_bins<T, Inverse>(a_re + row * sa, a_im + row * sa, tw_re, tw_im, ro, io, half);
+        continue;
+      }
+      T xr, xi;
+      bin<T, Inverse>(ar[u], ai[u], br[u], bi[u], tr[u], ti[u], xr, xi);
+      ro[j] = xr;
+      io[j] = xi;
+      bin<T, Inverse>(br[u], bi[u], ar[u], ai[u], -tr[u], ti[u], xr, xi);
+      ro[half - j] = xr;
+      io[half - j] = xi;
+    }
+  }
+}
+
+template <typename T>
+struct Vec4;
+template <>
+struct Vec4<float> {
+  using type = float4;
+  static constexpr int n = 4;
+};
+template <>
+struct Vec4<double> {
+  using type = double2;
+  static constexpr int n = 2;
+};
+
+template <typename V, typename T>
+__device__ __forceinline__ T& lane_of(V& v, int i) {
+  return reinterpret_cast<T*>(&v)[i];
+}
+
+// The paired form, vector schedule: H / (2V) items a row, item t the bins
+// k = lo .. lo + V - 1 (lo = Vt) and their mirrors H - k (t = 0 starts with
+// the self-paired k = 0; the row's last item also takes k = H/2). Each side
+// moves as a rising run in[lo .. lo + V) and the aligned falling run
+// in[hi .. hi + V), hi = H - lo - V: the mirrors in[H - lo - i] are the
+// falling run's elements V - i for i >= 1, and in[H - lo] is the element 0
+// of the lane before (a shuffle; lane 0 loads it, and t = 0 takes z[0] or
+// X[H]). The output's falling run holds the bins y[V - e] (y[i] at
+// H - lo - i) and at e = 0 the next lane's y[0] (the last item: the bin
+// H/2); lane 31 leaves that element to the next warp's lane 0, which stores
+// its y[0] alone. The side of rows of H (the forward's input, the inverse's
+// output) moves in 16-byte vectors; the side of rows of H + 1 does where a
+// row starts 16-byte aligned (`wide`: that side's planes are aligned, and
+// the row is a multiple of V), element by element elsewhere. Needs H >= 2V
+// and the H side's planes and the table 16-byte aligned.
+template <typename T, bool Inverse>
+__global__ void __launch_bounds__(kThreads)
+untangle_pair_vec_kernel(const T* __restrict__ a_re, const T* __restrict__ a_im,
+                         const T* __restrict__ tw_re, const T* __restrict__ tw_im,
+                         T* __restrict__ o_re, T* __restrict__ o_im, long long rows,
+                         int logh, int wide) {
+  using V = typename Vec4<T>::type;
+  constexpr int kV = Vec4<T>::n;
+  constexpr unsigned kAll = 0xffffffffu;
+  const long long half = 1LL << logh;
+  const long long sa = Inverse ? half + 1 : half, so = Inverse ? half : half + 1;
+  const int log_items = logh - 1 - (kV == 4 ? 2 : 1);  // log2(H / (2V))
+  const long long per_row = 1LL << log_items;
+  const long long total = rows << log_items;
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  const int lane = threadIdx.x & 31;
+  // `base` is uniform over the block, so every lane of a warp shuffles
+  for (long long base = static_cast<long long>(blockIdx.x) * kThreads; base < total;
+       base += step) {
+    const long long idx = base + threadIdx.x;
+    const bool valid = idx < total;
+    const long long row = valid ? idx >> log_items : 0;
+    const long long t = idx & (per_row - 1);
+    const long long lo = t * kV;
+    const long long hi = half - lo - kV;
+    const bool last = t == per_row - 1;
+    const bool aligned_row = wide && row % kV == 0;
+    const bool in_vec = !Inverse || aligned_row, out_vec = Inverse || aligned_row;
+    const T* ra = a_re + row * sa;
+    const T* ia = a_im + row * sa;
+    T* ro = o_re + row * so;
+    T* io = o_im + row * so;
+    V qr = {}, qi = {}, vr = {}, vi = {}, wr = {}, wi = {};
+    if (valid) {
+      qr = __ldg(reinterpret_cast<const V*>(tw_re + lo));
+      qi = __ldg(reinterpret_cast<const V*>(tw_im + lo));
+      if (in_vec) {
+        vr = __ldg(reinterpret_cast<const V*>(ra + lo));
+        vi = __ldg(reinterpret_cast<const V*>(ia + lo));
+        wr = __ldg(reinterpret_cast<const V*>(ra + hi));
+        wi = __ldg(reinterpret_cast<const V*>(ia + hi));
+      } else {
+#pragma unroll
+        for (int i = 0; i < kV; ++i) {
+          lane_of<V, T>(vr, i) = __ldg(ra + lo + i);
+          lane_of<V, T>(vi, i) = __ldg(ia + lo + i);
+          lane_of<V, T>(wr, i) = __ldg(ra + hi + i);
+          lane_of<V, T>(wi, i) = __ldg(ia + hi + i);
+        }
+      }
+    }
+    T ur = __shfl_up_sync(kAll, lane_of<V, T>(wr, 0), 1);
+    T ui = __shfl_up_sync(kAll, lane_of<V, T>(wi, 0), 1);
+    if (valid && t == 0) {
+      ur = Inverse ? __ldg(ra + half) : lane_of<V, T>(vr, 0);
+      ui = Inverse ? __ldg(ia + half) : lane_of<V, T>(vi, 0);
+    } else if (valid && lane == 0) {
+      ur = __ldg(ra + half - lo);
+      ui = __ldg(ia + half - lo);
+    }
+    // the bins: x[i] at lo + i, y[i] at H - lo - i, m at H/2 (the last item)
+    T xr[kV], xi[kV], yr[kV], yi[kV];
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const T tr = lane_of<V, T>(qr, i), ti = lane_of<V, T>(qi, i);
+      const T ar = lane_of<V, T>(vr, i), ai = lane_of<V, T>(vi, i);
+      const T br = i == 0 ? ur : lane_of<V, T>(wr, kV - i);
+      const T bi = i == 0 ? ui : lane_of<V, T>(wi, kV - i);
+      bin<T, Inverse>(ar, ai, br, bi, tr, ti, xr[i], xi[i]);
+      bin<T, Inverse>(br, bi, ar, ai, -tr, ti, yr[i], yi[i]);
+    }
+    T mr = T(0), mi = T(0);
+    if (valid && last) {
+      const T cr = lane_of<V, T>(wr, 0), ci = lane_of<V, T>(wi, 0);
+      bin<T, Inverse>(cr, ci, cr, ci, __ldg(tw_re + hi), __ldg(tw_im + hi), mr, mi);
+    }
+    const T dr = __shfl_down_sync(kAll, yr[0], 1);
+    const T di = __shfl_down_sync(kAll, yi[0], 1);
+    if (!valid) continue;
+    V xv, xw, yv, yw;  // the rising and the falling output runs, re and im
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      lane_of<V, T>(xv, i) = xr[i];
+      lane_of<V, T>(xw, i) = xi[i];
+    }
+    lane_of<V, T>(yv, 0) = last ? mr : dr;
+    lane_of<V, T>(yw, 0) = last ? mi : di;
+#pragma unroll
+    for (int e = 1; e < kV; ++e) {
+      lane_of<V, T>(yv, e) = yr[kV - e];
+      lane_of<V, T>(yw, e) = yi[kV - e];
+    }
+    const bool whole = last || lane != 31;  // else the next warp's lane 0 stores e = 0
+    if (out_vec) {
+      *reinterpret_cast<V*>(ro + lo) = xv;
+      *reinterpret_cast<V*>(io + lo) = xw;
+      if (whole) {
+        *reinterpret_cast<V*>(ro + hi) = yv;
+        *reinterpret_cast<V*>(io + hi) = yw;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kV; ++i) {
+        ro[lo + i] = lane_of<V, T>(xv, i);
+        io[lo + i] = lane_of<V, T>(xw, i);
+      }
+      if (whole) {
+        ro[hi] = lane_of<V, T>(yv, 0);
+        io[hi] = lane_of<V, T>(yw, 0);
+      }
+    }
+    if (!whole || !out_vec) {
+#pragma unroll
+      for (int e = 1; e < kV; ++e) {
+        ro[hi + e] = lane_of<V, T>(yv, e);
+        io[hi + e] = lane_of<V, T>(yw, e);
+      }
+    }
+    if (lane == 0 && t > 0) {
+      ro[half - lo] = yr[0];
+      io[half - lo] = yi[0];
+    }
+    if (!Inverse && t == 0) {  // X[H]
+      ro[half] = sub(lane_of<V, T>(vr, 0), lane_of<V, T>(vi, 0));
+      io[half] = T(0);
     }
   }
 }
@@ -226,6 +496,46 @@ int launch_untangle(bool inverse, const void* a_re, const void* a_im, long long 
   else
     untangle_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
         ar, ai, sa, pr, pi, sp, wr, wi, sw, tr, ti, orr, oi, so, rows, logl, k0, half, nyq);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_untangle_pair(bool inverse, const void* a_re, const void* a_im, const void* tw_re,
+                         const void* tw_im, void* o_re, void* o_im, long long rows,
+                         long long half, int schedule, cudaStream_t stream) {
+  const int logh = log2_exact(half);
+  if (rows < 1 || logh < 1 || (rows << logh) >> logh != rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kV = Vec4<T>::n;
+  auto aligned = [](const void* ptr) {
+    return reinterpret_cast<unsigned long long>(ptr) % 16 == 0;
+  };
+  const bool vec = schedule == 1 && half >= 2 * kV && aligned(inverse ? o_re : a_re) &&
+                   aligned(inverse ? o_im : a_im) && aligned(tw_re) && aligned(tw_im);
+  const int wide = aligned(inverse ? a_re : o_re) && aligned(inverse ? a_im : o_im);
+  const T* ar = static_cast<const T*>(a_re);
+  const T* ai = static_cast<const T*>(a_im);
+  const T* tr = static_cast<const T*>(tw_re);
+  const T* ti = static_cast<const T*>(tw_im);
+  T* orr = static_cast<T*>(o_re);
+  T* oi = static_cast<T*>(o_im);
+  if (vec) {
+    const unsigned blocks = grid_for(rows * (half / (2 * kV)));
+    if (inverse)
+      untangle_pair_vec_kernel<T, true><<<blocks, kThreads, 0, stream>>>(ar, ai, tr, ti, orr,
+                                                                         oi, rows, logh, wide);
+    else
+      untangle_pair_vec_kernel<T, false><<<blocks, kThreads, 0, stream>>>(ar, ai, tr, ti, orr,
+                                                                          oi, rows, logh, wide);
+  } else {
+    const unsigned blocks = grid_for((rows * (half / 2) + kPairItems - 1) / kPairItems);
+    if (inverse)
+      untangle_pair_kernel<T, true><<<blocks, kThreads, 0, stream>>>(ar, ai, tr, ti, orr, oi,
+                                                                     rows, logh);
+    else
+      untangle_pair_kernel<T, false><<<blocks, kThreads, 0, stream>>>(ar, ai, tr, ti, orr, oi,
+                                                                      rows, logh);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -268,8 +578,8 @@ extern "C" int phastft_r2c_interleave(int f64, const void* re, const void* im, v
 
 // The untangle (inverse = 0) or pre-untangle (inverse = 1) of `rows` rows of
 // `len` elements (a power of two): input a (row stride sa), mirror p (stride
-// sp) and w (stride sw), twiddles tw (the quarter table of half / 2 + 1
-// entries, or with inverse the full table of `half`), output o (stride so),
+// sp) and w (stride sw), twiddles tw (the quarter table, half / 2 + 1
+// entries), output o (stride so),
 // bins k0 .. k0 + len - 1 of a half-length transform of `half` points; with
 // nyq (forward only) also o[len] = Re p[0] - Im p[0] per row.
 extern "C" int phastft_r2c_untangle(int f64, int inverse, const void* a_re, const void* a_im,
@@ -286,4 +596,25 @@ extern "C" int phastft_r2c_untangle(int f64, int inverse, const void* a_re, cons
                                    s);
   return launch_untangle<float>(inverse != 0, a_re, a_im, sa, p_re, p_im, sp, w_re, w_im, sw,
                                 tw_re, tw_im, o_re, o_im, so, rows, len, k0, half, nyq, s);
+}
+
+// The paired one-device untangle (inverse = 0: rows of `half` elements a in,
+// rows of half + 1 bins o out, the last the Nyquist bin) or pre-untangle
+// (inverse = 1: rows of half + 1 bins in, half elements out), contiguous
+// rows, on the quarter table tw (half / 2 + 1 entries); `half` a power of
+// two >= 2. schedule 1: the vector schedule where half >= 2V and the side of
+// rows of `half` and the table are 16-byte aligned, else (and with
+// schedule 0) the scalar one (phastft_tpu_torch/ops/r2c.py's pair_schedule
+// picks).
+extern "C" int phastft_r2c_untangle_pair(int f64, int inverse, const void* a_re,
+                                         const void* a_im, const void* tw_re,
+                                         const void* tw_im, void* o_re, void* o_im,
+                                         long long rows, long long half, int schedule,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f64)
+    return launch_untangle_pair<double>(inverse != 0, a_re, a_im, tw_re, tw_im, o_re, o_im,
+                                        rows, half, schedule, s);
+  return launch_untangle_pair<float>(inverse != 0, a_re, a_im, tw_re, tw_im, o_re, o_im, rows,
+                                     half, schedule, s);
 }

@@ -78,6 +78,7 @@ _SIGNATURES = {
     "phastft_r2c_deinterleave": [_I, _P, _P, _P, _L, _P],
     "phastft_r2c_interleave": [_I, _P, _P, _P, _L, _D, _P],
     "phastft_r2c_untangle": [_I, _I] + ([_P, _P, _L] * 3) + [_P] * 4 + [_L] * 5 + [_I, _P],
+    "phastft_r2c_untangle_pair": [_I, _I] + [_P] * 6 + [_L, _L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -23,14 +23,17 @@ beside its plain torch version, which a CPU tensor runs:
 * ``interleave_scale``: the two planes x 2/N -> N reals
   (``_scale_interleave``, ``:451``).
 
-The untangles take the mirror's source as an argument of its own, so the
-distributed real transforms (``parallel/real_dist.py``) run the same kernels
-on a partner rank's shard. The forward reads the planner's quarter table
-(0.5 W_N^k, k = 0..N/4) and the symmetry tw[N/2 - k] = -conj(tw[k]); the
-inverse reads the full-length table (k = 0..N/2 - 1), as the JAX package's
-two passes do. For every k the forward computes the JAX package's
+On one device the untangles run the paired kernel: a thread reads z[k],
+z[N/2 - k] and tw[k] once and writes both bins, so z, the table and the
+bins each cross device memory once. The distributed real transforms
+(``parallel/real_dist.py``) run the mirror form, one bin a thread, with the
+partner rank's shard as the mirror. Both directions read the planner's
+quarter table (0.5 W_N^k, k = 0..N/4) and the symmetry
+tw[N/2 - k] = -conj(tw[k]). For every k each computes the JAX package's
 first-half formula, which for k > N/4 gives the same products and sums as
-its second half, X[N/2 - k] = conj(s)/2 - i conj(u).
+its second half, X[N/2 - k] = conj(s)/2 - i conj(u). The JAX package's
+``_pre_untangle`` reads a full-length table instead, a workaround for
+XLA:TPU's compile times that the port does not carry over.
 
 What is not carried over (XLA:TPU workarounds): the three-executable C2R
 composite and its ``C2R_COMPOSITE_MIN_N`` switch, ``_scale_interleave_sel``
@@ -40,11 +43,8 @@ in f64 on the joined half-length spectrum (the JAX package's ``"f64"`` post
 branch): the H100 has FP64 units.
 
 Each kernel is bound by memory: it reads its inputs once and writes its
-output once. On one device an untangle's mirror is its input, which its
-kernel loads a second time in reverse (a k / H - k pairing would read each
-element once, and both untangles need only the quarter table). Products
-are rounded as written (no FMA), so a kernel and its plain version agree
-bit for bit.
+output once. Products are rounded as written (no FMA), so a kernel and its
+plain version agree bit for bit.
 """
 
 from __future__ import annotations
@@ -61,6 +61,8 @@ __all__ = [
     "deinterleave_args",
     "interleave_args",
     "untangle_args",
+    "untangle_pair_args",
+    "pair_schedule",
     "r2c_twiddles",
     "r2c_twiddles_host",
     "r2c_twiddles_torch",
@@ -84,8 +86,8 @@ _TW_CHUNK = 1 << 24
 def r2c_twiddles_host(n: int, count: int, dtype) -> tuple[np.ndarray, np.ndarray]:
     """(re, im) of 0.5 * W_n^k for k in [0, count), from exact f64 angles
     (-2 pi k / n, the JAX planner's expression) rounded once to ``dtype``:
-    the untangle tables (``count`` = n/4 + 1) and the C2R preprocess table
-    (``count`` = n/2)."""
+    the untangles' quarter table (``count`` = n/4 + 1), or the full-length
+    table of the JAX package's C2R (``count`` = n/2)."""
     dtype = np.dtype(dtype)
     out_re = np.empty(count, dtype)
     out_im = np.empty(count, dtype)
@@ -176,6 +178,26 @@ def untangle_args(f64: bool, inverse: bool, shape, p_len: int, w_stride: int,
     return (int(f64), int(inverse), a_re, a_im, int(shape[-1]), p_re, p_im, p_len,
             w_re, w_im, w_stride, tw_re, tw_im, o_re, o_im, length + int(nyquist), rows,
             length, k0, half, int(nyquist), stream)
+
+
+def pair_schedule(rows: int) -> int:
+    """The paired kernel's schedule for ``rows`` rows (``csrc/r2c.cu``):
+    1, vector, on one row, whose rows of H and of H + 1 both start 16-byte
+    aligned; 0, scalar, on a batch, whose rows of H + 1 start aligned only
+    every V-th row and elsewhere store element by element (on the H100 the
+    forward's vector schedule then loses to the scalar one: ``chip_smoke.py``'s
+    ``times_r2c`` times both on one row and on a batch). The kernel takes the
+    scalar schedule where a shape or pointer allows no vectors."""
+    return 1 if rows == 1 else 0
+
+
+def untangle_pair_args(f64: bool, inverse: bool, rows: int, half: int, schedule: int,
+                       ptrs=(None,) * 6, stream=None) -> tuple:
+    """``phastft_r2c_untangle_pair``'s arguments: the flags, the pointers
+    ``ptrs`` (the input, the table, the output; each re and im), the rows,
+    the half length H (rows of H elements and of H + 1 bins), the schedule
+    and the stream."""
+    return (int(f64), int(inverse), *ptrs, rows, half, int(schedule), stream)
 
 
 def _raise_on(name, err):
@@ -320,7 +342,7 @@ def _check_untangle(name, a_re, a_im, tw_re, tw_im, mirror, k0, half, inverse):
     if half < 2 or half & (half - 1) or k0 < 0 or k0 + length > half:
         raise ValueError(f"{name}: bins [{k0}, {k0 + length}) do not lie in a "
                          f"half length of {half}")
-    want = half if inverse else half // 2 + 1
+    want = half // 2 + 1
     if tw_re.dim() != 1 or tw_re.shape != tw_im.shape or int(tw_re.shape[0]) != want:
         raise ValueError(f"{name}: the twiddle table must hold {want} entries")
     return length, half, k0, p_re, p_im, w_re, w_im
@@ -338,21 +360,36 @@ def _sums(a_re, a_im, m_re, m_im):
     return a_re + m_re, a_im - m_im, a_re - m_re, a_im + m_im
 
 
+def _nyquist(mirror, nyquist) -> bool:
+    """Whether the forward appends X[H]: always on one device, with a
+    mirror when ``nyquist`` asks."""
+    if mirror is None:
+        if nyquist is not None and not nyquist:
+            raise ValueError("untangle: on one device the bins end with X[H]")
+        return True
+    return bool(nyquist)
+
+
+def _twiddles_plain(tw_re, tw_im, k0, length, half):
+    """(re, im) of tw[k] for k = k0 .. k0 + L - 1 from the quarter table:
+    tw[k] for k <= H/2, -conj(tw[H - k]) past it."""
+    k = k0 + torch.arange(length, device=tw_re.device)
+    low = k <= half // 2
+    idx = torch.where(low, k, half - k)
+    t_re = tw_re[idx]
+    return torch.where(low, t_re, -t_re), tw_im[idx]
+
+
 def untangle_plain(z_re, z_im, tw_re, tw_im, mirror=None, *, k0=0, half=None,
                    nyquist=None):
     """Plain-torch forward untangle: same arguments and result as
     ``untangle``."""
     length, half, k0, p_re, p_im, w_re, w_im = _check_untangle(
         "untangle", z_re, z_im, tw_re, tw_im, mirror, k0, half, False)
-    nyquist = mirror is None if nyquist is None else nyquist
+    nyquist = _nyquist(mirror, nyquist)
     a_re, a_im = z_re[..., :length], z_im[..., :length]
     s_re, s_im, d_re, d_im = _sums(a_re, a_im, *_mirror_plain(length, p_re, p_im, w_re, w_im))
-    k = k0 + torch.arange(length, device=z_re.device)
-    low = k <= half // 2
-    idx = torch.where(low, k, half - k)
-    t_re = tw_re[idx]
-    t_re = torch.where(low, t_re, -t_re)
-    t_im = tw_im[idx]
+    t_re, t_im = _twiddles_plain(tw_re, tw_im, k0, length, half)
     u_re = t_re * d_re - t_im * d_im
     u_im = t_re * d_im + t_im * d_re
     x_re = 0.5 * s_re + u_im
@@ -371,7 +408,7 @@ def pre_untangle_plain(x_re, x_im, tw_re, tw_im, mirror=None, *, k0=0, half=None
         "pre_untangle", x_re, x_im, tw_re, tw_im, mirror, k0, half, True)
     a_re, a_im = x_re[..., :length], x_im[..., :length]
     s_re, s_im, d_re, d_im = _sums(a_re, a_im, *_mirror_plain(length, p_re, p_im, w_re, w_im))
-    t_re, t_im = tw_re[k0:k0 + length], tw_im[k0:k0 + length]
+    t_re, t_im = _twiddles_plain(tw_re, tw_im, k0, length, half)
     p_r = t_re * d_re + t_im * d_im
     p_i = t_re * d_im - t_im * d_re
     return 0.5 * s_re - p_i, 0.5 * s_im + p_r
@@ -379,8 +416,8 @@ def pre_untangle_plain(x_re, x_im, tw_re, tw_im, mirror=None, *, k0=0, half=None
 
 def _launch_untangle(name, inverse, a_re, a_im, tw_re, tw_im, length, half, k0,
                      p_re, p_im, w_re, w_im, nyquist):
-    """Launch ``phastft_r2c_untangle`` on CUDA tensors; return the output
-    planes (..., L + nyquist)."""
+    """Launch ``phastft_r2c_untangle`` (the mirror form) on CUDA tensors;
+    return the output planes (..., L + nyquist)."""
     _cuda(name, a_re)
     batch = tuple(a_re.shape[:-1])
     rows = _rows(batch)
@@ -404,6 +441,28 @@ def _launch_untangle(name, inverse, a_re, a_im, tw_re, tw_im, length, half, k0,
     return o_re, o_im
 
 
+def _launch_untangle_pair(name, inverse, a_re, a_im, tw_re, tw_im, half, schedule=None):
+    """Launch ``phastft_r2c_untangle_pair`` (one device) on CUDA tensors in
+    ``schedule`` (None: ``pair_schedule``); return the output planes
+    (..., H + 1) (the forward) or (..., H)."""
+    _cuda(name, a_re)
+    if not all(x.is_contiguous() for x in (a_re, a_im, tw_re, tw_im)):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    batch = tuple(a_re.shape[:-1])
+    shape = batch + (half if inverse else half + 1,)
+    o_re = torch.empty(shape, dtype=a_re.dtype, device=a_re.device)
+    o_im = torch.empty(shape, dtype=a_re.dtype, device=a_re.device)
+    ptrs = tuple(x.data_ptr() for x in (a_re, a_im, tw_re, tw_im, o_re, o_im))
+    rows = _rows(batch)
+    schedule = pair_schedule(rows) if schedule is None else schedule
+    with torch.cuda.device(a_re.device):
+        err = call("phastft_r2c_untangle_pair", untangle_pair_args(
+            a_re.dtype == torch.float64, inverse, rows, half, schedule, ptrs,
+            _stream(a_re.device)))
+    _raise_on(name, err)
+    return o_re, o_im
+
+
 def untangle(z_re, z_im, tw_re, tw_im, mirror=None, *, k0=0, half=None, nyquist=None):
     """The compact spectrum's bins from the half-length transform z of a
     real signal: X[k] = s/2 - i tw[k] d for k = k0 .. k0 + L - 1, with
@@ -413,16 +472,17 @@ def untangle(z_re, z_im, tw_re, tw_im, mirror=None, *, k0=0, half=None, nyquist=
 
     ``z``: (..., L) f32 or f64 planes. ``mirror`` = None: one device, z is
     the whole half-length spectrum (L = H), its own mirror, and the result
-    is (..., H + 1) with X[H] = Re z0 - Im z0. Else ``mirror`` = (p_re,
-    p_im, w_re, w_im): z[(H - k) mod H] is p[L - j] for j = k - k0 >= 1 and
-    w for j = 0 (p (..., >= L), w (...,)), with ``k0`` and ``half`` given;
-    ``nyquist`` appends X[H] = Re p0 - Im p0 (default: with no mirror only).
+    is (..., H + 1) with X[H] = Re z0 - Im z0 (``nyquist`` None or True).
+    Else ``mirror`` = (p_re, p_im, w_re, w_im): z[(H - k) mod H] is p[L - j]
+    for j = k - k0 >= 1 and w for j = 0 (p (..., >= L), w (...,)), with
+    ``k0`` and ``half`` given; ``nyquist`` appends X[H] = Re p0 - Im p0.
     Returns two new planes.
 
     On CUDA it launches ``csrc/r2c.cu``'s untangle on the current stream, or
-    raises; a CPU tensor runs ``untangle_plain``, bit for bit the same.
-    Inputs are read, never written. Each launch adds one to
-    ``untangle.launches``.
+    raises: with no mirror the paired kernel (a thread reads z[k], z[H - k]
+    and tw[k] and writes X[k] and X[H - k]), with one the mirror form. A
+    CPU tensor runs ``untangle_plain``, bit for bit the same. Inputs are
+    read, never written. Each launch adds one to ``untangle.launches``.
 
     Stands for the JAX package's ``_untangle``
     (``phastft_tpu/ops/r2c.py:65``). Bound by memory: the input (with a
@@ -433,9 +493,12 @@ def untangle(z_re, z_im, tw_re, tw_im, mirror=None, *, k0=0, half=None, nyquist=
     if z_re.device.type == "cpu":
         return untangle_plain(z_re, z_im, tw_re, tw_im, mirror, k0=k0, half=half,
                               nyquist=nyquist)
-    nyquist = mirror is None if nyquist is None else nyquist
-    out = _launch_untangle("untangle", False, z_re, z_im, tw_re, tw_im, length, half,
-                           k0, p_re, p_im, w_re, w_im, nyquist)
+    nyquist = _nyquist(mirror, nyquist)
+    if mirror is None:
+        out = _launch_untangle_pair("untangle", False, z_re, z_im, tw_re, tw_im, half)
+    else:
+        out = _launch_untangle("untangle", False, z_re, z_im, tw_re, tw_im, length, half,
+                               k0, p_re, p_im, w_re, w_im, nyquist)
     untangle.launches += 1
     return out
 
@@ -447,8 +510,9 @@ def pre_untangle(x_re, x_im, tw_re, tw_im, mirror=None, *, k0=0, half=None):
     """The inverse real transform's first pass, the compact spectrum's bins
     -> the half-length complex input z: z[k] = s/2 + i conj(tw[k]) d for
     k = k0 .. k0 + L - 1, with s = X[k] + conj(X[H - k]),
-    d = X[k] - conj(X[H - k]) and tw the full table ``tw_re``/``tw_im``
-    (0.5 W_N^k, k = 0..H - 1, the planner's ``c2r_twiddles``).
+    d = X[k] - conj(X[H - k]) and tw the quarter table ``tw_re``/``tw_im``
+    (0.5 W_N^k, k = 0..H/2, the planner's ``twiddles``),
+    tw[k] = -conj(tw[H - k]) past it.
 
     ``x``: (..., H + 1) f32 or f64 planes with ``mirror`` = None (one
     device: X is its own mirror). Else (..., L) planes (the distributed last
@@ -458,18 +522,24 @@ def pre_untangle(x_re, x_im, tw_re, tw_im, mirror=None, *, k0=0, half=None):
     two new (..., L) planes.
 
     On CUDA it launches ``csrc/r2c.cu``'s pre-untangle on the current
-    stream, or raises; a CPU tensor runs ``pre_untangle_plain``, bit for
-    bit the same. Inputs are read, never written. Each launch adds one to
+    stream, or raises: with no mirror the paired kernel, with one the mirror
+    form. A CPU tensor runs ``pre_untangle_plain``, bit for bit the same.
+    Inputs are read, never written. Each launch adds one to
     ``pre_untangle.launches``.
 
     Stands for the JAX package's ``_pre_untangle``
-    (``phastft_tpu/ops/r2c.py:96``). Bound by memory."""
+    (``phastft_tpu/ops/r2c.py:96``), which reads a full-length table: the
+    same function, up to that table's last-place roundings. Bound by memory:
+    the bins and the quarter table read once, z written once."""
     length, half, k0, p_re, p_im, w_re, w_im = _check_untangle(
         "pre_untangle", x_re, x_im, tw_re, tw_im, mirror, k0, half, True)
     if x_re.device.type == "cpu":
         return pre_untangle_plain(x_re, x_im, tw_re, tw_im, mirror, k0=k0, half=half)
-    out = _launch_untangle("pre_untangle", True, x_re, x_im, tw_re, tw_im, length, half,
-                           k0, p_re, p_im, w_re, w_im, False)
+    if mirror is None:
+        out = _launch_untangle_pair("pre_untangle", True, x_re, x_im, tw_re, tw_im, half)
+    else:
+        out = _launch_untangle("pre_untangle", True, x_re, x_im, tw_re, tw_im, length, half,
+                               k0, p_re, p_im, w_re, w_im, False)
     pre_untangle.launches += 1
     return out
 
@@ -500,7 +570,7 @@ def build_r2c_fft(n: int, leaf_limit: int, build, variant=()):
 @functools.lru_cache(maxsize=128)
 def build_c2r_fft(n: int, leaf_limit: int, build, variant=()):
     """Callable (spec_re, spec_im, args, tw_re, tw_im) -> the length-n real
-    signal: ``pre_untangle`` on the planner's full-length table, the
+    signal: ``pre_untangle`` on the planner's quarter table, the
     half-length inverse by the swap trick (unscaled, the inner closure as in
     ``build_r2c_fft``, z handed over to it), and ``interleave_scale`` with
     the 2/n scale, so that C2R(R2C(x)) == x."""

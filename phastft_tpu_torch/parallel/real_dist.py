@@ -18,9 +18,10 @@ that is rank d-1-r's point L - j, and for j = 0 the first point of rank d-r
 (for r = 0, z[0] itself in the forward, the last rank's bin H in the
 inverse). So each rank swaps its shard with its partner d-1-r and one
 element with rank d-r (one ``batch_isend_irecv``; a rank that is its own
-peer copies nothing), never gathering z, and runs the same ``untangle`` /
-``pre_untangle`` kernel as one device, with the partner's shard as the
-mirror. The inverse's half-length transform is the forward on swapped
+peer copies nothing), never gathering z, and runs ``untangle`` /
+``pre_untangle`` in their mirror form (one bin a thread, the partner's shard
+as the mirror; one device runs the paired kernel), both directions on the
+planner's quarter table. The inverse's half-length transform is the forward on swapped
 planes, unscaled, and the 2/n scale is folded into ``interleave_scale``.
 Every check precedes the first collective and fails alike on every rank.
 """
@@ -160,9 +161,8 @@ def c2r_fft_distributed(spec_re, spec_im, planner, *, group=None):
     half = n // 2
     _layout(half, d, planner.dit_planner, False)
     mirror = _mirror(a_re, a_im, length, rank, d, group, True)
-    tw_re, tw_im = planner.c2r_twiddles
-    z_re, z_im = pre_untangle(a_re[:length], a_im[:length], tw_re, tw_im, mirror,
-                              k0=rank * length, half=half)
+    z_re, z_im = pre_untangle(a_re[:length], a_im[:length], planner.twiddles_re,
+                              planner.twiddles_im, mirror, k0=rank * length, half=half)
     del mirror
     # swap trick: swap(IDFT(z)) = DFT(swap(z)) / H, the 1/H in the scale
     o_im, o_re = fft_distributed(z_im, z_re, Direction.Forward, planner.dit_planner,

@@ -50,8 +50,9 @@ bits.
 
 ``PlannerR2c32`` / ``PlannerR2c64`` plan a real transform of n points: an
 n/2 DIT planner of the same dtype and device (on ``inner_options``) and the
-untangle tables 0.5 W_n^k, the quarter table for k = 0..n/4 and, built on
-first inverse use, the full-length one for k = 0..n/2 - 1.
+untangle table 0.5 W_n^k, k = 0..n/4, which both directions read; the
+JAX planner's full-length table for k = 0..n/2 - 1 is built on first
+access, and no transform reads it.
 """
 
 from __future__ import annotations
@@ -519,10 +520,11 @@ class _PlannerR2cBase:
     ``guess_options``), and the untangle tables on its device.
 
     ``twiddles_re`` / ``twiddles_im``: 0.5 * W_n^k for k in [0, n/4], from
-    exact f64 angles rounded once to the dtype. ``c2r_twiddles`` (and its
-    ``_re`` / ``_im``): the full-length table, k in [0, n/2), built on first
-    inverse use, so a forward-only planner does not pay for it. n >= 4, any
-    power of two; on a GPU both tables are built on the card
+    exact f64 angles rounded once to the dtype; the R2C and the C2R read it
+    (with tw[n/2 - k] = -conj(tw[k])). ``c2r_twiddles`` (and its ``_re`` /
+    ``_im``): the JAX planner's full-length table, k in [0, n/2), built on
+    first access; no transform of the port reads it. n >= 4, any power of
+    two; on a GPU the tables are built on the card
     (``ops/r2c.r2c_twiddles``). ``PlannerMode.Tune`` raises (not
     ported)."""
 
@@ -557,8 +559,9 @@ class _PlannerR2cBase:
 
     @property
     def c2r_twiddles(self):
-        """(re, im) of 0.5 * W_n^k for k in [0, n/2), the C2R preprocess's
-        full-length table, built on first use."""
+        """(re, im) of 0.5 * W_n^k for k in [0, n/2), the JAX planner's
+        full-length C2R table, built on first use (the port's C2R reads the
+        quarter table)."""
         if self._c2r_tw is None:
             self._c2r_tw = r2c_twiddles(self.n, self.n // 2, self.dtype,
                                         self.device)

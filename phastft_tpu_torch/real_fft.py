@@ -91,9 +91,8 @@ def _c2r(spec_re, spec_im, planner):
         )
     build, variant, args = engine_of(planner.dit_planner)
     run = build_c2r_fft(n, planner.dit_planner.options.leaf_fft_size, build, variant)
-    tw_re, tw_im = planner.c2r_twiddles
     return run(_as_tensor(spec_re, planner), _as_tensor(spec_im, planner), args,
-               tw_re, tw_im)
+               planner.twiddles_re, planner.twiddles_im)
 
 
 def _signal_length(signal) -> int:

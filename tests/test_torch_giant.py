@@ -320,6 +320,9 @@ def test_kernel_args_r2c_2_32():
                                  not inverse)
         _build.check_args("phastft_r2c_untangle", args)
         assert args[16:20] == (1, length, 0, h)
+        args = r2c.untangle_pair_args(False, inverse, 1, h, r2c.pair_schedule(1))
+        _build.check_args("phastft_r2c_untangle_pair", args)
+        assert args[8:10] == (1, h)
 
 
 def test_kernel_args_dist_2_31(monkeypatch):

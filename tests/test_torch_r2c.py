@@ -137,6 +137,8 @@ def test_passes_match_jax(dtype, log_n):
     tol = 1e-15 if dtype == "f64" else 1e-6
     jp = phastft_tpu.PlannerR2c64(n) if dtype == "f64" else phastft_tpu.PlannerR2c32(n)
     q = (np.asarray(jp.twiddles_re), np.asarray(jp.twiddles_im))
+    # the JAX package's _pre_untangle reads the full-length table, the
+    # port's the quarter table with tw[H - k] = -conj(tw[k])
     full = (np.asarray(jp.c2r_twiddles_re), np.asarray(jp.c2r_twiddles_im))
     x = _signal((3, n), log_n, dt)
     even, odd = tr2c.deinterleave(_t(x))
@@ -149,7 +151,7 @@ def test_passes_match_jax(dtype, log_n):
     assert tuple(got[0].shape) == (3, n // 2 + 1)
     assert _rel(_c((got[0].numpy(), got[1].numpy())), _c(want)) <= tol
     spec = (_signal((3, n // 2 + 1), 3, dt), _signal((3, n // 2 + 1), 4, dt))
-    got = tr2c.pre_untangle(_t(spec[0]), _t(spec[1]), _t(full[0]), _t(full[1]))
+    got = tr2c.pre_untangle(_t(spec[0]), _t(spec[1]), _t(q[0]), _t(q[1]))
     want = jr2c._pre_untangle(*spec, *full)
     assert _rel(_c((got[0].numpy(), got[1].numpy())), _c(want)) <= tol
     got = tr2c.interleave_scale(_t(z[0]), _t(z[1]), 2.0 / n)
@@ -171,7 +173,7 @@ def test_untangles_mirror_form_matches_one_device(dtype, d):
     z = (_t(_signal(half, 5, dt)), _t(_signal(half, 6, dt)))
     spec = (_t(_signal(half + 1, 7, dt)), _t(_signal(half + 1, 8, dt)))
     whole = tr2c.untangle(*z, p.twiddles_re, p.twiddles_im)
-    whole_pre = tr2c.pre_untangle(*spec, *p.c2r_twiddles)
+    whole_pre = tr2c.pre_untangle(*spec, p.twiddles_re, p.twiddles_im)
 
     def shard(x, r, extra=0):
         return x[r * length:(r + 1) * length + extra]
@@ -188,12 +190,229 @@ def test_untangles_mirror_form_matches_one_device(dtype, d):
         wrap = half if r == 0 else (d - r) * length
         mirror = (shard(spec[0], partner, last), shard(spec[1], partner, last),
                   spec[0][wrap], spec[1][wrap])
-        inv.append(tr2c.pre_untangle(shard(spec[0], r), shard(spec[1], r),
-                                     *p.c2r_twiddles, mirror, k0=r * length, half=half))
+        inv.append(tr2c.pre_untangle(shard(spec[0], r), shard(spec[1], r), p.twiddles_re,
+                                     p.twiddles_im, mirror, k0=r * length, half=half))
     for got, want in ((fwd, whole), (inv, whole_pre)):
         for i in range(2):
             np.testing.assert_array_equal(torch.cat([g[i] for g in got]).numpy(),
                                           want[i].numpy())
+
+
+# -- the one-device untangles: per bin, and as the paired kernel runs them --
+
+def _bin(a_re, a_im, b_re, b_im, t_re, t_im, inverse):
+    """One bin, input a, mirror b, twiddle t, in csrc/r2c.cu's ``bin``
+    order: numpy rounds every operation, no FMA."""
+    h = a_re.dtype.type(0.5)
+    s_re, s_im, d_re, d_im = a_re + b_re, a_im - b_im, a_re - b_re, a_im + b_im
+    if inverse:
+        p_re, p_im = t_re * d_re + t_im * d_im, t_re * d_im - t_im * d_re
+        return h * s_re - p_im, h * s_im + p_re
+    u_re, u_im = t_re * d_re - t_im * d_im, t_re * d_im + t_im * d_re
+    return h * s_re + u_im, h * s_im - u_re
+
+
+def _per_bin(a_re, a_im, q_re, q_im, inverse):
+    """Every bin on its own: k with z[(H - k) mod H] (the forward, then X[H]
+    = Re z0 - Im z0) or X[H - k] (the inverse), tw[k] = q[k] for k <= H/2,
+    -conj(q[H - k]) past it."""
+    half = a_re.shape[-1] - int(inverse)
+    k = np.arange(half)
+    m = half - k if inverse else (half - k) % half
+    low = k <= half // 2
+    idx = np.where(low, k, half - k)
+    t_re = np.where(low, q_re[idx], -q_re[idx])
+    x_re, x_im = _bin(a_re[..., k], a_im[..., k], a_re[..., m], a_im[..., m], t_re,
+                      q_im[idx], inverse)
+    if not inverse:
+        ny = a_re[..., :1] - a_im[..., :1]
+        x_re = np.concatenate((x_re, ny), -1)
+        x_im = np.concatenate((x_im, np.zeros_like(ny)), -1)
+    return x_re, x_im
+
+
+def _bits(x):
+    x = np.ascontiguousarray(x)
+    return x.view(np.uint64 if x.dtype == np.float64 else np.uint32)
+
+
+def _untangle_inputs(log_n, rows, dtype, inverse):
+    n = 1 << log_n
+    dt = DTYPES[dtype]
+    half = n // 2
+    width = half + int(inverse)
+    a = (_signal((rows, width), 30 + log_n, dt), _signal((rows, width), 31 + log_n, dt))
+    q = tr2c.r2c_twiddles_host(n, half // 2 + 1, dt)
+    return half, a, q
+
+
+def _one_device(a, q, inverse):
+    fn = tr2c.pre_untangle if inverse else tr2c.untangle
+    out = fn(_t(a[0]), _t(a[1]), _t(q[0]), _t(q[1]))
+    return out[0].numpy(), out[1].numpy()
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["untangle", "pre_untangle"])
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("log_n", [2, 3, 4, 12])
+def test_one_device_untangles_match_per_bin_reference(log_n, dtype, rows, inverse):
+    """The plain one-device untangles bit for bit against each bin computed
+    on its own; the bins that pair with themselves against their closed
+    forms: k = 0 (the forward's X[0] = Re z0 + Im z0 and X[H] = Re z0 -
+    Im z0, both real; the inverse's z[0] from X[0] and X[H]) and k = H/2
+    (conj of its input, up to the rounding of 0.5 cos(pi/2))."""
+    half, a, q = _untangle_inputs(log_n, rows, dtype, inverse)
+    got = _one_device(a, q, inverse)
+    want = _per_bin(*a, *q, inverse)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+    (a_re, a_im), (g_re, g_im) = a, got
+    h = a_re.dtype.type(0.5)
+    if inverse:
+        x0, xh = (a_re[:, 0], a_im[:, 0]), (a_re[:, half], a_im[:, half])
+        np.testing.assert_array_equal(
+            g_re[:, 0], h * (x0[0] + xh[0]) - h * (x0[1] + xh[1]))
+        np.testing.assert_array_equal(
+            g_im[:, 0], h * (x0[1] - xh[1]) + h * (x0[0] - xh[0]))
+    else:
+        np.testing.assert_array_equal(g_re[:, 0], a_re[:, 0] + a_im[:, 0])
+        np.testing.assert_array_equal(g_re[:, half], a_re[:, 0] - a_im[:, 0])
+        assert not g_im[:, 0].any() and not g_im[:, half].any()
+    c = a_re[:, half // 2] - 1j * a_im[:, half // 2].astype(np.float64)
+    mid = g_re[:, half // 2] + 1j * g_im[:, half // 2].astype(np.float64)
+    assert np.all(np.abs(mid - c) <= 4 * np.finfo(a_re.dtype).eps * np.abs(c))
+
+
+def _paired_kernel(a, q, inverse, vector):
+    """The one-device paired kernel of csrc/r2c.cu rebuilt in numpy, item
+    by item: the scalar schedule (item j >= 1 the pair (j, H - j), item 0
+    the self-paired bins of its row) or the vector one (item t the bins
+    lo = Vt .. lo + V - 1 and their mirrors; the falling run's end element
+    taken from the lane before, t = 0's from z[0] or X[H], lane 0's loaded;
+    each output's falling run completed by the lane after, lane 31 leaving
+    that element to the next warp's lane 0). Returns the outputs and how
+    often each was written."""
+    a_re, a_im = a
+    q_re, q_im = q
+    rows = a_re.shape[0]
+    half = a_re.shape[-1] - int(inverse)
+    width = half if inverse else half + 1
+    out = (np.full((rows, width), np.nan, a_re.dtype), np.full((rows, width), np.nan, a_re.dtype))
+    writes = np.zeros((rows, width), np.int64)
+
+    def store(row, k, x):
+        out[0][row, k], out[1][row, k] = x
+        writes[row, k] += 1
+
+    def at(row, k):
+        return a_re[row, k], a_im[row, k]
+
+    def tw(k, mirrored=False):
+        return (-q_re[k] if mirrored else q_re[k]), q_im[k]
+
+    def nyquist(row):
+        store(row, half, (a_re[row, 0] - a_im[row, 0], a_re.dtype.type(0)))
+
+    v = 16 // a_re.dtype.itemsize
+    if not vector or half < 2 * v:
+        for row in range(rows):
+            for j in range(half // 2):
+                if j == 0:  # the self-paired bins
+                    b = at(row, half) if inverse else at(row, 0)
+                    store(row, 0, _bin(*at(row, 0), *b, *tw(0), inverse))
+                    if not inverse:
+                        nyquist(row)
+                    c = at(row, half // 2)
+                    store(row, half // 2, _bin(*c, *c, *tw(half // 2), inverse))
+                    continue
+                x, y = at(row, j), at(row, half - j)
+                store(row, j, _bin(*x, *y, *tw(j), inverse))
+                store(row, half - j, _bin(*y, *x, *tw(j, True), inverse))
+        return out, writes
+    per_row = half // (2 * v)
+    items = []
+    for idx in range(rows * per_row):  # loads and bins
+        row, t = divmod(idx, per_row)
+        lo, lane = t * v, idx % 32
+        hi = half - lo - v
+        run = [at(row, hi + e) for e in range(v)]  # the aligned falling run
+        if t == 0:
+            first = at(row, half) if inverse else at(row, 0)
+        elif lane == 0:
+            first = at(row, half - lo)
+        else:
+            first = items[idx - 1]["run"][0]  # the shuffle from lane - 1
+        b = [first] + [run[v - i] for i in range(1, v)]
+        x = [_bin(*at(row, lo + i), *b[i], *tw(lo + i), inverse) for i in range(v)]
+        y = [_bin(*b[i], *at(row, lo + i), *tw(lo + i, True), inverse) for i in range(v)]
+        mid = _bin(*run[0], *run[0], *tw(hi), inverse) if t == per_row - 1 else None
+        items.append({"row": row, "t": t, "lo": lo, "hi": hi, "lane": lane, "run": run,
+                      "x": x, "y": y, "mid": mid})
+    for idx, it in enumerate(items):  # stores
+        row, t, lo, hi, lane, x, y, mid = (it[k] for k in ("row", "t", "lo", "hi", "lane",
+                                                           "x", "y", "mid"))
+        for i in range(v):
+            store(row, lo + i, x[i])
+        # the output's falling run: the next lane's y[0] (the shuffle), or H/2
+        down = items[idx + 1]["y"][0] if idx + 1 < len(items) else None
+        out_run = [mid if mid is not None else down] + [y[v - e] for e in range(1, v)]
+        for e in range(0 if mid is not None or lane != 31 else 1, v):
+            store(row, hi + e, out_run[e])
+        if lane == 0 and t > 0:
+            store(row, half - lo, y[0])
+        if not inverse and t == 0:
+            nyquist(row)
+    return out, writes
+
+
+@pytest.mark.parametrize("vector", [False, True], ids=["scalar", "vector"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["untangle", "pre_untangle"])
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("log_n", [2, 3, 4, 12])
+def test_paired_kernel_schedules_match_plain(log_n, dtype, inverse, vector):
+    """Both schedules of the paired kernel, rebuilt in numpy, write every
+    output once and agree with the plain one-device untangles bit for bit
+    (3 rows: the vector schedule's warps cross rows at small n, and at 2^12
+    its lane 31 / lane 0 split runs fall inside rows; which rows move in
+    vectors changes no value or address)."""
+    _, a, q = _untangle_inputs(log_n, 3, dtype, inverse)
+    got, writes = _paired_kernel(a, q, inverse, vector)
+    assert np.all(writes == 1)
+    for g, w in zip(got, _one_device(a, q, inverse)):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+
+
+def test_pre_untangle_refuses_the_full_table():
+    """Both directions read the quarter table: a full-length table (the JAX
+    package's C2R table) is refused by size."""
+    for n in (16, 1 << 10):
+        p = pt.PlannerR2c32(n, device="cpu")
+        spec = (torch.zeros(n // 2 + 1), torch.zeros(n // 2 + 1))
+        with pytest.raises(ValueError, match=f"twiddle table must hold {n // 4 + 1} entries"):
+            tr2c.pre_untangle(*spec, *p.c2r_twiddles)
+        with pytest.raises(ValueError, match=f"twiddle table must hold {n // 4 + 1} entries"):
+            tr2c.pre_untangle_plain(*spec, *p.c2r_twiddles)
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_c2r_builds_no_full_table(bits):
+    """A C2R through the auto-planned entry and through a planner leaves the
+    planner's full-length table unbuilt."""
+    from phastft_tpu_torch import real_fft
+
+    n = 1 << 10
+    x = _signal(n, 17, DTYPES[f"f{bits}"])
+    r2c = pt.r2c_fft_f64 if bits == 64 else pt.r2c_fft_f32
+    c2r = pt.c2r_fft_f64 if bits == 64 else pt.c2r_fft_f32
+    c2r_p = pt.c2r_fft_f64_with_planner if bits == 64 else pt.c2r_fft_f32_with_planner
+    spec = r2c(x, device="cpu")
+    back = c2r(*spec, device="cpu")
+    assert real_fft._cached_planner(n, bits, torch.device("cpu"))._c2r_tw is None
+    p = (pt.PlannerR2c64 if bits == 64 else pt.PlannerR2c32)(n, device="cpu")
+    assert torch.equal(c2r_p(*spec, p), back)
+    assert p._c2r_tw is None
+    assert _rel(back.numpy(), x) <= (TOL_F64 if bits == 64 else TOL_NUMPY_F32)
 
 
 def test_pass_errors():
@@ -211,6 +430,9 @@ def test_pass_errors():
                       k0=4, half=8)
     with pytest.raises(ValueError, match="two planes of one shape"):
         tr2c.interleave_scale(torch.zeros(8), torch.zeros(4), 1.0)
+    with pytest.raises(ValueError, match=r"on one device the bins end with X\[H\]"):
+        tr2c.untangle(torch.zeros(8), torch.zeros(8), torch.zeros(5), torch.zeros(5),
+                      nyquist=False)
 
 
 # -- the entries against the JAX package and numpy --------------------------

@@ -98,6 +98,7 @@ def _rank_cases(rank, d):
         sre, sim = _spectrum(log_n, dt)
         out[f"c2r_{case}"] = c2r_fft_distributed(bins(sre, n), bins(sim, n), p).numpy()
         out[f"roundtrip_{case}"] = c2r_fft_distributed(*spec, p).numpy()
+        out[f"no_full_table_{case}"] = np.array([p._c2r_tw is None])
     small = 4 * d * d  # n/2 < 4 d^2
     calls = {
         "too_small": lambda: r2c_fft_distributed(
@@ -230,6 +231,14 @@ def test_roundtrip(world, case):
     log_n, dtype, _ = CASES[case]
     x = _signal(log_n, log_n, np.float32 if dtype == "f32" else np.float64)
     assert _rel(got[f"roundtrip_{case}"], x) <= (TOL_NUMPY_F32 if dtype == "f32" else TOL_F64)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_c2r_builds_no_full_table(world, case):
+    """Every rank's C2R reads the quarter table: the planner's full-length
+    table stays unbuilt."""
+    d, got = world
+    assert got[f"no_full_table_{case}"].tolist() == [True] * d
 
 
 #: error case -> (class, words its message holds), on every rank alike; the
