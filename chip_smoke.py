@@ -395,6 +395,29 @@ Past 2^30 (ROADMAP item 16) last, in the same world of one rank
    same function, that call (``torch.fft.fft`` of the 2^17 rows for
    ``leaf3``, ``torch.fft.fft(dim=-2)`` for the bare column passes), and
    each transform beside ``torch.fft.fft``.
+39. ``tune`` (``PlannerMode.Tune``, ROADMAP item 8; ``tune_phases`` prints
+   its seconds): with ``PHASTFT_TPU_TUNE_CACHE`` set to a fresh temporary
+   directory (removed at the end), f64 C2C 2^20, f32 and f64 C2C 2^24 and
+   f32 R2C 2^26 are tuned: every candidate's device ms as Tune measured it
+   (``tune._measure`` / ``_measure_r2c`` wrapped), the winner, the
+   heuristic's options and its time in the race, Tune's wall seconds; the
+   tuned and the heuristic transform timed in turns (tuned, heuristic,
+   twice; the tuned one may take at most 1.05x), the tuned forward against
+   the card's complex128 oracle (``rfft`` for the R2C) and its round trip
+   (PERF.md section 2's bounds), the kernels it launched (counters read
+   around one forward), and after ``clear_tune_cache()`` the planner built
+   again from the disk entry: the same options, no candidate measured.
+40. ``oracle_plain`` and ``oracle_staged`` (ROADMAP item 7;
+   ``oracle_phases`` prints its seconds):
+   ``Options(use_pallas=False)`` per call on the C2C entries at f32 2^20,
+   2^24, 2^26 (nested), native f64 2^20, 2^24 and df64 2^20, on the real
+   transforms' inner options (R2C / C2R f32 and f64 at 2^22, a round trip)
+   and on ``fft_distributed``'s planner at world size 1 (f32 2^25); and
+   ``Options(strategy="staged")`` at f32 and f64 2^20 and 2^24, forward
+   and inverse, the bit reversal tiled and flat. Each against the card's
+   complex128 oracle, its time beside the default engine's, and every
+   kernel's launch counter unchanged across each call (a plain or staged
+   call that launches a kernel fails the phase).
 
 Every timing follows ``release_memory``'s wait where 8 GiB or more went
 back to CUDA (``cudaFree``) just before it.
@@ -761,6 +784,26 @@ EDGE_TIME_REPS = 10
 TURN_SIZES = (("f32", 20), ("f32", 25), ("f32", 28), ("f64", 24), ("f64", 27), ("hybrid", 16),
               ("r2c_f32", 26), ("c2r_f32", 26), ("r2c_f64", 26), ("c2r_f64", 26))
 TURN_REPS = 20
+
+#: Tune (ROADMAP item 8): (kind, dtype, log2 n) raced with PlannerMode.Tune:
+#: BASELINE.md's single-device f64 config (2^20), the top of its
+#: planner-reuse config (2^24) in both dtypes, the top of its R2C config.
+TUNE_CASES = (("c2c", "f64", 20), ("c2c", "f32", 24), ("c2c", "f64", 24), ("r2c", "f32", 26))
+#: The tuned transform may take at most this many times the heuristic's
+#: device time, both timed in turns in one call (tuned, heuristic, twice).
+TUNE_SLOWER = 1.05
+TUNE_TIME_REPS = 10
+#: The oracles (ROADMAP item 7), each held to the card's complex128 oracle
+#: and launching no kernel: use_pallas=False on (engine, log2 n) of the C2C
+#: entries, the real transforms at ORACLE_R2C_LOG, fft_distributed at world
+#: size 1 at ORACLE_DIST_LOG; strategy="staged" on (dtype, log2 n), forward
+#: and inverse, the bit reversal tiled and flat.
+ORACLE_PLAIN = (("f32", 20), ("f32", 24), ("f32", 26), ("native", 20), ("native", 24),
+                ("df64", 20))
+ORACLE_R2C_LOG = 22
+ORACLE_DIST_LOG = 25
+ORACLE_STAGED = (("f32", 20), ("f32", 24), ("f64", 20), ("f64", 24))
+ORACLE_TIME_REPS = 3
 
 
 def emit(obj) -> None:
@@ -3519,6 +3562,330 @@ def edge_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     emit({"phase": "edge_phases", "seconds": time.perf_counter() - t_edges, "card": smi})
 
 
+def all_kernels():
+    """Every kernel wrapper of the port (``ops/route.KERNELS``), each with its
+    launch counter."""
+    from phastft_tpu_torch.ops.route import KERNELS
+
+    return tuple(dict.fromkeys(vars(KERNELS).values()))
+
+
+def launches_of(kernels, fn):
+    """(fn(), {kernel: launches} of that call, the kernels it launched only)."""
+    before = [k.launches for k in kernels]
+    out = fn()
+    counts = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
+    return out, {name: c for name, c in counts.items() if c}
+
+
+def tune_phases(dev, gen, flush, smi) -> None:
+    """``PlannerMode.Tune`` (module docstring item 39): each case of
+    TUNE_CASES tuned in a fresh wisdom directory, the candidates' device
+    times, the winner beside the heuristic's options, the two transforms in
+    turns, the tuned one against the oracle and back, and the disk entry read
+    again with no candidate measured."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from phastft_tpu_torch import (
+        Direction, PlannerDit32, PlannerDit64, PlannerMode, PlannerR2c32,
+        c2r_fft_f32_with_planner, fft_32_dit_with_planner, fft_64_dit_with_planner,
+        r2c_fft_f32_with_planner,
+    )
+    from phastft_tpu_torch import tune
+    from phastft_tpu_torch.ops.fourstep import plan_rows
+
+    t_phase = time.perf_counter()
+    kernels = all_kernels()
+    wisdom = tempfile.mkdtemp(prefix="phastft_tune_")
+    saved_env = os.environ.get("PHASTFT_TPU_TUNE_CACHE")
+    os.environ["PHASTFT_TPU_TUNE_CACHE"] = wisdom
+    measured = []
+    real = {"c2c": tune._measure, "r2c": tune._measure_r2c}
+
+    def recorder(fn):
+        def measure(n, dtype, opts, device):
+            seconds = fn(n, dtype, opts, device)
+            measured.append((opts, seconds))
+            return seconds
+        return measure
+
+    tune._measure = recorder(real["c2c"])
+    tune._measure_r2c = recorder(real["r2c"])
+    tune.clear_tune_cache()
+
+    def described(opts):
+        return {"leaf_fft_size": opts.leaf_fft_size, "f64_engine": opts.f64_engine,
+                "leaf_kernel": opts.leaf_kernel}
+
+    try:
+        for kind, tag, log_n in TUNE_CASES:
+            n = 1 << log_n
+            f64 = tag == "f64"
+            dtype = torch.float64 if f64 else torch.float32
+            if kind == "r2c":
+                def build(mode):
+                    return PlannerR2c32(n, mode)
+
+                def options(planner):
+                    return planner.inner_opts
+
+                x = torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+
+                def forward(planner):
+                    return r2c_fft_f32_with_planner(x, planner)
+
+                def err_of(out):
+                    want = torch.fft.rfft(x.double())
+                    got = torch.complex(out[0].double(), out[1].double())
+                    return float(torch.linalg.vector_norm(got - want)
+                                 / torch.linalg.vector_norm(want))
+
+                def back_of(planner, out):
+                    back = c2r_fft_f32_with_planner(out[0], out[1], planner)
+                    return rel_l2(back, None, x, None, worst=True)[0]
+            else:
+                cls = PlannerDit64 if f64 else PlannerDit32
+                entry = fft_64_dit_with_planner if f64 else fft_32_dit_with_planner
+
+                def build(mode):
+                    return cls(n, mode)
+
+                def options(planner):
+                    return planner.options
+
+                x = (torch.randn((n,), generator=gen, device=dev, dtype=dtype),
+                     torch.randn((n,), generator=gen, device=dev, dtype=dtype))
+
+                def forward(planner):
+                    return entry(*x, Direction.Forward, planner)
+
+                def err_of(out):
+                    return card_oracle_err(out, *x)
+
+                def back_of(planner, out):
+                    back = entry(*out, Direction.Reverse, planner)
+                    return rel_l2(back[0], back[1], x[0], x[1])
+            measured.clear()
+            t0 = time.perf_counter()
+            tuned = build(PlannerMode.Tune)
+            tune_s = time.perf_counter() - t0
+            race = [{**described(o), "ms": sec * 1e3} for o, sec in measured]
+            heur = build(PlannerMode.Heuristic)
+            won, guess = options(tuned), options(heur)
+            # the heuristic's time in the race: its own candidate, or the
+            # candidate that runs its plan on its engine
+            key = tune._engine_key
+            plan_n = n // 2 if kind == "r2c" else n
+            np_dtype = np.float64 if f64 else np.float32
+            guess_ms = [sec * 1e3 for o, sec in measured
+                        if plan_rows(plan_n, o.leaf_fft_size) == plan_rows(
+                            plan_n, guess.leaf_fft_size)
+                        and key(o, np_dtype) == key(guess, np_dtype)]
+            turns = {"tuned": [], "heuristic": []}
+            for _ in range(2):
+                for name, planner in (("tuned", tuned), ("heuristic", heur)):
+                    turns[name].append(time_ms(lambda: forward(planner), flush,
+                                               TUNE_TIME_REPS))
+            tuned_ms = float(np.mean(turns["tuned"]))
+            heur_ms = float(np.mean(turns["heuristic"]))
+            out, moved = launches_of(kernels, lambda: forward(tuned))
+            err = err_of(out)
+            rt = back_of(tuned, out)
+            del out
+            oz = (won.f64_engine or "").startswith("df64-oz")
+            tol = (OZ_E2E_TOL if oz else DD_E2E_TOL) if f64 else 5e-7 * max(1.0, log_n / 18.0)
+            rt_tol = (OZ_E2E_TOL if oz else DD_E2E_TOL) if f64 else 1e-6
+            # the disk entry: a fresh in-process cache reads it, measuring none
+            tune.clear_tune_cache()
+            measured.clear()
+            again = options(build(PlannerMode.Tune))
+            emit({"phase": "tune", "kind": kind, "dtype": tag, "n": n, "card": smi,
+                  "candidates": race, "winner": described(won),
+                  "heuristic": described(guess), "heuristic_race_ms": guess_ms,
+                  "tune_wall_s": tune_s, "tuned_ms": turns["tuned"],
+                  "heuristic_ms": turns["heuristic"], "ratio": tuned_ms / heur_ms,
+                  "rel_l2": err, "bound": tol, "roundtrip_rel_l2": rt,
+                  "launches": moved, "disk_options_equal": again == won,
+                  "disk_candidates_measured": len(measured)})
+            check(f"tuned {kind} {tag} 2^{log_n}", err, tol)
+            check(f"tuned {kind} {tag} 2^{log_n} round trip", rt, rt_tol)
+            check(f"tuned {kind} {tag} 2^{log_n} against the heuristic", tuned_ms / heur_ms,
+                  TUNE_SLOWER)
+            if again != won or measured:
+                raise AssertionError(f"tune {kind} {tag} 2^{log_n}: the disk entry gave "
+                                     f"{again} after {len(measured)} measurements")
+            if not moved:
+                raise AssertionError(f"tuned {kind} {tag} 2^{log_n} launched no kernel")
+            del x, tuned, heur
+            release_memory()
+    finally:
+        tune._measure, tune._measure_r2c = real["c2c"], real["r2c"]
+        tune.clear_tune_cache()
+        shutil.rmtree(wisdom, ignore_errors=True)
+        if saved_env is None:
+            os.environ.pop("PHASTFT_TPU_TUNE_CACHE", None)
+        else:
+            os.environ["PHASTFT_TPU_TUNE_CACHE"] = saved_env
+    emit({"phase": "tune_phases", "seconds": time.perf_counter() - t_phase, "card": smi})
+
+
+def oracle_phases(dev, gen, flush, smi) -> None:
+    """The oracles (run inside ``nccl_world``, module docstring item 40):
+    ``use_pallas=False`` and ``strategy="staged"`` on the card, each against
+    the card's complex128 oracle and beside the default engine's time,
+    every kernel's launch counter unchanged across each call."""
+    import torch
+
+    from phastft_tpu_torch import (
+        Direction, Options, PlannerDit32, PlannerDit64, PlannerR2c32, PlannerR2c64,
+        c2r_fft_f32_with_planner, c2r_fft_f64_with_planner, fft_32_dit_with_planner,
+        fft_32_dit_with_planner_and_opts, fft_64_dit_with_planner,
+        fft_64_dit_with_planner_and_opts, r2c_fft_f32_with_planner, r2c_fft_f64_with_planner,
+    )
+    from phastft_tpu_torch.parallel import fft_distributed
+
+    t_phase = time.perf_counter()
+    kernels = all_kernels()
+    plain = Options(use_pallas=False)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def none_launched(fn, what):
+        out, moved = launches_of(kernels, fn)
+        if moved:
+            raise AssertionError(f"{what} launched kernels: {moved}")
+        return out
+
+    def inverse_err(got, xr, xi):
+        want = torch.fft.ifft(torch.complex(xr.double(), xi.double()))
+        g = torch.complex(got[0].double(), got[1].double())
+        return float(torch.linalg.vector_norm(g - want) / torch.linalg.vector_norm(want))
+
+    def f32_tol(log_n):
+        return 5e-7 * max(1.0, log_n / 18.0)
+
+    # use_pallas=False on the C2C entries (per call), against the default
+    for engine, log_n in ORACLE_PLAIN:
+        n = 1 << log_n
+        f32 = engine == "f32"
+        dtype = torch.float32 if f32 else torch.float64
+        if f32:
+            planner = PlannerDit32(n)
+            entry, default = fft_32_dit_with_planner_and_opts, fft_32_dit_with_planner
+        else:
+            leaf_n = Options.guess_options(n, np.float64).leaf_fft_size
+            planner = PlannerDit64(n, options=Options(
+                leaf_fft_size=leaf_n, f64_engine=None if engine == "native" else engine))
+            entry, default = fft_64_dit_with_planner_and_opts, fft_64_dit_with_planner
+        x = (randn((n,), dtype), randn((n,), dtype))
+        out = none_launched(lambda: entry(*x, Direction.Forward, planner, plain),
+                            f"use_pallas=False {engine} 2^{log_n}")
+        err = card_oracle_err(out, *x)
+        del out
+        tol = f32_tol(log_n) if f32 else DD_E2E_TOL
+        emit({"phase": "oracle_plain", "entry": "c2c", "engine": engine, "n": n,
+              "plan": str(planner.plan), "rel_l2": err, "bound": tol, "launches": {},
+              "card": smi,
+              "ms": time_ms(lambda: entry(*x, Direction.Forward, planner, plain), flush,
+                            ORACLE_TIME_REPS),
+              "default_ms": time_ms(lambda: default(*x, Direction.Forward, planner), flush,
+                                    TUNE_TIME_REPS)})
+        check(f"use_pallas=False {engine} 2^{log_n}", err, tol)
+        del x, planner
+        release_memory()
+    # the real transforms on plain inner options
+    n = 1 << ORACLE_R2C_LOG
+    for tag, cls, r2c, c2r in (("f32", PlannerR2c32, r2c_fft_f32_with_planner,
+                                c2r_fft_f32_with_planner),
+                               ("f64", PlannerR2c64, r2c_fft_f64_with_planner,
+                                c2r_fft_f64_with_planner)):
+        dtype = torch.float32 if tag == "f32" else torch.float64
+        leaf_n = Options.guess_options(n // 2, np.float32 if tag == "f32" else np.float64)
+        planner = cls(n, inner_options=Options(leaf_fft_size=leaf_n.leaf_fft_size,
+                                               use_pallas=False))
+        heur = cls(n)
+        x = randn((n,), dtype)
+        spec = none_launched(lambda: r2c(x, planner), f"use_pallas=False r2c {tag}")
+        want = torch.fft.rfft(x.double())
+        err = float(torch.linalg.vector_norm(torch.complex(spec[0].double(), spec[1].double())
+                                             - want) / torch.linalg.vector_norm(want))
+        back = none_launched(lambda: c2r(spec[0], spec[1], planner),
+                             f"use_pallas=False c2r {tag}")
+        rt = rel_l2(back, None, x, None, worst=True)[0]
+        tol = f32_tol(ORACLE_R2C_LOG) if tag == "f32" else DD_E2E_TOL
+        rt_tol = 1e-6 if tag == "f32" else DD_E2E_TOL
+        emit({"phase": "oracle_plain", "entry": "r2c / c2r", "dtype": tag, "n": n,
+              "rel_l2": err, "bound": tol, "roundtrip_rel_l2": rt, "launches": {},
+              "card": smi,
+              "r2c_ms": time_ms(lambda: r2c(x, planner), flush, ORACLE_TIME_REPS),
+              "default_r2c_ms": time_ms(lambda: r2c(x, heur), flush, TUNE_TIME_REPS),
+              "c2r_ms": time_ms(lambda: c2r(spec[0], spec[1], planner), flush,
+                                ORACLE_TIME_REPS),
+              "default_c2r_ms": time_ms(lambda: c2r(spec[0], spec[1], heur), flush,
+                                        TUNE_TIME_REPS)})
+        check(f"use_pallas=False r2c {tag} 2^{ORACLE_R2C_LOG}", err, tol)
+        check(f"use_pallas=False c2r {tag} 2^{ORACLE_R2C_LOG} round trip", rt, rt_tol)
+        del x, spec, back, want, planner, heur
+    # fft_distributed at world size 1 on a use_pallas=False planner
+    n = 1 << ORACLE_DIST_LOG
+    planner = PlannerDit32(n, options=Options(
+        leaf_fft_size=Options.guess_options(n, np.float32).leaf_fft_size, use_pallas=False))
+    heur = PlannerDit32(n)
+    x = (randn((n,), torch.float32), randn((n,), torch.float32))
+    out = none_launched(lambda: fft_distributed(*x, Direction.Forward, planner),
+                        "use_pallas=False fft_distributed")
+    err = card_oracle_err(out, *x)
+    del out
+    emit({"phase": "oracle_plain", "entry": "fft_distributed", "world": 1, "dtype": "f32",
+          "n": n, "rel_l2": err, "bound": f32_tol(ORACLE_DIST_LOG), "launches": {},
+          "card": smi,
+          "ms": time_ms(lambda: fft_distributed(*x, Direction.Forward, planner), flush,
+                        ORACLE_TIME_REPS),
+          "default_ms": time_ms(lambda: fft_distributed(*x, Direction.Forward, heur), flush,
+                                TUNE_TIME_REPS)})
+    check("use_pallas=False fft_distributed", err, f32_tol(ORACLE_DIST_LOG))
+    del x, planner, heur
+    release_memory()
+    # the staged strategy, forward and inverse, tiled and flat bit reversal
+    for tag, log_n in ORACLE_STAGED:
+        n = 1 << log_n
+        f64 = tag == "f64"
+        dtype = torch.float64 if f64 else torch.float32
+        planner = (PlannerDit64 if f64 else PlannerDit32)(n)
+        entry = fft_64_dit_with_planner_and_opts if f64 else fft_32_dit_with_planner_and_opts
+        default = fft_64_dit_with_planner if f64 else fft_32_dit_with_planner
+        x = (randn((n,), dtype), randn((n,), dtype))
+        tol = DD_E2E_TOL if f64 else f32_tol(log_n)
+        row = {"phase": "oracle_staged", "dtype": tag, "n": n, "bound": tol, "launches": {},
+               "card": smi,
+               "default_ms": time_ms(lambda: default(*x, Direction.Forward, planner), flush,
+                                     TUNE_TIME_REPS)}
+        for tiled in (True, False):
+            opts = Options(strategy="staged", tiled_bit_reversal=tiled)
+            name = "tiled" if tiled else "flat"
+            fwd = none_launched(lambda: entry(*x, Direction.Forward, planner, opts),
+                                f"staged {tag} 2^{log_n} forward {name}")
+            inv = none_launched(lambda: entry(*x, Direction.Reverse, planner, opts),
+                                f"staged {tag} 2^{log_n} inverse {name}")
+            row[f"forward_{name}_rel_l2"] = card_oracle_err(fwd, *x)
+            row[f"inverse_{name}_rel_l2"] = inverse_err(inv, *x)
+            row[f"{name}_ms"] = time_ms(lambda: entry(*x, Direction.Forward, planner, opts),
+                                        flush, ORACLE_TIME_REPS)
+            del fwd, inv
+            check(f"staged {tag} 2^{log_n} forward {name}", row[f"forward_{name}_rel_l2"],
+                  tol)
+            check(f"staged {tag} 2^{log_n} inverse {name}", row[f"inverse_{name}_rel_l2"],
+                  tol)
+        emit(row)
+        del x, planner
+        release_memory()
+    emit({"phase": "oracle_phases", "seconds": time.perf_counter() - t_phase, "card": smi})
+
+
 def time_tree(tree: str) -> int:
     """``--time-tree``: the TURN_SIZES transforms of the package under
     ``tree`` (medians of TURN_REPS calls, CUDA events), as one JSON line."""
@@ -4713,6 +5080,8 @@ def main() -> int:
         r2c_phases(dev, gen, flush, smi, top, launches, max_err)
         giant_phases(dev, gen, flush, smi, top, launches, max_err)
         edge_phases(dev, gen, flush, smi, top, launches, max_err)
+        tune_phases(dev, gen, flush, smi)
+        oracle_phases(dev, gen, flush, smi)
 
     sources = {
         "colfft_out3d": ("phastft_tpu_torch/csrc/colfft.cu",

@@ -27,9 +27,12 @@ the dd kernels (``f64_engine`` = ``"df64"``, ``"df64-fused"``,
 ``"df64-split"``), and with ``"df64-oz"`` the split levels of
 n1 = 128..2048 over a leaf of 2^10..2^13 points on the Ozaki bf16-slice
 kernels; both are opt-in. A transform the card cannot hold fails with
-``torch.OutOfMemoryError``. What the port does not run yet (the staged and
-plain pipelines, Tune) raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings it.
+``torch.OutOfMemoryError``. ``PlannerMode.Tune`` times candidate plans on
+the planner's device and caches the winner (``tune.py``, importable as
+``phastft_tpu_torch.tune``); ``Options(strategy="staged")`` and
+``Options(use_pallas=False)`` run the JAX package's two oracles, the
+radix-2 staged path and every pass's plain version, which launch no
+kernel.
 
 The real transforms (``PlannerR2c32/64``, ``r2c_*`` / ``c2r_*``, compact
 N/2 + 1 spectrum, n >= 4; one H100 holds f32 up to 2^32) run the half-length C2C between the four

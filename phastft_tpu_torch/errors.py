@@ -3,11 +3,9 @@
 The same four classes, with the same messages, as the JAX package's
 ``errors.py``: the reference library's contract panics become exceptions
 (non-power-of-2 length, planar length mismatch, planner-size mismatch).
-
-``not_ported`` builds the ``NotImplementedError`` raised for everything
-the port does not run yet (the staged and plain pipelines, Tune); its
-message names the ``ROADMAP.md`` item that will bring it. Item numbers are
-names: an item that is done keeps its number.
+The port runs the JAX package's whole public surface (``PlannerMode.Tune``,
+the staged strategy and ``use_pallas=False`` included), so no error of its
+own says that something is not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +16,6 @@ __all__ = [
     "LengthMismatchError",
     "PlannerSizeMismatchError",
     "ensure_power_of_two",
-    "not_ported",
 ]
 
 
@@ -44,18 +41,3 @@ def ensure_power_of_two(n: int) -> int:
         raise NonPowerOfTwoError(f"n must be a power of 2, got {n}")
     return n.bit_length() - 1
 
-
-#: ROADMAP.md Queue 1 items that bring what the port does not run yet.
-ROADMAP_ITEMS = {
-    "classic": "ROADMAP.md Queue 1 item 7 (use_pallas=False and the staged "
-               "strategy)",
-    "tune": "ROADMAP.md Queue 1 item 8 (PlannerMode.Tune)",
-}
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for ``what``, outside the port's slice; ``item`` is a key
-    of ``ROADMAP_ITEMS``."""
-    return NotImplementedError(
-        f"{what} is not ported to phastft_tpu_torch yet: {ROADMAP_ITEMS[item]}"
-    )

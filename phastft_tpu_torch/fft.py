@@ -29,8 +29,18 @@ its split levels inside the Ozaki kernels' window on them, whatever the
 per-call engine; the leaves and other levels run the df64 kernels. The
 ``*_with_planner`` entries pass ``Options.guess_options(n)`` per call, as
 the JAX package does: its ``f64_engine`` is None at every n, so the
-planner's engine decides. What the port does not run raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
+planner's engine decides.
+
+Two oracles run as in the JAX package, on the card or the CPU, launching
+no kernel. ``Options(strategy="staged")`` (per call: the per-call
+``guess_options`` of the ``*_with_planner`` entries has "auto") runs the
+reference-parity radix-2 path on the planner's ``stage_twiddles``, its bit
+reversal tiled from ``TILED_BITREV_MIN_LOGN`` unless
+``tiled_bit_reversal`` says otherwise (``ops/dit.staged_fft``).
+``Options(use_pallas=False)``, per call or on the planner (the per-call
+value, when not None, wins), runs the planner's engine on every pass's
+plain torch version (``ops/route.PLAIN``), the port's counterpart of the
+JAX package's XLA lowering. Nothing else selects either.
 """
 
 from __future__ import annotations
@@ -45,11 +55,10 @@ from .errors import (
     PhastftError,
     PlannerSizeMismatchError,
     ensure_power_of_two,
-    not_ported,
 )
-from .options import Options
+from .options import TILED_BITREV_MIN_LOGN, Options
 from .planner import Direction, PlannerDit32, PlannerDit64, resolve_device
-from .ops.dit import build_dd_fft, build_fast_fft, build_native_fft
+from .ops.dit import build_dd_fft, build_fast_fft, build_native_fft, build_staged_fft
 
 __all__ = [
     "fft_64_dit",
@@ -125,46 +134,50 @@ def _length(x) -> int:
     return int(np.shape(x)[-1]) if np.ndim(x) else 0
 
 
-def engine_of(planner, f64_engine=None, leaf_kernel=None):
+def engine_of(planner, f64_engine=None, leaf_kernel=None, use_pallas=None):
     """(build, variant, args) of the planner's C2C engine: the closure
     builder of ``ops/dit.py``, called as ``build(n, leaf, scale,
     *variant)``, and the planner state its closure takes after the two
     planes, ``run(re, im, *args)``.
 
-    An explicit ``f64_engine`` / ``leaf_kernel`` (per-call options) wins
-    over the planner's; None defers. f64 runs the native engine, as the JAX
+    An explicit ``f64_engine`` / ``leaf_kernel`` / ``use_pallas`` (per-call
+    options) wins over the planner's; None defers. A resolved
+    ``use_pallas`` of False puts the plain route in ``variant``, its last
+    element. f64 runs the native engine, as the JAX
     package runs every value that does not start with "df64"; "df64-split" /
     "df64-fused" pin the dd leaf lowering, and an unknown suffix ("oz" among
     them) falls to the default, the one-kernel leaf. The Ozaki kernels run
     where the planner built their tables. f32 runs the leaf kernel on its
     tables."""
+    plain = (use_pallas if use_pallas is not None
+             else planner.options.use_pallas) is False
     if planner.dtype == np.float64:
         engine = (f64_engine if f64_engine is not None
                   else (planner.options.f64_engine or "native"))
         if not engine.startswith("df64"):
-            return build_native_fft, (), (planner.native_state,)
+            return build_native_fft, (plain,), (planner.native_state,)
         dd_leaf = engine.split("-", 1)[1] if "-" in engine else None
-        return build_dd_fft, (dd_leaf,), planner.dd_state
+        return build_dd_fft, (dd_leaf, plain), planner.dd_state
     kernel = leaf_kernel if leaf_kernel is not None else planner.options.leaf_kernel
-    return build_fast_fft, (kernel,), (planner.tables_for(planner.plan, kernel),)
+    return build_fast_fft, (kernel, plain), (planner.tables_for(planner.plan, kernel),)
 
 
 def _run(reals, imags, direction, planner, opts: Options):
     direction = _coerce_direction(direction)
-    n, _ = _validate(reals, imags, planner)
-    if opts.strategy == "staged":
-        raise not_ported("strategy='staged'", "classic")
-    use_pallas = (
-        opts.use_pallas if opts.use_pallas is not None
-        else planner.options.use_pallas
-    )
-    if use_pallas is False:
-        raise not_ported("use_pallas=False (the plain pipeline)", "classic")
+    n, log_n = _validate(reals, imags, planner)
     scale = direction is Direction.Reverse
-    # The leaf size must match the planner's tables, so it comes from the
-    # planner's own options, not the per-call opts.
-    build, variant, args = engine_of(planner, opts.f64_engine, opts.leaf_kernel)
-    run = build(n, planner.options.leaf_fft_size, scale, *variant)
+    if opts.strategy == "staged":
+        tiled = opts.tiled_bit_reversal
+        if tiled is None:
+            tiled = log_n >= TILED_BITREV_MIN_LOGN
+        run = build_staged_fft(n, bool(tiled), scale)
+        args = (planner.stage_twiddles,)
+    else:
+        # The leaf size must match the planner's tables, so it comes from
+        # the planner's own options, not the per-call opts.
+        build, variant, args = engine_of(planner, opts.f64_engine, opts.leaf_kernel,
+                                         opts.use_pallas)
+        run = build(n, planner.options.leaf_fft_size, scale, *variant)
     # handed over: a conversion made here is dropped once the first kernel
     # has read it (a tensor of the caller's stays the caller's)
     pair = [_as_tensor(reals, planner), _as_tensor(imags, planner)]

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ._build import call
+from .leaf import full_f32_matmuls
 from .mxu import dft_matrix_host
 from .stockham import LANES, stockham_axis2
 
@@ -213,14 +214,12 @@ def _shard_t2(n1: int, t: int, n_total: int, col_base: int, device):
     return torch.cos(ang).float(), torch.sin(ang).float()
 
 
+@full_f32_matmuls()
 def _column_plain(re, im, tabs, n1: int, b: int, n2: int, n_total=None):
     """The column DFT and the split twiddle in plain torch, as (b, n1, n2);
-    ``n_total`` (default n1 * n2) is the length whose phase T1 spans.
-    On a CUDA tensor it turns TF32 off for matmuls
-    (``torch.backends.cuda.matmul.allow_tf32 = False``) so the products
-    stay full f32, as the JAX package's HIGHEST precision does."""
-    if re.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
+    ``n_total`` (default n1 * n2) is the length whose phase T1 spans. The
+    products are full f32 (``leaf.full_f32_matmuls``), as the JAX package's
+    HIGHEST precision."""
     t2r, t2i = tabs
     t = int(t2r.shape[1])
     n = n_total or n1 * n2

@@ -62,17 +62,13 @@ transform of 2^31 points. The caller's planes are read, never written.
 
 from __future__ import annotations
 
-from .colfft import colfft, colfft_out3d
 from .dd import MAX_LEAF_N1 as DD_MAX_LEAF_N1
-from .dd import ddcol, ddcol_nocorr, ddleaf
 from .df64 import tiny_fft_dd
-from .ozdd import ozcol, ozleaft
-from .leaf import HYBRID_MAX_N1, LEAF3_AS, hybrid, leaf, leaf3
-from .leaft import leaft
+from .leaf import HYBRID_MAX_N1, LEAF3_AS
 from .longcol import columns, dd_columns, transpose4
-from .native import MAX_LEAF_N, col64, leaf64
+from .native import MAX_LEAF_N
+from .route import KERNELS
 from .stockham import LANES
-from .transpose import transpose2, transpose2_64
 
 __all__ = [
     "plan_rows",
@@ -163,69 +159,72 @@ def fft_rows(re, im, plan, corrs, leaf_kernel=None):
     return rows_f32([re, im], plan, corrs, leaf_kernel)
 
 
-def rows_f32(pair, plan, corrs, leaf_kernel=None):
+def rows_f32(pair, plan, corrs, leaf_kernel=None, passes=KERNELS):
     """``fft_rows`` on the planes in the list ``pair``, which it empties:
     the caller hands its references over. Each pass drops its input as soon
     as its kernel has read it, so a split level's column output is freed
     when the inner plan's first kernel returns (where the caller still
-    holds the planes, they stay alive)."""
+    holds the planes, they stay alive). ``passes``: ``ops/route.KERNELS``,
+    or ``PLAIN`` for the plain versions on any device."""
+    k = passes
     re, im = pair
     pair.clear()
     kind = plan[0]
     if kind == "tiny":
         if plan[1] == 1:
             return re.clone(), im.clone()
-        return leaf(re, im, (), 1)
+        return k.leaf(re, im, (), 1)
     if kind == "leaf":
         n1 = plan[1]
         if n1 > LEAF_KERNEL_N1:
             mats1 = corrs["mxu1"]
-            return leaf_columns([re, im], n1, lambda r, i: leaf(r, i, mats1, 1), False)
+            return leaf_columns([re, im], n1, lambda r, i: k.leaf(r, i, mats1, 1), False,
+                                k)
         if 1 < n1 <= HYBRID_MAX_N1 and leaf_kernel == "hybrid":
             mats = corrs[f"mxu{n1}"][3:6] + tuple(corrs[f"leaf{n1}"])
-            return hybrid(re, im, mats, n1)
+            return k.hybrid(re, im, mats, n1)
         mats3 = corrs.get(f"mxu3_{n1}")
         if mats3 is not None:
-            return leaf3(re, im, mats3, mats3[0].shape[0], mats3[3].shape[0])
+            return k.leaf3(re, im, mats3, mats3[0].shape[0], mats3[3].shape[0])
         mats = corrs[f"mxu{n1}"]
         if n1 > 1:
             mats = mats[:6] + tuple(corrs[f"leaf{n1}"])
-        return leaf(re, im, mats, n1)
+        return k.leaf(re, im, mats, n1)
     _, n1, plan2, n2 = plan
     batch = tuple(re.shape[:-1])
     view = batch + (n1, n2)
     if fused_two_pass(n1, plan2, n2):
-        c3re, c3im = colfft_out3d(re.reshape(view), im.reshape(view),
-                                  corrs[f"pcolT{n1}x{n2}"], n1)
+        c3re, c3im = k.colfft_out3d(re.reshape(view), im.reshape(view),
+                                    corrs[f"pcolT{n1}x{n2}"], n1)
         del re, im
-        return leaft(c3re, c3im, corrs[f"leafT{n2}"], n1)
-    col = list(colfft(re.reshape(view), im.reshape(view),
-                      corrs[f"pcol{n1}x{n2}"], n1))
+        return k.leaft(c3re, c3im, corrs[f"leafT{n2}"], n1)
+    col = list(k.colfft(re.reshape(view), im.reshape(view),
+                        corrs[f"pcol{n1}x{n2}"], n1))
     del re, im
-    d_re, d_im = rows_f32(col, plan2, corrs, leaf_kernel)
-    o_re, o_im = transpose2(d_re, d_im)
+    d_re, d_im = rows_f32(col, plan2, corrs, leaf_kernel, k)
+    o_re, o_im = k.transpose2(d_re, d_im)
     del d_re, d_im
     flat = batch + (n1 * n2,)
     return o_re.reshape(flat), o_im.reshape(flat)
 
 
-def leaf_columns(pair, n1: int, rows, f64: bool):
+def leaf_columns(pair, n1: int, rows, f64: bool, passes=KERNELS):
     """A leaf of n1 * 128 points on the planes in the list ``pair`` (which
     it empties; f64 planes for the native engine), as the JAX package's XLA
     ``leaf_fft`` runs it: F(n1) over the (..., n1, 128) view times the
     correction W_n^(k1*i2) (``ops/longcol.columns`` on the block of every
     column: the column kernel up to n1 = 2048, the long columns past it),
     ``rows(re, im)``, F(128) of the n1 rows, and the paired transpose to the
-    natural order X[k1 + n1*k2]."""
+    natural order X[k1 + n1*k2], all on ``passes``."""
     batch = tuple(pair[0].shape[:-1])
     n = n1 * LANES
     view = batch + (n1, LANES)
     col = [x.reshape(view) for x in pair]
     pair.clear()
-    col = [*columns(col, n, n1, 0, False, f64)]
+    col = [*columns(col, n, n1, 0, False, f64, passes)]
     d_re, d_im = rows(*col)
     col.clear()
-    o_re, o_im = (transpose2_64 if f64 else transpose2)(d_re, d_im)
+    o_re, o_im = (passes.transpose2_64 if f64 else passes.transpose2)(d_re, d_im)
     del d_re, d_im
     return o_re.reshape(batch + (n,)), o_im.reshape(batch + (n,))
 
@@ -236,7 +235,7 @@ def leaf_columns(pair, n1: int, rows, f64: bool):
 # --------------------------------------------------------------------------
 
 
-def _ddleaf_split(rh, rl, ih, il, n1: int):
+def _ddleaf_split(rh, rl, ih, il, n1: int, passes=KERNELS):
     """dd leaf as two dd column passes with a transpose between. Pass 1:
     ``ddcol`` over the n1 factor with the leaf correction folded in
     (``dd_col_tables_host(n1, 128)`` is the factored W_{n1*128}^(k1*i2)
@@ -246,17 +245,17 @@ def _ddleaf_split(rh, rl, ih, il, n1: int):
     X[k1 + k2*n1]."""
     batch = tuple(rh.shape[:-1])
     view = batch + (n1, LANES)
-    quad = dd_columns([a.reshape(view) for a in (rh, rl, ih, il)], n1)
-    quad = transpose4(quad)
-    quad = ddcol_nocorr(*quad, LANES)
+    quad = dd_columns([a.reshape(view) for a in (rh, rl, ih, il)], n1, passes)
+    quad = transpose4(quad, passes)
+    quad = passes.ddcol_nocorr(*quad, LANES)
     flat = batch + (n1 * LANES,)
     return tuple(a.reshape(flat) for a in quad)
 
 
-def _out_transpose_dd(quad, batch, n1: int, n2: int):
+def _out_transpose_dd(quad, batch, n1: int, n2: int, passes=KERNELS):
     """Four-step output reordering of a dd quadruple of (..., n1, n2)."""
     view = batch + (n1, n2)
-    out = transpose4(tuple(a.reshape(view) for a in quad))
+    out = transpose4(tuple(a.reshape(view) for a in quad), passes)
     flat = batch + (n1 * n2,)
     return tuple(a.reshape(flat) for a in out)
 
@@ -279,10 +278,12 @@ def fft_rows_dd(rh, rl, ih, il, plan, tables, corrs, dd_leaf=None):
     return rows_dd([rh, rl, ih, il], plan, tables, corrs, dd_leaf)
 
 
-def rows_dd(quad, plan, tables, corrs, dd_leaf=None):
+def rows_dd(quad, plan, tables, corrs, dd_leaf=None, passes=KERNELS):
     """``fft_rows_dd`` on the four planes in the list ``quad``, which it
     empties: the caller hands its references over, and a split level's
-    column output is freed when the inner plan's first kernel returns."""
+    column output is freed when the inner plan's first kernel returns.
+    ``passes``: as for ``rows_f32``."""
+    k = passes
     rh, rl, ih, il = quad
     quad.clear()
     kind = plan[0]
@@ -291,21 +292,21 @@ def rows_dd(quad, plan, tables, corrs, dd_leaf=None):
     if kind == "leaf":
         n1 = plan[1]
         if n1 > DD_MAX_LEAF_N1 or (n1 > 1 and dd_leaf == "split"):
-            return _ddleaf_split(rh, rl, ih, il, n1)
-        return ddleaf(rh, rl, ih, il, corrs[f"ddleaf{n1}"] if n1 > 1 else None, n1)
+            return _ddleaf_split(rh, rl, ih, il, n1, k)
+        return k.ddleaf(rh, rl, ih, il, corrs[f"ddleaf{n1}"] if n1 > 1 else None, n1)
     _, n1, plan2, n2 = plan
     batch = tuple(rh.shape[:-1])
     view = batch + (n1, n2)
     oztabs = corrs.get(f"ozcol{n1}x{n2}")
     if oztabs is not None:
-        col = ozcol(*(a.reshape(view) for a in (rh, rl, ih, il)), oztabs, n1)
+        col = k.ozcol(*(a.reshape(view) for a in (rh, rl, ih, il)), oztabs, n1)
         del rh, rl, ih, il
-        return ozleaft(*col, corrs[f"ozleafT{n2}"], n1)
+        return k.ozleaft(*col, corrs[f"ozleafT{n2}"], n1)
     t1, t2 = corrs[f"ddpcol{n1}x{n2}"]
-    col = list(ddcol(*(a.reshape(view) for a in (rh, rl, ih, il)), t1, t2, n1))
+    col = list(k.ddcol(*(a.reshape(view) for a in (rh, rl, ih, il)), t1, t2, n1))
     del rh, rl, ih, il
-    rows = rows_dd(col, plan2, tables, corrs, dd_leaf)
-    return _out_transpose_dd(rows, batch, n1, n2)
+    rows = rows_dd(col, plan2, tables, corrs, dd_leaf, k)
+    return _out_transpose_dd(rows, batch, n1, n2, k)
 
 
 # --------------------------------------------------------------------------
@@ -329,13 +330,15 @@ def fft_rows_native(re, im, plan, corrs):
     return rows_native([re, im], plan, corrs)
 
 
-def rows_native(pair, plan, corrs):
+def rows_native(pair, plan, corrs, passes=KERNELS):
     """``fft_rows_native`` on the planes in the list ``pair``, which it
     empties: the caller hands its references over. Each pass drops its
     input as soon as its kernel has read it, so the column output of a
     split level is freed when the inner plan's first kernel returns, not
     when the inner plan ends (where the caller still holds the planes, as
-    ``fft_rows_native``'s caller does, they stay alive)."""
+    ``fft_rows_native``'s caller does, they stay alive). ``passes``: as
+    for ``rows_f32``."""
+    k = passes
 
     def steps(m):
         return corrs[f"dif{m}"][0] if m > 1 else None
@@ -346,22 +349,23 @@ def rows_native(pair, plan, corrs):
     if kind == "tiny":
         if plan[1] == 1:
             return re.clone(), im.clone()
-        return leaf64(re, im, None, plan[1], (None, steps(plan[1])))
+        return k.leaf64(re, im, None, plan[1], (None, steps(plan[1])))
     if kind == "leaf":
         n1 = plan[1]
         if n1 * LANES > MAX_LEAF_N:
             tw = (None, steps(LANES))
-            return leaf_columns([re, im], n1, lambda r, i: leaf64(r, i, None, LANES, tw), True)
-        return leaf64(re, im, corrs.get(f"leaf{n1}"), n1 * LANES,
-                      (steps(n1), steps(LANES)))
+            return leaf_columns([re, im], n1, lambda r, i: k.leaf64(r, i, None, LANES, tw),
+                                True, k)
+        return k.leaf64(re, im, corrs.get(f"leaf{n1}"), n1 * LANES,
+                        (steps(n1), steps(LANES)))
     _, n1, plan2, n2 = plan
     batch = tuple(re.shape[:-1])
     view = batch + (n1, n2)
-    col = list(col64(re.reshape(view), im.reshape(view),
-                     corrs[f"split{n1}x{n2}"], n1, steps(n1)))
+    col = list(k.col64(re.reshape(view), im.reshape(view),
+                       corrs[f"split{n1}x{n2}"], n1, steps(n1)))
     del re, im
-    d_re, d_im = rows_native(col, plan2, corrs)
-    o_re, o_im = transpose2_64(d_re, d_im)
+    d_re, d_im = rows_native(col, plan2, corrs, k)
+    o_re, o_im = k.transpose2_64(d_re, d_im)
     del d_re, d_im
     flat = batch + (n1 * n2,)
     return o_re.reshape(flat), o_im.reshape(flat)

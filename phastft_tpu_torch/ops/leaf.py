@@ -46,6 +46,7 @@ data through distributed shared memory.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -133,10 +134,19 @@ def _check_hybrid(re, im, mats, n1: int):
     return batch, b, n
 
 
-def _full_f32_matmuls(x):
-    # the plain versions' products stay full f32 on the card
-    if x.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
+@contextlib.contextmanager
+def full_f32_matmuls():
+    """TF32 off for the matmuls inside (``torch.backends.cuda.matmul.
+    allow_tf32 = False``), so the plain versions' products stay full f32 on
+    the card, as the JAX package's HIGHEST precision does; the caller's
+    setting comes back on the way out. Used as a decorator, it holds for
+    each call."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _cmul(ar, ai, br, bi):
@@ -155,13 +165,13 @@ def _tiny_mats(n: int, device: torch.device):
                  for a in (fr, fi))
 
 
+@full_f32_matmuls()
 def leaf_plain(re, im, mats, n1: int):
     """Plain-torch leaf: same arguments and result as ``leaf``. The
     products are dense, as the JAX kernels' are (see ``_cmul``); F(m) is
     symmetric, so x @ F(m) contracts the index of each row."""
     mats = tuple(mats)
     batch, b, n = _check(re, im, mats, n1)
-    _full_f32_matmuls(re)
     if not mats:
         xr, xi = re.reshape(b, n), im.reshape(b, n)
         vr, vi = _cmul(xr, xi, *_tiny_mats(n, re.device))
@@ -182,13 +192,13 @@ def leaf_plain(re, im, mats, n1: int):
     return vr.reshape(batch + (n,)), vi.reshape(batch + (n,))
 
 
+@full_f32_matmuls()
 def leaf3_plain(re, im, mats, a: int, b: int):
     """Plain-torch three-factor leaf: same arguments and result as
     ``leaf3``, in the JAX kernel's order (F(a), c1, radix-4 of adds, c2,
     F(b), lane-block concat), with ``_cmul``'s dense products."""
     mats = tuple(mats)
     batch, bs, n = _check3(re, im, mats, a, b)
-    _full_f32_matmuls(re)
     f1r, f1i, _, f2r, f2i, _, c1r, c1i, c2r, c2i = mats
     xr = re.reshape(bs, a, 4 * b)
     xi = im.reshape(bs, a, 4 * b)
@@ -219,6 +229,7 @@ def leaf3_plain(re, im, mats, a: int, b: int):
     return out_r, out_i
 
 
+@full_f32_matmuls()
 def hybrid_plain(re, im, mats, n1: int):
     """Plain-torch hybrid leaf: same arguments and result as ``hybrid``, in
     the JAX kernel's order: ``stockham_axis2`` over i1 (its in-kernel f32
@@ -227,7 +238,6 @@ def hybrid_plain(re, im, mats, n1: int):
     X = (q1 - q2, q3 - q1 - q2)."""
     mats = tuple(mats)
     batch, b, n = _check_hybrid(re, im, mats, n1)
-    _full_f32_matmuls(re)
     f2r, f2i, f2s, cr, ci = mats
     tr, ti = stockham_axis2(re.reshape(b, n1, LANES), im.reshape(b, n1, LANES),
                             n1)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ._build import call
+from .leaf import full_f32_matmuls
 from .mxu import dft_matrix_host
 from .stockham import leaf_correction_host
 
@@ -80,14 +81,11 @@ def _check(cre, cim, mats, n1: int):
     return batch, int(np.prod(batch)) if batch else 1, a
 
 
+@full_f32_matmuls()
 def leaft_plain(cre, cim, mats, n1: int):
-    """Plain-torch row pass: same arguments and result as ``leaft``. On a
-    CUDA tensor it turns TF32 off for matmuls
-    (``torch.backends.cuda.matmul.allow_tf32 = False``) so the products
-    stay full f32."""
+    """Plain-torch row pass: same arguments and result as ``leaft``. The
+    products are full f32 (``leaf.full_f32_matmuls``)."""
     batch, b, a = _check(cre, cim, mats, n1)
-    if cre.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
     f1r, f1i, f1s, f2r, f2i, f2s, cr, ci = mats
     m = M_LANES
     xr = cre.reshape(b, a, n1 * m)

@@ -36,7 +36,8 @@ quadruples, on a block of every column (col_base = 0, not bare): ``ddcol``
 with ``dd_col_tables_host`` up to 2048, and past it both passes on
 ``ddcol`` with the split tables of their views, and two paired transposes
 per hi/lo pair. Each intermediate is dropped once the next pass has read
-it.
+it. Every function runs its kernels through ``passes`` (``ops/route``):
+the wrappers, or with ``PLAIN`` their plain versions on any device.
 """
 
 from __future__ import annotations
@@ -46,10 +47,10 @@ import functools
 import numpy as np
 import torch
 
-from .colfft import MAX_N1, colfft, colfft_nocorr
-from .dd import dd_col_tables_host, ddcol
-from .native import col64, col64_nocorr, col64_shard_tables, col64_tables, dif_twiddles
-from .transpose import transpose2, transpose2_64
+from .colfft import MAX_N1
+from .dd import dd_col_tables_host
+from .native import col64_shard_tables, col64_tables, dif_twiddles
+from .route import KERNELS
 
 __all__ = ["columns", "dd_columns", "long_columns", "long_split", "level_exponents",
            "transpose4", "twiddle_", "MAX_N1"]
@@ -76,14 +77,16 @@ def twiddle_(re, im, n: int, rows, cols) -> None:
         im[r0:r1] = z.imag
 
 
-def columns(pair, n: int, n1: int, col_base: int, bare: bool, f64: bool):
+def columns(pair, n: int, n1: int, col_base: int, bare: bool, f64: bool,
+            passes=KERNELS):
     """The column pass of a block (..., n1, c) handed over in the list
     ``pair``, whose columns [col_base, col_base + c) lie in a transform of
     n points split n1 x n / n1: the DFT over n1 and, unless ``bare``, the
     twiddle W_n^(k1*(col_base + j)). n1 = 1 is the block itself (its only
     twiddle is W^0); past the column kernels' 2048, ``long_columns``."""
+    k = passes
     if n1 > MAX_N1:
-        return long_columns(pair, n, n1, col_base, bare, f64)
+        return long_columns(pair, n, n1, col_base, bare, f64, k)
     re, im = pair
     pair.clear()
     if n1 == 1:
@@ -91,12 +94,12 @@ def columns(pair, n: int, n1: int, col_base: int, bare: bool, f64: bool):
     if f64:
         steps = dif_twiddles(n1, re.device)
         if bare:
-            return col64_nocorr(re, im, n1, steps)
+            return k.col64_nocorr(re, im, n1, steps)
         tabs = col64_shard_tables(n, n1, int(re.shape[-1]), col_base, re.device)
-        return col64(re, im, tabs, n1, steps)
+        return k.col64(re, im, tabs, n1, steps)
     if bare:
-        return colfft_nocorr(re, im, n1)
-    return colfft(re, im, None, n1, n_total=n, col_base=col_base)
+        return k.colfft_nocorr(re, im, n1)
+    return k.colfft(re, im, None, n1, n_total=n, col_base=col_base)
 
 
 def level_exponents(n: int, n1: int, pp: int, c: int, col_base: int, bare: bool):
@@ -134,10 +137,12 @@ def _reorder(z, batch, pp: int, qq: int, c: int, transpose):
     return tuple(x.view(batch + (pp * qq, c)) for x in out)
 
 
-def long_columns(pair, n: int, n1: int, col_base: int, bare: bool, f64: bool):
+def long_columns(pair, n: int, n1: int, col_base: int, bare: bool, f64: bool,
+                 passes=KERNELS):
     """``columns`` past the column kernels' 2048: two column passes and two
     transposes on the (..., n1, c) block handed over in ``pair`` (see the
     module docstring)."""
+    k = passes
     batch = tuple(pair[0].shape[:-2])
     c = int(pair[0].shape[-1])
     dev = pair[0].device
@@ -146,20 +151,20 @@ def long_columns(pair, n: int, n1: int, col_base: int, bare: bool, f64: bool):
     re, im = (x.reshape(view) for x in pair)
     pair.clear()
     if f64:
-        y = [*col64(re, im, _level_tables(n, n1, pp, c, col_base, bare, dev), pp,
-                    dif_twiddles(pp, dev))]
+        y = [*k.col64(re, im, _level_tables(n, n1, pp, c, col_base, bare, dev), pp,
+                      dif_twiddles(pp, dev))]
     elif not bare and c == n // n1:
-        y = [*colfft(re, im, None, pp, n_total=n, col_base=0)]
+        y = [*k.colfft(re, im, None, pp, n_total=n, col_base=0)]
     else:
-        y = [*colfft_nocorr(re, im, pp)]
+        y = [*k.colfft_nocorr(re, im, pp)]
         kp = torch.arange(pp, dtype=torch.int64, device=dev)
         exps = level_exponents(n, n1, pp, c, col_base, bare)
         twiddle_(y[0].view(-1, qq * c), y[1].view(-1, qq * c), n,
                  kp.repeat(y[0].numel() // (pp * qq * c)), torch.from_numpy(exps).to(dev))
     del re, im
     y = [x.view(batch + (pp, qq, c)) for x in y]
-    z = [*columns(y, n // pp, qq, col_base, bare, f64)]
-    return _reorder(z, batch, pp, qq, c, transpose2_64 if f64 else transpose2)
+    z = [*columns(y, n // pp, qq, col_base, bare, f64, k)]
+    return _reorder(z, batch, pp, qq, c, k.transpose2_64 if f64 else k.transpose2)
 
 
 @functools.lru_cache(maxsize=32)
@@ -174,33 +179,34 @@ def _dd_tables(n1: int, n2: int, device):
     return put(t1), put(t2)
 
 
-def transpose4(quad):
+def transpose4(quad, passes=KERNELS):
     """(..., R, C) -> (..., C, R) of a dd quadruple: the paired transpose
     once per hi/lo pair of planes."""
-    rh, ih = transpose2(quad[0], quad[2])
-    rl, il = transpose2(quad[1], quad[3])
+    rh, ih = passes.transpose2(quad[0], quad[2])
+    rl, il = passes.transpose2(quad[1], quad[3])
     return rh, rl, ih, il
 
 
-def dd_columns(quad, n1: int):
+def dd_columns(quad, n1: int, passes=KERNELS):
     """The dd column pass of a block (..., n1, c) of every column, handed
     over in the list ``quad`` (four planes): the DFT over n1 times
     W_{n1 c}^(k1*j). ``ddcol`` up to 2048; past it the long columns, each
     pass a ``ddcol`` on its view's split tables (the transform of n1 c
     points splits P x Q c, then each kp's Q x c)."""
+    k = passes
     batch = tuple(quad[0].shape[:-2])
     c = int(quad[0].shape[-1])
     dev = quad[0].device
     if n1 <= MAX_N1:
         planes = tuple(quad)
         quad.clear()
-        return ddcol(*planes, *_dd_tables(n1, c, dev), n1)
+        return k.ddcol(*planes, *_dd_tables(n1, c, dev), n1)
     pp, qq = long_split(n1)
     view = batch + (pp, qq * c)
     planes = tuple(x.reshape(view) for x in quad)
     quad.clear()
-    y = ddcol(*planes, *_dd_tables(pp, qq * c, dev), pp)
+    y = k.ddcol(*planes, *_dd_tables(pp, qq * c, dev), pp)
     del planes
-    z = [*dd_columns([x.view(batch + (pp, qq, c)) for x in y], qq)]
+    z = [*dd_columns([x.view(batch + (pp, qq, c)) for x in y], qq, k)]
     del y
-    return _reorder(z, batch, pp, qq, c, lambda *q: transpose4(q))
+    return _reorder(z, batch, pp, qq, c, lambda *q: transpose4(q, k))

@@ -548,8 +548,14 @@ pre_untangle.launches = 0
 
 
 # ------------------------------------------------------- whole transforms
+def _passes(plain: bool):
+    from .route import passes_for  # route imports this module
+
+    return passes_for(plain)
+
+
 @functools.lru_cache(maxsize=128)
-def build_r2c_fft(n: int, leaf_limit: int, build, variant=()):
+def build_r2c_fft(n: int, leaf_limit: int, build, variant):
     """Callable (signal, args, tw_re, tw_im) -> (spec_re, spec_im) of length
     n/2 + 1: ``deinterleave``, the half-length transform, and ``untangle``
     on the planner's quarter table. ``build``, ``variant`` and ``args`` are
@@ -557,31 +563,35 @@ def build_r2c_fft(n: int, leaf_limit: int, build, variant=()):
     C2C closure is ``build(n // 2, leaf_limit, False, *variant)`` (unscaled),
     called on the planner state ``args``. Each intermediate is dropped once
     the next pass has read it (the deinterleaved pair is handed over to the
-    inner transform, ``take``); the caller's signal stays."""
+    inner transform, ``take``); the caller's signal stays. The plain flag,
+    ``variant``'s last element, runs the two passes' plain versions too."""
     inner = build(n // 2, leaf_limit, False, *variant)
+    passes = _passes(variant[-1])
 
     def run(signal, args, tw_re, tw_im):
-        z_re, z_im = inner.take([*deinterleave(signal)], *args)
-        return untangle(z_re, z_im, tw_re, tw_im)
+        z_re, z_im = inner.take([*passes.deinterleave(signal)], *args)
+        return passes.untangle(z_re, z_im, tw_re, tw_im)
 
     return run
 
 
 @functools.lru_cache(maxsize=128)
-def build_c2r_fft(n: int, leaf_limit: int, build, variant=()):
+def build_c2r_fft(n: int, leaf_limit: int, build, variant):
     """Callable (spec_re, spec_im, args, tw_re, tw_im) -> the length-n real
     signal: ``pre_untangle`` on the planner's quarter table, the
     half-length inverse by the swap trick (unscaled, the inner closure as in
     ``build_r2c_fft``, z handed over to it), and ``interleave_scale`` with
-    the 2/n scale, so that C2R(R2C(x)) == x."""
+    the 2/n scale, so that C2R(R2C(x)) == x; the plain flag as for
+    ``build_r2c_fft``."""
     inner = build(n // 2, leaf_limit, False, *variant)
     scale = 2.0 / n
+    passes = _passes(variant[-1])
 
     def run(spec_re, spec_im, args, tw_re, tw_im):
-        z = [*pre_untangle(spec_re, spec_im, tw_re, tw_im)]
+        z = [*passes.pre_untangle(spec_re, spec_im, tw_re, tw_im)]
         # swap trick: swap(IDFT(z)) = DFT(swap(z)) / H, the 1/H in `scale`
         z.reverse()
         o_im, o_re = inner.take(z, *args)
-        return interleave_scale(o_re, o_im, scale)
+        return passes.interleave_scale(o_re, o_im, scale)
 
     return run

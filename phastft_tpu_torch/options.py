@@ -31,10 +31,16 @@ class Options:
     """Per-call tuning knobs. ``None`` fields mean "auto-select by size".
 
     The port reads ``leaf_fft_size`` (through the planner), ``strategy``,
-    ``use_pallas`` and ``leaf_kernel``: ``strategy="staged"`` and
-    ``use_pallas=False`` name pipelines it does not run yet and raise
-    ``NotImplementedError``. Every power-of-two ``leaf_fft_size`` runs,
-    planned as the JAX package plans it.
+    ``use_pallas``, ``tiled_bit_reversal``, ``leaf_kernel`` and
+    ``f64_engine``. Every power-of-two ``leaf_fft_size`` runs, planned as
+    the JAX package plans it. ``strategy="staged"`` (per call) runs the
+    reference-parity radix-2 path in plain torch, its bit reversal tiled
+    when ``tiled_bit_reversal`` is True (None: from log2 n =
+    ``TILED_BITREV_MIN_LOGN``). ``use_pallas=False`` (per call, or on the
+    planner, where the C2C, real, batch and distributed entries read it)
+    runs every pass's plain torch version instead of its kernel, on any
+    device; None and True run the kernels. Both are oracles: far slower than
+    the kernels, and launching none.
 
     ``leaf_kernel`` (f32; the per-call value, when not None, overrides the
     planner's): ``"hybrid"`` runs every leaf of n = 2^8..2^17 points (a
@@ -70,7 +76,8 @@ class Options:
 
     tiled_bit_reversal: Optional[bool] = None
     leaf_fft_size: int = DEFAULT_LEAF_SIZE
-    #: None or True: the hand-written kernels (on CUDA tensors).
+    #: None or True: the hand-written kernels (on CUDA tensors); False:
+    #: their plain torch versions.
     use_pallas: Optional[bool] = None
     leaf_engine: str = "auto"
     strategy: str = "auto"

@@ -57,6 +57,11 @@ The branches, and the JAX lines each stands for (``_build_distributed``
   JAX package's do), ``transpose2`` per hi/lo pair, the join and the 1/n
   scale in f64.
 
+A planner built on ``Options(use_pallas=False)`` runs every one of these
+passes on its plain version (``ops/route.PLAIN``), as the JAX package's
+branches follow its ``use_pallas``: the oracle route, which launches no
+kernel.
+
 The permuted-input twiddle W_n^(k1*m2), and in f32 the first long-column
 pass's where ``colfft``'s own twiddle cannot express it, are plain torch
 (``ops/longcol.twiddle_``), as the JAX package computes them in XLA
@@ -85,11 +90,11 @@ import torch.distributed as dist
 from ..errors import NonPowerOfTwoError, ensure_power_of_two
 from ..fft import _as_tensor, _coerce_direction
 from ..options import Options
-from ..ops.dd import dd_shard_tables, ddcol
+from ..ops.dd import dd_shard_tables
 from ..ops.df64 import split_f64
 from ..ops.fourstep import plan_rows, rows_dd, rows_f32, rows_native
 from ..ops.longcol import columns, transpose4, twiddle_
-from ..ops.transpose import transpose2, transpose2_64
+from ..ops.route import KERNELS, passes_for
 from ..planner import Direction, PlannerDit64
 
 __all__ = ["fft_distributed", "DD_DIST_MIN_COL"]
@@ -163,18 +168,20 @@ class _Plan:
     #: [re, im] -> the row DFTs of length n2 (the list is emptied)
     rows: Callable
     transpose: Callable
+    #: ``ops/route.KERNELS``, or ``PLAIN`` on a ``use_pallas=False`` planner
+    passes: object
 
 
-def _row_pass(planner, plan, leaf_kernel) -> Callable:
-    """The row DFTs of ``plan`` on the planner's kernels, as a function of
-    a list [re, im] that it empties: ``rows_native`` on an f64 planner's
-    native tables, ``rows_f32`` on an f32 planner's; each drops the planes
-    once its first kernel has read them."""
+def _row_pass(planner, plan, leaf_kernel, passes=KERNELS) -> Callable:
+    """The row DFTs of ``plan`` on the planner's kernels (``passes``), as a
+    function of a list [re, im] that it empties: ``rows_native`` on an f64
+    planner's native tables, ``rows_f32`` on an f32 planner's; each drops
+    the planes once its first kernel has read them."""
     if planner.dtype == np.float64:
         corrs = planner.native_tables_for(plan)
-        return lambda pair: rows_native(pair, plan, corrs)
+        return lambda pair: rows_native(pair, plan, corrs, passes)
     corrs = planner.tables_for(plan, leaf_kernel)
-    return lambda pair: rows_f32(pair, plan, corrs, leaf_kernel)
+    return lambda pair: rows_f32(pair, plan, corrs, leaf_kernel, passes)
 
 
 def _to_rows(pair, p: _Plan):
@@ -190,7 +197,7 @@ def _to_rows(pair, p: _Plan):
 def _natural(re_l, im_l, p: _Plan, permuted_output: bool):
     """Steps 1-6 on this rank's (n1/d, n2) rows; returns its flat shard."""
     cols = [_row_to_col(x, p.n1, p.n2, p.d, p.group) for x in (re_l, im_l)]
-    t = list(columns(cols, p.n, p.n1, p.rank * (p.n2 // p.d), False, p.f64))
+    t = list(columns(cols, p.n, p.n1, p.rank * (p.n2 // p.d), False, p.f64, p.passes))
     d_re, d_im = p.rows(_to_rows(t, p))
     if permuted_output:
         return d_re.reshape(-1), d_im.reshape(-1)
@@ -216,7 +223,7 @@ def _permuted_in(re_l, im_l, p: _Plan):
     del r_re
     cols.append(_row_to_col(r_im, p.n1, p.n2, p.d, p.group))
     del r_im
-    z = list(columns(cols, p.n, p.n1, 0, True, p.f64))
+    z = list(columns(cols, p.n, p.n1, 0, True, p.f64, p.passes))
     # block s holds this rank's rows of columns [s*n2/d, (s+1)*n2/d)
     out = []
     while z:
@@ -235,12 +242,12 @@ def _dd_row_planner(n2: int, leaf_limit: int, engine: str, device):
     return PlannerDit64(n2, options=opts, device=device)
 
 
-def _dd_columns(quad, n: int, n1: int, col_base: int):
+def _dd_columns(quad, n: int, n1: int, col_base: int, passes):
     """The dd column pass of this rank's (n1, c) quadruple, any width:
     ``ddcol`` with the block's tables."""
     cols = int(quad[0].shape[-1])
     t1, t2 = dd_shard_tables(n, n1, cols, col_base, quad[0].device)
-    return ddcol(*quad, t1, t2, n1)
+    return passes.ddcol(*quad, t1, t2, n1)
 
 
 def _natural_dd(re_l, im_l, p: _Plan, rp: PlannerDit64, dd_leaf):
@@ -250,17 +257,17 @@ def _natural_dd(re_l, im_l, p: _Plan, rp: PlannerDit64, dd_leaf):
     cols = []
     while quad:
         cols.append(_row_to_col(quad.pop(0), p.n1, p.n2, p.d, p.group))
-    z = list(_dd_columns(cols, p.n, p.n1, p.rank * (p.n2 // p.d)))
+    z = list(_dd_columns(cols, p.n, p.n1, p.rank * (p.n2 // p.d), p.passes))
     del cols
     rows = []
     while z:
         rows += _to_rows([z.pop(0)], p)
     tables, corrs = rp.dd_state
-    out = list(rows_dd(rows, rp.plan, tables, corrs, dd_leaf))
+    out = list(rows_dd(rows, rp.plan, tables, corrs, dd_leaf, p.passes))
     cols = []
     while out:
         cols.append(_row_to_col(out.pop(0), p.n1, p.n2, p.d, p.group))
-    flat = transpose4(cols)
+    flat = transpose4(cols, p.passes)
     del cols
     out_re = flat[0].double() + flat[1].double()
     out_im = flat[2].double() + flat[3].double()
@@ -336,11 +343,13 @@ def fft_distributed(reals, imags, direction, planner, *, group=None,
         re_l, im_l = im_l, re_l
     view = (n1 // d, n2)
     leaf_kernel = planner.options.leaf_kernel
+    passes = passes_for(planner.options.use_pallas is False)
     p = _Plan(
         n, n1, n2, d, rank, group, f64,
         rows=None if dd else _row_pass(planner, plan_rows(n2, leaf_limit),
-                                       leaf_kernel),
-        transpose=transpose2_64 if f64 else transpose2,
+                                       leaf_kernel, passes),
+        transpose=passes.transpose2_64 if f64 else passes.transpose2,
+        passes=passes,
     )
     if dd:
         dd_leaf = engine.split("-", 1)[1] if "-" in engine else None

@@ -24,6 +24,9 @@ as the mirror; one device runs the paired kernel), both directions on the
 planner's quarter table. The inverse's half-length transform is the forward on swapped
 planes, unscaled, and the 2/n scale is folded into ``interleave_scale``.
 Every check precedes the first collective and fails alike on every rank.
+An inner planner built on ``Options(use_pallas=False)`` runs the four
+passes and the half-length transform on their plain versions
+(``ops/route.PLAIN``), as the JAX package follows its ``use_pallas``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch.distributed as dist
 
 from ..errors import LengthMismatchError, NonPowerOfTwoError, ensure_power_of_two
 from ..fft import _as_tensor
-from ..ops.r2c import deinterleave, interleave_scale, pre_untangle, untangle
+from ..ops.route import passes_for
 from ..planner import Direction
 from .fourstep_dist import _layout, fft_distributed
 
@@ -125,13 +128,14 @@ def r2c_fft_distributed(signal, planner, *, group=None):
     half = n // 2
     length = half // d
     _layout(half, d, planner.dit_planner, False)
-    even, odd = deinterleave(x)
+    k = passes_for(planner.dit_planner.options.use_pallas is False)
+    even, odd = k.deinterleave(x)
     z_re, z_im = fft_distributed(even, odd, Direction.Forward, planner.dit_planner,
                                  group=group)
     del even, odd
     mirror = _mirror(z_re, z_im, length, rank, d, group, False)
-    return untangle(z_re, z_im, planner.twiddles_re, planner.twiddles_im, mirror,
-                    k0=rank * length, half=half, nyquist=rank == d - 1)
+    return k.untangle(z_re, z_im, planner.twiddles_re, planner.twiddles_im, mirror,
+                      k0=rank * length, half=half, nyquist=rank == d - 1)
 
 
 def c2r_fft_distributed(spec_re, spec_im, planner, *, group=None):
@@ -160,12 +164,13 @@ def c2r_fft_distributed(spec_re, spec_im, planner, *, group=None):
     _check_r2c_size(n, d)
     half = n // 2
     _layout(half, d, planner.dit_planner, False)
+    k = passes_for(planner.dit_planner.options.use_pallas is False)
     mirror = _mirror(a_re, a_im, length, rank, d, group, True)
-    z_re, z_im = pre_untangle(a_re[:length], a_im[:length], planner.twiddles_re,
-                              planner.twiddles_im, mirror, k0=rank * length, half=half)
+    z_re, z_im = k.pre_untangle(a_re[:length], a_im[:length], planner.twiddles_re,
+                                planner.twiddles_im, mirror, k0=rank * length, half=half)
     del mirror
     # swap trick: swap(IDFT(z)) = DFT(swap(z)) / H, the 1/H in the scale
     o_im, o_re = fft_distributed(z_im, z_re, Direction.Forward, planner.dit_planner,
                                  group=group)
     del z_re, z_im
-    return interleave_scale(o_re, o_im, 2.0 / n)
+    return k.interleave_scale(o_re, o_im, 2.0 / n)

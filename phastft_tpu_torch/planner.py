@@ -48,23 +48,35 @@ JAX planner's ``leaf_corrs``, ``dd_state`` or native state
 (``fast_tables``, ``leaf_corrs``), so both packages compute from the same
 bits.
 
+Both DIT planners also hold, each built on first use, the staged
+strategy's state as the JAX planner holds it: ``stage_twiddles`` (stage s:
+W_{2^(s+1)}^k for k < 2^s, exact f64 angles rounded once) and ``bitrev``
+(the bit-reversal index table); ``num_twiddles()`` counts the former.
+
+``PlannerMode.Tune`` (``tune.py``) times candidate options on the
+planner's device and keeps the fastest, cached in process and on disk;
+explicit ``options`` win over it, as in the JAX package.
+
 ``PlannerR2c32`` / ``PlannerR2c64`` plan a real transform of n points: an
-n/2 DIT planner of the same dtype and device (on ``inner_options``) and the
-untangle table 0.5 W_n^k, k = 0..n/4, which both directions read; the
-JAX planner's full-length table for k = 0..n/2 - 1 is built on first
-access, and no transform reads it.
+n/2 DIT planner of the same dtype and device (on ``inner_options``; with
+``PlannerMode.Tune`` and none given, the winner of the whole-R2C race,
+``tune.tune_r2c_options``) and the untangle table 0.5 W_n^k, k = 0..n/4,
+which both directions read; the JAX planner's full-length table for
+k = 0..n/2 - 1 is built on first access, and no transform reads it.
 """
 
 from __future__ import annotations
 
 import enum
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .errors import NonPowerOfTwoError, ensure_power_of_two, not_ported
+from .errors import NonPowerOfTwoError, ensure_power_of_two
 from .options import Options
+from .ops.bitrev import bit_reverse_indices
 from .ops.colfft import col_split_tables_host, col_tile, col_tile3d
 from .ops.dd import MAX_LEAF_N1 as DD_MAX_LEAF_N1
 from .ops.dd import dd_col_tables_host
@@ -107,7 +119,9 @@ class Direction(enum.Enum):
 
 
 class PlannerMode(enum.Enum):
-    """Plan-construction mode. ``Tune`` is not ported yet."""
+    """Plan-construction mode. ``Heuristic`` takes
+    ``Options.guess_options``; ``Tune`` times every candidate plan on the
+    planner's device and keeps the fastest (``tune.py``)."""
 
     Heuristic = 0
     Tune = 1
@@ -168,6 +182,22 @@ def _tables_host(plan, dtype_name: str, hybrid: bool = False):
     return out
 
 
+def _twiddle_table(m: int, dtype) -> tuple[np.ndarray, np.ndarray]:
+    """(cos, -sin) of W_m^k = exp(-2 pi i k / m) for k in [0, m/2), from
+    exact f64 angles cast once to ``dtype`` (the JAX planner's table)."""
+    k = np.arange(m // 2, dtype=np.float64)
+    ang = -2.0 * np.pi * k / float(m)
+    return np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)
+
+
+@functools.lru_cache(maxsize=4)
+def _stage_twiddles_cached(n: int, dtype_name: str):
+    """Host tables of the staged strategy: stage s (chunk 2^(s+1)) holds
+    W_{2^(s+1)}^k for k < 2^s; n - 1 complex entries in all."""
+    return tuple(_twiddle_table(1 << (s + 1), np.dtype(dtype_name))
+                 for s in range(n.bit_length() - 1))
+
+
 def _to_device(arrays, device):
     # a copy: the planner never shares memory with the (cached) host tables
     return tuple(torch.from_numpy(np.array(a, copy=True)).to(device)
@@ -175,8 +205,8 @@ def _to_device(arrays, device):
 
 
 class _PlannerDitBase:
-    """What both planners share: the size, the device, the options and
-    the plan, with the checks of what the port does not run yet."""
+    """What both planners share: the size, the device, the options (given,
+    tuned or guessed), the plan, and the staged strategy's state."""
 
     dtype: np.dtype
 
@@ -184,15 +214,43 @@ class _PlannerDitBase:
         self.log_n = ensure_power_of_two(n)
         self.n = n
         self.mode = mode
-        if mode is PlannerMode.Tune:
-            raise not_ported("PlannerMode.Tune", "tune")
         self.device = resolve_device(device)
         self._derived = {}
-        self.options = (
-            options if options is not None
-            else Options.guess_options(n, self.dtype)
-        )
+        if options is not None:
+            self.options = options
+        elif mode is PlannerMode.Tune:
+            from .tune import tune_options  # tune builds planners itself
+
+            self.options = tune_options(n, self.dtype, self.device)
+        else:
+            self.options = Options.guess_options(n, self.dtype)
         self.plan = plan_rows(n, self.options.leaf_fft_size)
+        self._stage_twiddles = None
+        self._bitrev = None
+
+    @property
+    def stage_twiddles(self):
+        """The staged strategy's tables on the planner's device, built on
+        first use: a tuple of (wre, wim) per stage s, each of length 2^s, in
+        the planner's dtype."""
+        if self._stage_twiddles is None:
+            self._stage_twiddles = tuple(
+                _to_device(stage, self.device)
+                for stage in _stage_twiddles_cached(self.n, self.dtype.name))
+        return self._stage_twiddles
+
+    @property
+    def bitrev(self):
+        """The bit-reversal index table (int32) on the planner's device,
+        built on first use."""
+        if self._bitrev is None:
+            self._bitrev = torch.from_numpy(bit_reverse_indices(self.n)).to(self.device)
+        return self._bitrev
+
+    def num_twiddles(self) -> int:
+        """Complex entries of ``stage_twiddles`` (2^0 + ... + 2^(log n - 1)
+        = n - 1), counted without building them."""
+        return self.n - 1
 
     @classmethod
     def new(cls, n: int, device=None):
@@ -201,7 +259,8 @@ class _PlannerDitBase:
 
     @classmethod
     def with_mode(cls, n: int, mode: PlannerMode, device=None):
-        """A planner of ``mode`` (``PlannerMode.Tune`` raises: not ported)."""
+        """A planner of ``mode``: ``PlannerMode.Tune`` times the candidate
+        options on ``device`` (``tune.tune_options``)."""
         return cls(n, mode, device=device)
 
 
@@ -525,8 +584,11 @@ class _PlannerR2cBase:
     ``_im``): the JAX planner's full-length table, k in [0, n/2), built on
     first access; no transform of the port reads it. n >= 4, any power of
     two; on a GPU the tables are built on the card
-    (``ops/r2c.r2c_twiddles``). ``PlannerMode.Tune`` raises (not
-    ported)."""
+    (``ops/r2c.r2c_twiddles``). With ``PlannerMode.Tune`` and no
+    ``inner_options``, the inner options are the winner of the whole-R2C
+    race (``tune.tune_r2c_options``), and the inner planner is built in
+    ``Heuristic`` mode on them, as in the JAX package; ``mode`` stays
+    ``Tune``."""
 
     dtype: np.dtype
     _dit_cls: type
@@ -543,11 +605,13 @@ class _PlannerR2cBase:
             raise NonPowerOfTwoError(
                 f"R2C requires n to be a power of 2 and n >= 4, got {n}"
             )
-        if mode is PlannerMode.Tune:
-            raise not_ported("PlannerMode.Tune", "tune")
         self.n = n
         self.log_n = log_n
         self.mode = mode
+        if inner_options is None and mode is PlannerMode.Tune:
+            from .tune import tune_r2c_options
+
+            inner_options = tune_r2c_options(n, self.dtype, resolve_device(device))
         self.dit_planner = self._dit_cls(
             n // 2, PlannerMode.Heuristic, options=inner_options, device=device
         )

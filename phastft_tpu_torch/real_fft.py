@@ -13,7 +13,10 @@ the inner planner's engine, picked by ``fft.engine_of`` as for the C2C
 entries: f32 on the planner's leaf kernel, f64 on the native engine unless
 the inner planner's ``f64_engine`` starts with "df64" (then the df64
 engine, whose "df64-oz" tables arm the Ozaki kernels). The untangles run in the planner's dtype on
-the joined spectrum (``ops/r2c.py``). ``*_with_planner_and_scratch`` takes
+the joined spectrum (``ops/r2c.py``). An inner planner built on
+``Options(use_pallas=False)`` (``inner_options``) runs the whole transform,
+the four passes and the half-length C2C, on the plain versions, as the JAX
+package passes its ``use_pallas`` on: an oracle that launches no kernel. ``*_with_planner_and_scratch`` takes
 ``scratch`` and ignores it, as the JAX package does.
 """
 

@@ -2,9 +2,10 @@
 numpy's f64 FFT, plus its error paths.
 
 The error-path tests mirror tests/test_errors.py on the f32 and f64
-entries: the same classes and messages. PlannerMode.Tune raises
-NotImplementedError naming its ROADMAP.md item; n = 2^31 is planned as the
-JAX package plans it, and leaves outside 128..2^16 points run. The f64 entries run the df64 (paired-f32)
+entries: the same classes and messages. PlannerMode.Tune, the staged
+strategy and use_pallas=False run (tests/test_torch_tune.py,
+test_torch_staged.py and test_torch_plain.py hold them to the JAX
+package); n = 2^31 is planned as the JAX package plans it, and leaves outside 128..2^16 points run. The f64 entries run the df64 (paired-f32)
 engine; their tolerances are on f64 values.
 """
 
@@ -478,13 +479,26 @@ def test_f64_not_implemented(entry, monkeypatch):
 
 
 def test_tune_and_classic_not_implemented():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pt.PlannerDit32(N, pt.PlannerMode.Tune, device="cpu")
+    """Items 7 and 8 are ported: a Tune planner is built on measured options
+    and transforms, and the staged and plain pipelines run, against numpy
+    (the plain one bit for bit with the default route: both are plain on the
+    CPU)."""
+    n = 1 << 12
+    rng = np.random.default_rng(12)
+    re, im = _pair(rng, (n,))
+    tuned = pt.PlannerDit32(n, pt.PlannerMode.Tune, device="cpu")
+    assert tuned.mode is pt.PlannerMode.Tune
+    assert tuned.options.leaf_fft_size in (1 << 10, 1 << 12)
+    got = pt.fft_32_dit_with_planner(re, im, "f", tuned)
+    assert _rel(_c(got), np.fft.fft(re.astype(np.float64) + 1j * im)) <= _bound(n)
     planner = pt.PlannerDit32(N, device="cpu")
-    x = np.zeros(N, np.float32)
+    re, im = _pair(rng, (N,))
+    want = np.fft.fft(re.astype(np.float64) + 1j * im)
+    default = pt.fft_32_dit_with_planner(re, im, "f", planner)
     for opts in (pt.Options(strategy="staged"), pt.Options(use_pallas=False)):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            pt.fft_32_dit_with_planner_and_opts(x, x, "f", planner, opts)
+        got = pt.fft_32_dit_with_planner_and_opts(re, im, "f", planner, opts)
+        assert _rel(_c(got), want) <= _bound(N)
+    assert torch.equal(got[0], default[0]) and torch.equal(got[1], default[1])
 
 
 def test_default_device_is_cuda(monkeypatch):
@@ -653,7 +667,7 @@ def test_f64_oz_per_call_engine_rules(monkeypatch):
     per-call "df64-oz" on a df64 planner runs the df64 kernels (and no
     longer raises), a per-call "df64" on an oz planner keeps the oz
     kernels, and an oz planner's leaf plan runs the df64 leaf."""
-    from phastft_tpu_torch.ops import fourstep
+    from phastft_tpu_torch.ops.route import KERNELS
 
     n = 1 << 17
     rng = np.random.default_rng(17)
@@ -665,8 +679,8 @@ def test_f64_oz_per_call_engine_rules(monkeypatch):
                                                f64_engine="df64-oz"), device="cpu")
     calls = []
     for name in ("ozcol", "ddcol"):
-        real = getattr(fourstep, name)
-        monkeypatch.setattr(fourstep, name, lambda *a, _n=name, _f=real:
+        real = getattr(KERNELS, name)
+        monkeypatch.setattr(KERNELS, name, lambda *a, _n=name, _f=real:
                             calls.append(_n) or _f(*a))
     a = pt.fft_64_dit_with_planner_and_opts(
         re, im, "f", df64, pt.Options(f64_engine="df64-oz"))
@@ -740,8 +754,13 @@ def test_f64_error_paths(case, monkeypatch):
                 re, im, phastft_tpu.Direction.Forward, jax_planner)
             assert _rel(got, _c(ref)) <= 1e-13
             assert _rel(got, np.fft.fft(re + 1j * im, axis=-1)) <= 1e-12
-        with pytest.raises(NotImplementedError, match="item 8"):
-            pt.PlannerDit64(n, pt.PlannerMode.Tune, device="cpu")
+        # Tune (item 8, done) races the native and df64 engines on the
+        # 2^10 leaf and transforms on the winner
+        x, y = np.random.default_rng(10).standard_normal((2, n))
+        tuned = pt.PlannerDit64(n, pt.PlannerMode.Tune, device="cpu")
+        assert tuned.options.f64_engine in ("native", "df64")
+        got = _g(pt.fft_64_dit_with_planner(x, y, "f", tuned))
+        assert _rel(got, np.fft.fft(x + 1j * y)) <= F64_NUMPY_TOL
 
 
 # -- the public surface against the reference's (ROADMAP Queue 3) ---------------
@@ -766,7 +785,8 @@ def test_guess_options_without_f32_takes_the_f64_rule(dtype):
 
 
 def test_planner_new_and_with_mode():
-    """Fault 3: the reference's constructor aliases; Tune is not ported."""
+    """Fault 3: the reference's constructor aliases; ``with_mode`` builds a
+    Tune planner on measured options, planned as a JAX planner on them."""
     for cls, ref_cls in ((pt.PlannerDit32, phastft_tpu.PlannerDit32),
                          (pt.PlannerDit64, phastft_tpu.PlannerDit64)):
         ref = ref_cls.new(N)
@@ -775,8 +795,15 @@ def test_planner_new_and_with_mode():
             assert type(planner) is cls and planner.n == ref.n
             assert planner.plan == ref.plan
             assert planner.mode is pt.PlannerMode.Heuristic
-        with pytest.raises(NotImplementedError, match="item 8"):
-            cls.with_mode(N, pt.PlannerMode.Tune, device="cpu")
+        tuned = cls.with_mode(1 << 10, pt.PlannerMode.Tune, device="cpu")
+        assert type(tuned) is cls and tuned.mode is pt.PlannerMode.Tune
+        jax_opts = phastft_tpu.Options(leaf_fft_size=tuned.options.leaf_fft_size)
+        assert tuned.plan == ref_cls(1 << 10, options=jax_opts).plan
+        x = np.zeros(1 << 10, tuned.dtype)
+        x[0] = 1.0
+        out = (pt.fft_64_dit_with_planner if cls is pt.PlannerDit64
+               else pt.fft_32_dit_with_planner)(x, 0 * x, "f", tuned)
+        assert np.allclose(out[0].numpy(), 1.0) and np.allclose(out[1].numpy(), 0.0)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls.new(N)  # the default device is CUDA, absent here
 
@@ -796,7 +823,7 @@ def test_tensor_of_another_dtype_is_cast_as_in_jax():
 @pytest.mark.parametrize("field", ["strategy", "use_pallas"])
 def test_shapes_are_checked_before_the_pipeline(field):
     """Fault 5: mismatched planes give LengthMismatchError before the
-    staged / plain pipelines' NotImplementedError, as in the reference."""
+    staged / plain pipelines run, as in the reference."""
     kw = {"strategy": "staged"} if field == "strategy" else {"use_pallas": False}
     x, y = np.zeros(N, np.float32), np.zeros(2 * N, np.float32)
     with pytest.raises(pt.LengthMismatchError, match="equal length"):
@@ -812,7 +839,7 @@ def test_with_planner_runs_on_the_planners_options(monkeypatch):
     entries pass ``Options.guess_options(n)`` per call, as the reference
     does. Its strategy is "auto", so a planner built on the staged strategy
     runs the default pipeline there (the explicit-options entry on the
-    planner's own options raises item 7's error); its ``f64_engine`` is None
+    planner's own options runs the staged one); its ``f64_engine`` is None
     at every n, so the planner's engine decides."""
     import phastft_tpu_torch.fft as port_fft
 
@@ -827,8 +854,9 @@ def test_with_planner_runs_on_the_planners_options(monkeypatch):
     got = pt.fft_32_dit_with_planner(re, im, "f", planner)
     want = np.fft.fft(re.astype(np.float64) + 1j * im)
     assert _rel(_c((got[0].numpy(), got[1].numpy())), want) <= _bound(N)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt.fft_32_dit_with_planner_and_opts(re, im, "f", planner, planner.options)
+    staged = pt.fft_32_dit_with_planner_and_opts(re, im, "f", planner, planner.options)
+    assert _rel(_c((staged[0].numpy(), staged[1].numpy())), want) <= _bound(N)
+    assert not torch.equal(staged[0], got[0])  # another pipeline's roundings
     n = 1 << 13
     x, y = rng.standard_normal(n), rng.standard_normal(n)
     split = pt.PlannerDit64(n, options=pt.Options(leaf_fft_size=n,

@@ -33,6 +33,7 @@ from phastft_tpu.parallel import fourstep_dist as jax_dist
 from phastft_tpu_torch.ops import _build, colfft as colmod, fourstep
 from phastft_tpu_torch.ops import leaf as leafmod, leaft as leaftmod
 from phastft_tpu_torch.ops import longcol, native, r2c, transpose
+from phastft_tpu_torch.ops.route import KERNELS
 from phastft_tpu_torch.parallel import fourstep_dist as dist
 
 
@@ -198,19 +199,17 @@ def _pair(shape, dtype=torch.float32):
 
 
 class _Launches:
-    """Stand-ins for the kernel wrappers of ``ops/fourstep``,
-    ``ops/longcol`` and ``parallel/fourstep_dist`` on meta tensors: each
-    checks the arguments
+    """Stand-ins for the kernel wrappers that ``ops/fourstep``,
+    ``ops/longcol`` and ``parallel/fourstep_dist`` call (through
+    ``ops/route.KERNELS``) on meta tensors: each checks the arguments
     its wrapper would pass (the wrapper's own ``*_args``) and returns the
     output's shape."""
 
     def __init__(self, monkeypatch):
         self.seen = []
-        for mod in (fourstep, longcol, dist):
-            for name in ("colfft", "colfft_out3d", "leaft", "leaf", "leaf3",
-                         "transpose2", "col64", "leaf64", "transpose2_64"):
-                if hasattr(mod, name):
-                    monkeypatch.setattr(mod, name, getattr(self, name))
+        for name in ("colfft", "colfft_out3d", "leaft", "leaf", "leaf3",
+                     "transpose2", "col64", "leaf64", "transpose2_64"):
+            monkeypatch.setattr(KERNELS, name, getattr(self, name))
 
     def _check(self, entry, args, out):
         _build.check_args(entry, args)
@@ -355,8 +354,9 @@ def test_check_args_refuses_a_cut_int():
 # -- hand-over ---------------------------------------------------------------
 
 def _watch(monkeypatch, where, col_names):
-    """Record calls and returns of the kernels ``where`` names ([(module,
-    names)]) and the death of each output plane of those in ``col_names``."""
+    """Record calls and returns of the kernels ``where`` names ([(object,
+    names)], the drivers' ``ops/route.KERNELS``) and the death of each
+    output plane of those in ``col_names``."""
     events, outs = [], []
 
     def wrap(name, fn):
@@ -399,7 +399,7 @@ def test_f32_column_output_handed_over(log_n, leaf, kernels, monkeypatch):
     unchanged, and the result is the transform."""
     events, outs = _watch(
         monkeypatch,
-        [(fourstep, ("colfft", "colfft_out3d", "leaft", "leaf", "transpose2"))],
+        [(KERNELS, ("colfft", "colfft_out3d", "leaft", "leaf", "transpose2"))],
         ("colfft", "colfft_out3d"))
     n = 1 << log_n
     planner = pt.PlannerDit32(n, options=pt.Options(leaf_fft_size=leaf), device="cpu")
@@ -421,8 +421,8 @@ def test_f32_column_output_handed_over(log_n, leaf, kernels, monkeypatch):
 def test_dd_column_output_handed_over(monkeypatch):
     """``fft_rows_dd``: the outer ``ddcol``'s four planes die after the inner
     ``ddcol`` returns, the inner one's after ``ddleaf`` returns."""
-    events, outs = _watch(monkeypatch, [(fourstep, ("ddcol", "ddleaf")),
-                                        (longcol, ("transpose2",))], ("ddcol",))
+    events, outs = _watch(monkeypatch, [(KERNELS, ("ddcol", "ddleaf", "transpose2"))],
+                          ("ddcol",))
     n = 1 << 19
     planner = pt.PlannerDit64(n, options=pt.Options(leaf_fft_size=128, f64_engine="df64"),
                               device="cpu")
@@ -446,8 +446,7 @@ def test_r2c_pairs_handed_over(monkeypatch):
     kernel has read it, the C2R's z likewise; the caller's signal and
     spectrum stay."""
     events, outs = _watch(
-        monkeypatch, [(r2c, ("deinterleave", "pre_untangle")),
-                      (fourstep, ("colfft_out3d", "leaft"))],
+        monkeypatch, [(KERNELS, ("deinterleave", "pre_untangle", "colfft_out3d", "leaft"))],
         ("deinterleave", "pre_untangle"))
     n = 1 << 18
     planner = pt.PlannerR2c32(n, device="cpu")

@@ -15,7 +15,7 @@ import torch
 
 import phastft_tpu
 import phastft_tpu_torch as pt
-from phastft_tpu_torch.ops import fourstep
+from phastft_tpu_torch.ops.route import KERNELS
 from phastft_tpu_torch.ops.leaf import hybrid, hybrid_plain, leaf3
 
 
@@ -81,7 +81,7 @@ def hybrid_calls(monkeypatch):
         calls.append(args[3])
         return hybrid(*args)
 
-    monkeypatch.setattr(fourstep, "hybrid", counted)
+    monkeypatch.setattr(KERNELS, "hybrid", counted)
     return calls
 
 
@@ -295,7 +295,7 @@ def test_2_17_leaf_without_hybrid_runs_leaf3(hybrid_calls, monkeypatch):
         calls3.append(args[3])
         return leaf3(*args)
 
-    monkeypatch.setattr(fourstep, "leaf3", counted)
+    monkeypatch.setattr(KERNELS, "leaf3", counted)
     n = 1 << 17
     rng = np.random.default_rng(171)
     re, im = _pair(rng, (1, n))

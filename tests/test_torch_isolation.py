@@ -44,7 +44,9 @@ def test_import_pulls_in_no_jax():
         "import sys, phastft_tpu_torch, phastft_tpu_torch.fft, "
         "phastft_tpu_torch.ops.fourstep, phastft_tpu_torch.ops.dd, "
         "phastft_tpu_torch.ops.df64, phastft_tpu_torch.ops.leaf, "
-        "phastft_tpu_torch.parallel, phastft_tpu_torch.parallel.fourstep_dist\n"
+        "phastft_tpu_torch.parallel, phastft_tpu_torch.parallel.fourstep_dist, "
+        "phastft_tpu_torch.tune, phastft_tpu_torch.ops.bitrev, "
+        "phastft_tpu_torch.ops.route\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'phastft_tpu') "
         "or m.startswith(('jax.', 'phastft_tpu.')))\n"
         "print(repr(bad))"
@@ -73,7 +75,9 @@ def test_kernel_modules_import_without_nvcc_or_gpu():
         "import phastft_tpu_torch.ops.colfft, phastft_tpu_torch.ops.leaft, "
         "phastft_tpu_torch.ops.leaf, phastft_tpu_torch.ops.transpose, "
         "phastft_tpu_torch.ops.dd, phastft_tpu_torch.ops.df64, "
-        "phastft_tpu_torch.parallel, phastft_tpu_torch.parallel.fourstep_dist\n"
+        "phastft_tpu_torch.parallel, phastft_tpu_torch.parallel.fourstep_dist, "
+        "phastft_tpu_torch.tune, phastft_tpu_torch.ops.bitrev, "
+        "phastft_tpu_torch.ops.route\n"
         "from phastft_tpu_torch.ops import _build\n"
         "print(_build._lib is None, _build.build_log() == '')",
         PATH="/nonexistent", CUDA_VISIBLE_DEVICES="",

@@ -320,7 +320,7 @@ def test_column_output_is_handed_over(monkeypatch):
     unchanged."""
     import weakref
 
-    from phastft_tpu_torch.ops import fourstep
+    from phastft_tpu_torch.ops.route import KERNELS
 
     events, col_outs = [], []
 
@@ -338,7 +338,7 @@ def test_column_output_is_handed_over(monkeypatch):
         return wrapped
 
     for name in ("col64", "leaf64", "transpose2_64"):
-        monkeypatch.setattr(fourstep, name, watch(name, getattr(fourstep, name)))
+        monkeypatch.setattr(KERNELS, name, watch(name, getattr(KERNELS, name)))
     n, leaf = 1 << 19, 128  # outer 32 x 2^14 around 128 x 128
     planner = pt.PlannerDit64(n, options=_opts(pt, n, leaf=leaf), device="cpu")
     rng = np.random.default_rng(9)

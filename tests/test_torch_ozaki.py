@@ -17,7 +17,8 @@ import torch
 
 import phastft_tpu
 import phastft_tpu_torch as pt
-from phastft_tpu_torch.ops import fourstep, ozaki, ozdd
+from phastft_tpu_torch.ops import ozaki, ozdd
+from phastft_tpu_torch.ops.route import KERNELS
 from phastft_tpu_torch.ops.df64 import split_hi_lo
 
 
@@ -313,8 +314,8 @@ def test_oz_roundtrip_and_inverse():
 def test_oz_dispatch(monkeypatch, case, want):
     calls = []
     for name in ("ozcol", "ozleaft", "ddcol", "ddleaf"):
-        real = getattr(fourstep, name)
-        monkeypatch.setattr(fourstep, name, lambda *a, _n=name, _f=real:
+        real = getattr(KERNELS, name)
+        monkeypatch.setattr(KERNELS, name, lambda *a, _n=name, _f=real:
                             calls.append(_n) or _f(*a))
     n, leaf = 1 << 17, 1 << 10
     if case == "oz planner outside the window":

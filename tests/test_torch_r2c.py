@@ -106,8 +106,16 @@ def test_planner_errors(cls, monkeypatch):
             c(n, device="cpu")
     with pytest.raises(pt.NonPowerOfTwoError, match="n must be a power of 2, got 12"):
         c(12, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        c(16, pt.PlannerMode.Tune, device="cpu")
+    # Tune (item 8, done): the inner options win the whole-R2C race
+    tuned = c(16, pt.PlannerMode.Tune, device="cpu")
+    assert tuned.mode is pt.PlannerMode.Tune
+    assert tuned.inner_opts.leaf_fft_size in (128, 256)
+    x = np.random.default_rng(16).standard_normal(16)
+    spec = (pt.r2c_fft_f64_with_planner if cls == "PlannerR2c64"
+            else pt.r2c_fft_f32_with_planner)(x, tuned)
+    want = np.fft.rfft(x)
+    got = spec[0].double().numpy() + 1j * spec[1].double().numpy()
+    assert np.linalg.norm(got - want) <= 1e-6 * np.linalg.norm(want)
     # n = 2^32 (item 16, done): the inner planner is asked for n/2 = 2^31,
     # and the quarter table for n/4 + 1 entries (built here as a stand-in:
     # 8 GiB on the host otherwise)
