@@ -193,7 +193,8 @@ on any failed check:
    a ``file://`` store in the output directory), counters set to 0 just before and read
    just after, each transform's launches checked against its plan (one
    ``colfft`` or ``colfft_nocorr``, the row plan's leaf kernel,
-   ``transpose2`` for natural output): ``fft_distributed`` at 2^19 (n1 = 128)
+   ``transpose2`` for natural output; the column pass once a chunk of the
+   port's count, ``fourstep_dist.column_chunks``): ``fft_distributed`` at 2^19 (n1 = 128)
    and 2^25 (n1 = 2048, a 256 MiB local block) forward against
    an f64 FFT, ``permuted_output`` into a ``permuted_input`` inverse
    (<= 1e-6), a ``permuted_input`` forward of the permuted signal against
@@ -418,14 +419,37 @@ Past 2^30 (ROADMAP item 16) last, in the same world of one rank
    complex128 oracle, its time beside the default engine's, and every
    kernel's launch counter unchanged across each call (a plain or staged
    call that launches a kernel fails the phase).
+41. ``dist_chunks`` (ROADMAP item 19; ``dist_chunks_phases`` prints its
+   seconds): ``fft_distributed``'s chunked column stage at world size 1,
+   each count forced through PHASTFT_TPU_DIST_CHUNKS: f32 2^25 and native
+   f64 2^27, natural and permuted input, at 1, 2, 4, 8 chunks and the
+   default (one chunk), df64 2^24 natural at 1 and 4; each against the
+   card's complex128 oracle (PERF.md section 2's bounds), its max abs
+   difference from the one-chunk output, its launches checked against the
+   chunk-aware ``dist_launches`` (each column pass once a chunk), and its
+   device ms (median, min-max) and enqueue ms.
 
 Every timing follows ``release_memory``'s wait where 8 GiB or more went
 back to CUDA (``cudaFree``) just before it.
 
+``python3 chip_smoke.py --chunks RANKS`` (1, or 4 on four cards) runs none
+of this: ``fft_distributed`` at one chunk and at 4 over RANKS ranks, a card
+and a process each on NCCL (``chunks_rank``): f32 at 2^25 and native f64 at
+2^27 points a rank (and f32 2^27 a rank on four), each against a complex128
+FFT, the two counts' difference, each rank's added peak, ``overlap_ms`` (the
+time a collective's copy and a port kernel ran at once, from the intervals
+of a ``torch.profiler`` trace behind a sleep kernel; an incomplete trace
+fails), then the two counts in turns 1, 4, 4, 1 (three times), device ms
+and host clock: the readings that set ``fourstep_dist._chunk_count``'s
+default. On one rank also f32 2^31 and native 2^30 at both counts on 256
+bins, with their peaks and the native column tables' bytes.
+
 ``python3 chip_smoke.py --turns PARENT`` runs none of this: it times the
 existing transforms (f32 2^20, 2^25, 2^28, native f64 2^24, 2^27, the
-hybrid leaf at 2^16 x 2^11 rows, and the f32 and f64 R2C and C2R at 2^26;
-CUDA events, medians) of the package under
+hybrid leaf at 2^16 x 2^11 rows, the f32 and f64 R2C and C2R at 2^26, and
+``fft_distributed`` at f32 2^25 and native 2^27 at world size 1 in an NCCL
+world of the turn's own, with the device events of one traced call; CUDA
+events, medians) of the package under
 the directory PARENT (a
 ``git archive`` of another commit) and of this checkout's, in turns parent,
 this, this, parent, each turn a process of its own
@@ -442,6 +466,7 @@ the device record. No CUDA device: exit 1 before any result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -631,6 +656,25 @@ COL64_NOCORR_TIME = (2048, 1 << 16)
 #: of a world of one: (dtype, n, n2) at f32 2^30 (n1 = 2^16 = 256 x 256) and
 #: f64 2^29 (n1 = 2^13 = 64 x 128).
 LONG_COLUMN_ROUTES = (("f32", 1 << 30, 1 << 14), ("f64", 1 << 29, 1 << 16))
+#: The chunked column stage of ``fft_distributed`` at world size 1, each
+#: count forced through PHASTFT_TPU_DIST_CHUNKS (None: the default count):
+#: (engine, log2 n, layouts, chunk counts, the first one chunk).
+DIST_CHUNK_CASES = (("f32", 25, ("natural", "permuted_input"), (1, 2, 4, 8, None)),
+                    ("native", 27, ("natural", "permuted_input"), (1, 2, 4, 8, None)),
+                    ("df64", 24, ("natural",), (1, 4)))
+DIST_CHUNK_REPS = 10
+#: ``--chunks RANKS``: (engine, log2 of the points a rank) of the runs at
+#: one chunk and at 4, over RANKS ranks; the turns' rounds; the sizes of the
+#: peaks in a world of one; the mode's time limit in seconds.
+CHUNK_MODE_RUNS = {1: (("f32", 25), ("native", 27)),
+                   4: (("f32", 25), ("f32", 27), ("native", 27))}
+DIST_CHUNK_ROUNDS = 3
+#: 4 chunks faster than one by this factor contradict the default of one.
+DIST_CHUNK_GAIN = 1.03
+CHUNK_MODE_PEAKS = (("f32", 31), ("native", 30))
+CHUNK_MODE_TIMEOUT = 420
+#: The least sleep ahead of a traced call.
+TRACE_SLEEP_MS = 100.0
 #: The native f64 engine: row lengths of the leaf's parity (every n =
 #: 2..2^16, on NATIVE_LEAF_ROWS rows, an odd count; below 2^13 also on three
 #: blocks' rows and one (a ragged last block), from 2^13 on one row and on one
@@ -782,7 +826,8 @@ EDGE_TIME_REPS = 10
 #: transform with Options(leaf_kernel="hybrid") on HYBRID_TIME_POINTS points,
 #: "r2c_*" / "c2r_*" the real transforms through their planner entries.
 TURN_SIZES = (("f32", 20), ("f32", 25), ("f32", 28), ("f64", 24), ("f64", 27), ("hybrid", 16),
-              ("r2c_f32", 26), ("c2r_f32", 26), ("r2c_f64", 26), ("c2r_f64", 26))
+              ("r2c_f32", 26), ("c2r_f32", 26), ("r2c_f64", 26), ("c2r_f64", 26),
+              ("dist_f32", 25), ("dist_f64", 27))
 TURN_REPS = 20
 
 #: Tune (ROADMAP item 8): (kind, dtype, log2 n) raced with PlannerMode.Tune:
@@ -1870,7 +1915,7 @@ def dist_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     from phastft_tpu_torch.ops.leaft import leaft
     from phastft_tpu_torch.ops.transpose import transpose2
     from phastft_tpu_torch.parallel import batch_fft_sharded, fft_distributed
-    from phastft_tpu_torch.parallel.fourstep_dist import _factor
+    from phastft_tpu_torch.parallel.fourstep_dist import _factor, column_chunks
 
     def randn_pair(shape):
         return (torch.randn(shape, generator=gen, device=dev),
@@ -1914,7 +1959,8 @@ def dist_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         n = 1 << log_n
         planner = PlannerDit32(n)
         n1, n2 = _factor(n, 1, planner.options.leaf_fft_size)
-        cols = 1 if n1 > 1 else 0  # n1 = 1: the column pass is a copy
+        # n1 = 1: the column pass is a copy; else one launch a chunk
+        cols = column_chunks(n, 1, planner) if n1 > 1 else 0
         rows = {"leaf3" if n2 == 1 << 16 else "leaf": 1}
         fwd = {"colfft": cols, **rows}
         emit({"phase": "dist_plan", "n": n, "n1": n1, "n2": n2})
@@ -2067,21 +2113,22 @@ def f32_row_launches(plan):
     return want
 
 
-def long_column_launches(n1: int, engine: str, bare: bool = False):
+def long_column_launches(n1: int, engine: str, bare: bool = False, whole: bool = True):
     """{kernel: launches} of ``ops/longcol.columns`` (``engine`` "f32" or
     "native") or ``longcol.dd_columns`` ("dd") over n1 on a block of every
-    column (a single-device leaf's, or a world of one's), ``bare`` for
-    permuted input: one column pass up to 2048; past it two passes (the
-    first one nested again past 2048^2) and two transposes a level (dd: two
-    paired transposes of a quadruple, four transpose2)."""
+    column (a single-device leaf's, or a world of one's; ``whole`` False: a
+    chunk of one), ``bare`` for permuted input: one column pass up to 2048;
+    past it two passes (the first one nested again past 2048^2) and two
+    transposes a level (dd: two paired transposes of a quadruple, four
+    transpose2)."""
     from phastft_tpu_torch.ops.longcol import long_split
 
     col = {"f32": "colfft", "native": "col64", "dd": "ddcol"}[engine]
     tr = "transpose2_64" if engine == "native" else "transpose2"
     # a level's first pass: col64 and ddcol on their tables; in f32 colfft's
-    # own shard twiddle, its bare mode (and the twiddle in torch) for a bare
-    # block
-    first = col + ("_nocorr" if bare and engine == "f32" else "")
+    # own shard twiddle on a block of every column, else its bare mode (and
+    # the twiddle in torch)
+    first = col + ("_nocorr" if (bare or not whole) and engine == "f32" else "")
     last = col + ("_nocorr" if bare else "")
     want = {}
     m = n1
@@ -2095,27 +2142,56 @@ def long_column_launches(n1: int, engine: str, bare: bool = False):
     return want
 
 
-def dist_launches(n: int, leaf: int, f64: bool, layout: str):
-    """{kernel: launches} of one ``fft_distributed`` at world size 1 on the
-    native (``f64``) or f32 pipeline: the column pass (``col64`` /
+def dist_launches(planner, layout: str, chunks=None):
+    """{kernel: launches} of one ``fft_distributed`` at world size 1 on
+    ``planner``'s native (f64) or f32 pipeline: the column pass (``col64`` /
     ``colfft``, their bare modes for ``permuted_input``; past n1 = 2048 two
-    column passes and two transposes, ``long_column_launches``), the row
-    plan of n2, and for natural output the last transpose."""
+    column passes and two transposes, ``long_column_launches``) once a chunk
+    of the column stage (``chunks``, None: the port's own count,
+    ``fourstep_dist.column_chunks``), the row plan of n2, and for natural
+    output the last transpose."""
     from phastft_tpu_torch.ops.fourstep import plan_rows
-    from phastft_tpu_torch.parallel.fourstep_dist import _factor
+    from phastft_tpu_torch.parallel.fourstep_dist import _factor, column_chunks
 
+    n, leaf, f64 = planner.n, planner.options.leaf_fft_size, planner.dtype == np.float64
+    if chunks is None:
+        chunks = column_chunks(n, 1, planner, layout != "natural")
     n1, n2 = _factor(n, 1, leaf)
     rows = native_launches if f64 else f32_row_launches
     want = {}
 
-    def merge(counts):
+    def merge(counts, times=1):
         for k, v in counts.items():
-            want[k] = want.get(k, 0) + v
+            want[k] = want.get(k, 0) + v * times
 
     merge(rows(plan_rows(n2, leaf)))
-    merge(long_column_launches(n1, "native" if f64 else "f32", layout == "permuted_input"))
+    merge(long_column_launches(n1, "native" if f64 else "f32", layout == "permuted_input",
+                               chunks == 1), chunks)
     if layout == "natural":
         merge({"transpose2_64" if f64 else "transpose2": 1})
+    return {k: v for k, v in want.items() if v}
+
+
+def dd_dist_launches(rp, chunks: int):
+    """{kernel: launches} of one df64 / df64-oz ``fft_distributed`` at world
+    size 1 whose row planner is ``rp``: ``ddcol`` once a chunk of the column
+    stage, the row plan as ``fft_rows_dd`` runs it (a level with oz tables
+    is ``ozcol`` + ``ozleaft`` and ends the plan), and the last transpose
+    (two ``transpose2``)."""
+    corrs = rp.dd_state[1]
+    want = {"ddcol": chunks, "transpose2": 2}
+    plan = rp.plan
+    while plan[0] == "split":
+        _, p1, plan2, p2 = plan
+        if f"ozcol{p1}x{p2}" in corrs:
+            want.update(ozcol=1, ozleaft=1)
+            break
+        want["ddcol"] += 1
+        want["transpose2"] += 2
+        plan = plan2
+    else:
+        if plan[0] == "leaf":
+            want["ddleaf"] = 1
     return {k: v for k, v in want.items() if v}
 
 
@@ -2159,7 +2235,7 @@ def dist64_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     from phastft_tpu_torch.parallel import fft_distributed
     from phastft_tpu_torch.ops.longcol import long_columns, twiddle_
     from phastft_tpu_torch.parallel.fourstep_dist import (
-        _dd_row_planner, _factor, _factor_dd, _row_pass,
+        _dd_row_planner, _factor, _factor_dd, _row_pass, column_chunks,
     )
 
     def randn(shape, dtype=torch.float64, g=gen):
@@ -2264,7 +2340,7 @@ def dist64_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
               "long_columns": n1 > 2048})
         seeded = torch.Generator(device=dev)
         xr, xi = randn((n,), dtype, seeded.manual_seed(log_n))
-        want = {lay: dist_launches(n, leaf_n, f64, lay)
+        want = {lay: dist_launches(planner, lay)
                 for lay in ("natural", "permuted_output", "permuted_input")}
         out = peak(f"{tag}_2^{log_n}",
                    lambda: fft_distributed(xr, xi, Direction.Forward, planner),
@@ -2318,26 +2394,10 @@ def dist64_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
             planner = PlannerDit64(n, options=opts)
             n1, n2 = _factor_dd(n, 1)
             rp = _dd_row_planner(n2, opts.leaf_fft_size, engine, dev)
-            corrs = rp.dd_state[1]
-            oz = any(k.startswith("oz") for k in corrs)
-            # the row plan as fft_rows_dd runs it: a level with oz tables is
-            # ozcol + ozleaft and ends the plan
-            want = {"ddcol": 1, "transpose2": 2}  # the column pass, the last transpose
-            plan = rp.plan
-            while plan[0] == "split":
-                _, p1, plan2, p2 = plan
-                if f"ozcol{p1}x{p2}" in corrs:
-                    want.update(ozcol=1, ozleaft=1)
-                    break
-                want["ddcol"] += 1
-                want["transpose2"] += 2
-                plan = plan2
-            else:
-                if plan[0] == "leaf":
-                    want["ddleaf"] = 1
+            oz = any(k.startswith("oz") for k in rp.dd_state[1])
+            want = dd_dist_launches(rp, column_chunks(n, 1, planner))
             xr, xi = randn((n,))
-            out = run(lambda: fft_distributed(xr, xi, Direction.Forward, planner),
-                      {k: v for k, v in want.items() if v})
+            out = run(lambda: fft_distributed(xr, xi, Direction.Forward, planner), want)
             errs[f"{engine}_fwd_2^{log_n}"] = err = card_oracle_err(out, xr, xi)
             errs[f"{engine}_oz_rows_2^{log_n}"] = oz
             check(f"{engine} fft_distributed 2^{log_n}", err, tol)
@@ -2461,6 +2521,470 @@ def dist64_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
           "fft_distributed_ms": whole_ms, "fft_32_dit_ms": single_ms})
     del xr, xi
     release_memory()
+
+
+@contextlib.contextmanager
+def dist_chunks_env(value):
+    """PHASTFT_TPU_DIST_CHUNKS set to ``value`` (None: unset) inside the
+    block, restored after it."""
+    old = os.environ.pop("PHASTFT_TPU_DIST_CHUNKS", None)
+    if value is not None:
+        os.environ["PHASTFT_TPU_DIST_CHUNKS"] = str(value)
+    try:
+        yield
+    finally:
+        os.environ.pop("PHASTFT_TPU_DIST_CHUNKS", None)
+        if old is not None:
+            os.environ["PHASTFT_TPU_DIST_CHUNKS"] = old
+
+
+def _spans_ms(spans) -> float:
+    """Length in ms of disjoint (start, end) intervals in microseconds."""
+    return sum(b - a for a, b in spans) / 1e3
+
+
+def _spans_union(spans):
+    """The union of (start, end) intervals as sorted disjoint [start, end]."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def device_trace(fn):
+    """One call of ``fn`` under ``torch.profiler`` behind a sleep kernel, so
+    that the host does not pace the device (as in ``device_times``): (the
+    profile, the device events of its exported trace as (name, category,
+    stream, start us, end us), the sleep left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    sleep_ms = max(4 * (time.perf_counter() - t0) * 1e3, TRACE_SLEEP_MS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(sleep_cycles(sleep_ms))
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(OUT_DIR, f"trace_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        raw = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    events = []
+    for e in raw:
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if (e.get("ph") != "X" or "dur" not in e or cat not in ("kernel", "gpu_memcpy")
+                or "spin_kernel" in name):
+            continue
+        stream = (e.get("args") or {}).get("stream", e.get("tid"))
+        events.append((name, cat, stream, float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    return prof, events
+
+
+def trace_overlap(events, launches: int):
+    """{overlap_ms, ...} of ``device_trace``'s events of one call that
+    launched ``launches`` port kernels: overlap_ms is the device time during
+    which a collective's copy (a memcpy or an NCCL kernel on a stream that
+    runs no port kernel) and a port kernel (a kernel outside ATen and NCCL)
+    ran at once, from the intervals, not from summed times; span_ms from the
+    first device event's start to the last one's end. Raises unless the trace
+    holds every port kernel the call launched."""
+    port = [ev for ev in events if ev[1] == "kernel" and "at::" not in ev[0]
+            and "nccl" not in ev[0].lower()]
+    if len(port) != launches:
+        raise AssertionError(f"the trace holds {len(port)} port kernels, the call "
+                             f"launched {launches}")
+    port_streams = {ev[2] for ev in port}
+    copies = [ev for ev in events if ev[1] == "gpu_memcpy" or "nccl" in ev[0].lower()]
+    nccl = [ev[3:] for ev in copies if ev[2] not in port_streams]
+    u_nccl, u_port = _spans_union(nccl), _spans_union([ev[3:] for ev in port])
+    both, i, j = [], 0, 0
+    while i < len(u_nccl) and j < len(u_port):
+        a, b = max(u_nccl[i][0], u_port[j][0]), min(u_nccl[i][1], u_port[j][1])
+        if a < b:
+            both.append((a, b))
+        if u_nccl[i][1] < u_port[j][1]:
+            i += 1
+        else:
+            j += 1
+    return {"overlap_ms": _spans_ms(both),
+            "nccl_busy_ms": _spans_ms(_spans_union([ev[3:] for ev in copies])),
+            "port_busy_ms": _spans_ms(u_port),
+            "device_busy_ms": _spans_ms(_spans_union([ev[3:] for ev in events])),
+            "span_ms": (max(ev[4] for ev in events) - min(ev[3] for ev in events)) / 1e3,
+            "nccl_events": len(copies), "nccl_side_events": len(nccl),
+            "port_events": len(port)}
+
+
+def dist_chunks_phases(dev, gen, flush, smi) -> None:
+    """The chunked column stage of ``fft_distributed`` at world size 1 on
+    NCCL (run inside ``nccl_world``), each chunk count forced through
+    PHASTFT_TPU_DIST_CHUNKS: each call against the card's oracle and the
+    one-chunk output, its launches (each column pass once a chunk) and its
+    device time. The turns, peaks and overlap are ``--chunks``'s."""
+    import torch
+
+    from phastft_tpu_torch import Direction, Options, PlannerDit32, PlannerDit64
+    from phastft_tpu_torch.parallel import fft_distributed
+    from phastft_tpu_torch.parallel.fourstep_dist import (
+        _dd_row_planner, _factor, _factor_dd, column_chunks,
+    )
+
+    t_phase = time.perf_counter()
+    run = counted(all_kernels())
+    for engine, log_n, layouts, counts in DIST_CHUNK_CASES:
+        n = 1 << log_n
+        dtype = torch.float32 if engine == "f32" else torch.float64
+        planner = chunk_planner(engine, n)
+        tol = chunk_tol(engine, log_n)
+        seeded = torch.Generator(device=dev).manual_seed(log_n)
+        xr = torch.randn((n,), generator=seeded, device=dev, dtype=dtype)
+        xi = torch.randn((n,), generator=seeded, device=dev, dtype=dtype)
+        for layout in layouts:
+            flags = {"permuted_input": True} if layout == "permuted_input" else {}
+            if flags:
+                n1, n2 = _factor(n, 1, planner.options.leaf_fft_size)
+                perm = torch.arange(n, device=dev).view(n2, n1).t().reshape(-1)
+                ar, ai = xr[perm], xi[perm]
+                del perm
+            else:
+                ar, ai = xr, xi
+            one = None
+            for forced in counts:
+                with dist_chunks_env(forced):
+                    chunks = column_chunks(n, 1, planner, bool(flags))
+                    if engine == "df64":
+                        rp = _dd_row_planner(_factor_dd(n, 1)[1],
+                                             planner.options.leaf_fft_size, engine, dev)
+                        want = dd_dist_launches(rp, chunks)
+                    else:
+                        want = dist_launches(planner, layout, chunks)
+
+                    def call():
+                        return fft_distributed(ar, ai, Direction.Forward, planner, **flags)
+
+                    out = run(call, want)
+                    err = card_oracle_err(out, xr, xi)
+                    check(f"{engine} 2^{log_n} {layout} at {chunks} chunks", err, tol)
+                    if one is None:
+                        if chunks != 1:
+                            raise AssertionError(f"{engine} 2^{log_n}: the first count of "
+                                                 f"{counts} runs {chunks} chunks, not one")
+                        one, diff = out, 0.0
+                    else:
+                        diff = max_abs(out[0], out[1], one[0], one[1])
+                    del out
+                    times, enq = device_times(call, flush, DIST_CHUNK_REPS)
+                    emit({"phase": "dist_chunks", "engine": engine, "n": n, "layout": layout,
+                          "forced": forced, "chunks": chunks, "launches": want,
+                          "rel_l2": err, "bound": tol, "max_abs_vs_one_chunk": diff,
+                          "ms": float(np.median(times)), "min_max_ms": [min(times), max(times)],
+                          "enqueue_ms": enq, "card": smi})
+            del one, ar, ai
+        del xr, xi, planner
+        release_memory()
+    emit({"phase": "dist_chunks_phases", "seconds": time.perf_counter() - t_phase,
+          "launches": run.total, "card": smi})
+
+
+def chunk_planner(engine: str, n: int):
+    """The planner of a ``dist_chunks`` / ``--chunks`` case: f32, native f64,
+    or the df64 engine on the f64 heuristic's options."""
+    from phastft_tpu_torch import Options, PlannerDit32, PlannerDit64
+
+    if engine == "f32":
+        return PlannerDit32(n)
+    if engine == "native":
+        return PlannerDit64(n)
+    guess = Options.guess_options(n, np.float64)
+    return PlannerDit64(n, options=dataclasses.replace(guess, f64_engine=engine))
+
+
+def chunk_tol(engine: str, log_n: int) -> float:
+    """PERF.md section 2's bound of a transform of 2^log_n points."""
+    return 5e-7 * max(1.0, log_n / 18.0) if engine == "f32" else DD_E2E_TOL
+
+
+def chunks_mode(ranks: int) -> int:
+    """``--chunks RANKS``: the chunked column stage of ``fft_distributed``
+    against one chunk over RANKS ranks (1 or 4), one card and one process
+    each on NCCL (``tcp://localhost``), the kernels built once before the
+    ranks start (``chunks_rank``); rank 0's lines, beside every card's name
+    and power limit. A rank that fails, or a run past CHUNK_MODE_TIMEOUT,
+    fails the mode (every rank is stopped)."""
+    import socket
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if ranks not in CHUNK_MODE_RUNS or torch.cuda.device_count() < ranks:
+        print(f"chip_smoke: --chunks takes {sorted(CHUNK_MODE_RUNS)} ranks, one card "
+              f"each; {torch.cuda.device_count()} cards", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(smi, flush=True)
+    from phastft_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    logs = [open(os.path.join(OUT_DIR, f"chunks_rank{r}.log"), "w+") for r in range(ranks)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--chunks-rank",
+                               str(r), str(ranks), str(port)],
+                              stdout=logs[r], stderr=subprocess.STDOUT, text=True)
+             for r in range(ranks)]
+    deadline = time.monotonic() + CHUNK_MODE_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for log in logs:
+        log.seek(0)
+    text = [log.read() for log in logs]
+    for log in logs:
+        log.close()
+    lines = [ln for ln in text[0].splitlines() if ln.startswith("{")]
+    for ln in lines:
+        print(ln, flush=True)
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        for r in failed:
+            print(f"-- rank {r}, rc {procs[r].returncode}:\n{text[r][-4000:]}", file=sys.stderr)
+        return 1
+    emit({"phase": "chunks_mode", "ranks": ranks, "seconds": time.perf_counter() - t0,
+          "card": smi})
+    return 0
+
+
+def chunks_rank(rank: int, ranks: int, port: int) -> int:
+    """One rank of ``--chunks``: for each (engine, log2 n) of
+    CHUNK_MODE_RUNS[ranks], a signal of 2^log2 n points a rank (the same
+    on every rank, from a seed) through ``fft_distributed`` in natural order
+    at one chunk and at 4 (PHASTFT_TPU_DIST_CHUNKS): the rel L2 of the
+    gathered result against a complex128 FFT on each card, the max abs
+    difference of the two counts, each rank's added peak, the overlap of
+    the collectives' copies with the port's kernels and the device span
+    (``device_trace``, rank 0's), then the two counts in turns 1, 4, 4, 1
+    (DIST_CHUNK_ROUNDS times), device ms (the slowest rank's median, each
+    call behind a barrier and a sleep) and host clock; 4 chunks faster by
+    DIST_CHUNK_GAIN than one, where the default is one, fail. One rank also runs
+    CHUNK_MODE_PEAKS: the added peak of 4 chunks at the largest sizes, on
+    bins of a direct DFT, and the native column tables' bytes."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from phastft_tpu_torch import Direction
+    from phastft_tpu_torch.parallel import fft_distributed
+    from phastft_tpu_torch.parallel.fourstep_dist import column_chunks
+
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=ranks, timeout=datetime.timedelta(seconds=120),
+                            device_id=dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[rank]
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    kernels = all_kernels()
+
+    def worst(x, op=dist.ReduceOp.MAX):
+        t = torch.tensor([float(x)], dtype=torch.float64, device=dev)
+        dist.all_reduce(t, op=op)
+        return float(t.item())
+
+    def times(call, reps):
+        """(device ms of each call, the slowest rank's median; host ms)."""
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        call()
+        cycles = sleep_cycles(2 * (time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        dev_ms, wall = [], []
+        for _ in range(reps):
+            flush.zero_()
+            dist.barrier()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cycles)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            end.synchronize()
+            dev_ms.append(start.elapsed_time(end))
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        return worst(np.median(dev_ms)), worst(np.median(wall))
+
+    for engine, log_local in CHUNK_MODE_RUNS[ranks]:
+        n = ranks << log_local
+        m = n // ranks
+        dtype = torch.float32 if engine == "f32" else torch.float64
+        planner = chunk_planner(engine, n)
+        seeded = torch.Generator(device=dev).manual_seed(log_local)
+        xr = torch.randn((n,), generator=seeded, device=dev, dtype=dtype)
+        xi = torch.randn((n,), generator=seeded, device=dev, dtype=dtype)
+        want = torch.fft.fft(torch.complex(xr.double(), xi.double()))[rank * m:(rank + 1) * m]
+        want = want.clone()
+        sr, si = xr[rank * m:(rank + 1) * m].clone(), xi[rank * m:(rank + 1) * m].clone()
+        del xr, xi
+        torch.cuda.empty_cache()
+        row = {"engine": engine, "n": n, "ranks": ranks}
+        outs = {}
+        for forced in (1, 4):
+            with dist_chunks_env(forced):
+                row[f"chunks_{forced}"] = column_chunks(n, ranks, planner)
+
+                def call():
+                    return fft_distributed(sr, si, Direction.Forward, planner)
+
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                before = sum(k.launches for k in kernels)
+                out = call()
+                launched = sum(k.launches for k in kernels) - before
+                torch.cuda.synchronize()
+                row[f"added_peak_gib_{forced}"] = worst(
+                    (torch.cuda.max_memory_allocated() - held) / 2 ** 30)
+                got = torch.complex(out[0].double(), out[1].double())
+                num = worst(float(torch.linalg.vector_norm(got - want)) ** 2, dist.ReduceOp.SUM)
+                den = worst(float(torch.linalg.vector_norm(want)) ** 2, dist.ReduceOp.SUM)
+                row[f"rel_l2_{forced}"] = err = (num / den) ** 0.5
+                check(f"{engine} 2^{n.bit_length() - 1} over {ranks} at {forced} chunks", err,
+                      chunk_tol(engine, n.bit_length() - 1))
+                outs[forced] = out
+                del got, out
+                _, events = device_trace(call)
+                for k, v in trace_overlap(events, launched).items():
+                    row[f"{k}_{forced}"] = v
+        row["max_abs_4_vs_1"] = worst(max_abs(outs[4][0], outs[4][1], outs[1][0], outs[1][1]))
+        del outs, want
+        readings = {1: [], 4: []}
+        walls = {1: [], 4: []}
+        for _ in range(DIST_CHUNK_ROUNDS):
+            for forced in (1, 4, 4, 1):
+                with dist_chunks_env(forced):
+                    ms, wall = times(lambda: fft_distributed(sr, si, Direction.Forward, planner),
+                                     DIST_CHUNK_REPS)
+                readings[forced].append(ms)
+                walls[forced].append(wall)
+        row.update(ms_one=readings[1], ms_four=readings[4], wall_ms_one=walls[1],
+                   wall_ms_four=walls[4],
+                   four_over_one=float(np.mean(readings[4]) / np.mean(readings[1])),
+                   wall_four_over_one=float(np.mean(walls[4]) / np.mean(walls[1])))
+        if rank == 0:
+            emit({"phase": "chunks_turns", **row, "card": smi})
+        with dist_chunks_env(None):
+            default = column_chunks(n, ranks, planner)
+        if default == 1 and row["four_over_one"] * DIST_CHUNK_GAIN < 1:
+            raise AssertionError(f"{engine} 2^{n.bit_length() - 1} over {ranks}: 4 chunks "
+                                 f"read {row['four_over_one']:.3f}x one chunk, a gain the "
+                                 "default of one chunk (fourstep_dist._chunk_count) forgoes")
+        del sr, si, planner
+        release_memory()
+    if ranks == 1:
+        chunk_peaks(dev, smi)
+    dist.destroy_process_group()
+    return 0
+
+
+def chunk_peaks(dev, smi) -> None:
+    """CHUNK_MODE_PEAKS in a world of one: natural order at one chunk and at
+    4, each on GIANT_BINS bins of a direct f64 DFT, with the peak it held
+    beside its input, and the native column tables' bytes."""
+    import torch
+
+    from phastft_tpu_torch import Direction
+    from phastft_tpu_torch.parallel import fft_distributed
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for engine, log_n in CHUNK_MODE_PEAKS:
+        n = 1 << log_n
+        dtype = torch.float32 if engine == "f32" else torch.float64
+        planner = chunk_planner(engine, n)
+        xr = torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+        xi = torch.randn((n,), generator=gen, device=dev, dtype=dtype)
+        ks = torch.randint(0, n, (GIANT_BINS,), generator=gen, device=dev)
+        ks[:4] = torch.tensor([0, 1, n // 2, n - 1], device=dev)
+        want = dft_bins(xr, xi, ks)
+        for forced in (1, 4):
+            with dist_chunks_env(forced):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                out = fft_distributed(xr, xi, Direction.Forward, planner)
+                torch.cuda.synchronize()
+                added = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+                got = torch.complex(out[0][ks].double(), out[1][ks].double())
+                del out
+                err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+                check(f"{engine} 2^{log_n} at {forced} chunks on {GIANT_BINS} bins", err,
+                      chunk_tol(engine, log_n))
+                row = {"engine": engine, "n": n, "chunks": forced, "rel_l2_bins": err,
+                       "added_gib": added, "with_input_gib": 2 * xr.nbytes / 2 ** 30 + added}
+                if engine == "native":
+                    row["shard_table_bytes"] = dist_table_bytes(n, planner, forced)
+                emit({"phase": "chunks_peak", **row, "card": smi})
+                del got
+        del xr, xi, planner, want
+        release_memory()
+
+
+def dist_table_bytes(n: int, planner, chunks: int) -> int:
+    """Bytes of the native column stage's twiddle tables at world size 1 in
+    ``chunks`` chunks, from the same cached table functions the pipeline calls (a
+    column factor past 2048: the long columns' level tables, and the shard
+    tables of their second pass)."""
+    from phastft_tpu_torch.ops.longcol import _level_tables, long_split
+    from phastft_tpu_torch.ops.native import col64_shard_tables
+    from phastft_tpu_torch.parallel.fourstep_dist import _factor
+
+    n1, n2 = _factor(n, 1, planner.options.leaf_fft_size)
+    w = n2 // chunks
+    dev = planner.device
+    total = 0
+    for c in range(chunks):
+        m, nn, base = n1, n, c * w
+        while m > 2048:
+            pp, qq = long_split(m)
+            total += sum(t.nbytes for t in _level_tables(nn, m, pp, w, base, False, dev))
+            m, nn = qq, nn // pp
+        if m > 1:
+            total += sum(t.nbytes for t in col64_shard_tables(nn, m, w, base, dev))
+    return total
 
 
 def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
@@ -3124,8 +3648,7 @@ def giant_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         "c2c": lambda a, b, direction: fft_32_dit_with_planner(a, b, direction, planner),
         "fft_distributed": lambda a, b, direction: fft_distributed(a, b, direction, planner),
     }
-    wants = {"c2c": c2c, "fft_distributed": dist_launches(n, planner.options.leaf_fft_size,
-                                                          False, "natural")}
+    wants = {"c2c": c2c, "fft_distributed": dist_launches(planner, "natural")}
     for key, entry in entries.items():
         out = peaked(f"{key}_forward", lambda: entry(xr, xi, Direction.Forward), wants[key])
         errs[f"{key}_bins"] = err = bins_err(out, want, ks)
@@ -3521,7 +4044,7 @@ def edge_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     n = 1 << log_n
     planner = PlannerDit32(n, options=Options(leaf_fft_size=leaf_n))
     x = (randn((n,)), randn((n,)))
-    want = dist_launches(n, leaf_n, False, "natural")
+    want = dist_launches(planner, "natural")
     if want.get("leaf3") != 1:
         raise AssertionError(f"the shard's rows do not run leaf3: {want}")
     for k in kernels:
@@ -3543,7 +4066,7 @@ def edge_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         planner = (PlannerDit64 if f64 else PlannerDit32)(
             n, options=Options(leaf_fft_size=leaf_n))
         x = (randn((n,), dtype), randn((n,), dtype))
-        want = dist_launches(n, leaf_n, f64, "natural")
+        want = dist_launches(planner, "natural")
         for k in kernels:
             k.launches = 0
         out = run(lambda: fft_distributed(*x, Direction.Forward, planner), want)
@@ -3900,7 +4423,20 @@ def time_tree(tree: str) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB, as main
-    out = {}
+    out, traces = {}, {}
+    with nccl_world():  # fft_distributed at world size 1
+        time_sizes(P, dev, gen, flush, out, traces)
+    print(json.dumps({"tree": tree, "package": here, "ms": out, "traces": traces}), flush=True)
+    return 0
+
+
+def time_sizes(P, dev, gen, flush, out, traces) -> None:
+    """``time_tree``'s readings of the package ``P`` into ``out``, and of
+    each ``fft_distributed`` the device events of one traced call into
+    ``traces``: per kernel its calls and device ms, and the device span and
+    busy time (``device_trace``)."""
+    import torch
+
     for tag, log_n in TURN_SIZES:
         n = 1 << log_n
         f32 = not tag.endswith("f64")
@@ -3921,14 +4457,25 @@ def time_tree(tree: str) -> int:
         options = P.Options(leaf_kernel="hybrid") if tag == "hybrid" else None
         planner = (P.PlannerDit32 if f32 else P.PlannerDit64)(n, options=options)
         entry = P.fft_32_dit_with_planner if f32 else P.fft_64_dit_with_planner
+        if tag.startswith("dist_"):
+            from phastft_tpu_torch.parallel import fft_distributed as entry
         shape = (HYBRID_TIME_POINTS // n, n) if tag == "hybrid" else (n,)
         x = tuple(torch.randn(shape, generator=gen, device=dev, dtype=dtype) for _ in range(2))
-        out[f"{tag}_2^{log_n}"] = time_ms(lambda: entry(*x, P.Direction.Forward, planner),
-                                          flush, TURN_REPS)
+        key = f"{tag}_2^{log_n}"
+        out[key] = time_ms(lambda: entry(*x, P.Direction.Forward, planner), flush, TURN_REPS)
+        if tag.startswith("dist_"):
+            _, events = device_trace(lambda: entry(*x, P.Direction.Forward, planner))
+            rows = {}
+            for name, _, stream, a, b in events:
+                row = rows.setdefault(f"{name[:60]} @{stream}", [0, 0.0])
+                row[0] += 1
+                row[1] += (b - a) / 1e3
+            traces[key] = {"kernels": rows,
+                           "busy_ms": _spans_ms(_spans_union([ev[3:] for ev in events])),
+                           "span_ms": (max(ev[4] for ev in events)
+                                       - min(ev[3] for ev in events)) / 1e3}
         del x, planner
         release_memory()
-    print(json.dumps({"tree": tree, "package": here, "ms": out}), flush=True)
-    return 0
 
 
 def turns(parent: str) -> int:
@@ -5077,6 +5624,7 @@ def main() -> int:
     with nccl_world():
         dist_phases(dev, gen, flush, smi, top, launches, max_err)
         dist64_phases(dev, gen, flush, smi, top, launches, max_err)
+        dist_chunks_phases(dev, gen, flush, smi)
         r2c_phases(dev, gen, flush, smi, top, launches, max_err)
         giant_phases(dev, gen, flush, smi, top, launches, max_err)
         edge_phases(dev, gen, flush, smi, top, launches, max_err)
@@ -5148,4 +5696,8 @@ if __name__ == "__main__":
         sys.exit(turns(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:
         sys.exit(time_tree(sys.argv[2]))
+    if sys.argv[1:2] == ["--chunks"]:
+        sys.exit(chunks_mode(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--chunks-rank"]:
+        sys.exit(chunks_rank(*map(int, sys.argv[2:5])))
     sys.exit(main())

@@ -83,7 +83,7 @@ def dd_col_tables_host(n1: int, n2: int):
     )
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=64)
 def dd_shard_tables(n: int, n1: int, ncols: int, col_base: int,
                     device: torch.device):
     """``ddcol``'s correction tables for the column block [col_base,
@@ -93,9 +93,11 @@ def dd_shard_tables(n: int, n1: int, ncols: int, col_base: int,
     that T1[k1, i // t] * T2[k1, i % t] is the block's global twiddle
     W_n^(k1*(col_base + i)). Returns (T1 4-tuple (n1, ncols/t), T2 4-tuple
     (n1, t)) of dd planes on ``device``, from exact integer phases, built
-    once per argument set. (The JAX package slices its global T1 instead,
-    ``phastft_tpu/parallel/fourstep_dist.py:465-472``, and synthesises the
-    blocks that do not align with it in its graph, ``:490-494``.)"""
+    once per argument set, one entry a chunk of the distributed column
+    stage (64 hold eight chunks of several sizes). (The JAX package slices
+    its global T1 instead, ``phastft_tpu/parallel/fourstep_dist.py:465-472``,
+    and synthesises the blocks that do not align with it in its graph,
+    ``:490-494``.)"""
     if n % n1 or ncols < 1 or col_base + ncols > n // n1:
         raise ValueError(f"dd_shard_tables: columns [{col_base}, "
                          f"{col_base + ncols}) do not lie in {n1} x {n // n1}")

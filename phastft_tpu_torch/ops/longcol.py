@@ -111,9 +111,10 @@ def level_exponents(n: int, n1: int, pp: int, c: int, col_base: int, bare: bool)
     return (q + j[None, :]).reshape(-1)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=64)
 def _level_tables(n: int, n1: int, pp: int, c: int, col_base: int, bare: bool, device):
-    """``col64``'s tables of ``level_exponents``."""
+    """``col64``'s tables of ``level_exponents``, one entry a chunk of the
+    distributed column stage (64 hold eight chunks of several sizes)."""
     return col64_tables(n, pp, level_exponents(n, n1, pp, c, col_base, bare), device)
 
 

@@ -96,15 +96,17 @@ def col64_tables(n: int, n1: int, exps: np.ndarray, device: torch.device):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (*t1, *t2))
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=64)
 def col64_shard_tables(n: int, n1: int, ncols: int, col_base: int,
                        device: torch.device):
     """``col64``'s tables for the column block [col_base, col_base + ncols)
     of a length-n transform split n1 x n / n1 (``col64_tables`` of the
     exponents col_base + j): T1[k1, j // s] * T2[k1, j % s] =
     W_n^(k1*(col_base + j)), the block's global twiddle. Built on the host
-    once per argument set (the JAX package builds the angles inside its
-    graph, ``phastft_tpu/parallel/fourstep_dist.py:113``)."""
+    once per argument set, one entry a chunk of the distributed column
+    stage (64 hold eight chunks of several sizes; the JAX package builds
+    the angles inside its graph,
+    ``phastft_tpu/parallel/fourstep_dist.py:113``)."""
     if ncols < 1 or n % n1 or col_base + ncols > n // n1:
         raise ValueError(f"col64_shard_tables: columns [{col_base}, "
                          f"{col_base + ncols}) do not lie in {n1} x {n // n1}")

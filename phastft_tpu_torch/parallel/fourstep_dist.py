@@ -70,17 +70,35 @@ f64 angle array of the whole block is 8 GiB at 2^30).
 
 A collective is ``all_to_all_single`` on a contiguous copy permuted so that
 the block for rank j is the j-th; every rank makes the same calls in the
-same order. The JAX package splits the column block into chunks (4 from
-8 MiB) so that XLA overlaps one chunk's all_to_all with the next chunk's
-compute; the layout is the same for any chunk count. The port runs one
-chunk: its collectives do not overlap its kernels yet, and chunks without
-overlap only add launches and copies (ROADMAP.md Queue 1 item 19).
+same order.
+
+The column stage runs as the JAX package's chunked pipeline (natural order
+``local_step`` ``:229-300``, permuted input ``local_step_permuted_in``
+``:172-220``, df64 ``_build_distributed_dd`` ``:441-515``): the rank's
+column block is split into ``_chunk_count`` chunks of columns (permuted
+input: of the global m2 axis), and each chunk has its own send copy (and
+twiddle), row -> column all_to_all, column pass and column -> row
+all_to_all, whose output is copied into the row buffer. The count is one
+unless PHASTFT_TPU_DIST_CHUNKS sets another: the JAX package's default of 4
+from 8 MiB a block read slower on the H100 on one card and over four
+(``_chunk_count``). Chunked, the collectives are started with
+``async_op=True`` and waited on where the compute stream first reads their
+output (with NCCL a wait of the stream, not of the host), in the order that
+lets each run beside a column pass: chunk c+1's send copy and row -> column
+collective before chunk c's column pass, and chunk c+1's column pass before
+the wait on chunk c's column -> row collective (``_pipeline``). One chunk is
+in flight each way, and every buffer a collective reads or writes stays
+referenced until its wait (``_Flight``). The layout is the same for every
+chunk count. The row DFTs and the last collective of natural order are not
+chunked, as in the JAX package. One chunk is the unchunked pipeline, its
+collectives on the current stream, with no copy that it did not make before.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Callable
 
 import numpy as np
@@ -97,7 +115,7 @@ from ..ops.longcol import columns, transpose4, twiddle_
 from ..ops.route import KERNELS, passes_for
 from ..planner import Direction, PlannerDit64
 
-__all__ = ["fft_distributed", "DD_DIST_MIN_COL"]
+__all__ = ["fft_distributed", "column_chunks", "DD_DIST_MIN_COL"]
 
 #: Smallest column factor of the dd factorization (the JAX package's): the
 #: dd column pass stays shallow and the rows carry the log-n work.
@@ -133,25 +151,106 @@ def _factor_dd(n: int, d: int) -> tuple[int, int]:
     return n1, n2
 
 
-def _all_to_all(blocks, group):
-    """Block j of ``blocks`` (d, ...) to rank j; returns (d, ...) with
-    block s from rank s."""
+def _chunk_count(cols: int) -> int:
+    """Chunks of a rank's column block of ``cols`` columns in the column
+    stage. PHASTFT_TPU_DIST_CHUNKS, a digit string >= 1, sets the count c (1
+    where c does not divide ``cols``), parsed as the JAX package parses it
+    (``_chunk_count``, ``fourstep_dist.py:54-68``); else one chunk, at every
+    world size. The JAX package's default, 4 chunks from 8 MiB a block where
+    4 divides the width, was slower wherever the H100 timed it: 1.34x /
+    1.24x one chunk in device time on one card (f32 2^25 / native 2^27),
+    1.11-1.98x over four cards on NVLink (f32 2^27 and 2^29, native 2^29;
+    ``PERF.md``). Not ported: the JAX dd pipeline's raise of the
+    count until a chunk fits its Pallas kernel's slab (``:447-449``);
+    ``ddcol`` takes any width."""
+    v = os.environ.get("PHASTFT_TPU_DIST_CHUNKS", "")
+    if v.isdigit() and int(v) >= 1:
+        c = int(v)
+        return c if cols % c == 0 else 1
+    return 1
+
+
+def column_chunks(n: int, d: int, planner, permuted: bool = False) -> int:
+    """The chunks of ``fft_distributed``'s column stage for a length-n
+    transform over d ranks on ``planner`` (``permuted``: a permuted flag is
+    set): ``_chunk_count`` of the rank's n2/d columns, in each of the three
+    pipelines the width the JAX package's counts (``:247-248``,
+    ``:177-178``, ``:444-445``)."""
+    return _chunk_count(_layout(n, d, planner, permuted)[4] // d)
+
+
+def _all_to_all(blocks, group, overlap: bool):
+    """The all_to_all of the contiguous ``blocks`` (d, ...): block j to rank
+    j. Returns (out, work): out (d, ...) holds block s from rank s. With
+    ``overlap`` the collective is started on NCCL's own stream and ``out``
+    is ready once ``work.wait()`` has been called, which makes the current
+    stream wait on it, not the host; the caller keeps ``blocks`` and ``out``
+    referenced until then. Without, it runs on the current stream (work
+    None): no stream to cross, which on the H100 saved 17 us of a 1.45 ms
+    call at f32 2^25 on one rank (``PERF.md``)."""
     out = torch.empty_like(blocks)
-    dist.all_to_all_single(out, blocks, group=group)
-    return out
+    return out, dist.all_to_all_single(out, blocks, group=group, async_op=overlap)
+
+
+class _Flight:
+    """The all_to_alls of contiguous (d, ...) planes (``_all_to_all``), in
+    flight with ``overlap``: each plane's collective is started as ``sends``
+    yields it (the next plane's send copy runs beside it), and every send
+    and receive buffer stays referenced until ``land`` has waited on its
+    work (the collective reads and writes them on its own stream until then;
+    no ``record_stream``)."""
+
+    def __init__(self, sends, group, overlap: bool):
+        self.sends, self.recvs, self.works = [], [], []
+        for x in sends:
+            out, work = _all_to_all(x, group, overlap)
+            self.sends.append(x)
+            self.recvs.append(out)
+            self.works.append(work)
+
+    def land(self):
+        """Yield each received plane once its work has been waited on (the
+        caller's copy of one plane runs beside the next one's collective),
+        then drop the buffers."""
+        for work, out in zip(self.works, self.recvs):
+            if work is not None:
+                work.wait()
+            yield out
+        self.sends = self.recvs = self.works = None
 
 
 def _row_to_col(x, n1: int, cols: int, d: int, group):
     """(n1/d, cols) row shard -> (n1, cols/d) column shard: row
     s*n1/d + r is rank s's row r, the columns this rank's block."""
     blocks = x.reshape(n1 // d, d, cols // d).transpose(0, 1).contiguous()
-    return _all_to_all(blocks, group).reshape(n1, cols // d)
+    return _all_to_all(blocks, group, False)[0].reshape(n1, cols // d)
 
 
-def _col_to_row(x, n1: int, d: int, group):
-    """(n1, c) column shard -> (d, n1/d, c): block s is this rank's rows
-    of rank s's c columns."""
-    return _all_to_all(x.reshape(d, n1 // d, x.shape[-1]), group)
+def _pipeline(chunks: int, d: int, group, send, column, land) -> None:
+    """The chunked column stage: for each chunk c, ``send(c)`` yields its
+    contiguous (d, ...) send planes, each one's row -> column all_to_all
+    started as it comes, ``column(c, planes)`` its column pass on the
+    received planes (a list it empties) returning the output planes (n1, w),
+    their column -> row all_to_alls as (d, n1/d, w), and ``land(c, planes)``
+    on what they received, each plane as its wait returns. Chunk c+1's send and row -> column collectives are started
+    before chunk c's column pass, and chunk c+1's column pass before the
+    wait on chunk c's column -> row collectives: one chunk of lookahead each
+    way, so at most six chunks' planes are held at once. One chunk has
+    nothing to overlap: its collectives run on the current stream."""
+    overlap = chunks > 1
+    ahead = _Flight(send(0), group, overlap)
+    behind = None
+    for c in range(chunks):
+        here = ahead
+        ahead = _Flight(send(c + 1), group, overlap) if c + 1 < chunks else None
+        out = column(c, list(here.land()))
+        del here
+        flight = _Flight([x.view(d, -1, x.shape[-1]) for x in out], group, overlap)
+        del out
+        if behind is not None:
+            land(c - 1, behind.land())
+        behind = flight
+    land(chunks - 1, behind.land())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +269,8 @@ class _Plan:
     transpose: Callable
     #: ``ops/route.KERNELS``, or ``PLAIN`` on a ``use_pallas=False`` planner
     passes: object
+    #: chunks of the column stage (``column_chunks``)
+    chunks: int
 
 
 def _row_pass(planner, plan, leaf_kernel, passes=KERNELS) -> Callable:
@@ -184,21 +285,58 @@ def _row_pass(planner, plan, leaf_kernel, passes=KERNELS) -> Callable:
     return lambda pair: rows_f32(pair, plan, corrs, leaf_kernel, passes)
 
 
-def _to_rows(pair, p: _Plan):
-    """The column -> row all_to_all of the (n1, n2/d) pair handed over in
-    ``pair``: this rank's (n1/d, n2) rows, global column s*n2/d + j."""
+def _land_rows(out, got, chunks: int, region) -> None:
+    """A chunk's received (d, n1/d, w) planes ``got`` into the (n1/d, n2)
+    row planes ``out`` (made on the first chunk): block s of each to
+    ``region(o)[:, s]``, the chunk's (n1/d, d, w) columns of the row plane
+    o. One chunk: the received planes themselves, a view at d = 1."""
+    for i, x in enumerate(got):
+        if chunks == 1:
+            out.append(x.transpose(0, 1).reshape(x.shape[1], -1))
+            continue
+        if i == len(out):
+            out.append(torch.empty(x.shape[1], chunks * x.shape[0] * x.shape[2],
+                                   dtype=x.dtype, device=x.device))
+        region(out[i]).copy_(x.transpose(0, 1))
+
+
+def _column_stage(planes, p: _Plan, column):
+    """Steps 1-4 of natural order on this rank's (n1/d, n2) row planes, the
+    list ``planes`` (emptied once the last chunk is sent), in ``p.chunks``
+    chunks of its n2/d columns: chunk c's send copy of the columns [c*w,
+    (c+1)*w) of every rank's block (w = n2/(d*chunks)), the received
+    (n1, w) planes through ``column(planes, col_base)`` (a list it empties;
+    col_base the chunk's first global column), and the received rows copied
+    into the columns s*n2/d + c*w + j of the (n1/d, n2) row planes it
+    returns (one chunk: the received planes themselves, a view at d = 1)."""
+    d, rows, local, chunks = p.d, p.n1 // p.d, p.n2 // p.d, p.chunks
+    w = local // chunks
     out = []
-    while pair:
-        blocks = _col_to_row(pair.pop(0), p.n1, p.d, p.group)
-        out.append(blocks.transpose(0, 1).reshape(p.n1 // p.d, p.n2))
+
+    def send(c):
+        for x in planes:
+            yield x.view(rows, d, chunks, w)[:, :, c].transpose(0, 1).contiguous()
+        if c == chunks - 1:
+            planes.clear()
+
+    def col(c, got):
+        pair = [x.view(p.n1, w) for x in got]
+        got.clear()
+        return column(pair, p.rank * local + c * w)
+
+    def land(c, got):
+        _land_rows(out, got, chunks, lambda o: o.view(rows, d, chunks, w)[:, :, c])
+
+    _pipeline(chunks, d, p.group, send, col, land)
     return out
 
 
 def _natural(re_l, im_l, p: _Plan, permuted_output: bool):
     """Steps 1-6 on this rank's (n1/d, n2) rows; returns its flat shard."""
-    cols = [_row_to_col(x, p.n1, p.n2, p.d, p.group) for x in (re_l, im_l)]
-    t = list(columns(cols, p.n, p.n1, p.rank * (p.n2 // p.d), False, p.f64, p.passes))
-    d_re, d_im = p.rows(_to_rows(t, p))
+    rows = _column_stage(
+        [re_l, im_l], p,
+        lambda pair, base: columns(pair, p.n, p.n1, base, False, p.f64, p.passes))
+    d_re, d_im = p.rows(rows)
     if permuted_output:
         return d_re.reshape(-1), d_im.reshape(-1)
     # D[k1, k2] -> (n1, n2/d) holding this rank's k2 block -> (n2/d, n1)
@@ -212,24 +350,39 @@ def _natural(re_l, im_l, p: _Plan, permuted_output: bool):
 
 def _permuted_in(re_l, im_l, p: _Plan):
     """The mirrored pipeline on this rank's rows of D[k1, k2]; returns its
-    flat shard in natural order."""
-    r_re, r_im = p.rows([re_l, im_l])
-    rows = p.n1 // p.d
-    dev = r_re.device
-    twiddle_(r_re, r_im, p.n,
-              torch.arange(p.rank * rows, (p.rank + 1) * rows, dtype=torch.int64, device=dev),
-              torch.arange(p.n2, dtype=torch.int64, device=dev))
-    cols = [_row_to_col(r_re, p.n1, p.n2, p.d, p.group)]
-    del r_re
-    cols.append(_row_to_col(r_im, p.n1, p.n2, p.d, p.group))
-    del r_im
-    z = list(columns(cols, p.n, p.n1, 0, True, p.f64, p.passes))
-    # block s holds this rank's rows of columns [s*n2/d, (s+1)*n2/d)
+    flat shard in natural order. After the row DFTs, chunk c of the m2 axis
+    (w = n2/(d*chunks) columns of each rank) takes the twiddle
+    W_n^(k1*m2) on its columns [c*d*w, (c+1)*d*w), the row -> column
+    collective, the bare column pass and the column -> row collective;
+    block s of what it receives holds this rank's rows of the columns
+    c*d*w + s*w + j."""
+    r = list(p.rows([re_l, im_l]))
+    d, rows = p.d, p.n1 // p.d
+    chunks = p.chunks
+    w = p.n2 // (d * chunks)
+    dev = r[0].device
+    k1 = torch.arange(p.rank * rows, (p.rank + 1) * rows, dtype=torch.int64, device=dev)
     out = []
-    while z:
-        out.append(_col_to_row(z.pop(0), p.n1, p.d, p.group)
-                   .transpose(0, 1).reshape(-1))
-    return out
+
+    def send(c):
+        m2 = torch.arange(c * d * w, (c + 1) * d * w, dtype=torch.int64, device=dev)
+        part = [x.view(rows, chunks, d * w)[:, c] for x in r]
+        twiddle_(*part, p.n, k1, m2)
+        for x in part:
+            yield x.view(rows, d, w).transpose(0, 1).contiguous()
+        if c == chunks - 1:
+            r.clear()
+
+    def col(c, got):
+        pair = [x.view(p.n1, w) for x in got]
+        got.clear()
+        return columns(pair, p.n, p.n1, 0, True, p.f64, p.passes)
+
+    def land(c, got):
+        _land_rows(out, got, chunks, lambda o: o.view(rows, chunks, d, w)[:, c])
+
+    _pipeline(chunks, d, p.group, send, col, land)
+    return [o.reshape(-1) for o in out]
 
 
 @functools.lru_cache(maxsize=16)
@@ -243,25 +396,21 @@ def _dd_row_planner(n2: int, leaf_limit: int, engine: str, device):
 
 
 def _dd_columns(quad, n: int, n1: int, col_base: int, passes):
-    """The dd column pass of this rank's (n1, c) quadruple, any width:
-    ``ddcol`` with the block's tables."""
+    """The dd column pass of this rank's (n1, c) quadruple handed over in
+    the list ``quad``, any width: ``ddcol`` with the block's tables."""
     cols = int(quad[0].shape[-1])
     t1, t2 = dd_shard_tables(n, n1, cols, col_base, quad[0].device)
-    return passes.ddcol(*quad, t1, t2, n1)
+    planes = tuple(quad)
+    quad.clear()
+    return passes.ddcol(*planes, t1, t2, n1)
 
 
 def _natural_dd(re_l, im_l, p: _Plan, rp: PlannerDit64, dd_leaf):
     """The dd pipeline on this rank's (n1/d, n2) f64 rows; returns its flat
     f64 shard in natural order."""
-    quad = [*split_f64(re_l), *split_f64(im_l)]
-    cols = []
-    while quad:
-        cols.append(_row_to_col(quad.pop(0), p.n1, p.n2, p.d, p.group))
-    z = list(_dd_columns(cols, p.n, p.n1, p.rank * (p.n2 // p.d), p.passes))
-    del cols
-    rows = []
-    while z:
-        rows += _to_rows([z.pop(0)], p)
+    rows = _column_stage(
+        [*split_f64(re_l), *split_f64(im_l)], p,
+        lambda quad, base: _dd_columns(quad, p.n, p.n1, base, p.passes))
     tables, corrs = rp.dd_state
     out = list(rows_dd(rows, rp.plan, tables, corrs, dd_leaf, p.passes))
     cols = []
@@ -309,6 +458,14 @@ def fft_distributed(reals, imags, direction, planner, *, group=None,
     planner's rows run the oz kernels inside their window), and with a
     permuted flag, like every other engine, the native pipeline.
 
+    The column stage runs in one chunk unless PHASTFT_TPU_DIST_CHUNKS sets
+    a count >= 1 that divides the rank's block width (``_chunk_count``; the
+    JAX package's default of 4 read slower on the H100, on one card and on
+    four). Chunked, each chunk's all_to_alls are in flight while the next
+    chunk's column pass runs (on NCCL, on its own stream beside the
+    kernels); one chunk runs its collectives on the current stream. The
+    result's layout does not depend on the count.
+
     Every shape the JAX package shards runs, column blocks of one and two
     columns included. Raises ``NonPowerOfTwoError`` when n is not a power
     of two, differs from the planner's or is too small for d ranks (the JAX
@@ -350,6 +507,7 @@ def fft_distributed(reals, imags, direction, planner, *, group=None,
                                        leaf_kernel, passes),
         transpose=passes.transpose2_64 if f64 else passes.transpose2,
         passes=passes,
+        chunks=column_chunks(n, d, planner, permuted_input or permuted_output),
     )
     if dd:
         dd_leaf = engine.split("-", 1)[1] if "-" in engine else None

@@ -14,8 +14,18 @@ killed and the fixture fails.
 Tolerances: the port against the JAX package, rel L2 <= 2e-6 (two f32
 pipelines that sum in different orders); each against numpy's f64 FFT,
 <= 1e-5, as tests/test_parallel.py holds the f32 path.
+
+The chunked column stage: the CHUNKED cases run with
+PHASTFT_TPU_DIST_CHUNKS set on every rank and in the JAX reference (whose
+built pipelines are dropped before and after, as their cache key does not
+hold the count), each also at one chunk on the ranks: the chunked result
+matches the JAX package's at the same count and the port's one-chunk
+result, bit for bit in permuted input (an exact twiddle per element, a bare
+column pass) and within ONE_CHUNK_TOL elsewhere (each chunk's shard
+twiddle factored on its own columns, as in the JAX package).
 """
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -44,11 +54,11 @@ DEADLINE_S = 120
 WORLDS = (2, 4)
 
 #: case -> (log2 n, flags): the transforms each rank runs, natural or with
-#: the permuted layouts. The port runs one chunk; for "jax_chunked" the JAX
-#: reference is forced to 4 chunks of the column block, which leave the
-#: layout as it is. The "two_column" cases plan both packages on a leaf of
-#: 2d points: n2 = 2d, column blocks of two columns (colfft's shard and bare
-#: modes at n2 = 2), tiny rows of 2d points.
+#: the permuted layouts. For "jax_chunked" both packages are forced to 4
+#: chunks of the column block (under 8 MiB both take one by default), which
+#: leave the layout as it is. The "two_column" cases plan both packages on a
+#: leaf of 2d points: n2 = 2d, column blocks of two columns (colfft's shard
+#: and bare modes at n2 = 2), tiny rows of 2d points.
 TRANSFORMS = {
     "natural_2^10": (10, {}),
     "natural_2^12": (12, {}),
@@ -59,6 +69,23 @@ TRANSFORMS = {
     "two_column_permuted_input_2^10": (10, {"permuted_input": True}),
 }
 JAX_CHUNKED = "jax_chunked_2^13"
+#: case -> (log2 n, flags, chunks, use_pallas=False): the chunked column
+#: stage on a leaf of 256 points (n1 = 32, blocks of 128 / 64 columns at
+#: d = 2 / 4), each also run at one chunk.
+CHUNKED = {
+    "chunks2_natural_2^13": (13, {}, 2, False),
+    "chunks4_natural_2^13": (13, {}, 4, False),
+    "chunks8_natural_2^13": (13, {}, 8, False),
+    "chunks4_permuted_output_2^13": (13, {"permuted_output": True}, 4, False),
+    "chunks2_permuted_input_2^13": (13, {"permuted_input": True}, 2, False),
+    "chunks4_permuted_input_2^13": (13, {"permuted_input": True}, 4, False),
+    "chunks8_permuted_input_2^13": (13, {"permuted_input": True}, 8, False),
+    "chunks4_plain_natural_2^13": (13, {}, 4, True),
+    "chunks4_plain_permuted_input_2^13": (13, {"permuted_input": True}, 4, True),
+}
+CHUNK_LEAF = 256
+#: The chunked result against the port's one-chunk result (rel L2).
+ONE_CHUNK_TOL = 5e-7
 BATCH_ROWS, BATCH_LOG = 2, 10
 ERRORS = ("flags", "planner_size", "too_small", "batch_1d")
 
@@ -72,12 +99,45 @@ def _signal(log_n, seed, rows=None):
 
 def _leaf(case, n, d):
     """The planners' leaf of a case over d ranks: 2d points for the
-    two-column cases, else the default leaf of n."""
+    two-column cases, CHUNK_LEAF for the chunked ones, else the default leaf
+    of n."""
     import phastft_tpu_torch as pt
 
     if case.startswith("two_column"):
         return 2 * d
+    if case in CHUNKED:
+        return CHUNK_LEAF
     return pt.Options.guess_options(n, np.float32).leaf_fft_size
+
+
+@contextlib.contextmanager
+def _chunks(value):
+    """PHASTFT_TPU_DIST_CHUNKS set to ``value`` (None: as it was) inside the
+    block, restored after it."""
+    old = os.environ.get("PHASTFT_TPU_DIST_CHUNKS")
+    if value is not None:
+        os.environ["PHASTFT_TPU_DIST_CHUNKS"] = str(value)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PHASTFT_TPU_DIST_CHUNKS", None)
+        else:
+            os.environ["PHASTFT_TPU_DIST_CHUNKS"] = old
+
+
+@contextlib.contextmanager
+def _jax_chunks(value):
+    """``_chunks`` for the JAX reference: its built pipelines are dropped
+    before and after the block (their cache key does not hold the count)."""
+    from phastft_tpu.parallel.fourstep_dist import _build_distributed
+
+    _build_distributed.cache_clear()
+    try:
+        with _chunks(value):
+            yield
+    finally:
+        _build_distributed.cache_clear()
 
 
 def _perm(n, d, case=""):
@@ -91,7 +151,7 @@ def _perm(n, d, case=""):
 
 
 def _inputs(case, d):
-    log_n, flags = TRANSFORMS[case]
+    log_n, flags = (TRANSFORMS[case] if case in TRANSFORMS else CHUNKED[case][:2])
     re, im = _signal(log_n, log_n)
     if flags.get("permuted_input"):
         p = _perm(1 << log_n, d, case)
@@ -121,8 +181,16 @@ def _rank_cases(rank, d):
     for case, (log_n, flags) in TRANSFORMS.items():
         re, im = _inputs(case, d)
         opts = pt.Options(leaf_fft_size=_leaf(case, 1 << log_n, d))
-        out[case] = pair(fft_distributed(shard(re), shard(im), fwd,
-                                         planner(log_n, options=opts), **flags))
+        with _chunks(4 if case == JAX_CHUNKED else None):
+            out[case] = pair(fft_distributed(shard(re), shard(im), fwd,
+                                             planner(log_n, options=opts), **flags))
+    for case, (log_n, flags, chunks, plain) in CHUNKED.items():
+        re, im = _inputs(case, d)
+        opts = pt.Options(leaf_fft_size=CHUNK_LEAF, use_pallas=False if plain else None)
+        for count, key in ((chunks, case), (1, f"{case}@1")):
+            with _chunks(count):
+                out[key] = pair(fft_distributed(shard(re), shard(im), fwd,
+                                                planner(log_n, options=opts), **flags))
     # round trips: natural, and permuted output into permuted input
     re, im = _signal(12, 12)
     p = planner(12)
@@ -219,13 +287,14 @@ def world(request, tmp_path_factory):
 
 # -- the reference -----------------------------------------------------------
 
-def _jax_distributed(re, im, d, direction="Forward", leaf=None, **flags):
+def _jax_distributed(re, im, d, direction="Forward", leaf=None, plain=False, **flags):
     import jax
     import phastft_tpu
     from phastft_tpu.parallel import default_mesh, fft_distributed
 
     mesh = default_mesh("x", devices=jax.devices()[:d])
-    opts = None if leaf is None else phastft_tpu.Options(leaf_fft_size=leaf)
+    opts = None if leaf is None else phastft_tpu.Options(
+        leaf_fft_size=leaf, use_pallas=False if plain else None)
     p = phastft_tpu.PlannerDit32(re.shape[-1], options=opts)
     out = fft_distributed(re, im, getattr(phastft_tpu.Direction, direction),
                           p, mesh=mesh, **flags)
@@ -241,16 +310,12 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("case", sorted(TRANSFORMS))
-def test_transform_matches_jax_and_numpy(world, case, monkeypatch):
+def test_transform_matches_jax_and_numpy(world, case):
     d, got = world
     log_n, flags = TRANSFORMS[case]
     re, im = _inputs(case, d)
-    if case == JAX_CHUNKED:
-        from phastft_tpu.parallel.fourstep_dist import _build_distributed
-
-        monkeypatch.setenv("PHASTFT_TPU_DIST_CHUNKS", "4")
-        _build_distributed.cache_clear()  # its key does not hold the chunks
-    want_jax = _c(_jax_distributed(re, im, d, leaf=_leaf(case, 1 << log_n, d), **flags))
+    with _jax_chunks(4 if case == JAX_CHUNKED else None):
+        want_jax = _c(_jax_distributed(re, im, d, leaf=_leaf(case, 1 << log_n, d), **flags))
     g = _c(got[case])
     assert g.shape == (1 << log_n,)
     # element for element: the permuted layout too
@@ -260,6 +325,30 @@ def test_transform_matches_jax_and_numpy(world, case, monkeypatch):
     if flags.get("permuted_output"):
         spectrum = spectrum[_perm(1 << log_n, d, case)]
     assert _rel(g, spectrum) <= TOL_F64
+
+
+@pytest.mark.parametrize("case", sorted(CHUNKED))
+def test_chunked_matches_jax_and_one_chunk(world, case):
+    """The chunked column stage at 2 and 4 ranks: the JAX package's result
+    at the same chunk count, numpy's, and the port's one-chunk result."""
+    d, got = world
+    log_n, flags, chunks, plain = CHUNKED[case]
+    re, im = _inputs(case, d)
+    g = _c(got[case])
+    one = _c(got[f"{case}@1"])
+    assert g.shape == (1 << log_n,)
+    with _jax_chunks(chunks):
+        want_jax = _c(_jax_distributed(re, im, d, leaf=CHUNK_LEAF, plain=plain, **flags))
+    assert _rel(g, want_jax) <= TOL_JAX
+    x, y = _signal(log_n, log_n)
+    spectrum = np.fft.fft(x.astype(np.float64) + 1j * y)
+    if flags.get("permuted_output"):
+        spectrum = spectrum[_perm(1 << log_n, d, case)]
+    assert _rel(g, spectrum) <= TOL_F64
+    if flags.get("permuted_input"):
+        assert np.array_equal(g, one)
+    else:
+        assert _rel(g, one) <= ONE_CHUNK_TOL
 
 
 @pytest.mark.parametrize("kind", ["natural", "permuted"])

@@ -12,8 +12,17 @@ Tolerances: native and df64, rel L2 <= 1e-12 against the JAX package and
 against numpy's FFT (both ~1e-15 / ~1e-14 apart in fact); f32,
 5e-7 * max(1, log2(n) / 18) against numpy and 2e-6 against the JAX package
 (two f32 pipelines that sum in different orders).
+
+The chunked column stage: the CHUNKED cases run with
+PHASTFT_TPU_DIST_CHUNKS set on every rank and in the JAX reference (its
+built pipelines dropped before and after), each also at one chunk on the
+ranks. The chunked result matches the JAX package's at the same count and
+the port's one-chunk result: bit for bit in permuted input and where every
+df64 chunk holds the 256 columns its tables are factored on, else within
+ONE_CHUNK_TOL (each chunk's twiddle tables factored on its own columns).
 """
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -83,6 +92,24 @@ NUMPY_ONLY = ("df64_narrow_2^10", "df64_split_2^13", "df64_oz_2^12")
 #: graphs take ~2-3 s each to compile); to numpy at both world sizes.
 JAX_LONG_WORLD = 2
 ROUNDTRIPS = ("native", "native_permuted", "df64", "long_f64")
+#: case -> (log2 n, dtype, options, flags, chunks): the chunked column stage,
+#: native on a 256-point leaf (n1 = 32), df64 (n1 = 8, blocks of 512 / 256
+#: columns at d = 2 / 4), past n1 = 2048 on a 128-point leaf (n1 = 4096;
+#: held to the JAX package at JAX_LONG_WORLD, as the long cases above).
+CHUNKED = {
+    "chunks2_native_2^13": (13, "f64", {"leaf_fft_size": 256}, {}, 2),
+    "chunks4_native_2^13": (13, "f64", {"leaf_fft_size": 256}, {}, 4),
+    "chunks8_native_2^13": (13, "f64", {"leaf_fft_size": 256}, {}, 8),
+    "chunks4_native_permuted_input_2^13": (13, "f64", {"leaf_fft_size": 256},
+                                           {"permuted_input": True}, 4),
+    "chunks2_df64_2^13": (13, "f64", {"f64_engine": "df64"}, {}, 2),
+    "chunks4_df64_2^13": (13, "f64", {"f64_engine": "df64"}, {}, 4),
+    "chunks8_df64_2^13": (13, "f64", {"f64_engine": "df64"}, {}, 8),
+    "chunks4_long_f64_2^19": (19, "f64", {"leaf_fft_size": 128}, {}, 4),
+    "chunks4_long_f32_2^19": (19, "f32", {"leaf_fft_size": 128}, {}, 4),
+}
+#: The chunked result against the port's one-chunk result (rel L2).
+ONE_CHUNK_TOL = {"f64": 1e-14, "f32": 5e-7}
 ERRORS = ("dd_too_small", "f64_planner_size", "f64_flags")
 
 
@@ -113,8 +140,42 @@ def _perm(log_n, d, opts):
     return np.arange(n).reshape(n2, n1).T.reshape(-1)
 
 
+@contextlib.contextmanager
+def _chunks(value):
+    """PHASTFT_TPU_DIST_CHUNKS set to ``value`` inside the block, restored
+    after it."""
+    old = os.environ.get("PHASTFT_TPU_DIST_CHUNKS")
+    os.environ["PHASTFT_TPU_DIST_CHUNKS"] = str(value)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PHASTFT_TPU_DIST_CHUNKS", None)
+        else:
+            os.environ["PHASTFT_TPU_DIST_CHUNKS"] = old
+
+
+@contextlib.contextmanager
+def _jax_chunks(value):
+    """``_chunks`` for the JAX reference: its built pipelines are dropped
+    before and after the block (their cache keys do not hold the count)."""
+    from phastft_tpu.parallel.fourstep_dist import _build_distributed, _build_distributed_dd
+
+    def drop():
+        _build_distributed.cache_clear()
+        _build_distributed_dd.cache_clear()
+
+    drop()
+    try:
+        with _chunks(value):
+            yield
+    finally:
+        drop()
+
+
 def _inputs(case, d):
-    log_n, dtype, opts, flags = TRANSFORMS[case]
+    log_n, dtype, opts, flags = (TRANSFORMS[case] if case in TRANSFORMS
+                                 else CHUNKED[case][:4])
     re, im = _signal(log_n, log_n, np.float32 if dtype == "f32" else np.float64)
     if flags.get("permuted_input"):
         p = _perm(log_n, d, opts)
@@ -148,6 +209,12 @@ def _rank_cases(rank, d):
         re, im = _inputs(case, d)
         out[case] = pair(fft_distributed(shard(re), shard(im), fwd,
                                          planner(log_n, dtype, **opts), **flags))
+    for case, (log_n, dtype, opts, flags, chunks) in CHUNKED.items():
+        re, im = _inputs(case, d)
+        for count, key in ((chunks, case), (1, f"{case}@1")):
+            with _chunks(count):
+                out[key] = pair(fft_distributed(shard(re), shard(im), fwd,
+                                                planner(log_n, dtype, **opts), **flags))
     # round trips: natural, permuted output into permuted input, df64, and
     # past n1 = 2048
     for kind, log_n, opts, flags in (
@@ -315,6 +382,34 @@ def test_transform_matches_jax_and_numpy(world, case):
         assert _rel(g, spectrum) <= 5e-7 * max(1.0, log_n / 18.0)
     else:
         assert _rel(g, spectrum) <= TOL_F64
+
+
+@pytest.mark.parametrize("case", sorted(CHUNKED))
+def test_chunked_matches_jax_and_one_chunk(world, case):
+    """The chunked column stage at 2 and 4 ranks (the long cases against the
+    JAX package at JAX_LONG_WORLD): the JAX package's result at the same
+    chunk count, numpy's, and the port's one-chunk result."""
+    from phastft_tpu_torch.parallel.fourstep_dist import _factor_dd
+
+    d, got = world
+    log_n, dtype, opts, flags, chunks = CHUNKED[case]
+    re, im = _inputs(case, d)
+    g = _c(got[case])
+    one = _c(got[f"{case}@1"])
+    assert g.shape == (1 << log_n,)
+    if "long" not in case or d == JAX_LONG_WORLD:
+        with _jax_chunks(chunks):
+            want_jax = _c(_jax_distributed(re, im, d, log_n, dtype, opts, **flags))
+        assert _rel(g, want_jax) <= (TOL_JAX_F32 if dtype == "f32" else TOL_F64)
+    x, y = _signal(log_n, log_n)
+    assert _rel(g, np.fft.fft(x + 1j * y)) <= (5e-7 * max(1.0, log_n / 18.0)
+                                               if dtype == "f32" else TOL_F64)
+    dd_width = (_factor_dd(1 << log_n, d)[1] // d // chunks
+                if opts.get("f64_engine") == "df64" else 0)
+    if flags.get("permuted_input") or dd_width >= 256:
+        assert np.array_equal(g, one)
+    else:
+        assert _rel(g, one) <= ONE_CHUNK_TOL[dtype]
 
 
 @pytest.mark.parametrize("kind", ROUNDTRIPS)

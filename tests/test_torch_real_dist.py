@@ -14,8 +14,16 @@ JAX.
 Tolerances: f64 (native and df64) rel L2 <= 1e-12 against the JAX package
 and numpy; f32 <= 2e-6 against the JAX package and <= 1e-5 against numpy's
 f64 transforms.
+
+The chunked column stage of the half-length ``fft_distributed``: the
+CHUNKED cases run with PHASTFT_TPU_DIST_CHUNKS set on every rank and in the
+JAX reference (its built pipelines dropped before and after), each also at
+one chunk on the ranks; the chunked results match the JAX package's at the
+same count, numpy's, and the port's one-chunk results within ONE_CHUNK_TOL
+(each chunk's shard twiddle factored on its own columns).
 """
 
+import contextlib
 import datetime
 import functools
 import os
@@ -52,6 +60,13 @@ CASES = {
     "df64_2^12": (12, "f64", {"f64_engine": "df64"}),
     "f64_leaf128_2^14": (14, "f64", {"leaf_fft_size": 128}),
 }
+#: case -> (log2 n, dtype, inner options, chunks): the half-length transform
+#: (2^13) on a 256-point leaf, n1 = 32, blocks of 128 / 64 columns.
+CHUNKED = {
+    "chunks4_f32_2^14": (14, "f32", {"leaf_fft_size": 256}, 4),
+    "chunks4_f64_2^14": (14, "f64", {"leaf_fft_size": 256}, 4),
+}
+ONE_CHUNK_TOL = {"f32": 5e-7, "f64": 1e-14}
 #: The JAX package's distributed dd pipeline compiles for ~10 s a shape on
 #: the CPU: the df64 case is held to it at one world size, to numpy at both.
 JAX_DD_WORLD = 2
@@ -66,6 +81,21 @@ def _spectrum(log_n, dtype):
     spec = np.fft.rfft(_signal(log_n, 200 + log_n))
     return (np.ascontiguousarray(spec.real).astype(dtype),
             np.ascontiguousarray(spec.imag).astype(dtype))
+
+
+@contextlib.contextmanager
+def _chunks(value):
+    """PHASTFT_TPU_DIST_CHUNKS set to ``value`` inside the block, restored
+    after it."""
+    old = os.environ.get("PHASTFT_TPU_DIST_CHUNKS")
+    os.environ["PHASTFT_TPU_DIST_CHUNKS"] = str(value)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PHASTFT_TPU_DIST_CHUNKS", None)
+        else:
+            os.environ["PHASTFT_TPU_DIST_CHUNKS"] = old
 
 
 # -- the ranks ---------------------------------------------------------------
@@ -99,6 +129,17 @@ def _rank_cases(rank, d):
         out[f"c2r_{case}"] = c2r_fft_distributed(bins(sre, n), bins(sim, n), p).numpy()
         out[f"roundtrip_{case}"] = c2r_fft_distributed(*spec, p).numpy()
         out[f"no_full_table_{case}"] = np.array([p._c2r_tw is None])
+    for case, (log_n, dtype, opts, chunks) in CHUNKED.items():
+        n = 1 << log_n
+        dt = np.float32 if dtype == "f32" else np.float64
+        p = planner(log_n, dtype, **opts)
+        x = _signal(log_n, log_n, dt)
+        sre, sim = _spectrum(log_n, dt)
+        for count, tag in ((chunks, case), (1, f"{case}@1")):
+            with _chunks(count):
+                spec = r2c_fft_distributed(shard(x), p)
+                out[f"r2c_{tag}"] = (spec[0].numpy(), spec[1].numpy())
+                out[f"c2r_{tag}"] = c2r_fft_distributed(bins(sre, n), bins(sim, n), p).numpy()
     small = 4 * d * d  # n/2 < 4 d^2
     calls = {
         "too_small": lambda: r2c_fft_distributed(
@@ -188,6 +229,31 @@ def _jax(case, d, kind):
     return np.asarray(c2r_fft_distributed(*_spectrum(log_n, dt), p, mesh=mesh))
 
 
+def _jax_chunked(case, d, kind):
+    """``_jax`` of a CHUNKED case at its chunk count, the JAX package's built
+    pipelines dropped before and after (their cache key does not hold the
+    count)."""
+    import jax
+    import phastft_tpu
+    from phastft_tpu.parallel import c2r_fft_distributed, default_mesh, r2c_fft_distributed
+    from phastft_tpu.parallel.fourstep_dist import _build_distributed
+
+    log_n, dtype, opts, chunks = CHUNKED[case]
+    dt = np.float32 if dtype == "f32" else np.float64
+    cls = phastft_tpu.PlannerR2c32 if dtype == "f32" else phastft_tpu.PlannerR2c64
+    p = cls(1 << log_n, inner_options=phastft_tpu.Options(**opts))
+    mesh = default_mesh("x", devices=jax.devices()[:d])
+    _build_distributed.cache_clear()
+    try:
+        with _chunks(chunks):
+            if kind == "r2c":
+                out = r2c_fft_distributed(_signal(log_n, log_n, dt), p, mesh=mesh)
+                return np.asarray(out[0], np.float64) + 1j * np.asarray(out[1], np.float64)
+            return np.asarray(c2r_fft_distributed(*_spectrum(log_n, dt), p, mesh=mesh))
+    finally:
+        _build_distributed.cache_clear()
+
+
 def _rel(got, want):
     return np.linalg.norm(got - want) / np.linalg.norm(want)
 
@@ -223,6 +289,29 @@ def test_c2r_matches_jax_and_numpy(world, case):
     assert _rel(g, want) <= (TOL_NUMPY_F32 if f32 else TOL_F64)
     if _held_to_jax(case, d):
         assert _rel(g, _jax(case, d, "c2r")) <= (TOL_JAX_F32 if f32 else TOL_F64)
+
+
+@pytest.mark.parametrize("kind", ["r2c", "c2r"])
+@pytest.mark.parametrize("case", sorted(CHUNKED))
+def test_chunked_matches_jax_and_one_chunk(world, case, kind):
+    """The chunked half-length transform at 2 and 4 ranks: the JAX
+    package's result at the same chunk count, numpy's, and the port's
+    one-chunk result."""
+    d, got = world
+    log_n, dtype, _, _ = CHUNKED[case]
+    f32 = dtype == "f32"
+    if kind == "r2c":
+        g = got[f"r2c_{case}"][0].astype(np.float64) + 1j * got[f"r2c_{case}"][1]
+        one = got[f"r2c_{case}@1"][0].astype(np.float64) + 1j * got[f"r2c_{case}@1"][1]
+        x = _signal(log_n, log_n, np.float32 if f32 else np.float64)
+        want = np.fft.rfft(x.astype(np.float64))
+    else:
+        g, one = got[f"c2r_{case}"], got[f"c2r_{case}@1"]
+        want = np.fft.irfft(np.fft.rfft(_signal(log_n, 200 + log_n)))
+    assert g.shape == want.shape
+    assert _rel(g, want) <= (TOL_NUMPY_F32 if f32 else TOL_F64)
+    assert _rel(g, _jax_chunked(case, d, kind)) <= (TOL_JAX_F32 if f32 else TOL_F64)
+    assert _rel(g, one) <= ONE_CHUNK_TOL[dtype]
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
