@@ -1316,6 +1316,22 @@ def device_breakdown(fn, top_k=12):
     return {k: [ms, c] for k, ms, c in rows[:top_k]}
 
 
+def kernel_launches(kernel) -> int:
+    """The launches so far of the kernel wrapper ``kernel``, as
+    ``phastft_tpu_torch.tracing.launches`` counts them under its name."""
+    from phastft_tpu_torch.tracing import launch_count
+
+    return launch_count(kernel.__name__)
+
+
+def zero_launches(kernels) -> None:
+    """The launch counts of the kernel wrappers ``kernels`` set to 0."""
+    from phastft_tpu_torch.tracing import launches
+
+    for k in kernels:
+        launches[k.__name__] = 0
+
+
 def counted(counters):
     """run(fn, want): fn() once; it must launch exactly ``want`` ({name:
     count}) of ``counters``' kernels, and nothing else among them. The
@@ -1324,9 +1340,9 @@ def counted(counters):
     total = dict.fromkeys(names, 0)
 
     def run(fn, want):
-        before = [k.launches for k in counters]
+        before = [kernel_launches(k) for k in counters]
         out = fn()
-        delta = {nm: k.launches - b0 for nm, k, b0 in zip(names, counters, before)}
+        delta = {nm: kernel_launches(k) - b0 for nm, k, b0 in zip(names, counters, before)}
         full = {nm: want.get(nm, 0) for nm in names}
         if delta != full:
             raise AssertionError(f"launches {delta}, want {full}")
@@ -1384,8 +1400,7 @@ def hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err) -> None:
     # -- main path: counters at 0 just before, read just after
     passes = (R.deinterleave, R.untangle, R.pre_untangle, R.interleave_scale)
     counters = (hybrid, leaf, leaf3, colfft, colfft_out3d, leaft, transpose2, *passes)
-    for k in counters:
-        k.launches = 0
+    zero_launches(counters)
     run = counted(counters)
     opts = Options(leaf_kernel="hybrid")
     errs = {}
@@ -1458,7 +1473,7 @@ def hybrid_phases(dev, gen, rng, flush, smi, top, launches, max_err) -> None:
     errs["roundtrip_2^16x16"] = rt
     check("hybrid round trip 2^16 x 16", rt, 1e-6)
     torch.cuda.synchronize()
-    got = {k.__name__: k.launches for k in counters}
+    got = {k.__name__: kernel_launches(k) for k in counters}
     emit({"phase": "e2e_hybrid", "rel_l2": errs, "launches": got, "want": run.total})
     if got != run.total or got["hybrid"] < 1:
         raise AssertionError(f"launches {got}, want {run.total}")
@@ -1698,8 +1713,7 @@ def r2c_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     torch.cuda.empty_cache()
 
     # -- the main path: counters at 0 just before, read just after
-    for k in (*passes, *inner):
-        k.launches = 0
+    zero_launches((*passes, *inner))
     run = counted(passes)
     fwd = {"deinterleave": 1, "untangle": 1}
     inv = {"pre_untangle": 1, "interleave_scale": 1}
@@ -1708,9 +1722,9 @@ def r2c_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     def transform(fn, want, what):
         """run(fn, want), which must also launch the half-length transform's
         kernels; the inner kernels it launched are recorded under ``what``."""
-        before = {k.__name__: k.launches for k in inner}
+        before = {k.__name__: kernel_launches(k) for k in inner}
         out = run(fn, want)
-        got = {k.__name__: k.launches - before[k.__name__] for k in inner}
+        got = {k.__name__: kernel_launches(k) - before[k.__name__] for k in inner}
         got = {k: v for k, v in got.items() if v}
         if not got:
             raise AssertionError(f"{what}: no kernel of the half-length transform ran")
@@ -1814,7 +1828,7 @@ def r2c_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         check(f"{tag} distributed round trip 2^{R2C_DIST_LOG}", rt, rt_tol(tag))
         del p, x, spec, back
     torch.cuda.synchronize()
-    got = {k.__name__: k.launches for k in passes}
+    got = {k.__name__: kernel_launches(k) for k in passes}
     emit({"phase": "e2e_r2c", "rel_l2": errs, "launches": got, "want": run.total,
           "inner_launches": inner_seen})
     if got != run.total:
@@ -1951,8 +1965,7 @@ def dist_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
 
     counters = (colfft, colfft_nocorr, colfft_out3d, leaft, leaf, leaf3, hybrid,
                 transpose2)
-    for k in counters:
-        k.launches = 0
+    zero_launches(counters)
     run = counted(counters)
     errs = {}
     for log_n in DIST_LOGS:
@@ -2003,7 +2016,7 @@ def dist_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     check("batch_fft_sharded", err, 5e-7 * max(1.0, 20 / 18.0))
     del out, xr, xi
     torch.cuda.synchronize()
-    got = {k.__name__: k.launches for k in counters}
+    got = {k.__name__: kernel_launches(k) for k in counters}
     emit({"phase": "dist", "world_size": dist.get_world_size(),
           "backend": dist.get_backend(), "rel_l2": errs, "launches": got,
           "want": run.total})
@@ -2284,8 +2297,7 @@ def dist64_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     counters = (col64, col64_nocorr, leaf64, transpose2_64, transpose2, ddcol, ddcol_nocorr,
                 ddleaf, ozcol, ozleaft, colfft, colfft_nocorr, colfft_out3d, leaft, leaf,
                 leaf3, hybrid)
-    for k in counters:
-        k.launches = 0
+    zero_launches(counters)
     run = counted(counters)
     errs, peaks = {}, {}
 
@@ -2404,7 +2416,7 @@ def dist64_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
             del out, xr, xi
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    got = {k.__name__: k.launches for k in counters}
+    got = {k.__name__: kernel_launches(k) for k in counters}
     emit({"phase": "dist64", "world_size": 1, "rel_l2": errs, "launches": got,
           "want": run.total, "peaks": peaks})
     if got != run.total:
@@ -2872,9 +2884,9 @@ def chunks_rank(rank: int, ranks: int, port: int) -> int:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 held = torch.cuda.memory_allocated()
-                before = sum(k.launches for k in kernels)
+                before = sum(kernel_launches(k) for k in kernels)
                 out = call()
-                launched = sum(k.launches for k in kernels) - before
+                launched = sum(kernel_launches(k) for k in kernels) - before
                 torch.cuda.synchronize()
                 row[f"added_peak_gib_{forced}"] = worst(
                     (torch.cuda.max_memory_allocated() - held) / 2 ** 30)
@@ -3136,8 +3148,7 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     # transform's launches are checked against its plan
     counters = (col64, leaf64, transpose2_64, transpose2, ddcol, ddcol_nocorr, ddleaf,
                 ozcol, ozleaft, leaf, leaf3, hybrid, colfft, colfft_out3d, leaft)
-    for k in counters:
-        k.launches = 0
+    zero_launches(counters)
     run = counted(counters)
     errs, peaks = {}, {}
 
@@ -3266,7 +3277,7 @@ def native_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         raise AssertionError("native inverse of N * delta is not exactly ones")
     del out, back, dr, xr, xi
     torch.cuda.synchronize()
-    got = {k.__name__: k.launches for k in counters}
+    got = {k.__name__: kernel_launches(k) for k in counters}
     emit({"phase": "e2e_native", "rel_l2": errs, "launches": got, "want": run.total,
           "peaks": {f"2^{k}": v for k, v in peaks.items()}})
     if got != run.total:
@@ -3612,8 +3623,7 @@ def giant_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     counters = (colfft, colfft_out3d, colfft_nocorr, leaft, leaf, leaf3, hybrid, transpose2,
                 col64, col64_nocorr, leaf64, transpose2_64, R.deinterleave, R.untangle,
                 R.pre_untangle, R.interleave_scale)
-    for k in counters:
-        k.launches = 0
+    zero_launches(counters)
     run = counted(counters)
     c2c = f32_row_launches(planner.plan)
     errs, peaks, builds = {}, {}, {}
@@ -3712,7 +3722,7 @@ def giant_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
         del sr, back, p
         release_memory()
     torch.cuda.synchronize()
-    got = {k.__name__: k.launches for k in counters}
+    got = {k.__name__: kernel_launches(k) for k in counters}
     emit({"phase": "e2e_giant", "n": n, "rel_l2": errs, "peaks": peaks, "builds": builds,
           "launches": got, "want": run.total, "card": smi})
     if got != run.total:
@@ -4012,10 +4022,9 @@ def edge_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
                         else dd_launches(planner.plan, False))
                 tol = back_tol = DD_E2E_TOL
             x = (randn((n,), dtype), randn((n,), dtype))
-            for k in kernels:
-                k.launches = 0
+            zero_launches(kernels)
             out = run(lambda: entry(*x, Direction.Forward, planner), want)
-            counts = {k.__name__: k.launches for k in kernels if k.launches}
+            counts = {k.__name__: kernel_launches(k) for k in kernels if kernel_launches(k)}
             err = card_oracle_err(out, *x)
             back = run(lambda: entry(*out, Direction.Reverse, planner), want)
             rt = rel_l2(back[0], back[1], x[0], x[1])
@@ -4047,8 +4056,7 @@ def edge_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
     want = dist_launches(planner, "natural")
     if want.get("leaf3") != 1:
         raise AssertionError(f"the shard's rows do not run leaf3: {want}")
-    for k in kernels:
-        k.launches = 0
+    zero_launches(kernels)
     out = run(lambda: fft_distributed(*x, Direction.Forward, planner), want)
     err = card_oracle_err(out, *x)
     emit({"phase": "e2e_edges", "entry": "fft_distributed", "world": 1, "dtype": "f32",
@@ -4067,8 +4075,7 @@ def edge_phases(dev, gen, flush, smi, top, launches, max_err) -> None:
             n, options=Options(leaf_fft_size=leaf_n))
         x = (randn((n,), dtype), randn((n,), dtype))
         want = dist_launches(planner, "natural")
-        for k in kernels:
-            k.launches = 0
+        zero_launches(kernels)
         out = run(lambda: fft_distributed(*x, Direction.Forward, planner), want)
         err = card_oracle_err(out, *x)
         perm = fft_distributed(*x, Direction.Forward, planner, permuted_output=True)
@@ -4095,9 +4102,9 @@ def all_kernels():
 
 def launches_of(kernels, fn):
     """(fn(), {kernel: launches} of that call, the kernels it launched only)."""
-    before = [k.launches for k in kernels]
+    before = [kernel_launches(k) for k in kernels]
     out = fn()
-    counts = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
+    counts = {k.__name__: kernel_launches(k) - b for k, b in zip(kernels, before)}
     return out, {name: c for name, c in counts.items() if c}
 
 
@@ -4636,8 +4643,7 @@ def main() -> int:
         del kc, pc, kl, pl, xr, xi
 
     # -- main path: counters at 0 just before, read just after
-    for k in (colfft_out3d, leaft, leaf, leaf3, colfft, transpose2):
-        k.launches = 0
+    zero_launches((colfft_out3d, leaft, leaf, leaf3, colfft, transpose2))
     transforms = 0
     errs = {}
     x24 = None
@@ -4683,13 +4689,13 @@ def main() -> int:
     check("fft_32_dit 2^20 on unaligned views", err, 5e-7 * max(1.0, 20 / 18.0))
     del views
     torch.cuda.synchronize()
-    launches = {"colfft_out3d": colfft_out3d.launches, "leaft": leaft.launches}
+    launches = {"colfft_out3d": kernel_launches(colfft_out3d), "leaft": kernel_launches(leaft)}
     emit({"phase": "e2e", "rel_l2": errs, "transforms": transforms,
           "launches": launches})
     for name, count in launches.items():
         if count != transforms:
             raise AssertionError(f"{name}: {count} launches for {transforms} transforms")
-    if leaf.launches or leaf3.launches or colfft.launches or transpose2.launches:
+    if any(kernel_launches(k) for k in (leaf, leaf3, colfft, transpose2)):
         raise AssertionError("a fused split plan launched another kernel")
 
     # -- times
@@ -4775,16 +4781,15 @@ def main() -> int:
 
     # -- main path of the leaf plans: counters at 0 just before, read just after
     counters = (colfft_out3d, leaft, leaf, leaf3)
-    for k in counters:
-        k.launches = 0
+    zero_launches(counters)
     want_launches = {"leaf": 0, "leaf3": 0}
     errs = {}
 
     def run(fn, n):
         """fn() once; it must launch one leaf kernel (none at n = 1)."""
-        before = [k.launches for k in counters]
+        before = [kernel_launches(k) for k in counters]
         out = fn()
-        delta = [k.launches - b for k, b in zip(counters, before)]
+        delta = [kernel_launches(k) - b for k, b in zip(counters, before)]
         want = [0, 0, int(2 <= n < 1 << 16), int(n == 1 << 16)]
         if delta != want:
             raise AssertionError(f"n = {n}: launches {delta}, want {want} "
@@ -4822,7 +4827,7 @@ def main() -> int:
     errs["2^17_rows_of_256"] = err
     check("2^17 rows of 256", err, 5e-7)
     torch.cuda.synchronize()
-    launches_leaf = {k.__name__: k.launches for k in counters}
+    launches_leaf = {k.__name__: kernel_launches(k) for k in counters}
     emit({"phase": "e2e_leaf", "rel_l2": errs, "launches": launches_leaf,
           "want": want_launches})
     for name, count in want_launches.items():
@@ -4902,16 +4907,15 @@ def main() -> int:
     # read just after; every transform's own launches are checked as it runs
     counters = (colfft, colfft_out3d, leaft, leaf, leaf3, transpose2)
     names = [k.__name__ for k in counters]
-    for k in counters:
-        k.launches = 0
+    zero_launches(counters)
     want_total = dict.fromkeys(names, 0)
     nested_launches = {"colfft": 1, "colfft_out3d": 1, "leaft": 1, "transpose2": 1}
 
     def run_counted(fn, want):
         """fn() once; it must launch exactly ``want`` ({name: count})."""
-        before = [k.launches for k in counters]
+        before = [kernel_launches(k) for k in counters]
         out = fn()
-        delta = {nm: k.launches - b0 for nm, k, b0 in zip(names, counters, before)}
+        delta = {nm: kernel_launches(k) - b0 for nm, k, b0 in zip(names, counters, before)}
         full = {nm: want.get(nm, 0) for nm in names}
         if delta != full:
             raise AssertionError(f"launches {delta}, want {full}")
@@ -5006,7 +5010,7 @@ def main() -> int:
     check(f"round trip 2^{TOP_LOG}", rt, 1e-6)
     del back, out
     torch.cuda.synchronize()
-    launches_nested = {k.__name__: k.launches for k in counters}
+    launches_nested = {k.__name__: kernel_launches(k) for k in counters}
     emit({"phase": "e2e_nested", "rel_l2": errs, "launches": launches_nested,
           "want": want_total,
           f"peak_bytes_2^{TOP_LOG}": peak, f"held_before_2^{TOP_LOG}": held,
@@ -5194,8 +5198,7 @@ def main() -> int:
     counters = (ddcol, ddcol_nocorr, ddleaf, transpose2, colfft, colfft_out3d,
                 leaft, leaf, leaf3)
     names = [k.__name__ for k in counters]
-    for k in counters:
-        k.launches = 0
+    zero_launches(counters)
     want_total = dict.fromkeys(names, 0)
 
     def run_dd(fn, plan, split=False):
@@ -5300,7 +5303,7 @@ def main() -> int:
     check(f"df64-split 2^{log_n} x {rows}", err, DD_E2E_TOL)
     del out, xr, xi
     torch.cuda.synchronize()
-    launches_dd = {k.__name__: k.launches for k in counters}
+    launches_dd = {k.__name__: kernel_launches(k) for k in counters}
     emit({"phase": "e2e_dd", "rel_l2": errs, "launches": launches_dd,
           "want": want_total, "peak_bytes_2^27": peak27, "held_before_2^27": held27,
           "peak_gib_2^27": peak27 / 2 ** 30})
@@ -5498,8 +5501,7 @@ def main() -> int:
     counters = (ozcol, ozleaft, ddcol, ddcol_nocorr, ddleaf, transpose2, colfft,
                 colfft_out3d, leaft, leaf, leaf3)
     names = [k.__name__ for k in counters]
-    for k in counters:
-        k.launches = 0
+    zero_launches(counters)
     want_total = dict.fromkeys(names, 0)
     oz_level = {"ozcol": 1, "ozleaft": 1}
 
@@ -5559,7 +5561,7 @@ def main() -> int:
         check("df64-oz planner reuse 2^20 x4", err, OZ_E2E_TOL)
         del out, xr, xi
     torch.cuda.synchronize()
-    launches_oz = {k.__name__: k.launches for k in counters}
+    launches_oz = {k.__name__: kernel_launches(k) for k in counters}
     emit({"phase": "e2e_oz", "rel_l2": errs, "launches": launches_oz, "want": want_total})
     if launches_oz != want_total:
         raise AssertionError(f"launches {launches_oz}, want {want_total}")

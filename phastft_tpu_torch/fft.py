@@ -59,6 +59,7 @@ from .errors import (
 from .options import TILED_BITREV_MIN_LOGN, Options
 from .planner import Direction, PlannerDit32, PlannerDit64, resolve_device
 from .ops.dit import build_dd_fft, build_fast_fft, build_native_fft, build_staged_fft
+from .tracing import span, traced
 
 __all__ = [
     "fft_64_dit",
@@ -117,15 +118,19 @@ def _as_tensor(x, planner) -> torch.Tensor:
                 f"input is on {x.device} but the planner is on {device}"
             )
         want = torch.float64 if planner.dtype == np.float64 else torch.float32
-        out = x.to(want).contiguous()
-    else:
-        arr = np.ascontiguousarray(np.asarray(x, dtype=planner.dtype))
-        if not arr.flags.writeable:  # torch tensors cannot wrap read-only memory
-            arr = arr.copy()
-        out = torch.from_numpy(arr).to(device)
-    if out.data_ptr() % 16:
-        out = out.clone()
-    return out
+        if x.dtype == want and x.is_contiguous() and x.data_ptr() % 16 == 0:
+            return x
+    with span("phastft.convert"):
+        if isinstance(x, torch.Tensor):
+            out = x.to(want).contiguous()
+        else:
+            arr = np.ascontiguousarray(np.asarray(x, dtype=planner.dtype))
+            if not arr.flags.writeable:  # torch tensors cannot wrap read-only memory
+                arr = arr.copy()
+            out = torch.from_numpy(arr).to(device)
+        if out.data_ptr() % 16:
+            out = out.clone()
+        return out
 
 
 def _length(x) -> int:
@@ -162,6 +167,7 @@ def engine_of(planner, f64_engine=None, leaf_kernel=None, use_pallas=None):
     return build_fast_fft, (kernel, plain), (planner.tables_for(planner.plan, kernel),)
 
 
+@traced("phastft.fft")
 def _run(reals, imags, direction, planner, opts: Options):
     direction = _coerce_direction(direction)
     n, log_n = _validate(reals, imags, planner)
@@ -191,6 +197,7 @@ def _run(reals, imags, direction, planner, opts: Options):
 
 
 @functools.lru_cache(maxsize=64)
+@traced("phastft.plan")
 def _cached_planner(n: int, bits: int, device: torch.device):
     cls = PlannerDit64 if bits == 64 else PlannerDit32
     return cls(n, device=device)

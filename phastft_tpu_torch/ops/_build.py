@@ -20,6 +20,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from types import MappingProxyType
+
+from ..tracing import launches, span
 
 __all__ = ["library", "build_log", "call", "check_args", "SRC_DIR", "BUILD_DIR"]
 
@@ -80,6 +83,12 @@ _SIGNATURES = {
     "phastft_r2c_untangle": [_I, _I] + ([_P, _P, _L] * 3) + [_P] * 4 + [_L] * 5 + [_I, _P],
     "phastft_r2c_untangle_pair": [_I, _I] + [_P] * 6 + [_L, _L, _I, _P],
 }
+
+#: The C entries that launch a kernel (not the ``*_clusters``,
+#: ``*_blocks`` and ``*_exact`` queries), each with its span's name.
+_LAUNCH_SPANS = MappingProxyType({
+    name: "phastft.launch." + name for name in _SIGNATURES
+    if not name.endswith(("_clusters", "_blocks", "_exact"))})
 
 _lock = threading.Lock()
 _lib = None
@@ -179,10 +188,21 @@ def check_args(name: str, args) -> tuple:
     return args
 
 
-def call(name: str, args) -> int:
+def call(name: str, args, kernel: str | None = None) -> int:
     """The C entry ``name`` on ``check_args(name, args)``; returns its CUDA
-    error code."""
-    return getattr(library(), name)(*check_args(name, args))
+    error code. A launch entry runs inside its ``phastft.launch.<name>``
+    span and, when it returns 0, adds one to ``tracing.launches[kernel]``:
+    ``kernel`` is the launching wrapper's name, which a launch entry needs."""
+    label = _LAUNCH_SPANS.get(name)
+    if label is None:
+        return getattr(library(), name)(*check_args(name, args))
+    if kernel is None:
+        raise ValueError(f"{name}: a launch names its kernel")
+    with span(label):
+        err = getattr(library(), name)(*check_args(name, args))
+    if err == 0:
+        launches[kernel] += 1
+    return err
 
 
 def build_log() -> str:

@@ -332,7 +332,8 @@ def _launch(name, re, im, n1: int, shape, mode: int, n_total=None,
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         err = call("phastft_colfft", colfft_args(re.shape, n1, mode, n_total,
-                                                 col_base, ptrs, stream))
+                                                 col_base, ptrs, stream),
+                   kernel=name)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     return ore, oim
@@ -356,7 +357,7 @@ def colfft(re, im, tabs, n1: int, *, n_total=None, col_base: int = 0):
     T1 * T2: T1 of the block's first column from the exact phase, once a
     block, and T2 from ``tabs`` (a shard block's T2 is built here, as
     ``colfft_plain`` builds it). Inputs are read, never written; the
-    outputs are new tensors. Each launch adds one to ``colfft.launches``.
+    outputs are new tensors.
 
     Replaces ``phastft_tpu/ops/pallas_col.py`` ``colfft_pallas(...,
     out3d=False)``, with ``n_total`` as its distributed callers use it;
@@ -377,11 +378,7 @@ def colfft(re, im, tabs, n1: int, *, n_total=None, col_base: int = 0):
         n1, col_tile(n1, n2), n_total, col_base, re.device)
     out = _launch("colfft", re, im, n1, batch + (n1, n2), _CLASSIC, n_total,
                   col_base, t2)
-    colfft.launches += 1
     return out
-
-
-colfft.launches = 0
 
 
 def colfft_out3d(re, im, tabs, n1: int):
@@ -390,8 +387,7 @@ def colfft_out3d(re, im, tabs, n1: int):
 
     On CUDA it launches ``csrc/colfft.cu`` on the current stream (a CPU
     tensor runs ``colfft_out3d_plain``). Inputs are read, never written;
-    the outputs are new tensors. Each launch adds one to
-    ``colfft_out3d.launches``.
+    the outputs are new tensors.
 
     Replaces ``phastft_tpu/ops/pallas_col.py`` ``colfft_pallas(...,
     out3d=True)``. Bound by memory as ``colfft`` is, with the same slabs:
@@ -402,11 +398,7 @@ def colfft_out3d(re, im, tabs, n1: int):
         return colfft_out3d_plain(re, im, tabs, n1)
     shape = batch + (n2 // LANES, n1, LANES)
     out = _launch("colfft_out3d", re, im, n1, shape, _OUT3D, t2=tabs)
-    colfft_out3d.launches += 1
     return out
-
-
-colfft_out3d.launches = 0
 
 
 def colfft_nocorr(re, im, n1: int):
@@ -418,8 +410,7 @@ def colfft_nocorr(re, im, n1: int):
 
     On CUDA it launches ``csrc/colfft.cu`` in its bare mode on the current
     stream; a CPU tensor runs ``colfft_nocorr_plain``. Inputs are read,
-    never written; the outputs are new tensors. Each launch adds one to
-    ``colfft_nocorr.launches``.
+    never written; the outputs are new tensors.
 
     Replaces ``phastft_tpu/ops/pallas_col.py`` ``colfft_pallas_nocorr``;
     unlike it, it takes n1 = 2 and 4. Bound by memory as ``colfft`` is,
@@ -428,8 +419,4 @@ def colfft_nocorr(re, im, n1: int):
     if re.device.type == "cpu":
         return colfft_nocorr_plain(re, im, n1)
     out = _launch("colfft_nocorr", re, im, n1, batch + (n1, n2), _NOCORR)
-    colfft_nocorr.launches += 1
     return out
-
-
-colfft_nocorr.launches = 0

@@ -225,8 +225,7 @@ def ddcol(rh, rl, ih, il, t1, t2, n1: int):
     device. Returns four new (..., n1, n2) planes.
 
     On CUDA it launches ``csrc/ddcol.cu`` on the current stream (a CPU
-    tensor runs ``ddcol_plain``). Inputs are read, never written. Each
-    launch adds one to ``ddcol.launches``.
+    tensor runs ``ddcol_plain``). Inputs are read, never written.
 
     Replaces ``phastft_tpu/ops/pallas_dd.py`` ``ddcol_pallas``; unlike it,
     it takes n1 = 2, 4 and 2048, every n2 >= 1 (under 128: the rows of a
@@ -253,14 +252,10 @@ def ddcol(rh, rl, ih, il, t1, t2, n1: int):
         err = call("phastft_ddcol", (
             *_ptrs(planes), tw.data_ptr(), *_ptrs(t1), *_ptrs(t2),
             *_ptrs(out), b, n1, n2, stream,
-        ))
+        ), kernel="ddcol")
     if err != 0:
         raise RuntimeError(f"ddcol: kernel launch failed, CUDA error {err}")
-    ddcol.launches += 1
     return out
-
-
-ddcol.launches = 0
 
 
 def ddcol_nocorr_plain(rh, rl, ih, il, n1: int):
@@ -279,8 +274,7 @@ def ddcol_nocorr(rh, rl, ih, il, n1: int):
 
     On CUDA it launches ``csrc/ddcol.cu`` (the same kernel as ``ddcol``,
     compiled without the correction) on the current stream; a CPU tensor
-    runs ``ddcol_nocorr_plain``. Inputs are read, never written. Each
-    launch adds one to ``ddcol_nocorr.launches``.
+    runs ``ddcol_nocorr_plain``. Inputs are read, never written.
 
     Replaces ``phastft_tpu/ops/pallas_dd.py`` ``ddcol_pallas_nocorr``;
     unlike it, it takes rows below 8 points and any batch. The blocks and
@@ -297,15 +291,11 @@ def ddcol_nocorr(rh, rl, ih, il, n1: int):
         stream = torch.cuda.current_stream(rh.device).cuda_stream
         err = call("phastft_ddcol_nocorr", (
             *_ptrs(planes), tw.data_ptr(), *_ptrs(out), b, n1, n2, stream,
-        ))
+        ), kernel="ddcol_nocorr")
     if err != 0:
         raise RuntimeError(
             f"ddcol_nocorr: kernel launch failed, CUDA error {err}")
-    ddcol_nocorr.launches += 1
     return out
-
-
-ddcol_nocorr.launches = 0
 
 
 # ---------------------------------------------------------------- ddleaf
@@ -345,8 +335,7 @@ def ddleaf(rh, rl, ih, il, corr, n1: int):
     n1 = 1). Returns four new planes.
 
     On CUDA it launches ``csrc/ddleaf.cu`` on the current stream (a CPU
-    tensor runs ``ddleaf_plain``). Inputs are read, never written. Each
-    launch adds one to ``ddleaf.launches``.
+    tensor runs ``ddleaf_plain``). Inputs are read, never written.
 
     Replaces ``phastft_tpu/ops/pallas_dd.py`` ``ddleaf_pallas``; unlike
     it, it takes n1 = 1..4 and any batch. Blocks of 4096 points, two per
@@ -370,11 +359,7 @@ def ddleaf(rh, rl, ih, il, corr, n1: int):
         err = call("phastft_ddleaf", (
             *_ptrs(planes), tw1, tw2, *(_ptrs(corr) or [None] * 4),
             *_ptrs(out), b, n1, stream,
-        ))
+        ), kernel="ddleaf")
     if err != 0:
         raise RuntimeError(f"ddleaf: kernel launch failed, CUDA error {err}")
-    ddleaf.launches += 1
     return out
-
-
-ddleaf.launches = 0

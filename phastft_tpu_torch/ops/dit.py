@@ -36,6 +36,7 @@ from typing import Sequence
 
 import torch
 
+from ..tracing import span
 from .bitrev import apply_bit_reversal
 from .route import passes_for
 
@@ -58,8 +59,9 @@ def _scaled(out_re, out_im, n: int, scale: bool):
     freshly allocated, never the caller's."""
     if scale:
         inv_n = 1.0 / n
-        out_re.mul_(inv_n)
-        out_im.mul_(inv_n)
+        with span("phastft.scale"):
+            out_re.mul_(inv_n)
+            out_im.mul_(inv_n)
     return out_re, out_im
 
 
@@ -73,8 +75,9 @@ def build_fast_fft(n: int, leaf_limit: int, scale: bool, leaf_kernel=None,
     kernel); ``plain`` runs the passes' plain versions."""
     from .fourstep import plan_rows, rows_f32
 
-    plan = plan_rows(n, leaf_limit)
-    passes = passes_for(plain)
+    with span("phastft.plan"):
+        plan = plan_rows(n, leaf_limit)
+        passes = passes_for(plain)
 
     def take(pair, corrs):
         return _scaled(*rows_f32(pair, plan, corrs, leaf_kernel, passes), n, scale)
@@ -95,8 +98,9 @@ def build_dd_fft(n: int, leaf_limit: int, scale: bool, dd_leaf=None, plain: bool
     from .df64 import split_f64
     from .fourstep import plan_rows, rows_dd
 
-    plan = plan_rows(n, leaf_limit)
-    passes = passes_for(plain)
+    with span("phastft.plan"):
+        plan = plan_rows(n, leaf_limit)
+        passes = passes_for(plain)
 
     def take(pair, tables, corrs):
         re, im = pair
@@ -126,8 +130,9 @@ def build_native_fft(n: int, leaf_limit: int, scale: bool, plain: bool = False):
     runs the passes' plain versions."""
     from .fourstep import plan_rows, rows_native
 
-    plan = plan_rows(n, leaf_limit)
-    passes = passes_for(plain)
+    with span("phastft.plan"):
+        plan = plan_rows(n, leaf_limit)
+        passes = passes_for(plain)
 
     def take(pair, corrs):
         return _scaled(*rows_native(pair, plan, corrs, passes), n, scale)
@@ -165,8 +170,9 @@ def staged_fft(re, im, stage_twiddles: Sequence, *, tiled_bitrev: bool, scale: b
         wre, wim = stage_twiddles[s]
         re, im = butterfly_stage(re, im, wre, wim, s)
     if scale:
-        re = re * (1.0 / n)
-        im = im * (1.0 / n)
+        with span("phastft.scale"):
+            re = re * (1.0 / n)
+            im = im * (1.0 / n)
     return re, im
 
 
@@ -180,4 +186,5 @@ def build_staged_fft(n: int, tiled_bitrev: bool, scale: bool):
         pair.clear()
         return staged_fft(re, im, stage_twiddles, tiled_bitrev=tiled_bitrev, scale=scale)
 
-    return _closure(take)
+    with span("phastft.plan"):
+        return _closure(take)

@@ -69,6 +69,7 @@ from .longcol import columns, dd_columns, transpose4
 from .native import MAX_LEAF_N
 from .route import KERNELS
 from .stockham import LANES
+from ..tracing import span, traced
 
 __all__ = [
     "plan_rows",
@@ -170,44 +171,48 @@ def rows_f32(pair, plan, corrs, leaf_kernel=None, passes=KERNELS):
     re, im = pair
     pair.clear()
     kind = plan[0]
-    if kind == "tiny":
-        if plan[1] == 1:
-            return re.clone(), im.clone()
-        return k.leaf(re, im, (), 1)
-    if kind == "leaf":
-        n1 = plan[1]
-        if n1 > LEAF_KERNEL_N1:
-            mats1 = corrs["mxu1"]
-            return leaf_columns([re, im], n1, lambda r, i: k.leaf(r, i, mats1, 1), False,
-                                k)
-        if 1 < n1 <= HYBRID_MAX_N1 and leaf_kernel == "hybrid":
-            mats = corrs[f"mxu{n1}"][3:6] + tuple(corrs[f"leaf{n1}"])
-            return k.hybrid(re, im, mats, n1)
-        mats3 = corrs.get(f"mxu3_{n1}")
-        if mats3 is not None:
-            return k.leaf3(re, im, mats3, mats3[0].shape[0], mats3[3].shape[0])
-        mats = corrs[f"mxu{n1}"]
-        if n1 > 1:
-            mats = mats[:6] + tuple(corrs[f"leaf{n1}"])
-        return k.leaf(re, im, mats, n1)
+    if kind != "split":
+        with span("phastft.pass.leaf"):
+            if kind == "tiny":
+                if plan[1] == 1:
+                    return re.clone(), im.clone()
+                return k.leaf(re, im, (), 1)
+            n1 = plan[1]
+            if n1 > LEAF_KERNEL_N1:
+                mats1 = corrs["mxu1"]
+                return leaf_columns([re, im], n1, lambda r, i: k.leaf(r, i, mats1, 1),
+                                    False, k)
+            if 1 < n1 <= HYBRID_MAX_N1 and leaf_kernel == "hybrid":
+                mats = corrs[f"mxu{n1}"][3:6] + tuple(corrs[f"leaf{n1}"])
+                return k.hybrid(re, im, mats, n1)
+            mats3 = corrs.get(f"mxu3_{n1}")
+            if mats3 is not None:
+                return k.leaf3(re, im, mats3, mats3[0].shape[0], mats3[3].shape[0])
+            mats = corrs[f"mxu{n1}"]
+            if n1 > 1:
+                mats = mats[:6] + tuple(corrs[f"leaf{n1}"])
+            return k.leaf(re, im, mats, n1)
     _, n1, plan2, n2 = plan
     batch = tuple(re.shape[:-1])
     view = batch + (n1, n2)
     if fused_two_pass(n1, plan2, n2):
-        c3re, c3im = k.colfft_out3d(re.reshape(view), im.reshape(view),
-                                    corrs[f"pcolT{n1}x{n2}"], n1)
+        with span("phastft.pass.fused"):
+            c3re, c3im = k.colfft_out3d(re.reshape(view), im.reshape(view),
+                                        corrs[f"pcolT{n1}x{n2}"], n1)
+            del re, im
+            return k.leaft(c3re, c3im, corrs[f"leafT{n2}"], n1)
+    with span("phastft.pass.split"):
+        col = list(k.colfft(re.reshape(view), im.reshape(view),
+                            corrs[f"pcol{n1}x{n2}"], n1))
         del re, im
-        return k.leaft(c3re, c3im, corrs[f"leafT{n2}"], n1)
-    col = list(k.colfft(re.reshape(view), im.reshape(view),
-                        corrs[f"pcol{n1}x{n2}"], n1))
-    del re, im
-    d_re, d_im = rows_f32(col, plan2, corrs, leaf_kernel, k)
-    o_re, o_im = k.transpose2(d_re, d_im)
-    del d_re, d_im
-    flat = batch + (n1 * n2,)
-    return o_re.reshape(flat), o_im.reshape(flat)
+        d_re, d_im = rows_f32(col, plan2, corrs, leaf_kernel, k)
+        o_re, o_im = k.transpose2(d_re, d_im)
+        del d_re, d_im
+        flat = batch + (n1 * n2,)
+        return o_re.reshape(flat), o_im.reshape(flat)
 
 
+@traced("phastft.pass.columns")
 def leaf_columns(pair, n1: int, rows, f64: bool, passes=KERNELS):
     """A leaf of n1 * 128 points on the planes in the list ``pair`` (which
     it empties; f64 planes for the native engine), as the JAX package's XLA
@@ -287,26 +292,30 @@ def rows_dd(quad, plan, tables, corrs, dd_leaf=None, passes=KERNELS):
     rh, rl, ih, il = quad
     quad.clear()
     kind = plan[0]
-    if kind == "tiny":
-        return tiny_fft_dd(rh, rl, ih, il, tables, plan[1])
-    if kind == "leaf":
-        n1 = plan[1]
-        if n1 > DD_MAX_LEAF_N1 or (n1 > 1 and dd_leaf == "split"):
-            return _ddleaf_split(rh, rl, ih, il, n1, k)
-        return k.ddleaf(rh, rl, ih, il, corrs[f"ddleaf{n1}"] if n1 > 1 else None, n1)
+    if kind != "split":
+        with span("phastft.pass.leaf"):
+            if kind == "tiny":
+                return tiny_fft_dd(rh, rl, ih, il, tables, plan[1])
+            n1 = plan[1]
+            if n1 > DD_MAX_LEAF_N1 or (n1 > 1 and dd_leaf == "split"):
+                return _ddleaf_split(rh, rl, ih, il, n1, k)
+            tabs = corrs[f"ddleaf{n1}"] if n1 > 1 else None
+            return k.ddleaf(rh, rl, ih, il, tabs, n1)
     _, n1, plan2, n2 = plan
     batch = tuple(rh.shape[:-1])
     view = batch + (n1, n2)
     oztabs = corrs.get(f"ozcol{n1}x{n2}")
     if oztabs is not None:
-        col = k.ozcol(*(a.reshape(view) for a in (rh, rl, ih, il)), oztabs, n1)
+        with span("phastft.pass.fused"):
+            col = k.ozcol(*(a.reshape(view) for a in (rh, rl, ih, il)), oztabs, n1)
+            del rh, rl, ih, il
+            return k.ozleaft(*col, corrs[f"ozleafT{n2}"], n1)
+    with span("phastft.pass.split"):
+        t1, t2 = corrs[f"ddpcol{n1}x{n2}"]
+        col = list(k.ddcol(*(a.reshape(view) for a in (rh, rl, ih, il)), t1, t2, n1))
         del rh, rl, ih, il
-        return k.ozleaft(*col, corrs[f"ozleafT{n2}"], n1)
-    t1, t2 = corrs[f"ddpcol{n1}x{n2}"]
-    col = list(k.ddcol(*(a.reshape(view) for a in (rh, rl, ih, il)), t1, t2, n1))
-    del rh, rl, ih, il
-    rows = rows_dd(col, plan2, tables, corrs, dd_leaf, k)
-    return _out_transpose_dd(rows, batch, n1, n2, k)
+        rows = rows_dd(col, plan2, tables, corrs, dd_leaf, k)
+        return _out_transpose_dd(rows, batch, n1, n2, k)
 
 
 # --------------------------------------------------------------------------
@@ -346,26 +355,29 @@ def rows_native(pair, plan, corrs, passes=KERNELS):
     re, im = pair
     pair.clear()
     kind = plan[0]
-    if kind == "tiny":
-        if plan[1] == 1:
-            return re.clone(), im.clone()
-        return k.leaf64(re, im, None, plan[1], (None, steps(plan[1])))
-    if kind == "leaf":
-        n1 = plan[1]
-        if n1 * LANES > MAX_LEAF_N:
-            tw = (None, steps(LANES))
-            return leaf_columns([re, im], n1, lambda r, i: k.leaf64(r, i, None, LANES, tw),
-                                True, k)
-        return k.leaf64(re, im, corrs.get(f"leaf{n1}"), n1 * LANES,
-                        (steps(n1), steps(LANES)))
+    if kind != "split":
+        with span("phastft.pass.leaf"):
+            if kind == "tiny":
+                if plan[1] == 1:
+                    return re.clone(), im.clone()
+                return k.leaf64(re, im, None, plan[1], (None, steps(plan[1])))
+            n1 = plan[1]
+            if n1 * LANES > MAX_LEAF_N:
+                tw = (None, steps(LANES))
+                return leaf_columns([re, im], n1,
+                                    lambda r, i: k.leaf64(r, i, None, LANES, tw),
+                                    True, k)
+            return k.leaf64(re, im, corrs.get(f"leaf{n1}"), n1 * LANES,
+                            (steps(n1), steps(LANES)))
     _, n1, plan2, n2 = plan
     batch = tuple(re.shape[:-1])
     view = batch + (n1, n2)
-    col = list(k.col64(re.reshape(view), im.reshape(view),
-                       corrs[f"split{n1}x{n2}"], n1, steps(n1)))
-    del re, im
-    d_re, d_im = rows_native(col, plan2, corrs, k)
-    o_re, o_im = k.transpose2_64(d_re, d_im)
-    del d_re, d_im
-    flat = batch + (n1 * n2,)
-    return o_re.reshape(flat), o_im.reshape(flat)
+    with span("phastft.pass.split"):
+        col = list(k.col64(re.reshape(view), im.reshape(view),
+                           corrs[f"split{n1}x{n2}"], n1, steps(n1)))
+        del re, im
+        d_re, d_im = rows_native(col, plan2, corrs, k)
+        o_re, o_im = k.transpose2_64(d_re, d_im)
+        del d_re, d_im
+        flat = batch + (n1 * n2,)
+        return o_re.reshape(flat), o_im.reshape(flat)

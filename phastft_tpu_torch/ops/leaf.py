@@ -289,8 +289,7 @@ def leaf(re, im, mats, n1: int):
     On CUDA it launches ``csrc/leaf.cu`` on the current stream (the kernel
     reads row 1 of F(n1) and F(128) as its twiddle tables, and the
     (n1, 128) correction); a CPU tensor runs ``leaf_plain``. Inputs are
-    read, never written; the outputs are new tensors. Each launch adds one
-    to ``leaf.launches``.
+    read, never written; the outputs are new tensors.
 
     Replaces ``phastft_tpu/ops/pallas_leaf.py`` ``leaf_fft_pallas`` (and
     the XLA leaves at n <= 128). Bound by memory; blocks of 8192 points,
@@ -314,14 +313,11 @@ def leaf(re, im, mats, n1: int):
     ptrs = (re.data_ptr(), im.data_ptr(), *ptrs, ore.data_ptr(), oim.data_ptr())
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = call("phastft_leaf", leaf_args(re.shape, n1, ptrs, stream))
+        err = call("phastft_leaf", leaf_args(re.shape, n1, ptrs, stream),
+                   kernel="leaf")
     if err != 0:
         raise RuntimeError(f"leaf: kernel launch failed, CUDA error {err}")
-    leaf.launches += 1
     return ore, oim
-
-
-leaf.launches = 0
 
 
 def leaf3(re, im, mats, a: int, b: int):
@@ -332,8 +328,7 @@ def leaf3(re, im, mats, a: int, b: int):
     On CUDA it launches ``csrc/leaf3.cu`` on the current stream, for b = 128
     and a = 128 or 256 (n = 2^16, 2^17); a CPU tensor runs ``leaf3_plain``
     at any (a, b).
-    Inputs are read, never written; the outputs are new tensors. Each
-    launch adds one to ``leaf3.launches``.
+    Inputs are read, never written; the outputs are new tensors.
 
     Replaces ``phastft_tpu/ops/pallas_leaf.py`` ``leaf_fft_pallas3``.
     Bound by memory; a row (512 KB, 1 MiB at a = 256) is held by a cluster
@@ -357,14 +352,11 @@ def leaf3(re, im, mats, a: int, b: int):
             ore.data_ptr(), oim.data_ptr())
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = call("phastft_leaf3", leaf3_args(re.shape, ptrs, stream))
+        err = call("phastft_leaf3", leaf3_args(re.shape, ptrs, stream),
+                   kernel="leaf3")
     if err != 0:
         raise RuntimeError(f"leaf3: kernel launch failed, CUDA error {err}")
-    leaf3.launches += 1
     return ore, oim
-
-
-leaf3.launches = 0
 
 
 def hybrid(re, im, mats, n1: int):
@@ -376,7 +368,7 @@ def hybrid(re, im, mats, n1: int):
     reads row 1 of F(128) as its root table and the (n1, 128) correction);
     a CPU tensor runs ``hybrid_plain``. Any batch: rows go in
     ``gridDim.x``. Inputs are read, never written; the outputs are new
-    tensors. Each launch adds one to ``hybrid.launches``.
+    tensors.
 
     Replaces ``phastft_tpu/ops/pallas_leaf.py`` ``leaf_fft_pallas_hybrid``;
     unlike it, it takes any batch and never declines. Bound by memory (16 B
@@ -397,11 +389,8 @@ def hybrid(re, im, mats, n1: int):
             mats[3].data_ptr(), mats[4].data_ptr(), ore.data_ptr(), oim.data_ptr())
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = call("phastft_hybrid", hybrid_args(re.shape, n1, ptrs, stream))
+        err = call("phastft_hybrid", hybrid_args(re.shape, n1, ptrs, stream),
+                   kernel="hybrid")
     if err != 0:
         raise RuntimeError(f"hybrid: kernel launch failed, CUDA error {err}")
-    hybrid.launches += 1
     return ore, oim
-
-
-hybrid.launches = 0

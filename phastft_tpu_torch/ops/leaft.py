@@ -129,8 +129,7 @@ def leaft(cre, cim, mats, n1: int):
     On CUDA it launches ``csrc/leaft.cu`` on the current stream (the kernel
     reads row 1 of F(A) and F(128) as its twiddle tables, and the (A, 128)
     correction table); a CPU tensor runs ``leaft_plain``. Inputs are read,
-    never written; the outputs are new tensors. Each launch adds one to
-    ``leaft.launches``.
+    never written; the outputs are new tensors.
 
     Replaces ``phastft_tpu/ops/pallas_leaft.py`` ``leaft_pallas``. Bound
     by memory (16 B per complex element, read once and written once); a
@@ -157,11 +156,8 @@ def leaft(cre, cim, mats, n1: int):
     ptrs = tuple(x.data_ptr() for x in (cre, cim, f1r, f1i, f2r, f2i, cr, ci, ore, oim))
     with torch.cuda.device(cre.device):
         stream = torch.cuda.current_stream(cre.device).cuda_stream
-        err = call("phastft_leaft", leaft_args(cre.shape, ptrs, stream))
+        err = call("phastft_leaft", leaft_args(cre.shape, ptrs, stream),
+                   kernel="leaft")
     if err != 0:
         raise RuntimeError(f"leaft: kernel launch failed, CUDA error {err}")
-    leaft.launches += 1
     return ore, oim
-
-
-leaft.launches = 0

@@ -207,8 +207,7 @@ def col64(re, im, tabs, n1: int, steps):
 
     On CUDA it launches ``csrc/col64.cu`` on the current stream, or raises
     (a shape no cluster of which fits the card among them); a CPU tensor
-    runs ``col64_plain``. Inputs are read, never written. Each launch adds
-    one to ``col64.launches``.
+    runs ``col64_plain``. Inputs are read, never written.
 
     Stands for the JAX package's XLA column pass of the native engine
     (``stockham_axis2`` + ``split{n1}x{n2}``,
@@ -232,14 +231,11 @@ def col64(re, im, tabs, n1: int, steps):
     ptrs = tuple(x.data_ptr() for x in (re, im, steps, *tabs, out_re, out_im))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = call("phastft_col64", col64_args(re.shape, n1, ptrs, stream))
+        err = call("phastft_col64", col64_args(re.shape, n1, ptrs, stream),
+                   kernel="col64")
     if err != 0:
         raise RuntimeError(f"col64: kernel launch failed, CUDA error {err}")
-    col64.launches += 1
     return out_re, out_im
-
-
-col64.launches = 0
 
 
 def col64_nocorr_plain(re, im, n1: int, steps):
@@ -260,7 +256,6 @@ def col64_nocorr(re, im, n1: int, steps):
     On CUDA it launches ``csrc/col64.cu``'s bare mode (the same designs,
     the twiddle products compiled out) on the current stream, or raises; a
     CPU tensor runs ``col64_nocorr_plain``. Inputs are read, never written.
-    Each launch adds one to ``col64_nocorr.launches``.
 
     Stands for the JAX package's ``stockham_axis2`` on a shard's column
     block (``phastft_tpu/parallel/fourstep_dist.py:203``). Bound by memory
@@ -274,14 +269,11 @@ def col64_nocorr(re, im, n1: int, steps):
     ptrs = tuple(x.data_ptr() for x in (re, im, steps, out_re, out_im))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = call("phastft_col64_nocorr", col64_args(re.shape, n1, ptrs, stream))
+        err = call("phastft_col64_nocorr", col64_args(re.shape, n1, ptrs, stream),
+                   kernel="col64_nocorr")
     if err != 0:
         raise RuntimeError(f"col64_nocorr: kernel launch failed, CUDA error {err}")
-    col64_nocorr.launches += 1
     return out_re, out_im
-
-
-col64_nocorr.launches = 0
 
 
 # ---------------------------------------------------------------- leaf64
@@ -332,8 +324,7 @@ def leaf64(re, im, corr, n: int, steps):
     two new planes.
 
     On CUDA it launches ``csrc/leaf64.cu`` on the current stream; a CPU
-    tensor runs ``leaf64_plain``. Inputs are read, never written. Each
-    launch adds one to ``leaf64.launches``.
+    tensor runs ``leaf64_plain``. Inputs are read, never written.
 
     Stands for the JAX package's XLA ``leaf_fft`` and ``tiny_fft``
     (``phastft_tpu/ops/stockham.py:236``, ``:254``). Bound by memory (32 B
@@ -355,11 +346,8 @@ def leaf64(re, im, corr, n: int, steps):
             out_re.data_ptr(), out_im.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = call("phastft_leaf64", leaf64_args(re.shape, ptrs, stream))
+        err = call("phastft_leaf64", leaf64_args(re.shape, ptrs, stream),
+                   kernel="leaf64")
     if err != 0:
         raise RuntimeError(f"leaf64: kernel launch failed, CUDA error {err}")
-    leaf64.launches += 1
     return out_re, out_im
-
-
-leaf64.launches = 0

@@ -303,7 +303,7 @@ def _launch(name, entry, tensors, *sizes):
     ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = call(entry, (ptrs, *sizes, stream))
+        err = call(entry, (ptrs, *sizes, stream), kernel=name)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
 
@@ -352,7 +352,7 @@ def ozcol(rh, rl, ih, il, tabs, n1: int):
 
     On CUDA it launches ``csrc/ozcol.cu`` on the current stream (a CPU
     tensor runs ``ozcol_plain``); shapes outside the window raise. Inputs
-    are read, never written. Each launch adds one to ``ozcol.launches``.
+    are read, never written.
     The kernel copies its F(n1/4) tiles from ``ozcol_card(tabs, n1)``,
     built on the first call with a table set and kept while the set lives.
 
@@ -375,11 +375,7 @@ def ozcol(rh, rl, ih, il, tabs, n1: int):
     card = _card(tabs, lambda: ozcol_card(tabs, n1))
     _launch("ozcol", "phastft_ozcol", (*planes, *tabs, *out, card), b, n1,
             n2)
-    ozcol.launches += 1
     return out
-
-
-ozcol.launches = 0
 
 
 # ---------------------------------------------------------------- ozleaft
@@ -417,9 +413,8 @@ def ozleaft(crh, crl, cih, cil, tabs, n1: int):
 
     On CUDA it launches ``csrc/ozleaft.cu`` on the current stream (a CPU
     tensor runs ``ozleaft_plain``); shapes outside the window raise.
-    Inputs are read, never written. Each launch adds one to
-    ``ozleaft.launches``. The kernel copies its F(A) and F(128) tiles from
-    ``ozleaft_card(tabs, A)``, built on the first call with a table set and
+    Inputs are read, never written. The kernel copies its F(A) and F(128)
+    tiles from ``ozleaft_card(tabs, A)``, built on the first call with a table set and
     kept while the set lives.
 
     Replaces ``phastft_tpu/ops/pallas_ozdd.py`` ``ozleaft_pallas``. The
@@ -438,8 +433,4 @@ def ozleaft(crh, crl, cih, cil, tabs, n1: int):
     card = _card(tabs, lambda: ozleaft_card(tabs, a))
     _launch("ozleaft", "phastft_ozleaft", (*planes, *tabs, *out, card),
             b, a, n1)
-    ozleaft.launches += 1
     return out
-
-
-ozleaft.launches = 0

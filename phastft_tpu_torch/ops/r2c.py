@@ -55,6 +55,7 @@ import math
 import numpy as np
 import torch
 
+from ..tracing import span
 from ._build import call
 
 __all__ = [
@@ -233,8 +234,7 @@ def deinterleave(x):
 
     On CUDA it launches ``csrc/r2c.cu``'s deinterleave on the current stream
     (``x`` contiguous and 16-byte aligned), or raises; a CPU tensor runs
-    ``deinterleave_plain``. The input is read, never written. Each launch
-    adds one to ``deinterleave.launches``.
+    ``deinterleave_plain``. The input is read, never written.
 
     Stands for the JAX package's ``_deinterleave``
     (``phastft_tpu/ops/r2c.py:302``). Bound by memory (each real read once
@@ -251,13 +251,10 @@ def deinterleave(x):
     ptrs = (x.data_ptr(), even.data_ptr(), odd.data_ptr())
     with torch.cuda.device(x.device):
         err = call("phastft_r2c_deinterleave", deinterleave_args(
-            x.shape, x.dtype == torch.float64, ptrs, _stream(x.device)))
+            x.shape, x.dtype == torch.float64, ptrs, _stream(x.device)),
+            kernel="deinterleave")
     _raise_on("deinterleave", err)
-    deinterleave.launches += 1
     return even, odd
-
-
-deinterleave.launches = 0
 
 
 # ------------------------------------------------------- interleave_scale
@@ -286,8 +283,7 @@ def interleave_scale(re, im, scale: float):
 
     On CUDA it launches ``csrc/r2c.cu``'s interleave on the current stream,
     or raises; a CPU tensor runs ``interleave_scale_plain``. Inputs are
-    read, never written. Each launch adds one to
-    ``interleave_scale.launches``.
+    read, never written.
 
     Stands for the JAX package's ``_scale_interleave``
     (``phastft_tpu/ops/r2c.py:451``). Bound by memory."""
@@ -301,13 +297,10 @@ def interleave_scale(re, im, scale: float):
     ptrs = (re.data_ptr(), im.data_ptr(), out.data_ptr())
     with torch.cuda.device(re.device):
         err = call("phastft_r2c_interleave", interleave_args(
-            re.shape, re.dtype == torch.float64, scale, ptrs, _stream(re.device)))
+            re.shape, re.dtype == torch.float64, scale, ptrs, _stream(re.device)),
+            kernel="interleave_scale")
     _raise_on("interleave_scale", err)
-    interleave_scale.launches += 1
     return out
-
-
-interleave_scale.launches = 0
 
 
 # ------------------------------------------------------------- untangles
@@ -436,7 +429,7 @@ def _launch_untangle(name, inverse, a_re, a_im, tw_re, tw_im, length, half, k0,
         err = call("phastft_r2c_untangle", untangle_args(
             a_re.dtype == torch.float64, inverse, a_re.shape, int(p_re.shape[-1]),
             int(w_re.stride(0)) if rows > 1 else 0, length, k0, half, nyquist, ptrs,
-            _stream(a_re.device)))
+            _stream(a_re.device)), kernel=name)
     _raise_on(name, err)
     return o_re, o_im
 
@@ -458,7 +451,7 @@ def _launch_untangle_pair(name, inverse, a_re, a_im, tw_re, tw_im, half, schedul
     with torch.cuda.device(a_re.device):
         err = call("phastft_r2c_untangle_pair", untangle_pair_args(
             a_re.dtype == torch.float64, inverse, rows, half, schedule, ptrs,
-            _stream(a_re.device)))
+            _stream(a_re.device)), kernel=name)
     _raise_on(name, err)
     return o_re, o_im
 
@@ -482,7 +475,7 @@ def untangle(z_re, z_im, tw_re, tw_im, mirror=None, *, k0=0, half=None, nyquist=
     raises: with no mirror the paired kernel (a thread reads z[k], z[H - k]
     and tw[k] and writes X[k] and X[H - k]), with one the mirror form. A
     CPU tensor runs ``untangle_plain``, bit for bit the same. Inputs are
-    read, never written. Each launch adds one to ``untangle.launches``.
+    read, never written.
 
     Stands for the JAX package's ``_untangle``
     (``phastft_tpu/ops/r2c.py:65``). Bound by memory: the input (with a
@@ -499,11 +492,7 @@ def untangle(z_re, z_im, tw_re, tw_im, mirror=None, *, k0=0, half=None, nyquist=
     else:
         out = _launch_untangle("untangle", False, z_re, z_im, tw_re, tw_im, length, half,
                                k0, p_re, p_im, w_re, w_im, nyquist)
-    untangle.launches += 1
     return out
-
-
-untangle.launches = 0
 
 
 def pre_untangle(x_re, x_im, tw_re, tw_im, mirror=None, *, k0=0, half=None):
@@ -524,8 +513,7 @@ def pre_untangle(x_re, x_im, tw_re, tw_im, mirror=None, *, k0=0, half=None):
     On CUDA it launches ``csrc/r2c.cu``'s pre-untangle on the current
     stream, or raises: with no mirror the paired kernel, with one the mirror
     form. A CPU tensor runs ``pre_untangle_plain``, bit for bit the same.
-    Inputs are read, never written. Each launch adds one to
-    ``pre_untangle.launches``.
+    Inputs are read, never written.
 
     Stands for the JAX package's ``_pre_untangle``
     (``phastft_tpu/ops/r2c.py:96``), which reads a full-length table: the
@@ -540,11 +528,7 @@ def pre_untangle(x_re, x_im, tw_re, tw_im, mirror=None, *, k0=0, half=None):
     else:
         out = _launch_untangle("pre_untangle", True, x_re, x_im, tw_re, tw_im, length, half,
                                k0, p_re, p_im, w_re, w_im, False)
-    pre_untangle.launches += 1
     return out
-
-
-pre_untangle.launches = 0
 
 
 # ------------------------------------------------------- whole transforms
@@ -565,8 +549,9 @@ def build_r2c_fft(n: int, leaf_limit: int, build, variant):
     the next pass has read it (the deinterleaved pair is handed over to the
     inner transform, ``take``); the caller's signal stays. The plain flag,
     ``variant``'s last element, runs the two passes' plain versions too."""
-    inner = build(n // 2, leaf_limit, False, *variant)
-    passes = _passes(variant[-1])
+    with span("phastft.plan"):
+        inner = build(n // 2, leaf_limit, False, *variant)
+        passes = _passes(variant[-1])
 
     def run(signal, args, tw_re, tw_im):
         z_re, z_im = inner.take([*passes.deinterleave(signal)], *args)
@@ -583,9 +568,10 @@ def build_c2r_fft(n: int, leaf_limit: int, build, variant):
     ``build_r2c_fft``, z handed over to it), and ``interleave_scale`` with
     the 2/n scale, so that C2R(R2C(x)) == x; the plain flag as for
     ``build_r2c_fft``."""
-    inner = build(n // 2, leaf_limit, False, *variant)
+    with span("phastft.plan"):
+        inner = build(n // 2, leaf_limit, False, *variant)
+        passes = _passes(variant[-1])
     scale = 2.0 / n
-    passes = _passes(variant[-1])
 
     def run(spec_re, spec_im, args, tw_re, tw_im):
         z = [*passes.pre_untangle(spec_re, spec_im, tw_re, tw_im)]

@@ -2,7 +2,7 @@
 torch versions.
 
 ``KERNELS`` holds the kernels' wrappers (``leaf``, ``colfft``, ...): on a
-CUDA tensor each launches its kernel (and adds one to its ``launches``) or
+CUDA tensor each launches its kernel (counted in ``tracing.launches``) or
 raises, and on a CPU tensor it runs its plain version. ``PLAIN`` holds those
 plain versions themselves, under the same names: they run on any device
 and launch nothing. ``PLAIN`` is the port's ``Options(use_pallas=False)``

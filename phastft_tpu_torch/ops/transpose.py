@@ -77,7 +77,8 @@ def _launch(name, entry, a, b, batch, rows, cols):
     ptrs = (a.data_ptr(), b.data_ptr(), oa.data_ptr(), ob.data_ptr())
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = call(entry, transpose_args(a.shape, ptrs, stream))
+        err = call(entry, transpose_args(a.shape, ptrs, stream),
+                   kernel=name)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     return oa, ob
@@ -90,8 +91,7 @@ def transpose2_64(a, b):
 
     On CUDA it launches ``csrc/transpose64.cu`` once for both tensors on
     the current stream; a CPU tensor runs ``transpose2_plain``. Inputs are
-    read, never written. Each launch adds one to
-    ``transpose2_64.launches``.
+    read, never written.
 
     Stands for the JAX package's XLA transpose of the native engine's
     classic levels (``_out_transpose``, ``phastft_tpu/ops/fourstep.py:149``).
@@ -103,11 +103,7 @@ def transpose2_64(a, b):
         return transpose2_plain(a, b)
     out = _launch("transpose2_64", "phastft_transpose2_64", a, b, batch, rows,
                   cols)
-    transpose2_64.launches += 1
     return out
-
-
-transpose2_64.launches = 0
 
 
 def transpose2(a, b):
@@ -116,7 +112,7 @@ def transpose2(a, b):
 
     On CUDA it launches ``csrc/transpose.cu`` once for both tensors on the
     current stream; a CPU tensor runs ``transpose2_plain``. Inputs are
-    read, never written. Each launch adds one to ``transpose2.launches``.
+    read, never written.
 
     Replaces ``phastft_tpu/ops/pallas_transpose.py`` ``transpose2_pallas``;
     unlike it, it takes leading batch dimensions and every power-of-two
@@ -129,8 +125,4 @@ def transpose2(a, b):
     if a.device.type == "cpu":
         return transpose2_plain(a, b)
     out = _launch("transpose2", "phastft_transpose2", a, b, batch, rows, cols)
-    transpose2.launches += 1
     return out
-
-
-transpose2.launches = 0

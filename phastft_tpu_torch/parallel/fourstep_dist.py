@@ -114,6 +114,7 @@ from ..ops.fourstep import plan_rows, rows_dd, rows_f32, rows_native
 from ..ops.longcol import columns, transpose4, twiddle_
 from ..ops.route import KERNELS, passes_for
 from ..planner import Direction, PlannerDit64
+from ..tracing import span, traced
 
 __all__ = ["fft_distributed", "column_chunks", "DD_DIST_MIN_COL"]
 
@@ -189,7 +190,8 @@ def _all_to_all(blocks, group, overlap: bool):
     None): no stream to cross, which on the H100 saved 17 us of a 1.45 ms
     call at f32 2^25 on one rank (``PERF.md``)."""
     out = torch.empty_like(blocks)
-    return out, dist.all_to_all_single(out, blocks, group=group, async_op=overlap)
+    with span("phastft.dist.a2a"):
+        return out, dist.all_to_all_single(out, blocks, group=group, async_op=overlap)
 
 
 class _Flight:
@@ -214,7 +216,8 @@ class _Flight:
         then drop the buffers."""
         for work, out in zip(self.works, self.recvs):
             if work is not None:
-                work.wait()
+                with span("phastft.dist.wait"):
+                    work.wait()
             yield out
         self.sends = self.recvs = self.works = None
 
@@ -222,7 +225,8 @@ class _Flight:
 def _row_to_col(x, n1: int, cols: int, d: int, group):
     """(n1/d, cols) row shard -> (n1, cols/d) column shard: row
     s*n1/d + r is rank s's row r, the columns this rank's block."""
-    blocks = x.reshape(n1 // d, d, cols // d).transpose(0, 1).contiguous()
+    with span("phastft.dist.send"):
+        blocks = x.reshape(n1 // d, d, cols // d).transpose(0, 1).contiguous()
     return _all_to_all(blocks, group, False)[0].reshape(n1, cols // d)
 
 
@@ -243,7 +247,9 @@ def _pipeline(chunks: int, d: int, group, send, column, land) -> None:
     for c in range(chunks):
         here = ahead
         ahead = _Flight(send(c + 1), group, overlap) if c + 1 < chunks else None
-        out = column(c, list(here.land()))
+        got = list(here.land())
+        with span("phastft.dist.column"):
+            out = column(c, got)
         del here
         flight = _Flight([x.view(d, -1, x.shape[-1]) for x in out], group, overlap)
         del out
@@ -291,13 +297,14 @@ def _land_rows(out, got, chunks: int, region) -> None:
     ``region(o)[:, s]``, the chunk's (n1/d, d, w) columns of the row plane
     o. One chunk: the received planes themselves, a view at d = 1."""
     for i, x in enumerate(got):
-        if chunks == 1:
-            out.append(x.transpose(0, 1).reshape(x.shape[1], -1))
-            continue
-        if i == len(out):
-            out.append(torch.empty(x.shape[1], chunks * x.shape[0] * x.shape[2],
-                                   dtype=x.dtype, device=x.device))
-        region(out[i]).copy_(x.transpose(0, 1))
+        with span("phastft.dist.land"):
+            if chunks == 1:
+                out.append(x.transpose(0, 1).reshape(x.shape[1], -1))
+                continue
+            if i == len(out):
+                out.append(torch.empty(x.shape[1], chunks * x.shape[0] * x.shape[2],
+                                       dtype=x.dtype, device=x.device))
+            region(out[i]).copy_(x.transpose(0, 1))
 
 
 def _column_stage(planes, p: _Plan, column):
@@ -315,7 +322,9 @@ def _column_stage(planes, p: _Plan, column):
 
     def send(c):
         for x in planes:
-            yield x.view(rows, d, chunks, w)[:, :, c].transpose(0, 1).contiguous()
+            with span("phastft.dist.send"):
+                block = x.view(rows, d, chunks, w)[:, :, c].transpose(0, 1).contiguous()
+            yield block
         if c == chunks - 1:
             planes.clear()
 
@@ -369,7 +378,9 @@ def _permuted_in(re_l, im_l, p: _Plan):
         part = [x.view(rows, chunks, d * w)[:, c] for x in r]
         twiddle_(*part, p.n, k1, m2)
         for x in part:
-            yield x.view(rows, d, w).transpose(0, 1).contiguous()
+            with span("phastft.dist.send"):
+                block = x.view(rows, d, w).transpose(0, 1).contiguous()
+            yield block
         if c == chunks - 1:
             r.clear()
 
@@ -436,6 +447,7 @@ def _layout(n: int, d: int, planner, permuted: bool):
     return f64, engine, dd, n1, n2
 
 
+@traced("phastft.dist")
 def fft_distributed(reals, imags, direction, planner, *, group=None,
                     permuted_output: bool = False,
                     permuted_input: bool = False):
@@ -520,7 +532,8 @@ def fft_distributed(reals, imags, direction, planner, *, group=None,
         out_re, out_im = _natural(re_l.view(view), im_l.view(view), p,
                                   permuted_output)
     if scale:
-        out_re.mul_(1.0 / n)
-        out_im.mul_(1.0 / n)
+        with span("phastft.scale"):
+            out_re.mul_(1.0 / n)
+            out_im.mul_(1.0 / n)
         return out_im, out_re
     return out_re, out_im

@@ -38,6 +38,7 @@ from ..errors import LengthMismatchError, NonPowerOfTwoError, ensure_power_of_tw
 from ..fft import _as_tensor
 from ..ops.route import passes_for
 from ..planner import Direction
+from ..tracing import traced
 from .fourstep_dist import _layout, fft_distributed
 
 __all__ = ["r2c_fft_distributed", "c2r_fft_distributed"]
@@ -99,6 +100,7 @@ def _mirror(a_re, a_im, length: int, rank: int, d: int, group, inverse: bool):
     return recv[0], recv[1], wrap[0], wrap[1]
 
 
+@traced("phastft.dist")
 def r2c_fft_distributed(signal, planner, *, group=None):
     """Distributed forward R2C of one length-n real signal over the ranks of
     ``group`` (the default process group when None). Every rank calls it
@@ -138,6 +140,7 @@ def r2c_fft_distributed(signal, planner, *, group=None):
                       k0=rank * length, half=half, nyquist=rank == d - 1)
 
 
+@traced("phastft.dist")
 def c2r_fft_distributed(spec_re, spec_im, planner, *, group=None):
     """Distributed inverse C2R: every rank passes its bins of the compact
     spectrum in ``r2c_fft_distributed``'s layout (L = n/(2d) bins, the last

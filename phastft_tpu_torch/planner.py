@@ -94,6 +94,7 @@ from .ops.mxu import mxu_leaf_tables3_host, mxu_leaf_tables_host
 from .ops.native import MAX_LEAF_N, dif_twiddles_host
 from .ops.r2c import r2c_twiddles
 from .ops.stockham import LANES, leaf_correction_host, split_correction_host
+from .tracing import span, traced
 
 __all__ = [
     "Direction",
@@ -272,6 +273,7 @@ class PlannerDit32(_PlannerDitBase):
 
     dtype = np.dtype(np.float32)
 
+    @traced("phastft.plan")
     def __init__(
         self,
         n: int,
@@ -295,10 +297,12 @@ class PlannerDit32(_PlannerDitBase):
         if plan == self.plan and not hybrid:
             return self.leaf_corrs
         if (plan, hybrid) not in self._derived:
-            self._derived[plan, hybrid] = {
-                key: self.leaf_corrs.get(key) or _to_device(arrays, self.device)
-                for key, arrays in _tables_host(plan, self.dtype.name, hybrid).items()
-            }
+            with span("phastft.plan"):
+                host = _tables_host(plan, self.dtype.name, hybrid)
+                self._derived[plan, hybrid] = {
+                    key: self.leaf_corrs.get(key) or _to_device(arrays, self.device)
+                    for key, arrays in host.items()
+                }
         return self._derived[plan, hybrid]
 
     @classmethod
@@ -441,16 +445,18 @@ class PlannerDit64(_PlannerDitBase):
         options: Optional[Options] = None,
         device=None,
     ):
-        self._setup(n, mode, options, device)
+        with span("phastft.plan"):
+            self._setup(n, mode, options, device)
         self._dd_state = None
         self._native_state = None
 
     @property
     def native_state(self):
         if self._native_state is None:
-            self._native_state = {
-                key: _to_device(arrays, self.device)
-                for key, arrays in _native_tables_host(self.plan).items()}
+            with span("phastft.plan"):
+                self._native_state = {
+                    key: _to_device(arrays, self.device)
+                    for key, arrays in _native_tables_host(self.plan).items()}
         return self._native_state
 
     def native_tables_for(self, plan):
@@ -461,16 +467,18 @@ class PlannerDit64(_PlannerDitBase):
         if plan == self.plan:
             return self.native_state
         if plan not in self._derived:
-            self._derived[plan] = {
-                key: _to_device(arrays, self.device)
-                for key, arrays in _native_tables_host(plan).items()}
+            with span("phastft.plan"):
+                self._derived[plan] = {
+                    key: _to_device(arrays, self.device)
+                    for key, arrays in _native_tables_host(plan).items()}
         return self._derived[plan]
 
     @property
     def dd_state(self):
         if self._dd_state is None:
-            self._dd_state = self._dd_to_device(
-                *_dd_tables_host(self.plan, self.options.f64_engine))
+            with span("phastft.plan"):
+                self._dd_state = self._dd_to_device(
+                    *_dd_tables_host(self.plan, self.options.f64_engine))
         return self._dd_state
 
     def _dd_to_device(self, tables, corrs):
@@ -612,13 +620,14 @@ class _PlannerR2cBase:
             from .tune import tune_r2c_options
 
             inner_options = tune_r2c_options(n, self.dtype, resolve_device(device))
-        self.dit_planner = self._dit_cls(
-            n // 2, PlannerMode.Heuristic, options=inner_options, device=device
-        )
-        self.inner_opts: Options = self.dit_planner.options
-        self.device = self.dit_planner.device
-        self.twiddles_re, self.twiddles_im = r2c_twiddles(
-            n, n // 4 + 1, self.dtype, self.device)
+        with span("phastft.plan"):
+            self.dit_planner = self._dit_cls(
+                n // 2, PlannerMode.Heuristic, options=inner_options, device=device
+            )
+            self.inner_opts: Options = self.dit_planner.options
+            self.device = self.dit_planner.device
+            self.twiddles_re, self.twiddles_im = r2c_twiddles(
+                n, n // 4 + 1, self.dtype, self.device)
         self._c2r_tw = None
 
     @property

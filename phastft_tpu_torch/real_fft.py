@@ -36,6 +36,7 @@ from .errors import (
 from .fft import _as_tensor, engine_of
 from .planner import PlannerR2c32, PlannerR2c64, resolve_device
 from .ops.r2c import build_c2r_fft, build_r2c_fft
+from .tracing import span, traced
 
 __all__ = [
     "r2c_fft_f64",
@@ -52,6 +53,7 @@ __all__ = [
 
 
 @functools.lru_cache(maxsize=64)
+@traced("phastft.plan")
 def _cached_planner(n: int, bits: int, device: torch.device):
     cls = PlannerR2c64 if bits == 64 else PlannerR2c32
     return cls(n, device=device)
@@ -61,6 +63,7 @@ def _shape(x):
     return tuple(x.shape) if isinstance(x, torch.Tensor) else tuple(np.shape(x))
 
 
+@traced("phastft.real")
 def _r2c(signal, planner):
     n = _shape(signal)[-1] if _shape(signal) else 0
     ensure_power_of_two(n)
@@ -79,6 +82,7 @@ def _r2c(signal, planner):
                planner.twiddles_im)
 
 
+@traced("phastft.real")
 def _c2r(spec_re, spec_im, planner):
     shape, other = _shape(spec_re), _shape(spec_im)
     if shape != other:

@@ -311,20 +311,17 @@ def test_forced_plan_roundtrip_and_batch_dims():
 def test_classic_plan_launches_no_kernel_on_cpu():
     """On CPU tensors every wrapper of the classic branch runs its plain
     version: no launch is counted."""
-    from phastft_tpu_torch.ops.colfft import colfft, colfft_out3d
-    from phastft_tpu_torch.ops.leaf import leaf, leaf3
-    from phastft_tpu_torch.ops.leaft import leaft
-    from phastft_tpu_torch.ops.transpose import transpose2
+    from phastft_tpu_torch.tracing import launch_count
 
-    fns = (colfft, colfft_out3d, leaft, leaf, leaf3, transpose2)
-    before = [f.launches for f in fns]
+    kernels = ("colfft", "colfft_out3d", "leaft", "leaf", "leaf3", "transpose2")
+    before = [launch_count(k) for k in kernels]
     n = 1 << 17
     x = np.ones(n, np.float32)
     planner = pt.PlannerDit32(n, options=pt.Options(leaf_fft_size=1 << 9),
                               device="cpu")
     out = pt.fft_32_dit_with_planner(x, 0 * x, "f", planner)
     assert abs(float(out[0][0]) - n) <= 1e-6 * n
-    assert [f.launches for f in fns] == before
+    assert [launch_count(k) for k in kernels] == before
 
 
 # -- error paths (tests/test_errors.py on the f32 entries) -------------------
@@ -647,11 +644,10 @@ def test_f64_batch_dims_inputs_and_reuse():
 
 
 def test_f64_runs_no_kernel_on_cpu():
-    from phastft_tpu_torch.ops.dd import ddcol, ddcol_nocorr, ddleaf
-    from phastft_tpu_torch.ops.transpose import transpose2
+    from phastft_tpu_torch.tracing import launch_count
 
-    fns = (ddcol, ddcol_nocorr, ddleaf, transpose2)
-    before = [f.launches for f in fns]
+    kernels = ("ddcol", "ddcol_nocorr", "ddleaf", "transpose2")
+    before = [launch_count(k) for k in kernels]
     n = 1 << 15
     x = np.ones(n)
     for engine in ("df64", "df64-split"):
@@ -659,7 +655,7 @@ def test_f64_runs_no_kernel_on_cpu():
             leaf_fft_size=1 << 13, f64_engine=engine), device="cpu")
         out = pt.fft_64_dit_with_planner(x, 0 * x, "f", planner)
         assert abs(float(out[0][0]) - n) <= 1e-12 * n
-    assert [f.launches for f in fns] == before
+    assert [launch_count(k) for k in kernels] == before
 
 
 def test_f64_oz_per_call_engine_rules(monkeypatch):

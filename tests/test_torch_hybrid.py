@@ -17,6 +17,7 @@ import phastft_tpu
 import phastft_tpu_torch as pt
 from phastft_tpu_torch.ops.route import KERNELS
 from phastft_tpu_torch.ops.leaf import hybrid, hybrid_plain, leaf3
+from phastft_tpu_torch.tracing import launch_count
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -98,10 +99,10 @@ def test_hybrid_plain_matches_pallas(n1, rows):
     jmats = jp.leaf_corrs[f"mxu{n1}"][3:6] + jp.leaf_corrs[f"leaf{n1}"]
     with pltpu.force_tpu_interpret_mode():
         want = leaf_fft_pallas_hybrid(jnp.asarray(re), jnp.asarray(im), jmats, n1)
-    before = hybrid.launches
+    before = launch_count("hybrid")
     got = hybrid(torch.from_numpy(re), torch.from_numpy(im),
                  _hybrid_mats(mine, n1), n1)
-    assert hybrid.launches == before  # CPU: no kernel launch
+    assert launch_count("hybrid") == before  # CPU: no kernel launch
     assert all(tuple(g.shape) == (rows, n) for g in got)
     assert _rel(_c(got), _c(want)) <= TOL
     x = re.astype(np.float64) + 1j * im

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from phastft_tpu_torch.tracing import launch_count
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
@@ -60,10 +62,10 @@ def test_colfft_plain_matches_pallas(n1, n2, b):
         pallas_col.colfft_pallas, jnp.asarray(re), jnp.asarray(im),
         tuple(jnp.asarray(a) for a in host), n1, out3d=True,
     )
-    before = colfft.colfft_out3d.launches
+    before = launch_count("colfft_out3d")
     got = colfft.colfft_out3d(torch.from_numpy(re), torch.from_numpy(im),
                               tuple(torch.from_numpy(a) for a in host), n1)
-    assert colfft.colfft_out3d.launches == before  # CPU: no kernel launch
+    assert launch_count("colfft_out3d") == before  # CPU: no kernel launch
     assert tuple(got[0].shape) == shape[:-2] + (n2 // 128, n1, 128)
     assert _rel(got, want) <= TOL
 
@@ -91,10 +93,10 @@ def test_colfft_classic_plain_matches_pallas(n1, n2, b):
         pallas_col.colfft_pallas, jnp.asarray(re), jnp.asarray(im),
         tuple(jnp.asarray(a) for a in host), n1,
     )
-    before = colfft.colfft.launches
+    before = launch_count("colfft")
     got = colfft.colfft(torch.from_numpy(re), torch.from_numpy(im),
                         tuple(torch.from_numpy(a) for a in host), n1)
-    assert colfft.colfft.launches == before  # CPU: no kernel launch
+    assert launch_count("colfft") == before  # CPU: no kernel launch
     assert tuple(got[0].shape) == shape
     assert _rel(got, want) <= TOL
 
@@ -141,9 +143,9 @@ def test_transpose2_plain_matches_pallas(rows, cols):
     rng = np.random.default_rng(rows + cols)
     a, b = _pair(rng, (rows, cols))
     want = _run_interpret(transpose2_pallas, jnp.asarray(a), jnp.asarray(b))
-    before = transpose.transpose2.launches
+    before = launch_count("transpose2")
     got = transpose.transpose2(torch.from_numpy(a), torch.from_numpy(b))
-    assert transpose.transpose2.launches == before  # CPU: no kernel launch
+    assert launch_count("transpose2") == before  # CPU: no kernel launch
     for g, w in zip(got, want):
         assert g.is_contiguous() and tuple(g.shape) == (cols, rows)
         assert np.array_equal(g.numpy(), np.asarray(w))
@@ -206,10 +208,10 @@ def test_leaft_plain_matches_pallas(n1, n2, b):
         leaft_pallas, jnp.asarray(cre), jnp.asarray(cim),
         tuple(jnp.asarray(x) for x in host), n1, engine="dense",
     )
-    before = leaft_mod.leaft.launches
+    before = launch_count("leaft")
     got = leaft_mod.leaft(torch.from_numpy(cre), torch.from_numpy(cim),
                           tuple(torch.from_numpy(x) for x in host), n1)
-    assert leaft_mod.leaft.launches == before
+    assert launch_count("leaft") == before
     assert tuple(got[0].shape) == shape[:-3] + (a * 128 * n1,)
     assert _rel(got, want) <= TOL
 
@@ -355,11 +357,11 @@ def test_leaf_plain_matches_pallas(n1, rows):
         assert want is None
         want = leaf_fft_mxu(jnp.asarray(re), jnp.asarray(im),
                             corrs[f"mxu{n1}"], n1)
-    before = leaf_mod.leaf.launches
+    before = launch_count("leaf")
     got = leaf_mod.leaf(torch.from_numpy(re), torch.from_numpy(im),
                         tuple(torch.from_numpy(np.array(a)) for a in pmats),
                         n1)
-    assert leaf_mod.leaf.launches == before  # CPU: no kernel launch
+    assert launch_count("leaf") == before  # CPU: no kernel launch
     assert tuple(got[0].shape) == (rows, n)
     assert _rel(got, want) <= TOL
     assert _rel(got, _oracle(re, im)) <= 5e-7
@@ -418,10 +420,10 @@ def test_leaf3_plain_matches_pallas(a, b, rows):
     re, im = _pair(rng, (rows, n))
     want = _run_interpret(leaf_fft_pallas3, jnp.asarray(re), jnp.asarray(im),
                           tuple(jnp.asarray(t) for t in host), a, b)
-    before = leaf_mod.leaf3.launches
+    before = launch_count("leaf3")
     got = leaf_mod.leaf3(torch.from_numpy(re), torch.from_numpy(im),
                          tuple(torch.from_numpy(t) for t in host), a, b)
-    assert leaf_mod.leaf3.launches == before
+    assert launch_count("leaf3") == before
     assert tuple(got[0].shape) == (rows, n)
     assert _rel(got, want) <= TOL
     # the bound of tests/test_pallas_leaf.py: 5e-6 at the small (a, b)
@@ -662,9 +664,9 @@ def test_ddcol_plain_matches_pallas_and_jax(n1, n2, b):
     shape = ((b,) if b else ()) + (n1, n2)
     quad, z = _quad(rng, shape)
     _, t1, t2 = dd.dd_col_tables_host(n1, n2)
-    before = dd.ddcol.launches
+    before = launch_count("ddcol")
     got = dd.ddcol(*_t(quad), _t(t1), _t(t2), n1)
-    assert dd.ddcol.launches == before  # CPU: no kernel launch
+    assert launch_count("ddcol") == before  # CPU: no kernel launch
     assert all(tuple(g.shape) == shape and g.dtype == torch.float32 for g in got)
     g = _join([x.numpy() for x in got])
     assert _rel_c(g, _jax_ddcol_plain_branch(quad, n1, n2)) <= DD_TOL
@@ -729,9 +731,9 @@ def test_ddcol_nocorr_plain_matches_pallas_and_jax(n1, n2, b):
     rng = np.random.default_rng(n1 * n2)
     shape = ((b,) if b else ()) + (n1, n2)
     quad, z = _quad(rng, shape)
-    before = dd.ddcol_nocorr.launches
+    before = launch_count("ddcol_nocorr")
     got = dd.ddcol_nocorr(*_t(quad), n1)
-    assert dd.ddcol_nocorr.launches == before  # CPU: no kernel launch
+    assert launch_count("ddcol_nocorr") == before  # CPU: no kernel launch
     assert all(tuple(g.shape) == shape for g in got)
     g = _join([x.numpy() for x in got])
     assert _rel_c(g, _jax_ddcol_plain_branch(quad, n1, n2, corr=False)) <= DD_TOL
@@ -758,9 +760,9 @@ def test_ddleaf_plain_matches_jax_and_numpy(n1, b):
     rng = np.random.default_rng(n1 * 10 + b)
     quad, z = _quad(rng, (b, n))
     corr = df64.dd_leaf_correction_host(n1, 128) if n1 > 1 else None
-    before = dd.ddleaf.launches
+    before = launch_count("ddleaf")
     got = dd.ddleaf(*_t(quad), _t(corr) if corr else None, n1)
-    assert dd.ddleaf.launches == before  # CPU: no kernel launch
+    assert launch_count("ddleaf") == before  # CPU: no kernel launch
     assert all(tuple(x.shape) == (b, n) and x.dtype == torch.float32 for x in got)
     g = _join([x.numpy() for x in got])
     tables = {
@@ -809,9 +811,9 @@ def test_colfft_nocorr_plain_matches_pallas(n1, n2, b):
     re, im = _pair(rng, shape)
     want = _run_interpret(pallas_col.colfft_pallas_nocorr, jnp.asarray(re),
                           jnp.asarray(im), n1)
-    before = colfft.colfft_nocorr.launches
+    before = launch_count("colfft_nocorr")
     got = colfft.colfft_nocorr(torch.from_numpy(re), torch.from_numpy(im), n1)
-    assert colfft.colfft_nocorr.launches == before  # CPU: no kernel launch
+    assert launch_count("colfft_nocorr") == before  # CPU: no kernel launch
     assert tuple(got[0].shape) == shape
     assert _rel(got, want) <= TOL
 

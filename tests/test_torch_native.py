@@ -18,6 +18,7 @@ import torch
 import phastft_tpu
 import phastft_tpu_torch as pt
 from phastft_tpu_torch.ops.native import col64, col64_plain, leaf64, leaf64_plain
+from phastft_tpu_torch.tracing import launch_count
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -241,7 +242,8 @@ def test_native_wrappers_run_plain_on_cpu():
     nothing."""
     from phastft_tpu_torch.ops.transpose import transpose2_64
 
-    before = (col64.launches, leaf64.launches, transpose2_64.launches)
+    kernels = ("col64", "leaf64", "transpose2_64")
+    before = [launch_count(k) for k in kernels]
     rng = np.random.default_rng(1)
     x = tuple(torch.from_numpy(rng.standard_normal((3, 16, 256))) for _ in range(2))
     state = _state(4096, 256)
@@ -254,7 +256,7 @@ def test_native_wrappers_run_plain_on_cpu():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     t = transpose2_64(*x)
     assert torch.equal(t[0], x[0].transpose(-1, -2))
-    assert (col64.launches, leaf64.launches, transpose2_64.launches) == before
+    assert [launch_count(k) for k in kernels] == before
 
 
 #: The plan shapes of 2^26..2^30 on small leaves: one split level of

@@ -335,11 +335,10 @@ def test_oz_dispatch(monkeypatch, case, want):
 
 
 def test_oz_runs_no_kernel_on_cpu():
-    from phastft_tpu_torch.ops.dd import ddcol, ddcol_nocorr, ddleaf
-    from phastft_tpu_torch.ops.transpose import transpose2
+    from phastft_tpu_torch.tracing import launch_count
 
-    fns = (ozdd.ozcol, ozdd.ozleaft, ddcol, ddcol_nocorr, ddleaf, transpose2)
-    before = [f.launches for f in fns]
+    kernels = ("ozcol", "ozleaft", "ddcol", "ddcol_nocorr", "ddleaf", "transpose2")
+    before = [launch_count(k) for k in kernels]
     n = 1 << 17
     planner = pt.PlannerDit64(n, options=pt.Options(f64_engine="df64-oz",
                                                     leaf_fft_size=1 << 10),
@@ -347,7 +346,7 @@ def test_oz_runs_no_kernel_on_cpu():
     x = np.ones(n)
     out = pt.fft_64_dit_with_planner(x, 0 * x, "f", planner)
     assert abs(float(out[0][0]) - n) <= 1e-10 * n
-    assert [f.launches for f in fns] == before
+    assert [launch_count(k) for k in kernels] == before
 
 
 # -- the wrappers' refusals ------------------------------------------------------
