@@ -444,6 +444,19 @@ and host clock: the readings that set ``fourstep_dist._chunk_count``'s
 default. On one rank also f32 2^31 and native 2^30 at both counts on 256
 bins, with their peaks and the native column tables' bytes.
 
+``python3 chip_smoke.py --fold PARENT`` runs none of this: in turns parent,
+this, this, parent, a process each (``--fold-tree DIR``), it times the
+forward and the inverse of one planner (FOLD_SIZES: f32 2^31, the cells'
+f32 2^12 x 2^19 rows and 2^24 x 128 rows, native f64 2^30; CUDA events,
+medians) and checksums both outputs (``checksum``: a seeded input, each
+turn the same), reads ``tracing.launches`` and ``tracing.scales`` of one
+inverse, and times each kernel that can end a transform at one shape
+(FOLD_KERNELS) at ``out_scale`` 1 and, where the tree's wrapper takes it,
+at FOLD_SCALE, checking the second against the first times the scale bit for
+bit. It prints each turn, the checksums' agreement across the turns (every
+forward and every inverse the same bits as the parent's), the inverse over
+the forward in each tree, and this tree's kernel times over the parent's.
+
 ``python3 chip_smoke.py --turns PARENT`` runs none of this: it times the
 existing transforms (f32 2^20, 2^25, 2^28, native f64 2^24, 2^27, the
 hybrid leaf at 2^16 x 2^11 rows, the f32 and f64 R2C and C2R at 2^26, and
@@ -456,7 +469,9 @@ this, this, parent, each turn a process of its own
 (``--time-tree DIR``), and prints each turn's times and this tree's ratio
 to the parent's.
 
-Then a ``run`` line gives the whole run's seconds, the build included. The
+Then a ``run`` line gives the whole run's seconds, the build included, and
+the run's ``tracing.launches`` beside its ``tracing.scales`` (where each
+inverse's 1/n went). The
 line before the last is the kernel summary (twenty-one rows: the TPU
 kernels' file:line beside each of the thirteen, and for the native f64
 kernels, ``col64_nocorr`` among them, and the real transforms' four passes
@@ -829,6 +844,25 @@ TURN_SIZES = (("f32", 20), ("f32", 25), ("f32", 28), ("f64", 24), ("f64", 27), (
               ("r2c_f32", 26), ("c2r_f32", 26), ("r2c_f64", 26), ("c2r_f64", 26),
               ("dist_f32", 25), ("dist_f64", 27))
 TURN_REPS = 20
+#: --fold: the transforms timed forward and inverse on one planner, (name,
+#: dtype, log2 n, rows): the f32 2^31 C2C, the cells' step transforms
+#: (``portbench`` reuse-f32 n12 / n24, qsim30), each input drawn from a
+#: seeded generator on the card.
+FOLD_SIZES = (("f32_2^31", "f32", 31, 1), ("n12_cell", "f32", 12, 1 << 19),
+              ("n24_cell", "f32", 24, 128), ("qsim30_cell", "f64", 30, 1))
+FOLD_REPS = 10
+#: --fold: each kernel that can end a transform, at one shape of a cell's
+#: plan or the kernel table's: (name, dtype, input shape). leaft's is
+#: (batch, A, n1, 128); the transposes' (R, C).
+FOLD_KERNELS = (("leaf", "f32", (1 << 19, 1 << 12)), ("leaf3", "f32", (1 << 11, 1 << 16)),
+                ("hybrid", "f32", (1 << 15, 1 << 12)), ("leaft", "f32", (128, 128, 1024, 128)),
+                ("transpose2", "f32", (128, 1 << 21)), ("transpose2_64", "f64", (128, 1 << 23)),
+                ("leaf64", "f64", (1 << 14, 1 << 16)))
+#: --fold: the output scale of the kernels' second reading (an inverse's
+#: 1/n at 2^24).
+FOLD_SCALE = 2.0 ** -24
+#: --fold: elements of a plane a checksum reads at once.
+CHECKSUM_CHUNK = 1 << 26
 
 #: Tune (ROADMAP item 8): (kind, dtype, log2 n) raced with PlannerMode.Tune:
 #: BASELINE.md's single-device f64 config (2^20), the top of its
@@ -4485,6 +4519,178 @@ def time_sizes(P, dev, gen, flush, out, traces) -> None:
         release_memory()
 
 
+def _mix(h, shift: int):
+    """h ^ (h >>> shift) on int64 (a logical shift): a bijection of 2^64."""
+    return h ^ ((h >> shift) & ((1 << (64 - shift)) - 1))
+
+
+def checksum(x) -> int:
+    """A fingerprint of the bits of the tensor ``x`` on the card: the sum,
+    mod 2^64, over its elements of a bijective mix of each one's bits (a
+    signed int of its width) and its flat index, so that two tensors that
+    differ in one element always differ in it, and a change of many (one
+    exponent step of every value) almost surely."""
+    import torch
+
+    bits = x.reshape(-1).view(torch.int32 if x.element_size() == 4 else torch.int64)
+    total = 0
+    for i in range(0, bits.numel(), CHECKSUM_CHUNK):
+        part = bits[i:i + CHECKSUM_CHUNK].to(torch.int64)
+        idx = torch.arange(i, i + part.numel(), dtype=torch.int64, device=x.device)
+        # odd multipliers, which 2^64 inverts: every step is a bijection
+        h = _mix((part + idx) * -7046029254386353131, 31) * -4658895280553007687
+        total = (total + int(_mix(h, 29).sum())) % (1 << 64)
+    return total
+
+
+def fold_kernel_case(P, name, dtype, shape, dev, gen):
+    """(wrapper, arguments) of the kernel ``name`` of the package ``P`` on
+    an input of ``shape``, with the tables of the plan that runs it."""
+    import torch
+
+    from importlib import import_module
+
+    ops = lambda m: import_module(f"{P.__name__}.ops.{m}")  # noqa: E731
+    dt = torch.float32 if dtype == "f32" else torch.float64
+    x = tuple(torch.randn(shape, generator=gen, device=dev, dtype=dt) for _ in range(2))
+    if name in ("transpose2", "transpose2_64"):
+        return getattr(ops("transpose"), name), x
+    if name == "leaft":
+        a, n1 = shape[-3], shape[-2]
+        mats = tuple(torch.from_numpy(t).to(dev)
+                     for t in ops("leaft").leaft_tables_host(a * 128))
+        return ops("leaft").leaft, (*x, mats, n1)
+    n = shape[-1]
+    if name == "leaf64":
+        p = P.PlannerDit64(n, options=P.Options(leaf_fft_size=1 << 16))
+        st, n1 = p.native_state, n // 128
+        return ops("native").leaf64, (*x, st[f"leaf{n1}"], n,
+                                      (st[f"dif{n1}"][0], st["dif128"][0]))
+    if name == "hybrid":
+        p = P.PlannerDit32(n, options=P.Options(leaf_kernel="hybrid"))
+        n1 = p.plan[1]
+        corrs = p.tables_for(p.plan, "hybrid")
+        return ops("leaf").hybrid, (*x, corrs[f"mxu{n1}"][3:6] + tuple(corrs[f"leaf{n1}"]), n1)
+    p = P.PlannerDit32(n)
+    n1 = p.plan[1]
+    if name == "leaf3":
+        return ops("leaf").leaf3, (*x, p.leaf_corrs[f"mxu3_{n1}"], 128, 128)
+    mats = p.leaf_corrs[f"mxu{n1}"][:6] + tuple(p.leaf_corrs[f"leaf{n1}"])
+    return ops("leaf").leaf, (*x, mats, n1)
+
+
+def fold_tree(tree: str) -> int:
+    """``--fold-tree``: the readings of ``--fold`` of the package under
+    ``tree``, as one JSON line."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import inspect
+
+    import torch
+
+    import phastft_tpu_torch as P
+    from phastft_tpu_torch import tracing
+
+    here = os.path.dirname(os.path.abspath(P.__file__))
+    if not here.startswith(os.path.abspath(tree)):
+        raise AssertionError(f"{here} is not under {tree}")
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB, as main
+    out = {"tree": tree, "package": here, "transforms": {}, "kernels": {}}
+    for tag, dtype, log_n, rows in FOLD_SIZES:
+        n = 1 << log_n
+        f32 = dtype == "f32"
+        dt = torch.float32 if f32 else torch.float64
+        planner = (P.PlannerDit32 if f32 else P.PlannerDit64)(n)
+        entry = P.fft_32_dit_with_planner if f32 else P.fft_64_dit_with_planner
+        gen = torch.Generator(device=dev).manual_seed(log_n)
+        shape = (rows, n) if rows > 1 else (n,)
+        x = tuple(torch.randn(shape, generator=gen, device=dev, dtype=dt) for _ in range(2))
+        row = {}
+        for direction in (P.Direction.Forward, P.Direction.Reverse):
+            key = "forward" if direction is P.Direction.Forward else "inverse"
+            tracing.launches.clear()
+            scales = getattr(tracing, "scales", None)
+            if scales is not None:
+                scales.clear()
+            got = entry(*x, direction, planner)
+            row[f"{key}_checksums"] = [checksum(g) for g in got]
+            row[f"{key}_launches"] = dict(tracing.launches)
+            row[f"{key}_scales"] = None if scales is None else dict(scales)
+            del got
+            release_memory()
+            row[f"{key}_ms"] = time_ms(lambda: entry(*x, direction, planner), flush, FOLD_REPS)
+        row["inverse_over_forward"] = row["inverse_ms"] / row["forward_ms"]
+        out["transforms"][tag] = row
+        del x, planner
+        release_memory()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, dtype, shape in FOLD_KERNELS:
+        fn, args = fold_kernel_case(P, name, dtype, shape, dev, gen)
+        row = {"shape": list(shape), "ms": time_ms(lambda: fn(*args), flush, TURN_REPS)}
+        if "out_scale" in inspect.signature(fn).parameters:
+            want = fn(*args)
+            for w in want:
+                w.mul_(FOLD_SCALE)
+            got = fn(*args, out_scale=FOLD_SCALE)
+            row["scaled_bitwise"] = all(torch.equal(g, w) for g, w in zip(got, want))
+            del want, got
+            release_memory()
+            row["scaled_ms"] = time_ms(lambda: fn(*args, out_scale=FOLD_SCALE), flush, TURN_REPS)
+        out["kernels"][name] = row
+        del fn, args
+        release_memory()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def fold_turns(parent: str) -> int:
+    """``--fold PARENT``: ``fold_tree`` of the parent's package and this
+    checkout's in turns parent, this, this, parent, one process each; every
+    checksum must agree across the four turns."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(smi, flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    rows = []
+    for tree in (parent, here, here, parent):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--fold-tree", tree],
+                             capture_output=True, text=True, timeout=1500)
+        if res.returncode != 0:
+            raise RuntimeError(f"--fold-tree {tree} failed:\n{res.stdout}\n{res.stderr}")
+        row = json.loads(res.stdout.strip().splitlines()[-1])
+        row["turn"] = "parent" if tree == parent else "this"
+        rows.append(row)
+        emit({"phase": "fold_turn", **row, "card": smi})
+    same, ratio = {}, {}
+    for tag in rows[0]["transforms"]:
+        for key in ("forward_checksums", "inverse_checksums"):
+            same[f"{tag}.{key}"] = all(r["transforms"][tag][key] == rows[0]["transforms"][tag][key]
+                                       for r in rows)
+        for key in ("forward_ms", "inverse_ms"):
+            mine = (rows[1]["transforms"][tag][key] + rows[2]["transforms"][tag][key]) / 2
+            theirs = (rows[0]["transforms"][tag][key] + rows[3]["transforms"][tag][key]) / 2
+            ratio[f"{tag}.{key}"] = mine / theirs
+    for name in rows[0]["kernels"]:
+        theirs = (rows[0]["kernels"][name]["ms"] + rows[3]["kernels"][name]["ms"]) / 2
+        for key in ("ms", "scaled_ms"):
+            mine = (rows[1]["kernels"][name][key] + rows[2]["kernels"][name][key]) / 2
+            ratio[f"{name}.{key}"] = mine / theirs
+    scaled = all(r["kernels"][k]["scaled_bitwise"] for r in rows[1:3] for k in r["kernels"])
+    emit({"phase": "fold", "card": smi, "bitwise_as_parent": same,
+          "scaled_bitwise": scaled, "this_over_parent": ratio})
+    if not all(same.values()) or not scaled:
+        raise AssertionError("an output differs from the parent's, or a scaled kernel from "
+                             "its unscaled output times the scale")
+    return 0
+
+
 def turns(parent: str) -> int:
     """``--turns PARENT``: ``time_tree`` of the parent's package and this
     checkout's in turns parent, this, this, parent, one process each; the
@@ -5676,7 +5882,10 @@ def main() -> int:
         "pre_untangle": ("phastft_tpu_torch/csrc/r2c.cu", "phastft_tpu/ops/r2c.py:96"),
         "interleave_scale": ("phastft_tpu_torch/csrc/r2c.cu", "phastft_tpu/ops/r2c.py:451"),
     }
-    emit({"phase": "run", "seconds": time.perf_counter() - t_run, "card": smi})
+    from phastft_tpu_torch import tracing
+
+    emit({"phase": "run", "seconds": time.perf_counter() - t_run, "card": smi,
+          "launches": dict(tracing.launches), "scales": dict(tracing.scales)})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": max_err[name],
@@ -5694,6 +5903,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fold"]:
+        sys.exit(fold_turns(sys.argv[2]))
+    if sys.argv[1:2] == ["--fold-tree"]:
+        sys.exit(fold_tree(sys.argv[2]))
     if sys.argv[1:2] == ["--turns"]:
         sys.exit(turns(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:

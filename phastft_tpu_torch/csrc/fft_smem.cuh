@@ -25,6 +25,12 @@ __host__ __device__ constexpr int padded_words(int words) {
 
 __device__ __forceinline__ int pad(int w) { return w + ((w >> 5) << 2); }
 
+// v times s, lane by lane: a store's output scale (1, or 1/N where the
+// kernel ends an inverse: the same bits as a separate multiply after it).
+__device__ __forceinline__ float4 scale4(float4 v, float s) {
+  return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
+}
+
 __device__ __forceinline__ int bitrev(int k, int logn) {
   return logn ? static_cast<int>(__brev(static_cast<unsigned>(k)) >> (32 - logn))
               : 0;

@@ -65,7 +65,9 @@
 //   the non-portable opt-in. A block's 148 KB of shared memory leaves one
 //   block an SM.
 // - Loads and stores are float4s of contiguous floats: the output is
-//   staged in shared memory in its natural order X[k1 + n1*k2] first.
+//   staged in shared memory in its natural order X[k1 + n1*k2] first, and
+//   each value is multiplied by out_scale on its way to the store (1, or
+//   1/N where this leaf ends an inverse).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -233,7 +235,7 @@ __device__ __forceinline__ void hybrid_body(const float* __restrict__ re,
                                             const float* __restrict__ cr,
                                             const float* __restrict__ ci,
                                             float* __restrict__ ore, float* __restrict__ oim,
-                                            long long batch, int logn1) {
+                                            long long batch, int logn1, float out_scale) {
   constexpr int LOGW = LOGM - LOGC, W = 1 << LOGW;
   extern __shared__ __align__(128) float4 smem4[];
   const int n1 = 1 << logn1, logn = logn1 + LOGM;
@@ -406,8 +408,10 @@ __device__ __forceinline__ void hybrid_body(const float* __restrict__ re,
       o = base + static_cast<long long>(g4 >> 4) * n1 + COLS * c + 4 * (g4 & 15);
     }
     const int s = pad(4 * g4);
-    *reinterpret_cast<float4*>(ore + o) = *reinterpret_cast<const float4*>(sr + s);
-    *reinterpret_cast<float4*>(oim + o) = *reinterpret_cast<const float4*>(si + s);
+    *reinterpret_cast<float4*>(ore + o) =
+        phastft::scale4(*reinterpret_cast<const float4*>(sr + s), out_scale);
+    *reinterpret_cast<float4*>(oim + o) =
+        phastft::scale4(*reinterpret_cast<const float4*>(si + s), out_scale);
   }
 }
 
@@ -415,8 +419,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 hybrid_kernel(const float* __restrict__ re, const float* __restrict__ im,
               const float* __restrict__ f2r, const float* __restrict__ f2i,
               const float* __restrict__ cr, const float* __restrict__ ci,
-              float* __restrict__ ore, float* __restrict__ oim, long long batch, int logn1) {
-  hybrid_body<0>(re, im, f2r, f2i, cr, ci, ore, oim, batch, logn1);
+              float* __restrict__ ore, float* __restrict__ oim, long long batch, int logn1,
+              float out_scale) {
+  hybrid_body<0>(re, im, f2r, f2i, cr, ci, ore, oim, batch, logn1, out_scale);
 }
 
 #define PHASTFT_HYBRID_CLUSTER(LOGC)                                                     \
@@ -425,8 +430,8 @@ hybrid_kernel(const float* __restrict__ re, const float* __restrict__ im,
                        const float* __restrict__ f2r, const float* __restrict__ f2i,     \
                        const float* __restrict__ cr, const float* __restrict__ ci,       \
                        float* __restrict__ ore, float* __restrict__ oim, long long batch, \
-                       int logn1) {                                                      \
-    hybrid_body<LOGC>(re, im, f2r, f2i, cr, ci, ore, oim, batch, logn1);                \
+                       int logn1, float out_scale) {                                     \
+    hybrid_body<LOGC>(re, im, f2r, f2i, cr, ci, ore, oim, batch, logn1, out_scale);     \
   }
 
 PHASTFT_HYBRID_CLUSTER(1)  // n1 = 128
@@ -438,8 +443,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 hybrid_cluster4(const float* __restrict__ re, const float* __restrict__ im,
                 const float* __restrict__ f2r, const float* __restrict__ f2i,
                 const float* __restrict__ cr, const float* __restrict__ ci,
-                float* __restrict__ ore, float* __restrict__ oim, long long batch, int logn1) {
-  hybrid_body<4>(re, im, f2r, f2i, cr, ci, ore, oim, batch, logn1);
+                float* __restrict__ ore, float* __restrict__ oim, long long batch, int logn1,
+                float out_scale) {
+  hybrid_body<4>(re, im, f2r, f2i, cr, ci, ore, oim, batch, logn1, out_scale);
 }
 
 constexpr int CLUSTER1024 = 16;
@@ -452,7 +458,7 @@ size_t smem_bytes(int n1) {
 template <typename Kernel>
 int launch(Kernel kernel, int logc, const float* re, const float* im, const float* f2r,
            const float* f2i, const float* cr, const float* ci, float* ore, float* oim,
-           long long batch, int n1, cudaStream_t s) {
+           long long batch, int n1, float out_scale, cudaStream_t s) {
   const int logn1 = phastft::ilog2(n1);
   const int logr = logc ? 0 : LOG_BLOCK_POINTS - LOGM - logn1;
   const long long blocks = ((batch + (1LL << logr) - 1) >> logr) << logc;
@@ -462,7 +468,7 @@ int launch(Kernel kernel, int logc, const float* re, const float* im, const floa
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(re, im, f2r, f2i, cr, ci, ore,
-                                                              oim, batch, logn1);
+                                                              oim, batch, logn1, out_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -470,24 +476,30 @@ int launch(Kernel kernel, int logc, const float* re, const float* im, const floa
 
 // re, im, ore, oim: (batch, n1*128), n1 = 2..1024 a power of two. f2r, f2i:
 // the planner's F(128) (row 1 is read); cr, ci: the (n1, 128) correction
-// W_n^(k1*i2). Returns the CUDA error code of the launch (0 on success).
+// W_n^(k1*i2); out_scale: the factor of every output. Returns the CUDA error
+// code of the launch (0 on success).
 extern "C" int phastft_hybrid(const float* re, const float* im, const float* f2r,
                               const float* f2i, const float* cr, const float* ci, float* ore,
-                              float* oim, long long batch, int n1, void* stream) {
+                              float* oim, long long batch, int n1, double out_scale,
+                              void* stream) {
   if (batch < 1 || !phastft::is_pow2(n1) || n1 < 2 || n1 > 1024 || f2r == nullptr ||
       f2i == nullptr || cr == nullptr || ci == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float scale = static_cast<float>(out_scale);
   if (n1 == 1024) {
     static int resident = 0;  // queried on first use
     return phastft::launch_clusters(hybrid_cluster4, CLUSTER1024, CLUSTER1024 * batch, THREADS,
                                     smem_bytes(n1), s, resident, re, im, f2r, f2i, cr, ci, ore,
-                                    oim, batch, phastft::ilog2(n1));
+                                    oim, batch, phastft::ilog2(n1), scale);
   }
-  if (n1 == 128) return launch(hybrid_cluster1, 1, re, im, f2r, f2i, cr, ci, ore, oim, batch, n1, s);
-  if (n1 == 256) return launch(hybrid_cluster2, 2, re, im, f2r, f2i, cr, ci, ore, oim, batch, n1, s);
-  if (n1 == 512) return launch(hybrid_cluster3, 3, re, im, f2r, f2i, cr, ci, ore, oim, batch, n1, s);
-  return launch(hybrid_kernel, 0, re, im, f2r, f2i, cr, ci, ore, oim, batch, n1, s);
+  if (n1 == 128)
+    return launch(hybrid_cluster1, 1, re, im, f2r, f2i, cr, ci, ore, oim, batch, n1, scale, s);
+  if (n1 == 256)
+    return launch(hybrid_cluster2, 2, re, im, f2r, f2i, cr, ci, ore, oim, batch, n1, scale, s);
+  if (n1 == 512)
+    return launch(hybrid_cluster3, 3, re, im, f2r, f2i, cr, ci, ore, oim, batch, n1, scale, s);
+  return launch(hybrid_kernel, 0, re, im, f2r, f2i, cr, ci, ore, oim, batch, n1, scale, s);
 }
 
 // The number of hybrid clusters at n1 = 128, 256, 512 or 1024 (2, 4, 8, 16

@@ -40,6 +40,10 @@
 //   pass of F(128) runs in its own buffer; the stores write 64 contiguous
 //   floats per k2 as 64-byte runs of four lanes.
 //
+// The store multiplies every output by out_scale (1 on a forward or an
+// inner pass, 1/N where this pass ends an inverse): the same bits as a
+// separate multiply after the kernel, without its second pass over memory.
+//
 // Twiddles come from the planner's tables, so this kernel computes from
 // the same bits as the plain version: W_n1^k is row 1 of F(n1), W_128^k
 // row 1 of F(128), and W_n^(k1*i2) the (n1, 128) correction table. Below
@@ -83,7 +87,7 @@ leaf_kernel(const float* __restrict__ re, const float* __restrict__ im,
             const float* __restrict__ f2r, const float* __restrict__ f2i,
             const float* __restrict__ cr, const float* __restrict__ ci,
             float* __restrict__ ore, float* __restrict__ oim, long long batch,
-            int logn1, int logm, int logr) {
+            int logn1, int logm, int logr, float out_scale) {
   extern __shared__ float4 smem4[];
   const int n1 = 1 << logn1, m = 1 << logm, rows = 1 << logr;
   const int logn = logn1 + logm;
@@ -138,8 +142,8 @@ leaf_kernel(const float* __restrict__ re, const float* __restrict__ im,
       const int k1 = k & (n1 - 1), k2 = k >> logn1;
       const int w = pad((bitrev(k1, logn1) << (logr + logm)) + (r << logm) +
                         bitrev(k2, logm));
-      vr[u] = sr[w];
-      vi[u] = si[w];
+      vr[u] = sr[w] * out_scale;
+      vi[u] = si[w] * out_scale;
     }
     if (f + 4 <= valid) {
       *reinterpret_cast<float4*>(ore + base + f) = make_float4(vr[0], vr[1], vr[2], vr[3]);
@@ -161,7 +165,7 @@ leaf_cluster(const float* __restrict__ re, const float* __restrict__ im,
              const float* __restrict__ f1r, const float* __restrict__ f1i,
              const float* __restrict__ f2r, const float* __restrict__ f2i,
              const float* __restrict__ cr, const float* __restrict__ ci,
-             float* __restrict__ ore, float* __restrict__ oim) {
+             float* __restrict__ ore, float* __restrict__ oim, float out_scale) {
   constexpr int LOGN1 = 6 + LOGC, N1 = 1 << LOGN1;
   constexpr int LOGW = LOGM - LOGC, W = 1 << LOGW;  // columns per block
   extern __shared__ float4 smem4[];
@@ -251,8 +255,8 @@ leaf_cluster(const float* __restrict__ re, const float* __restrict__ im,
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int w = pad((kl + u) * M + col);
-      vr[u] = sr[w];
-      vi[u] = si[w];
+      vr[u] = sr[w] * out_scale;
+      vi[u] = si[w] * out_scale;
     }
     const long long o = base + static_cast<long long>(kb) * N1 + KROWS * c + kl;
     *reinterpret_cast<float4*>(ore + o) = make_float4(vr[0], vr[1], vr[2], vr[3]);
@@ -262,7 +266,7 @@ leaf_cluster(const float* __restrict__ re, const float* __restrict__ im,
 
 using ClusterKernel = void (*)(const float*, const float*, const float*, const float*,
                                const float*, const float*, const float*, const float*,
-                               float*, float*);
+                               float*, float*, float);
 
 ClusterKernel cluster_kernel(int logc) {
   return logc == 1 ? leaf_cluster<1>   // n = 2^14, n1 = 128
@@ -280,25 +284,28 @@ int resident(int logc) {
 // re, im, ore, oim: (batch, n) with n = n1*m; m = 128 with n1 = 1..256, or
 // n1 = 1 and m = 2..64. f1r/f1i: F(n1) (n1 >= 2, else unused), f2r/f2i:
 // F(128) (m = 128, else NULL: the twiddles come from the exact phase),
-// cr/ci: the (n1, 128) correction (n1 >= 2). Returns the CUDA error code of
-// the launch (0 on success).
+// cr/ci: the (n1, 128) correction (n1 >= 2); out_scale: the factor of every
+// output (1, or 1/N where the leaf ends an inverse). Returns the CUDA error
+// code of the launch (0 on success).
 extern "C" int phastft_leaf(const float* re, const float* im, const float* f1r,
                             const float* f1i, const float* f2r, const float* f2i,
                             const float* cr, const float* ci, float* ore, float* oim,
-                            long long batch, int n1, int m, void* stream) {
+                            long long batch, int n1, int m, double out_scale,
+                            void* stream) {
   const bool tiny = m < 128;
   if (batch < 1 || !phastft::is_pow2(n1) || !phastft::is_pow2(m) || n1 > 256 ||
       (tiny && (n1 != 1 || m < 2 || f2r != nullptr)) || (!tiny && m != 128) ||
       (!tiny && f2r == nullptr) || (n1 > 1 && (f1r == nullptr || cr == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float scale = static_cast<float>(out_scale);
   const int logn1 = phastft::ilog2(n1), logm = phastft::ilog2(m);
   if (n1 >= 128) {
     const int logc = logn1 - 6;
     static int resident[3] = {0, 0, 0};  // per logc, queried on first use
     return phastft::launch_clusters(cluster_kernel(logc), 1 << logc, batch << logc, THREADS,
                                     smem_bytes(n1, M), s, resident[logc], re, im, f1r, f1i,
-                                    f2r, f2i, cr, ci, ore, oim);
+                                    f2r, f2i, cr, ci, ore, oim, scale);
   }
   const int logn = logn1 + logm;
   const int logr = LOG_BLOCK_POINTS - logn;
@@ -312,7 +319,7 @@ extern "C" int phastft_leaf(const float* re, const float* im, const float* f1r,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
   leaf_kernel<<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(
-      re, im, f1r, f1i, f2r, f2i, cr, ci, ore, oim, batch, logn1, logm, logr);
+      re, im, f1r, f1i, f2r, f2i, cr, ci, ore, oim, batch, logn1, logm, logr, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,7 +39,9 @@
 //   as rows (k_a - 16c, p) of 128 i_b.
 // - F(b) along each of those 64 rows, then the stores: 16 contiguous floats
 //   per (k_b, p) as float4s of four neighbouring lanes, gathered from
-//   shared memory.
+//   shared memory, each value times out_scale (1 on a forward or an inner
+//   pass, 1/N where this leaf ends an inverse: the same bits as a separate
+//   multiply after the kernel, without its second pass over memory).
 // F(128) is two passes over shared memory (4 + 3 radix-2 stages in
 // registers), F(256) two of 4 + 4. Rows go in gridDim.x (C blocks each), so
 // any batch runs. The 8-block shape keeps its compile-time cluster; the
@@ -107,7 +109,8 @@ __device__ __forceinline__ void leaf3_body(
     const float* __restrict__ re, const float* __restrict__ im, const float* __restrict__ f1r,
     const float* __restrict__ f1i, const float* __restrict__ f2r, const float* __restrict__ f2i,
     const float* __restrict__ c1r, const float* __restrict__ c1i, const float* __restrict__ c2r,
-    const float* __restrict__ c2i, float* __restrict__ ore, float* __restrict__ oim) {
+    const float* __restrict__ c2i, float* __restrict__ ore, float* __restrict__ oim,
+    float out_scale) {
   using S = Shape<LOGA>;
   constexpr int A = S::A, N = S::N, COLS = S::COLS, LOGCOLS = S::LOGCOLS;
   extern __shared__ float4 smem4[];
@@ -240,8 +243,8 @@ __device__ __forceinline__ void leaf3_body(
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int w = pad(((kl + u) * 4 + p) * B + col);
-      vr[u] = sr[w];
-      vi[u] = si[w];
+      vr[u] = sr[w] * out_scale;
+      vi[u] = si[w] * out_scale;
     }
     const long long o = base + kb * 4 * A + p * A + KA * c + kl;
     *reinterpret_cast<float4*>(ore + o) = make_float4(vr[0], vr[1], vr[2], vr[3]);
@@ -254,18 +257,19 @@ __device__ __forceinline__ void leaf3_body(
       const float *__restrict__ f1i, const float *__restrict__ f2r,                          \
       const float *__restrict__ f2i, const float *__restrict__ c1r,                          \
       const float *__restrict__ c1i, const float *__restrict__ c2r,                          \
-      const float *__restrict__ c2i, float *__restrict__ ore, float *__restrict__ oim
+      const float *__restrict__ c2i, float *__restrict__ ore, float *__restrict__ oim,     \
+      float out_scale
 
 // a = 128: an 8-block cluster, fixed at compile time
 __global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(THREADS, 3)
 leaf3_kernel(LEAF3_PARAMS) {
-  leaf3_body<7>(re, im, f1r, f1i, f2r, f2i, c1r, c1i, c2r, c2i, ore, oim);
+  leaf3_body<7>(re, im, f1r, f1i, f2r, f2i, c1r, c1i, c2r, c2i, ore, oim, out_scale);
 }
 
 // a = 256: a 16-block cluster, set at launch (a non-portable size), two
 // blocks an SM
 __global__ void __launch_bounds__(THREADS, 2) leaf3_kernel256(LEAF3_PARAMS) {
-  leaf3_body<8>(re, im, f1r, f1i, f2r, f2i, c1r, c1i, c2r, c2i, ore, oim);
+  leaf3_body<8>(re, im, f1r, f1i, f2r, f2i, c1r, c1i, c2r, c2i, ore, oim, out_scale);
 }
 
 template <int LOGA>
@@ -285,26 +289,28 @@ cudaError_t configure() {
 
 // re, im, ore, oim: (batch, a*512), a = 128 or 256; f1r/f1i: F(a),
 // f2r/f2i: F(128) (b), c1r/c1i: (a, 512) W_n^(k_a*i_r), c2r/c2i: (4, 128)
-// W_512^(p*i_b). Returns the CUDA error code of the launch (0 on success).
+// W_512^(p*i_b); out_scale: the factor of every output. Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int phastft_leaf3(const float* re, const float* im, const float* f1r,
                              const float* f1i, const float* f2r, const float* f2i,
                              const float* c1r, const float* c1i, const float* c2r,
                              const float* c2i, float* ore, float* oim, long long batch, int a,
-                             void* stream) {
+                             double out_scale, void* stream) {
   if (batch < 1 || (a != 128 && a != 256)) return static_cast<int>(cudaErrorInvalidValue);
+  const float scale = static_cast<float>(out_scale);
   if (a == 256) {
     static int resident = 0;  // queried on first use
     return phastft::launch_clusters(leaf3_kernel256, Shape<8>::CLUSTER,
                                     Shape<8>::CLUSTER * batch, THREADS, smem_bytes<8>(),
                                     static_cast<cudaStream_t>(stream), resident, re, im, f1r,
-                                    f1i, f2r, f2i, c1r, c1i, c2r, c2i, ore, oim);
+                                    f1i, f2r, f2i, c1r, c1i, c2r, c2i, ore, oim, scale);
   }
   if (batch > 0x0fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = configure();
   if (err != cudaSuccess) return static_cast<int>(err);
   leaf3_kernel<<<static_cast<unsigned>(Shape<7>::CLUSTER * batch), THREADS, smem_bytes<7>(),
                  static_cast<cudaStream_t>(stream)>>>(re, im, f1r, f1i, f2r, f2i, c1r,
-                                                      c1i, c2r, c2i, ore, oim);
+                                                      c1i, c2r, c2i, ore, oim, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,7 +36,10 @@
 //   bytes of each plane a warp and load); the last trip of F(n1) multiplies
 //   the correction in its registers; the last trip of F(n2), radix-8 over
 //   span 8, stores straight to device memory with the lanes of a warp on 32
-//   neighbouring outputs of one k2 (256 contiguous bytes a plane).
+//   neighbouring outputs of one k2 (256 contiguous bytes a plane), each
+//   value times out_scale (1, or 1/N where this leaf ends an inverse: the
+//   same bits as a separate multiply after the kernel, without its second
+//   pass over memory).
 // - Up to n = 2^12 a block holds R = 4096 / n whole rows (the last block
 //   masks rows past the batch), laid out (i1, r, i2): F(n1) over all R * 128
 //   columns at once, F(128) over all n1 * R rows. n <= 16: the rows pass
@@ -327,7 +330,8 @@ template <int LOGN>
 __global__ void __launch_bounds__(THREADS, 2)
 leaf64_block(const double* __restrict__ xr, const double* __restrict__ xi,
              const cd* __restrict__ tw1t, const cd* __restrict__ tw2t, LeafCorr corr,
-             double* __restrict__ outr, double* __restrict__ outi, long long batch) {
+             double* __restrict__ outr, double* __restrict__ outi, long long batch,
+             double out_scale) {
   constexpr int LOGN2 = LOGN < LOGM ? LOGN : LOGM, LOGN1 = LOGN - LOGN2;
   constexpr int N = 1 << LOGN, N1 = 1 << LOGN1, N2 = 1 << LOGN2;
   constexpr int LOGR = LOG_LOCAL - LOGN;
@@ -377,8 +381,10 @@ leaf64_block(const double* __restrict__ xr, const double* __restrict__ xi,
       const int f = 2 * (threadIdx.x + u * THREADS);
       if (f >= valid) continue;
       const cd a = s[slot(f)], b = s[slot(f + 1)];
-      *reinterpret_cast<double2*>(outr + base + f) = make_double2(a.x, b.x);
-      *reinterpret_cast<double2*>(outi + base + f) = make_double2(a.y, b.y);
+      *reinterpret_cast<double2*>(outr + base + f) =
+          make_double2(a.x * out_scale, b.x * out_scale);
+      *reinterpret_cast<double2*>(outi + base + f) =
+          make_double2(a.y * out_scale, b.y * out_scale);
     }
     return;
   } else {
@@ -458,8 +464,8 @@ leaf64_block(const double* __restrict__ xr, const double* __restrict__ xi,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const long long at = o + static_cast<long long>(rev(j, 3) * (N2 / 8)) * N1;
-        outr[at] = x[j].x;
-        outi[at] = x[j].y;
+        outr[at] = x[j].x * out_scale;
+        outi[at] = x[j].y * out_scale;
       }
     }
   }
@@ -494,7 +500,7 @@ template <int LOGC>
 __global__ void __launch_bounds__(THREADS, 2)
 leaf64_cluster(const double* __restrict__ xr, const double* __restrict__ xi,
                const cd* __restrict__ tw1t, const cd* __restrict__ tw2t, LeafCorr corr,
-               double* __restrict__ outr, double* __restrict__ outi) {
+               double* __restrict__ outr, double* __restrict__ outi, double out_scale) {
   constexpr int LOGN1 = 5 + LOGC, N1 = 1 << LOGN1;
   constexpr int LOGW = LOGM - LOGC, W = 1 << LOGW;  // columns per block
   extern __shared__ cd smem[];
@@ -554,16 +560,16 @@ leaf64_cluster(const double* __restrict__ xr, const double* __restrict__ xi,
     for (int j = 0; j < 8; ++j) {
       const long long o =
           base + static_cast<long long>(rev(j, 3) * 16 + bitrev(g, 4)) * N1 + KROWS * c + l;
-      outr[o] = x[j].x;
-      outi[o] = x[j].y;
+      outr[o] = x[j].x * out_scale;
+      outi[o] = x[j].y * out_scale;
     }
   }
 }
 
 using BlockKernel = void (*)(const double*, const double*, const cd*, const cd*, LeafCorr,
-                             double*, double*, long long);
+                             double*, double*, long long, double);
 using ClusterKernel = void (*)(const double*, const double*, const cd*, const cd*, LeafCorr,
-                               double*, double*);
+                               double*, double*, double);
 
 BlockKernel block_kernel(int logn) {
   switch (logn) {
@@ -602,12 +608,12 @@ int resident(int logc) {
 // x*, o*: the two planes of (batch, n) arrays, n = 2..2^16 a power of two.
 // tw1t: n1/2 (re, im) pairs, W_n1^k, n1 = n / 128 (n >= 256, else unused);
 // tw2t: n2/2 pairs, W_n2^k, n2 = min(n, 128); cr, ci: the (n1, 128)
-// correction W_n^(k1*i2) (n >= 256, else unused). Returns the CUDA error
-// code of the launch (0 on success).
+// correction W_n^(k1*i2) (n >= 256, else unused); out_scale: the factor of
+// every output. Returns the CUDA error code of the launch (0 on success).
 extern "C" int phastft_leaf64(const double* xr, const double* xi, const void* tw1t,
                               const void* tw2t, const double* cr, const double* ci,
                               double* outr, double* outi, long long batch, int n,
-                              void* stream) {
+                              double out_scale, void* stream) {
   const int n1 = n > M ? n / M : 1, n2 = n > M ? M : n;
   if (batch < 1 || !phastft::is_pow2(n) || n < 2 || n > (1 << 16) || tw2t == nullptr ||
       (n1 > 1 && (tw1t == nullptr || cr == nullptr || ci == nullptr)))
@@ -622,7 +628,7 @@ extern "C" int phastft_leaf64(const double* xr, const double* xi, const void* tw
     static int resident_at[5] = {0, 0, 0, 0, 0};  // per logc, queried on first use
     return phastft::launch_clusters(cluster_kernel(logc), 1 << logc, batch << logc, THREADS,
                                     smem_bytes(n1, M), s, resident_at[logc], xr, xi, tw1, tw2,
-                                    corr, outr, outi);
+                                    corr, outr, outi, out_scale);
   }
   const int logr = LOG_LOCAL - logn;  // rows per block: 4 K points
   const long long blocks = (batch + (1LL << logr) - 1) >> logr;
@@ -633,7 +639,7 @@ extern "C" int phastft_leaf64(const double* xr, const double* xi, const void* tw
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(xr, xi, tw1, tw2, corr, outr,
-                                                             outi, batch);
+                                                             outi, batch, out_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,7 +34,9 @@
 //   results until a second barrier says no block reads its buffer any
 //   more. The last three stages of F(128) run in its own buffer, laid out
 //   (kA, iM, row) so that the store reads R rows of one (kA, kM) as
-//   float4s and writes them as one contiguous run.
+//   float4s and writes them as one contiguous run, each value times
+//   out_scale (1, or 1/N where this pass ends an inverse: the same bits as
+//   a separate multiply after the kernel, without its pass over memory).
 //
 // Twiddles come from the planner's tables, so this kernel computes from the
 // same bits as the plain version: W_A^k is row 1 of F(A), W_128^k row 1 of
@@ -75,7 +77,7 @@ leaft_cluster(const float* __restrict__ cre, const float* __restrict__ cim,
               const float* __restrict__ f1r, const float* __restrict__ f1i,
               const float* __restrict__ f2r, const float* __restrict__ f2i,
               const float* __restrict__ cr, const float* __restrict__ ci,
-              float* __restrict__ ore, float* __restrict__ oim, int n1) {
+              float* __restrict__ ore, float* __restrict__ oim, int n1, float out_scale) {
   constexpr int A = 1 << LOGA, R = 1 << LOGR;
   constexpr int LOGC = cluster_log(LOGA, LOGR);
   static_assert(LOGC >= 0 && LOGC <= 4, "clusters of 1..16 blocks");
@@ -202,8 +204,8 @@ leaft_cluster(const float* __restrict__ cre, const float* __restrict__ cim,
     const int h = e & ((1 << LOGH) - 1), pos = (e >> LOGH) & (M - 1);
     const int kl = e >> (LOGH + LOGM);
     const int w = pad((((kl << LOGM) + pos) << LOGR) + 4 * h);
-    const float4 a = *reinterpret_cast<const float4*>(sr + w);
-    const float4 d = *reinterpret_cast<const float4*>(si + w);
+    const float4 a = phastft::scale4(*reinterpret_cast<const float4*>(sr + w), out_scale);
+    const float4 d = phastft::scale4(*reinterpret_cast<const float4*>(si + w), out_scale);
     const int km = bitrev(pos, LOGM), ka = KA * c + kl;
     const long long o = b * n + (static_cast<long long>(km) * A + ka) * n1 + k0 + 4 * h;
     *reinterpret_cast<float4*>(ore + o) = a;
@@ -213,7 +215,7 @@ leaft_cluster(const float* __restrict__ cre, const float* __restrict__ cim,
 
 using ClusterKernel = void (*)(const float*, const float*, const float*, const float*,
                                const float*, const float*, const float*, const float*,
-                               float*, float*, int);
+                               float*, float*, int, float);
 
 ClusterKernel cluster_kernel(int loga) {
   switch (loga) {
@@ -230,12 +232,14 @@ ClusterKernel cluster_kernel(int loga) {
 // cre, cim: (batch, A, n1, 128); f1r/f1i: (A, A) F(A); f2r/f2i: (128, 128)
 // F(128); cr/ci: (A, 128) W_n2^(kA*iM); ore, oim: (batch, n) with
 // n = A*128*n1, n1 a multiple of 8; batch * n1/8 clusters of A/8 blocks,
-// at most 2^31 - 1 blocks. Returns the CUDA error code of the launch (0 on
-// success).
+// at most 2^31 - 1 blocks; out_scale: the factor of every output (1, or 1/N
+// where this pass ends an inverse). Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int phastft_leaft(const float* cre, const float* cim, const float* f1r,
                              const float* f1i, const float* f2r, const float* f2i,
                              const float* cr, const float* ci, float* ore, float* oim,
-                             long long batch, int n1, int na, void* stream) {
+                             long long batch, int n1, int na, double out_scale,
+                             void* stream) {
   if (batch < 1 || n1 < 1 || n1 > (1 << 20) || n1 % (1 << LOG_ROWS) ||
       !phastft::is_pow2(na) || na < 8 || na > 128)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -246,7 +250,8 @@ extern "C" int phastft_leaft(const float* cre, const float* cim, const float* f1
   const long long blocks = (batch * (n1 >> LOG_ROWS)) << logc;
   return phastft::launch_clusters(cluster_kernel(loga), 1 << logc, blocks, THREADS,
                                   cluster_smem_bytes(na), s, resident[loga], cre, cim, f1r,
-                                  f1i, f2r, f2i, cr, ci, ore, oim, n1);
+                                  f1i, f2r, f2i, cr, ci, ore, oim, n1,
+                                  static_cast<float>(out_scale));
 }
 
 // The clusters of the R-row design at A = na (8..128: 1..16 blocks) the

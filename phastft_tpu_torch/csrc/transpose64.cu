@@ -9,8 +9,10 @@
 // For both arrays and every batch b:  out[b, c, r] = in[b, r, c].
 //
 // Bound: memory, and nothing else: 8 B read and 8 B written per double, no
-// arithmetic. All the design can do is keep both sides of the copy
-// contiguous.
+// arithmetic but one multiply a value by out_scale on the way out (1, or
+// 1/N where this transpose ends an inverse: the same bits as a separate
+// multiply after the kernel, without its second pass over memory). All the
+// design can do is keep both sides of the copy contiguous.
 //
 // Design (transpose.cu's, for 8-byte words): a block moves one (TR, TC) tile
 // of each array through shared memory. It reads rows of TC contiguous
@@ -43,7 +45,7 @@ constexpr int kThreads = 256;
 __global__ void __launch_bounds__(kThreads)
 transpose2_64_kernel(const double* __restrict__ a, const double* __restrict__ b,
                      double* __restrict__ oa, double* __restrict__ ob, int logr, int logc,
-                     int logtr, int logtc, int stride) {
+                     int logtr, int logtc, int stride, double out_scale) {
   extern __shared__ double tile64[];
   double* ta = tile64;
   double* tb = tile64 + (stride << logtr);
@@ -66,19 +68,20 @@ transpose2_64_kernel(const double* __restrict__ a, const double* __restrict__ b,
   for (int e = threadIdx.x; e < (1 << (logtr + logtc)); e += kThreads) {
     const int c = e >> logtr, r = e & (tr - 1);
     const long long off = base + ((c0 + c) << logr) + r0 + r;
-    oa[off] = ta[r * stride + c];
-    ob[off] = tb[r * stride + c];
+    oa[off] = ta[r * stride + c] * out_scale;
+    ob[off] = tb[r * stride + c] * out_scale;
   }
 }
 
 }  // namespace
 
 // a, b: (batch, rows, cols) doubles; oa, ob: (batch, cols, rows); rows and
-// cols powers of two up to 2^30, batch * rows * cols < 2^62. Returns the CUDA
-// error code of the launch (0 on success).
+// cols powers of two up to 2^30, batch * rows * cols < 2^62; out_scale: the
+// factor of every output. Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int phastft_transpose2_64(const double* a, const double* b, double* oa, double* ob,
                                      long long batch, long long rows, long long cols,
-                                     void* stream) {
+                                     double out_scale, void* stream) {
   if (batch < 1 || rows < 1 || cols < 1 || (rows & (rows - 1)) || (cols & (cols - 1)) ||
       rows > (1LL << 30) || cols > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -93,6 +96,6 @@ extern "C" int phastft_transpose2_64(const double* a, const double* b, double* o
   const size_t smem = 2 * sizeof(double) * (static_cast<size_t>(stride) << logtr);
   transpose2_64_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(a, b, oa, ob, logr, logc, logtr,
-                                                              logtc, stride);
+                                                              logtc, stride, out_scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,21 +43,24 @@ _D = ctypes.c_double
 #: c_void_p (a c_int would cut a 64-bit pointer), sizes are c_int, and a
 #: batch or row count whose product with n can pass 2^31 is c_int64. Every
 #: c_int is a length of one axis (n1, n2, a row length, a table's width) or
-#: a flag. Every wrapper launches through ``call``, whose ``check_args``
+#: a flag. A c_double is an output scale (the kernels that can end a
+#: transform multiply every stored value by it: 1, an inverse's 1/n, the
+#: C2R's 2/n).
+#: Every wrapper launches through ``call``, whose ``check_args``
 #: refuses a value past its type, which ctypes would cut without a word.
 #: Inside the kernels every offset into a tensor is 64-bit.
 _SIGNATURES = {
     "phastft_colfft": [_P] * 5 + [_I, _P, _P, _L, _I, _I, _I, _L, _L, _P],
     "phastft_colfft_clusters": [_I, _I],
-    "phastft_leaft": [_P] * 10 + [_L, _I, _I, _P],
+    "phastft_leaft": [_P] * 10 + [_L, _I, _I, _D, _P],
     "phastft_leaft_clusters": [_I],
-    "phastft_leaf": [_P] * 10 + [_L, _I, _I, _P],
+    "phastft_leaf": [_P] * 10 + [_L, _I, _I, _D, _P],
     "phastft_leaf_clusters": [_I],
-    "phastft_leaf3": [_P] * 12 + [_L, _I, _P],
+    "phastft_leaf3": [_P] * 12 + [_L, _I, _D, _P],
     "phastft_leaf3_clusters": [_I],
-    "phastft_hybrid": [_P] * 8 + [_L, _I, _P],
+    "phastft_hybrid": [_P] * 8 + [_L, _I, _D, _P],
     "phastft_hybrid_clusters": [_I],
-    "phastft_transpose2": [_P] * 4 + [_L, _L, _L, _P],
+    "phastft_transpose2": [_P] * 4 + [_L, _L, _L, _D, _P],
     "phastft_ddcol": [_P] * 17 + [_L, _I, _I, _P],
     "phastft_ddcol_nocorr": [_P] * 9 + [_L, _I, _I, _P],
     "phastft_ddcol_clusters": [_I, _I],
@@ -74,9 +77,9 @@ _SIGNATURES = {
     "phastft_col64": [_P] * 9 + [_L, _I, _I, _P],
     "phastft_col64_nocorr": [_P] * 5 + [_L, _I, _I, _P],
     "phastft_col64_clusters": [_I],
-    "phastft_leaf64": [_P] * 8 + [_L, _I, _P],
+    "phastft_leaf64": [_P] * 8 + [_L, _I, _D, _P],
     "phastft_leaf64_clusters": [_I],
-    "phastft_transpose2_64": [_P] * 4 + [_L, _L, _L, _P],
+    "phastft_transpose2_64": [_P] * 4 + [_L, _L, _L, _D, _P],
     # the real transforms' passes (f64 flag first)
     "phastft_r2c_deinterleave": [_I, _P, _P, _P, _L, _P],
     "phastft_r2c_interleave": [_I, _P, _P, _P, _L, _D, _P],

@@ -21,6 +21,12 @@ in plain torch on any device, as the JAX package runs it in XLA and not
 in Pallas. It is an oracle, far slower than the default engine, and runs
 no kernel.
 
+The inverse's 1/n: the fast f32 and native f64 builders hand it to the
+rows (``out_scale``), whose last kernel multiplies each value before its
+store, so it costs no pass of its own; the df64 and Ozaki engines (the scale
+follows the f64 join) and the staged oracle multiply after their last
+operation (``scale_``, the ``phastft.scale`` span).
+
 Each closure ``run(re, im, *state)`` reads the caller's planes and never
 writes them. ``run.take(pair, *state)`` is the same transform on planes
 handed over in the list ``pair``, which it empties: its first kernel reads
@@ -36,12 +42,13 @@ from typing import Sequence
 
 import torch
 
+from .. import tracing
 from ..tracing import span
 from .bitrev import apply_bit_reversal
 from .route import passes_for
 
 __all__ = ["build_fast_fft", "build_dd_fft", "build_native_fft", "build_staged_fft",
-           "butterfly_stage", "staged_fft"]
+           "butterfly_stage", "scale_", "staged_fft"]
 
 
 def _closure(take):
@@ -54,14 +61,15 @@ def _closure(take):
     return run
 
 
-def _scaled(out_re, out_im, n: int, scale: bool):
-    """The outputs times 1/n in place when ``scale`` (the inverse): they are
-    freshly allocated, never the caller's."""
-    if scale:
-        inv_n = 1.0 / n
-        with span("phastft.scale"):
-            out_re.mul_(inv_n)
-            out_im.mul_(inv_n)
+def scale_(out_re, out_im, n: int):
+    """The outputs times 1/n in place, a pass of its own (the
+    ``phastft.scale`` span, counted as ``tracing.scales["torch"]``): they
+    are freshly allocated, never the caller's."""
+    inv_n = 1.0 / n
+    with span("phastft.scale"):
+        out_re.mul_(inv_n)
+        out_im.mul_(inv_n)
+    tracing.scales["torch"] += 1
     return out_re, out_im
 
 
@@ -70,7 +78,8 @@ def build_fast_fft(n: int, leaf_limit: int, scale: bool, leaf_kernel=None,
                    plain: bool = False):
     """Callable (re, im, corrs) -> (re, im) running the plan of a length-n
     transform with the planner's tables ``corrs``; ``scale`` multiplies
-    the result by 1/n (the inverse). ``leaf_kernel`` is the resolved
+    the result by 1/n (the inverse) in the last kernel's stores.
+    ``leaf_kernel`` is the resolved
     ``Options.leaf_kernel`` ("hybrid" runs the leaves on the hybrid
     kernel); ``plain`` runs the passes' plain versions."""
     from .fourstep import plan_rows, rows_f32
@@ -79,8 +88,10 @@ def build_fast_fft(n: int, leaf_limit: int, scale: bool, leaf_kernel=None,
         plan = plan_rows(n, leaf_limit)
         passes = passes_for(plain)
 
+    out_scale = 1.0 / n if scale else 1.0
+
     def take(pair, corrs):
-        return _scaled(*rows_f32(pair, plan, corrs, leaf_kernel, passes), n, scale)
+        return rows_f32(pair, plan, corrs, leaf_kernel, passes, out_scale)
 
     return _closure(take)
 
@@ -116,7 +127,7 @@ def build_dd_fft(n: int, leaf_limit: int, scale: bool, dd_leaf=None, plain: bool
         out_im = ih.double()
         out_im += il
         del ih, il
-        return _scaled(out_re, out_im, n, scale)
+        return scale_(out_re, out_im, n) if scale else (out_re, out_im)
 
     return _closure(take)
 
@@ -126,16 +137,18 @@ def build_native_fft(n: int, leaf_limit: int, scale: bool, plain: bool = False):
     """Callable (re, im, corrs) -> (re, im) for the native f64 engine: f64
     planes through ``ops/fourstep.fft_rows_native`` with the planner's
     ``native_state``, the JAX package's f64 use of its ``build_fast_fft``.
-    ``scale`` multiplies the result by 1/n in f64 after the rows; ``plain``
-    runs the passes' plain versions."""
+    ``scale`` multiplies the result by 1/n in f64 in the last kernel's
+    stores; ``plain`` runs the passes' plain versions."""
     from .fourstep import plan_rows, rows_native
 
     with span("phastft.plan"):
         plan = plan_rows(n, leaf_limit)
         passes = passes_for(plain)
 
+    out_scale = 1.0 / n if scale else 1.0
+
     def take(pair, corrs):
-        return _scaled(*rows_native(pair, plan, corrs, passes), n, scale)
+        return rows_native(pair, plan, corrs, passes, out_scale)
 
     return _closure(take)
 
@@ -173,6 +186,7 @@ def staged_fft(re, im, stage_twiddles: Sequence, *, tiled_bitrev: bool, scale: b
         with span("phastft.scale"):
             re = re * (1.0 / n)
             im = im * (1.0 / n)
+        tracing.scales["torch"] += 1
     return re, im
 
 

@@ -52,6 +52,14 @@ on the classic branch (``col64`` with the split twiddle, the inner plan,
 plans included; past 2^16 points ``leaf_columns`` on ``col64``,
 ``leaf64`` and ``transpose2_64``); n = 1 is a copy.
 
+``rows_f32`` and ``rows_native`` take ``out_scale``, the factor of every
+output value (an inverse's 1/n, else 1), and hand it to the one pass that
+writes the transform's output: the leaf kernel of a leaf plan, ``leaft`` of
+a fused split level, the outer ``transpose2`` / ``transpose2_64`` of a
+classic split level or of ``leaf_columns``. That kernel multiplies each
+value before its store (``tracing.fold`` counts it), so an inverse makes no
+pass over memory for its scale. Every inner pass stores unscaled.
+
 In all three engines each pass drops its input as soon as its kernel has
 read it, unless the input is the caller's: a split level hands its column
 output over to the inner plan, whose first kernel reads it and lets it go.
@@ -69,7 +77,7 @@ from .longcol import columns, dd_columns, transpose4
 from .native import MAX_LEAF_N
 from .route import KERNELS
 from .stockham import LANES
-from ..tracing import span, traced
+from ..tracing import fold, span, traced
 
 __all__ = [
     "plan_rows",
@@ -160,13 +168,15 @@ def fft_rows(re, im, plan, corrs, leaf_kernel=None):
     return rows_f32([re, im], plan, corrs, leaf_kernel)
 
 
-def rows_f32(pair, plan, corrs, leaf_kernel=None, passes=KERNELS):
+def rows_f32(pair, plan, corrs, leaf_kernel=None, passes=KERNELS, out_scale=1.0):
     """``fft_rows`` on the planes in the list ``pair``, which it empties:
     the caller hands its references over. Each pass drops its input as soon
     as its kernel has read it, so a split level's column output is freed
     when the inner plan's first kernel returns (where the caller still
     holds the planes, they stay alive). ``passes``: ``ops/route.KERNELS``,
-    or ``PLAIN`` for the plain versions on any device."""
+    or ``PLAIN`` for the plain versions on any device. ``out_scale``: the
+    factor of every output value, folded into the last pass's stores (a
+    plan of one point takes none: its 1/n is 1)."""
     k = passes
     re, im = pair
     pair.clear()
@@ -176,22 +186,23 @@ def rows_f32(pair, plan, corrs, leaf_kernel=None, passes=KERNELS):
             if kind == "tiny":
                 if plan[1] == 1:
                     return re.clone(), im.clone()
-                return k.leaf(re, im, (), 1)
+                return k.leaf(re, im, (), 1, fold("leaf", out_scale))
             n1 = plan[1]
             if n1 > LEAF_KERNEL_N1:
                 mats1 = corrs["mxu1"]
                 return leaf_columns([re, im], n1, lambda r, i: k.leaf(r, i, mats1, 1),
-                                    False, k)
+                                    False, k, out_scale)
             if 1 < n1 <= HYBRID_MAX_N1 and leaf_kernel == "hybrid":
                 mats = corrs[f"mxu{n1}"][3:6] + tuple(corrs[f"leaf{n1}"])
-                return k.hybrid(re, im, mats, n1)
+                return k.hybrid(re, im, mats, n1, fold("hybrid", out_scale))
             mats3 = corrs.get(f"mxu3_{n1}")
             if mats3 is not None:
-                return k.leaf3(re, im, mats3, mats3[0].shape[0], mats3[3].shape[0])
+                return k.leaf3(re, im, mats3, mats3[0].shape[0], mats3[3].shape[0],
+                               fold("leaf3", out_scale))
             mats = corrs[f"mxu{n1}"]
             if n1 > 1:
                 mats = mats[:6] + tuple(corrs[f"leaf{n1}"])
-            return k.leaf(re, im, mats, n1)
+            return k.leaf(re, im, mats, n1, fold("leaf", out_scale))
     _, n1, plan2, n2 = plan
     batch = tuple(re.shape[:-1])
     view = batch + (n1, n2)
@@ -200,27 +211,28 @@ def rows_f32(pair, plan, corrs, leaf_kernel=None, passes=KERNELS):
             c3re, c3im = k.colfft_out3d(re.reshape(view), im.reshape(view),
                                         corrs[f"pcolT{n1}x{n2}"], n1)
             del re, im
-            return k.leaft(c3re, c3im, corrs[f"leafT{n2}"], n1)
+            return k.leaft(c3re, c3im, corrs[f"leafT{n2}"], n1, fold("leaft", out_scale))
     with span("phastft.pass.split"):
         col = list(k.colfft(re.reshape(view), im.reshape(view),
                             corrs[f"pcol{n1}x{n2}"], n1))
         del re, im
         d_re, d_im = rows_f32(col, plan2, corrs, leaf_kernel, k)
-        o_re, o_im = k.transpose2(d_re, d_im)
+        o_re, o_im = k.transpose2(d_re, d_im, fold("transpose2", out_scale))
         del d_re, d_im
         flat = batch + (n1 * n2,)
         return o_re.reshape(flat), o_im.reshape(flat)
 
 
 @traced("phastft.pass.columns")
-def leaf_columns(pair, n1: int, rows, f64: bool, passes=KERNELS):
+def leaf_columns(pair, n1: int, rows, f64: bool, passes=KERNELS, out_scale=1.0):
     """A leaf of n1 * 128 points on the planes in the list ``pair`` (which
     it empties; f64 planes for the native engine), as the JAX package's XLA
     ``leaf_fft`` runs it: F(n1) over the (..., n1, 128) view times the
     correction W_n^(k1*i2) (``ops/longcol.columns`` on the block of every
     column: the column kernel up to n1 = 2048, the long columns past it),
     ``rows(re, im)``, F(128) of the n1 rows, and the paired transpose to the
-    natural order X[k1 + n1*k2], all on ``passes``."""
+    natural order X[k1 + n1*k2], all on ``passes``; the transpose stores
+    every value times ``out_scale``."""
     batch = tuple(pair[0].shape[:-1])
     n = n1 * LANES
     view = batch + (n1, LANES)
@@ -229,7 +241,8 @@ def leaf_columns(pair, n1: int, rows, f64: bool, passes=KERNELS):
     col = [*columns(col, n, n1, 0, False, f64, passes)]
     d_re, d_im = rows(*col)
     col.clear()
-    o_re, o_im = (passes.transpose2_64 if f64 else passes.transpose2)(d_re, d_im)
+    name = "transpose2_64" if f64 else "transpose2"
+    o_re, o_im = getattr(passes, name)(d_re, d_im, fold(name, out_scale))
     del d_re, d_im
     return o_re.reshape(batch + (n,)), o_im.reshape(batch + (n,))
 
@@ -339,14 +352,14 @@ def fft_rows_native(re, im, plan, corrs):
     return rows_native([re, im], plan, corrs)
 
 
-def rows_native(pair, plan, corrs, passes=KERNELS):
+def rows_native(pair, plan, corrs, passes=KERNELS, out_scale=1.0):
     """``fft_rows_native`` on the planes in the list ``pair``, which it
     empties: the caller hands its references over. Each pass drops its
     input as soon as its kernel has read it, so the column output of a
     split level is freed when the inner plan's first kernel returns, not
     when the inner plan ends (where the caller still holds the planes, as
-    ``fft_rows_native``'s caller does, they stay alive). ``passes``: as
-    for ``rows_f32``."""
+    ``fft_rows_native``'s caller does, they stay alive). ``passes`` and
+    ``out_scale``: as for ``rows_f32``."""
     k = passes
 
     def steps(m):
@@ -360,15 +373,16 @@ def rows_native(pair, plan, corrs, passes=KERNELS):
             if kind == "tiny":
                 if plan[1] == 1:
                     return re.clone(), im.clone()
-                return k.leaf64(re, im, None, plan[1], (None, steps(plan[1])))
+                return k.leaf64(re, im, None, plan[1], (None, steps(plan[1])),
+                                fold("leaf64", out_scale))
             n1 = plan[1]
             if n1 * LANES > MAX_LEAF_N:
                 tw = (None, steps(LANES))
                 return leaf_columns([re, im], n1,
                                     lambda r, i: k.leaf64(r, i, None, LANES, tw),
-                                    True, k)
+                                    True, k, out_scale)
             return k.leaf64(re, im, corrs.get(f"leaf{n1}"), n1 * LANES,
-                            (steps(n1), steps(LANES)))
+                            (steps(n1), steps(LANES)), fold("leaf64", out_scale))
     _, n1, plan2, n2 = plan
     batch = tuple(re.shape[:-1])
     view = batch + (n1, n2)
@@ -377,7 +391,7 @@ def rows_native(pair, plan, corrs, passes=KERNELS):
                            corrs[f"split{n1}x{n2}"], n1, steps(n1)))
         del re, im
         d_re, d_im = rows_native(col, plan2, corrs, k)
-        o_re, o_im = k.transpose2_64(d_re, d_im)
+        o_re, o_im = k.transpose2_64(d_re, d_im, fold("transpose2_64", out_scale))
         del d_re, d_im
         flat = batch + (n1 * n2,)
         return o_re.reshape(flat), o_im.reshape(flat)

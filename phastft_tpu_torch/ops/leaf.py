@@ -28,6 +28,12 @@ correction W_n^(k1*i2), then F(128) over i2 as Karatsuba's three
 products, out = X[k1 + n1*k2] (``leaf_fft_pallas_hybrid``, the opt-in
 ``Options.leaf_kernel="hybrid"``).
 
+Each takes ``out_scale`` (1.0 unless given), the factor of every output
+value: the rows (``ops/fourstep``) pass an inverse's 1/n to the leaf that
+ends it, and the kernels multiply each value by it just before its store
+(the plain versions multiply their result), so the inverse makes no pass of
+its own for its scale.
+
 On CUDA tensors the wrappers launch the hand-written kernels
 ``csrc/leaf.cu``, ``csrc/leaf3.cu`` and ``csrc/hybrid.cu``; on CPU tensors
 they run ``leaf_plain``, ``leaf3_plain`` and ``hybrid_plain``, the same
@@ -158,6 +164,13 @@ def _cmul(ar, ai, br, bi):
             torch.matmul(ar, bi) + torch.matmul(ai, br))
 
 
+def scaled(x, out_scale: float):
+    """``x * out_scale`` as a new tensor, or ``x`` itself at 1: a plain
+    version's output scale. Never in place: a plain result can share the
+    caller's memory (a transpose of a size-1 axis)."""
+    return x if out_scale == 1.0 else x * out_scale
+
+
 @functools.lru_cache(maxsize=16)
 def _tiny_mats(n: int, device: torch.device):
     fr, fi = dft_matrix_host(n, "float32")
@@ -166,7 +179,7 @@ def _tiny_mats(n: int, device: torch.device):
 
 
 @full_f32_matmuls()
-def leaf_plain(re, im, mats, n1: int):
+def leaf_plain(re, im, mats, n1: int, out_scale: float = 1.0):
     """Plain-torch leaf: same arguments and result as ``leaf``. The
     products are dense, as the JAX kernels' are (see ``_cmul``); F(m) is
     symmetric, so x @ F(m) contracts the index of each row."""
@@ -189,11 +202,12 @@ def leaf_plain(re, im, mats, n1: int):
         # v = u @ F(128) over i2; natural order X[k1 + n1*k2] = v^T
         vr, vi = _cmul(ur, ui, f2r, f2i)
         vr, vi = vr.transpose(1, 2), vi.transpose(1, 2)
-    return vr.reshape(batch + (n,)), vi.reshape(batch + (n,))
+    return (scaled(vr.reshape(batch + (n,)), out_scale),
+            scaled(vi.reshape(batch + (n,)), out_scale))
 
 
 @full_f32_matmuls()
-def leaf3_plain(re, im, mats, a: int, b: int):
+def leaf3_plain(re, im, mats, a: int, b: int, out_scale: float = 1.0):
     """Plain-torch three-factor leaf: same arguments and result as
     ``leaf3``, in the JAX kernel's order (F(a), c1, radix-4 of adds, c2,
     F(b), lane-block concat), with ``_cmul``'s dense products."""
@@ -226,11 +240,11 @@ def leaf3_plain(re, im, mats, a: int, b: int):
     # flat k_b*(4a) + p*a + k_a == k_a + a*k_p + 4a*k_b
     out_r = torch.cat(outs_r, dim=-1).reshape(batch + (n,))
     out_i = torch.cat(outs_i, dim=-1).reshape(batch + (n,))
-    return out_r, out_i
+    return scaled(out_r, out_scale), scaled(out_i, out_scale)
 
 
 @full_f32_matmuls()
-def hybrid_plain(re, im, mats, n1: int):
+def hybrid_plain(re, im, mats, n1: int, out_scale: float = 1.0):
     """Plain-torch hybrid leaf: same arguments and result as ``hybrid``, in
     the JAX kernel's order: ``stockham_axis2`` over i1 (its in-kernel f32
     twiddles), the correction, and q1 = F_r u_r, q2 = F_i u_i,
@@ -246,7 +260,8 @@ def hybrid_plain(re, im, mats, n1: int):
     q1 = torch.matmul(f2r, ur)
     q2 = torch.matmul(f2i, ui)
     q3 = torch.matmul(f2s, ur + ui)
-    return (q1 - q2).reshape(batch + (n,)), (q3 - q1 - q2).reshape(batch + (n,))
+    return (scaled((q1 - q2).reshape(batch + (n,)), out_scale),
+            scaled((q3 - q1 - q2).reshape(batch + (n,)), out_scale))
 
 
 def _cuda_args(name, re, im, tables):
@@ -260,36 +275,38 @@ def _cuda_args(name, re, im, tables):
     return torch.empty_like(re), torch.empty_like(im)
 
 
-def leaf_args(shape, n1: int, ptrs=(None,) * 10, stream=None) -> tuple:
+def leaf_args(shape, n1: int, ptrs=(None,) * 10, stream=None, out_scale=1.0) -> tuple:
     """``phastft_leaf``'s arguments for rows of ``shape`` (..., n): the
     pointers ``ptrs`` (the planes, rows 1 of F(n1) and F(128) and the
     correction, each re and im, where present, and the outputs), the rows,
-    n1, n / n1 and the stream."""
-    return (*ptrs, math.prod(shape[:-1]), n1, int(shape[-1]) // n1, stream)
+    n1, n / n1, the output scale and the stream."""
+    return (*ptrs, math.prod(shape[:-1]), n1, int(shape[-1]) // n1, float(out_scale), stream)
 
 
-def leaf3_args(shape, ptrs=(None,) * 12, stream=None) -> tuple:
+def leaf3_args(shape, ptrs=(None,) * 12, stream=None, out_scale=1.0) -> tuple:
     """``phastft_leaf3``'s arguments for rows of ``shape`` (..., a * 512):
-    the pointers ``ptrs``, the rows, a and the stream."""
-    return (*ptrs, math.prod(shape[:-1]), int(shape[-1]) // (4 * LANES), stream)
+    the pointers ``ptrs``, the rows, a, the output scale and the stream."""
+    return (*ptrs, math.prod(shape[:-1]), int(shape[-1]) // (4 * LANES), float(out_scale),
+            stream)
 
 
-def hybrid_args(shape, n1: int, ptrs=(None,) * 8, stream=None) -> tuple:
+def hybrid_args(shape, n1: int, ptrs=(None,) * 8, stream=None, out_scale=1.0) -> tuple:
     """``phastft_hybrid``'s arguments for rows of ``shape`` (..., n): the
-    pointers ``ptrs``, the rows, n1 and the stream. The kernel takes the
-    cluster from n1: one block of 64 / n1 rows up to n1 = 64, n1 / 64
-    blocks a row above (16 at n1 = 1024, set at launch)."""
-    return (*ptrs, math.prod(shape[:-1]), n1, stream)
+    pointers ``ptrs``, the rows, n1, the output scale and the stream. The
+    kernel takes the cluster from n1: one block of 64 / n1 rows up to
+    n1 = 64, n1 / 64 blocks a row above (16 at n1 = 1024, set at launch)."""
+    return (*ptrs, math.prod(shape[:-1]), n1, float(out_scale), stream)
 
 
-def leaf(re, im, mats, n1: int):
+def leaf(re, im, mats, n1: int, out_scale: float = 1.0):
     """Length-n DFT of every row of (..., n) f32 planar tensors, n = 2..2^15,
     in natural order (see the module docstring for ``mats`` and ``n1``).
 
     On CUDA it launches ``csrc/leaf.cu`` on the current stream (the kernel
     reads row 1 of F(n1) and F(128) as its twiddle tables, and the
     (n1, 128) correction); a CPU tensor runs ``leaf_plain``. Inputs are
-    read, never written; the outputs are new tensors.
+    read, never written; the outputs are new tensors, every value times
+    ``out_scale``.
 
     Replaces ``phastft_tpu/ops/pallas_leaf.py`` ``leaf_fft_pallas`` (and
     the XLA leaves at n <= 128). Bound by memory; blocks of 8192 points,
@@ -302,7 +319,7 @@ def leaf(re, im, mats, n1: int):
     mats = tuple(mats)
     _check(re, im, mats, n1)
     if re.device.type == "cpu":
-        return leaf_plain(re, im, mats, n1)
+        return leaf_plain(re, im, mats, n1, out_scale)
     ore, oim = _cuda_args("leaf", re, im, mats)
     if not mats:
         ptrs = [None] * 6
@@ -313,14 +330,14 @@ def leaf(re, im, mats, n1: int):
     ptrs = (re.data_ptr(), im.data_ptr(), *ptrs, ore.data_ptr(), oim.data_ptr())
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = call("phastft_leaf", leaf_args(re.shape, n1, ptrs, stream),
+        err = call("phastft_leaf", leaf_args(re.shape, n1, ptrs, stream, out_scale),
                    kernel="leaf")
     if err != 0:
         raise RuntimeError(f"leaf: kernel launch failed, CUDA error {err}")
     return ore, oim
 
 
-def leaf3(re, im, mats, a: int, b: int):
+def leaf3(re, im, mats, a: int, b: int, out_scale: float = 1.0):
     """Length-n DFT of every row of (..., n) f32 planar tensors, n = a*4*b,
     in natural order, through the three-factor split of the tables
     ``mats`` (``mxu_leaf_tables3_host(a, b)`` on the tensors' device).
@@ -328,7 +345,8 @@ def leaf3(re, im, mats, a: int, b: int):
     On CUDA it launches ``csrc/leaf3.cu`` on the current stream, for b = 128
     and a = 128 or 256 (n = 2^16, 2^17); a CPU tensor runs ``leaf3_plain``
     at any (a, b).
-    Inputs are read, never written; the outputs are new tensors.
+    Inputs are read, never written; the outputs are new tensors, every
+    value times ``out_scale``.
 
     Replaces ``phastft_tpu/ops/pallas_leaf.py`` ``leaf_fft_pallas3``.
     Bound by memory; a row (512 KB, 1 MiB at a = 256) is held by a cluster
@@ -342,7 +360,7 @@ def leaf3(re, im, mats, a: int, b: int):
     mats = tuple(mats)
     _check3(re, im, mats, a, b)
     if re.device.type == "cpu":
-        return leaf3_plain(re, im, mats, a, b)
+        return leaf3_plain(re, im, mats, a, b, out_scale)
     ore, oim = _cuda_args("leaf3", re, im, mats)
     if a not in LEAF3_AS or b != LANES:
         raise ValueError(f"leaf3: the kernel takes b = {LANES} and a in "
@@ -352,14 +370,14 @@ def leaf3(re, im, mats, a: int, b: int):
             ore.data_ptr(), oim.data_ptr())
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = call("phastft_leaf3", leaf3_args(re.shape, ptrs, stream),
+        err = call("phastft_leaf3", leaf3_args(re.shape, ptrs, stream, out_scale),
                    kernel="leaf3")
     if err != 0:
         raise RuntimeError(f"leaf3: kernel launch failed, CUDA error {err}")
     return ore, oim
 
 
-def hybrid(re, im, mats, n1: int):
+def hybrid(re, im, mats, n1: int, out_scale: float = 1.0):
     """Length-n DFT of every row of (..., n) f32 planar tensors,
     n = n1 * 128 with n1 = 2..1024, in natural order, on the operands of the
     opt-in hybrid leaf (see the module docstring for ``mats``).
@@ -368,7 +386,7 @@ def hybrid(re, im, mats, n1: int):
     reads row 1 of F(128) as its root table and the (n1, 128) correction);
     a CPU tensor runs ``hybrid_plain``. Any batch: rows go in
     ``gridDim.x``. Inputs are read, never written; the outputs are new
-    tensors.
+    tensors, every value times ``out_scale``.
 
     Replaces ``phastft_tpu/ops/pallas_leaf.py`` ``leaf_fft_pallas_hybrid``;
     unlike it, it takes any batch and never declines. Bound by memory (16 B
@@ -383,13 +401,13 @@ def hybrid(re, im, mats, n1: int):
     mats = tuple(mats)
     _check_hybrid(re, im, mats, n1)
     if re.device.type == "cpu":
-        return hybrid_plain(re, im, mats, n1)
+        return hybrid_plain(re, im, mats, n1, out_scale)
     ore, oim = _cuda_args("hybrid", re, im, mats)
     ptrs = (re.data_ptr(), im.data_ptr(), mats[0].data_ptr(), mats[1].data_ptr(),
             mats[3].data_ptr(), mats[4].data_ptr(), ore.data_ptr(), oim.data_ptr())
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
-        err = call("phastft_hybrid", hybrid_args(re.shape, n1, ptrs, stream),
+        err = call("phastft_hybrid", hybrid_args(re.shape, n1, ptrs, stream, out_scale),
                    kernel="hybrid")
     if err != 0:
         raise RuntimeError(f"hybrid: kernel launch failed, CUDA error {err}")

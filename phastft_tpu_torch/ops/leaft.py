@@ -11,7 +11,11 @@ The four-step's output transpose is the store index.
 ``leaft`` is the wrapper: on CUDA tensors it launches the hand-written
 kernel ``csrc/leaft.cu``; on CPU tensors it runs ``leaft_plain``, the same
 function in plain torch that follows the JAX kernel's arithmetic (dense
-Karatsuba products with F(A) and F(128)). The kernel is bound by memory;
+Karatsuba products with F(A) and F(128)). Both take ``out_scale`` (1.0
+unless given), the factor of every output value: the split level that ends
+an inverse hands it the 1/n, and the kernel multiplies each value just
+before its store (the plain version multiplies its result). The kernel is
+bound by memory;
 a cluster of its blocks owns 8 consecutive rows, so that each store writes
 8 contiguous floats (see the note in its source).
 """
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from ._build import call
-from .leaf import full_f32_matmuls
+from .leaf import full_f32_matmuls, scaled
 from .mxu import dft_matrix_host
 from .stockham import leaf_correction_host
 
@@ -82,7 +86,7 @@ def _check(cre, cim, mats, n1: int):
 
 
 @full_f32_matmuls()
-def leaft_plain(cre, cim, mats, n1: int):
+def leaft_plain(cre, cim, mats, n1: int, out_scale: float = 1.0):
     """Plain-torch row pass: same arguments and result as ``leaft``. The
     products are full f32 (``leaf.full_f32_matmuls``)."""
     batch, b, a = _check(cre, cim, mats, n1)
@@ -106,21 +110,22 @@ def leaft_plain(cre, cim, mats, n1: int):
 
     def store(v):
         # v[b, kA, k1, kM] -> out[b, kM, kA, k1], the natural order
-        return v.view(b, a, n1, m).permute(0, 3, 1, 2).reshape(batch + (n,))
+        return scaled(v.view(b, a, n1, m).permute(0, 3, 1, 2).reshape(batch + (n,)),
+                      out_scale)
 
     return store(q1 - q2), store(q3 - q1 - q2)
 
 
-def leaft_args(shape, ptrs=(None,) * 10, stream=None) -> tuple:
+def leaft_args(shape, ptrs=(None,) * 10, stream=None, out_scale=1.0) -> tuple:
     """``phastft_leaft``'s arguments for an input of ``shape`` (..., A, n1,
     128): the pointers ``ptrs`` (the two planes, F(A), F(128) and the
     correction, each re and im, and the two outputs), the flat batch, n1,
-    A and the stream."""
+    A, the output scale and the stream."""
     b = math.prod(shape[:-3])
-    return (*ptrs, b, int(shape[-2]), int(shape[-3]), stream)
+    return (*ptrs, b, int(shape[-2]), int(shape[-3]), float(out_scale), stream)
 
 
-def leaft(cre, cim, mats, n1: int):
+def leaft(cre, cim, mats, n1: int, out_scale: float = 1.0):
     """Row FFTs of length n2 = A * 128 over the column pass's
     (..., A, n1, 128) f32 output, written as (..., n) in the final natural
     order X[k1 + n1*k2]. ``mats``: the 8 tables of ``leaft_tables_host``
@@ -129,7 +134,8 @@ def leaft(cre, cim, mats, n1: int):
     On CUDA it launches ``csrc/leaft.cu`` on the current stream (the kernel
     reads row 1 of F(A) and F(128) as its twiddle tables, and the (A, 128)
     correction table); a CPU tensor runs ``leaft_plain``. Inputs are read,
-    never written; the outputs are new tensors.
+    never written; the outputs are new tensors, every value times
+    ``out_scale``.
 
     Replaces ``phastft_tpu/ops/pallas_leaft.py`` ``leaft_pallas``. Bound
     by memory (16 B per complex element, read once and written once); a
@@ -139,7 +145,7 @@ def leaft(cre, cim, mats, n1: int):
     floats per output run."""
     batch, _, a = _check(cre, cim, mats, n1)
     if cre.device.type == "cpu":
-        return leaft_plain(cre, cim, mats, n1)
+        return leaft_plain(cre, cim, mats, n1, out_scale)
     if cre.device.type != "cuda":
         raise ValueError(f"leaft: unsupported device {cre.device}")
     if not all(x.is_contiguous() for x in (cre, cim, *mats)):
@@ -156,7 +162,7 @@ def leaft(cre, cim, mats, n1: int):
     ptrs = tuple(x.data_ptr() for x in (cre, cim, f1r, f1i, f2r, f2i, cr, ci, ore, oim))
     with torch.cuda.device(cre.device):
         stream = torch.cuda.current_stream(cre.device).cuda_stream
-        err = call("phastft_leaft", leaft_args(cre.shape, ptrs, stream),
+        err = call("phastft_leaft", leaft_args(cre.shape, ptrs, stream, out_scale),
                    kernel="leaft")
     if err != 0:
         raise RuntimeError(f"leaft: kernel launch failed, CUDA error {err}")

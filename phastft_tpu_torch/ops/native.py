@@ -26,7 +26,10 @@ Each is a wrapper: on CUDA tensors it launches its kernel (``csrc/col64.cu``,
 version, the JAX package's radix-16 Stockham arithmetic in plain torch
 (``ops/stockham.py``). The kernels run DIF trips of radix-4 butterflies
 with FMA, so a kernel and its plain version agree to ~1e-16 relative, not
-bit for bit.
+bit for bit. ``leaf64`` takes ``out_scale`` (1.0 unless given), the factor
+of every output value: the leaf plan that ends an inverse hands it the 1/n,
+and the kernel multiplies each value just before its store (the plain
+version multiplies its result).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from ._build import call
+from .leaf import scaled
 from .stockham import LANES, leaf_fft, stockham_axis2, tiny_fft
 
 __all__ = ["col64", "col64_args", "col64_plain", "col64_nocorr", "col64_nocorr_plain",
@@ -277,12 +281,13 @@ def col64_nocorr(re, im, n1: int, steps):
 
 
 # ---------------------------------------------------------------- leaf64
-def leaf64_args(shape, ptrs=(None,) * 8, stream=None) -> tuple:
+def leaf64_args(shape, ptrs=(None,) * 8, stream=None, out_scale=1.0) -> tuple:
     """``phastft_leaf64``'s arguments for rows of ``shape`` (..., n): the
     pointers ``ptrs`` (the planes, the two step tables, the correction re
-    and im, the outputs; None where absent), the rows, n and the stream."""
+    and im, the outputs; None where absent), the rows, n, the output scale
+    and the stream."""
     b = math.prod(shape[:-1])
-    return (*ptrs, b, int(shape[-1]), stream)
+    return (*ptrs, b, int(shape[-1]), float(out_scale), stream)
 
 
 def _check_leaf(re, im, corr, n: int, steps):
@@ -305,23 +310,22 @@ def _check_leaf(re, im, corr, n: int, steps):
     return int(np.prod(batch)) if batch else 1, n1, corr, steps
 
 
-def leaf64_plain(re, im, corr, n: int, steps):
+def leaf64_plain(re, im, corr, n: int, steps, out_scale: float = 1.0):
     """Plain-torch leaf: same arguments and result as ``leaf64`` (the JAX
     package's ``leaf_fft`` from n = 128, ``tiny_fft`` below, in torch;
     ``steps`` is checked, not read)."""
     _, n1, corr, _ = _check_leaf(re, im, corr, n, steps)
-    if n < LANES:
-        return tiny_fft(re, im, n)
-    return leaf_fft(re, im, corr, n1)
+    out = tiny_fft(re, im, n) if n < LANES else leaf_fft(re, im, corr, n1)
+    return tuple(scaled(x, out_scale) for x in out)
 
 
-def leaf64(re, im, corr, n: int, steps):
+def leaf64(re, im, corr, n: int, steps, out_scale: float = 1.0):
     """DFT along the last axis of (..., n) f64 planes, n = 2..2^16 a power
     of two, natural order in and out. ``corr``: from n = 256 the (re, im)
     pair of the planner's ``leaf{n1}``, W_n^(k1*i2) on (n1, 128), n1 =
     n / 128 (ignored below). ``steps``: the pair (``dif{n1}``, ``dif128``),
     (None, ``dif{n}``) below 256 points. All on the planes' device. Returns
-    two new planes.
+    two new planes, every value times ``out_scale``.
 
     On CUDA it launches ``csrc/leaf64.cu`` on the current stream; a CPU
     tensor runs ``leaf64_plain``. Inputs are read, never written.
@@ -335,7 +339,7 @@ def leaf64(re, im, corr, n: int, steps):
     trades through distributed shared memory between F(n1) and F(128)."""
     _, n1, corr, tw = _check_leaf(re, im, corr, n, steps)
     if re.device.type == "cpu":
-        return leaf64_plain(re, im, corr, n, steps)
+        return leaf64_plain(re, im, corr, n, steps, out_scale)
     _launch_ready("leaf64", (re, im), (*corr, *tw))
     out_re, out_im = torch.empty_like(re), torch.empty_like(im)
     dev = re.device
@@ -346,7 +350,7 @@ def leaf64(re, im, corr, n: int, steps):
             out_re.data_ptr(), out_im.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = call("phastft_leaf64", leaf64_args(re.shape, ptrs, stream),
+        err = call("phastft_leaf64", leaf64_args(re.shape, ptrs, stream, out_scale),
                    kernel="leaf64")
     if err != 0:
         raise RuntimeError(f"leaf64: kernel launch failed, CUDA error {err}")

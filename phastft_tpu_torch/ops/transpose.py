@@ -8,8 +8,11 @@ launch.
 ``transpose2`` is the wrapper: on CUDA tensors it launches the
 hand-written kernel ``csrc/transpose.cu``; on CPU tensors it runs
 ``transpose2_plain``. ``transpose2_64`` is the same on 64-bit words (the
-native f64 engine's classic levels), on ``csrc/transpose64.cu``. A kernel
-and the plain version agree bit for bit: nothing is computed.
+native f64 engine's classic levels), on ``csrc/transpose64.cu``. Each takes
+``out_scale`` (1.0 unless given), the factor of every output value: the
+classic split level that ends an inverse hands its transpose the 1/n, and
+the kernel multiplies each value on its way to the store. A kernel and the
+plain version agree bit for bit: nothing else is computed.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from ._build import call
+from .leaf import scaled
 
 __all__ = ["transpose2", "transpose2_64", "transpose2_plain", "transpose_args"]
 
@@ -49,22 +53,23 @@ def _check(a, b, dtypes=(torch.float32,), name="transpose2"):
     return batch, int(np.prod(batch)) if batch else 1, rows, cols
 
 
-def transpose2_plain(a, b):
+def transpose2_plain(a, b, out_scale: float = 1.0):
     """Plain-torch paired transpose: same arguments and result as
     ``transpose2`` (f32) and ``transpose2_64`` (f64)."""
     _check(a, b, (torch.float32, torch.float64), "transpose2_plain")
-    return (a.swapaxes(-1, -2).contiguous(), b.swapaxes(-1, -2).contiguous())
+    return (scaled(a.swapaxes(-1, -2).contiguous(), out_scale),
+            scaled(b.swapaxes(-1, -2).contiguous(), out_scale))
 
 
-def transpose_args(shape, ptrs=(None,) * 4, stream=None) -> tuple:
+def transpose_args(shape, ptrs=(None,) * 4, stream=None, out_scale=1.0) -> tuple:
     """The arguments of ``phastft_transpose2`` and ``phastft_transpose2_64``
     for inputs of ``shape`` (..., R, C): the pointers ``ptrs`` (a, b, oa,
-    ob), the flat batch, R, C and the stream."""
+    ob), the flat batch, R, C, the output scale and the stream."""
     bs = math.prod(shape[:-2])
-    return (*ptrs, bs, int(shape[-2]), int(shape[-1]), stream)
+    return (*ptrs, bs, int(shape[-2]), int(shape[-1]), float(out_scale), stream)
 
 
-def _launch(name, entry, a, b, batch, rows, cols):
+def _launch(name, entry, a, b, batch, rows, cols, out_scale):
     """Launch the C entry ``entry`` (of ``phastft_transpose2``'s arguments)
     on CUDA tensors; return the two outputs."""
     if a.device.type != "cuda":
@@ -77,17 +82,17 @@ def _launch(name, entry, a, b, batch, rows, cols):
     ptrs = (a.data_ptr(), b.data_ptr(), oa.data_ptr(), ob.data_ptr())
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = call(entry, transpose_args(a.shape, ptrs, stream),
+        err = call(entry, transpose_args(a.shape, ptrs, stream, out_scale),
                    kernel=name)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     return oa, ob
 
 
-def transpose2_64(a, b):
+def transpose2_64(a, b, out_scale: float = 1.0):
     """(..., R, C) -> (..., C, R) for two f64 tensors of one shape, R and C
     powers of two, as new contiguous tensors: ``transpose2`` on 64-bit
-    words.
+    words, every value times ``out_scale``.
 
     On CUDA it launches ``csrc/transpose64.cu`` once for both tensors on
     the current stream; a CPU tensor runs ``transpose2_plain``. Inputs are
@@ -100,15 +105,15 @@ def transpose2_64(a, b):
     padded for 8-byte words."""
     batch, _, rows, cols = _check(a, b, (torch.float64,), "transpose2_64")
     if a.device.type == "cpu":
-        return transpose2_plain(a, b)
-    out = _launch("transpose2_64", "phastft_transpose2_64", a, b, batch, rows,
-                  cols)
-    return out
+        return transpose2_plain(a, b, out_scale)
+    return _launch("transpose2_64", "phastft_transpose2_64", a, b, batch, rows, cols,
+                   out_scale)
 
 
-def transpose2(a, b):
+def transpose2(a, b, out_scale: float = 1.0):
     """(..., R, C) -> (..., C, R) for two f32 tensors of one shape, R and C
-    powers of two, as new contiguous tensors.
+    powers of two, as new contiguous tensors, every value times
+    ``out_scale``.
 
     On CUDA it launches ``csrc/transpose.cu`` once for both tensors on the
     current stream; a CPU tensor runs ``transpose2_plain``. Inputs are
@@ -123,6 +128,5 @@ def transpose2(a, b):
     R, so its output is one contiguous span."""
     batch, _, rows, cols = _check(a, b)
     if a.device.type == "cpu":
-        return transpose2_plain(a, b)
-    out = _launch("transpose2", "phastft_transpose2", a, b, batch, rows, cols)
-    return out
+        return transpose2_plain(a, b, out_scale)
+    return _launch("transpose2", "phastft_transpose2", a, b, batch, rows, cols, out_scale)

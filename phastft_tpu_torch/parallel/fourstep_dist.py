@@ -35,7 +35,7 @@ The branches, and the JAX lines each stands for (``_build_distributed``
   (``ops/native.col64_shard_tables``; the JAX package's XLA
   ``stockham_axis2`` + ``_local_correction_cols``, ``:266-274``) or
   ``col64_nocorr`` (``:203``), the rows on ``fft_rows_native``, the
-  transposes on ``transpose2_64``, the 1/n scale in f64. Each intermediate
+  transposes on ``transpose2_64``. Each intermediate
   is dropped as soon as the next pass has read it; the caller's input stays
   alive, as in the f32 branch.
 * column factors n1 > 2048, f32 and native f64 (the JAX package's XLA
@@ -56,6 +56,12 @@ The branches, and the JAX lines each stands for (``_build_distributed``
   on a "df64-oz" planner its oz tables arm ``ozcol`` + ``ozleaft`` where the
   JAX package's do), ``transpose2`` per hi/lo pair, the join and the 1/n
   scale in f64.
+
+The inverse's 1/n (the swap trick) is folded into the stores of the pass
+that writes the rank's output, as on one device: the last ``transpose2`` /
+``transpose2_64`` of natural order, or the rows' last kernel with
+``permuted_output``. Where the output comes from a copy (``permuted_input``)
+or the dd join, it is a multiply of its own (``ops/dit.scale_``).
 
 A planner built on ``Options(use_pallas=False)`` runs every one of these
 passes on its plain version (``ops/route.PLAIN``), as the JAX package's
@@ -110,11 +116,12 @@ from ..fft import _as_tensor, _coerce_direction
 from ..options import Options
 from ..ops.dd import dd_shard_tables
 from ..ops.df64 import split_f64
+from ..ops.dit import scale_
 from ..ops.fourstep import plan_rows, rows_dd, rows_f32, rows_native
 from ..ops.longcol import columns, transpose4, twiddle_
 from ..ops.route import KERNELS, passes_for
 from ..planner import Direction, PlannerDit64
-from ..tracing import span, traced
+from ..tracing import fold, span, traced
 
 __all__ = ["fft_distributed", "column_chunks", "DD_DIST_MIN_COL"]
 
@@ -270,7 +277,8 @@ class _Plan:
     rank: int
     group: object
     f64: bool
-    #: [re, im] -> the row DFTs of length n2 (the list is emptied)
+    #: ([re, im], out_scale) -> the row DFTs of length n2, every value times
+    #: out_scale (the list is emptied)
     rows: Callable
     transpose: Callable
     #: ``ops/route.KERNELS``, or ``PLAIN`` on a ``use_pallas=False`` planner
@@ -281,14 +289,16 @@ class _Plan:
 
 def _row_pass(planner, plan, leaf_kernel, passes=KERNELS) -> Callable:
     """The row DFTs of ``plan`` on the planner's kernels (``passes``), as a
-    function of a list [re, im] that it empties: ``rows_native`` on an f64
-    planner's native tables, ``rows_f32`` on an f32 planner's; each drops
-    the planes once its first kernel has read them."""
+    function of a list [re, im] that it empties and of the output scale:
+    ``rows_native`` on an f64 planner's native tables, ``rows_f32`` on an
+    f32 planner's; each drops the planes once its first kernel has read
+    them."""
     if planner.dtype == np.float64:
         corrs = planner.native_tables_for(plan)
-        return lambda pair: rows_native(pair, plan, corrs, passes)
+        return lambda pair, out_scale=1.0: rows_native(pair, plan, corrs, passes, out_scale)
     corrs = planner.tables_for(plan, leaf_kernel)
-    return lambda pair: rows_f32(pair, plan, corrs, leaf_kernel, passes)
+    return lambda pair, out_scale=1.0: rows_f32(pair, plan, corrs, leaf_kernel, passes,
+                                                out_scale)
 
 
 def _land_rows(out, got, chunks: int, region) -> None:
@@ -340,20 +350,23 @@ def _column_stage(planes, p: _Plan, column):
     return out
 
 
-def _natural(re_l, im_l, p: _Plan, permuted_output: bool):
-    """Steps 1-6 on this rank's (n1/d, n2) rows; returns its flat shard."""
+def _natural(re_l, im_l, p: _Plan, permuted_output: bool, out_scale: float):
+    """Steps 1-6 on this rank's (n1/d, n2) rows; returns its flat shard,
+    every value times ``out_scale`` in the stores of its last pass."""
     rows = _column_stage(
         [re_l, im_l], p,
         lambda pair, base: columns(pair, p.n, p.n1, base, False, p.f64, p.passes))
-    d_re, d_im = p.rows(rows)
     if permuted_output:
+        d_re, d_im = p.rows(rows, out_scale)
         return d_re.reshape(-1), d_im.reshape(-1)
+    d_re, d_im = p.rows(rows)
     # D[k1, k2] -> (n1, n2/d) holding this rank's k2 block -> (n2/d, n1)
     o_re = _row_to_col(d_re, p.n1, p.n2, p.d, p.group)
     del d_re
     o_im = _row_to_col(d_im, p.n1, p.n2, p.d, p.group)
     del d_im
-    o_re, o_im = p.transpose(o_re, o_im)
+    o_re, o_im = p.transpose(
+        o_re, o_im, fold("transpose2_64" if p.f64 else "transpose2", out_scale))
     return o_re.reshape(-1), o_im.reshape(-1)
 
 
@@ -530,10 +543,9 @@ def fft_distributed(reals, imags, direction, planner, *, group=None,
         out_re, out_im = _permuted_in(re_l.view(view), im_l.view(view), p)
     else:
         out_re, out_im = _natural(re_l.view(view), im_l.view(view), p,
-                                  permuted_output)
-    if scale:
-        with span("phastft.scale"):
-            out_re.mul_(1.0 / n)
-            out_im.mul_(1.0 / n)
-        return out_im, out_re
-    return out_re, out_im
+                                  permuted_output, 1.0 / n if scale else 1.0)
+    if not scale:
+        return out_re, out_im
+    if dd or permuted_input:
+        scale_(out_re, out_im, n)
+    return out_im, out_re

@@ -21,7 +21,9 @@ caller's thread; the outermost entry span is a call's root.
 ``phastft.pass.fused``          a fused two-pass split level
 ``phastft.pass.split``          a classic split level, its inner plan inside
 ``phastft.pass.columns``        a leaf past the leaf kernels (``leaf_columns``)
-``phastft.scale``               the inverse's 1/n
+``phastft.scale``               the inverse's 1/n as a pass of its own (the
+                                df64 and Ozaki engines, the staged oracle,
+                                a distributed permuted input)
 ``phastft.launch.<entry>``      one kernel launch through ``ops/_build.call``
 ``phastft.dist.send``           a permuted contiguous send copy
 ``phastft.dist.a2a``            an ``all_to_all_single`` issued
@@ -33,6 +35,13 @@ caller's thread; the outermost entry span is a call's root.
 ``launches`` counts the kernel launches that returned no error, by the
 launching wrapper's name (``leaf``, ``colfft_out3d``, ``untangle``, ...),
 always. ``launch_count`` reads it.
+
+``scales`` counts where each inverse's 1/n went, always: the name of the
+wrapper that stores the transform's output with it folded into its store
+(``leaf``, ``leaft``, ``transpose2_64``, ...; ``fold`` counts it where a
+row pass hands it over), or ``"torch"`` where it is a multiply of its own in
+the ``phastft.scale`` span. A fast f32 or native f64 inverse of one point
+has nothing to fold (its 1/n is 1) and counts nothing.
 """
 
 from __future__ import annotations
@@ -43,13 +52,16 @@ import functools
 
 import torch
 
-__all__ = ["span", "traced", "launches", "launch_count"]
+__all__ = ["span", "traced", "launches", "launch_count", "scales", "fold"]
 
 _recording = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 
 #: Kernel launches by wrapper name, since the process started.
 launches: collections.Counter = collections.Counter()
+
+#: Inverses' 1/n by where they went: a wrapper's name, or "torch".
+scales: collections.Counter = collections.Counter()
 
 
 def span(name: str):
@@ -77,3 +89,12 @@ def launch_count(*kernels: str) -> int:
     if not kernels:
         return sum(launches.values())
     return sum(launches[k] for k in kernels)
+
+
+def fold(kernel: str, out_scale: float) -> float:
+    """``out_scale``, handed to the wrapper ``kernel`` as the factor of its
+    stores; counted in ``scales[kernel]`` when it is not 1 (an inverse's
+    1/n)."""
+    if out_scale != 1.0:
+        scales[kernel] += 1
+    return out_scale

@@ -226,29 +226,33 @@ class _Launches:
         return self._check("phastft_colfft", args,
                            _pair(tuple(re.shape[:-2]) + (n2 // 128, n1, 128)))
 
-    def leaft(self, cre, cim, mats, n1):
+    def leaft(self, cre, cim, mats, n1, out_scale=1.0):
         out = tuple(cre.shape[:-3]) + (cre.shape[-3] * 128 * n1,)
-        return self._check("phastft_leaft", leaftmod.leaft_args(cre.shape), _pair(out))
+        args = leaftmod.leaft_args(cre.shape, out_scale=out_scale)
+        return self._check("phastft_leaft", args, _pair(out))
 
-    def leaf(self, re, im, mats, n1):
-        return self._check("phastft_leaf", leafmod.leaf_args(re.shape, n1), _pair(re.shape))
+    def leaf(self, re, im, mats, n1, out_scale=1.0):
+        args = leafmod.leaf_args(re.shape, n1, out_scale=out_scale)
+        return self._check("phastft_leaf", args, _pair(re.shape))
 
-    def leaf3(self, re, im, mats, a, b):
-        return self._check("phastft_leaf3", leafmod.leaf3_args(re.shape), _pair(re.shape))
+    def leaf3(self, re, im, mats, a, b, out_scale=1.0):
+        args = leafmod.leaf3_args(re.shape, out_scale=out_scale)
+        return self._check("phastft_leaf3", args, _pair(re.shape))
 
-    def transpose2(self, a, b, entry="phastft_transpose2"):
+    def transpose2(self, a, b, out_scale=1.0, entry="phastft_transpose2"):
         out = tuple(a.shape[:-2]) + (a.shape[-1], a.shape[-2])
-        return self._check(entry, transpose.transpose_args(a.shape), _pair(out, a.dtype))
+        args = transpose.transpose_args(a.shape, out_scale=out_scale)
+        return self._check(entry, args, _pair(out, a.dtype))
 
-    def transpose2_64(self, a, b):
-        return self.transpose2(a, b, "phastft_transpose2_64")
+    def transpose2_64(self, a, b, out_scale=1.0):
+        return self.transpose2(a, b, out_scale, "phastft_transpose2_64")
 
     def col64(self, re, im, tabs, n1, steps):
         return self._check("phastft_col64", native.col64_args(re.shape, n1),
                            _pair(re.shape, torch.float64))
 
-    def leaf64(self, re, im, corr, n, steps):
-        return self._check("phastft_leaf64", native.leaf64_args(re.shape),
+    def leaf64(self, re, im, corr, n, steps, out_scale=1.0):
+        return self._check("phastft_leaf64", native.leaf64_args(re.shape, out_scale=out_scale),
                            _pair(re.shape, torch.float64))
 
 

@@ -2,7 +2,9 @@
 
 Under ``torch.profiler.profile(activities=[CPU])`` each entry records its
 span tree on the CPU's plain passes: the root span of the entry, the
-levels of the plan, the scale, a conversion, the planner on a cache miss,
+levels of the plan, the scale where it is a pass of its own (the df64
+engine, the staged oracle; the fast and native inverses fold it into their
+last kernel), a conversion, the planner on a cache miss,
 and across two gloo ranks the distributed column stage. ``_build.call`` on
 a fake library counts every launch once under its kernel's name, no
 query, and opens a ``phastft.launch.*`` span only while a profiler records.
@@ -110,7 +112,7 @@ CASES = {
     "f32_inverse": (
         lambda: pt.PlannerDit32(1 << 10, device="cpu"),
         lambda p: pt.fft_32_dit_with_planner(*_planes(1 << 10), "r", p),
-        [("phastft.fft", [LEAF, ("phastft.scale", [])])]),
+        [("phastft.fft", [LEAF])]),
     "f32_numpy_input": (
         lambda: pt.PlannerDit32(1 << 10, device="cpu"),
         lambda p: pt.fft_32_dit_with_planner(*(x.numpy() for x in _planes(1 << 10)),
@@ -123,12 +125,17 @@ CASES = {
     "f64_native_inverse": (
         lambda: pt.PlannerDit64(1 << 12, device="cpu"),
         lambda p: pt.fft_64_dit_with_planner(*_planes(1 << 12, torch.float64), "r", p),
-        [("phastft.fft", [LEAF, ("phastft.scale", [])])]),
+        [("phastft.fft", [LEAF])]),
     "df64_leaf": (
         lambda: pt.PlannerDit64(1 << 10, options=pt.Options(f64_engine="df64"),
                                 device="cpu"),
         lambda p: pt.fft_64_dit_with_planner(*_planes(1 << 10, torch.float64), "f", p),
         [("phastft.fft", [LEAF])]),
+    "df64_inverse": (
+        lambda: pt.PlannerDit64(1 << 10, options=pt.Options(f64_engine="df64"),
+                                device="cpu"),
+        lambda p: pt.fft_64_dit_with_planner(*_planes(1 << 10, torch.float64), "r", p),
+        [("phastft.fft", [LEAF, ("phastft.scale", [])])]),
     "r2c": (
         lambda: pt.PlannerR2c32(1 << 11, device="cpu"),
         lambda p: pt.r2c_fft_f32_with_planner(_planes(1 << 11)[0], p),
@@ -345,10 +352,10 @@ ROWS = LEAF
 def test_distributed_one_chunk_spans(dist_trees, rank, direction):
     """One chunk: the column stage's send copies and collectives, the
     column pass, the landing of both planes, the rows, the last
-    collectives, and the inverse's scale; nothing waits."""
+    collectives; nothing waits, and the inverse's scale is folded into the
+    last transpose, with no span of its own."""
     want = (SEND_A2A * 2 + [("phastft.dist.column", [])]
-            + [("phastft.dist.a2a", [])] * 2 + LANDS + [ROWS] + SEND_A2A * 2
-            + ([("phastft.scale", [])] if direction == "r" else []))
+            + [("phastft.dist.a2a", [])] * 2 + LANDS + [ROWS] + SEND_A2A * 2)
     assert dist_trees[rank][1, direction] == [("phastft.dist", want)]
 
 
