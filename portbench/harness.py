@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from . import judge, peaks, spec, systems, trace
+from . import judge, peaks, port_spans, spec, systems, trace
 from . import traffic as tr
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "phastft_tpu")
@@ -74,6 +74,7 @@ def run_rank(cell: spec.Cell, seeds, seconds: float, trace_on: bool, device, *,
     device = torch.device(device)
     traffic = cell.traffic
     dtype = systems.DTYPES[cell.config["precision"]]
+    real = cell.config["entry"] == "real"
     marks = list(marks or [])
     sut = make_system(system, cell, device, rank, reduce)
     setup = sut.build()
@@ -82,8 +83,8 @@ def run_rank(cell: spec.Cell, seeds, seconds: float, trace_on: bool, device, *,
     names = ["portbench." + c for c in traffic["step"]]
     parts = []
     for i, seed in enumerate(seeds):
-        x = tr.make_input(traffic, seed, rank, dtype, device)
-        fp_idx = tr.fingerprint_index(traffic, seed, rank, device)
+        x = tr.make_input(traffic, seed, rank, dtype, device, real)
+        fp_idx = tr.fingerprint_index(traffic, seed, rank, device, real)
         systems.sync(device)
         marks.append(("input", time.time()))
         tracing = trace_on and i == 0
@@ -98,7 +99,8 @@ def run_rank(cell: spec.Cell, seeds, seconds: float, trace_on: bool, device, *,
                 host.append(time.perf_counter() - t0)
                 outs.append(src)
             with span("portbench.fingerprint"):
-                fp = torch.stack([p.reshape(-1)[fp_idx] for o in outs for p in o])
+                fp = torch.stack([p.reshape(-1)[idx] for o, idx in zip(outs, fp_idx)
+                                  for p in o])
             return outs, fp, host
 
         warm = []
@@ -152,8 +154,11 @@ def run_rank(cell: spec.Cell, seeds, seconds: float, trace_on: bool, device, *,
         summary = None
         if prof is not None:
             prof.stop()
-            summary = trace.summary(trace.export_events(prof))
-            prof = None
+            events = trace.export_events(prof)
+            summary = trace.summary(events)
+            if summary:
+                summary["port"] = port_spans.summary(events)
+            prof = events = None
         if i == len(seeds) - 1:
             sut.close()
         sums = judge.judge(traffic, x, outs, torch.stack(fps), fp_idx, rank, reduce)
@@ -174,14 +179,16 @@ class RunView:
     """What a per-layer metric's reader sees of one run: the cell, every
     rank's part (``parts``, rank 0 first, as ``lead``), the steps, the
     step's least time on the card (``bound_s``, one rank's share) and rank
-    0's trace summary (``trace``, None in an untraced run)."""
+    0's trace summary (``trace``, None in an untraced run; its ``port`` the
+    port's own spans, ``port_spans.summary``)."""
 
     def __init__(self, cell: spec.Cell, parts: list):
         self.cell, self.parts = cell, parts
         self.lead = parts[0]
         self.steps = self.lead["steps"]
         self.trace = self.lead["trace"] or None
-        self.bound_s = peaks.step_bound_s(cell.traffic, cell.config["precision"])
+        self.bound_s = peaks.step_bound_s(cell.traffic, cell.config["precision"],
+                                          cell.config["entry"])
 
 
 def end_to_end(cell: spec.Cell, parts: list, t_process: float) -> dict:

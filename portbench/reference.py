@@ -2,6 +2,9 @@
 
 X[k] = sum_j x[j] W_n^(jk), W_n = exp(-2 pi i / n), on planar (re, im)
 tensors along the last axis; the inverse is (1/n) sum_k X[k] W_n^(-jk).
+A forward's imaginary plane may be given as None, a real input: its
+products with zero are left out, never its size made, and the result is
+the one a plane of zeros gives.
 
 It is a recursive four-step factorisation: n = n1 * n2 with n1 <= 256, a
 DFT-matrix product over the n1 axis, the twiddle W_n^(k1 i2), the n2-point
@@ -45,6 +48,19 @@ def log2_exact(n: int) -> int:
     if n < 1 or n & (n - 1):
         raise ValueError(f"the reference takes powers of two, got {n}")
     return n.bit_length() - 1
+
+
+def _view(t, *shape, dtype=None):
+    """``t`` reshaped (and cast to ``dtype``), None kept as None."""
+    if t is None:
+        return None
+    t = t.reshape(*shape)
+    return t if dtype is None else t.to(dtype)
+
+
+def _forward_if_real(xi, inverse: bool) -> None:
+    if xi is None and inverse:
+        raise ValueError("a real input (xi None) takes the forward DFT only")
 
 
 @contextlib.contextmanager
@@ -93,8 +109,10 @@ class DFT:
     # -- transforms --------------------------------------------------------
 
     def _mm(self, fr, fi, xr, xi):
-        """(fr + i fi) @ (xr + i xi)."""
+        """(fr + i fi) @ (xr + i xi); ``xi`` None: zero."""
         with full_float32():
+            if xi is None:
+                return fr @ xr, fi @ xr
             return fr @ xr - fi @ xi, fr @ xi + fi @ xr
 
     def _rows(self, xr, xi):
@@ -107,7 +125,7 @@ class DFT:
             return self._mm_right(xr, xi, fr, fi)
         n2 = n // n1
         fr, fi = self._matrix(n1)
-        ar, ai = self._mm(fr, fi, xr.view(r, n1, n2), xi.view(r, n1, n2))
+        ar, ai = self._mm(fr, fi, xr.view(r, n1, n2), _view(xi, r, n1, n2))
         tr, ti = self._twiddle(n1, n2)
         ar, ai = ar * tr - ai * ti, ar * ti + ai * tr
         zr, zi = self._rows(ar.view(r * n1, n2), ai.view(r * n1, n2))
@@ -116,21 +134,25 @@ class DFT:
 
     def _mm_right(self, xr, xi, fr, fi):
         with full_float32():
+            if xi is None:
+                return xr @ fr, xr @ fi
             return xr @ fr - xi @ fi, xr @ fi + xi @ fr
 
     def rows(self, xr, xi, inverse: bool = False):
         """The DFT (``inverse``: the inverse DFT, scaled by 1/n) of each row
-        of (..., n) planes, in self.dtype, as new (..., n) planes."""
+        of (..., n) planes, in self.dtype, as new (..., n) planes; ``xi``
+        None: a real input (forward only)."""
+        _forward_if_real(xi, inverse)
         shape = xr.shape
         n = shape[-1]
         xr = xr.reshape(-1, n).to(self.dtype)
-        xi = xi.reshape(-1, n).to(self.dtype)
+        xi = _view(xi, -1, n, dtype=self.dtype)
         if inverse:  # swap(IDFT(z)) = (1/n) DFT(swap(z))
             xr, xi = xi, xr
         step = max(1, BLOCK_POINTS // n)
         outs_r, outs_i = [], []
         for r0 in range(0, xr.shape[0], step):
-            yr, yi = self._rows(xr[r0:r0 + step], xi[r0:r0 + step])
+            yr, yi = self._rows(xr[r0:r0 + step], None if xi is None else xi[r0:r0 + step])
             outs_r.append(yr)
             outs_i.append(yi)
         yr, yi = torch.cat(outs_r), torch.cat(outs_i)
@@ -146,7 +168,9 @@ class DFT:
         points); ``reduce`` sums a tensor in place over the processes that
         hold the other rows (None: this one holds them all). Yields
         (k1_lo, k1_hi, zr, zi), Z[k1 - k1_lo, k2] = X[k1 + n1 * k2] for
-        every k2, in self.dtype, the same on every process."""
+        every k2, in self.dtype, the same on every process. ``xi`` None: a
+        real input (forward only)."""
+        _forward_if_real(xi, inverse)
         n1 = 1 << first_factor_log(log2_exact(n))
         n2 = n // n1
         rows = xr.numel() // n2
@@ -155,7 +179,7 @@ class DFT:
         if inverse:
             xr, xi = xi, xr
         xr = xr.reshape(rows, n2).to(self.dtype)
-        xi = xi.reshape(rows, n2).to(self.dtype)
+        xi = _view(xi, rows, n2, dtype=self.dtype)
         width = max(1, min(n1, BLOCK_POINTS // n2))
         i1 = torch.arange(first_row, first_row + rows)
         for lo in range(0, n1, width):
@@ -175,20 +199,21 @@ class DFT:
             yield lo, hi, zr, zi
 
     def signal(self, xr, xi, n: int, first_row: int = 0, reduce=None,
-               inverse: bool = False, out_dtype=None):
+               inverse: bool = False, out_dtype=None, real_part: bool = False):
         """``blocks`` assembled into this process's contiguous share of the
         output, bins [first_row * n2, (first_row + R) * n2) of X, as planes
-        of ``out_dtype`` (default self.dtype): how a control puts the
-        reference in the port's place."""
+        of ``out_dtype`` (default self.dtype), (re, im) or with
+        ``real_part`` (re,) alone, the imaginary plane never made: how a
+        control puts the reference in the port's place."""
         n1 = 1 << first_factor_log(log2_exact(n))
         n2 = n // n1
         count = xr.numel()
         k2_lo = first_row * n2 // n1
         out_dtype = out_dtype or self.dtype
-        yr = torch.empty(count, dtype=out_dtype, device=xr.device)
-        yi = torch.empty(count, dtype=out_dtype, device=xr.device)
-        vr, vi = yr.view(count // n1, n1), yi.view(count // n1, n1)
-        for lo, hi, zr, zi in self.blocks(xr, xi, n, first_row, reduce, inverse):
-            vr[:, lo:hi] = zr[:, k2_lo:k2_lo + count // n1].T
-            vi[:, lo:hi] = zi[:, k2_lo:k2_lo + count // n1].T
-        return yr, yi
+        ys = tuple(torch.empty(count, dtype=out_dtype, device=xr.device)
+                   for _ in range(1 if real_part else 2))
+        views = [y.view(count // n1, n1) for y in ys]
+        for lo, hi, *zs in self.blocks(xr, xi, n, first_row, reduce, inverse):
+            for v, z in zip(views, zs):
+                v[:, lo:hi] = z[:, k2_lo:k2_lo + count // n1].T
+        return ys

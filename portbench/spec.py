@@ -23,6 +23,9 @@ HERE = Path(__file__).resolve().parent
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}")
 UNIT = re.compile(r"[A-Za-z0-9_/%.\-]{1,16}")
 CONFIG_KEYS = {"source", "deployment", "precision", "entry", "limits", "assumed"}
+#: A configuration's ``entry``: the port's planner C2C, ``fft_distributed``
+#: over ranks, or the real transforms (R2C forward, C2R inverse) on a planner.
+ENTRIES = ("planner", "distributed", "real")
 
 
 @dataclass
@@ -48,10 +51,23 @@ def applies(metric: dict, cell: str) -> bool:
 def check_config(config: dict, name: str) -> dict:
     if not CONFIG_KEYS <= set(config):
         raise ValueError(f"configuration {name}: missing {sorted(CONFIG_KEYS - set(config))}")
-    if config["precision"] not in ("f32", "f64") or config["entry"] not in (
-            "planner", "distributed"):
-        raise ValueError(f"configuration {name}: precision f32 / f64, entry planner / distributed")
+    if config["precision"] not in ("f32", "f64") or config["entry"] not in ENTRIES:
+        raise ValueError(f"configuration {name}: precision f32 / f64, entry one of {ENTRIES}")
     return config
+
+
+def check_pair(config: dict, traffic: dict, chips: int, name: str) -> None:
+    """A cell's configuration and traffic fit together on ``chips`` cards:
+    a distributed entry takes a card a rank, the others one card and one
+    rank; a real entry's step starts with the forward (its inverse takes a
+    Hermitian spectrum, which only the forward makes)."""
+    entry, ranks = config["entry"], traffic["ranks"]
+    want_chips = ranks if entry == "distributed" else 1
+    if chips != want_chips or (entry == "distributed") == (ranks == 1):
+        raise ValueError(f"workload {name}: {chips} chips for a {entry} entry on {ranks} ranks")
+    if entry == "real" and traffic["step"][0] != "forward":
+        raise ValueError(f"workload {name}: a real entry's step starts with the forward, "
+                         f"not {traffic['step']}")
 
 
 def cell(name: str, bench: dict = None, root: Path = ROOT) -> Cell:
@@ -69,10 +85,7 @@ def cell(name: str, bench: dict = None, root: Path = ROOT) -> Cell:
     if traffic["config"] != w["config"]:
         raise ValueError(f"workload {name}: file says config {traffic['config']}, "
                          f"BENCHMARK.json {w['config']}")
-    want_chips = traffic["ranks"] if config["entry"] == "distributed" else 1
-    if w["chips"] != want_chips or (config["entry"] == "planner") != (traffic["ranks"] == 1):
-        raise ValueError(f"workload {name}: {w['chips']} chips for a {config['entry']} "
-                         f"entry on {traffic['ranks']} ranks")
+    check_pair(config, traffic, w["chips"], name)
     return Cell(name, w["chips"], w["config"], config, traffic,
                 [m for m in bench["end_to_end"] if applies(m, name)],
                 [m for m in bench["per_layer"] if applies(m, name)])

@@ -66,6 +66,45 @@ def test_fault_on_one_signal_is_not(fault):
     assert not checked(small("qsim30-f64", 1 << 16, 1), "fault:" + fault)["correct"]
 
 
+def real(config: str, n: int, batch: int) -> spec.Cell:
+    cell = small(config, n, batch)
+    return spec.Cell(f"real.{config}", 1, config, dict(cell.config, entry="real"),
+                     cell.traffic, [], [])
+
+
+REAL = [real("reuse-f32", 1 << 12, 4), real("qsim30-f64", 1 << 12, 4),
+        real("qsim30-f64", 1 << 16, 1)]
+
+
+@pytest.mark.parametrize("cell", REAL, ids=lambda c: f"{c.config_name}-{c.traffic['n']}")
+@pytest.mark.parametrize("system", ["control", "fault:altered", "fault:conjugate",
+                                    "fault:half_batch"])
+def test_real_entry_control_and_faults_are_not(cell, system):
+    """The real entry: the control (the reference one precision lower, its
+    inverse from the whole Hermitian spectrum) and each fault it can have
+    (``identity`` has none: an R2C's output is not its input's shape)."""
+    if system == "fault:half_batch" and cell.traffic["batch"] == 1:
+        with pytest.raises(ValueError):
+            checked(cell, system)
+        return
+    out = checked(cell, system)
+    assert not out["correct"] and out["failed"] > 0
+    if system == "control":
+        assert out["failed"] == out["attempted"]
+        for c in out["checks"].values():
+            assert c["value"] > 3 * c["limit"]
+
+
+def test_real_entry_has_no_identity():
+    with pytest.raises(ValueError):
+        checked(REAL[0], "fault:identity")
+
+
+@pytest.mark.parametrize("cell", ONE, ids=lambda c: f"{c.config_name}-{c.traffic['n']}")
+def test_conjugate_is_not(cell):
+    assert not checked(cell, "fault:conjugate")["correct"]
+
+
 @pytest.mark.parametrize("system,correct", [("port", True), ("control", False),
                                             ("fault:no_exchange", False),
                                             ("fault:identity", False),

@@ -21,6 +21,25 @@ def test_bound_reads_the_same_from_the_shape():
         assert peaks.step_bound_s(cell.traffic, cell.config["precision"]) == 2 * one
 
 
+def test_real_bound_from_the_shape():
+    """A real transform reads its n reals and writes its n/2 + 1 bins (or
+    the reverse) against 2.5 n log2 n flops: bytes at f64 2^31 and f32
+    2^26."""
+    s, by = peaks.real_bound_s(1 << 31, 1, "f64")
+    assert by == "bytes" and s == (8 * 2 ** 31 + 16 * (2 ** 30 + 1)) / 3.35e12
+    assert s * 1e3 == pytest.approx(10.2566, abs=1e-4)
+    assert 2.5 * 2 ** 31 * 31 / 34e12 < s
+    s32, by = peaks.real_bound_s(1 << 26, 1, "f32")
+    assert by == "bytes" and s32 == (4 * 2 ** 26 + 8 * (2 ** 25 + 1)) / 3.35e12
+    assert s32 * 1e3 == pytest.approx(0.16026, abs=1e-5)
+    assert peaks.real_bound_s(1 << 12, 3, "f32")[0] == pytest.approx(
+        3 * peaks.real_bound_s(1 << 12, 1, "f32")[0])
+    traffic = {"n": 1 << 31, "batch": 1, "step": ["forward", "inverse"], "ranks": 1}
+    assert peaks.step_bound_s(traffic, "f64", "real") == 2 * s
+    assert peaks.step_bound_s(traffic, "f64") == 2 * peaks.transform_bound_s(1 << 31, 1,
+                                                                           "f64")[0]
+
+
 def ev(cat, name, ts, dur, **args):
     return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "args": args}
 

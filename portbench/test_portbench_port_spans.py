@@ -1,5 +1,9 @@
-"""The port's spans in a synthetic profiler timeline (``port_spans.py``)
-and the five readers of what it finds."""
+"""The port's spans in a synthetic profiler timeline (``port_spans.py``),
+the five readers of what it finds, and the ``port`` summary that a traced
+run keeps."""
+
+import json
+import time
 
 import pytest
 
@@ -111,3 +115,43 @@ def test_readers_find_nothing_without_the_port_spans(name):
         run = harness.RunView(cell, [{"steps": 3, "trace": summary, "host_s": [],
                                       "setup": {}}])
         assert spec.reader(name)(run) is None
+
+
+@pytest.mark.parametrize("entry", ["planner", "real"])
+def test_a_traced_run_carries_the_port(monkeypatch, entry):
+    """A traced ``run_rank`` keeps ``port_spans.summary`` beside the trace
+    summary, and the five readers read it. On the CPU the wrappers run their
+    plain versions and launch nothing, so each is wrapped in the launch span
+    that ``ops/_build.call`` opens on the card."""
+    from phastft_tpu_torch import tracing
+    from phastft_tpu_torch.ops import route
+
+    for name, fn in list(vars(route.KERNELS).items()):
+        def launched(*args, _fn=fn, _name=name, **kwargs):
+            with tracing.span("phastft.launch.phastft_" + _name):
+                return _fn(*args, **kwargs)
+        monkeypatch.setattr(route.KERNELS, name, launched)
+    with open(spec.ROOT / "portbench/configs/qsim30-f64.json") as f:
+        conf = dict(json.load(f), entry=entry)
+    traffic = {"config": "qsim30-f64", "n": 1 << 12, "batch": 2,
+               "step": ["forward", "inverse"], "ranks": 1, "input": "normal", "fingerprint": 16}
+    cell = spec.Cell("traced", 1, "qsim30-f64", conf, traffic, [], [])
+    parts = harness.run_rank(cell, [7], 0.1, True, "cpu")
+    port = parts[0]["trace"]["port"]
+    root = "phastft.real" if entry == "real" else "phastft.fft"
+    assert port["calls"] == 2 * parts[0]["steps"] == port["spans"][root]["count"]
+    run = harness.RunView(cell, parts)
+    read = {name: spec.reader(name)(run) for name in READERS}
+    assert all(v is not None for v in read.values()), read
+    assert read["launches_per_step"] >= 2 and read["plans_built_per_step"] == 0
+    assert read["entry_self_ms"] > 0 and read["launch_us"] > 0 and read["port_idle_ms"] > 0
+    out, _ = harness.result(cell, parts, time.time(), True, "cpu")
+    assert out["correct"]
+
+
+def test_the_five_readers_are_listed():
+    """``BENCHMARK.json`` lists the five span metrics in every cell."""
+    bench = spec.load_bench()
+    for name in [w["name"] for w in bench["workloads"]]:
+        listed = [m["name"] for m in spec.cell(name, bench).per_layer]
+        assert set(READERS) <= set(listed), name

@@ -12,8 +12,13 @@ A workload file (``portbench/workloads/<cell>.json``) holds:
   output);
 * ``ranks``: processes, one a card, that share one transform (1: each
   call is a single-device call);
-* ``input``: ``"normal"``, re and im standard normal;
+* ``input``: ``"normal"``: re and im standard normal, or, where the
+  configuration's entry is ``"real"``, one real plane of standard normal
+  samples (the same draw as a complex input's re);
 * ``fingerprint``: points of every step's outputs kept for the check.
+
+A real entry's forward is an R2C, whose output is the n/2 + 1 bins of each
+row, and its inverse a C2R, whose output is the n reals again.
 
 The cell is a closed loop with one caller: each step runs ``step`` on the
 input made once from the seed, and ends in a synchronise. Every seed gives
@@ -63,32 +68,51 @@ def local_shape(traffic: dict) -> tuple:
     return (n,) if batch == 1 else (batch, n)
 
 
-def make_input(traffic: dict, seed: int, rank: int, dtype, device):
+def make_input(traffic: dict, seed: int, rank: int, dtype, device, real: bool = False):
     """This process's input planes, drawn on ``device`` from the seed in
-    two calls; the shards of all ranks together are the whole signal."""
+    two calls (``real``: one plane, the first call's); the shards of all
+    ranks together are the whole signal."""
     import torch
 
     gen = torch.Generator(device=device)
     gen.manual_seed(derived_seed(seed, rank, 0))
     shape = local_shape(traffic)
     xr = torch.randn(shape, generator=gen, dtype=dtype, device=device)
+    if real:
+        return (xr,)
     xi = torch.randn(shape, generator=gen, dtype=dtype, device=device)
     return xr, xi
 
 
-def fingerprint_index(traffic: dict, seed: int, rank: int, device):
-    """Flat indices into this process's planes whose values every step's
-    outputs keep, drawn from the seed (sorted, distinct)."""
+def output_sizes(traffic: dict, real: bool = False) -> list:
+    """Points of each plane of each call's output in this process, in the
+    order of ``step``: the input's for a complex call, the n/2 + 1 bins of
+    each row after an R2C and the n reals after a C2R."""
+    size = int(np.prod(local_shape(traffic)))
+    if not real:
+        return [size for _ in traffic["step"]]
+    rows = size // traffic["n"]
+    return [rows * (traffic["n"] // 2 + 1) if call == "forward" else size
+            for call in traffic["step"]]
+
+
+def fingerprint_index(traffic: dict, seed: int, rank: int, device, real: bool = False) -> list:
+    """For each call of the step, flat indices into its output planes whose
+    values every step keeps, drawn from the seed over that output's own
+    size (sorted, distinct; the same count for every call)."""
     import torch
 
-    size = int(np.prod(local_shape(traffic)))
-    rng = np.random.default_rng([int(seed) % (1 << 64), rank, 1])
-    k = min(traffic["fingerprint"], size)
-    idx = np.sort(rng.choice(size, size=k, replace=False))
-    return torch.from_numpy(idx.astype(np.int64)).to(device)
+    sizes = output_sizes(traffic, real)
+    k = min(traffic["fingerprint"], *sizes)
+    out = []
+    for size in sizes:
+        rng = np.random.default_rng([int(seed) % (1 << 64), rank, 1])
+        idx = np.sort(rng.choice(size, size=k, replace=False))
+        out.append(torch.from_numpy(idx.astype(np.int64)).to(device))
+    return out
 
 
 def points_per_step(traffic: dict) -> int:
     """Points transformed by all ranks in one step: each call counts
-    batch * n."""
+    batch * n, complex points of a C2C or real samples of an R2C / C2R."""
     return len(traffic["step"]) * traffic["batch"] * traffic["n"]
